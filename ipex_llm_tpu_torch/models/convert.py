@@ -1,0 +1,64 @@
+"""Carry a parameter tree of the JAX reference into the port.
+
+The reference's tree (``ipex_llm_tpu/models/build.py``) arrives as nested
+dicts of numpy arrays, its ``QTensor`` leaves flattened to dicts
+``{data, scales, zeros, qtype, shape, block_size}`` (the port cannot
+import the reference's class).  Every byte is kept: bf16 arrays, which
+numpy holds in an extension dtype, cross through a 16-bit integer view,
+and packed planes are copied as they are.  Stacked ``[L, ...]`` layer
+leaves stay stacked (the decoder indexes them per layer).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ipex_llm_tpu_torch.device import resolve_device
+from ipex_llm_tpu_torch.quantize.core import QTensor
+from ipex_llm_tpu_torch.quantize.qtypes import resolve
+
+_QTENSOR_KEYS = {"data", "scales", "zeros", "qtype", "shape", "block_size"}
+# the llama tree the slice serves; anything else (biases, MoE stacks, a
+# quantized embedding, extra rope tables) raises
+_LAYER_KEYS = {"attn_norm", "mlp_norm", "qkv", "o", "gate_up", "down"}
+_TOP_KEYS = {"layers", "embed", "final_norm", "lm_head", "inv_freq",
+             "rope_mscale"}
+
+
+def array_to_torch(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, byte for byte (copied, so
+    the tensor never aliases the caller's buffer)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.int16), copy=True))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _leaf(x, device):
+    if isinstance(x, dict) and set(x) == _QTENSOR_KEYS:
+        resolve(x["qtype"])     # raises for formats outside the slice
+        if x["zeros"] is not None:
+            raise NotImplementedError("asymmetric formats are not ported")
+        return QTensor(
+            array_to_torch(x["data"], device),
+            None if x["scales"] is None else array_to_torch(x["scales"],
+                                                            device),
+            x["qtype"], tuple(int(s) for s in x["shape"]),
+            int(x["block_size"]))
+    if isinstance(x, (float, int)):
+        return x
+    return array_to_torch(x, device)
+
+
+def params_from_reference(tree: dict, device=None) -> dict:
+    """The port's params for a reference llama tree (see module doc)."""
+    dev = resolve_device(device)
+    extra = (set(tree) - _TOP_KEYS) | (set(tree["layers"]) - _LAYER_KEYS)
+    if extra:
+        raise NotImplementedError(
+            f"parameter leaves outside the slice: {sorted(extra)}")
+    out = {k: _leaf(v, dev) for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: _leaf(v, dev) for k, v in tree["layers"].items()}
+    return out

@@ -1,0 +1,98 @@
+"""Random llama weights made on the device (port of
+``ipex_llm_tpu/models/random_init.py`` and the llama half of
+``models/build.py``).
+
+Weights come from a seeded ``torch.Generator`` on the target device and
+are quantized one layer at a time with the port's own codec, so a
+full-width model never sits in memory as fp32 at once.  The scale rules
+are the reference's: norm weights ``1 + 0.05 * N(0, 1)``, every other
+tensor ``N(0, 1) * 1.2 / sqrt(fan_in)``.  The tree has the layout
+:func:`ipex_llm_tpu_torch.models.convert.params_from_reference` produces:
+stacked ``[L, ...]`` layer leaves, merged qkv and gate_up, weights
+``[in, out]``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ipex_llm_tpu_torch.device import resolve_device
+from ipex_llm_tpu_torch.models.config import ModelConfig
+from ipex_llm_tpu_torch.ops.rope import RopeScaling
+from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
+
+
+def llama_config(hidden_size: int = 64, intermediate_size: int = 256,
+                 num_layers: int = 2, num_heads: int = 8,
+                 num_kv_heads: int = 8, head_dim: int | None = None,
+                 vocab_size: int = 128, max_position_embeddings: int = 2048,
+                 **over) -> ModelConfig:
+    hd = head_dim or hidden_size // num_heads
+    d = dict(model_type="llama", vocab_size=vocab_size,
+             hidden_size=hidden_size, intermediate_size=intermediate_size,
+             num_layers=num_layers, num_heads=num_heads,
+             num_kv_heads=num_kv_heads, head_dim=hd,
+             max_position_embeddings=max_position_embeddings,
+             rope=RopeScaling(head_dim=hd))
+    d.update(over)
+    return ModelConfig(**d)
+
+
+def llama2_7b_config(**over) -> ModelConfig:
+    """Llama-2-7B's published widths (hidden 4096, ffn 11008, 32 layers,
+    32 heads of 128, vocab 32000, rms eps 1e-5)."""
+    d = dict(hidden_size=4096, intermediate_size=11008, num_layers=32,
+             num_heads=32, num_kv_heads=32, vocab_size=32000,
+             max_position_embeddings=4096, norm_eps=1e-5)
+    d.update(over)
+    return llama_config(**d)
+
+
+def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
+                  device=None) -> dict:
+    """Full-width random params on ``device`` (``None`` = cuda)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, ffn, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n_l = cfg.num_layers
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32)
+
+    def weight(n_in, n_out):
+        return normal((n_in, n_out)) * (1.2 / math.sqrt(n_in))
+
+    def norm_w(shape):
+        return 1.0 + 0.05 * normal(shape)
+
+    shapes = {"qkv": (h, cfg.q_dim + 2 * cfg.kv_dim), "o": (cfg.q_dim, h),
+              "gate_up": (h, 2 * ffn), "down": (ffn, h)}
+    stacks: dict[str, QTensor] = {}
+    for i in range(n_l):
+        for name, (n_in, n_out) in shapes.items():
+            qt = quantize(weight(n_in, n_out), qtype)
+            if name not in stacks:
+                stacks[name] = QTensor(
+                    torch.empty((n_l,) + tuple(qt.data.shape),
+                                dtype=qt.data.dtype, device=dev),
+                    None if qt.scales is None else torch.empty(
+                        (n_l,) + tuple(qt.scales.shape),
+                        dtype=qt.scales.dtype, device=dev),
+                    qt.qtype, qt.shape, qt.block_size)
+            stacks[name].data[i] = qt.data
+            if qt.scales is not None:
+                stacks[name].scales[i] = qt.scales
+            del qt
+    layers = {"attn_norm": norm_w((n_l, h)), "mlp_norm": norm_w((n_l, h)),
+              **stacks}
+    return {
+        "layers": layers,
+        "embed": (normal((v, h)) * (1.2 / math.sqrt(h))).to(torch.bfloat16),
+        "final_norm": norm_w((h,)),
+        "lm_head": quantize(weight(h, v), qtype),
+        "inv_freq": torch.from_numpy(cfg.rope.inv_freq()).to(dev),
+        "rope_mscale": 1.0,
+    }

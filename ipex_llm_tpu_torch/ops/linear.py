@@ -1,0 +1,48 @@
+"""Quantized linear (port of ``ipex_llm_tpu/ops/linear.py``).
+
+``sym_int4`` weights go to the fused dequant-matmul kernel (B2); ``bf16``
+weights are a plain product (the reference leaves those to XLA).  Other
+formats, LoRA weights and biases raise.  The reference's oracle,
+``qmatmul_reference``, is B2's plain version here:
+``ops/cuda/qmatmul.py::qmatmul_int4_plain``, which the wrapper runs for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ipex_llm_tpu_torch.ops.cuda.qmatmul import qmatmul_int4
+from ipex_llm_tpu_torch.quantize.core import QTensor
+
+
+def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Quantized matmul: sym_int4 through the B2 wrapper (the kernel on a
+    CUDA tensor, its plain version on a CPU one)."""
+    if qt.qtype != "sym_int4":
+        raise NotImplementedError(f"qmatmul for {qt.qtype!r} is not ported")
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    k_pad = qt.data.shape[0] * 2
+    x2 = x.reshape(-1, k).to(torch.bfloat16)
+    if k_pad != k:   # quantization block padding (core._to_blocks)
+        x2 = F.pad(x2, (0, k_pad - k))
+    out = qmatmul_int4(x2.contiguous(), qt.data, qt.scales)
+    return out.reshape(*lead, qt.out_features).to(x.dtype)
+
+
+def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """Linear over a QTensor (sym_int4 or bf16) or a plain bf16 matrix."""
+    if bias is not None:
+        raise NotImplementedError("linear biases are not ported")
+    if isinstance(w, QTensor):
+        if w.qtype != "bf16":
+            return qmatmul(x, w)
+        w = w.data
+    if x.is_cuda:
+        # a plain bf16 product outside any kernel (fp32 accumulation)
+        return torch.matmul(x.to(w.dtype), w).to(x.dtype)
+    return torch.matmul(x.to(w.dtype).to(torch.float64),
+                        w.to(torch.float64)).to(x.dtype)

@@ -1,0 +1,815 @@
+"""Continuous-batching engine over the paged KV pool (port of
+``ipex_llm_tpu/serving/engine.py``).
+
+One engine thread owns the device.  Each tick is one of two shapes, the
+reference's static planner decisions:
+
+- **mixed tick** (any row is still consuming its prompt and
+  ``step_token_budget > 0``): every prefilling row advances by a ragged
+  chunk of a power-of-two width that fair-shares the token budget, rows
+  whose prompt completes sample their first token on the device and join
+  the decode state there, and every decoding row takes one decode step —
+  :func:`tick_body` with a prefill block;
+- **horizon tick** (nothing prefilling): up to ``decode_horizon`` decode
+  and sample steps (:func:`decode_horizon_loop`), drained token by token
+  through the same emission path as a one-step tick.
+
+``step_token_budget=0`` selects the sequential engine instead (one row, one
+chunk per tick, then the decode step): the equivalence baseline the mixed
+engine is held against.  The host keeps page tables, prefix-cache
+refcounts and request bookkeeping; the per-row decode state (current
+token, length, liveness, sampling parameters, budgets) lives on the device
+and is uploaded only at epochs (admission, prefill progress, finish).
+
+What the reference has and this slice leaves out: the transactional tick
+with fault recovery, the model-predictive planner, perfwatch, request
+tracing, the host-RAM spill tier, speculative decoding, tensor and
+pipeline parallelism, deadlines and the HTTP front end.
+
+The reference runs its whole tick as one compiled program with an
+on-device early exit from the horizon loop; PyTorch runs eagerly, so the
+horizon is a Python loop whose early exit reads the rows' liveness back
+from the device once per step.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import queue
+import threading
+import time
+import uuid
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+
+from ipex_llm_tpu_torch.device import resolve_device
+from ipex_llm_tpu_torch.kv import PagedKVCache, paged_page_bytes
+from ipex_llm_tpu_torch.models.config import ModelConfig
+from ipex_llm_tpu_torch.models.decoder import decoder_forward
+from ipex_llm_tpu_torch.ops.sampling import sample_rows_with_logprobs
+from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
+from ipex_llm_tpu_torch.quantize.qtypes import resolve as qtype_info
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    max_rows: int = 16          # concurrent sequences
+    max_seq_len: int = 4096     # per-row KV capacity (block-table width)
+    page_size: int = 128        # KV page length (slots)
+    pool_pages: int = 0         # 0 = auto: max_rows * max_seq_len / page / 2
+    kv_storage: str = "bf16"    # "bf16" or "fp8" (e5m2 codes)
+    # KV pool byte budget: when > 0 the page count is kv_pool_bytes //
+    # page_bytes, so an fp8 pool holds twice the pages of a bf16 one
+    kv_pool_bytes: int = 0
+    # re-pack full-width (bf16) linear weights into this block format at
+    # engine build; None serves the tree at the width it was handed over
+    weight_qtype: str | None = None
+    prefill_bucket: int = 128   # chunked-prefill chunk length
+    decode_horizon: int = 1     # decode steps per horizon tick
+    # prefill token budget of a mixed tick; None = prefill_bucket, 0 = the
+    # sequential engine (one row, one chunk per tick)
+    step_token_budget: int | None = None
+
+    @property
+    def n_pages(self) -> int:
+        if self.pool_pages:
+            return self.pool_pages
+        # half the worst case (the point of paging); +2: page 0 is scratch
+        return max(self.max_rows * self.max_seq_len // self.page_size // 2,
+                   self.max_rows + 2)
+
+    @property
+    def max_pages(self) -> int:
+        return self.max_seq_len // self.page_size
+
+
+@dataclass
+class Request:
+    prompt_ids: list[int]
+    max_new_tokens: int = 128
+    temperature: float = 0.0    # 0 = greedy
+    top_p: float = 1.0
+    top_k: int = 0              # 0 = off
+    # sampling stream of the request; None = one drawn from the engine's
+    # generator at admission
+    seed: int | None = None
+    eos_token_id: tuple[int, ...] = ()
+    stream_queue: "queue.Queue[int | None]" = field(
+        default_factory=queue.Queue)
+    request_id: str = ""
+    # filled by the engine
+    output_ids: list[int] = field(default_factory=list)
+    logprobs: list[float] = field(default_factory=list)  # per output token
+    finish_reason: str | None = None
+    first_token_s: float = 0.0
+    submitted_s: float = field(default_factory=time.perf_counter)
+    cancelled: bool = False
+
+    def abort(self):
+        self.cancelled = True
+
+
+class PageAllocator:
+    """Host-side page bookkeeping: free list, refcounts, and the
+    chained-hash prefix cache (LRU-evicted when the pool runs dry)."""
+
+    def __init__(self, n_pages: int):
+        # page 0 is the device scratch page (update_layer routes pad and
+        # out-of-range writes there): never handed out
+        self.free: list[int] = list(range(n_pages - 1, 0, -1))
+        self.ref = np.zeros((n_pages,), np.int32)
+        self.prefix: "OrderedDict[bytes, int]" = OrderedDict()
+        self._page_key: dict[int, bytes] = {}
+
+    def alloc(self) -> int | None:
+        if not self.free and not self._evict(1):
+            return None
+        pid = self.free.pop()
+        self.ref[pid] = 1
+        return pid
+
+    def addref(self, pid: int):
+        self.ref[pid] += 1
+
+    def decref(self, pid: int):
+        self.ref[pid] -= 1
+        if self.ref[pid] == 0:
+            self.free.append(pid)
+
+    def _evict(self, n: int) -> int:
+        """Drop up to ``n`` least-recently-used prefix pages held only by
+        the cache; returns how many were dropped."""
+        picks = [(key, pid) for key, pid in self.prefix.items()
+                 if self.ref[pid] == 1][:n]
+        for key, pid in picks:
+            del self.prefix[key]
+            del self._page_key[pid]
+            self.decref(pid)
+        return len(picks)
+
+    def register_prefix(self, key: bytes, pid: int):
+        if key in self.prefix or pid in self._page_key:
+            return
+        self.prefix[key] = pid
+        self._page_key[pid] = key
+        self.addref(pid)  # the cache's own reference
+
+    def lookup_prefix(self, key: bytes) -> int | None:
+        pid = self.prefix.get(key)
+        if pid is not None:
+            self.prefix.move_to_end(key)  # LRU touch
+        return pid
+
+
+def _chain_hashes(prompt: np.ndarray, page_size: int) -> list[bytes]:
+    """Chained content hash per full page: page i's key commits to every
+    token before it, so equal keys imply equal K/V contents."""
+    keys, h = [], b""
+    for i in range(len(prompt) // page_size):
+        h = hashlib.sha256(
+            h + prompt[i * page_size:(i + 1) * page_size].tobytes()).digest()
+        keys.append(h)
+    return keys
+
+
+def requantize_params(params: dict, qtype: str) -> dict:
+    """Re-pack every full-width linear QTensor (stacked or not) into
+    ``qtype`` planes (port of ``models/build.py::requantize_params``);
+    already-packed leaves and plain tensors pass through."""
+    if qtype_info(qtype).kind == "native":
+        return params
+
+    def repack(qt: QTensor) -> QTensor:
+        if qtype_info(qt.qtype).kind != "native":
+            return qt
+        if qt.data.dim() == 2:
+            return quantize(qt.data, qtype)
+        parts = [quantize(m, qtype) for m in qt.data]
+        return QTensor(torch.stack([p.data for p in parts]),
+                       torch.stack([p.scales for p in parts]),
+                       parts[0].qtype, qt.shape, parts[0].block_size)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return repack(tree) if isinstance(tree, QTensor) else tree
+
+    return walk(params)
+
+
+# -- the tick --------------------------------------------------------------
+
+
+def decode_horizon_loop(cfg: ModelConfig, params, cache: PagedKVCache,
+                        st: dict, horizon: int):
+    """Up to ``horizon`` decode+sample steps over the whole row pool,
+    updating the device state ``st`` in place (port of
+    ``_decode_horizon_loop`` without speculation).
+
+    A row that hits EOS or exhausts its budget goes dead for the rest of
+    the horizon: its later positions emit padding (token 0, logprob 0) and
+    it rides the batch as an idle row (``chunk_lens`` 0, write slot past
+    the table width, so its masked K/V write lands on the scratch page and
+    attention walks none of its pages).  The loop stops early once every
+    row is dead.  Returns ([R, H] tokens, [R, H] logprobs, steps run)."""
+    r = st["toks"].shape[0]
+    dev = st["toks"].device
+    sentinel = cache.tables.shape[1] * cache.page_size
+    tok_block = torch.zeros((r, horizon), dtype=torch.int32, device=dev)
+    lp_block = torch.zeros((r, horizon), dtype=torch.float32, device=dev)
+    alive = st["active"]
+    n = 0
+    while n < horizon and bool(alive.any()):
+        row_lens = st["row_lens"]
+        write_at = torch.where(alive, row_lens, torch.full_like(row_lens,
+                                                                sentinel))
+        logits, cache = decoder_forward(
+            cfg, params, st["toks"][:, None], cache, row_lens[:, None],
+            slot_offsets=write_at, last_token_only=True,
+            chunk_lens=alive.to(torch.int32))
+        nxt, lp = sample_rows_with_logprobs(
+            logits, st["temps"], st["top_ps"], st["seeds"], st["steps"],
+            top_ks=st["top_ks"], active=alive)
+        hit_eos = (nxt[:, None] == st["eos"]).any(dim=1) & alive
+        adv = alive.to(torch.int32)
+        st["row_lens"] = row_lens + adv
+        st["steps"] = st["steps"] + adv
+        st["remain"] = st["remain"] - adv
+        alive = alive & ~hit_eos & (st["remain"] > 0)
+        st["toks"] = torch.where(alive, nxt, st["toks"])
+        tok_block[:, n] = nxt
+        lp_block[:, n] = lp
+        n += 1
+    st["active"] = alive
+    return tok_block, lp_block, n
+
+
+def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
+              prefill=None, horizon: int = 1, with_decode: bool = True):
+    """One engine tick on the device (port of ``_tick_body``).
+
+    ``prefill`` = (tokens [P, W], tables [P, maxP], base [P], n_valid [P],
+    emit [P], canjoin [P], rowmap [P]): a ragged right-padded chunk per
+    prefilling row, run as one batch straight over the pool.  Rows whose
+    prompt completes (``emit``) sample their first token (output index 0)
+    and join the decode state on the device unless that token is EOS, the
+    budget is spent, or ``canjoin`` says the host could not back their
+    next KV slot.  Then, with ``with_decode``, the decode horizon runs
+    over the merged state.  Returns (first tokens [P] | None, first
+    logprobs [P] | None, [R, H] tokens, [R, H] logprobs, steps run)."""
+    r = st["toks"].shape[0]
+    dev = st["toks"].device
+    first_t = first_lp = None
+    if prefill is not None:
+        p_tokens, p_tables, p_base, p_nvalid, p_emit, p_canjoin, p_rowmap = \
+            prefill
+        w = p_tokens.shape[1]
+        pos = p_base[:, None] + torch.arange(w, device=dev)[None, :]
+        logits, _ = decoder_forward(
+            cfg, params, p_tokens, cache.with_tables(p_tables), pos,
+            slot_offsets=p_base,
+            gather_positions=torch.clamp(p_nvalid - 1, min=0),
+            chunk_lens=p_nvalid)
+        rows = p_rowmap.long()
+        first_t, first_lp = sample_rows_with_logprobs(
+            logits, st["temps"][rows], st["top_ps"][rows], st["seeds"][rows],
+            torch.zeros_like(p_nvalid), top_ks=st["top_ks"][rows],
+            active=p_emit)
+        st["row_lens"][rows] = p_base + p_nvalid
+        hit_eos = (first_t[:, None] == st["eos"][rows]).any(dim=1)
+        rem_after = st["remain"][rows] - 1
+        join = p_emit & p_canjoin & ~hit_eos & (rem_after > 0)
+        st["toks"][rows] = torch.where(p_emit, first_t, st["toks"][rows])
+        st["steps"][rows] = torch.where(p_emit, torch.ones_like(p_nvalid),
+                                        st["steps"][rows])
+        st["remain"][rows] = torch.where(p_emit, rem_after,
+                                         st["remain"][rows])
+        st["active"][rows] = torch.where(p_emit, join, st["active"][rows])
+    if with_decode:
+        tok_block, lp_block, n_exec = decode_horizon_loop(
+            cfg, params, cache, st, horizon)
+    else:
+        tok_block = torch.zeros((r, horizon), dtype=torch.int32, device=dev)
+        lp_block = torch.zeros((r, horizon), dtype=torch.float32, device=dev)
+        n_exec = 0
+    return first_t, first_lp, tok_block, lp_block, n_exec
+
+
+class ServingEngine:
+    """Threaded continuous-batching engine around one llama model."""
+
+    def __init__(self, cfg: ModelConfig, params: dict,
+                 engine_config: EngineConfig | None = None,
+                 default_eos: tuple[int, ...] = (), device=None):
+        """``params`` must already lie on ``device`` (``None`` = cuda)."""
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params are on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.cfg = cfg
+        self.ec = ec = engine_config or EngineConfig()
+        if ec.decode_horizon < 1:
+            raise ValueError("decode_horizon must be >= 1")
+        if ec.step_token_budget is not None and ec.step_token_budget < 0:
+            raise ValueError("step_token_budget must be >= 0")
+        if ec.kv_pool_bytes < 0:
+            raise ValueError("kv_pool_bytes must be >= 0")
+        self.page_bytes = paged_page_bytes(
+            cfg.num_layers, cfg.num_kv_heads, ec.page_size, cfg.head_dim,
+            storage=ec.kv_storage)
+        if ec.kv_pool_bytes:
+            pages = ec.kv_pool_bytes // self.page_bytes
+            floor = ec.max_rows + 2   # one page per row + scratch
+            if pages < floor:
+                raise ValueError(
+                    f"kv_pool_bytes={ec.kv_pool_bytes} holds only {pages} "
+                    f"{ec.kv_storage} pages of {self.page_bytes} bytes; "
+                    f"max_rows={ec.max_rows} needs at least {floor}")
+            self.ec = ec = replace(ec, pool_pages=pages)
+        if ec.weight_qtype is not None:
+            params = requantize_params(params, ec.weight_qtype)
+        self.params = params
+        self.default_eos = default_eos
+        r = ec.max_rows
+        self.cache = PagedKVCache.init(
+            cfg.num_layers, ec.n_pages, r, ec.max_pages, cfg.num_kv_heads,
+            ec.page_size, cfg.head_dim, storage=ec.kv_storage,
+            device=self.device)
+        self._step_budget = (ec.prefill_bucket if ec.step_token_budget is None
+                             else int(ec.step_token_budget))
+        self._mixed_mode = self._step_budget > 0
+        self.alloc = PageAllocator(ec.n_pages)
+        self.tables = np.full((r, ec.max_pages), -1, np.int32)
+        self._dirty_tables: set[int] = set()
+        self.rows: list[Request | None] = [None] * r
+        self.row_lens = np.zeros((r,), np.int32)
+        self.row_budget = np.zeros((r,), np.int32)
+        self.toks = np.zeros((r,), np.int32)
+        self.temps = np.zeros((r,), np.float32)
+        self.top_ps = np.ones((r,), np.float32)
+        self.seeds = np.zeros((r,), np.int64)
+        self.top_ks = np.zeros((r,), np.int32)
+        self._prefilling: dict[int, np.ndarray] = {}  # row -> remaining ids
+        self._row_keys: dict[int, list[bytes]] = {}   # row -> prefix hashes
+        # gives each unseeded request its sampling seed at admission
+        self._gen = torch.Generator().manual_seed(0)
+        self._inbox: "queue.Queue[Request]" = queue.Queue()
+        self._pending: "deque[Request]" = deque()
+        self._work = threading.Event()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._horizon = ec.decode_horizon
+        # device-resident row state, re-uploaded only when _dirty
+        self._dev: dict[str, torch.Tensor] | None = None
+        self._dirty = True
+        self.metrics = {"requests": 0, "tokens": 0, "steps": 0,
+                        "mixed_steps": 0, "decode_horizon_effective": 0,
+                        "host_syncs": 0, "epoch_syncs": 0,
+                        "prefix_hits": 0, "prefix_pages_shared": 0,
+                        "alloc_fail_clamps": 0, "errors": 0,
+                        "last_error": ""}
+
+    # -- public API ---------------------------------------------------------
+
+    def start(self):
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=30)
+
+    def submit(self, req: Request) -> Request:
+        if not req.request_id:
+            req.request_id = uuid.uuid4().hex
+        if not req.eos_token_id:
+            req.eos_token_id = self.default_eos
+        self._inbox.put(req)
+        self._work.set()
+        return req
+
+    def _h2d(self, a, dtype=None) -> torch.Tensor:
+        """Upload a host array: ``torch.tensor`` copies, so the device
+        tensor never aliases a numpy buffer the engine mutates later."""
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # -- page bookkeeping ---------------------------------------------------
+
+    def _ensure_pages(self, row: int, upto_slot: int) -> bool:
+        """Allocate pages so slots [0, upto_slot) are backed; False = dry.
+        Slots past the table width are right-padded prefill slack, which
+        update_layer routes to the scratch page."""
+        need = min(-(-upto_slot // self.ec.page_size), self.ec.max_pages)
+        for j in range(need):
+            if self.tables[row, j] < 0:
+                pid = self.alloc.alloc()
+                if pid is None:
+                    self.metrics["alloc_fail_clamps"] += 1
+                    return False
+                self.tables[row, j] = pid
+                self._dirty_tables.add(row)
+        return True
+
+    def _release_row_pages(self, row: int):
+        for j in range(self.ec.max_pages):
+            pid = int(self.tables[row, j])
+            if pid >= 0:
+                self.alloc.decref(pid)
+                self.tables[row, j] = -1
+                self._dirty_tables.add(row)
+
+    # -- device state -------------------------------------------------------
+
+    def _active_mask(self) -> np.ndarray:
+        """Rows decoding: occupied and past prefill."""
+        return np.array([r is not None and i not in self._prefilling
+                         for i, r in enumerate(self.rows)], bool)
+
+    def _upload_row_state(self):
+        rows = self.rows
+        steps = np.asarray([len(r.output_ids) if r is not None else 0
+                            for r in rows], np.int32)
+        remain = np.asarray([int(self.row_budget[i]) - len(r.output_ids)
+                             if r is not None else 0
+                             for i, r in enumerate(rows)], np.int32)
+        # per-row EOS ids, -1-padded to a power-of-two width
+        e_w = max([1] + [len(r.eos_token_id) for r in rows if r is not None])
+        e_w = 1 << (e_w - 1).bit_length()
+        eos = np.full((len(rows), e_w), -1, np.int32)
+        for i, r in enumerate(rows):
+            if r is not None and r.eos_token_id:
+                eos[i, :len(r.eos_token_id)] = list(r.eos_token_id)
+        self._dev = {
+            "toks": self._h2d(self.toks), "row_lens": self._h2d(self.row_lens),
+            "active": self._h2d(self._active_mask()),
+            "temps": self._h2d(self.temps), "top_ps": self._h2d(self.top_ps),
+            "seeds": self._h2d(self.seeds), "top_ks": self._h2d(self.top_ks),
+            "steps": self._h2d(steps), "remain": self._h2d(remain),
+            "eos": self._h2d(eos),
+        }
+        self._flush_dirty_tables()
+        self._dirty = False
+
+    def _flush_dirty_tables(self) -> PagedKVCache:
+        """Scatter only the block-table rows changed since the last device
+        call into the resident tables."""
+        if self._dirty_tables:
+            rows = np.array(sorted(self._dirty_tables), np.int64)
+            self.cache.with_table_rows(self._h2d(rows),
+                                       self._h2d(self.tables[rows]))
+            self._dirty_tables.clear()
+        return self.cache
+
+    def _sync_device_state(self) -> dict:
+        if self._dirty or self._dev is None:
+            self.metrics["epoch_syncs"] += 1
+            self._upload_row_state()
+        else:
+            self._flush_dirty_tables()
+        return self._dev
+
+    # -- engine loop --------------------------------------------------------
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                self._step_once()
+            except Exception as exc:  # noqa: BLE001 -- keep serving
+                self._fail_all(exc)
+
+    def _fail_all(self, exc: BaseException):
+        """Finish every in-flight and queued request with 'error' so no
+        client blocks forever, record the error, and keep serving."""
+        for i, req in enumerate(self.rows):
+            if req is not None:
+                self._finish(i, "error")
+        self._drain_inbox()
+        while self._pending:
+            req = self._pending.popleft()
+            req.finish_reason = req.finish_reason or "error"
+            req.stream_queue.put(None)
+        self._dev = None
+        self.metrics["errors"] += 1
+        self.metrics["last_error"] = f"{type(exc).__name__}: {exc}"
+
+    def _free_row(self) -> int | None:
+        for i, r in enumerate(self.rows):
+            if r is None:
+                return i
+        return None
+
+    def _drain_inbox(self):
+        while True:
+            try:
+                self._pending.append(self._inbox.get_nowait())
+            except queue.Empty:
+                return
+
+    def _plan_horizon(self) -> int:
+        """The static planner's horizon, from pre-tick state: 1 while
+        streams are joining (rows mid-prefill, or queued work a free row
+        could take), so a joining row never waits out a horizon."""
+        joining = bool(self._prefilling) or (
+            (bool(self._pending) or not self._inbox.empty())
+            and self._free_row() is not None)
+        return 1 if joining else self.ec.decode_horizon
+
+    def _step_once(self):
+        self._horizon = self._plan_horizon()
+        self._drain_inbox()
+        self._admit()
+        for i, req in enumerate(self.rows):  # drop disconnected clients
+            if req is not None and req.cancelled:
+                self._finish(i, "abort")
+        if self._prefilling and self._mixed_mode:
+            self._mixed_step()
+            return
+        self._prefill_one_chunk()
+        active = self._active_mask()
+        if not active.any():
+            if not self._prefilling:
+                self._wait_for_work()
+            return
+        self._horizon_step(active)
+
+    def _wait_for_work(self, timeout: float = 0.02):
+        if self._inbox.empty():
+            self._work.wait(timeout)
+        self._work.clear()
+
+    def _admit(self):
+        """Join pending requests into free rows: prefix matching and page
+        allocation on the host; the prompt runs chunk-wise later."""
+        ps = self.ec.page_size
+        while True:
+            row = self._free_row()
+            if row is None or not self._pending:
+                return
+            req = self._pending.popleft()
+            if req.cancelled:
+                req.finish_reason = "abort"
+                req.stream_queue.put(None)
+                continue
+            prompt = np.asarray(req.prompt_ids, np.int32)
+            n_p = len(prompt)
+            capacity = min(self.ec.max_seq_len, self.ec.max_pages * ps,
+                           (self.ec.n_pages - 1) * ps)
+            if n_p + req.max_new_tokens > capacity or n_p == 0:
+                req.finish_reason = "length"
+                req.stream_queue.put(None)
+                continue
+            # reuse the longest chain of cached full pages covering at most
+            # the first n_p - 1 tokens (one token must run for logits)
+            keys = _chain_hashes(prompt, ps)
+            shared = 0
+            for key in keys[:(n_p - 1) // ps]:
+                pid = self.alloc.lookup_prefix(key)
+                if pid is None:
+                    break
+                self.alloc.addref(pid)
+                self.tables[row, shared] = pid
+                self._dirty_tables.add(row)
+                shared += 1
+            if not self._ensure_pages(row, n_p):
+                self._release_row_pages(row)
+                if any(r is not None for r in self.rows):
+                    self._pending.appendleft(req)   # retry at the head
+                else:
+                    req.finish_reason = "length"    # it will never fit
+                    req.stream_queue.put(None)
+                return
+            if shared:
+                self.metrics["prefix_hits"] += 1
+                self.metrics["prefix_pages_shared"] += shared
+            base = shared * ps
+            self.rows[row] = req
+            self.row_lens[row] = base
+            self.row_budget[row] = req.max_new_tokens
+            self.temps[row] = req.temperature
+            self.top_ps[row] = req.top_p
+            self.top_ks[row] = max(0, int(req.top_k or 0))
+            self.seeds[row] = (int(req.seed) if req.seed is not None else
+                               int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                                 generator=self._gen)))
+            self._prefilling[row] = prompt[base:]
+            self._row_keys[row] = keys
+            self.metrics["requests"] += 1
+            self._dirty = True
+
+    def _prefill_one_chunk(self):
+        """Sequential engine: advance ONE prefilling row by one chunk and,
+        when its prompt completes, sample its first token."""
+        if not self._prefilling:
+            return
+        row = next(iter(self._prefilling))
+        req = self.rows[row]
+        remaining = self._prefilling[row]
+        cp = self.ec.prefill_bucket
+        chunk = remaining[:cp]
+        n_valid = len(chunk)
+        base = int(self.row_lens[row])
+        if not self._ensure_pages(row, base + n_valid):
+            self._finish(row, "error")  # pool exhausted mid-prefill
+            return
+        toks = np.zeros((1, cp), np.int32)
+        toks[0, :n_valid] = chunk
+        cache = self._flush_dirty_tables()
+        pos = np.arange(base, base + cp, dtype=np.int32)[None, :]
+        logits, _ = decoder_forward(
+            self.cfg, self.params, self._h2d(toks),
+            cache.with_tables(cache.tables[row:row + 1]), self._h2d(pos),
+            slot_offsets=self._h2d([base], torch.int32),
+            gather_positions=self._h2d([n_valid - 1], torch.int32),
+            chunk_lens=self._h2d([n_valid], torch.int32))
+        self.row_lens[row] = base + n_valid
+        self._dirty = True
+        if n_valid < len(remaining):
+            self._prefilling[row] = remaining[n_valid:]
+            return
+        self._prefilling.pop(row)
+        first_t, first_lp = sample_rows_with_logprobs(
+            logits, self._h2d(self.temps[row:row + 1]),
+            self._h2d(self.top_ps[row:row + 1]),
+            self._h2d(self.seeds[row:row + 1]),
+            self._h2d([0], torch.int32),
+            top_ks=self._h2d(self.top_ks[row:row + 1]))
+        first, lp = int(first_t.cpu()[0]), float(first_lp.cpu()[0])
+        self.metrics["host_syncs"] += 1
+        self._finish_prompt(row, first, lp)
+
+    def _finish_prompt(self, row: int, first: int, logprob: float):
+        """Prompt completion, shared by both admission paths: register the
+        prompt's full pages in the prefix cache, record TTFT, emit."""
+        n_p = int(self.row_lens[row])
+        keys = self._row_keys.pop(row, [])
+        for j in range(min(len(keys), (n_p - 1) // self.ec.page_size)):
+            self.alloc.register_prefix(keys[j], int(self.tables[row, j]))
+        req = self.rows[row]
+        req.first_token_s = time.perf_counter() - req.submitted_s
+        self.toks[row] = first
+        self._emit(row, first, logprob)
+
+    def _emit(self, row: int, token: int, logprob: float = 0.0):
+        req = self.rows[row]
+        if req.cancelled:
+            self._finish(row, "abort")
+            return
+        req.output_ids.append(token)
+        req.logprobs.append(logprob)
+        req.stream_queue.put(token)
+        self.metrics["tokens"] += 1
+        if token in req.eos_token_id:
+            self._finish(row, "stop")
+        elif len(req.output_ids) >= self.row_budget[row]:
+            self._finish(row, "length")
+
+    def _finish(self, row: int, reason: str):
+        req = self.rows[row]
+        if req.finish_reason is None:
+            req.finish_reason = reason
+        req.stream_queue.put(None)
+        self.rows[row] = None
+        self.row_lens[row] = 0
+        self.toks[row] = 0
+        self._prefilling.pop(row, None)
+        self._row_keys.pop(row, None)
+        self._release_row_pages(row)
+        self._dirty = True
+
+    def _mixed_step(self):
+        """One admission-wave tick: a ragged chunk for every prefilling
+        row, on-device first-token sampling and merge for the prompts that
+        complete, and one decode step for every decoding row."""
+        rows = sorted(self._prefilling)
+        # per-row chunk width: the budget fair-shares across joining rows,
+        # power-of-two floor, at least 4, at most the prefill bucket
+        share = max(1, self._step_budget // len(rows))
+        width = min(max(1 << (share.bit_length() - 1), 4),
+                    self.ec.prefill_bucket)
+        chunks: list[tuple[int, int, int]] = []   # (row, n_i, base)
+        for row in rows:
+            rem = self._prefilling[row]
+            n_i = min(len(rem), width)
+            b = int(self.row_lens[row])
+            if not self._ensure_pages(row, b + n_i):
+                self._finish(row, "error")  # pool exhausted mid-prefill
+                continue
+            chunks.append((row, n_i, b))
+        if not chunks:
+            active = self._active_mask()
+            if active.any():
+                self._horizon_step(active)
+            return
+        emit = [n_i == len(self._prefilling[row]) for row, n_i, _ in chunks]
+        # a completing row's first decode step runs inside this tick and
+        # writes KV at slot b + n_i: back it now (after every row's chunk
+        # pages, so the extra page never starves a later row's chunk)
+        canjoin = [not e or self._ensure_pages(row, b + n_i + 1)
+                   for (row, n_i, b), e in zip(chunks, emit)]
+        # decoding rows need their next KV slot backed before the tick
+        active = self._active_mask()
+        for i in np.flatnonzero(active):
+            if not self._ensure_pages(int(i), int(self.row_lens[i]) + 1):
+                self._finish(int(i), "length")
+                active[i] = False
+        with_decode = bool(active.any() or any(emit))
+        p = len(chunks)
+        toks = np.zeros((p, width), np.int32)
+        for s, (row, n_i, _) in enumerate(chunks):
+            toks[s, :n_i] = self._prefilling[row][:n_i]
+        cache = self._flush_dirty_tables()
+        rowmap = self._h2d([row for row, _, _ in chunks], torch.int64)
+        dev = self._sync_device_state()
+        prefill = (self._h2d(toks), cache.tables[rowmap],
+                   self._h2d([b for _, _, b in chunks], torch.int32),
+                   self._h2d([n for _, n, _ in chunks], torch.int32),
+                   self._h2d(emit, torch.bool), self._h2d(canjoin, torch.bool),
+                   rowmap)
+        first_t, first_lp, tok_block, lp_block, executed = tick_body(
+            self.cfg, self.params, self.cache, dev, prefill=prefill,
+            horizon=1, with_decode=with_decode)
+        completing: list[tuple[int, int]] = []   # (slot, row)
+        for s, (row, n_i, _) in enumerate(chunks):
+            self.row_lens[row] += n_i
+            if emit[s]:
+                self._prefilling.pop(row)
+                completing.append((s, row))
+            else:
+                self._prefilling[row] = self._prefilling[row][n_i:]
+        self.metrics["mixed_steps"] += 1
+        if not with_decode:
+            return      # pure-chunk tick: nothing to read back
+        if completing:
+            self._dirty = True
+            nxt, lp = first_t.cpu().numpy(), first_lp.cpu().numpy()
+        tok_np, lp_np = tok_block.cpu().numpy(), lp_block.cpu().numpy()
+        self.metrics["host_syncs"] += 1
+        for s, row in completing:
+            self._finish_prompt(row, int(nxt[s]), float(lp[s]))
+            if not canjoin[s] and self.rows[row] is not None:
+                self._finish(row, "length")  # no KV slot for its decode
+        self.metrics["steps"] += executed
+        self.metrics["decode_horizon_effective"] = 1
+        self._drain_block(tok_np, lp_np, self._active_mask(), executed)
+
+    def _horizon_step(self, active: np.ndarray):
+        """Up to ``decode_horizon`` decode steps, drained token by token
+        through ``_emit`` exactly as one-step ticks are."""
+        horizon = h = self._horizon
+        for i in np.flatnonzero(active):
+            i = int(i)
+            lens = int(self.row_lens[i])
+            # a near-finished row reserves only what its budget can write
+            rem_i = int(self.row_budget[i]) - len(self.rows[i].output_ids)
+            if self._ensure_pages(i, lens + max(min(horizon, rem_i), 1)):
+                continue
+            backed = int((self.tables[i] >= 0).sum()) * self.ec.page_size \
+                - lens
+            if backed < 1:
+                self._finish(i, "length")
+                active[i] = False
+            else:
+                h = min(h, backed)
+        if not active.any():
+            return
+        if h < horizon:
+            h = 1 << (h.bit_length() - 1)      # largest power of two <= h
+        dev = self._sync_device_state()
+        _, _, tok_block, lp_block, executed = tick_body(
+            self.cfg, self.params, self.cache, dev, horizon=h)
+        tok_np, lp_np = tok_block.cpu().numpy(), lp_block.cpu().numpy()
+        self.metrics["host_syncs"] += 1
+        self.metrics["steps"] += executed
+        self.metrics["decode_horizon_effective"] = h
+        self._drain_block(tok_np, lp_np, active, executed)
+
+    def _drain_block(self, tok_block, lp_block, active: np.ndarray, h: int):
+        """Walk an [R, h] token/logprob block through the per-token
+        emission path; the host stops a row at its EOS/budget/abort
+        boundary, the same boundary the device masked at."""
+        for i in np.flatnonzero(active):
+            i = int(i)
+            if self.rows[i] is None:
+                continue
+            for j in range(h):
+                self.row_lens[i] += 1
+                tok = int(tok_block[i, j])
+                self.toks[i] = tok
+                self._emit(i, tok, float(lp_block[i, j]))
+                if self.rows[i] is None:   # finished mid-block
+                    break
+
+
+def stream_tokens(req: Request, timeout: float = 120.0):
+    """Yield tokens from a submitted request until completion; ``timeout``
+    is the longest wait between two tokens."""
+    while True:
+        tok = req.stream_queue.get(timeout=timeout)
+        if tok is None:
+            return
+        yield tok
