@@ -12,8 +12,10 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    and the build of every CUDA kernel of the serving path (one ``nvcc``
    per source, all started together);
 2. B2, the sym_int4 dequant-matmul, against its plain PyTorch version at
-   the five Llama-2-7B weight shapes and M = 1, 8 and 512 (3, 13 and 100
-   checked only), with the kernel's, the plain version's and
+   the five Llama-2-7B weight shapes and M = 1, 8 (decode) and 128 (the
+   prefill tokens of a mixed tick at ``prefill_bucket`` 128), plus M = 512,
+   off the serving path, as a larger prefill (3, 13 and 100 checked only),
+   with the kernel's, the plain version's and
    ``torch.matmul`` on the dequantized weight's times, and the card's
    least time for the work;
 3. B1, ragged paged attention, against its plain version on decode, chunk
@@ -54,9 +56,12 @@ L2_BYTES = 50 * 2 ** 20
 # once at the end, so kernel and plain version may differ by one ulp of
 # the largest output (plus far smaller fp32 accumulation error)
 B2_TOL_REL = 2.0 ** -7
-# attention outputs are convex combinations of values of magnitude ~1:
-# a few bf16 ulps
-B1_TOL = 2e-2
+# the kernel and the plain version (float64) see the same widened inputs
+# and differ, apart from fp32 rounding far below it, by the final bf16
+# rounding: at most one ulp of an output, so within 2^-7 of the largest
+# output of its row.  Held per row, as rows over few keys have outputs
+# far larger than rows over thousands.
+B1_TOL_REL = 2.0 ** -7
 
 LLAMA2_7B_SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096),
                     "gate_up": (4096, 22016), "down": (11008, 4096),
@@ -137,7 +142,7 @@ def main() -> int:
                                               device=dev), "sym_int4")
                          for _ in range(math.ceil(2 * L2_BYTES / wbytes))]
         w_bf16 = dequantize(wq, torch.bfloat16)
-        for m in (1, 8, 512):
+        for m in (1, 8, 128, 512):
             x = torch.randn(m, k, generator=gen, device=dev).to(
                 torch.bfloat16)
             y = b2.qmatmul_int4(x, wq.data, wq.scales)
@@ -160,7 +165,8 @@ def main() -> int:
                 lambda: b2.qmatmul_int4_plain(x, wq.data, wq.scales), 3)
             lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), 30)
             bms, by = bound(m * k * 2 + wbytes + m * n * 2, 2.0 * m * n * k)
-            row = dict(weight=wname, m=m, k=k, n=n, max_abs_err=err,
+            row = dict(weight=wname, m=m, k=k, n=n, on_path=m != 512,
+                       max_abs_err=err,
                        max_rel_err=err / top, tol=B2_TOL_REL * top,
                        ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bms, bound_by=by)
@@ -259,23 +265,28 @@ def main() -> int:
             out = b1.ragged_paged_sdpa(*args)
             ref = b1.ragged_paged_sdpa_plain(*args, scale=128 ** -0.5)
             torch.cuda.synchronize()
-            err = 0.0
+            err = worst = 0.0
             for i, n_q in enumerate(chunk.tolist()):
                 if n_q == 0:
                     if out[i].abs().max().item() != 0.0:
                         fail(f"B1 {pool_name}: idle row {i} is not zero")
                     continue
-                err = max(err, (out[i, :n_q].float() - ref[i, :n_q].float()
-                                ).abs().max().item())
-            if not err <= B1_TOL or not torch.isfinite(out).all():
-                fail(f"B1 {pool_name} {label}: max abs err {err} > {B1_TOL}")
+                e = (out[i, :n_q].float() - ref[i, :n_q].float()
+                     ).abs().max().item()
+                top = ref[i, :n_q].float().abs().max().item()
+                if not e <= B1_TOL_REL * top:
+                    fail(f"B1 {pool_name} {label} row {i}: max abs err {e} "
+                         f"> {B1_TOL_REL} * {top}")
+                err, worst = max(err, e), max(worst, e / top)
+            if not torch.isfinite(out).all():
+                fail(f"B1 {pool_name} {label}: output not finite")
             ms = time_ms(lambda: b1.ragged_paged_sdpa(*args), 30)
             plain_ms = time_ms(lambda: b1.ragged_paged_sdpa_plain(
                 *args, scale=128 ** -0.5), 3)
             lib_ms = time_ms(b1_library(*args), 30)
             bms, by = bound(*b1_work(q, kp, kv_len, chunk))
             row = dict(pool=pool_name, case=label, max_abs_err=err,
-                       tol=B1_TOL, ms=ms, plain_ms=plain_ms,
+                       max_rel_err=worst, tol_rel=B1_TOL_REL, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bms, bound_by=by)
             b1_rows.append(row)
             print("B1 " + json.dumps(row), flush=True)

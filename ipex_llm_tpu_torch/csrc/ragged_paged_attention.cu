@@ -234,7 +234,8 @@ void launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
 
 // q bf16 [R,C,Hq,D]; pools [P,Hkv,ps,D] bf16 (kv_fp8=0) or e5m2 (kv_fp8=1);
 // tables int32 [R,maxp]; kv_len, chunk_len int32 [R]; out bf16 [R,C,Hq,D].
-// D is 64 or 128, ps a multiple of 32.  Returns cudaGetLastError().
+// D is 128 (the only instance), ps a multiple of 32.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another D.
 extern "C" int ragged_paged_attention(const void* q, const void* kpool,
                                       const void* vpool, const void* tables,
                                       const void* kv_len,
@@ -245,23 +246,12 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int gc = (Hq / Hkv) * C;
   dim3 grid((gc + kQRows - 1) / kQRows, Hkv, R);
-  if (kv_fp8) {
-    if (D == 64)
-      launch<uint8_t, 64>(grid, st, q, kpool, vpool, tables, kv_len, chunk_len,
-                          out, C, Hq, Hkv, ps, n_pages, maxp, scale);
-    else
-      launch<uint8_t, 128>(grid, st, q, kpool, vpool, tables, kv_len,
-                           chunk_len, out, C, Hq, Hkv, ps, n_pages, maxp,
-                           scale);
-  } else {
-    if (D == 64)
-      launch<uint16_t, 64>(grid, st, q, kpool, vpool, tables, kv_len,
-                           chunk_len, out, C, Hq, Hkv, ps, n_pages, maxp,
-                           scale);
-    else
-      launch<uint16_t, 128>(grid, st, q, kpool, vpool, tables, kv_len,
-                            chunk_len, out, C, Hq, Hkv, ps, n_pages, maxp,
-                            scale);
-  }
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  if (kv_fp8)
+    launch<uint8_t, 128>(grid, st, q, kpool, vpool, tables, kv_len, chunk_len,
+                         out, C, Hq, Hkv, ps, n_pages, maxp, scale);
+  else
+    launch<uint16_t, 128>(grid, st, q, kpool, vpool, tables, kv_len,
+                          chunk_len, out, C, Hq, Hkv, ps, n_pages, maxp, scale);
   return (int)cudaGetLastError();
 }

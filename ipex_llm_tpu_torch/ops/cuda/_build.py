@@ -32,7 +32,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 class Counts:
     """Launch accounting of one kernel wrapper: ``launches`` counts kernel
-    launches (the wrapper adds one where it launches, nowhere else);
+    launches (the wrapper adds one for each kernel it launches, where it
+    launches them, nowhere else);
     ``plain_calls`` counts calls of the plain PyTorch version, so a run on
     the card can show the plain path was never taken."""
 

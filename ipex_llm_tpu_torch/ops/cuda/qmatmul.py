@@ -93,7 +93,8 @@ def _launch(x, data, scales, keep_f32):
         ctypes.c_int(m), ctypes.c_int(n), ctypes.c_int(k),
         ctypes.c_int(splits), ctypes.c_int(per), ctypes.c_int(row_tile(m)),
         _build.stream_handle(x))
-    COUNTS.launches += 1
+    # a K split launches the product and then the reduce of its partials
+    COUNTS.launches += 2 if splits > 1 else 1
     _build.check(err, NAME)
     return out
 

@@ -18,7 +18,7 @@ from ipex_llm_tpu_torch.ops.cuda import _build
 
 NAME = "ragged_paged_attention"
 COUNTS = _build.Counts()
-_HEAD_DIMS = (64, 128)      # template instances in the source
+_HEAD_DIMS = (128,)         # template instances in the source
 _KEY_TILE = 32              # keys per shared-memory tile (csrc constant)
 _POOL_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 
