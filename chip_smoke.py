@@ -9,25 +9,53 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, each of which exits non-zero on failure (there is no fallback):
 
 1. device: the card's name and power limit, the torch and CUDA versions,
-   and the build of every CUDA kernel of the serving path (one ``nvcc``
-   per source, all started together);
-2. B2, the sym_int4 dequant-matmul, against its plain PyTorch version at
+   and the build of every CUDA kernel (one ``nvcc`` per source, all
+   started together);
+2. ``b2``: the sym_int4 dequant-matmul against its plain PyTorch version at
    the five Llama-2-7B weight shapes and M = 1, 8 (decode) and 128 (the
    prefill tokens of a mixed tick at ``prefill_bucket`` 128), plus M = 512,
    off the serving path, as a larger prefill (3, 13 and 100 checked only),
-   with the kernel's, the plain version's and
-   ``torch.matmul`` on the dequantized weight's times, and the card's
-   least time for the work;
-3. B1, ragged paged attention, against its plain version on decode, chunk
-   (width 128 and 16) and idle rows at 32 heads, head_dim 128, page 128,
-   over bf16 and e5m2 pools, with ``scaled_dot_product_attention`` over
-   the gathered pages as the library yardstick;
-4. a small GQA decoder on the card against the same decoder on the CPU's
-   plain versions (prefill plus decode steps, logits within tolerance);
-5. serving at Llama-2-7B widths (random sym_int4 weights from a seed):
-   eight requests through ``ServingEngine`` over a bf16 pool, then two
-   over an e5m2 pool; every kernel of the path must have launched in each
-   run and no plain version may have run.
+   with the kernel's, the plain version's and ``torch.matmul`` on the
+   dequantized weight's times, and the card's least time for the work;
+3. ``b1``: ragged paged attention against its plain version on decode,
+   chunk (width 128 and 16) and idle rows at 32 heads, head_dim 128, page
+   128, over bf16 and e5m2 pools, with ``scaled_dot_product_attention``
+   over the gathered pages as the library yardstick;
+4. ``decoder``: a small GQA decoder on the card against the same decoder on
+   the CPU's plain versions, paged form (prefill plus decode steps);
+5. ``serve``: serving at Llama-2-7B widths (random sym_int4 weights from a
+   seed): eight requests through ``ServingEngine`` over a bf16 pool, then
+   two over an e5m2 pool; every kernel of the path must have launched in
+   each run and no plain version may have run;
+6. ``b3``: dense decode attention against its plain version at
+   Mistral-7B widths (32 query heads over 8 kv heads of 128), B=4,
+   capacity 2304, ragged ``kv_start``/``kv_len``, over bf16 and e5m2
+   caches: window off, a 1024 window that cuts, and softcap 50; then at
+   run (d)'s decode shape (B=1, capacity 4864, the 4096 window cutting);
+7. ``b4``: flash attention against its plain version: B=4, T=2048 left
+   padded (the bucket of the generate phase); B=1, T=4608 with the 4096
+   window, which cuts; softcap and non-causal cases at a small T;
+8. ``b2m``: B2 at Mistral-7B's weight shapes, M=4 (decode) and M=8192
+   (the largest prefill, 4 rows x 2048);
+9. ``mistral``: a small windowed GQA mistral on the card against the same
+   model on the CPU's plain versions, dense form (left-padded prefill and
+   decode steps, the window cutting);
+10. ``generate``: ``model.generate`` at Mistral-7B-v0.1 widths (random
+    sym_int4 weights from a seed) through the model class: (a) four
+    prompts left padded to 2048, 64 new tokens, greedy, bf16 cache; (b)
+    the same sampled; (c) (a) over an e5m2 cache; (d) one prompt of 4500
+    ids, 32 new tokens, so that the window masks keys in B4 and in B3.
+    Every row must produce its tokens, and B2, B3 and B4 must launch with
+    no plain call.  Then run (a)'s prefill and decode loop by stage, once
+    for the host wall clock and once under ``torch.profiler`` for the
+    kernels' device time: each stage's device idle share, launches per
+    step and largest kernels.
+
+Kernel times come from CUDA events over many launches after a warm-up;
+the plain version's from a few calls; ``library_ms`` times one PyTorch
+call computing the same function (never called by the port).  Each
+kernel's bound is the larger of its bytes over 3.35 TB/s and its
+operations over 989 TFLOP/s (H100 SXM data sheet).
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary,
 the last ``{"ok": true, "device": {...}}``.  Details go to
@@ -38,6 +66,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -56,16 +85,20 @@ L2_BYTES = 50 * 2 ** 20
 # once at the end, so kernel and plain version may differ by one ulp of
 # the largest output (plus far smaller fp32 accumulation error)
 B2_TOL_REL = 2.0 ** -7
-# the kernel and the plain version (float64) see the same widened inputs
-# and differ, apart from fp32 rounding far below it, by the final bf16
-# rounding: at most one ulp of an output, so within 2^-7 of the largest
-# output of its row.  Held per row, as rows over few keys have outputs
-# far larger than rows over thousands.
-B1_TOL_REL = 2.0 ** -7
+# the attention kernels and their plain versions (float64) see the same
+# widened inputs and differ by the kernel's bf16 rounding of p before P.V
+# (2^-9 of each term, errors of random sign) and the final bf16 rounding:
+# within 2^-7 of the largest output of the query row.  Held per row
+# (batch row and query, over heads and dims), as rows over few keys have
+# outputs far larger than rows over thousands.
+ATTN_TOL_REL = 2.0 ** -7
 
 LLAMA2_7B_SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096),
                     "gate_up": (4096, 22016), "down": (11008, 4096),
                     "lm_head": (4096, 32000)}
+MISTRAL_7B_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096),
+                     "gate_up": (4096, 28672), "down": (14336, 4096),
+                     "lm_head": (4096, 32000)}
 
 
 def fail(msg: str):
@@ -89,8 +122,11 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     sys.path.insert(0, str(ROOT))
     import numpy as np
+    import torch.nn.functional as F
 
     from ipex_llm_tpu_torch.ops.cuda import _build
+    from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
+    from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
     from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
     from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
 
@@ -111,6 +147,34 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
+    def to_dev(tree):
+        if isinstance(tree, dict):
+            return {k: to_dev(v) for k, v in tree.items()}
+        return tree.to(dev) if hasattr(tree, "to") else tree
+
+    def sdpa_gqa(q, k, v, mask):
+        """The library yardstick: q [B, Hq, T, D], k/v [B, Hkv, S, D]."""
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=q.shape[1] != k.shape[1])
+
+    def check_rows(out, ref, what: str):
+        """Per query row (batch row and query, over heads and dims): the
+        worst |out - ref| within ATTN_TOL_REL of the row's largest |ref|
+        (a row that sees no key must be exactly 0 on both sides)."""
+        o, r = out.float(), ref.float()
+        if not torch.isfinite(o).all():
+            fail(f"{what}: output not finite")
+        err = (o - r).abs().amax(dim=(2, 3))
+        top = r.abs().amax(dim=(2, 3))
+        bad = err > ATTN_TOL_REL * top
+        if bad.any():
+            i = int(bad.flatten().nonzero()[0])
+            fail(f"{what}: row {divmod(i, err.shape[1])} max abs err "
+                 f"{err.flatten()[i].item()} > {ATTN_TOL_REL} * "
+                 f"{top.flatten()[i].item()}")
+        return (err.max().item(),
+                (err / top.clamp_min(1e-30)).max().item())
+
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -120,76 +184,89 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    kernels = {"qmatmul_int4": b2, "ragged_paged_attention": b1}
-    t_build = _build.build(list(kernels))
+    kernels = {"qmatmul_int4": b2, "ragged_paged_attention": b1,
+               "decode_attention": b3, "flash_attention": b4}
+    t_build = _build.build([m.NAME for m in kernels.values()])
     print(f"kernel build: {t_build:.1f} s for {len(kernels)} sources",
           flush=True)
     report.update(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build)
+    for mod in kernels.values():
+        log = _build.BUILD_DIR / f"{mod.NAME}.log"
+        regs = [ln.strip() for ln in log.read_text().splitlines()
+                if "registers" in ln or "spill" in ln] if log.exists() \
+            else []
+        report.setdefault("ptxas", {})[mod.NAME] = regs
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # -- 2. B2 ---------------------------------------------------------------
     from ipex_llm_tpu_torch.quantize.core import dequantize, quantize
 
-    b2_rows = []
-    for wname, (k, n) in LLAMA2_7B_SHAPES.items():
-        wq = quantize(torch.randn(k, n, generator=gen, device=dev)
-                      * (1.2 / math.sqrt(k)), "sym_int4")
-        wbytes = wq.data.numel() + wq.scales.numel() * 2
-        # rotate over enough copies that each launch finds its weight
-        # out of L2, as a layer's weight is on the serving path
-        copies = [wq] + [quantize(torch.randn(k, n, generator=gen,
-                                              device=dev), "sym_int4")
-                         for _ in range(math.ceil(2 * L2_BYTES / wbytes))]
-        w_bf16 = dequantize(wq, torch.bfloat16)
-        for m in (1, 8, 128, 512):
-            x = torch.randn(m, k, generator=gen, device=dev).to(
-                torch.bfloat16)
-            y = b2.qmatmul_int4(x, wq.data, wq.scales)
-            y_plain = b2.qmatmul_int4_plain(x, wq.data, wq.scales)
-            torch.cuda.synchronize()
-            err = (y.float() - y_plain.float()).abs().max().item()
-            top = y_plain.float().abs().max().item()
-            if not (err <= B2_TOL_REL * top) or not torch.isfinite(y).all():
-                fail(f"B2 {wname} M={m}: max abs err {err} > "
-                     f"{B2_TOL_REL} * {top}")
-            it = [0]
-
-            def run_kernel():
-                q = copies[it[0] % len(copies)]
-                it[0] += 1
-                b2.qmatmul_int4(x, q.data, q.scales)
-
-            ms = time_ms(run_kernel, 30)
-            plain_ms = time_ms(
-                lambda: b2.qmatmul_int4_plain(x, wq.data, wq.scales), 3)
-            lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), 30)
-            bms, by = bound(m * k * 2 + wbytes + m * n * 2, 2.0 * m * n * k)
-            row = dict(weight=wname, m=m, k=k, n=n, on_path=m != 512,
-                       max_abs_err=err,
-                       max_rel_err=err / top, tol=B2_TOL_REL * top,
-                       ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bms, bound_by=by)
-            b2_rows.append(row)
-            print("B2 " + json.dumps(row), flush=True)
-        del copies, w_bf16
-        if wname == "qkv":
-            # row counts of mixed ticks (P rows x a power-of-two width) and
-            # of part-full row tiles: checked, not timed
-            for m in (3, 13, 100):
+    def b2_rows(shapes: dict, ms: tuple, on_path, tag: str,
+                iters=lambda m: 30):
+        rows = []
+        for wname, (k, n) in shapes.items():
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * (1.2 / math.sqrt(k)), "sym_int4")
+            wbytes = wq.data.numel() + wq.scales.numel() * 2
+            # rotate over enough copies that each launch finds its weight
+            # out of L2, as a layer's weight is on the serving path
+            copies = [wq] + [quantize(torch.randn(k, n, generator=gen,
+                                                  device=dev), "sym_int4")
+                             for _ in range(math.ceil(2 * L2_BYTES / wbytes))]
+            w_bf16 = dequantize(wq, torch.bfloat16)
+            for m in ms:
                 x = torch.randn(m, k, generator=gen, device=dev).to(
                     torch.bfloat16)
                 y = b2.qmatmul_int4(x, wq.data, wq.scales)
                 y_plain = b2.qmatmul_int4_plain(x, wq.data, wq.scales)
+                torch.cuda.synchronize()
                 err = (y.float() - y_plain.float()).abs().max().item()
                 top = y_plain.float().abs().max().item()
-                if not err <= B2_TOL_REL * top:
-                    fail(f"B2 {wname} M={m}: max abs err {err}")
-    report["b2"] = b2_rows
+                if not (err <= B2_TOL_REL * top) or not torch.isfinite(
+                        y).all():
+                    fail(f"B2 {tag} {wname} M={m}: max abs err {err} > "
+                         f"{B2_TOL_REL} * {top}")
+                del y, y_plain
+                it = [0]
+
+                def run_kernel():
+                    q = copies[it[0] % len(copies)]
+                    it[0] += 1
+                    b2.qmatmul_int4(x, q.data, q.scales)
+
+                ms_k = time_ms(run_kernel, iters(m))
+                plain_ms = time_ms(
+                    lambda: b2.qmatmul_int4_plain(x, wq.data, wq.scales), 1)
+                lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters(m))
+                bms, by = bound(m * k * 2 + wbytes + m * n * 2,
+                                2.0 * m * n * k)
+                row = dict(model=tag, weight=wname, m=m, k=k, n=n,
+                           on_path=on_path(wname, m), max_abs_err=err,
+                           max_rel_err=err / top, tol=B2_TOL_REL * top,
+                           ms=ms_k, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bms, bound_by=by)
+                rows.append(row)
+                print("B2 " + json.dumps(row), flush=True)
+            del copies, w_bf16
+            if wname == "qkv" and tag == "llama2-7b":
+                # row counts of mixed ticks (P rows x a power-of-two width)
+                # and of part-full row tiles: checked, not timed
+                for m in (3, 13, 100):
+                    x = torch.randn(m, k, generator=gen, device=dev).to(
+                        torch.bfloat16)
+                    y = b2.qmatmul_int4(x, wq.data, wq.scales)
+                    y_plain = b2.qmatmul_int4_plain(x, wq.data, wq.scales)
+                    err = (y.float() - y_plain.float()).abs().max().item()
+                    top = y_plain.float().abs().max().item()
+                    if not err <= B2_TOL_REL * top:
+                        fail(f"B2 {wname} M={m}: max abs err {err}")
+        return rows
+
+    # -- 2. B2 at Llama-2-7B's shapes ----------------------------------------
+    report["b2"] = b2_rows(LLAMA2_7B_SHAPES, (1, 8, 128, 512),
+                           lambda w, m: m != 512, "llama2-7b")
 
     # -- 3. B1 ---------------------------------------------------------------
-    import torch.nn.functional as F
-
     def ragged_case(pool_dtype, r=8, c=128, hq=32, hkv=32, d=128, ps=128,
                     maxp=16):
         """benchmark/microbench.py::bench_ragged_attn's mix: even rows
@@ -254,11 +331,13 @@ def main() -> int:
         for label, kw in (("row mix R=8 C=128", {}),
                           ("row mix R=8 C=16", dict(c=16)),
                           ("decode R=8 C=1", dict(c=1))):
-            q, kp, vp, tables, kv_len, chunk = ragged_case(pool_dtype, **kw)
+            q, kp, vp, tables, kv_len, chunk = ragged_case(pool_dtype,
+                                                           **kw)
             if kw.get("c") == 1:      # decode rows at staggered lengths
                 chunk = torch.ones_like(chunk)
-                kv_len = torch.tensor([130, 300, 511, 700, 900, 1064, 1500,
-                                       2048], dtype=torch.int32, device=dev)
+                kv_len = torch.tensor(
+                    [130, 300, 511, 700, 900, 1064, 1500, 2048],
+                    dtype=torch.int32, device=dev)
                 tables = (1 + torch.arange(tables.numel(), device=dev)
                           ).to(torch.int32).reshape(tables.shape)
             args = (q, kp, vp, tables, kv_len, chunk)
@@ -274,9 +353,9 @@ def main() -> int:
                 e = (out[i, :n_q].float() - ref[i, :n_q].float()
                      ).abs().max().item()
                 top = ref[i, :n_q].float().abs().max().item()
-                if not e <= B1_TOL_REL * top:
-                    fail(f"B1 {pool_name} {label} row {i}: max abs err {e} "
-                         f"> {B1_TOL_REL} * {top}")
+                if not e <= ATTN_TOL_REL * top:
+                    fail(f"B1 {pool_name} {label} row {i}: max abs err "
+                         f"{e} > {ATTN_TOL_REL} * {top}")
                 err, worst = max(err, e), max(worst, e / top)
             if not torch.isfinite(out).all():
                 fail(f"B1 {pool_name} {label}: output not finite")
@@ -286,18 +365,21 @@ def main() -> int:
             lib_ms = time_ms(b1_library(*args), 30)
             bms, by = bound(*b1_work(q, kp, kv_len, chunk))
             row = dict(pool=pool_name, case=label, max_abs_err=err,
-                       max_rel_err=worst, tol_rel=B1_TOL_REL, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                       max_rel_err=worst, tol_rel=ATTN_TOL_REL, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bms, bound_by=by)
             b1_rows.append(row)
             print("B1 " + json.dumps(row), flush=True)
             del q, kp, vp, out, ref
     report["b1"] = b1_rows
 
-    # -- 4. a small decoder: card against CPU --------------------------------
-    from ipex_llm_tpu_torch.kv import PagedKVCache
+    # -- 4. a small decoder, paged form: card against CPU -------------------
+    from ipex_llm_tpu_torch.kv import PagedKVCache, make_cache
     from ipex_llm_tpu_torch.models.decoder import decoder_forward
-    from ipex_llm_tpu_torch.models.random_init import (llama2_7b_config,
+    from ipex_llm_tpu_torch.models.random_init import (MISTRAL_7B_V01_HF,
+                                                       llama2_7b_config,
                                                        llama_config,
+                                                       mistral_7b_config,
                                                        random_params)
 
     # GQA (4 query heads over 2 kv heads) at the kernel's head_dim 128
@@ -305,11 +387,6 @@ def main() -> int:
                          num_layers=2, num_heads=4, num_kv_heads=2,
                          head_dim=128, vocab_size=512)
     p_cpu = random_params(small, "sym_int4", seed=1, device="cpu")
-
-    def to_dev(tree):
-        if isinstance(tree, dict):
-            return {k: to_dev(v) for k, v in tree.items()}
-        return tree.to(dev) if hasattr(tree, "to") else tree
     p_dev = to_dev(p_cpu)
     rng = np.random.default_rng(3)
     r, t, ps, maxp = 3, 40, 128, 2
@@ -317,8 +394,8 @@ def main() -> int:
     toks = rng.integers(0, 512, (r, t)).astype(np.int32)
     worst = 0.0
     caches = {}
-    for name, device, params in (("cpu", "cpu", p_cpu), ("cuda", dev,
-                                                          p_dev)):
+    for name, device, params in (("cpu", "cpu", p_cpu),
+                                 ("cuda", dev, p_dev)):
         c = PagedKVCache.init(2, 1 + r * maxp, r, maxp, 2, ps, 128,
                               device=device)
         c.tables.copy_(1 + torch.arange(r * maxp, dtype=torch.int32
@@ -327,12 +404,11 @@ def main() -> int:
     lens = np.zeros(r, np.int32)
     steps = [(toks, np.zeros(r, np.int32), chunk)]
     for _ in range(3):
-        steps.append((rng.integers(0, 512, (r, 1)).astype(np.int32), None,
-                      None))
+        steps.append((rng.integers(0, 512, (r, 1)).astype(np.int32),
+                      None, None))
     for tk, base, ch in steps:
         outs = {}
         for name, (c, params, device) in caches.items():
-            kw = {}
             if ch is not None:
                 pos = base[:, None] + np.arange(tk.shape[1])[None, :]
                 kw = dict(slot_offsets=torch.from_numpy(base).to(device),
@@ -345,19 +421,18 @@ def main() -> int:
                           last_token_only=True)
             lg, _ = decoder_forward(small, params,
                                     torch.from_numpy(tk).to(device), c,
-                                    torch.from_numpy(
-                                        np.ascontiguousarray(pos)).to(device),
-                                    **kw)
+                                    torch.from_numpy(np.ascontiguousarray(
+                                        pos)).to(device), **kw)
             outs[name] = lg.float().cpu().numpy()
         lens = lens + (chunk if ch is not None else 1)
         span = outs["cpu"].max() - outs["cpu"].min()
         diff = np.abs(outs["cuda"] - outs["cpu"]).max() / span
         worst = max(worst, float(diff))
         if not np.isfinite(outs["cuda"]).all() or diff > 0.025:
-            fail(f"small decoder: card vs CPU logits differ by {diff:.4f} "
-                 "of the logit range (bound 0.025)")
-    print(f"small decoder card vs CPU: worst logit diff {worst:.5f} of the "
-          "range (bound 0.025)", flush=True)
+            fail(f"small decoder: card vs CPU logits differ by "
+                 f"{diff:.4f} of the logit range (bound 0.025)")
+    print(f"small decoder card vs CPU: worst logit diff {worst:.5f} of "
+          "the range (bound 0.025)", flush=True)
     report["small_decoder_worst_rel"] = worst
     del caches, p_dev
 
@@ -366,100 +441,520 @@ def main() -> int:
                                                    ServingEngine,
                                                    stream_tokens)
 
-    cfg = llama2_7b_config()
-    t0 = time.perf_counter()
-    params = random_params(cfg, "sym_int4", seed=0, device=dev)
-    torch.cuda.synchronize()
-    print(f"Llama-2-7B-width random sym_int4 weights: "
-          f"{time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card",
-          flush=True)
-
-    def serve(storage: str, n_req: int, seed: int) -> dict:
-        rng = np.random.default_rng(seed)
-        lens = rng.integers(64, 1001, n_req)
-        news = rng.integers(32, 65, n_req)
-        reqs = [Request(prompt_ids=[int(v) for v in
-                                    rng.integers(1, cfg.vocab_size, n)],
-                        max_new_tokens=int(m),
-                        temperature=0.8 if i % 2 else 0.0,
-                        top_p=0.9 if i % 2 else 1.0,
-                        seed=1000 + i if i % 2 else None)
-                for i, (n, m) in enumerate(zip(lens, news))]
-        eng = ServingEngine(cfg, params, EngineConfig(
-            max_rows=8, max_seq_len=2048, page_size=128, prefill_bucket=128,
-            decode_horizon=4, kv_storage=storage), device=dev)
-        for mod in kernels.values():
-            mod.COUNTS.reset()
-        eng.start()
-        t_start = time.perf_counter()
-        for q in reqs:
-            eng.submit(q)
-        streams = [list(stream_tokens(q, timeout=600)) for q in reqs]
+    def serve_phase():
+        cfg = llama2_7b_config()
+        t0 = time.perf_counter()
+        params = random_params(cfg, "sym_int4", seed=0, device=dev)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t_start
-        counts = {name: (mod.COUNTS.launches, mod.COUNTS.plain_calls)
-                  for name, mod in kernels.items()}
-        eng.stop()
-        if eng._thread.is_alive():
-            fail("engine thread did not stop")
-        for q, s in zip(reqs, streams):
-            if q.finish_reason != "length" or len(s) != q.max_new_tokens \
-                    or s != q.output_ids:
-                fail(f"{storage} pool: request finished {q.finish_reason} "
-                     f"with {len(s)} of {q.max_new_tokens} tokens "
-                     f"({eng.metrics.get('last_error')})")
-            if not all(0 <= v < cfg.vocab_size for v in s) or not all(
-                    math.isfinite(lp) and lp <= 0 for lp in q.logprobs):
-                fail(f"{storage} pool: token or logprob out of range")
-        for name, (launches, plain) in counts.items():
-            if launches == 0 or plain != 0:
-                fail(f"{storage} pool: {name} launched {launches} times, "
-                     f"plain version called {plain} times")
-        out_tok = sum(len(s) for s in streams)
-        ttft = [q.first_token_s for q in reqs]
-        res = dict(storage=storage, requests=n_req,
-                   prompt_tokens=int(lens.sum()), output_tokens=out_tok,
-                   wall_s=wall, output_tok_s=out_tok / wall,
-                   ttft_mean_s=float(np.mean(ttft)),
-                   ttft_max_s=float(np.max(ttft)),
-                   launches={k: v[0] for k, v in counts.items()},
-                   metrics={k: eng.metrics[k] for k in (
-                       "mixed_steps", "steps", "host_syncs", "epoch_syncs",
-                       "decode_horizon_effective")})
-        print("serve " + json.dumps(res), flush=True)
-        del eng
-        torch.cuda.empty_cache()
-        return res
+        print(f"Llama-2-7B-width random sym_int4 weights: "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the "
+              "card", flush=True)
+        path = {"qmatmul_int4": b2, "ragged_paged_attention": b1}
 
-    report["serve"] = [serve("bf16", 8, 7), serve("fp8", 2, 8)]
-    main_launches = report["serve"][0]["launches"]
+        def serve(storage: str, n_req: int, seed: int) -> dict:
+            rng = np.random.default_rng(seed)
+            lens = rng.integers(64, 1001, n_req)
+            news = rng.integers(32, 65, n_req)
+            reqs = [Request(prompt_ids=[int(v) for v in
+                                        rng.integers(1, cfg.vocab_size, n)],
+                            max_new_tokens=int(m),
+                            temperature=0.8 if i % 2 else 0.0,
+                            top_p=0.9 if i % 2 else 1.0,
+                            seed=1000 + i if i % 2 else None)
+                    for i, (n, m) in enumerate(zip(lens, news))]
+            eng = ServingEngine(cfg, params, EngineConfig(
+                max_rows=8, max_seq_len=2048, page_size=128,
+                prefill_bucket=128, decode_horizon=4, kv_storage=storage),
+                device=dev)
+            for mod in kernels.values():
+                mod.COUNTS.reset()
+            eng.start()
+            t_start = time.perf_counter()
+            for q in reqs:
+                eng.submit(q)
+            streams = [list(stream_tokens(q, timeout=600)) for q in reqs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_start
+            counts = {name: (mod.COUNTS.launches, mod.COUNTS.plain_calls)
+                      for name, mod in kernels.items()}
+            eng.stop()
+            if eng._thread.is_alive():
+                fail("engine thread did not stop")
+            for q, s in zip(reqs, streams):
+                if q.finish_reason != "length" or len(s) != q.max_new_tokens \
+                        or s != q.output_ids:
+                    fail(f"{storage} pool: request finished "
+                         f"{q.finish_reason} with {len(s)} of "
+                         f"{q.max_new_tokens} tokens "
+                         f"({eng.metrics.get('last_error')})")
+                if not all(0 <= v < cfg.vocab_size for v in s) or not all(
+                        math.isfinite(lp) and lp <= 0 for lp in q.logprobs):
+                    fail(f"{storage} pool: token or logprob out of range")
+            for name, (launches, plain) in counts.items():
+                if plain != 0 or (name in path and launches == 0):
+                    fail(f"{storage} pool: {name} launched {launches} "
+                         f"times, plain version called {plain} times")
+            out_tok = sum(len(s) for s in streams)
+            ttft = [q.first_token_s for q in reqs]
+            res = dict(storage=storage, requests=n_req,
+                       prompt_tokens=int(lens.sum()), output_tokens=out_tok,
+                       wall_s=wall, output_tok_s=out_tok / wall,
+                       ttft_mean_s=float(np.mean(ttft)),
+                       ttft_max_s=float(np.max(ttft)),
+                       launches={k: v[0] for k, v in counts.items()},
+                       metrics={k: eng.metrics[k] for k in (
+                           "mixed_steps", "steps", "host_syncs",
+                           "epoch_syncs", "decode_horizon_effective")})
+            print("serve " + json.dumps(res), flush=True)
+            del eng
+            torch.cuda.empty_cache()
+            return res
+
+        return [serve("bf16", 8, 7), serve("fp8", 2, 8)]
+
+    report["serve"] = serve_phase()
+    torch.cuda.empty_cache()
+
+    # -- 6. B3 at Mistral-7B widths ------------------------------------------
+    def b3_case(kv_dtype, window, softcap, s=2304,
+                kv_len=(2100, 1500, 1990, 777), kv_start=(0, 211, 1003, 37)):
+        """By default B=4 rows over a capacity of 2304 slots, ragged left
+        padding and fill (a 1024 window cuts rows 0 and 1)."""
+        b, hq, hkv, d = len(kv_len), 32, 8, 128
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        kv_start = torch.tensor(kv_start, dtype=torch.int32, device=dev)
+        q = torch.randn(b, 1, hq, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(kv_dtype)
+        v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(kv_dtype)
+        return q, k, v, kv_len, kv_start, dict(window=window,
+                                               softcap=softcap)
+
+    def b3_run(name, q, k, v, kv_len, kv_start, window, softcap):
+        b, _, hq, d = q.shape
+        kwargs = dict(kv_len=kv_len, kv_start=kv_start, window=window,
+                      window_on=True, softcap=softcap)
+        out = b3.decode_sdpa(q, k, v, **kwargs)
+        kl, ks, won = b3.row_vectors(b, k.shape[2], dev, kv_len, kv_start,
+                                     True)
+        plain = lambda: b3.decode_sdpa_plain(            # noqa: E731
+            q, k, v, scale=d ** -0.5, kv_len=kl, kv_start=ks, won=won,
+            window=window, softcap=softcap)
+        ref = plain()
+        torch.cuda.synchronize()
+        err, worst = check_rows(out, ref, f"B3 {name}")
+        # rotate over copies of the cache layer so each launch finds it out
+        # of L2, as each layer's cache is on the decode path
+        lay_bytes = 2 * k.numel() * k.element_size()
+        copies = [(k, v)] + [(k.clone(), v.clone()) for _ in range(
+            math.ceil(2 * L2_BYTES / lay_bytes))]
+        it = [0]
+
+        def run_kernel():
+            kc, vc = copies[it[0] % len(copies)]
+            it[0] += 1
+            b3.decode_sdpa(q, kc, vc, **kwargs)
+
+        ms = time_ms(run_kernel, 50)
+        plain_ms = time_ms(plain, 3)
+        lo = b3.first_visible(kl, ks, won, window)
+        n_vis = (kl - lo).clamp(min=0)
+        hkv = k.shape[1]
+        nbytes = (int(n_vis.sum()) * hkv * d * k.element_size() * 2
+                  + 2 * q.numel() * 2)
+        bms, by = bound(nbytes, 4.0 * d * hq * int(n_vis.sum()))
+        lib_ms = None
+        if softcap is None:
+            kpos = torch.arange(k.shape[2], device=dev)
+            mask = ((kpos[None] >= lo[:, None]) & (kpos[None] < kl[:, None])
+                    )[:, None, None, :]
+            kw, vw = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            qt = q.transpose(1, 2)
+            lib_ms = time_ms(lambda: sdpa_gqa(qt, kw, vw, mask), 50)
+            del kw, vw
+        row = dict(case=name, shape=f"B={b} Hq={hq} Hkv={hkv} D={d} "
+                   f"S={k.shape[2]}",
+                   max_abs_err=err, max_rel_err=worst, tol_rel=ATTN_TOL_REL,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bms, bound_by=by)
+        print("B3 " + json.dumps(row), flush=True)
+        return row
+
+    rows = []
+    for kv_name, kv_dtype in (("bf16", torch.bfloat16),
+                              ("e5m2", torch.float8_e5m2)):
+        for label, window, softcap in (("window off", None, None),
+                                       ("window 1024", 1024, None),
+                                       ("softcap 50", None, 50.0)):
+            q, k, v, kl, ks, kw = b3_case(kv_dtype, window, softcap)
+            rows.append(b3_run(f"{kv_name} {label}", q, k, v, kl, ks,
+                               **kw))
+            del q, k, v
+        # run (d)'s last decode step: a 4500-id prompt in the 4608 bucket
+        # (kv_start 108), capacity 4608 + 256, 31 steps in; the window
+        # starts at slot 543
+        q, k, v, kl, ks, kw = b3_case(kv_dtype, 4096, None, s=4864,
+                                      kv_len=(4639,), kv_start=(108,))
+        rows.append(b3_run(f"{kv_name} run (d), window 4096", q, k, v, kl,
+                           ks, **kw))
+        del q, k, v
+    # the window off on one row only (a per-row enable vector)
+    q, k, v, kl, ks, _ = b3_case(torch.bfloat16, 1024, None)
+    won = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=dev)
+    out = b3.decode_sdpa(q, k, v, kv_len=kl, kv_start=ks, window=1024,
+                         window_on=won)
+    ref = b3.decode_sdpa_plain(q, k, v, scale=128 ** -0.5, kv_len=kl,
+                               kv_start=ks, won=won, window=1024,
+                               softcap=None)
+    check_rows(out, ref, "B3 per-row window enable")
+    report["b3"] = rows
+    torch.cuda.empty_cache()
+
+    # -- 7. B4 ---------------------------------------------------------------
+    def b4_case(b, t, cap, lengths, *, causal=True, window=None,
+                softcap=None, hq=32, hkv=8, d=128, kv_len=None):
+        """K/V as the dense cache holds them (head-major [B, Hkv, cap, D],
+        read through the [B, cap, Hkv, D] view); causal rows left padded
+        to ``t`` (kv_start = t - length), queries at slots 0..t-1."""
+        q = torch.randn(b, t, hq, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        k_hm = torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v_hm = torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        ks = torch.tensor([t - n for n in lengths], dtype=torch.int32,
+                          device=dev)
+        kl = torch.tensor(kv_len or [t] * b, dtype=torch.int32, device=dev)
+        qpos = torch.arange(t, device=dev)[None].expand(b, t)
+        return dict(q=q, k_hm=k_hm, v_hm=v_hm, kv_start=ks, kv_len=kl,
+                    q_positions=qpos, causal=causal, window=window,
+                    softcap=softcap)
+
+    def b4_run(name, c):
+        q, k_hm, v_hm = c["q"], c["k_hm"], c["v_hm"]
+        k, v = k_hm.transpose(1, 2), v_hm.transpose(1, 2)
+        b, t, hq, d = q.shape
+        kw = dict(causal=c["causal"], q_positions=c["q_positions"],
+                  kv_len=c["kv_len"], kv_start=c["kv_start"],
+                  window=c["window"], window_on=True, softcap=c["softcap"])
+        out = b4.flash_sdpa(q, k, v, **kw)
+        kl, ks, won = b3.row_vectors(b, k.shape[1], dev, c["kv_len"],
+                                     c["kv_start"], True)
+        plain = lambda: b4.flash_sdpa_plain(              # noqa: E731
+            q, k, v, scale=d ** -0.5, causal=c["causal"],
+            q_positions=c["q_positions"].long(), kv_len=kl, kv_start=ks,
+            won=won, window=c["window"], softcap=c["softcap"])
+        ref = plain()
+        torch.cuda.synchronize()
+        err, worst = check_rows(out, ref, f"B4 {name}")
+        del out, ref
+        ms = time_ms(lambda: b4.flash_sdpa(q, k, v, **kw), 10)
+        plain_ms = time_ms(plain, 1)
+        # visible (query, key) pairs and the slots they read
+        qp = c["q_positions"].long()
+        lo = ks.long()[:, None].expand(b, t)
+        hi = kl.long()[:, None].expand(b, t)
+        if c["causal"]:
+            hi = torch.minimum(hi, qp + 1)
+            if c["window"] is not None:
+                lo = torch.maximum(lo, qp - c["window"] + 1)
+        pairs = int((hi - lo).clamp(min=0).sum())
+        hkv = k.shape[2]
+        slots = int((kl - ks).clamp(min=0).sum())
+        nbytes = 2 * q.numel() * 2 + slots * hkv * d * 2 * 2
+        bms, by = bound(nbytes, 4.0 * d * hq * pairs)
+        lib_ms = None
+        if c["softcap"] is None:
+            kpos = torch.arange(k.shape[1], device=dev)
+            mask = (kpos[None, None] >= lo[:, :, None]) & (
+                kpos[None, None] < hi[:, :, None])
+            qt = q.transpose(1, 2)
+            lib_ms = time_ms(lambda: sdpa_gqa(qt, k_hm, v_hm,
+                                              mask[:, None]), 10)
+            del mask
+        row = dict(case=name, shape=f"B={b} T={t} S={k.shape[1]} Hq={hq} "
+                   f"Hkv={hkv} D={d}", max_abs_err=err, max_rel_err=worst,
+                   tol_rel=ATTN_TOL_REL, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                   visible_pairs=pairs)
+        print("B4 " + json.dumps(row), flush=True)
+        return row
+
+    rows = [
+        b4_run("generate bucket, left padded",
+               b4_case(4, 2048, 2304, [1990, 1327, 611, 203],
+                       window=4096)),
+        b4_run("4500-id prompt, window 4096 cuts",
+               b4_case(1, 4608, 4864, [4500], window=4096)),
+        b4_run("softcap 50", b4_case(2, 256, 512, [256, 190],
+                                     softcap=50.0, window=64)),
+        b4_run("non-causal", b4_case(2, 200, 300, [200, 183],
+                                     causal=False, kv_len=[300, 250])),
+    ]
+    report["b4"] = rows
+    torch.cuda.empty_cache()
+
+    # -- 8. B2 at Mistral-7B's shapes ------------------------------------------
+    # the lm head sees one token per row (last_token_only)
+    report["b2m"] = b2_rows(MISTRAL_7B_SHAPES, (4, 8192),
+                            lambda w, m: w != "lm_head" or m == 4,
+                            "mistral-7b",
+                            iters=lambda m: 30 if m < 1024 else 3)
+    torch.cuda.empty_cache()
+
+    # -- 9. a small mistral, dense form: card against CPU -------------------
+    small = mistral_7b_config(hidden_size=512, intermediate_size=1024,
+                              num_layers=2, num_heads=4, num_kv_heads=2,
+                              vocab_size=512, sliding_window=24)
+    p_cpu = random_params(small, "sym_int4", seed=2, device="cpu")
+    p_dev = to_dev(p_cpu)
+    rng = np.random.default_rng(4)
+    b, t = 3, 40
+    lengths = np.array([40, 17, 29])
+    toks = rng.integers(0, 512, (b, t)).astype(np.int32)
+    kv_start = (t - lengths).astype(np.int32)
+    pos = np.maximum(np.arange(t)[None] - kv_start[:, None], 0)
+    steps = [(toks, pos)]
+    for i in range(4):
+        steps.append((rng.integers(0, 512, (b, 1)).astype(np.int32),
+                      (lengths + i)[:, None]))
+    caches = {name: (make_cache("normal", 2, b, t + 16, 2, 128,
+                                device=device), params, device)
+              for name, device, params in (("cpu", "cpu", p_cpu),
+                                           ("cuda", dev, p_dev))}
+    worst = 0.0
+    for tk, ps_ in steps:
+        outs = {}
+        for name, (c, params, device) in caches.items():
+            lg, _ = decoder_forward(
+                small, params, torch.from_numpy(tk).to(device), c,
+                torch.from_numpy(np.ascontiguousarray(ps_)).to(device),
+                torch.from_numpy(kv_start).to(device),
+                last_token_only=True)
+            outs[name] = lg.float().cpu().numpy()
+        span = outs["cpu"].max() - outs["cpu"].min()
+        diff = np.abs(outs["cuda"] - outs["cpu"]).max() / span
+        worst = max(worst, float(diff))
+        if not np.isfinite(outs["cuda"]).all() or diff > 0.025:
+            fail(f"small mistral: card vs CPU logits differ by "
+                 f"{diff:.4f} of the logit range (bound 0.025)")
+    print(f"small mistral (window 24) card vs CPU: worst logit diff "
+          f"{worst:.5f} of the range (bound 0.025)", flush=True)
+    report["small_mistral_worst_rel"] = worst
+    del caches, p_dev
+
+    # -- 10. generate at Mistral-7B-v0.1 widths -----------------------------
+    def generate_phase():
+        from ipex_llm_tpu_torch.transformers.model import TPUModelForCausalLM
+
+        cfg = mistral_7b_config()
+        t0 = time.perf_counter()
+        params = random_params(cfg, "sym_int4", seed=0, device=dev)
+        torch.cuda.synchronize()
+        print(f"Mistral-7B-width random sym_int4 weights: "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the "
+              "card", flush=True)
+        model = TPUModelForCausalLM(cfg, params, MISTRAL_7B_V01_HF,
+                                    "sym_int4")
+        path = {"qmatmul_int4": b2, "decode_attention": b3,
+                "flash_attention": b4}
+
+        def prompts(lengths, seed):
+            rng = np.random.default_rng(seed)
+            width = max(lengths)
+            ids = np.zeros((len(lengths), width), np.int64)
+            mask = np.zeros((len(lengths), width), np.int64)
+            for i, n in enumerate(lengths):
+                ids[i, width - n:] = rng.integers(3, cfg.vocab_size, n)
+                mask[i, width - n:] = 1
+            return torch.from_numpy(ids), torch.from_numpy(mask)
+
+        def run(label, lengths, new, fp8=False, **gen_kw):
+            ids, mask = prompts(lengths, 11)
+            for mod in kernels.values():
+                mod.COUNTS.reset()
+            if fp8:
+                os.environ["IPEX_LLM_TPU_QUANTIZE_KV_CACHE"] = "1"
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            try:
+                out = model.generate(ids, attention_mask=mask,
+                                     max_new_tokens=new, eos_token_id=(),
+                                     **gen_kw)
+            finally:
+                os.environ.pop("IPEX_LLM_TPU_QUANTIZE_KV_CACHE", None)
+            wall = time.perf_counter() - t_start
+            counts = {name: (mod.COUNTS.launches, mod.COUNTS.plain_calls)
+                      for name, mod in kernels.items()}
+            res = model.last_result
+            if not isinstance(out, torch.Tensor) or out.dtype != torch.long:
+                fail(f"generate {label}: returned {type(out)}")
+            if tuple(out.shape) != (len(lengths), max(lengths) + new):
+                fail(f"generate {label}: sequences of shape "
+                     f"{tuple(out.shape)}")
+            if list(res.num_new_tokens) != [new] * len(lengths):
+                fail(f"generate {label}: new tokens per row "
+                     f"{list(res.num_new_tokens)}, want {new}")
+            new_ids = out[:, -new:]
+            if int(new_ids.min()) < 0 or int(new_ids.max()) >= \
+                    cfg.vocab_size:
+                fail(f"generate {label}: token out of range")
+            for name, (launches, plain) in counts.items():
+                if plain != 0 or (name in path and launches == 0):
+                    fail(f"generate {label}: {name} launched {launches} "
+                         f"times, plain version called {plain} times")
+            n_out = len(lengths) * new
+            row = dict(case=label, rows=len(lengths),
+                       prompt_tokens=int(sum(lengths)),
+                       prompt_bucket=-(-max(lengths) // 128) * 128,
+                       new_tokens=new, output_tokens=n_out, wall_s=wall,
+                       output_tok_s=n_out / wall,
+                       first_cost_s=model.first_cost,
+                       rest_cost_mean_s=model.rest_cost_mean,
+                       decode_tok_s=len(lengths) / model.rest_cost_mean,
+                       host_syncs=res.host_syncs,
+                       cache=res.cache_kind,
+                       launches={k: v[0] for k, v in counts.items()},
+                       distinct_new_tokens=int(torch.unique(new_ids).numel()))
+            print("generate " + json.dumps(row), flush=True)
+            return row
+
+        four = [1990, 1327, 611, 203]
+        rows = [run("(a) greedy, bf16 cache", four, 64),
+                run("(b) sampled t=0.8 top_p=0.9", four, 64, do_sample=True,
+                    temperature=0.8, top_p=0.9, seed=5),
+                run("(c) greedy, e5m2 cache", four, 64, fp8=True),
+                run("(d) 4500-id prompt, window 4096", [4500], 32)]
+        stages = profile_stages(cfg, params, four, 64)
+        del model, params
+        torch.cuda.empty_cache()
+        return rows, stages
+
+    def profile_stages(cfg, params, lengths, new):
+        """Run (a) by stage (prefill with its first sample, then the decode
+        loop) over a fresh bf16 cache: once for the host wall clock, once
+        under ``torch.profiler`` for the kernels' device time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from ipex_llm_tpu_torch import generation as g
+        from ipex_llm_tpu_torch.ops.sampling import sample
+
+        rng = np.random.default_rng(11)
+        gcfg = g.GenerationConfig(max_new_tokens=new)
+        tokens, lens, tpad = g.pad_batch(
+            [rng.integers(3, cfg.vocab_size, n).tolist() for n in lengths], 0)
+        tok_t = torch.from_numpy(tokens).to(dev)
+        len_t = torch.from_numpy(lens).to(dev)
+        kv_start = torch.from_numpy((tpad - lens).astype(np.int32)).to(dev)
+
+        def stages():
+            cache = make_cache("normal", cfg.num_layers, len(lengths),
+                               tpad + g._round_up(new + 1, g.DECODE_BLOCK),
+                               cfg.num_kv_heads, cfg.head_dim, device=dev)
+            state = {}
+
+            def prefill():
+                logits, _ = g.prefill_step(cfg, params, cache, tok_t, len_t)
+                state["first"] = sample(logits, None, gcfg.sampling())
+                return 1
+
+            def decode():
+                ring = torch.from_numpy(g._init_prev_ring(tokens, lens)).to(
+                    dev)
+                _, steps, _ = g.decode_loop(cfg, params, cache,
+                                            state["first"], len_t, kv_start,
+                                            ring, None, gcfg, new)
+                return steps - 1
+            return prefill, decode
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, n
+
+        names = (f"prefill (B={len(lengths)}, bucket {tpad})",
+                 f"decode (B={len(lengths)}, {new - 1} steps)")
+        walls = {name: timed(fn) for name, fn in zip(names, stages())}
+        rows = []
+        for name, fn in zip(names, stages()):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall_prof, _ = timed(fn)
+            kern: dict = {}
+            for ev in prof.events():
+                if ev.device_type != DeviceType.CUDA:
+                    continue
+                k = kern.setdefault(ev.name, [0.0, 0])
+                k[0] += ev.device_time_total / 1e6
+                k[1] += 1
+            if not kern:
+                fail(f"profile {name}: the profiler saw no device time")
+            wall, steps = walls[name]
+            busy = sum(v[0] for v in kern.values())
+            top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+            row = {"stage": name, "steps": steps, "wall_s": wall,
+                   "wall_s_profiled": wall_prof, "device_s": busy,
+                   "idle_share": 1.0 - busy / wall,
+                   "launches_per_step": sum(v[1] for v in kern.values())
+                   / max(steps, 1),
+                   "top": [{"kernel": k[:80], "s": v[0], "launches": v[1]}
+                           for k, v in top]}
+            print("profile " + json.dumps(row), flush=True)
+            rows.append(row)
+        return rows
+
+    report["generate"], report["generate_profile"] = generate_phase()
 
     # -- summary -------------------------------------------------------------
-    rep_b2 = next(r for r in b2_rows if r["weight"] == "gate_up"
+    serve_launches = report["serve"][0]["launches"]
+    gen_launches = report["generate"][0]["launches"]
+    rep_b2 = next(r for r in report["b2"] if r["weight"] == "gate_up"
                   and r["m"] == 8)
-    rep_b1 = next(r for r in b1_rows if r["pool"] == "bf16"
+    rep_b1 = next(r for r in report["b1"] if r["pool"] == "bf16"
                   and r["case"].startswith("row mix"))
+    rep_b3 = next(r for r in report["b3"] if r["case"] == "bf16 window off")
+    rep_b4 = report["b4"][0]
     src = "ipex_llm_tpu_torch/csrc/"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": "qmatmul_int4", "route": "cuda",
          "source": src + "qmatmul_int4.cu",
          "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
          "shape": "M=8 K=4096 N=22016 (gate_up, decode)",
-         "launches": main_launches["qmatmul_int4"],
-         "max_abs_err": max(r["max_abs_err"] for r in b2_rows),
-         **{k: rep_b2[k] for k in ("ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")}},
+         "launches": serve_launches["qmatmul_int4"],
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in report["b2"] + report["b2m"]),
+         **{k: rep_b2[k] for k in keys}},
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": src + "ragged_paged_attention.cu",
          "replaces":
              "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
          "shape": "R=8 C=128 Hq=Hkv=32 D=128 page 128, bf16 pool, "
                   "decode+chunk+idle rows",
-         "launches": main_launches["ragged_paged_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in b1_rows),
-         **{k: rep_b1[k] for k in ("ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")}},
+         "launches": serve_launches["ragged_paged_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b1"]),
+         **{k: rep_b1[k] for k in keys}},
+        {"name": "decode_attention", "route": "cuda",
+         "source": src + "decode_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/decode_attention.py:166",
+         "shape": "B=4 Hq=32 Hkv=8 D=128 S=2304, bf16 cache, ragged "
+                  "kv_start/kv_len, window off",
+         "launches": gen_launches["decode_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b3"]),
+         **{k: rep_b3[k] for k in keys}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/flash_attention.py:166",
+         "shape": "B=4 T=2048 S=2304 Hq=32 Hkv=8 D=128, causal, left "
+                  "padded",
+         "launches": gen_launches["flash_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b4"]),
+         **{k: rep_b4[k] for k in keys}},
     ]}
     out_dir = ROOT / "chiprun_out"
     try:

@@ -1,16 +1,25 @@
-"""Paged KV pool (port of ``ipex_llm_tpu/kv.py::PagedKVCache``).
+"""KV caches (port of ``ipex_llm_tpu/kv.py``).
 
-One pool per k/v of shape ``[L, P, Hkv, page, D]`` shared by every row, a
-per-row block table ``[R, maxP]`` of page ids (-1 = unallocated), storage in
-bf16 or ``torch.float8_e5m2``.  Page 0 is the engine's scratch page: writes
-past the table width or into unallocated slots land there.  Unlike the
-reference's immutable arrays, the pool is updated in place (it is the
-largest buffer on the card; a copy per layer per tick would double its
-traffic), so :meth:`update_layer` returns the layer views it wrote.
+Two forms, both in bf16 or ``torch.float8_e5m2`` storage:
+
+- the dense head-major cache of ``generate()`` (:class:`KVCache`,
+  :class:`Fp8KVCache`): one buffer per k/v of shape ``[L, B, Hkv, S, D]``
+  and a filled-prefix ``length``, written at one uniform slot offset;
+- the paged pool of the serving engine (:class:`PagedKVCache`): one pool
+  per k/v of shape ``[L, P, Hkv, page, D]`` shared by every row, a per-row
+  block table ``[R, maxP]`` of page ids (-1 = unallocated).  Page 0 is the
+  engine's scratch page: writes past the table width or into unallocated
+  slots land there.
+
+Unlike the reference's immutable arrays, both are updated in place (the
+cache is the largest buffer on the card; a copy per layer per step would
+double its traffic), so ``update_layer`` returns the layer views it wrote,
+and the dense cache's ``length`` is a Python int the decoder advances.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -37,6 +46,73 @@ def paged_page_bytes(n_layers: int, n_kv_heads: int, page_size: int,
     unit of the engine's ``kv_pool_bytes`` budget)."""
     itemsize = torch.empty((), dtype=kv_storage_dtype(storage)).element_size()
     return n_layers * n_kv_heads * page_size * 2 * head_dim * itemsize
+
+
+def _write(layer: torch.Tensor, enc: torch.Tensor, index):
+    """``layer[index] = enc`` in place; float8 layers write through a uint8
+    view of the same bytes (the indexing kernels do not cover every float8
+    dtype on every device)."""
+    if enc.element_size() == 1:
+        layer.view(torch.uint8)[index] = enc.view(torch.uint8)
+    else:
+        layer[index] = enc
+
+
+@dataclass
+class KVCache:
+    """Dense head-major KV of ``generate()`` (the reference's ``KVCache``)."""
+
+    k: torch.Tensor        # [L, B, Hkv, S_max, D] storage dtype
+    v: torch.Tensor
+    length: int = 0        # filled prefix, the same for every row
+    storage: str = "bf16"
+
+    @classmethod
+    def init(cls, n_layers: int, batch: int, max_len: int, n_kv_heads: int,
+             head_dim: int, v_head_dim: int | None = None,
+             device=None) -> "KVCache":
+        if v_head_dim not in (None, head_dim):
+            raise NotImplementedError("a V head width other than K's is not "
+                                      "ported")
+        dtype = kv_storage_dtype(cls.storage)    # the class's default
+        shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.k.dtype)
+
+    def decode_layer(self, kl: torch.Tensor,
+                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+        return kl.to(compute_dtype)
+
+    def update_layer(self, kl: torch.Tensor, vl: torch.Tensor,
+                     new_k: torch.Tensor, new_v: torch.Tensor, pos: int):
+        """Write new_k/new_v [B, T, H, D] into the layer views [B, H, S, D]
+        at slot ``pos`` (one uniform Python-int offset, the generate loop's
+        invariant), in place."""
+        if not isinstance(pos, int):
+            raise NotImplementedError("per-row offsets into the dense cache "
+                                      "are not ported (pass an int)")
+        t = new_k.shape[1]
+        if pos < 0 or pos + t > kl.shape[2]:
+            raise ValueError(f"slots [{pos}, {pos + t}) outside the cache's "
+                             f"{kl.shape[2]}")
+        for layer, new in ((kl, new_k), (vl, new_v)):
+            _write(layer, self.encode(new).transpose(1, 2),
+                   (slice(None), slice(None), slice(pos, pos + t)))
+        return kl, vl
+
+
+@dataclass
+class Fp8KVCache(KVCache):
+    """e5m2 KV storage (the reference's ``Fp8KVCache``)."""
+
+    storage: str = "fp8"
 
 
 @dataclass
@@ -97,14 +173,8 @@ class PagedKVCache:
         valid = (page_idx < maxp) & (pages >= 0)
         pages = torch.where(valid, pages, torch.zeros_like(pages))
         offs = slots % ps
-        # float8 pools scatter through a uint8 view of the same bytes: the
-        # indexing kernels do not cover every float8 dtype on every device
         for layer, new in ((kl, new_k), (vl, new_v)):
-            enc = self.encode(new)
-            if enc.element_size() == 1:
-                layer.view(torch.uint8)[pages, :, offs] = enc.view(torch.uint8)
-            else:
-                layer[pages, :, offs] = enc
+            _write(layer, self.encode(new), (pages, slice(None), offs))
         return kl, vl
 
     def gather_layer(self, kl: torch.Tensor) -> torch.Tensor:
@@ -122,3 +192,32 @@ def gather_rows(pool_layer: torch.Tensor, tables: torch.Tensor
     t = tables.long().clamp(0, pool_layer.shape[0] - 1)
     g = pool_layer[t].permute(0, 2, 1, 3, 4)        # [R, H, maxP, page, D]
     return g.reshape(r, g.shape[1], maxp * pool_layer.shape[2], g.shape[4])
+
+
+# cache-kind registry: dense kinds take KVCache.init's signature, paged kinds
+# PagedKVCache.init's (the serving pool)
+CACHE_KINDS = {
+    "normal": KVCache.init,
+    "fp8": Fp8KVCache.init,
+    "paged": PagedKVCache.init,
+    "paged_fp8": lambda *a, **kw: PagedKVCache.init(*a, storage="fp8", **kw),
+}
+
+
+def make_cache(kind: str, *args, **kwargs):
+    """kind: 'normal' | 'fp8' (dense) | 'paged' | 'paged_fp8' (pool)."""
+    try:
+        ctor = CACHE_KINDS[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown kv cache kind {kind!r}: valid kinds are "
+            f"{sorted(CACHE_KINDS)}") from None
+    return ctor(*args, **kwargs)
+
+
+def use_quantize_kv_cache() -> bool:
+    """Opt-in gate for e5m2 KV: IPEX_LLM_TPU_QUANTIZE_KV_CACHE=1 (or the
+    reference's IPEX_LLM_QUANTIZE_KV_CACHE); never on silently."""
+    flag = os.environ.get("IPEX_LLM_TPU_QUANTIZE_KV_CACHE",
+                          os.environ.get("IPEX_LLM_QUANTIZE_KV_CACHE", ""))
+    return flag == "1"

@@ -1,11 +1,12 @@
 """Decoder configuration (port of ``ipex_llm_tpu/models/config.py``).
 
-The port keeps the reference's field names for the llama family, so a
-reference config maps across field by field (:meth:`ModelConfig.from_fields`).
-Every architectural switch the slice does not cover is checked in
-``__post_init__`` and raises ``NotImplementedError``: other families,
-sliding windows, softcaps, biases, MLA and MoE are not routed to a plain
-path.
+The port keeps the reference's field names for the llama and mistral
+families, so a reference config maps across field by field
+(:meth:`ModelConfig.from_fields`).  Every architectural switch the port does
+not cover is checked in ``__post_init__`` and raises
+``NotImplementedError``: other families, a sliding window outside mistral,
+per-layer window patterns, softcaps, biases, MLA and MoE are not routed to
+a plain path.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from ipex_llm_tpu_torch.ops.rope import RopeScaling
 @dataclass(frozen=True)
 class ModelConfig:
     """A llama-family decoder: pre-RMSNorm blocks, merged qkv and gate_up
-    projections, SwiGLU MLP, rotary positions in the "half" layout."""
+    projections, SwiGLU MLP, rotary positions in the "half" layout; mistral
+    adds a sliding window on every layer."""
 
     model_type: str
     vocab_size: int
@@ -34,11 +36,19 @@ class ModelConfig:
     rope: RopeScaling | None = None
     rope_layout: str = "half"
     tie_word_embeddings: bool = False
+    sliding_window: int | None = None
 
     def __post_init__(self):
-        if self.model_type != "llama":
+        if self.model_type not in ("llama", "mistral"):
             raise NotImplementedError(
-                f"model_type {self.model_type!r} is not ported (llama only)")
+                f"model_type {self.model_type!r} is not ported (llama, "
+                "mistral)")
+        if self.sliding_window is not None:
+            if self.model_type != "mistral":
+                raise NotImplementedError(
+                    f"a sliding window on {self.model_type!r} is not ported")
+            if int(self.sliding_window) <= 0:
+                raise ValueError("sliding_window must be positive")
         if self.act != "silu" or self.rope_layout != "half":
             raise NotImplementedError(
                 f"act={self.act!r} rope_layout={self.rope_layout!r} is not "
@@ -51,6 +61,11 @@ class ModelConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
 
+    def layer_is_sliding(self, layer_idx: int) -> bool:
+        """Every layer of a windowed model slides (per-layer patterns,
+        ``layer_types``, are not ported)."""
+        return self.sliding_window is not None
+
     @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
@@ -59,7 +74,7 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
-    # Reference fields whose default value is the only one the slice
+    # Reference fields whose default value is the only one the port
     # serves; any other value raises in from_fields.
     _DEFAULTS = {
         "norm_kind": "rms", "norm_offset": 0.0, "qk_norm": False,
@@ -69,7 +84,7 @@ class ModelConfig:
         "mlp_bias": False, "mlp_gated": True, "parallel_blocks": False,
         "alibi": False, "learned_pos": 0, "embed_norm": False,
         "norm_after": False, "logit_scale": 1.0, "glm_alpha": 0.0,
-        "rope_2d": False, "sliding_window": None, "layer_types": None,
+        "rope_2d": False, "layer_types": None,
         "attn_softcap": None, "logit_softcap": None, "attn_scale": None,
         "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
         "kv_heads_per_layer": None, "num_experts": 0,
@@ -83,7 +98,7 @@ class ModelConfig:
         """Build from the reference config's fields (a plain dict such as
         ``dataclasses.asdict`` gives, with ``rope`` as a dict of
         ``RopeScaling`` fields).  Raises on any field whose value selects
-        a feature outside the slice."""
+        a feature outside the port."""
         own = {f.name for f in fields(cls)}
         kw = {}
         for name, val in values.items():

@@ -1,4 +1,4 @@
-"""Random llama weights made on the device (port of
+"""Random llama-family weights made on the device (port of
 ``ipex_llm_tpu/models/random_init.py`` and the llama half of
 ``models/build.py``).
 
@@ -15,11 +15,13 @@ stacked ``[L, ...]`` layer leaves, merged qkv and gate_up, weights
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import torch
 
 from ipex_llm_tpu_torch.device import resolve_device
 from ipex_llm_tpu_torch.models.config import ModelConfig
+from ipex_llm_tpu_torch.models.families import config_from_hf
 from ipex_llm_tpu_torch.ops.rope import RopeScaling
 from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
 
@@ -48,6 +50,27 @@ def llama2_7b_config(**over) -> ModelConfig:
              max_position_embeddings=4096, norm_eps=1e-5)
     d.update(over)
     return llama_config(**d)
+
+
+# huggingface.co/mistralai/Mistral-7B-v0.1, config.json (the fields the
+# decoder reads)
+MISTRAL_7B_V01_HF = {
+    "model_type": "mistral", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "max_position_embeddings": 32768, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-5, "sliding_window": 4096, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+}
+
+
+def mistral_7b_config(**over) -> ModelConfig:
+    """Mistral-7B-v0.1's published widths (hidden 4096, ffn 14336, 32
+    layers, 32 query heads over 8 kv heads of 128, vocab 32000, sliding
+    window 4096), through the families lookup; ``over`` replaces fields of
+    the result (``num_layers`` to cut depth)."""
+    cfg = config_from_hf(MISTRAL_7B_V01_HF)
+    return replace(cfg, **over) if over else cfg
 
 
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,

@@ -1,17 +1,24 @@
 """Scaled dot-product attention (port of ``ipex_llm_tpu/ops/attention.py``).
 
-The slice needs ``sdpa_reference`` (the oracle the plain ragged attention
-is built on) and the paged branch of ``cached_sdpa``: every attention of
-the serving tick goes to the ragged paged kernel (B1).  The reference's
-other branches (bias, sliding window, softcap, left padding, the dense
-cache) are outside the slice; ``ModelConfig`` refuses the models that
-would need them.
+``sdpa_reference`` keeps the reference's whole contract (causal and
+non-causal, GQA, ``kv_len``/``kv_start`` validity, a sliding window with an
+enable flag, softcap); it is the oracle the kernels' plain versions are
+built on.  The port has no dispatch ladder: a bias-free ``sdpa`` goes to
+the flash kernel (B4) whatever T is, and a T=1 ``cached_sdpa`` over the
+dense cache to the decode kernel (B3), each wrapper running its kernel on
+a CUDA tensor and its plain version on a CPU one.  (The reference's
+``T >= 128`` rule picks the flash kernel on a TPU by measurement; on the
+card it would leave short prefills on the plain version.)  Attention over
+the serving engine's paged pool goes to the ragged paged kernel (B1).
+Biases, and windows or softcaps over the paged pool, raise.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ipex_llm_tpu_torch.ops.cuda.decode_attention import decode_sdpa
+from ipex_llm_tpu_torch.ops.cuda.flash_attention import flash_sdpa
 from ipex_llm_tpu_torch.ops.cuda.ragged_paged_attention import \
     ragged_paged_sdpa
 
@@ -19,12 +26,23 @@ NEG_INF = -1e30
 
 
 def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   q_positions: torch.Tensor, kv_len: torch.Tensor,
-                   scale: float | None = None,
+                   scale: float | None = None, causal: bool = True,
+                   q_positions: torch.Tensor | None = None,
+                   kv_len: torch.Tensor | None = None,
+                   kv_start: torch.Tensor | None = None,
+                   window: int | None = None, window_on=True,
+                   softcap: float | None = None,
+                   bias: torch.Tensor | None = None,
                    acc_dtype=torch.float32) -> torch.Tensor:
-    """Causal attention: q [B, T, Hq, D] at absolute slots ``q_positions``
-    [B, T], k/v [B, S, Hkv, D] valid below ``kv_len`` [B]; returns
-    [B, T, Hq, D] in q's dtype.  Scores and softmax in ``acc_dtype``."""
+    """q [B, T, Hq, D] against k/v [B, S, Hkv, D]; returns [B, T, Hq, D] in
+    q's dtype.  Scores and softmax in ``acc_dtype``.  Key slot s is valid
+    below ``kv_len`` [B] and from ``kv_start`` [B]; causal masking is on the
+    absolute slots ``q_positions`` [B, T] (default 0..T-1), and with a
+    ``window`` a key must also lie within ``window`` slots of the query
+    where ``window_on`` (a bool or a [B] tensor) is set.  A query with no
+    valid key gets the mean of V (the softmax of an all-masked row)."""
+    if bias is not None:
+        raise NotImplementedError("attention biases are not ported")
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if hq != hkv:   # GQA: head h reads kv head h // (Hq/Hkv)
@@ -34,22 +52,66 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = d ** -0.5
     scores = torch.einsum("bthd,bshd->bhts", q.to(acc_dtype),
                           k.to(acc_dtype)) * scale
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
     kv_pos = torch.arange(s, device=q.device)[None, None, None, :]
-    mask = (kv_pos < kv_len[:, None, None, None]) & (
-        kv_pos <= q_positions[:, None, :, None])
+    mask = torch.ones((b, 1, t, s), dtype=torch.bool, device=q.device)
+    if kv_len is not None:
+        mask &= kv_pos < kv_len[:, None, None, None]
+    if kv_start is not None:
+        mask &= kv_pos >= kv_start[:, None, None, None]
+    if causal:
+        if q_positions is None:
+            q_positions = torch.arange(t, device=q.device)[None].expand(b, t)
+        qp = q_positions[:, None, :, None]
+        mask &= kv_pos <= qp
+        if window is not None:
+            won = torch.as_tensor(window_on, device=q.device).bool()
+            if won.dim() == 1:
+                won = won[:, None, None, None]
+            mask &= (kv_pos > qp - window) | ~won
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhts,bshd->bthd", probs, v.to(acc_dtype))
     return out.to(q.dtype)
 
 
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         **kwargs) -> torch.Tensor:
+    """Attention with ``sdpa_reference``'s arguments through the flash
+    kernel (B4; a bias raises); a query with no valid key gets 0."""
+    return flash_sdpa(q, k, v, **kwargs)
+
+
 def cached_sdpa(q: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, cache,
-                *, kv_len: torch.Tensor,
+                *, compute_dtype=torch.bfloat16,
                 chunk_lens: torch.Tensor | None = None,
-                scale: float | None = None) -> torch.Tensor:
-    """SDPA over one paged pool layer in its storage dtype: the ragged
-    paged kernel reads each row's pages through ``cache.tables``.  Queries
-    sit right-aligned at slots ``[kv_len - chunk_lens, kv_len)`` (the
-    engine's invariant)."""
-    return ragged_paged_sdpa(q, kl, vl, cache.tables, kv_len, chunk_lens,
-                             scale=scale)
+                **kwargs) -> torch.Tensor:
+    """SDPA over one cache layer in its storage layout and dtype.
+
+    Paged pool (``cache.tables``): the ragged paged kernel reads each row's
+    pages; queries sit right-aligned at slots ``[kv_len - chunk_lens,
+    kv_len)`` (the engine's invariant).  Dense cache (layer [B, Hkv, S,
+    D]): a T=1 step reads the layer as stored through the decode kernel
+    (e5m2 widened inside it); every other shape widens the layer once and
+    runs ``sdpa`` on its ``[B, S, Hkv, D]`` view (no copy: the flash kernel
+    reads through the strides)."""
+    if kwargs.get("bias") is not None:
+        raise NotImplementedError("attention biases are not ported")
+    if hasattr(cache, "tables"):
+        if kwargs.get("kv_start") is not None or kwargs.get("softcap") \
+                is not None or kwargs.get("window") is not None:
+            raise NotImplementedError(
+                "left padding, windows and softcaps over the paged pool are "
+                "not ported")
+        return ragged_paged_sdpa(q, kl, vl, cache.tables, kwargs["kv_len"],
+                                 chunk_lens, scale=kwargs.get("scale"))
+    if q.shape[1] == 1:
+        return decode_sdpa(
+            q, kl, vl, scale=kwargs.get("scale"), kv_len=kwargs.get("kv_len"),
+            kv_start=kwargs.get("kv_start"), window=kwargs.get("window"),
+            window_on=kwargs.get("window_on", True),
+            softcap=kwargs.get("softcap"))
+    kd = cache.decode_layer(kl, compute_dtype).transpose(1, 2)
+    vd = cache.decode_layer(vl, compute_dtype).transpose(1, 2)
+    return sdpa(q, kd, vd, **kwargs)

@@ -1,0 +1,178 @@
+"""Decode-step attention over the dense KV cache (kernel B3; port of
+``ipex_llm_tpu/ops/pallas/decode_attention.py::decode_sdpa``).
+
+``csrc/decode_attention.cu`` holds the kernel and the note on its design
+and bound.  :func:`decode_sdpa` keeps the reference's public signature,
+launches the kernel for CUDA tensors and runs :func:`decode_sdpa_plain`
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ipex_llm_tpu_torch.ops.cuda import _build
+
+NAME = "decode_attention"
+COUNTS = _build.Counts()
+_HEAD_DIMS = (128,)          # the kernel's instance
+_GROUPS = (1, 2, 4, 8)       # Hq / Hkv instances
+_KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
+_TARGET_BLOCKS = 4 * 132     # about four resident blocks per SM
+_SPLIT_ALIGN = 128           # one pass of the block's 4 warps x 32 keys
+
+
+def row_vectors(b: int, s: int, device, kv_len, kv_start, window_on):
+    """kv_len, kv_start and the window enable as int32 [B] on ``device``
+    (the reference's defaults: the whole buffer, slot 0, enabled).  A
+    Python scalar becomes a fill on the device, not a host-to-device copy
+    (the decoder passes its per-layer window flag as a bool)."""
+    def vec(x, default):
+        x = default if x is None else x
+        if not isinstance(x, torch.Tensor):
+            return torch.full((b,), int(x), dtype=torch.int32, device=device)
+        return x.to(device=device, dtype=torch.int32).expand(b).contiguous()
+    return vec(kv_len, s), vec(kv_start, 0), vec(window_on, 1)
+
+
+def call_args(q, s: int, hkv: int, *, scale, kv_len, kv_start,
+              window, window_on, softcap):
+    """The checks and defaults of B3's and B4's wrappers, in one place:
+    returns (scale, kv_len, kv_start, won, window, softcap) with the row
+    vectors as :func:`row_vectors` makes them."""
+    b, _, hq, d = q.shape
+    if hq % hkv:
+        raise NotImplementedError("Hq must be a multiple of Hkv")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    kv_len, kv_start, won = row_vectors(b, s, q.device, kv_len, kv_start,
+                                        window_on)
+    return (float(d ** -0.5 if scale is None else scale), kv_len, kv_start,
+            won, None if window is None else int(window),
+            None if softcap is None else float(softcap))
+
+
+def first_visible(kv_len, kv_start, won, window: int | None):
+    """[B] first slot a decode query at ``kv_len - 1`` can see."""
+    lo = kv_start.clamp(min=0)
+    if window is not None:
+        lo = torch.where(won != 0, torch.maximum(lo, kv_len - window), lo)
+    return lo
+
+
+def decode_sdpa_plain(q, k_raw, v_raw, *, scale: float, kv_len, kv_start,
+                      won, window: int | None, softcap: float | None
+                      ) -> torch.Tensor:
+    """The plain version: ``sdpa_reference`` in float64 on the widened
+    layer with the query at slot ``kv_len - 1``; a row that sees no key
+    returns 0, as the kernel does."""
+    from ipex_llm_tpu_torch.ops.attention import sdpa_reference
+
+    COUNTS.plain_calls += 1
+    s = k_raw.shape[2]
+
+    def widen(x):                                  # [B, S, Hkv, D]
+        return x.to(torch.bfloat16).transpose(1, 2)
+
+    out = sdpa_reference(q, widen(k_raw), widen(v_raw), scale=scale,
+                         q_positions=(kv_len - 1).long()[:, None],
+                         kv_len=kv_len.long(), kv_start=kv_start.long(),
+                         window=window, window_on=won.bool()[:, None, None, None],
+                         softcap=softcap, acc_dtype=torch.float64)
+    keep = first_visible(kv_len, kv_start, won, window) < kv_len.clamp(max=s)
+    return torch.where(keep[:, None, None, None], out, torch.zeros_like(out))
+
+
+def split_plan(b: int, hkv: int, s: int) -> tuple[int, int]:
+    """(splits, slots per split) of the S axis: enough blocks to cover the
+    card, each split a whole number of the block's 128-key passes."""
+    passes = -(-s // _SPLIT_ALIGN)
+    splits = max(1, min(math.ceil(_TARGET_BLOCKS / (b * hkv)), passes))
+    split_len = -(-passes // splits) * _SPLIT_ALIGN
+    return -(-s // split_len), split_len
+
+
+def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
+    b, _, hq, d = q.shape
+    _, hkv, s, dk = k_raw.shape
+    dev = q.device
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"decode attention kernel takes bf16 q, got {q.dtype}")
+    if k_raw.dtype not in _KV_DTYPES or v_raw.dtype != k_raw.dtype:
+        raise TypeError("decode attention kernel takes a bf16 or "
+                        f"float8_e5m2 cache, got {k_raw.dtype}/{v_raw.dtype}")
+    if tuple(v_raw.shape) != tuple(k_raw.shape) or dk != d \
+            or k_raw.shape[0] != b:
+        raise ValueError("k/v must be [B, Hkv, S, D] with q's B and D")
+    if d not in _HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
+    if hq // hkv not in _GROUPS:
+        raise NotImplementedError(f"GQA group {hq // hkv} (kernel has "
+                                  f"{_GROUPS})")
+    for t in (k_raw, v_raw, kv_len, kv_start, won):
+        if t.device != dev:
+            raise ValueError("all decode attention inputs must be on q's "
+                             "device")
+    for t in (q, k_raw, v_raw):
+        if not t.is_contiguous():
+            raise ValueError("decode attention kernel needs contiguous "
+                             "tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("decode attention kernel needs 16-byte aligned "
+                             "tensors")
+    lib = _build.load(NAME, _declare)
+    splits, split_len = split_plan(b, hkv, s)
+    g = hq // hkv
+    out = torch.empty_like(q)
+    part_acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty((b, hkv, splits, g, 2), dtype=torch.float32,
+                          device=dev)
+    err = lib.decode_attention(
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_raw.data_ptr()),
+        ctypes.c_void_p(v_raw.data_ptr()), ctypes.c_void_p(kv_len.data_ptr()),
+        ctypes.c_void_p(kv_start.data_ptr()), ctypes.c_void_p(won.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(part_acc.data_ptr()),
+        ctypes.c_void_p(part_ml.data_ptr()), b, hq, hkv, s, d, splits,
+        split_len, int(k_raw.dtype == torch.float8_e5m2), ctypes.c_float(scale),
+        -1 if window is None else window,
+        ctypes.c_float(0.0 if softcap is None else softcap),
+        _build.stream_handle(q))
+    # the split kernel and the merge of its partials
+    COUNTS.launches += 2
+    _build.check(err, NAME)
+    return out
+
+
+def decode_sdpa(q: torch.Tensor, k_raw: torch.Tensor, v_raw: torch.Tensor,
+                *, scale: float | None = None, kv_len=None, kv_start=None,
+                window: int | None = None, window_on=True,
+                softcap: float | None = None) -> torch.Tensor:
+    """T=1 attention over the raw (bf16 or e5m2) head-major cache layer.
+
+    q [B, 1, Hq, D]; k_raw/v_raw [B, Hkv, S, D]; kv_len/kv_start [B] (None:
+    S and 0); ``window_on`` a bool or a [B] tensor.  The query sits at slot
+    ``kv_len - 1`` (the decode loop's invariant), which subsumes the causal
+    mask.  Returns [B, 1, Hq, D] in q's dtype."""
+    if q.shape[1] != 1:
+        raise ValueError("decode attention takes single-token steps")
+    scale, kv_len, kv_start, won, window, softcap = call_args(
+        q, k_raw.shape[2], k_raw.shape[1], scale=scale, kv_len=kv_len,
+        kv_start=kv_start, window=window, window_on=window_on,
+        softcap=softcap)
+    if q.is_cuda:
+        return _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window,
+                       softcap)
+    return decode_sdpa_plain(q, k_raw, v_raw, scale=scale, kv_len=kv_len,
+                             kv_start=kv_start, won=won, window=window,
+                             softcap=softcap)
+
+
+def _declare(lib: ctypes.CDLL):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.decode_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                     i, i, i, f, i, f, p]
+    lib.decode_attention.restype = ctypes.c_int

@@ -1,0 +1,139 @@
+"""Flash attention for prefill (kernel B4; port of
+``ipex_llm_tpu/ops/pallas/flash_attention.py::flash_sdpa``).
+
+``csrc/flash_attention.cu`` holds the kernel and the note on its design
+and bound.  :func:`flash_sdpa` keeps the reference's public signature,
+launches the kernel for CUDA tensors and runs :func:`flash_sdpa_plain` for
+CPU tensors.  K/V are bf16 (the caller widens an e5m2 cache layer once, as
+the reference's ``cached_sdpa`` does) and are read through their strides,
+so the dense cache's head-major layer seen as ``[B, S, Hkv, D]`` is not
+copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ipex_llm_tpu_torch.ops.cuda import _build
+from ipex_llm_tpu_torch.ops.cuda.decode_attention import call_args
+
+NAME = "flash_attention"
+COUNTS = _build.Counts()
+_HEAD_DIMS = (128,)          # the kernel's instance
+
+
+def visible_queries(q_positions, kv_len, kv_start, won, *, causal: bool,
+                    window: int | None, s: int) -> torch.Tensor:
+    """[B, T] bool: the query sees at least one key slot."""
+    lo = kv_start.clamp(min=0)[:, None].expand_as(q_positions)
+    hi = kv_len.clamp(max=s)[:, None].expand_as(q_positions)
+    if causal:
+        hi = torch.minimum(hi, q_positions + 1)
+        if window is not None:
+            lo = torch.where(won[:, None] != 0,
+                             torch.maximum(lo, q_positions - window + 1), lo)
+    return lo < hi
+
+
+def flash_sdpa_plain(q, k, v, *, scale: float, causal: bool, q_positions,
+                     kv_len, kv_start, won, window: int | None,
+                     softcap: float | None) -> torch.Tensor:
+    """The plain version: ``sdpa_reference`` in float64, and 0 for a query
+    that sees no key (the kernel's and the TPU kernel's result; the
+    reference's softmax over an all-masked row gives the mean of V)."""
+    from ipex_llm_tpu_torch.ops.attention import sdpa_reference
+
+    COUNTS.plain_calls += 1
+    out = sdpa_reference(q, k, v, scale=scale, causal=causal,
+                         q_positions=q_positions, kv_len=kv_len,
+                         kv_start=kv_start, window=window,
+                         window_on=won.bool(), softcap=softcap,
+                         acc_dtype=torch.float64)
+    keep = visible_queries(q_positions, kv_len, kv_start, won, causal=causal,
+                           window=window, s=k.shape[1])
+    return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
+
+
+def _launch(q, k, v, q_positions, kv_len, kv_start, won, scale, causal,
+            window, softcap):
+    b, t, hq, d = q.shape
+    _, s, hkv, dk = k.shape
+    dev = q.device
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 \
+            or v.dtype != torch.bfloat16:
+        raise TypeError("flash attention kernel takes bf16 q/k/v, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if tuple(v.shape) != tuple(k.shape) or dk != d or k.shape[0] != b:
+        raise ValueError("k/v must be [B, S, Hkv, D] with q's B and D")
+    if d not in _HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
+    if k.stride() != v.stride() or k.stride(3) != 1:
+        raise ValueError("k and v need the same strides and a contiguous "
+                         "head dim")
+    if any(st % 8 for st in k.stride()[:3]):
+        raise ValueError("k/v strides must be multiples of 8 elements")
+    if not q.is_contiguous():
+        raise ValueError("flash attention kernel needs a contiguous q")
+    for x in (q, k, v):
+        if x.data_ptr() % 16:
+            raise ValueError("flash attention kernel needs 16-byte aligned "
+                             "tensors")
+    for x in (k, v, q_positions, kv_len, kv_start, won):
+        if x.device != dev:
+            raise ValueError("all flash attention inputs must be on q's "
+                             "device")
+    if t > 65535 * 64 or hq > 65535 or b > 65535:
+        raise ValueError("grid too large for one launch")
+    qpos = q_positions.to(torch.int32).contiguous()
+    lib = _build.load(NAME, _declare)
+    out = torch.empty_like(q)
+    err = lib.flash_attention(
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(qpos.data_ptr()),
+        ctypes.c_void_p(kv_len.data_ptr()),
+        ctypes.c_void_p(kv_start.data_ptr()), ctypes.c_void_p(won.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), b, t, hq, hkv, s, d,
+        k.stride(0), k.stride(1), k.stride(2), ctypes.c_float(scale),
+        int(causal), -1 if window is None else window,
+        ctypes.c_float(0.0 if softcap is None else softcap),
+        _build.stream_handle(q))
+    COUNTS.launches += 1
+    _build.check(err, NAME)
+    return out
+
+
+def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               scale: float | None = None, causal: bool = True,
+               q_positions: torch.Tensor | None = None, kv_len=None,
+               kv_start=None, window: int | None = None, window_on=True,
+               softcap: float | None = None,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The contract of ``ops.attention.sdpa_reference`` (q [B, T, Hq, D],
+    k/v [B, S, Hkv, D]), except that a query with no visible key gives 0.
+    Returns [B, T, Hq, D] in q's dtype."""
+    if bias is not None:
+        raise NotImplementedError("bias is not supported by the flash kernel")
+    scale, kv_len, kv_start, won, window, softcap = call_args(
+        q, k.shape[1], k.shape[2], scale=scale, kv_len=kv_len,
+        kv_start=kv_start, window=window, window_on=window_on,
+        softcap=softcap)
+    if q_positions is None:
+        b, t = q.shape[:2]
+        q_positions = torch.arange(t, device=q.device)[None].expand(b, t)
+    if q.is_cuda:
+        return _launch(q, k, v, q_positions, kv_len, kv_start, won, scale,
+                       bool(causal), window, softcap)
+    return flash_sdpa_plain(q, k, v, scale=scale, causal=bool(causal),
+                            q_positions=q_positions.long(), kv_len=kv_len,
+                            kv_start=kv_start, won=won, window=window,
+                            softcap=softcap)
+
+
+def _declare(lib: ctypes.CDLL):
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    lib.flash_attention.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                    ll, ll, ll, f, i, i, f, p]
+    lib.flash_attention.restype = ctypes.c_int

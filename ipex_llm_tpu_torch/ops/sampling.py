@@ -1,20 +1,28 @@
-"""Per-row token sampling for the serving engine (port of
-``ipex_llm_tpu/ops/sampling.py``: ``sample_rows_with_logprobs`` and the
-per-row top-k / top-p masks).
+"""Token sampling (port of ``ipex_llm_tpu/ops/sampling.py``).
 
-Greedy rows take the argmax and every row reports the raw log-softmax
-logprob of its token, exactly as the reference.  Sampled rows cannot
-reproduce the reference's bits: it draws with JAX's threefry keys
-(``fold_in(PRNGKey(seed), step)``), and a port of threefry would tie the
-engine to one framework's generator for no gain in quality.  The port
-instead draws each row with Gumbel-max over counter-based uniforms: a hash
-of ``(seed, step, vocab index)`` computed on the device.  A row's stream
-then depends only on its seed and output index — never on its batch
-mates, the tick shape or the decode horizon — which is the property the
-engine's equivalences rest on.
+Two consumers, as in the reference:
+
+- ``generate()`` samples the whole batch with one :class:`SamplingParams`
+  (:func:`sample`: repetition penalty, then greedy argmax, or temperature,
+  top-k and top-p and a draw);
+- the serving engine samples each row with its own knobs and reports the
+  raw log-softmax logprob of its token (:func:`sample_rows_with_logprobs`).
+
+Greedy choices are the reference's exactly.  Sampled draws cannot
+reproduce the reference's bits: it draws with JAX's threefry keys, and a
+port of threefry would tie the port to one framework's generator for no
+gain in quality.  ``sample`` draws with Gumbel-max over uniforms from an
+explicit ``torch.Generator`` on the logits' device (no host sync), so a
+seeded ``generate()`` repeats itself.  The engine draws each row with
+Gumbel-max over counter-based uniforms: a hash of ``(seed, step, vocab
+index)`` computed on the device.  A row's stream then depends only on its
+seed and output index, never on its batch mates, the tick shape or the
+decode horizon, which is the property the engine's equivalences rest on.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -106,3 +114,63 @@ def sample_rows_with_logprobs(logits: torch.Tensor, temps: torch.Tensor,
         chosen = torch.where(active, chosen, torch.zeros_like(chosen))
         lp = torch.where(active, lp, torch.zeros_like(lp))
     return chosen, lp
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    temperature: float = 1.0
+    top_k: int = 0          # 0 = off
+    top_p: float = 1.0      # 1.0 = off
+    repetition_penalty: float = 1.0
+    do_sample: bool = False
+
+
+def apply_repetition_penalty(logits: torch.Tensor, prev_tokens: torch.Tensor,
+                             penalty: float) -> torch.Tensor:
+    """CTRL-style repetition penalty over previously seen tokens.
+
+    logits [B, V]; prev_tokens [B, L] with -1 padding for unused slots."""
+    if penalty == 1.0:
+        return logits
+    valid = prev_tokens >= 0
+    idx = torch.where(valid, prev_tokens, torch.zeros_like(prev_tokens))
+    hits = torch.zeros(logits.shape, dtype=torch.int32, device=logits.device)
+    hits.scatter_add_(1, idx.long(), valid.to(torch.int32))
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(hits > 0, penalized, logits)
+
+
+def _top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
+
+
+def _transform_logits(logits: torch.Tensor,
+                      params: SamplingParams) -> torch.Tensor:
+    """The temperature/top-k/top-p transform chain of :func:`sample`."""
+    logits = logits.to(torch.float32)
+    if params.temperature not in (0.0, 1.0):
+        logits = logits / params.temperature
+    if params.top_k > 0:
+        logits = _top_k_mask(logits, params.top_k)
+    if params.top_p < 1.0:
+        logits = _top_p_mask(logits, params.top_p)
+    return logits
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator | None,
+           params: SamplingParams,
+           prev_tokens: torch.Tensor | None = None) -> torch.Tensor:
+    """Next token ids [B] (int32) from logits [B, V].  A sampled draw takes
+    its uniforms from ``generator`` (on the logits' device); greedy needs
+    none."""
+    logits = logits.to(torch.float32)
+    if prev_tokens is not None and params.repetition_penalty != 1.0:
+        logits = apply_repetition_penalty(logits, prev_tokens,
+                                          params.repetition_penalty)
+    if not params.do_sample:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = _transform_logits(logits, params)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)

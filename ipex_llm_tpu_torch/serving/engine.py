@@ -306,6 +306,10 @@ class ServingEngine:
                  default_eos: tuple[int, ...] = (), device=None):
         """``params`` must already lie on ``device`` (``None`` = cuda)."""
         self.device = resolve_device(device)
+        if cfg.sliding_window is not None:
+            raise NotImplementedError(
+                "serving a windowed model over the paged pool is not ported "
+                "(generate() serves it over the dense cache)")
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")

@@ -1,0 +1,406 @@
+"""The port's dense ``generate()`` path against the JAX package.
+
+- sampling: the repetition penalty and the temperature/top-k/top-p
+  transform equal the reference's; greedy ``sample`` picks the same
+  tokens; a seeded draw repeats itself and moves with the seed (the port
+  draws from a ``torch.Generator``, so draws are not the reference's);
+- the dense decoder: a left-padded prefill and decode steps over
+  ``KVCache`` / ``Fp8KVCache`` against the reference ``decoder_forward``
+  on a tiny llama and a tiny mistral whose window cuts the prompt;
+- ``generate``: greedy sequences token-identical to
+  ``ipex_llm_tpu.generation.generate`` over ragged left-padded batches;
+- inside the port: a ragged row equals the same prompt alone, EOS stops a
+  row, streaming equals the batch loop;
+- the model class against the reference class built through its
+  ``__init__``; a mistral tree carried across byte for byte; the configs.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ipex_llm_tpu import generation as ref_gen
+from ipex_llm_tpu.kv import make_cache as ref_make_cache
+from ipex_llm_tpu.models.decoder import decoder_forward as ref_forward
+from ipex_llm_tpu.models.families import get_family
+from ipex_llm_tpu.ops import sampling as ref_sampling
+from ipex_llm_tpu.ops.rope import RopeScaling
+from ipex_llm_tpu.transformers.model import \
+    TPUModelForCausalLM as RefModelForCausalLM
+from ipex_llm_tpu_torch import generation as port_gen
+from ipex_llm_tpu_torch.kv import make_cache
+from ipex_llm_tpu_torch.models.config import ModelConfig
+from ipex_llm_tpu_torch.models.convert import params_from_reference
+from ipex_llm_tpu_torch.models.decoder import decoder_forward
+from ipex_llm_tpu_torch.models.families import config_from_hf
+from ipex_llm_tpu_torch.models.random_init import (MISTRAL_7B_V01_HF,
+                                                   mistral_7b_config)
+from ipex_llm_tpu_torch.ops import sampling as port_sampling
+from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
+from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
+from ipex_llm_tpu_torch.serving.engine import ServingEngine
+from ipex_llm_tpu_torch.transformers.model import TPUModelForCausalLM
+from tests.test_decoder import rand_params, tiny_cfg
+from tests.test_torch_quantize import reference_tree, to_bytes
+
+WINDOW = 16      # the tiny mistral's sliding window, shorter than prompts
+
+
+def tiny_pair(qtype: str, family: str = "llama"):
+    """(reference cfg, reference params, port cfg, port params): 2 layers,
+    hidden 64, 4 heads over 2 kv heads, head_dim 16, vocab 256; the
+    mistral adds a sliding window of ``WINDOW`` on every layer."""
+    over = ({"model_type": "mistral", "sliding_window": WINDOW}
+            if family == "mistral" else {})
+    cfg = tiny_cfg(vocab_size=256, hidden_size=64, intermediate_size=160,
+                   num_heads=4, num_kv_heads=2, head_dim=16,
+                   max_position_embeddings=512,
+                   rope=RopeScaling(head_dim=16), **over)
+    params = rand_params(cfg, qtype=qtype)
+    return cfg, params, ModelConfig.from_fields(dataclasses.asdict(cfg)), \
+        params_from_reference(reference_tree(params), device="cpu")
+
+
+@pytest.fixture(scope="module", params=[("bf16", "llama"),
+                                        ("sym_int4", "llama"),
+                                        ("sym_int4", "mistral")],
+                ids=lambda p: f"{p[1]}-{p[0]}")
+def pair(request):
+    """(family, qtype, *tiny_pair)."""
+    qtype, family = request.param
+    return (family, qtype) + tiny_pair(qtype, family)
+
+
+# -- sampling -----------------------------------------------------------------
+
+def _logits_and_ring(seed=3, b=4, v=97):
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((b, v)) * 3).astype(np.float32)
+    # token ids from 1: the reference marks seen tokens with a scatter in
+    # which every unused (-1) slot also writes "unseen" to id 0, so a real
+    # id 0 in a ring with unused slots is not penalised there (the port
+    # penalises it); the pad id never reaches the ring in generate
+    ring = rng.integers(1, v, (b, 24)).astype(np.int32)
+    ring[:, 16:] = -1                       # unused ring slots
+    return logits, ring
+
+
+@pytest.mark.parametrize("params", [
+    dict(repetition_penalty=1.3),
+    dict(temperature=0.7, top_k=5),
+    dict(temperature=1.3, top_p=0.8),
+    dict(temperature=0.6, top_k=20, top_p=0.9, repetition_penalty=1.1),
+])
+def test_penalty_and_transform_match_reference(params):
+    logits, ring = _logits_and_ring()
+    ref_p = ref_sampling.SamplingParams(**params)
+    port_p = port_sampling.SamplingParams(**params)
+    want = ref_sampling.apply_repetition_penalty(
+        jnp.asarray(logits), jnp.asarray(ring), ref_p.repetition_penalty)
+    got = port_sampling.apply_repetition_penalty(
+        torch.from_numpy(logits), torch.from_numpy(ring),
+        port_p.repetition_penalty)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        port_sampling._transform_logits(got, port_p).numpy(),
+        np.asarray(ref_sampling._transform_logits(want, ref_p)))
+
+
+def test_greedy_sample_matches_reference():
+    logits, ring = _logits_and_ring(seed=4)
+    for penalty in (1.0, 1.5):
+        p = dict(repetition_penalty=penalty)
+        want = ref_sampling.sample(jnp.asarray(logits), jax.random.PRNGKey(0),
+                                   ref_sampling.SamplingParams(**p),
+                                   jnp.asarray(ring))
+        got = port_sampling.sample(torch.from_numpy(logits), None,
+                                   port_sampling.SamplingParams(**p),
+                                   torch.from_numpy(ring))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_seeded_sampled_draw_repeats_and_moves_with_the_seed():
+    logits = torch.from_numpy(np.zeros((64, 50), np.float32))   # uniform
+    sp = port_sampling.SamplingParams(do_sample=True, temperature=0.8,
+                                      top_p=0.9)
+
+    def draw(seed):
+        return port_sampling.sample(
+            logits, torch.Generator().manual_seed(seed), sp).numpy()
+    a, b, c = draw(1), draw(1), draw(2)
+    np.testing.assert_array_equal(a, b)
+    assert (a != c).any()
+    assert ((0 <= a) & (a < 50)).all()
+    # top-k keeps the draw inside the k largest logits
+    peaked = torch.arange(50, dtype=torch.float32).repeat(64, 1)
+    got = port_sampling.sample(
+        peaked, torch.Generator().manual_seed(3),
+        port_sampling.SamplingParams(do_sample=True, top_k=3))
+    assert (got >= 47).all()
+
+
+# -- the dense decoder --------------------------------------------------------
+
+@pytest.mark.parametrize("storage", ["normal", "fp8"])
+def test_dense_decoder_matches_reference(pair, storage):
+    """A left-padded prefill (rows of 30, 11 and 22 tokens in a 32 bucket)
+    and three decode steps.  Logits within the bounds the paged form
+    measured (test_torch_decoder): 2.5% of the logit range at worst and
+    0.5% on average over a bf16 cache, 6% and 1% over e5m2, whose two
+    mantissa bits turn a one-ulp bf16 difference in k or v into a whole
+    e5m2 step."""
+    _, _, cfg, params, port_cfg, port_params = pair
+    rng = np.random.default_rng(21)
+    b, t, cap = 3, 32, 48
+    lengths = np.array([30, 11, 22], np.int32)
+    tokens = np.zeros((b, t), np.int32)
+    for i, n in enumerate(lengths):
+        tokens[i, t - n:] = rng.integers(1, cfg.vocab_size, n)
+    kv_start = (t - lengths).astype(np.int32)
+    pos = np.maximum(np.arange(t)[None] - kv_start[:, None], 0).astype(
+        np.int32)
+    steps = [(tokens, pos)]
+    for i in range(3):
+        steps.append((rng.integers(1, cfg.vocab_size, (b, 1)).astype(
+            np.int32), (lengths + i)[:, None].astype(np.int32)))
+    ref_cache = ref_make_cache(storage, cfg.num_layers, b, cap,
+                               cfg.num_kv_heads, cfg.head_dim)
+    cache = make_cache(storage, port_cfg.num_layers, b, cap,
+                       port_cfg.num_kv_heads, port_cfg.head_dim, device="cpu")
+    max_tol, mean_tol = (0.025, 0.005) if storage == "normal" else (0.06,
+                                                                     0.01)
+    for i, (tk, ps) in enumerate(steps):
+        want, ref_cache = ref_forward(
+            cfg, params, jnp.asarray(tk), ref_cache, jnp.asarray(ps),
+            kv_start=jnp.asarray(kv_start), last_token_only=True)
+        got, cache = decoder_forward(
+            port_cfg, port_params, torch.from_numpy(tk), cache,
+            torch.from_numpy(ps), torch.from_numpy(kv_start),
+            last_token_only=True)
+        want = np.asarray(want)
+        assert cache.length == int(ref_cache.length), i
+        assert got.shape == want.shape == (b, cfg.vocab_size), i
+        span = want.max() - want.min()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=max_tol * span, err_msg=f"step {i}")
+        assert np.abs(got.numpy() - want).mean() <= mean_tol * span, i
+
+
+# -- generate -------------------------------------------------------------------
+
+# Prompt seeds of the cross-framework check, one per (family, weights).
+# With random weights and a 256-token vocabulary the top two logits are
+# often equal or one bf16 ulp apart, and the two sides round differently,
+# so a greedy stream that meets such a near-tie may legitimately fork.
+# Each seed is the best of seeds 0-149: along every stream below, over
+# both caches, the port's emitted token leads its runner-up by at least
+# the margin noted (three to six bf16 ulps at these logits); the token
+# check itself is exact.
+GREEDY_SEEDS = {("llama", "bf16"): 67,           # margin 0.125
+                ("llama", "sym_int4"): 75,       # margin 0.094
+                ("mistral", "sym_int4"): 123}    # margin 0.1875
+PROMPT_LENS = {"llama": (21, 6, 13), "mistral": (40, 9, 27)}
+NEW_TOKENS = 6
+
+
+def _prompts(vocab, lens, seed):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(1, vocab, n))) for n in lens]
+
+
+@pytest.mark.parametrize("kv_kind", ["normal", "fp8"])
+def test_generate_greedy_matches_reference(pair, kv_kind):
+    """Token-identical greedy sequences over a ragged left-padded batch (see
+    GREEDY_SEEDS); on the mistral the window cuts every long prompt in the
+    prefill and again while decoding."""
+    family, qtype, cfg, params, port_cfg, port_params = pair
+    prompts = _prompts(cfg.vocab_size, PROMPT_LENS[family],
+                       GREEDY_SEEDS[(family, qtype)])
+    want = ref_gen.generate(cfg, params, prompts, ref_gen.GenerationConfig(
+        max_new_tokens=NEW_TOKENS), kv_kind=kv_kind)
+    counts = (b3.COUNTS.plain_calls, b4.COUNTS.plain_calls)
+    got = port_gen.generate(port_cfg, port_params, prompts,
+                            port_gen.GenerationConfig(
+                                max_new_tokens=NEW_TOKENS), kv_kind=kv_kind)
+    np.testing.assert_array_equal(got.sequences, want.sequences)
+    np.testing.assert_array_equal(got.num_new_tokens, want.num_new_tokens)
+    assert got.cache_kind == kv_kind
+    # one prefill through B4 per layer, one B3 call per layer and step
+    assert b4.COUNTS.plain_calls - counts[1] == cfg.num_layers
+    assert b3.COUNTS.plain_calls - counts[0] == cfg.num_layers * (
+        NEW_TOKENS - 1)
+    # no EOS: the TTFT sync and the final read, none per step
+    assert got.host_syncs == 2
+
+
+@pytest.fixture(scope="module")
+def llama():
+    return tiny_pair("bf16")
+
+
+def test_generate_ragged_row_equals_alone(llama):
+    _, _, cfg, params = llama
+    gcfg = port_gen.GenerationConfig(max_new_tokens=6)
+    p1, p2 = _prompts(cfg.vocab_size, (7, 3), 5)
+    batch = port_gen.generate(cfg, params, [p1, p2], gcfg)
+    alone = port_gen.generate(cfg, params, [p1], gcfg)
+    assert batch.sequences.shape == (2, 7 + 6)
+    np.testing.assert_array_equal(batch.sequences[0, -6:],
+                                  alone.sequences[0, -6:])
+
+
+def test_generate_eos_stops(llama):
+    _, _, cfg, params = llama
+    (p,) = _prompts(cfg.vocab_size, (4,), 6)
+    first = port_gen.generate(cfg, params, [p], port_gen.GenerationConfig(
+        max_new_tokens=8)).sequences[0, 4]
+    res = port_gen.generate(cfg, params, [p], port_gen.GenerationConfig(
+        max_new_tokens=8, eos_token_id=(int(first),)))
+    assert res.num_new_tokens[0] == 1
+    assert res.sequences.shape == (1, 5)
+    assert res.host_syncs == 3       # TTFT, the stop check, the final read
+
+
+def test_streaming_matches_batch(llama):
+    _, _, cfg, params = llama
+    (p,) = _prompts(cfg.vocab_size, (4,), 7)
+    gcfg = port_gen.GenerationConfig(max_new_tokens=5)
+    res = port_gen.generate(cfg, params, [p], gcfg)
+    streamed = []
+    res2 = port_gen.generate(cfg, params, [p], gcfg,
+                             streamer=lambda row: streamed.append(int(row[0])))
+    np.testing.assert_array_equal(res.sequences[0, -5:], np.array(streamed))
+    np.testing.assert_array_equal(res.sequences, res2.sequences)
+
+
+def test_sampled_generate_repeats_with_its_seed(llama):
+    _, _, cfg, params = llama
+    prompts = _prompts(cfg.vocab_size, (9, 4), 8)
+
+    def run(seed):
+        return port_gen.generate(cfg, params, prompts,
+                                 port_gen.GenerationConfig(
+                                     max_new_tokens=8, do_sample=True,
+                                     temperature=1.5, top_p=0.95,
+                                     repetition_penalty=1.2, seed=seed)
+                                 ).sequences
+    np.testing.assert_array_equal(run(1), run(1))
+    assert (run(1) != run(2)).any()
+
+
+def test_generate_refuses_what_is_not_ported(llama, monkeypatch):
+    _, _, cfg, params = llama
+    gcfg = port_gen.GenerationConfig(max_new_tokens=2)
+    for kw in (dict(kv_kind="compress"), dict(kv_kind="paged"),
+               dict(mesh=object()), dict(host_embed=np.zeros((4, 4)))):
+        with pytest.raises(NotImplementedError):
+            port_gen.generate(cfg, params, [[1, 2]], gcfg, **kw)
+    monkeypatch.setenv("IPEX_LLM_TPU_COMPRESS_KV_CACHE", "1")
+    with pytest.raises(NotImplementedError):
+        port_gen.generate(cfg, params, [[1, 2]], gcfg)
+
+
+# -- the model class ---------------------------------------------------------
+
+HF = {"model_type": "llama", "eos_token_id": 2, "pad_token_id": 0}
+
+
+def test_model_class_matches_reference_class(llama):
+    """A torch LongTensor with an attention mask (rows of 9 and 4 tokens)
+    comes back as a LongTensor equal to the reference class's output for
+    the same (cfg, params); numpy in gives numpy out; the streamer gets one
+    row per token and an end."""
+    ref_cfg, ref_params, cfg, params = llama
+    ids = torch.from_numpy(np.array(
+        [_prompts(cfg.vocab_size, (9,), 9)[0],
+         [0] * 5 + _prompts(cfg.vocab_size, (4,), 10)[0]], np.int64))
+    mask = (torch.arange(9)[None] >= torch.tensor([[0], [5]])).long()
+    want = RefModelForCausalLM(ref_cfg, ref_params, HF, "bf16").generate(
+        ids, attention_mask=mask, max_new_tokens=5)
+    model = TPUModelForCausalLM(cfg, params, HF, "bf16")
+    got = model.generate(ids, attention_mask=mask, max_new_tokens=5)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.long
+    assert torch.equal(got, want)
+    assert model.first_cost > 0 and model.rest_cost_mean > 0
+
+    class Streamer:
+        rows, ended = [], False
+
+        def put(self, row):
+            self.rows.append(row)
+
+        def end(self):
+            self.ended = True
+    st = Streamer()
+    out = model.generate(ids.numpy(), attention_mask=mask.numpy(),
+                         max_new_tokens=5, streamer=st)
+    assert isinstance(out, np.ndarray)
+    np.testing.assert_array_equal(out, got.numpy())
+    assert st.ended and len(st.rows) == model.last_result.sequences.shape[
+        1] - 9
+
+
+def test_model_class_refuses_prompt_lookup(llama, monkeypatch):
+    _, _, cfg, params = llama
+    monkeypatch.setenv("IPEX_LLM_PERFORMANCE_MODE", "1")
+    model = TPUModelForCausalLM(cfg, params, HF, "bf16")
+    with pytest.raises(NotImplementedError):
+        model.generate(np.ones((1, 512), np.int64), max_new_tokens=2)
+
+
+# -- convert and configs ------------------------------------------------------
+
+def test_convert_carries_a_mistral_tree():
+    """Every leaf of a reference mistral tree lands in the port with the
+    same bytes and shape; the port config carries the window across."""
+    cfg = tiny_cfg(model_type="mistral", sliding_window=WINDOW)
+    ref = reference_tree(rand_params(cfg, qtype="sym_int4"))
+    port = params_from_reference(ref, device="cpu")
+
+    def leaves(r, p, path=""):
+        if isinstance(r, dict) and "qtype" in r:
+            yield path + ".data", r["data"], p.data
+            yield path + ".scales", r["scales"], p.scales
+        elif isinstance(r, dict):
+            assert set(r) == set(p), path
+            for k in r:
+                yield from leaves(r[k], p[k], f"{path}.{k}")
+        else:
+            yield path, r, p
+    n = 0
+    for path, r, p in leaves(ref, port):
+        if isinstance(r, float):
+            assert p == r, path
+            continue
+        assert tuple(p.shape) == r.shape and to_bytes(p) == to_bytes(r), path
+        n += 1
+    assert n >= 10
+    port_cfg = ModelConfig.from_fields(dataclasses.asdict(cfg))
+    assert port_cfg.sliding_window == WINDOW
+    assert all(port_cfg.layer_is_sliding(i) for i in range(cfg.num_layers))
+
+
+def test_mistral_7b_config_matches_reference_family():
+    ref = get_family("mistral").to_config(MISTRAL_7B_V01_HF)
+    port = mistral_7b_config()
+    assert port == ModelConfig.from_fields(dataclasses.asdict(ref))
+    assert (port.hidden_size, port.intermediate_size, port.num_layers,
+            port.num_heads, port.num_kv_heads, port.head_dim,
+            port.vocab_size, port.sliding_window) == (
+        4096, 14336, 32, 32, 8, 128, 32000, 4096)
+    assert config_from_hf({**MISTRAL_7B_V01_HF, "model_type": "llama",
+                           "sliding_window": None}).sliding_window is None
+    for other in ("gemma2", "qwen2", "mixtral"):
+        with pytest.raises(NotImplementedError):
+            config_from_hf({**MISTRAL_7B_V01_HF, "model_type": other})
+
+
+def test_serving_engine_refuses_a_window():
+    _, _, cfg, params = tiny_pair("bf16", "mistral")
+    with pytest.raises(NotImplementedError, match="window"):
+        ServingEngine(cfg, params, device="cpu")
