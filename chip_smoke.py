@@ -11,22 +11,32 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 1. device: the card's name and power limit, the torch and CUDA versions,
    and the build of every CUDA kernel (one ``nvcc`` per source, all
    started together);
-2. ``b2``: the sym_int4 dequant-matmul against its plain PyTorch version at
-   the five Llama-2-7B weight shapes and M = 1, 8 (decode) and 128 (the
-   prefill tokens of a mixed tick at ``prefill_bucket`` 128), plus M = 512,
-   off the serving path, as a larger prefill (3, 13 and 100 checked only),
-   with the kernel's, the plain version's and ``torch.matmul`` on the
-   dequantized weight's times, and the card's least time for the work;
+2. ``b2``: the dequant-matmul in each of its ten block formats against
+   its plain PyTorch version at the five Llama-2-7B weight shapes and M =
+   1, 8 (decode) and 128 (the prefill tokens of a mixed tick at
+   ``prefill_bucket`` 128), plus M = 512 in sym_int4, off the serving
+   path, as a larger prefill (3, 13 and 100 checked only), each output row
+   to one bf16 ulp of its largest value, with the kernel's, the plain
+   version's and ``torch.matmul`` on the dequantized weight's times, and
+   the card's least time for the work; then ``codec``: one 4096x4096
+   weight quantized in the nine other formats on the card and on the CPU,
+   every plane byte-equal;
 3. ``b1``: ragged paged attention against its plain version on decode,
    chunk (width 128 and 16) and idle rows at 32 heads, head_dim 128, page
    128, over bf16 and e5m2 pools, with ``scaled_dot_product_attention``
    over the gathered pages as the library yardstick;
 4. ``decoder``: a small GQA decoder on the card against the same decoder on
-   the CPU's plain versions, paged form (prefill plus decode steps);
+   the CPU's plain versions, paged form (prefill plus decode steps), in
+   each of the ten formats;
 5. ``serve``: serving at Llama-2-7B widths (random sym_int4 weights from a
    seed): eight requests through ``ServingEngine`` over a bf16 pool, then
-   two over an e5m2 pool; every kernel of the path must have launched in
-   each run and no plain version may have run;
+   two over an e5m2 pool; then ``serve_formats``: one random bf16 tree
+   that the engine repacks (``EngineConfig(weight_qtype=F)``) into each of
+   the nine other formats, and a tree with a sym_int8 lm head over a
+   sym_int4 body ("mixed"), two requests each (prompts of 300 and 700 ids,
+   24 new tokens, greedy and seeded sampling).  In each run every kernel
+   of the path must have launched (B2 in the run's formats) and no plain
+   version may have run;
 6. ``b3``: dense decode attention against its plain version at
    Mistral-7B widths (32 query heads over 8 kv heads of 128), B=4,
    capacity 2304, ragged ``kv_start``/``kv_len``, over bf16 and e5m2
@@ -184,7 +194,7 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    kernels = {"qmatmul_int4": b2, "ragged_paged_attention": b1,
+    kernels = {"qmatmul": b2, "ragged_paged_attention": b1,
                "decode_attention": b3, "flash_attention": b4}
     t_build = _build.build([m.NAME for m in kernels.values()])
     print(f"kernel build: {t_build:.1f} s for {len(kernels)} sources",
@@ -201,70 +211,93 @@ def main() -> int:
 
     from ipex_llm_tpu_torch.quantize.core import dequantize, quantize
 
-    def b2_rows(shapes: dict, ms: tuple, on_path, tag: str,
+    def check_b2(y, y_plain, what: str) -> tuple[float, float]:
+        """Each output row within one bf16 ulp of the row's largest plain
+        output (B2_TOL_REL x max|row|); returns the worst abs error and
+        the worst ratio of a row's error to its largest output."""
+        err = (y.float() - y_plain.float()).abs().amax(dim=1)
+        top = y_plain.float().abs().amax(dim=1)
+        bad = err > B2_TOL_REL * top
+        if bool(bad.any()) or not torch.isfinite(y).all():
+            i = int(bad.nonzero()[0]) if bool(bad.any()) else -1
+            fail(f"B2 {what}: row {i} max abs err {err[i].item()} > "
+                 f"{B2_TOL_REL} * {top[i].item()} (or not finite)")
+        return (err.max().item(),
+                (err / top.clamp_min(1e-30)).max().item())
+
+    def b2_rows(shapes: dict, ms: tuple, on_path, tag: str, qtype: str,
                 iters=lambda m: 30):
         rows = []
         for wname, (k, n) in shapes.items():
             wq = quantize(torch.randn(k, n, generator=gen, device=dev)
-                          * (1.2 / math.sqrt(k)), "sym_int4")
-            wbytes = wq.data.numel() + wq.scales.numel() * 2
+                          * (1.2 / math.sqrt(k)), qtype)
+            wbytes = wq.nbytes
             # rotate over enough copies that each launch finds its weight
             # out of L2, as a layer's weight is on the serving path
-            copies = [wq] + [quantize(torch.randn(k, n, generator=gen,
-                                                  device=dev), "sym_int4")
-                             for _ in range(math.ceil(2 * L2_BYTES / wbytes))]
+            copies = [wq] + [wq.planes(torch.clone) for _ in
+                             range(math.ceil(2 * L2_BYTES / wbytes))]
             w_bf16 = dequantize(wq, torch.bfloat16)
-            for m in ms:
+            # row counts of mixed ticks (P rows x a power-of-two width) and
+            # of part-full row tiles: checked, not timed
+            extra = (3, 13, 100) if wname == "qkv" and tag == "llama2-7b" \
+                else ()
+            for m in ms + extra:
                 x = torch.randn(m, k, generator=gen, device=dev).to(
                     torch.bfloat16)
-                y = b2.qmatmul_int4(x, wq.data, wq.scales)
-                y_plain = b2.qmatmul_int4_plain(x, wq.data, wq.scales)
-                torch.cuda.synchronize()
-                err = (y.float() - y_plain.float()).abs().max().item()
-                top = y_plain.float().abs().max().item()
-                if not (err <= B2_TOL_REL * top) or not torch.isfinite(
-                        y).all():
-                    fail(f"B2 {tag} {wname} M={m}: max abs err {err} > "
-                         f"{B2_TOL_REL} * {top}")
-                del y, y_plain
+                err, worst = check_b2(b2.qmatmul(x, wq),
+                                      b2.qmatmul_plain(x, wq),
+                                      f"{qtype} {tag} {wname} M={m}")
+                if m in extra:
+                    continue
                 it = [0]
 
                 def run_kernel():
                     q = copies[it[0] % len(copies)]
                     it[0] += 1
-                    b2.qmatmul_int4(x, q.data, q.scales)
+                    b2.qmatmul(x, q)
 
                 ms_k = time_ms(run_kernel, iters(m))
-                plain_ms = time_ms(
-                    lambda: b2.qmatmul_int4_plain(x, wq.data, wq.scales), 1)
+                plain_ms = time_ms(lambda: b2.qmatmul_plain(x, wq), 1)
                 lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters(m))
                 bms, by = bound(m * k * 2 + wbytes + m * n * 2,
                                 2.0 * m * n * k)
-                row = dict(model=tag, weight=wname, m=m, k=k, n=n,
-                           on_path=on_path(wname, m), max_abs_err=err,
-                           max_rel_err=err / top, tol=B2_TOL_REL * top,
+                row = dict(model=tag, qtype=qtype, weight=wname, m=m, k=k,
+                           n=n, on_path=on_path(wname, m),
+                           weight_bytes=wbytes, max_abs_err=err,
+                           max_rel_err=worst, tol_rel=B2_TOL_REL,
                            ms=ms_k, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bms, bound_by=by)
                 rows.append(row)
                 print("B2 " + json.dumps(row), flush=True)
             del copies, w_bf16
-            if wname == "qkv" and tag == "llama2-7b":
-                # row counts of mixed ticks (P rows x a power-of-two width)
-                # and of part-full row tiles: checked, not timed
-                for m in (3, 13, 100):
-                    x = torch.randn(m, k, generator=gen, device=dev).to(
-                        torch.bfloat16)
-                    y = b2.qmatmul_int4(x, wq.data, wq.scales)
-                    y_plain = b2.qmatmul_int4_plain(x, wq.data, wq.scales)
-                    err = (y.float() - y_plain.float()).abs().max().item()
-                    top = y_plain.float().abs().max().item()
-                    if not err <= B2_TOL_REL * top:
-                        fail(f"B2 {wname} M={m}: max abs err {err}")
         return rows
 
-    # -- 2. B2 at Llama-2-7B's shapes ----------------------------------------
-    report["b2"] = b2_rows(LLAMA2_7B_SHAPES, (1, 8, 128, 512),
-                           lambda w, m: m != 512, "llama2-7b")
+    # -- 2. B2 at Llama-2-7B's shapes, in every format -----------------------
+    report["b2"] = []
+    for qtype in b2.FORMATS:
+        ms = (1, 8, 128, 512) if qtype == "sym_int4" else (1, 8, 128)
+        report["b2"] += b2_rows(LLAMA2_7B_SHAPES, ms,
+                                lambda w, m: m != 512, "llama2-7b", qtype)
+    torch.cuda.empty_cache()
+
+    # -- 2b. the codec on the card against the CPU ---------------------------
+    w = torch.randn(4096, 4096, generator=gen, device=dev) * (1.2 / 64)
+    codec = []
+    for qtype in b2.FORMATS[1:]:
+        on_card = quantize(w, qtype)
+        on_cpu = quantize(w.cpu(), qtype)
+        for key in ("data", "scales", "zeros"):
+            a_, b_ = getattr(on_card, key), getattr(on_cpu, key)
+            if (a_ is None) != (b_ is None) or (a_ is not None and not (
+                    a_.cpu().view(torch.uint8) == b_.view(torch.uint8)
+            ).all()):
+                fail(f"codec {qtype}: the card's {key} plane differs from "
+                     "the CPU's")
+        codec.append(dict(qtype=qtype, shape=[4096, 4096],
+                          bytes=on_card.nbytes, equal=True))
+        print("codec " + json.dumps(codec[-1]), flush=True)
+    report["codec"] = codec
+    del w, on_card, on_cpu
 
     # -- 3. B1 ---------------------------------------------------------------
     def ragged_case(pool_dtype, r=8, c=128, hq=32, hkv=32, d=128, ps=128,
@@ -382,67 +415,136 @@ def main() -> int:
                                                        mistral_7b_config,
                                                        random_params)
 
+    from ipex_llm_tpu_torch.models.build import requantize_params
+
     # GQA (4 query heads over 2 kv heads) at the kernel's head_dim 128
     small = llama_config(hidden_size=512, intermediate_size=1024,
                          num_layers=2, num_heads=4, num_kv_heads=2,
                          head_dim=128, vocab_size=512)
-    p_cpu = random_params(small, "sym_int4", seed=1, device="cpu")
-    p_dev = to_dev(p_cpu)
-    rng = np.random.default_rng(3)
-    r, t, ps, maxp = 3, 40, 128, 2
-    chunk = np.array([40, 17, 29], np.int32)
-    toks = rng.integers(0, 512, (r, t)).astype(np.int32)
-    worst = 0.0
-    caches = {}
-    for name, device, params in (("cpu", "cpu", p_cpu),
-                                 ("cuda", dev, p_dev)):
-        c = PagedKVCache.init(2, 1 + r * maxp, r, maxp, 2, ps, 128,
-                              device=device)
-        c.tables.copy_(1 + torch.arange(r * maxp, dtype=torch.int32
-                                        ).reshape(r, maxp))
-        caches[name] = (c, params, device)
-    lens = np.zeros(r, np.int32)
-    steps = [(toks, np.zeros(r, np.int32), chunk)]
-    for _ in range(3):
-        steps.append((rng.integers(0, 512, (r, 1)).astype(np.int32),
-                      None, None))
-    for tk, base, ch in steps:
-        outs = {}
-        for name, (c, params, device) in caches.items():
-            if ch is not None:
-                pos = base[:, None] + np.arange(tk.shape[1])[None, :]
-                kw = dict(slot_offsets=torch.from_numpy(base).to(device),
-                          chunk_lens=torch.from_numpy(ch).to(device),
-                          gather_positions=torch.from_numpy(ch - 1).to(
-                              device))
-            else:
-                pos = lens[:, None]
-                kw = dict(slot_offsets=torch.from_numpy(lens).to(device),
-                          last_token_only=True)
-            lg, _ = decoder_forward(small, params,
-                                    torch.from_numpy(tk).to(device), c,
-                                    torch.from_numpy(np.ascontiguousarray(
-                                        pos)).to(device), **kw)
-            outs[name] = lg.float().cpu().numpy()
-        lens = lens + (chunk if ch is not None else 1)
-        span = outs["cpu"].max() - outs["cpu"].min()
-        diff = np.abs(outs["cuda"] - outs["cpu"]).max() / span
-        worst = max(worst, float(diff))
-        if not np.isfinite(outs["cuda"]).all() or diff > 0.025:
-            fail(f"small decoder: card vs CPU logits differ by "
-                 f"{diff:.4f} of the logit range (bound 0.025)")
-    print(f"small decoder card vs CPU: worst logit diff {worst:.5f} of "
-          "the range (bound 0.025)", flush=True)
-    report["small_decoder_worst_rel"] = worst
-    del caches, p_dev
+
+    def decoder_check(p_cpu) -> float:
+        """Prefill chunks of 40, 17 and 29 tokens and three decode steps
+        through the paged decoder, on the card and on the CPU's plain
+        versions; returns the worst logit difference over the range."""
+        p_dev = to_dev(p_cpu)
+        rng = np.random.default_rng(3)
+        r, t, ps, maxp = 3, 40, 128, 2
+        chunk = np.array([40, 17, 29], np.int32)
+        toks = rng.integers(0, 512, (r, t)).astype(np.int32)
+        worst = 0.0
+        caches = {}
+        for name, device, params in (("cpu", "cpu", p_cpu),
+                                     ("cuda", dev, p_dev)):
+            c = PagedKVCache.init(2, 1 + r * maxp, r, maxp, 2, ps, 128,
+                                  device=device)
+            c.tables.copy_(1 + torch.arange(r * maxp, dtype=torch.int32
+                                            ).reshape(r, maxp))
+            caches[name] = (c, params, device)
+        lens = np.zeros(r, np.int32)
+        steps = [(toks, np.zeros(r, np.int32), chunk)]
+        for _ in range(3):
+            steps.append((rng.integers(0, 512, (r, 1)).astype(np.int32),
+                          None, None))
+        for tk, base, ch in steps:
+            outs = {}
+            for name, (c, params, device) in caches.items():
+                if ch is not None:
+                    pos = base[:, None] + np.arange(tk.shape[1])[None, :]
+                    kw = dict(slot_offsets=torch.from_numpy(base).to(device),
+                              chunk_lens=torch.from_numpy(ch).to(device),
+                              gather_positions=torch.from_numpy(ch - 1).to(
+                                  device))
+                else:
+                    pos = lens[:, None]
+                    kw = dict(slot_offsets=torch.from_numpy(lens).to(device),
+                              last_token_only=True)
+                lg, _ = decoder_forward(small, params,
+                                        torch.from_numpy(tk).to(device), c,
+                                        torch.from_numpy(np.ascontiguousarray(
+                                            pos)).to(device), **kw)
+                outs[name] = lg.float().cpu().numpy()
+            lens = lens + (chunk if ch is not None else 1)
+            span = outs["cpu"].max() - outs["cpu"].min()
+            diff = np.abs(outs["cuda"] - outs["cpu"]).max() / span
+            worst = max(worst, float(diff))
+            if not np.isfinite(outs["cuda"]).all() or diff > 0.025:
+                fail(f"small decoder: card vs CPU logits differ by "
+                     f"{diff:.4f} of the logit range (bound 0.025)")
+        return worst
+
+    report["small_decoder_worst_rel"] = {
+        "sym_int4": decoder_check(random_params(small, "sym_int4", seed=1,
+                                                device="cpu"))}
+    small_bf16 = random_params(small, "bf16", seed=1, device="cpu")
+    for qtype in b2.FORMATS[1:]:
+        report["small_decoder_worst_rel"][qtype] = decoder_check(
+            requantize_params(small_bf16, qtype))
+    print("small decoder card vs CPU, worst logit diff over the range "
+          "(bound 0.025): " + json.dumps(report["small_decoder_worst_rel"]),
+          flush=True)
 
     # -- 5. serving at Llama-2-7B widths -----------------------------------
     from ipex_llm_tpu_torch.serving.engine import (EngineConfig, Request,
                                                    ServingEngine,
                                                    stream_tokens)
 
+    cfg = llama2_7b_config()
+    serve_path = {"qmatmul": b2, "ragged_paged_attention": b1}
+
+    def serve_run(label: str, eng, reqs, formats=()) -> dict:
+        """Serve ``reqs`` through ``eng`` with every count set to 0 just
+        before; every request must finish with its tokens, every kernel of
+        the path (B2 in each of ``formats``) launch, and no plain version
+        run."""
+        for mod in kernels.values():
+            mod.COUNTS.reset()
+        eng.start()
+        t_start = time.perf_counter()
+        for q in reqs:
+            eng.submit(q)
+        streams = [list(stream_tokens(q, timeout=600)) for q in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        counts = {name: (mod.COUNTS.launches, mod.COUNTS.plain_calls)
+                  for name, mod in kernels.items()}
+        by_format = dict(b2.COUNTS.by_format)
+        eng.stop()
+        if eng._thread.is_alive():
+            fail(f"{label}: engine thread did not stop")
+        for q, st in zip(reqs, streams):
+            if q.finish_reason != "length" or len(st) != q.max_new_tokens \
+                    or st != q.output_ids:
+                fail(f"{label}: request finished {q.finish_reason} with "
+                     f"{len(st)} of {q.max_new_tokens} tokens "
+                     f"({eng.metrics.get('last_error')})")
+            if not all(0 <= v < cfg.vocab_size for v in st) or not all(
+                    math.isfinite(lp) and lp <= 0 for lp in q.logprobs):
+                fail(f"{label}: token or logprob out of range")
+        for name, (launches, plain) in counts.items():
+            if plain != 0 or (name in serve_path and launches == 0):
+                fail(f"{label}: {name} launched {launches} times, plain "
+                     f"version called {plain} times")
+        for qtype in formats:
+            if by_format[qtype] == 0:
+                fail(f"{label}: B2 never launched in {qtype}")
+        out_tok = sum(len(st) for st in streams)
+        ttft = [q.first_token_s for q in reqs]
+        res = dict(run=label, requests=len(reqs),
+                   prompt_tokens=sum(len(q.prompt_ids) for q in reqs),
+                   output_tokens=out_tok, wall_s=wall,
+                   output_tok_s=out_tok / wall,
+                   ttft_mean_s=float(np.mean(ttft)),
+                   ttft_max_s=float(np.max(ttft)),
+                   launches={k: v[0] for k, v in counts.items()},
+                   b2_launches_by_format={k: v for k, v in by_format.items()
+                                          if v},
+                   metrics={k: eng.metrics[k] for k in (
+                       "mixed_steps", "steps", "host_syncs", "epoch_syncs",
+                       "decode_horizon_effective")})
+        print("serve " + json.dumps(res), flush=True)
+        return res
+
     def serve_phase():
-        cfg = llama2_7b_config()
         t0 = time.perf_counter()
         params = random_params(cfg, "sym_int4", seed=0, device=dev)
         torch.cuda.synchronize()
@@ -450,7 +552,6 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the "
               "card", flush=True)
-        path = {"qmatmul_int4": b2, "ragged_paged_attention": b1}
 
         def serve(storage: str, n_req: int, seed: int) -> dict:
             rng = np.random.default_rng(seed)
@@ -467,46 +568,8 @@ def main() -> int:
                 max_rows=8, max_seq_len=2048, page_size=128,
                 prefill_bucket=128, decode_horizon=4, kv_storage=storage),
                 device=dev)
-            for mod in kernels.values():
-                mod.COUNTS.reset()
-            eng.start()
-            t_start = time.perf_counter()
-            for q in reqs:
-                eng.submit(q)
-            streams = [list(stream_tokens(q, timeout=600)) for q in reqs]
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t_start
-            counts = {name: (mod.COUNTS.launches, mod.COUNTS.plain_calls)
-                      for name, mod in kernels.items()}
-            eng.stop()
-            if eng._thread.is_alive():
-                fail("engine thread did not stop")
-            for q, s in zip(reqs, streams):
-                if q.finish_reason != "length" or len(s) != q.max_new_tokens \
-                        or s != q.output_ids:
-                    fail(f"{storage} pool: request finished "
-                         f"{q.finish_reason} with {len(s)} of "
-                         f"{q.max_new_tokens} tokens "
-                         f"({eng.metrics.get('last_error')})")
-                if not all(0 <= v < cfg.vocab_size for v in s) or not all(
-                        math.isfinite(lp) and lp <= 0 for lp in q.logprobs):
-                    fail(f"{storage} pool: token or logprob out of range")
-            for name, (launches, plain) in counts.items():
-                if plain != 0 or (name in path and launches == 0):
-                    fail(f"{storage} pool: {name} launched {launches} "
-                         f"times, plain version called {plain} times")
-            out_tok = sum(len(s) for s in streams)
-            ttft = [q.first_token_s for q in reqs]
-            res = dict(storage=storage, requests=n_req,
-                       prompt_tokens=int(lens.sum()), output_tokens=out_tok,
-                       wall_s=wall, output_tok_s=out_tok / wall,
-                       ttft_mean_s=float(np.mean(ttft)),
-                       ttft_max_s=float(np.max(ttft)),
-                       launches={k: v[0] for k, v in counts.items()},
-                       metrics={k: eng.metrics[k] for k in (
-                           "mixed_steps", "steps", "host_syncs",
-                           "epoch_syncs", "decode_horizon_effective")})
-            print("serve " + json.dumps(res), flush=True)
+            res = dict(storage=storage, **serve_run(
+                f"{storage} pool", eng, reqs, ("sym_int4",)))
             del eng
             torch.cuda.empty_cache()
             return res
@@ -515,6 +578,68 @@ def main() -> int:
 
     report["serve"] = serve_phase()
     torch.cuda.empty_cache()
+
+    # -- 5b. serving a bf16 tree in each block format ------------------------
+    def serve_formats_phase():
+        """One random bf16 tree, repacked by the engine into each of the
+        nine other formats (``EngineConfig.weight_qtype``), then a tree
+        with a sym_int8 lm head over a sym_int4 body; two requests each."""
+        t0 = time.perf_counter()
+        params = random_params(cfg, "bf16", seed=0, device=dev)
+        torch.cuda.synchronize()
+        print(f"Llama-2-7B-width random bf16 weights: "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the "
+              "card", flush=True)
+        ec = dict(max_rows=8, max_seq_len=2048, page_size=128,
+                  prefill_bucket=128, decode_horizon=4)
+
+        def reqs(seed: int):
+            rng = np.random.default_rng(seed)
+            return [Request(prompt_ids=[int(v) for v in rng.integers(
+                        1, cfg.vocab_size, n)], max_new_tokens=24, **kw)
+                    for n, kw in ((300, {}), (700, dict(
+                        temperature=0.8, top_p=0.9, seed=77)))]
+
+        rows = []
+        for i, qtype in enumerate(b2.FORMATS[1:]):
+            t0 = time.perf_counter()
+            eng = ServingEngine(cfg, params, EngineConfig(
+                weight_qtype=qtype, **ec), device=dev)
+            torch.cuda.synchronize()
+            repack_s = time.perf_counter() - t0
+            ws = eng.weight_stats()
+            if ws["qtype"] != qtype or ws["packed_qtypes"] != [qtype]:
+                fail(f"serve_formats: weight_stats {ws} for {qtype}")
+            rows.append(dict(qtype=qtype, repack_s=repack_s,
+                             weight_bytes=ws["weight_bytes"],
+                             dense_bytes=ws["dense_bytes"],
+                             **serve_run(f"weight_qtype={qtype}", eng,
+                                         reqs(20 + i), (qtype,))))
+            del eng
+            torch.cuda.empty_cache()
+        body = requantize_params(params, "sym_int4")
+        mixed = dict(body, lm_head=requantize_params(
+            {"lm_head": params["lm_head"]}, "sym_int8")["lm_head"])
+        del params, body
+        eng = ServingEngine(cfg, mixed, EngineConfig(
+            weight_qtype="sym_int4", **ec), device=dev)
+        ws = eng.weight_stats()
+        if ws["qtype"] != "mixed" or ws["packed_qtypes"] != ["sym_int4",
+                                                              "sym_int8"]:
+            fail(f"serve_formats: weight_stats {ws} for the mixed tree")
+        rows.append(dict(qtype="mixed (sym_int8 lm head, sym_int4 body)",
+                         weight_bytes=ws["weight_bytes"],
+                         dense_bytes=ws["dense_bytes"],
+                         **serve_run("mixed tree", eng, reqs(40),
+                                     ("sym_int4", "sym_int8"))))
+        del eng, mixed
+        torch.cuda.empty_cache()
+        return rows
+
+    t_phase = time.perf_counter()
+    report["serve_formats"] = serve_formats_phase()
+    report["serve_formats_s"] = time.perf_counter() - t_phase
 
     # -- 6. B3 at Mistral-7B widths ------------------------------------------
     def b3_case(kv_dtype, window, softcap, s=2304,
@@ -699,7 +824,7 @@ def main() -> int:
     # the lm head sees one token per row (last_token_only)
     report["b2m"] = b2_rows(MISTRAL_7B_SHAPES, (4, 8192),
                             lambda w, m: w != "lm_head" or m == 4,
-                            "mistral-7b",
+                            "mistral-7b", "sym_int4",
                             iters=lambda m: 30 if m < 1024 else 3)
     torch.cuda.empty_cache()
 
@@ -758,7 +883,7 @@ def main() -> int:
               "card", flush=True)
         model = TPUModelForCausalLM(cfg, params, MISTRAL_7B_V01_HF,
                                     "sym_int4")
-        path = {"qmatmul_int4": b2, "decode_attention": b3,
+        path = {"qmatmul": b2, "decode_attention": b3,
                 "flash_attention": b4}
 
         def prompts(lengths, seed):
@@ -913,23 +1038,34 @@ def main() -> int:
     # -- summary -------------------------------------------------------------
     serve_launches = report["serve"][0]["launches"]
     gen_launches = report["generate"][0]["launches"]
-    rep_b2 = next(r for r in report["b2"] if r["weight"] == "gate_up"
-                  and r["m"] == 8)
     rep_b1 = next(r for r in report["b1"] if r["pool"] == "bf16"
                   and r["case"].startswith("row mix"))
     rep_b3 = next(r for r in report["b3"] if r["case"] == "bf16 window off")
     rep_b4 = report["b4"][0]
     src = "ipex_llm_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    line = {"kernels": [
-        {"name": "qmatmul_int4", "route": "cuda",
-         "source": src + "qmatmul_int4.cu",
-         "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
-         "shape": "M=8 K=4096 N=22016 (gate_up, decode)",
-         "launches": serve_launches["qmatmul_int4"],
-         "max_abs_err": max(r["max_abs_err"]
-                            for r in report["b2"] + report["b2m"]),
-         **{k: rep_b2[k] for k in keys}},
+    # B2's launches in each format on that format's main-path run: the
+    # sym_int4 serving run, and each weight_qtype run of serve_formats
+    b2_launches = {"sym_int4": serve_launches["qmatmul"]}
+    for r in report["serve_formats"]:
+        if r["qtype"] in b2.FORMATS:
+            b2_launches[r["qtype"]] = r["b2_launches_by_format"][r["qtype"]]
+    b2_entries = []
+    for qtype in b2.FORMATS:
+        rows = [r for r in report["b2"] if r["qtype"] == qtype]
+        if qtype == "sym_int4":
+            rows += report["b2m"]
+        rep = next(r for r in rows if r["weight"] == "gate_up"
+                   and r["m"] == 8)
+        b2_entries.append({
+            "name": f"qmatmul[{qtype}]", "route": "cuda",
+            "source": src + "qmatmul.cu",
+            "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
+            "shape": "M=8 K=4096 N=22016 (gate_up, decode)",
+            "launches": b2_launches[qtype],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: rep[k] for k in keys}})
+    line = {"kernels": b2_entries + [
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": src + "ragged_paged_attention.cu",
          "replaces":

@@ -6,11 +6,13 @@ take an explicit ``device`` and run on ``cuda`` unless the caller passes
 ``device="cpu"``, where every hand-written kernel is replaced by its plain
 PyTorch version.
 
-The slice ported so far is the serving engine's paged, ragged tick on a
-llama-family decoder in bf16 or sym_int4 weights, with two CUDA kernels:
-ragged paged attention (``ops/cuda/ragged_paged_attention.py``) and the int4
-dequant-matmul (``ops/cuda/qmatmul.py``).  Configurations outside the slice
-raise ``NotImplementedError``.
+Ported so far: the serving engine's paged, ragged tick on a llama-family
+decoder with weights in bf16 or any of the ten block formats (repacked
+from bf16 through ``EngineConfig.weight_qtype``), and the HF-shaped
+``generate()`` over the dense cache, with four CUDA kernels: ragged paged
+attention, the dequant-matmul in all ten formats (``ops/cuda/qmatmul.py``),
+dense decode attention and flash attention.  Configurations outside the
+port raise ``NotImplementedError``.
 """
 
 from ipex_llm_tpu_torch.device import resolve_device

@@ -39,14 +39,12 @@ def array_to_torch(a: np.ndarray, device) -> torch.Tensor:
 def _leaf(x, device):
     if isinstance(x, dict) and set(x) == _QTENSOR_KEYS:
         resolve(x["qtype"])     # raises for formats outside the slice
-        if x["zeros"] is not None:
-            raise NotImplementedError("asymmetric formats are not ported")
-        return QTensor(
-            array_to_torch(x["data"], device),
-            None if x["scales"] is None else array_to_torch(x["scales"],
-                                                            device),
-            x["qtype"], tuple(int(s) for s in x["shape"]),
-            int(x["block_size"]))
+
+        def plane(key):
+            return None if x[key] is None else array_to_torch(x[key], device)
+        return QTensor(plane("data"), plane("scales"), plane("zeros"),
+                       x["qtype"], tuple(int(s) for s in x["shape"]),
+                       int(x["block_size"]))
     if isinstance(x, (float, int)):
         return x
     return array_to_torch(x, device)

@@ -40,9 +40,7 @@ def layer_params(layers: dict[str, Any], i: int) -> dict[str, Any]:
     out = {}
     for name, leaf in layers.items():
         if isinstance(leaf, QTensor):
-            out[name] = QTensor(
-                leaf.data[i], None if leaf.scales is None else leaf.scales[i],
-                leaf.qtype, leaf.shape, leaf.block_size)
+            out[name] = leaf.planes(lambda t: t[i])
         else:
             out[name] = leaf[i]
     return out

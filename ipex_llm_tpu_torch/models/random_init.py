@@ -75,7 +75,9 @@ def mistral_7b_config(**over) -> ModelConfig:
 
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
                   device=None) -> dict:
-    """Full-width random params on ``device`` (``None`` = cuda)."""
+    """Full-width random params on ``device`` (``None`` = cuda), the
+    linear weights in ``qtype`` (one of the ten block formats, or
+    ``bf16``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     h, ffn, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -98,16 +100,13 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         for name, (n_in, n_out) in shapes.items():
             qt = quantize(weight(n_in, n_out), qtype)
             if name not in stacks:
-                stacks[name] = QTensor(
-                    torch.empty((n_l,) + tuple(qt.data.shape),
-                                dtype=qt.data.dtype, device=dev),
-                    None if qt.scales is None else torch.empty(
-                        (n_l,) + tuple(qt.scales.shape),
-                        dtype=qt.scales.dtype, device=dev),
-                    qt.qtype, qt.shape, qt.block_size)
-            stacks[name].data[i] = qt.data
-            if qt.scales is not None:
-                stacks[name].scales[i] = qt.scales
+                stacks[name] = qt.planes(lambda t: torch.empty(
+                    (n_l,) + tuple(t.shape), dtype=t.dtype, device=dev))
+            st = stacks[name]
+            for dst, src in ((st.data, qt.data), (st.scales, qt.scales),
+                             (st.zeros, qt.zeros)):
+                if src is not None:
+                    dst[i] = src
             del qt
     layers = {"attn_norm": norm_w((n_l, h)), "mlp_norm": norm_w((n_l, h)),
               **stacks}

@@ -38,8 +38,7 @@ class Counts:
     the card can show the plain path was never taken."""
 
     def __init__(self):
-        self.launches = 0
-        self.plain_calls = 0
+        self.reset()
 
     def reset(self):
         self.launches = 0

@@ -1,11 +1,11 @@
 """Quantized linear (port of ``ipex_llm_tpu/ops/linear.py``).
 
-``sym_int4`` weights go to the fused dequant-matmul kernel (B2); ``bf16``
-weights are a plain product (the reference leaves those to XLA).  Other
-formats, LoRA weights and biases raise.  The reference's oracle,
-``qmatmul_reference``, is B2's plain version here:
-``ops/cuda/qmatmul.py::qmatmul_int4_plain``, which the wrapper runs for CPU
-tensors.
+Weights in the ten block formats go to the fused dequant-matmul kernel
+(B2, the reference's ``_PALLAS_QTYPES``); ``bf16`` weights are a plain
+product (the reference leaves those to XLA).  Other formats, LoRA weights
+and biases raise.  The reference's oracle, ``qmatmul_reference``, is B2's
+plain version here: ``ops/cuda/qmatmul.py::qmatmul_plain``, which the
+wrapper runs for CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,28 +13,30 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ipex_llm_tpu_torch.ops.cuda.qmatmul import qmatmul_int4
+from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
 from ipex_llm_tpu_torch.quantize.core import QTensor
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """Quantized matmul: sym_int4 through the B2 wrapper (the kernel on a
-    CUDA tensor, its plain version on a CPU one)."""
-    if qt.qtype != "sym_int4":
+    """x [..., in] @ dequant(qt) -> [..., out] through the B2 wrapper (the
+    kernel on a CUDA tensor, its plain version on a CPU one)."""
+    if qt.qtype not in b2.FORMATS:
         raise NotImplementedError(f"qmatmul for {qt.qtype!r} is not ported")
     lead = x.shape[:-1]
     k = x.shape[-1]
-    k_pad = qt.data.shape[0] * 2
+    num, den = b2.data_row_factor(qt.qtype)
+    k_pad = qt.data.shape[0] * num // den
     x2 = x.reshape(-1, k).to(torch.bfloat16)
     if k_pad != k:   # quantization block padding (core._to_blocks)
         x2 = F.pad(x2, (0, k_pad - k))
-    out = qmatmul_int4(x2.contiguous(), qt.data, qt.scales)
+    out = b2.qmatmul(x2.contiguous(), qt)
     return out.reshape(*lead, qt.out_features).to(x.dtype)
 
 
 def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None
            ) -> torch.Tensor:
-    """Linear over a QTensor (sym_int4 or bf16) or a plain bf16 matrix."""
+    """Linear over a QTensor (a block format or bf16) or a plain bf16
+    matrix."""
     if bias is not None:
         raise NotImplementedError("linear biases are not ported")
     if isinstance(w, QTensor):

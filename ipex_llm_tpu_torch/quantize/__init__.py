@@ -1,4 +1,5 @@
-"""Block quantization (port of ``ipex_llm_tpu/quantize``): sym_int4 and bf16."""
+"""Block quantization (port of ``ipex_llm_tpu/quantize``): the ten block
+formats of the fused dequant-matmul, and bf16."""
 
 from ipex_llm_tpu_torch.quantize.core import QTensor, dequantize, quantize
 

@@ -39,6 +39,7 @@ import queue
 import threading
 import time
 import uuid
+import warnings
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field, replace
 
@@ -47,10 +48,11 @@ import torch
 
 from ipex_llm_tpu_torch.device import resolve_device
 from ipex_llm_tpu_torch.kv import PagedKVCache, paged_page_bytes
+from ipex_llm_tpu_torch.models.build import (packed_qtypes, param_bytes,
+                                             requantize_params)
 from ipex_llm_tpu_torch.models.config import ModelConfig
 from ipex_llm_tpu_torch.models.decoder import decoder_forward
 from ipex_llm_tpu_torch.ops.sampling import sample_rows_with_logprobs
-from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
 from ipex_llm_tpu_torch.quantize.qtypes import resolve as qtype_info
 
 
@@ -173,31 +175,6 @@ def _chain_hashes(prompt: np.ndarray, page_size: int) -> list[bytes]:
             h + prompt[i * page_size:(i + 1) * page_size].tobytes()).digest()
         keys.append(h)
     return keys
-
-
-def requantize_params(params: dict, qtype: str) -> dict:
-    """Re-pack every full-width linear QTensor (stacked or not) into
-    ``qtype`` planes (port of ``models/build.py::requantize_params``);
-    already-packed leaves and plain tensors pass through."""
-    if qtype_info(qtype).kind == "native":
-        return params
-
-    def repack(qt: QTensor) -> QTensor:
-        if qtype_info(qt.qtype).kind != "native":
-            return qt
-        if qt.data.dim() == 2:
-            return quantize(qt.data, qtype)
-        parts = [quantize(m, qtype) for m in qt.data]
-        return QTensor(torch.stack([p.data for p in parts]),
-                       torch.stack([p.scales for p in parts]),
-                       parts[0].qtype, qt.shape, parts[0].block_size)
-
-    def walk(tree):
-        if isinstance(tree, dict):
-            return {k: walk(v) for k, v in tree.items()}
-        return repack(tree) if isinstance(tree, QTensor) else tree
-
-    return walk(params)
 
 
 # -- the tick --------------------------------------------------------------
@@ -336,6 +313,9 @@ class ServingEngine:
         if ec.weight_qtype is not None:
             params = requantize_params(params, ec.weight_qtype)
         self.params = params
+        self._weight_bytes, self._weight_dense_bytes = param_bytes(params)
+        self._weight_qtypes = packed_qtypes(params)
+        self._served_qtype = self._served_width()
         self.default_eos = default_eos
         r = ec.max_rows
         self.cache = PagedKVCache.init(
@@ -375,6 +355,49 @@ class ServingEngine:
                         "prefix_hits": 0, "prefix_pages_shared": 0,
                         "alloc_fail_clamps": 0, "errors": 0,
                         "last_error": ""}
+
+    def _served_width(self) -> str | None:
+        """The width the planes really serve (reference
+        ``serving/engine.py:1175-1220``): the requested format by its
+        canonical name; the planes' own format when the tree arrived packed
+        at another width (a warning says the request was not applied, as
+        requantizing packed codes would stack error); "mixed" when the tree
+        holds more than one packed format; None when nothing is packed."""
+        ask = self.ec.weight_qtype
+        resolved = qtype_info(ask).name if ask is not None else None
+        packed = self._weight_qtypes
+        if not packed:
+            if resolved is not None and qtype_info(resolved).kind \
+                    != "native":
+                warnings.warn(
+                    f"weight_qtype={ask!r} requested but the tree holds no "
+                    "quantizable QTensor leaves: nothing is served at that "
+                    "width", stacklevel=3)
+                return None
+            return resolved
+        if resolved is not None and resolved not in packed:
+            warnings.warn(
+                f"weight_qtype={ask!r} requested but the param tree is "
+                f"already packed as {list(packed)}: requantizing packed "
+                "codes would stack quantization error, so the tree serves "
+                "as-is", stacklevel=3)
+        if len(packed) > 1:
+            return "mixed"
+        return resolved if resolved in packed else packed[0]
+
+    def weight_stats(self) -> dict:
+        """The weight axis (port of the reference's ``weight_stats``): the
+        width served, the width asked for, the packed formats present, the
+        bytes the tree holds as stored and at bf16 full width, and the
+        difference."""
+        return {
+            "qtype": self._served_qtype,
+            "requested_qtype": self.ec.weight_qtype,
+            "packed_qtypes": list(self._weight_qtypes),
+            "weight_bytes": self._weight_bytes,
+            "dense_bytes": self._weight_dense_bytes,
+            "bytes_saved": self._weight_dense_bytes - self._weight_bytes,
+        }
 
     # -- public API ---------------------------------------------------------
 

@@ -13,6 +13,7 @@ toolchain (ROADMAP queue 3), so it is held inside the port only.
 
 import numpy as np
 import pytest
+import torch
 
 from ipex_llm_tpu.serving.engine import EngineConfig as RefEngineConfig
 from ipex_llm_tpu.serving.engine import Request as RefRequest
@@ -191,7 +192,7 @@ def test_weight_qtype_repack_and_byte_budgeted_pool():
     """``weight_qtype="sym_int4"`` on a bf16 tree serves the same streams
     as the tree packed beforehand; ``kv_pool_bytes`` sizes the pool in
     pages of the storage width (fp8 pages are half the bytes)."""
-    from ipex_llm_tpu_torch.serving.engine import requantize_params
+    from ipex_llm_tpu_torch.models.build import requantize_params
 
     _, _, port_cfg, port_params = tiny_pair("bf16")
 
@@ -291,3 +292,190 @@ def test_a_failing_tick_fails_its_requests_and_the_engine_serves_on(
         assert second.finish_reason == "length"
     finally:
         eng.stop()
+
+
+# -- the weight axis: EngineConfig.weight_qtype in the ten block formats ------
+# (ports of tests/test_serving_lowbit.py)
+
+FORMATS = ("sym_int4", "asym_int4", "nf4", "fp4", "sym_int5", "asym_int5",
+           "sym_int8", "fp6", "fp8_e4m3", "fp8_e5m2")
+
+# Prompt seed of the low-bit cross-engine check, chosen by GREEDY_SEED's
+# rule over seeds 0-399: along every stream below, in nf4 and in
+# asym_int5, the emitted token leads its runner-up by at least 0.094
+# (three bf16 ulps at these logits); the token check itself is exact.
+LOWBIT_GREEDY_SEED = 37
+
+
+@pytest.fixture(scope="module")
+def bf16_pair():
+    return tiny_pair("bf16")
+
+
+@pytest.mark.parametrize("qtype", FORMATS)
+def test_repack_packs_linear_stacks_and_lm_head(bf16_pair, qtype):
+    """``weight_qtype`` re-packs exactly the linear weights of a bf16
+    tree: the stacked layer QTensors and the lm head become the format's
+    planes (data rows = padded contraction rows x den / num, a zeros plane
+    for the asymmetric formats), the embedding and norms keep their width,
+    and the byte accounting covers the tree."""
+    from ipex_llm_tpu_torch.models.build import param_bytes
+    from ipex_llm_tpu_torch.ops.cuda.qmatmul import data_row_factor
+    from ipex_llm_tpu_torch.quantize.qtypes import resolve
+
+    _, _, port_cfg, port_params = bf16_pair
+    eng = ServingEngine(port_cfg, port_params,
+                        EngineConfig(weight_qtype=qtype, **EC), device="cpu")
+    info = resolve(qtype)
+    num, den = data_row_factor(qtype)
+    leaves = [(eng.params["layers"][k], (port_cfg.num_layers,))
+              for k in ("qkv", "o", "gate_up", "down")]
+    leaves.append((eng.params["lm_head"], ()))
+    for qt, lead in leaves:
+        assert qt.qtype == qtype and qt.block_size == info.block_size
+        assert qt.data.dtype == torch.uint8
+        in_pad = -(-qt.in_features // qt.block_size) * qt.block_size
+        n_blocks = in_pad // qt.block_size
+        assert qt.data.shape == lead + (in_pad * den // num,
+                                        qt.out_features)
+        assert qt.scales.shape == lead + (n_blocks, qt.out_features)
+        assert (qt.zeros is not None) == (info.kind == "int_asym")
+        if qt.zeros is not None:
+            assert qt.zeros.shape == qt.scales.shape
+    assert eng.params["embed"].dtype == torch.bfloat16
+    assert eng.params["final_norm"].dtype == torch.float32
+    ws = eng.weight_stats()
+    assert ws["qtype"] == qtype and ws["requested_qtype"] == qtype
+    assert ws["packed_qtypes"] == [qtype]
+    assert (ws["weight_bytes"], ws["dense_bytes"]) == param_bytes(eng.params)
+    assert ws["dense_bytes"] == param_bytes(port_params)[0]
+    assert ws["weight_bytes"] + ws["bytes_saved"] == ws["dense_bytes"]
+
+
+def test_packed_tree_passes_through_with_a_warning(bf16_pair):
+    """An already-packed tree is never requantized (that would stack
+    quantization error): the same leaf objects come back whatever width is
+    asked, an engine asked for another width warns and reports the width
+    the planes serve, and a tree packed at two widths (a sym_int8 lm head
+    over a sym_int4 body) reports "mixed", even when the request matches
+    one of them."""
+    from ipex_llm_tpu_torch.models.build import requantize_params
+
+    _, _, port_cfg, port_params = bf16_pair
+    p4 = requantize_params(port_params, "sym_int4")
+    for ask in ("nf4", "q4_k"):
+        again = requantize_params(p4, ask)
+        assert again["layers"]["qkv"] is p4["layers"]["qkv"]
+        assert again["lm_head"] is p4["lm_head"]
+    with pytest.warns(UserWarning, match="already packed"):
+        eng = ServingEngine(port_cfg, p4, EngineConfig(weight_qtype="nf4",
+                                                       **EC), device="cpu")
+    ws = eng.weight_stats()
+    assert (ws["qtype"], ws["requested_qtype"], ws["packed_qtypes"]) == (
+        "sym_int4", "nf4", ["sym_int4"])
+    mixed = dict(p4, lm_head=requantize_params(
+        {"lm_head": port_params["lm_head"]}, "sym_int8")["lm_head"])
+    with pytest.warns(UserWarning, match="already packed"):
+        eng2 = ServingEngine(port_cfg, mixed, EngineConfig(
+            weight_qtype="nf4", **EC), device="cpu")
+    assert eng2.weight_stats()["qtype"] == "mixed"
+    eng3 = ServingEngine(port_cfg, mixed, EngineConfig(
+        weight_qtype="sym_int4", **EC), device="cpu")
+    ws3 = eng3.weight_stats()
+    assert (ws3["qtype"], ws3["requested_qtype"], ws3["packed_qtypes"]) == (
+        "mixed", "sym_int4", ["sym_int4", "sym_int8"])
+    reqs = _drive(eng3, _schedule(Request, _prompts(port_cfg.vocab_size)[:2],
+                                  max_new_tokens=4))
+    assert all(len(r.output_ids) == 4 for r in reqs)
+
+
+def test_plain_array_tree_warns_and_reports_unpacked(bf16_pair):
+    """A packed width asked over a tree whose linear weights are plain
+    tensors (which the repack cannot tell from an embedding table) warns,
+    and ``weight_stats()`` claims no width: nothing is served packed."""
+    _, _, port_cfg, port_params = bf16_pair
+    plain = dict(port_params, lm_head=port_params["lm_head"].data,
+                 layers={k: getattr(v, "data", v)
+                         for k, v in port_params["layers"].items()})
+    with pytest.warns(UserWarning, match="no quantizable"):
+        eng = ServingEngine(port_cfg, plain, EngineConfig(
+            weight_qtype="sym_int4", **EC), device="cpu")
+    ws = eng.weight_stats()
+    assert ws["qtype"] is None and ws["requested_qtype"] == "sym_int4"
+    assert ws["packed_qtypes"] == [] and ws["bytes_saved"] == 0
+    reqs = _drive(eng, _schedule(Request, _prompts(port_cfg.vocab_size)[:1],
+                                 max_new_tokens=3))
+    assert len(reqs[0].output_ids) == 3
+
+
+@pytest.mark.parametrize("alias,target", [
+    ("woq_int4", "sym_int4"), ("fp8", "fp8_e5m2"),
+    ("torch_fp8_e4m3", "fp8_e4m3"), ("fp6_k", "fp6")])
+def test_alias_width_reports_canonical(bf16_pair, alias, target):
+    """An alias packs, and reports, the canonical format; the alias itself
+    stays only in ``requested_qtype``."""
+    _, _, port_cfg, port_params = bf16_pair
+    ws = ServingEngine(port_cfg, port_params,
+                       EngineConfig(weight_qtype=alias, **EC),
+                       device="cpu").weight_stats()
+    assert (ws["qtype"], ws["requested_qtype"], ws["packed_qtypes"]) == (
+        target, alias, [target])
+
+
+def test_engine_rejects_unknown_and_unported_qtype(bf16_pair):
+    """An unknown name raises the reference's ValueError; a reference
+    format outside the port (a k-quant) raises NotImplementedError where
+    the reference raises its ValueError for a kind without a repack codec;
+    a native width is a no-op."""
+    _, _, port_cfg, port_params = bf16_pair
+    with pytest.raises(ValueError, match="load_in_low_bit"):
+        ServingEngine(port_cfg, port_params,
+                      EngineConfig(weight_qtype="int3", **EC), device="cpu")
+    with pytest.raises(NotImplementedError, match="q4_k"):
+        ServingEngine(port_cfg, port_params,
+                      EngineConfig(weight_qtype="q4_k", **EC), device="cpu")
+    eng = ServingEngine(port_cfg, port_params,
+                        EngineConfig(weight_qtype="bf16", **EC), device="cpu")
+    assert eng.weight_stats()["packed_qtypes"] == []
+    assert eng.weight_stats()["qtype"] == "bf16"
+
+
+@pytest.mark.parametrize("qtype", ["nf4", "asym_int5"])
+def test_lowbit_greedy_streams_match_reference_engine(bf16_pair, qtype):
+    """Both engines repack the same bf16 tree into ``qtype`` (bitwise the
+    same planes, tests/test_torch_quantize.py) and serve token-identical
+    greedy streams (see LOWBIT_GREEDY_SEED); logprobs within the bounds of
+    test_greedy_streams_match_reference_engine."""
+    cfg, params, port_cfg, port_params = bf16_pair
+    prompts = _prompts(cfg.vocab_size, LOWBIT_GREEDY_SEED)
+    ref = _drive(RefServingEngine(cfg, params, RefEngineConfig(
+        planner="static", perfwatch=False, weight_qtype=qtype, **EC)),
+        _schedule(RefRequest, prompts, max_new_tokens=6))
+    eng = ServingEngine(port_cfg, port_params,
+                        EngineConfig(weight_qtype=qtype, **EC), device="cpu")
+    port = _drive(eng, _schedule(Request, prompts, max_new_tokens=6))
+    for a, b in zip(port, ref):
+        assert a.output_ids == b.output_ids
+        np.testing.assert_allclose(a.logprobs, b.logprobs, rtol=0,
+                                   atol=0.2)
+        assert np.abs(np.subtract(a.logprobs, b.logprobs)).mean() < 0.05
+    assert eng.weight_stats()["qtype"] == qtype
+
+
+@pytest.mark.parametrize("qtype", ["nf4", "fp8_e4m3"])
+def test_lowbit_mixed_equals_sequential_and_h4_equals_h1(bf16_pair, qtype):
+    """The engine's path equivalences hold in a 64-row-block codebook
+    format and a 128-row-block minifloat: mixed ticks equal one row, one
+    chunk per tick, and a 4-step horizon equals one step, bitwise in
+    tokens and logprobs."""
+    from ipex_llm_tpu_torch.models.build import requantize_params
+
+    _, _, port_cfg, port_params = bf16_pair
+    packed = requantize_params(port_params, qtype)
+    mixed, m_mixed = _port_streams(port_cfg, packed)
+    seq, m_seq = _port_streams(port_cfg, packed, step_token_budget=0)
+    h4, m_h4 = _port_streams(port_cfg, packed, decode_horizon=4)
+    assert m_mixed["mixed_steps"] > 0 and m_seq["mixed_steps"] == 0
+    assert m_h4["decode_horizon_effective"] == 4
+    assert mixed == seq
+    assert h4 == mixed

@@ -1,10 +1,10 @@
 """The port's operators against the JAX package on the same inputs.
 
 The two kernels of the serving path are held through their plain PyTorch
-versions (the wrappers take them for CPU tensors): B2, the sym_int4
-dequant-matmul, against the JAX Pallas kernel (interpreted on the CPU) and
-its XLA reference; B1, ragged paged attention, against the JAX Pallas
-kernel.  The paged KV scatter and the e5m2 encode are byte moves and are
+versions (the wrappers take them for CPU tensors): B2, the dequant-matmul
+in each of its ten block formats, against the JAX Pallas kernel
+(interpreted on the CPU) and its XLA reference; B1, ragged paged
+attention, against the JAX Pallas kernel.  The paged KV scatter and the e5m2 encode are byte moves and are
 held bitwise; the leaf ops and greedy sampling to the reference's results.
 """
 
@@ -42,8 +42,9 @@ def _bf16(a: np.ndarray):
 
 
 def _port_qtensor(ref) -> QTensor:
-    return QTensor(torch.from_numpy(np.asarray(ref.data).copy()),
-                   torch.from_numpy(np.asarray(ref.scales).copy()),
+    def plane(a):
+        return None if a is None else torch.from_numpy(np.asarray(a).copy())
+    return QTensor(plane(ref.data), plane(ref.scales), plane(ref.zeros),
                    ref.qtype, tuple(ref.shape), ref.block_size)
 
 
@@ -53,7 +54,11 @@ def _f32(x) -> np.ndarray:
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-# -- B2: sym_int4 dequant-matmul ---------------------------------------------
+# -- B2: the dequant-matmul ---------------------------------------------------
+
+B2_FORMATS = ("sym_int4", "asym_int4", "nf4", "fp4", "sym_int5",
+              "asym_int5", "sym_int8", "fp6", "fp8_e4m3", "fp8_e5m2")
+
 
 @pytest.mark.parametrize("m", [1, 8, 40])
 @pytest.mark.parametrize("k,n", [(320, 200), (200, 72)])
@@ -76,30 +81,78 @@ def test_qmatmul_plain_matches_reference(m, k, n):
     got = _f32(got_t)
     assert got_t.dtype == torch.bfloat16 and got.shape == (m, n)
     assert b2.COUNTS.plain_calls == 1 and b2.COUNTS.launches == 0
-    tol = 2.0 ** -7 * np.abs(want_xla).max()
-    np.testing.assert_allclose(got, want_xla, rtol=0, atol=tol)
-    np.testing.assert_allclose(got, want_pallas, rtol=0, atol=tol)
+    tol = 2.0 ** -7 * np.abs(want_xla).max(axis=1, keepdims=True)
+    assert (np.abs(got - want_xla) <= tol).all()
+    assert (np.abs(got - want_pallas) <= tol).all()
 
 
-def test_qmatmul_keep_f32_and_leading_dims():
+@pytest.mark.parametrize("qtype", B2_FORMATS)
+@pytest.mark.parametrize("k", ["whole blocks", 200])
+def test_qmatmul_formats_match_reference(qtype, k):
+    """Every format at the reference test's shapes (tests/test_pallas.py:
+    K=160, or 256 for fp8's 128-row blocks; N=200, M=3), and at K=200, a
+    partial trailing block for every block size (the padding path).  The
+    weights come from the reference's jitted codec.  Tolerance: one bf16
+    ulp of each row's largest output (2^-7 of it; the reasoning of the
+    sym_int4 test above, held per row), against the Pallas kernel and
+    against ``qmatmul_reference``."""
+    if k == "whole blocks":
+        k = 256 if qtype.startswith("fp8") else 160
+    n, m = 200, 3
+    rng = np.random.default_rng(7 + k)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    xj, xt = _bf16(rng.standard_normal((m, k)) * 0.5)
+    ref_qt = ref_core.quantize(jnp.asarray(w), qtype)
+    want_pallas = _f32(qmatmul_pallas(xj, ref_qt))
+    want_xla = _f32(ref_qmatmul_reference(xj, ref_qt))
+    b2.COUNTS.reset()
+    got = _f32(qmatmul(xt, _port_qtensor(ref_qt)))
+    assert got.shape == (m, n)
+    assert b2.COUNTS.plain_calls == 1 and b2.COUNTS.launches == 0
+    tol = 2.0 ** -7 * np.abs(want_xla).max(axis=1, keepdims=True)
+    assert (np.abs(got - want_xla) <= tol).all()
+    assert (np.abs(got - want_pallas) <= tol).all()
+
+
+@pytest.mark.parametrize("qtype", B2_FORMATS)
+def test_qmatmul_keep_f32_and_leading_dims(qtype):
+    """Leading batch dims pass through, and ``keep_f32`` returns the fp32
+    accumulator whose bf16 rounding is the default output (K=64: a partial
+    block for the 64- and 128-row formats)."""
     rng = np.random.default_rng(9)
     w = (rng.standard_normal((64, 48)) * 0.05).astype(np.float32)
-    qt = _port_qtensor(ref_core.quantize(jnp.asarray(w), "sym_int4"))
+    qt = _port_qtensor(ref_core.quantize(jnp.asarray(w), qtype))
     _, x = _bf16(rng.standard_normal((2, 3, 64)))
     y = qmatmul(x, qt)
-    assert y.shape == (2, 3, 48)
-    y32 = b2.qmatmul_int4(x.reshape(6, 64), qt.data, qt.scales,
-                          keep_f32=True)
-    assert y32.dtype == torch.float32
+    assert y.shape == (2, 3, 48) and y.dtype == torch.bfloat16
+    num, den = b2.data_row_factor(qtype)
+    k_pad = qt.data.shape[0] * num // den
+    x2 = torch.nn.functional.pad(x.reshape(6, 64), (0, k_pad - 64))
+    y32 = b2.qmatmul(x2, qt, keep_f32=True)
+    assert y32.dtype == torch.float32 and y32.shape == (6, 48)
     torch.testing.assert_close(y.reshape(6, 48), y32.to(torch.bfloat16),
                                rtol=0, atol=0)
 
 
+def test_qmatmul_split_plan_holds_whole_blocks():
+    """Every K split of the kernel holds whole quantization blocks of the
+    format (32, 64 or 128 rows) and at least 128 rows, and the splits
+    cover K exactly once."""
+    for bs in (32, 64, 128):
+        for m, n, k in ((1, 4096, 4096), (8, 22016, 4096), (8, 4096, 11008),
+                        (128, 12288, 4096), (3, 200, 256)):
+            splits, per = b2.split_plan(m, n, k, bs)
+            nqb = k // bs
+            assert per * bs >= 128 or splits == 1
+            assert (splits - 1) * per < nqb <= splits * per
+
+
 def test_linear_raises_outside_the_slice():
-    qt = QTensor(torch.zeros(16, 8, dtype=torch.uint8),
-                 torch.zeros(1, 8, dtype=torch.float16), "nf4", (32, 8), 32)
+    qt = QTensor(torch.zeros(24, 8, dtype=torch.uint8),
+                 torch.zeros(1, 8, dtype=torch.float16), None, "nf3",
+                 (64, 8), 64)
     with pytest.raises(NotImplementedError):
-        linear(torch.zeros(2, 32, dtype=torch.bfloat16), qt)
+        linear(torch.zeros(2, 64, dtype=torch.bfloat16), qt)
     with pytest.raises(NotImplementedError):
         linear(torch.zeros(2, 32), torch.zeros(32, 8), bias=torch.zeros(8))
 
