@@ -14,8 +14,9 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 2. ``b2``: the dequant-matmul in each of its ten block formats against
    its plain PyTorch version at the five Llama-2-7B weight shapes and M =
    1, 8 (decode) and 128 (the prefill tokens of a mixed tick at
-   ``prefill_bucket`` 128), plus M = 512 in sym_int4, off the serving
-   path, as a larger prefill (3, 13 and 100 checked only), each output row
+   ``prefill_bucket`` 128), plus in sym_int4 M = 32 (the verify forward of
+   ``spec_k`` 3 over 8 rows) and, off the serving path, M = 512 as a
+   larger prefill (3, 13 and 100 checked only), each output row
    to one bf16 ulp of its largest value, with the kernel's, the plain
    version's and ``torch.matmul`` on the dequantized weight's times, and
    the card's least time for the work; then ``codec``: one 4096x4096
@@ -24,13 +25,28 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 3. ``b1``: ragged paged attention against its plain version on decode,
    chunk (width 128 and 16) and idle rows at 32 heads, head_dim 128, page
    128, over bf16 and e5m2 pools, with ``scaled_dot_product_attention``
-   over the gathered pages as the library yardstick;
+   over the gathered pages as the library yardstick; then ``b5``: split
+   paged attention against its plain version at the same widths, rows of
+   1 to 2048 slots with -1 table tails, in decode (C=1), at the verify
+   width of ``spec_k`` 3 (C=4) and at C=128, over bf16 and e5m2 pools,
+   and B1 against B5 on the same inputs (B5 is B1's oracle; it is off the
+   serving path); then ``spec_verify``: one B1 launch over [R, 4] verify
+   chunks against the four B5 decode launches the same tokens cost
+   without speculation;
 4. ``decoder``: a small GQA decoder on the card against the same decoder on
    the CPU's plain versions, paged form (prefill plus decode steps), in
    each of the ten formats;
 5. ``serve``: serving at Llama-2-7B widths (random sym_int4 weights from a
    seed): eight requests through ``ServingEngine`` over a bf16 pool, then
-   two over an e5m2 pool; then ``serve_formats``: one random bf16 tree
+   two over an e5m2 pool; then ``serve_spec``: prompt-lookup speculative
+   decoding (``spec_k`` 3, horizon 4) on eight requests of 48 new tokens,
+   four prompts repeating a 16-id pattern, four not, against the same
+   engine with ``spec_k`` 0 and the sequential engine's host walk (its
+   oracle): until the first fork each token's logprobs agree within
+   ``SPEC_ULPS`` bf16 ulps of the top logit, and a greedy stream forks only
+   where both tokens lie within as many ulps of it; then two over an e5m2
+   pool;
+   then ``serve_formats``: one random bf16 tree
    that the engine repacks (``EngineConfig(weight_qtype=F)``) into each of
    the nine other formats, and a tree with a sym_int8 lm head over a
    sym_int4 body ("mixed"), two requests each (prompts of 300 and 700 ids,
@@ -102,6 +118,14 @@ B2_TOL_REL = 2.0 ** -7
 # (batch row and query, over heads and dims), as rows over few keys have
 # outputs far larger than rows over thousands.
 ATTN_TOL_REL = 2.0 ** -7
+# two serving paths over one model (fused spec tick, spec off, the host
+# walk) run B2 at different M, and its split plan follows M, so their fp32
+# sums round to bf16 differently at every layer and the logits differ by a
+# few ulps.  A greedy fork is a near-tie only when both forked tokens lie
+# within this many bf16 ulps of the top logit, and logprobs of the same
+# token must agree within it; a mis-walked chain or a shifted position
+# lands far outside.
+SPEC_ULPS = 8
 
 LLAMA2_7B_SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096),
                     "gate_up": (4096, 22016), "down": (11008, 4096),
@@ -137,6 +161,7 @@ def main() -> int:
     from ipex_llm_tpu_torch.ops.cuda import _build
     from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
     from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
+    from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
     from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
     from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
 
@@ -195,7 +220,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     kernels = {"qmatmul": b2, "ragged_paged_attention": b1,
-               "decode_attention": b3, "flash_attention": b4}
+               "decode_attention": b3, "flash_attention": b4,
+               "paged_attention": b5}
     t_build = _build.build([m.NAME for m in kernels.values()])
     print(f"kernel build: {t_build:.1f} s for {len(kernels)} sources",
           flush=True)
@@ -275,7 +301,8 @@ def main() -> int:
     # -- 2. B2 at Llama-2-7B's shapes, in every format -----------------------
     report["b2"] = []
     for qtype in b2.FORMATS:
-        ms = (1, 8, 128, 512) if qtype == "sym_int4" else (1, 8, 128)
+        # M=32: the verify forward of spec_k 3 over 8 rows
+        ms = (1, 8, 32, 128, 512) if qtype == "sym_int4" else (1, 8, 128)
         report["b2"] += b2_rows(LLAMA2_7B_SHAPES, ms,
                                 lambda w, m: m != 512, "llama2-7b", qtype)
     torch.cuda.empty_cache()
@@ -405,6 +432,117 @@ def main() -> int:
             print("B1 " + json.dumps(row), flush=True)
             del q, kp, vp, out, ref
     report["b1"] = b1_rows
+
+    # -- 3b. B5, and B1 against it -------------------------------------------
+    def b5_case(pool_dtype, c, r=8, hq=32, hkv=32, d=128, ps=128, maxp=16):
+        """Rows of 1 to 2048 slots (one shorter than C=4, two shorter than
+        C=128), pages in random order, -1 past each row's last page."""
+        n_pages = 1 + r * maxp
+        kp = torch.randn(n_pages, hkv, ps, d, generator=gen,
+                         device=dev).to(pool_dtype)
+        vp = torch.randn(n_pages, hkv, ps, d, generator=gen,
+                         device=dev).to(pool_dtype)
+        kv_len = torch.tensor([1, 100, 130, 511, 900, 1300, 2047, 2048],
+                              dtype=torch.int32, device=dev)[:r]
+        tables = (1 + torch.randperm(r * maxp, generator=gen, device=dev)
+                  ).to(torch.int32).reshape(r, maxp)
+        for i in range(r):
+            tables[i, -(-int(kv_len[i]) // ps):] = -1
+        q = torch.randn(r, c, hq, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        return q, kp, vp, tables, kv_len
+
+    def b5_call(q, kp, vp, tables, kv_len):
+        fn = b5.paged_decode_sdpa if q.shape[1] == 1 else b5.paged_prefill_sdpa
+        return fn(q, kp, vp, tables, kv_len)
+
+    b5.COUNTS.reset()
+    b5_rows = []
+    for pool_name, pool_dtype in (("bf16", torch.bfloat16),
+                                  ("e5m2", torch.float8_e5m2)):
+        for c in (1, 4, 128):
+            args = b5_case(pool_dtype, c)
+            q, kp, vp, tables, kv_len = args
+            chunk = torch.full_like(kv_len, c)
+            out = b5_call(*args)
+            ref = b5.paged_sdpa_plain(*args, scale=128 ** -0.5)
+            via_b1 = b1.ragged_paged_sdpa(q, kp, vp, tables, kv_len, chunk)
+            torch.cuda.synchronize()
+            label = f"B5 {pool_name} C={c}"
+            err, worst = check_rows(out, ref, label)
+            b1_err, b1_worst = check_rows(via_b1, out, f"B1 vs {label}")
+            nq = (kv_len[:, None] - c + torch.arange(c, device=dev)) < 0
+            if out[nq].any():
+                fail(f"{label}: a query with no visible key is not zero")
+            ms = time_ms(lambda: b5_call(*args), 30)
+            plain_ms = time_ms(lambda: b5.paged_sdpa_plain(
+                *args, scale=128 ** -0.5), 3)
+            lib_ms = time_ms(b1_library(q, kp, vp, tables, kv_len, chunk), 30)
+            b1_ms = time_ms(lambda: b1.ragged_paged_sdpa(
+                q, kp, vp, tables, kv_len, chunk), 30)
+            # B1's reckoning: q in and out once, each row's K/V slots once,
+            # 4 D operations per visible (query head, key) pair
+            kvl = kv_len.cpu().tolist()
+            pairs = sum(max(0, n - c + j + 1) for n in kvl for j in range(c))
+            bms, by = bound(2 * q.numel() * 2 + sum(
+                2 * n * kp.shape[1] * 128 * kp.element_size() for n in kvl),
+                4.0 * 128 * q.shape[2] * pairs)
+            row = dict(pool=pool_name, case=f"C={c}", max_abs_err=err,
+                       max_rel_err=worst, tol_rel=ATTN_TOL_REL, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                       bound_by=by, b1_ms=b1_ms, b1_vs_b5_max_abs=b1_err,
+                       b1_vs_b5_max_rel=b1_worst,
+                       b1_equals_b5_bitwise=bool(torch.equal(via_b1, out)))
+            b5_rows.append(row)
+            print("B5 " + json.dumps(row), flush=True)
+            del args, q, kp, vp, out, ref, via_b1
+    report["b5"] = b5_rows
+
+    # -- 3c. the verify shape: one wide B1 pass against k+1 B5 decodes -------
+    def spec_verify(pool_name, pool_dtype, k_spec=3, r=8, hq=32, hkv=32,
+                    d=128, ps=128, maxp=16):
+        """benchmark/microbench.py::bench_spec_verify on the card: every
+        row full (maxp pages), the [R, k+1] chunk through B1 once, against
+        k+1 sequential B5 decode launches at kv_len = base+1 .. base+k+1."""
+        k1 = k_spec + 1
+        n_pages = 1 + r * maxp
+        kp = torch.randn(n_pages, hkv, ps, d, generator=gen,
+                         device=dev).to(pool_dtype)
+        vp = torch.randn(n_pages, hkv, ps, d, generator=gen,
+                         device=dev).to(pool_dtype)
+        tables = (1 + torch.arange(r * maxp, device=dev)).to(
+            torch.int32).reshape(r, maxp)
+        q_wide = torch.randn(r, k1, hq, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        q_one = q_wide[:, :1].contiguous()
+        base = maxp * ps - k1
+        kv_full = torch.full((r,), maxp * ps, dtype=torch.int32, device=dev)
+        chunk = torch.full((r,), k1, dtype=torch.int32, device=dev)
+        lens = [torch.full((r,), base + j + 1, dtype=torch.int32, device=dev)
+                for j in range(k1)]
+        # bytes the sequential chain re-reads: k+1 sweeps of every row's pages
+        nbytes = 2 * r * maxp * ps * hkv * d * kp.element_size() * k1
+
+        def chain():
+            for kl in lens:
+                b5.paged_decode_sdpa(q_one, kp, vp, tables, kl)
+
+        wide_ms = time_ms(lambda: b1.ragged_paged_sdpa(
+            q_wide, kp, vp, tables, kv_full, chunk), 50)
+        chain_ms = time_ms(chain, 50)
+        row = dict(pool=pool_name, shape=f"R={r} Hq={hq} Hkv={hkv} "
+                   f"S={maxp * ps} D={d} k={k_spec}",
+                   wide_b1_ms=wide_ms, chain_b5_ms=chain_ms,
+                   wide_eff_gb_s=nbytes / wide_ms / 1e6,
+                   chain_gb_s=nbytes / chain_ms / 1e6,
+                   chain_over_wide=chain_ms / wide_ms)
+        print("spec_verify " + json.dumps(row), flush=True)
+        return row
+
+    report["spec_verify"] = [spec_verify("bf16", torch.bfloat16),
+                             spec_verify("e5m2", torch.float8_e5m2)]
+    b5_launches = b5.COUNTS.launches
+    torch.cuda.empty_cache()
 
     # -- 4. a small decoder, paged form: card against CPU -------------------
     from ipex_llm_tpu_torch.kv import PagedKVCache, make_cache
@@ -536,11 +674,22 @@ def main() -> int:
                    ttft_mean_s=float(np.mean(ttft)),
                    ttft_max_s=float(np.max(ttft)),
                    launches={k: v[0] for k, v in counts.items()},
+                   plain_calls={k: v[1] for k, v in counts.items()},
                    b2_launches_by_format={k: v for k, v in by_format.items()
                                           if v},
                    metrics={k: eng.metrics[k] for k in (
                        "mixed_steps", "steps", "host_syncs", "epoch_syncs",
-                       "decode_horizon_effective")})
+                       "liveness_syncs", "decode_horizon_effective")})
+        if eng.ec.spec_k:
+            m = eng.metrics
+            if m["spec_steps"] == 0 or m["draft_proposed"] == 0:
+                fail(f"{label}: the engine never speculated ({m})")
+            res.update(spec_stats=eng.spec_stats(), verify_rounds=m[
+                "spec_steps"], spec_ticks=m["spec_ticks"],
+                spec_emitted=m["spec_emitted"],
+                tokens_per_row_round=m["spec_emitted"] / m["spec_row_steps"],
+                # one block read a tick plus the loop's liveness reads
+                host_syncs_per_tick=1 + m["liveness_syncs"] / m["host_syncs"])
         print("serve " + json.dumps(res), flush=True)
         return res
 
@@ -574,9 +723,141 @@ def main() -> int:
             torch.cuda.empty_cache()
             return res
 
-        return [serve("bf16", 8, 7), serve("fp8", 2, 8)]
+        rows = [serve("bf16", 8, 7), serve("fp8", 2, 8)]
+        return rows, serve_spec_phase(params)
 
-    report["serve"] = serve_phase()
+    def spec_requests(seed: int):
+        """Eight requests of 48 new tokens: four prompts repeat a random
+        16-id pattern to 256-1024 ids (the text prompt lookup serves:
+        edits of given code, quotes of retrieved passages), four are random
+        ids, 64-1000; in each group two greedy, two seeded t=0.8 top-p 0.9."""
+        rng = np.random.default_rng(seed)
+        reqs = []
+        for i in range(8):
+            if i < 4:
+                n = int(rng.integers(256, 1025))
+                ids = np.resize(rng.integers(1, cfg.vocab_size, 16), n)
+            else:
+                ids = rng.integers(1, cfg.vocab_size, int(rng.integers(64,
+                                                                       1001)))
+            reqs.append(dict(prompt_ids=[int(v) for v in ids],
+                             max_new_tokens=48,
+                             temperature=0.8 if i % 2 else 0.0,
+                             top_p=0.9 if i % 2 else 1.0,
+                             seed=2000 + i if i % 2 else None))
+        return reqs
+
+    def stream_logits(params, prompt, out) -> torch.Tensor:
+        """[len(out), V] float32 logits that predict each token of ``out``
+        after ``prompt``: one prefill over a fresh one-row pool, a numeric
+        path of its own (B2 at M = the whole sequence)."""
+        ids = list(prompt) + list(out[:-1])
+        t = len(ids)
+        maxp = -(-t // 128)
+        cache = PagedKVCache.init(cfg.num_layers, 1 + maxp, 1, maxp,
+                                  cfg.num_kv_heads, 128, cfg.head_dim,
+                                  device=dev)
+        cache.tables.copy_(1 + torch.arange(maxp, dtype=torch.int32))
+        logits, _ = decoder_forward(
+            cfg, params, torch.tensor([ids], dtype=torch.int32, device=dev),
+            cache, torch.arange(t, device=dev)[None],
+            slot_offsets=torch.zeros(1, dtype=torch.int32, device=dev))
+        del cache
+        return logits[0, len(prompt) - 1:].float()
+
+    def below_top(ref, toks):
+        """How far each token of ``toks`` lies below its position's top
+        logit in ``ref`` [n, V], in bf16 ulps of that top logit, and the
+        ulps."""
+        top = ref.max(dim=-1).values
+        ulp = torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+        idx = torch.tensor(toks, device=ref.device)[:, None]
+        low = (top - ref[:len(toks)].gather(1, idx)[:, 0]) / ulp[:len(toks)]
+        return low.cpu().numpy(), ulp.cpu().numpy()
+
+    def hold_streams(label, pairs, ref_logits) -> list:
+        """Hold stream a (the fused spec tick's) against stream b of each
+        request.  The two paths run B2 at different M, so their logits
+        differ in the last bits.  Until the first fork, each token's two
+        logprobs must agree within SPEC_ULPS bf16 ulps of that position's
+        top logit (``ref_logits``: a third path, conditioned on stream a);
+        at a greedy row's fork both tokens must lie within as many ulps of
+        the top logit, or the fork is a fault and not a near-tie.  A
+        seeded row's fork is a draw at t=0.8 that its Gumbel noise decides,
+        so only its prefix is held."""
+        forks = []
+        for i, ((a, lp_a), (b, lp_b)) in enumerate(pairs):
+            ref = ref_logits[i]
+            j = next((j for j in range(len(a)) if a[j] != b[j]), None)
+            n = len(a) if j is None else j
+            _, ulp = below_top(ref, a)
+            dlp = np.abs(np.asarray(lp_a[:n]) - np.asarray(lp_b[:n]))
+            lp_ulps = float((dlp / ulp[:n]).max()) if n else 0.0
+            greedy = i % 2 == 0
+            fork = dict(request=i, greedy=greedy, repeating_prompt=i < 4,
+                        first_fork=j, logprob_max_ulps=lp_ulps)
+            if lp_ulps > SPEC_ULPS:
+                fail(f"{label} request {i}: logprobs before the fork differ "
+                     f"by {lp_ulps:.2f} ulps of the top logit (bound "
+                     f"{SPEC_ULPS})")
+            if j is not None:
+                low = max(below_top(ref[j:j + 1], [a[j]])[0][0],
+                          below_top(ref[j:j + 1], [b[j]])[0][0])
+                top2 = torch.topk(ref[j], 2).values
+                fork.update(a_token=a[j], b_token=b[j],
+                            top2_gap=float(top2[0] - top2[1]),
+                            fork_below_top_ulps=float(low))
+                if greedy and low > SPEC_ULPS:
+                    fail(f"{label} request {i}: greedy streams fork at "
+                         f"token {j} to a token {low:.2f} ulps below the "
+                         f"top logit (bound {SPEC_ULPS})")
+            forks.append(fork)
+        print(f"serve_spec forks {label} " + json.dumps(forks), flush=True)
+        return forks
+
+    def serve_spec_phase(params) -> dict:
+        ec = dict(max_rows=8, max_seq_len=2048, page_size=128,
+                  prefill_bucket=128, spec_ngram=3)
+        runs, streams = {}, {}
+        for label, k, storage, picks, extra in (
+                ("spec_k=3", 3, "bf16", range(8), dict(decode_horizon=4)),
+                ("spec_k=0", 0, "bf16", range(8), dict(decode_horizon=4)),
+                # the sequential engine's host walk, the fused tick's oracle
+                ("spec_k=3 host walk", 3, "bf16", range(8),
+                 dict(decode_horizon=1, step_token_budget=0)),
+                ("spec_k=3 e5m2", 3, "fp8", (0, 5), dict(decode_horizon=4))):
+            kws = [spec_requests(31)[i] for i in picks]
+            reqs = [Request(**kw) for kw in kws]
+            eng = ServingEngine(cfg, params, EngineConfig(
+                spec_k=k, kv_storage=storage, **extra, **ec), device=dev)
+            runs[label] = dict(storage=storage, **serve_run(
+                f"serve_spec {label}", eng, reqs, ("sym_int4",)))
+            streams[label] = [(q.output_ids, q.logprobs) for q in reqs]
+            del eng
+            torch.cuda.empty_cache()
+        prompts = [kw["prompt_ids"] for kw in spec_requests(31)]
+        ref = [stream_logits(params, p, a) for p, (a, _) in
+               zip(prompts, streams["spec_k=3"])]
+        fused = streams["spec_k=3"]
+        # every greedy token of the fused tick is the third path's argmax
+        # but for a near-tie
+        greedy_low = max(float(below_top(r, a)[0].max()) for r, (a, _)
+                         in list(zip(ref, fused))[::2])
+        print(f"serve_spec fused greedy tokens, worst {greedy_low:.2f} ulps "
+              f"below the top logit (bound {SPEC_ULPS})", flush=True)
+        if greedy_low > SPEC_ULPS:
+            fail(f"serve_spec: a greedy token of the fused tick lies "
+                 f"{greedy_low:.2f} ulps below the top logit")
+        forks = hold_streams("fused vs spec_k=0",
+                             list(zip(fused, streams["spec_k=0"])), ref)
+        oracle = hold_streams("fused vs host walk",
+                              list(zip(fused, streams["spec_k=3 host walk"])),
+                              ref)
+        return dict(runs=runs, forks=forks, forks_vs_host_walk=oracle,
+                    greedy_worst_below_top_ulps=greedy_low,
+                    tol_ulps=SPEC_ULPS)
+
+    report["serve"], report["serve_spec"] = serve_phase()
     torch.cuda.empty_cache()
 
     # -- 5b. serving a bf16 tree in each block format ------------------------
@@ -1042,6 +1323,8 @@ def main() -> int:
                   and r["case"].startswith("row mix"))
     rep_b3 = next(r for r in report["b3"] if r["case"] == "bf16 window off")
     rep_b4 = report["b4"][0]
+    rep_b5 = next(r for r in report["b5"] if r["pool"] == "bf16"
+                  and r["case"] == "C=4")
     src = "ipex_llm_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # B2's launches in each format on that format's main-path run: the
@@ -1091,6 +1374,20 @@ def main() -> int:
          "launches": gen_launches["flash_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b4"]),
          **{k: rep_b4[k] for k in keys}},
+        {"name": "paged_attention", "route": "cuda",
+         "source": src + "paged_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/paged_attention.py:174",
+         "shape": "R=8 C=4 Hq=Hkv=32 D=128 page 128, bf16 pool, rows of "
+                  "1-2048 slots (the verify chunks of spec_k 3)",
+         "on_serving_path": False,
+         # the serve_spec run's count: the engine does not dispatch B5
+         "launches": report["serve_spec"]["runs"]["spec_k=3"]["launches"][
+             "paged_attention"],
+         "check_launches": b5_launches,
+         "check_launches_from": "the b5 and spec_verify phases (B1's "
+                                "oracle)",
+         "max_abs_err": max(r["max_abs_err"] for r in report["b5"]),
+         **{k: rep_b5[k] for k in keys}},
     ]}
     out_dir = ROOT / "chiprun_out"
     try:

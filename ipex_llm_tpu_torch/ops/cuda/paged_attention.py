@@ -1,0 +1,160 @@
+"""Split paged attention (kernel B5; port of
+``ipex_llm_tpu/ops/pallas/paged_attention.py``: ``paged_decode_sdpa`` and
+``paged_prefill_sdpa``).
+
+Decode (each query sees slots ``[0, kv_len)``) and uniform chunks of C
+causal queries at slots ``[kv_len - C, kv_len)`` over the paged pool.  As in
+the JAX package, the engine does not dispatch it: the ragged kernel (B1)
+carries every attention of the tick, and B5 is its oracle in these two
+regimes, which are exactly the shapes of the speculative verify step.
+``csrc/paged_attention.cu`` holds the kernel (a key-split pass and a merge
+pass) and the note on its design and bound.  The wrappers launch it for
+CUDA tensors and run :func:`paged_sdpa_plain` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ipex_llm_tpu_torch.kv import gather_rows
+from ipex_llm_tpu_torch.ops.cuda import _build
+
+NAME = "paged_attention"
+COUNTS = _build.Counts()
+_HEAD_DIMS = (128,)         # the kernel's instance
+_KEY_TILE = 32              # keys per shared-memory tile (csrc constant)
+_QUERY_TILE = 16            # query rows per block (csrc constant)
+_TARGET_BLOCKS = 1024       # pass-1 blocks to aim for (about 8 per SM)
+_POOL_DTYPES = (torch.bfloat16, torch.float8_e5m2)
+
+
+def paged_sdpa_plain(q, k_pool, v_pool, tables, kv_len, *,
+                     scale: float) -> torch.Tensor:
+    """The plain version: gather each row's pages (``kv.gather_rows``) and
+    run ``sdpa_reference`` in float64 with the uniform-chunk causal mask
+    (query j of row r at slot ``kv_len[r] - C + j``).  A query that sees no
+    key (its slot is negative, or ``kv_len`` is 0) returns exact zeros, as
+    the kernel does."""
+    from ipex_llm_tpu_torch.ops.attention import sdpa_reference
+
+    COUNTS.plain_calls += 1
+    c = q.shape[1]
+
+    def gather(pool):                                 # [R, S, Hkv, D]
+        return gather_rows(pool, tables).transpose(1, 2).to(torch.bfloat16)
+
+    kv_len = kv_len.long()
+    qpos = (kv_len - c)[:, None] + torch.arange(c, device=q.device)
+    out = sdpa_reference(q, gather(k_pool), gather(v_pool), scale=scale,
+                         q_positions=qpos, kv_len=kv_len,
+                         acc_dtype=torch.float64)
+    keep = qpos >= 0
+    return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
+
+
+def split_plan(r: int, hkv: int, gc: int, maxp: int) -> tuple[int, int]:
+    """(splits, pages per split) of the key axis: enough pass-1 blocks to
+    cover the card, from shapes alone (no read of ``kv_len``)."""
+    base = r * hkv * -(-gc // _QUERY_TILE)
+    splits = max(1, min(maxp, math.ceil(_TARGET_BLOCKS / base)))
+    pps = -(-maxp // splits)
+    return -(-maxp // pps), pps
+
+
+def _launch(q, k_pool, v_pool, tables, kv_len, scale):
+    r, c, hq, d = q.shape
+    n_pages, hkv, ps, dk = k_pool.shape
+    dev = q.device
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"paged attention kernel takes bf16 q, got {q.dtype}")
+    if k_pool.dtype not in _POOL_DTYPES or v_pool.dtype != k_pool.dtype:
+        raise TypeError("paged attention kernel takes bf16 or float8_e5m2 "
+                        f"pools, got {k_pool.dtype}/{v_pool.dtype}")
+    if tuple(v_pool.shape) != tuple(k_pool.shape) or dk != d:
+        raise ValueError("k/v pools must be [P, Hkv, ps, D] with q's D")
+    if d not in _HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
+    if ps % _KEY_TILE:
+        raise NotImplementedError(f"page size {ps} is not a multiple of "
+                                  f"{_KEY_TILE}")
+    if tables.dtype != torch.int32 or tables.dim() != 2 \
+            or tables.shape[0] != r:
+        raise ValueError("tables must be int32 [R, maxP]")
+    if r > 65535 or hkv > 65535:
+        raise ValueError("more than 65535 rows or kv heads in one launch")
+    kv_len = kv_len.to(torch.int32).contiguous()
+    for t in (k_pool, v_pool, tables, kv_len):
+        if t.device != dev:
+            raise ValueError("all paged attention inputs must be on q's "
+                             "device")
+    for t in (q, k_pool, v_pool, tables):
+        if not t.is_contiguous():
+            raise ValueError("paged attention kernel needs contiguous "
+                             "tensors")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned")
+    gc = hq // hkv * c
+    maxp = tables.shape[1]
+    splits, pps = split_plan(r, hkv, gc, maxp)
+    lib = _build.load(NAME, _declare)
+    ws_acc = torch.empty((r, hkv, splits, gc, d), dtype=torch.float32,
+                         device=dev)
+    ws_ml = torch.empty((r, hkv, splits, gc, 2), dtype=torch.float32,
+                        device=dev)
+    out = torch.empty_like(q)
+    err = lib.paged_attention(
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_pool.data_ptr()),
+        ctypes.c_void_p(v_pool.data_ptr()), ctypes.c_void_p(tables.data_ptr()),
+        ctypes.c_void_p(kv_len.data_ptr()), ctypes.c_void_p(ws_acc.data_ptr()),
+        ctypes.c_void_p(ws_ml.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        r, c, hq, hkv, d, ps, n_pages, maxp, splits, pps,
+        int(k_pool.dtype == torch.float8_e5m2), ctypes.c_float(scale),
+        _build.stream_handle(q))
+    COUNTS.launches += 2          # the key-split pass and the merge pass
+    _build.check(err, NAME)
+    return out
+
+
+def _paged(q, k_pool, v_pool, tables, kv_len, scale):
+    d = q.shape[3]
+    if q.shape[2] % k_pool.shape[1]:
+        raise NotImplementedError("Hq must be a multiple of Hkv")
+    scale = float(d ** -0.5 if scale is None else scale)
+    if q.is_cuda:
+        return _launch(q, k_pool, v_pool, tables, kv_len, scale)
+    return paged_sdpa_plain(q, k_pool, v_pool, tables, kv_len, scale=scale)
+
+
+def paged_decode_sdpa(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, tables: torch.Tensor,
+                      kv_len: torch.Tensor, *,
+                      scale: float | None = None) -> torch.Tensor:
+    """T=1 attention straight off the paged pool.  q [R, 1, Hq, D];
+    k/v_pool [P, Hkv, ps, D] in storage dtype (bf16 or float8_e5m2); tables
+    [R, maxP] int32 (-1 = unallocated); kv_len [R] valid slots.  Returns
+    [R, 1, Hq, D] in q's dtype."""
+    if q.shape[1] != 1:
+        raise ValueError(f"paged_decode_sdpa takes one query per row, got "
+                         f"{q.shape[1]} (paged_prefill_sdpa takes chunks)")
+    return _paged(q, k_pool, v_pool, tables, kv_len, scale)
+
+
+def paged_prefill_sdpa(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, tables: torch.Tensor,
+                       kv_len: torch.Tensor, *,
+                       scale: float | None = None) -> torch.Tensor:
+    """Chunked attention straight off the paged pool: q [R, C, Hq, D] holds
+    each row's queries at slots ``[kv_len - C, kv_len)``, causally masked;
+    the chunk's own K/V must already be in the pool.  Other arguments as
+    :func:`paged_decode_sdpa`.  Returns [R, C, Hq, D]."""
+    return _paged(q, k_pool, v_pool, tables, kv_len, scale)
+
+
+def _declare(lib: ctypes.CDLL):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_attention.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                    i, i, i, i, i, ctypes.c_float, p]
+    lib.paged_attention.restype = ctypes.c_int

@@ -14,17 +14,29 @@ reference's static planner decisions:
   and sample steps (:func:`decode_horizon_loop`), drained token by token
   through the same emission path as a one-step tick.
 
+With ``spec_k > 0`` both tick shapes decode speculatively by prompt lookup
+(:func:`spec_horizon_loop`): each iteration drafts up to ``spec_k`` tokens
+from the row's device-resident token history, verifies them in one
+``[R, spec_k + 1]`` forward, samples every position with the row's own
+parameters and emits the accepted run, 1 to ``spec_k + 1`` tokens.  Every
+emitted token is a draw from the plain engine's conditional, so greedy
+streams equal the spec-off engine's and seeded rows repeat their streams.
+
 ``step_token_budget=0`` selects the sequential engine instead (one row, one
-chunk per tick, then the decode step): the equivalence baseline the mixed
-engine is held against.  The host keeps page tables, prefix-cache
-refcounts and request bookkeeping; the per-row decode state (current
-token, length, liveness, sampling parameters, budgets) lives on the device
-and is uploaded only at epochs (admission, prefill progress, finish).
+chunk per tick, then the decode step, or with ``spec_k > 0`` one verify
+round whose drafts and acceptance walk run on the host): the equivalence
+baseline the mixed engine is held against.  The host keeps page tables,
+prefix-cache refcounts and request bookkeeping; the per-row decode state
+(current token, length, liveness, sampling parameters, budgets, the token
+history of speculation) lives on the device and is uploaded only at epochs
+(admission, prefill progress, finish).
 
 What the reference has and this slice leaves out: the transactional tick
-with fault recovery, the model-predictive planner, perfwatch, request
-tracing, the host-RAM spill tier, speculative decoding, tensor and
-pipeline parallelism, deadlines and the HTTP front end.
+with fault recovery (and with it the rollback of a speculative tick), the
+model-predictive planner (so no plan masks speculation off for a tick, and
+the device history never goes stale between epochs), perfwatch, request
+tracing, the host-RAM spill tier, tensor and pipeline parallelism (and the
+pipelined verify step), deadlines and the HTTP front end.
 
 The reference runs its whole tick as one compiled program with an
 on-device early exit from the horizon loop; PyTorch runs eagerly, so the
@@ -53,6 +65,7 @@ from ipex_llm_tpu_torch.models.build import (packed_qtypes, param_bytes,
 from ipex_llm_tpu_torch.models.config import ModelConfig
 from ipex_llm_tpu_torch.models.decoder import decoder_forward
 from ipex_llm_tpu_torch.ops.sampling import sample_rows_with_logprobs
+from ipex_llm_tpu_torch.ops.speculate import propose_ngram_rows
 from ipex_llm_tpu_torch.quantize.qtypes import resolve as qtype_info
 
 
@@ -74,6 +87,10 @@ class EngineConfig:
     # prefill token budget of a mixed tick; None = prefill_bucket, 0 = the
     # sequential engine (one row, one chunk per tick)
     step_token_budget: int | None = None
+    # prompt-lookup speculative decoding: drafts per verify round (0 = off)
+    # and the longest n-gram the proposer matches
+    spec_k: int = 0
+    spec_ngram: int = 3
 
     @property
     def n_pages(self) -> int:
@@ -109,6 +126,12 @@ class Request:
     first_token_s: float = 0.0
     submitted_s: float = field(default_factory=time.perf_counter)
     cancelled: bool = False
+    # None = the engine default (speculate when EngineConfig.spec_k > 0);
+    # False opts the request out, as spec_k=0 does (the reference's flag;
+    # _row_spec_k reads both); the row still rides the wide verify step
+    speculative: bool | None = None
+    # the request's draft width, capped at EngineConfig.spec_k; None = that
+    spec_k: int | None = None
 
     def abort(self):
         self.cancelled = True
@@ -224,8 +247,140 @@ def decode_horizon_loop(cfg: ModelConfig, params, cache: PagedKVCache,
     return tok_block, lp_block, n
 
 
+def _propose_ngram(history: np.ndarray, k: int, ngram: int) -> np.ndarray:
+    """Prompt-lookup candidates on the host (the reference's
+    ``_propose_ngram``): the k tokens that followed the most recent earlier
+    occurrence of the trailing n-gram, longest n first.  Returns [k] int32,
+    -1-padded.  The sequential engine drafts with it; the fused tick's
+    ``propose_ngram_rows`` computes the same on the device."""
+    out = np.full((k,), -1, np.int32)
+    ln = len(history)
+    for n in range(min(ngram, ln - 1), 0, -1):
+        tail = history[ln - n:]
+        wins = np.lib.stride_tricks.sliding_window_view(history, n)
+        hits = np.nonzero((wins[: ln - n] == tail).all(axis=1))[0]
+        if len(hits):
+            s = int(hits[-1])  # most recent earlier occurrence
+            nxt = history[s + n: s + n + k]
+            out[: len(nxt)] = nxt
+            return out
+    return out
+
+
+def sample_verify_positions(logits: torch.Tensor, active: torch.Tensor,
+                            temps: torch.Tensor, top_ps: torch.Tensor,
+                            seeds: torch.Tensor, steps: torch.Tensor,
+                            top_ks: torch.Tensor):
+    """Sample every position of a verify forward (port of
+    ``_sample_verify_positions``): position j of row r draws from
+    p(. | context, drafts 1..j) with the row's parameters at output index
+    ``steps[r] + j``, so a seeded row keys on (seed, output index) exactly
+    as the plain step does.  logits [R, K1, V]; returns tokens and logprobs
+    [R, K1], dead rows (``active`` False) padding."""
+    r, k1, v = logits.shape
+    pos = steps.to(torch.int64)[:, None] + torch.arange(k1,
+                                                       device=steps.device)
+    t, lp = sample_rows_with_logprobs(
+        logits.reshape(r * k1, v), temps.repeat_interleave(k1),
+        top_ps.repeat_interleave(k1), seeds.repeat_interleave(k1),
+        pos.reshape(-1), top_ks=top_ks.repeat_interleave(k1),
+        active=active.repeat_interleave(k1))
+    return t.reshape(r, k1), lp.reshape(r, k1)
+
+
+def spec_horizon_loop(cfg: ModelConfig, params, cache: PagedKVCache,
+                      st: dict, horizon: int, spec_ks: torch.Tensor,
+                      spec_k: int, spec_ngram: int):
+    """The speculative form of :func:`decode_horizon_loop` (port of
+    ``_spec_horizon_loop``), updating ``st`` (with its token history
+    ``st["hist"]``) in place.  Up to ``horizon`` iterations, each on the
+    device with no host read but the loop's liveness check:
+
+    - draft: the prompt-lookup continuation of each row's history,
+      capped per row by ``spec_ks`` [R] (0 = a plain step through the same
+      wide forward: opted-out rows and rows the pool could not back);
+    - verify: one ``[R, spec_k + 1]`` forward over [current token; drafts],
+      writing K/V at slots ``row_lens .. row_lens + spec_k`` (a rejected
+      draft's slot is dead until overwritten; dead rows ride idle);
+    - sample every position (:func:`sample_verify_positions`) and walk the
+      acceptance chain: position j+1's sample is emitted while the draft fed
+      there equals the token emitted before it;
+    - truncate the run at the first EOS or the budget, and append it to
+      the history.
+
+    Returns ([R, H, K1] tokens, [R, H, K1] logprobs, iterations run,
+    [R, H] tokens taken per iteration, drafts proposed, drafts accepted),
+    the last two as device scalars."""
+    toks = st["toks"]
+    r = toks.shape[0]
+    dev = toks.device
+    k1 = spec_k + 1
+    sentinel = cache.tables.shape[1] * cache.page_size
+    hist = st["hist"]
+    w_hist = hist.shape[1]
+    ar_k = torch.arange(spec_k, device=dev)[None, :]
+    ar_k1 = torch.arange(k1, device=dev)[None, :]
+    tok_block = torch.zeros((r, horizon, k1), dtype=torch.int32, device=dev)
+    lp_block = torch.zeros((r, horizon, k1), dtype=torch.float32, device=dev)
+    take_block = torch.zeros((r, horizon), dtype=torch.int32, device=dev)
+    prop = torch.zeros((), dtype=torch.int64, device=dev)
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    alive = st["active"]
+    n = 0
+    while n < horizon and bool(alive.any()):
+        row_lens = st["row_lens"]
+        drafts, n_prop = propose_ngram_rows(hist, row_lens + 1, spec_k,
+                                            spec_ngram)
+        n_prop = torch.where(alive, torch.minimum(n_prop, spec_ks), 0)
+        drafts = torch.where(ar_k < n_prop[:, None], drafts, 0)
+        write_at = torch.where(alive, row_lens, sentinel)
+        tokens = torch.cat([st["toks"][:, None], drafts], dim=1)
+        logits, cache = decoder_forward(
+            cfg, params, tokens, cache, write_at[:, None] + ar_k1,
+            slot_offsets=write_at, chunk_lens=alive.to(torch.int32) * k1)
+        t_all, lp_all = sample_verify_positions(
+            logits, alive, st["temps"], st["top_ps"], st["seeds"],
+            st["steps"], st["top_ks"])
+        ok = (drafts == t_all[:, :spec_k]) & (ar_k < n_prop[:, None])
+        n_acc = ok.to(torch.int32).cumprod(dim=1).sum(dim=1,
+                                                     dtype=torch.int32)
+        # EOS or budget truncation inside the accepted window: the boundary
+        # the host's _emit walk stops at
+        eos_hit = (t_all[:, :, None] == st["eos"][:, None, :]).any(dim=-1)
+        ehit = eos_hit & (ar_k1 <= n_acc[:, None])
+        any_eos = ehit.any(dim=1)
+        first_eos = ehit.to(torch.int32).argmax(dim=1).to(torch.int32)
+        n_stop = torch.where(any_eos, first_eos + 1, n_acc + 1)
+        n_take = torch.where(alive, torch.minimum(n_stop, st["remain"]), 0)
+        keep = ar_k1 < n_take[:, None]
+        tok_block[:, n] = torch.where(keep, t_all, 0)
+        lp_block[:, n] = torch.where(keep, lp_all, 0.0)
+        take_block[:, n] = n_take
+        # append the emitted run to the history (the next draft's input);
+        # a row's positions are distinct and kept ones lie below the
+        # width, so writing back the old value elsewhere changes nothing
+        hpos = (row_lens.to(torch.int64)[:, None] + 1 + ar_k1).clamp(
+            max=w_hist - 1)
+        hist.scatter_(1, hpos, torch.where(keep, t_all, hist.gather(1, hpos)))
+        died_eos = any_eos & (first_eos < n_take)
+        st["row_lens"] = row_lens + n_take
+        st["steps"] = st["steps"] + n_take
+        st["remain"] = st["remain"] - n_take
+        alive = alive & ~died_eos & (st["remain"] > 0)
+        last = t_all.gather(1, (n_take - 1).clamp(min=0).to(
+            torch.int64)[:, None])[:, 0]
+        st["toks"] = torch.where(alive, last, st["toks"])
+        prop += n_prop.sum()
+        acc += (n_take - 1).clamp(min=0).sum()
+        n += 1
+    st["active"] = alive
+    return tok_block, lp_block, n, take_block, prop, acc
+
+
 def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
-              prefill=None, horizon: int = 1, with_decode: bool = True):
+              prefill=None, horizon: int = 1, with_decode: bool = True,
+              spec_ks: torch.Tensor | None = None, spec_k: int = 0,
+              spec_ngram: int = 3):
     """One engine tick on the device (port of ``_tick_body``).
 
     ``prefill`` = (tokens [P, W], tables [P, maxP], base [P], n_valid [P],
@@ -236,7 +391,14 @@ def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
     budget is spent, or ``canjoin`` says the host could not back their
     next KV slot.  Then, with ``with_decode``, the decode horizon runs
     over the merged state.  Returns (first tokens [P] | None, first
-    logprobs [P] | None, [R, H] tokens, [R, H] logprobs, steps run)."""
+    logprobs [P] | None, [R, H] tokens, [R, H] logprobs, steps run, None,
+    None, None).
+
+    With ``spec_k > 0`` the decode horizon is :func:`spec_horizon_loop`
+    (``spec_ks`` [R] the per-row draft widths), a completing row's first
+    token joins its history on the device so that it drafts in this very
+    tick, and the blocks are [R, H, K1] with the last three entries filled:
+    [R, H] tokens taken per iteration, drafts proposed, drafts accepted."""
     r = st["toks"].shape[0]
     dev = st["toks"].device
     first_t = first_lp = None
@@ -265,6 +427,17 @@ def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
         st["remain"][rows] = torch.where(p_emit, rem_after,
                                          st["remain"][rows])
         st["active"][rows] = torch.where(p_emit, join, st["active"][rows])
+        if spec_k > 0:
+            # the prompt landed in the history with the admission epoch;
+            # the first token joins it here (rows are distinct, and a
+            # non-completing row writes back what its slot held)
+            hist = st["hist"]
+            hpos = (p_base + p_nvalid).to(torch.int64).clamp(
+                max=hist.shape[1] - 1)
+            hist[rows, hpos] = torch.where(p_emit, first_t, hist[rows, hpos])
+    if with_decode and spec_k > 0:
+        return (first_t, first_lp) + spec_horizon_loop(
+            cfg, params, cache, st, horizon, spec_ks, spec_k, spec_ngram)
     if with_decode:
         tok_block, lp_block, n_exec = decode_horizon_loop(
             cfg, params, cache, st, horizon)
@@ -272,7 +445,7 @@ def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
         tok_block = torch.zeros((r, horizon), dtype=torch.int32, device=dev)
         lp_block = torch.zeros((r, horizon), dtype=torch.float32, device=dev)
         n_exec = 0
-    return first_t, first_lp, tok_block, lp_block, n_exec
+    return first_t, first_lp, tok_block, lp_block, n_exec, None, None, None
 
 
 class ServingEngine:
@@ -298,6 +471,10 @@ class ServingEngine:
             raise ValueError("step_token_budget must be >= 0")
         if ec.kv_pool_bytes < 0:
             raise ValueError("kv_pool_bytes must be >= 0")
+        if ec.spec_k < 0:
+            raise ValueError("spec_k must be >= 0")
+        if ec.spec_k > 0 and ec.spec_ngram < 1:
+            raise ValueError("spec_ngram must be >= 1 when spec_k > 0")
         self.page_bytes = paged_page_bytes(
             cfg.num_layers, cfg.num_kv_heads, ec.page_size, cfg.head_dim,
             storage=ec.kv_storage)
@@ -325,6 +502,16 @@ class ServingEngine:
         self._step_budget = (ec.prefill_bucket if ec.step_token_budget is None
                              else int(ec.step_token_budget))
         self._mixed_mode = self._step_budget > 0
+        # the mixed engine drafts, verifies and accepts on the device inside
+        # its tick; the sequential engine keeps the host-walk _spec_step,
+        # the oracle the fused tick is held against, which runs one verify
+        # round a tick and so cannot honour a longer horizon
+        self._fused_spec = ec.spec_k > 0 and self._mixed_mode
+        if ec.spec_k > 0 and ec.decode_horizon > 1 and not self._fused_spec:
+            raise ValueError(
+                "decode_horizon > 1 with spec_k > 0 needs the mixed engine "
+                "(step_token_budget > 0); the host-walk verify step runs one "
+                "round a tick")
         self.alloc = PageAllocator(ec.n_pages)
         self.tables = np.full((r, ec.max_pages), -1, np.int32)
         self._dirty_tables: set[int] = set()
@@ -354,7 +541,20 @@ class ServingEngine:
                         "host_syncs": 0, "epoch_syncs": 0,
                         "prefix_hits": 0, "prefix_pages_shared": 0,
                         "alloc_fail_clamps": 0, "errors": 0,
-                        "last_error": ""}
+                        "last_error": "",
+                        # the horizon loop's per-iteration liveness reads,
+                        # beside host_syncs (one block read a tick)
+                        "liveness_syncs": 0,
+                        # speculation: verify rounds, ticks that ran them,
+                        # tokens emitted, row-rounds, drafts proposed and
+                        # accepted
+                        "spec_steps": 0, "spec_ticks": 0, "spec_emitted": 0,
+                        "spec_row_steps": 0, "spec_accept_rate": 0.0,
+                        "draft_proposed": 0, "draft_accepted": 0,
+                        "spec_tokens_per_dispatch": 0.0}
+        # rolling (drafts proposed, drafts accepted) of the last 128 spec
+        # ticks: the accept rate an operator tunes spec_k and spec_ngram on
+        self._spec_window: "deque[tuple[int, int]]" = deque(maxlen=128)
 
     def _served_width(self) -> str | None:
         """The width the planes really serve (reference
@@ -384,6 +584,25 @@ class ServingEngine:
         if len(packed) > 1:
             return "mixed"
         return resolved if resolved in packed else packed[0]
+
+    def spec_stats(self) -> dict:
+        """Speculative decoding's draft economics (port of
+        ``spec_stats``): lifetime drafts proposed and accepted, the accept
+        rate over the rolling window of the last 128 spec ticks and over
+        the engine's life, and tokens emitted per spec tick."""
+        m = self.metrics
+        w_prop = sum(p for p, _ in self._spec_window)
+        w_acc = sum(a for _, a in self._spec_window)
+        return {
+            "spec_k": self.ec.spec_k,
+            "spec_ngram": self.ec.spec_ngram,
+            "fused": self._fused_spec,
+            "draft_proposed": m["draft_proposed"],
+            "draft_accepted": m["draft_accepted"],
+            "accept_rate": round(w_acc / w_prop, 4) if w_prop else 0.0,
+            "accept_rate_lifetime": m["spec_accept_rate"],
+            "tokens_per_dispatch": m["spec_tokens_per_dispatch"],
+        }
 
     def weight_stats(self) -> dict:
         """The weight axis (port of the reference's ``weight_stats``): the
@@ -479,6 +698,19 @@ class ServingEngine:
             "steps": self._h2d(steps), "remain": self._h2d(remain),
             "eos": self._h2d(eos),
         }
+        if self._fused_spec:
+            # the token history the device proposer scans: the whole prompt
+            # lands at admission (so a mid-prefill row needs no per-chunk
+            # write), emitted tokens are appended on the device, and each
+            # epoch rebuilds it from the host's ids.  spec_k + 1 columns
+            # past max_seq_len take a verify window's writes at any length
+            hist = np.zeros((len(rows), self.ec.max_seq_len + self.ec.spec_k
+                             + 1), np.int32)
+            for i, r in enumerate(rows):
+                if r is not None:
+                    ids = list(r.prompt_ids) + list(r.output_ids)
+                    hist[i, :len(ids)] = ids
+            self._dev["hist"] = self._h2d(hist)
         self._flush_dirty_tables()
         self._dirty = False
 
@@ -561,6 +793,9 @@ class ServingEngine:
         if not active.any():
             if not self._prefilling:
                 self._wait_for_work()
+            return
+        if self.ec.spec_k > 0 and not self._fused_spec:
+            self._spec_step(active)
             return
         self._horizon_step(active)
 
@@ -735,15 +970,44 @@ class ServingEngine:
         emit = [n_i == len(self._prefilling[row]) for row, n_i, _ in chunks]
         # a completing row's first decode step runs inside this tick and
         # writes KV at slot b + n_i: back it now (after every row's chunk
-        # pages, so the extra page never starves a later row's chunk)
-        canjoin = [not e or self._ensure_pages(row, b + n_i + 1)
-                   for (row, n_i, b), e in zip(chunks, emit)]
-        # decoding rows need their next KV slot backed before the tick
+        # pages, so the extra page never starves a later row's chunk).  A
+        # speculating row reserves its verify window, min(k + 1, budget
+        # after the first token) slots, and drops to a plain step when the
+        # pool backs only one
+        spec_ks = (np.zeros((len(self.rows),), np.int32)
+                   if self._fused_spec else None)
+        canjoin = []
+        for (row, n_i, b), e in zip(chunks, emit):
+            if not e:
+                canjoin.append(True)
+                continue
+            req = self.rows[row]
+            k_i = self._row_spec_k(req) if spec_ks is not None else 0
+            want = max(min(k_i + 1, req.max_new_tokens - 1), 1)
+            ok = self._ensure_pages(row, b + n_i + want)
+            if not ok and k_i:
+                k_i = 0
+                ok = self._ensure_pages(row, b + n_i + 1)
+            if spec_ks is not None:
+                spec_ks[row] = k_i
+            canjoin.append(ok)
+        # decoding rows need their next KV slot (a speculating row its
+        # verify window) backed before the tick
         active = self._active_mask()
         for i in np.flatnonzero(active):
-            if not self._ensure_pages(int(i), int(self.row_lens[i]) + 1):
-                self._finish(int(i), "length")
-                active[i] = False
+            i = int(i)
+            k_i = self._row_spec_k(self.rows[i]) if spec_ks is not None else 0
+            rem_i = int(self.row_budget[i]) - len(self.rows[i].output_ids)
+            lens = int(self.row_lens[i])
+            if not self._ensure_pages(i, lens + max(min(k_i + 1, rem_i), 1)):
+                if k_i and self._ensure_pages(i, lens + 1):
+                    k_i = 0
+                else:
+                    self._finish(i, "length")
+                    active[i] = False
+                    continue
+            if spec_ks is not None:
+                spec_ks[i] = k_i
         with_decode = bool(active.any() or any(emit))
         p = len(chunks)
         toks = np.zeros((p, width), np.int32)
@@ -757,9 +1021,16 @@ class ServingEngine:
                    self._h2d([n for _, n, _ in chunks], torch.int32),
                    self._h2d(emit, torch.bool), self._h2d(canjoin, torch.bool),
                    rowmap)
-        first_t, first_lp, tok_block, lp_block, executed = tick_body(
+        # a pure-chunk tick (with_decode False) emits nothing, so it runs
+        # without speculation
+        spec = spec_ks is not None and with_decode
+        (first_t, first_lp, tok_block, lp_block, executed, take_block, prop,
+         acc) = tick_body(
             self.cfg, self.params, self.cache, dev, prefill=prefill,
-            horizon=1, with_decode=with_decode)
+            horizon=1, with_decode=with_decode,
+            spec_ks=self._h2d(spec_ks) if spec else None,
+            spec_k=self.ec.spec_k if spec else 0,
+            spec_ngram=self.ec.spec_ngram)
         completing: list[tuple[int, int]] = []   # (slot, row)
         for s, (row, n_i, _) in enumerate(chunks):
             self.row_lens[row] += n_i
@@ -775,26 +1046,42 @@ class ServingEngine:
             self._dirty = True
             nxt, lp = first_t.cpu().numpy(), first_lp.cpu().numpy()
         tok_np, lp_np = tok_block.cpu().numpy(), lp_block.cpu().numpy()
-        self.metrics["host_syncs"] += 1
+        self._count_syncs(executed, 1)
         for s, row in completing:
             self._finish_prompt(row, int(nxt[s]), float(lp[s]))
             if not canjoin[s] and self.rows[row] is not None:
                 self._finish(row, "length")  # no KV slot for its decode
         self.metrics["steps"] += executed
         self.metrics["decode_horizon_effective"] = 1
-        self._drain_block(tok_np, lp_np, self._active_mask(), executed)
+        mask = self._active_mask()
+        if take_block is not None:
+            take_np = take_block.cpu().numpy()
+            self._spec_metrics(take_np, int(prop), int(acc), executed)
+            self._drain_spec_block(tok_np, lp_np, take_np, mask, executed)
+        else:
+            self._drain_block(tok_np, lp_np, mask, executed)
 
     def _horizon_step(self, active: np.ndarray):
-        """Up to ``decode_horizon`` decode steps, drained token by token
-        through ``_emit`` exactly as one-step ticks are."""
+        """Up to ``decode_horizon`` decode steps (with speculation, verify
+        rounds), drained token by token through ``_emit`` exactly as
+        one-step ticks are."""
         horizon = h = self._horizon
+        spec_ks = self._spec_widths(active) if self._fused_spec else None
         for i in np.flatnonzero(active):
             i = int(i)
             lens = int(self.row_lens[i])
-            # a near-finished row reserves only what its budget can write
+            # a near-finished row reserves only what its budget can write; a
+            # speculating row min(H * (k + 1), budget) slots, and under pool
+            # pressure it takes plain steps before the horizon is clamped
             rem_i = int(self.row_budget[i]) - len(self.rows[i].output_ids)
-            if self._ensure_pages(i, lens + max(min(horizon, rem_i), 1)):
+            k_i = int(spec_ks[i]) if spec_ks is not None else 0
+            if self._ensure_pages(i, lens + max(min(horizon * (k_i + 1),
+                                                    rem_i), 1)):
                 continue
+            if k_i:
+                spec_ks[i] = 0
+                if self._ensure_pages(i, lens + max(min(horizon, rem_i), 1)):
+                    continue
             backed = int((self.tables[i] >= 0).sum()) * self.ec.page_size \
                 - lens
             if backed < 1:
@@ -807,13 +1094,29 @@ class ServingEngine:
         if h < horizon:
             h = 1 << (h.bit_length() - 1)      # largest power of two <= h
         dev = self._sync_device_state()
-        _, _, tok_block, lp_block, executed = tick_body(
-            self.cfg, self.params, self.cache, dev, horizon=h)
+        _, _, tok_block, lp_block, executed, take_block, prop, acc = \
+            tick_body(self.cfg, self.params, self.cache, dev, horizon=h,
+                      spec_ks=(self._h2d(spec_ks) if spec_ks is not None
+                               else None),
+                      spec_k=self.ec.spec_k if spec_ks is not None else 0,
+                      spec_ngram=self.ec.spec_ngram)
         tok_np, lp_np = tok_block.cpu().numpy(), lp_block.cpu().numpy()
-        self.metrics["host_syncs"] += 1
+        self._count_syncs(executed, h)
         self.metrics["steps"] += executed
         self.metrics["decode_horizon_effective"] = h
-        self._drain_block(tok_np, lp_np, active, executed)
+        if take_block is not None:
+            take_np = take_block.cpu().numpy()
+            self._spec_metrics(take_np, int(prop), int(acc), executed)
+            self._drain_spec_block(tok_np, lp_np, take_np, active, executed)
+        else:
+            self._drain_block(tok_np, lp_np, active, executed)
+
+    def _count_syncs(self, executed: int, horizon: int):
+        """One block read a tick, and the loop's liveness reads: one per
+        iteration, plus the one that found every row dead before
+        ``horizon``."""
+        self.metrics["host_syncs"] += 1
+        self.metrics["liveness_syncs"] += executed + (executed < horizon)
 
     def _drain_block(self, tok_block, lp_block, active: np.ndarray, h: int):
         """Walk an [R, h] token/logprob block through the per-token
@@ -830,6 +1133,141 @@ class ServingEngine:
                 self._emit(i, tok, float(lp_block[i, j]))
                 if self.rows[i] is None:   # finished mid-block
                     break
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _row_spec_k(self, req: Request) -> int:
+        """A request's draft width: the engine's spec_k, capped by
+        ``Request.spec_k``, 0 when it opted out (``speculative=False``).
+        (The reference also caps it by the planner's plan; the port has no
+        planner, so that cap is spec_k itself.)"""
+        if req.speculative is False:
+            return 0
+        return (self.ec.spec_k if req.spec_k is None
+                else max(0, min(int(req.spec_k), self.ec.spec_k)))
+
+    def _spec_widths(self, active: np.ndarray) -> np.ndarray:
+        """Per-row draft widths of a fused spec tick, uploaded as a tensor
+        so that one code path serves every opt-out mix."""
+        ks = np.zeros((len(self.rows),), np.int32)
+        for i in np.flatnonzero(active):
+            ks[i] = self._row_spec_k(self.rows[i])
+        return ks
+
+    def _spec_metrics(self, take_block: np.ndarray, prop: int, acc: int,
+                      executed: int):
+        """Accounting of a tick's verify rounds (one loop iteration is one
+        round): tokens emitted, row-rounds that emitted, the accept rate
+        over them, drafts proposed and accepted, and the rolling window."""
+        m = self.metrics
+        k1 = self.ec.spec_k + 1
+        m["spec_steps"] += executed
+        m["spec_ticks"] += 1
+        m["spec_emitted"] += int(take_block.sum())
+        m["spec_row_steps"] += int((take_block > 0).sum())
+        m["spec_accept_rate"] = round(
+            m["spec_emitted"] / (k1 * max(m["spec_row_steps"], 1)), 4)
+        m["draft_proposed"] += prop
+        m["draft_accepted"] += acc
+        m["spec_tokens_per_dispatch"] = round(
+            m["spec_emitted"] / max(m["spec_ticks"], 1), 2)
+        self._spec_window.append((prop, acc))
+
+    def _drain_spec_block(self, tok_block, lp_block, take_block,
+                          active: np.ndarray, h: int):
+        """Walk an [R, h, K1] spec block through the per-token emission
+        path: round j of row i emitted ``take_block[i, j]`` tokens, cut on
+        the device at the EOS or budget boundary that ``_emit`` stops at."""
+        for i in np.flatnonzero(active):
+            i = int(i)
+            for j in range(h):
+                if self.rows[i] is None:   # finished mid-run
+                    break
+                for t in range(int(take_block[i, j])):
+                    self.row_lens[i] += 1
+                    tok = int(tok_block[i, j, t])
+                    self.toks[i] = tok
+                    self._emit(i, tok, float(lp_block[i, j, t]))
+                    if self.rows[i] is None:
+                        break
+
+    def _spec_step(self, active: np.ndarray):
+        """One verify round over the active rows with drafts from the host
+        proposer and the acceptance chain walked on the host (the
+        sequential engine's speculative step, port of ``_spec_step`` and
+        ``_verify_step``): the oracle the fused tick is held against.  A
+        row the pool cannot back ``spec_k + 1`` slots for takes a plain
+        step through the same wide forward."""
+        k = self.ec.spec_k
+        k1 = k + 1
+        r = len(self.rows)
+        no_spec = np.zeros((r,), bool)
+        for i in np.flatnonzero(active):
+            i = int(i)
+            lens = int(self.row_lens[i])
+            if not self._ensure_pages(i, lens + k1):
+                if self._ensure_pages(i, lens + 1):
+                    no_spec[i] = True
+                else:
+                    self._finish(i, "length")
+                    active[i] = False
+        if not active.any():
+            return
+        drafts = np.zeros((r, k), np.int32)
+        n_prop = np.zeros((r,), np.int32)
+        for i in np.flatnonzero(active):
+            req = self.rows[i]
+            k_req = 0 if no_spec[i] else self._row_spec_k(req)
+            if k_req == 0:
+                continue
+            d = _propose_ngram(np.asarray(list(req.prompt_ids)
+                                          + list(req.output_ids), np.int32),
+                               k_req, self.ec.spec_ngram)
+            valid = d >= 0
+            n_prop[i] = k_req if valid.all() else int(valid.argmin())
+            drafts[i, :k_req] = np.where(valid, d, 0)
+        cache = self._flush_dirty_tables()
+        sentinel = self.ec.max_pages * self.ec.page_size
+        write_at = np.where(active, self.row_lens, sentinel).astype(np.int32)
+        steps = np.asarray([len(q.output_ids) if q is not None else 0
+                            for q in self.rows], np.int32)
+        tokens = np.concatenate([self.toks[:, None], drafts], axis=1)
+        pos = write_at[:, None] + np.arange(k1, dtype=np.int32)[None, :]
+        logits, _ = decoder_forward(
+            self.cfg, self.params, self._h2d(tokens), cache, self._h2d(pos),
+            slot_offsets=self._h2d(write_at),
+            chunk_lens=self._h2d(active.astype(np.int32) * k1))
+        t_all, lp_all = sample_verify_positions(
+            logits, self._h2d(active), self._h2d(self.temps),
+            self._h2d(self.top_ps), self._h2d(self.seeds), self._h2d(steps),
+            self._h2d(self.top_ks))
+        t_all, lp_all = t_all.cpu().numpy(), lp_all.cpu().numpy()
+        self.metrics["host_syncs"] += 1
+        self.metrics["steps"] += 1
+        self._dirty = True      # the host walked the chains: state diverges
+        take = np.zeros((r, 1), np.int32)
+        for i in np.flatnonzero(active):
+            i = int(i)
+            emitted = [(int(t_all[i, 0]), float(lp_all[i, 0]))]
+            for j in range(int(n_prop[i])):
+                # position j+1 samples the true conditional only if the
+                # draft fed there is the token just emitted
+                if int(drafts[i, j]) != emitted[-1][0]:
+                    break
+                emitted.append((int(t_all[i, j + 1]), float(lp_all[i, j + 1])))
+            # every emitted token but the last has its K/V in the pool; the
+            # last is the next round's input
+            self.row_lens[i] += len(emitted)
+            self.toks[i] = emitted[-1][0]
+            req = self.rows[i]
+            for tok, lp in emitted:
+                n_out = len(req.output_ids)
+                self._emit(i, tok, lp)
+                take[i, 0] += len(req.output_ids) - n_out
+                if self.rows[i] is None:   # EOS, budget or abort mid-chain
+                    break
+        self._spec_metrics(take, int(n_prop.sum()),
+                           int(np.maximum(take - 1, 0).sum()), 1)
 
 
 def stream_tokens(req: Request, timeout: float = 120.0):

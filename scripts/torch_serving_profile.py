@@ -9,11 +9,14 @@ It serves Llama-2-7B widths (random sym_int4 weights from a seed) with the
 engine of ``chip_smoke.py`` (8 rows, page 128, prefill bucket 128, decode
 horizon 4), driving the engine's tick by hand, over two windows: the
 admission wave (mixed ticks, 8 prompts of 512 tokens) and the steady
-decode that follows (64 new tokens each).  The traffic runs twice: once
-for the host wall clock, once under ``torch.profiler`` for the kernels'
-device time.  For each window it prints the wall time, the summed device
-time of the kernels, the device's idle share (1 - device time / wall),
-the kernel launches per tick and the kernels ranked by device time.
+decode that follows (64 new tokens each); first without speculation, then
+with prompt-lookup speculation (``spec_k`` 3) on the same traffic.  The
+traffic runs twice: once for the host wall clock, once under
+``torch.profiler`` for the kernels' device time.  For each window it
+prints the wall time, the summed device time of the kernels, the device's
+idle share (1 - device time / wall), the kernel launches per tick, the
+decode iterations (verify rounds with speculation) and the kernels ranked
+by device time.
 """
 
 from __future__ import annotations
@@ -27,31 +30,14 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def main() -> int:
+def profile_engine(eng, cfg, spec_k: int) -> list:
+    """The two windows of one engine, unprofiled then profiled."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    from ipex_llm_tpu_torch.models.random_init import (llama2_7b_config,
-                                                       random_params)
-    from ipex_llm_tpu_torch.serving.engine import (EngineConfig, Request,
-                                                   ServingEngine)
+    from ipex_llm_tpu_torch.serving.engine import Request
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(card, flush=True)
-    dev = torch.device("cuda", 0)
-    cfg = llama2_7b_config()
-    params = random_params(cfg, "sym_int4", seed=0, device=dev)
-    eng = ServingEngine(cfg, params, EngineConfig(
-        max_rows=8, max_seq_len=2048, page_size=128, prefill_bucket=128,
-        decode_horizon=4), device=dev)
     gen = torch.Generator().manual_seed(5)
 
     def submit_wave(n_req, n_prompt, n_new):
@@ -62,15 +48,15 @@ def main() -> int:
             eng.submit(r)
         return reqs
 
-    def run_window(more) -> tuple[float, int]:
+    def run_window(more) -> tuple[float, int, int]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ticks = 0
+        ticks, steps = 0, eng.metrics["steps"]
         while more():
             eng._step_once()
             ticks += 1
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, ticks
+        return time.perf_counter() - t0, ticks, eng.metrics["steps"] - steps
 
     # warm-up: builds the kernels and touches every code path
     warm = submit_wave(2, 128, 8)
@@ -91,7 +77,7 @@ def main() -> int:
                 continue
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall_prof, _ = run_window(more)
+                wall_prof, _, _ = run_window(more)
             kern: dict[str, list] = {}
             for ev in prof.events():
                 if ev.device_type != DeviceType.CUDA:
@@ -99,10 +85,11 @@ def main() -> int:
                 k = kern.setdefault(ev.name, [0.0, 0])
                 k[0] += ev.device_time_total / 1e6
                 k[1] += 1
-            wall, ticks = walls[name]
+            wall, ticks, steps = walls[name]
             busy = sum(v[0] for v in kern.values())
             top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
-            row = {"window": name, "ticks": ticks, "wall_s": wall,
+            row = {"spec_k": spec_k, "window": name, "ticks": ticks,
+                   "decode_iterations": steps, "wall_s": wall,
                    "wall_s_profiled": wall_prof, "device_s": busy,
                    "idle_share": 1.0 - busy / wall,
                    "launches_per_tick": sum(v[1] for v in kern.values())
@@ -111,6 +98,36 @@ def main() -> int:
                            for k, v in top]}
             rows.append(row)
             print(json.dumps(row), flush=True)
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from ipex_llm_tpu_torch.models.random_init import (llama2_7b_config,
+                                                       random_params)
+    from ipex_llm_tpu_torch.serving.engine import EngineConfig, ServingEngine
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    cfg = llama2_7b_config()
+    params = random_params(cfg, "sym_int4", seed=0, device=dev)
+    rows = []
+    for spec_k in (0, 3):
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_rows=8, max_seq_len=2048, page_size=128, prefill_bucket=128,
+            decode_horizon=4, spec_k=spec_k), device=dev)
+        rows += profile_engine(eng, cfg, spec_k)
+        del eng
+        torch.cuda.empty_cache()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "torch_serving_profile.json").write_text(
