@@ -9,22 +9,30 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, each of which exits non-zero on failure (there is no fallback):
 
 1. device: the card's name and power limit, the torch and CUDA versions,
-   and the build of every CUDA kernel (one ``nvcc`` per source, all
-   started together);
+   the build of every CUDA kernel (one ``nvcc`` per source, all started
+   together), and the tensor-core (``HMMA``) instructions in the SASS of
+   B2's tiled instances and of B1's (each must have some);
 2. ``b2``: the dequant-matmul in each of its ten block formats against
    its plain PyTorch version at the five Llama-2-7B weight shapes and M =
    1, 8 (decode) and 128 (the prefill tokens of a mixed tick at
    ``prefill_bucket`` 128), plus in sym_int4 M = 32 (the verify forward of
    ``spec_k`` 3 over 8 rows) and, off the serving path, M = 512 as a
    larger prefill (3, 13 and 100 checked only), each output row
-   to one bf16 ulp of its largest value, with the kernel's, the plain
+   to one bf16 ulp of its largest value, with the instance that ran
+   (``route``: the GEMV for M <= 8, the tiled tensor-core product above),
+   the kernel's, the plain
    version's and ``torch.matmul`` on the dequantized weight's times, and
-   the card's least time for the work; then ``codec``: one 4096x4096
+   the card's least time for the work; in every format, the tiled
+   instance at small K and ragged M (9 to 100; N of 200 and 384; bf16 and
+   fp32 out), checked only; then ``codec``: one 4096x4096
    weight quantized in the nine other formats on the card and on the CPU,
    every plane byte-equal;
 3. ``b1``: ragged paged attention against its plain version on decode,
-   chunk (width 128 and 16) and idle rows at 32 heads, head_dim 128, page
-   128, over bf16 and e5m2 pools, with ``scaled_dot_product_attention``
+   chunk (width 128 and 16) and idle rows, and on the verify chunks of
+   ``spec_k`` 3 (C=4), at 32 heads, head_dim 128, page 128, and at GQA
+   (32 query heads over 8 kv heads: decode and C=128), over bf16 and e5m2
+   pools, with the instance that ran (``route``: query tiles, or the key
+   split and its merge for G*C <= 16) and ``scaled_dot_product_attention``
    over the gathered pages as the library yardstick; then ``b5``: split
    paged attention against its plain version at the same widths, rows of
    1 to 2048 slots with -1 table tails, in decode (C=1), at the verify
@@ -233,9 +241,22 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln] if log.exists() \
             else []
         report.setdefault("ptxas", {})[mod.NAME] = regs
+    # the redesigned instances must run on the tensor cores
+    hmma = {}
+    for mod, kernel in ((b2, "qmm_tc_kernel"), (b1, "ragged_attn_kernel")):
+        counts = {fn: n for fn, n in _build.sass_counts(mod.NAME).items()
+                  if kernel in fn}
+        if not counts or min(counts.values()) == 0:
+            fail(f"{kernel}: an instance has no HMMA instruction ({counts})")
+        hmma[kernel] = dict(instances=len(counts),
+                            hmma_min=min(counts.values()),
+                            hmma_max=max(counts.values()))
+    report["sass_hmma"] = hmma
+    print("SASS HMMA " + json.dumps(hmma), flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     from ipex_llm_tpu_torch.quantize.core import dequantize, quantize
+    from ipex_llm_tpu_torch.quantize.qtypes import resolve
 
     def check_b2(y, y_plain, what: str) -> tuple[float, float]:
         """Each output row within one bf16 ulp of the row's largest plain
@@ -250,6 +271,39 @@ def main() -> int:
                  f"{B2_TOL_REL} * {top[i].item()} (or not finite)")
         return (err.max().item(),
                 (err / top.clamp_min(1e-30)).max().item())
+
+    def b2_route(call) -> str:
+        """The B2 instance one call launched (its ``by_route`` count)."""
+        before = dict(b2.COUNTS.by_route)
+        call()
+        ran = [r for r, v in b2.COUNTS.by_route.items() if v > before[r]]
+        if len(ran) != 1:
+            fail(f"B2: one call launched the instances {ran}")
+        return ran[0]
+
+    def b2_ragged(qtype: str) -> list:
+        """The tiled instance at small K and ragged M, each row checked;
+        K 224 (a half 64-row step) where the block size allows, N 200 (a
+        part-full column tile, 4-byte copies) and 384."""
+        bs = resolve(qtype).block_size
+        done = []
+        for k, n in ((256, 384), (224, 200)):
+            if k % bs:
+                continue
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          / math.sqrt(k), qtype)
+            for m in (9, 13, 17, 33, 100):
+                x = torch.randn(m, k, generator=gen, device=dev).to(
+                    torch.bfloat16)
+                for f32 in (False, True):
+                    y = []
+                    if b2_route(lambda: y.append(
+                            b2.qmatmul(x, wq, keep_f32=f32))) != "tiled":
+                        fail(f"B2 {qtype} M={m}: not the tiled instance")
+                    check_b2(y[0], b2.qmatmul_plain(x, wq, keep_f32=f32),
+                             f"{qtype} ragged K={k} N={n} M={m} f32={f32}")
+                    done.append([k, n, m, f32])
+        return done
 
     def b2_rows(shapes: dict, ms: tuple, on_path, tag: str, qtype: str,
                 iters=lambda m: 30):
@@ -270,6 +324,7 @@ def main() -> int:
             for m in ms + extra:
                 x = torch.randn(m, k, generator=gen, device=dev).to(
                     torch.bfloat16)
+                rt = b2_route(lambda: b2.qmatmul(x, wq))
                 err, worst = check_b2(b2.qmatmul(x, wq),
                                       b2.qmatmul_plain(x, wq),
                                       f"{qtype} {tag} {wname} M={m}")
@@ -288,7 +343,7 @@ def main() -> int:
                 bms, by = bound(m * k * 2 + wbytes + m * n * 2,
                                 2.0 * m * n * k)
                 row = dict(model=tag, qtype=qtype, weight=wname, m=m, k=k,
-                           n=n, on_path=on_path(wname, m),
+                           n=n, route=rt, on_path=on_path(wname, m),
                            weight_bytes=wbytes, max_abs_err=err,
                            max_rel_err=worst, tol_rel=B2_TOL_REL,
                            ms=ms_k, plain_ms=plain_ms, library_ms=lib_ms,
@@ -300,11 +355,16 @@ def main() -> int:
 
     # -- 2. B2 at Llama-2-7B's shapes, in every format -----------------------
     report["b2"] = []
+    report["b2_ragged_tiled"] = {}
     for qtype in b2.FORMATS:
         # M=32: the verify forward of spec_k 3 over 8 rows
         ms = (1, 8, 32, 128, 512) if qtype == "sym_int4" else (1, 8, 128)
         report["b2"] += b2_rows(LLAMA2_7B_SHAPES, ms,
                                 lambda w, m: m != 512, "llama2-7b", qtype)
+        report["b2_ragged_tiled"][qtype] = b2_ragged(qtype)
+    print("B2 tiled instance at ragged M, every format: " + json.dumps(
+        {q: len(v) for q, v in report["b2_ragged_tiled"].items()}) +
+        " shapes within tolerance", flush=True)
     torch.cuda.empty_cache()
 
     # -- 2b. the codec on the card against the CPU ---------------------------
@@ -382,25 +442,38 @@ def main() -> int:
             kpos[None, None, :] < kv_len[:, None, None])
         mask[..., 0] = True          # idle rows: keep the softmax defined
         qt = q.transpose(1, 2)
-        return lambda: F.scaled_dot_product_attention(
-            qt, kg, vg, attn_mask=mask[:, None])
+        return lambda: sdpa_gqa(qt, kg, vg, mask[:, None])
+
+    def b1_route(args) -> str:
+        """The B1 instance one call launched (its ``by_route`` count)."""
+        before = dict(b1.COUNTS.by_route)
+        b1.ragged_paged_sdpa(*args)
+        ran = [r for r, v in b1.COUNTS.by_route.items() if v > before[r]]
+        if len(ran) != 1:
+            fail(f"B1: one call launched the instances {ran}")
+        return ran[0]
 
     b1_rows = []
+    gqa = dict(hkv=8)
     for pool_name, pool_dtype in (("bf16", torch.bfloat16),
                                   ("e5m2", torch.float8_e5m2)):
         for label, kw in (("row mix R=8 C=128", {}),
                           ("row mix R=8 C=16", dict(c=16)),
-                          ("decode R=8 C=1", dict(c=1))):
+                          ("verify R=8 C=4", dict(c=4)),
+                          ("decode R=8 C=1", dict(c=1)),
+                          ("GQA row mix R=8 C=128 Hkv=8", gqa),
+                          ("GQA decode R=8 C=1 Hkv=8", dict(c=1, **gqa))):
             q, kp, vp, tables, kv_len, chunk = ragged_case(pool_dtype,
                                                            **kw)
-            if kw.get("c") == 1:      # decode rows at staggered lengths
-                chunk = torch.ones_like(chunk)
+            if kw.get("c") in (1, 4):   # decode or verify rows at
+                chunk = torch.full_like(chunk, kw["c"])   # staggered lengths
                 kv_len = torch.tensor(
                     [130, 300, 511, 700, 900, 1064, 1500, 2048],
                     dtype=torch.int32, device=dev)
                 tables = (1 + torch.arange(tables.numel(), device=dev)
                           ).to(torch.int32).reshape(tables.shape)
             args = (q, kp, vp, tables, kv_len, chunk)
+            route = b1_route(args)
             out = b1.ragged_paged_sdpa(*args)
             ref = b1.ragged_paged_sdpa_plain(*args, scale=128 ** -0.5)
             torch.cuda.synchronize()
@@ -424,7 +497,8 @@ def main() -> int:
                 *args, scale=128 ** -0.5), 3)
             lib_ms = time_ms(b1_library(*args), 30)
             bms, by = bound(*b1_work(q, kp, kv_len, chunk))
-            row = dict(pool=pool_name, case=label, max_abs_err=err,
+            row = dict(pool=pool_name, case=label, route=route,
+                       max_abs_err=err,
                        max_rel_err=worst, tol_rel=ATTN_TOL_REL, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bms, bound_by=by)
@@ -646,6 +720,8 @@ def main() -> int:
         counts = {name: (mod.COUNTS.launches, mod.COUNTS.plain_calls)
                   for name, mod in kernels.items()}
         by_format = dict(b2.COUNTS.by_format)
+        by_route = {"qmatmul": dict(b2.COUNTS.by_route),
+                    "ragged_paged_attention": dict(b1.COUNTS.by_route)}
         eng.stop()
         if eng._thread.is_alive():
             fail(f"{label}: engine thread did not stop")
@@ -677,6 +753,7 @@ def main() -> int:
                    plain_calls={k: v[1] for k, v in counts.items()},
                    b2_launches_by_format={k: v for k, v in by_format.items()
                                           if v},
+                   launches_by_route=by_route,
                    metrics={k: eng.metrics[k] for k in (
                        "mixed_steps", "steps", "host_syncs", "epoch_syncs",
                        "liveness_syncs", "decode_horizon_effective")})
@@ -1325,6 +1402,14 @@ def main() -> int:
     rep_b4 = report["b4"][0]
     rep_b5 = next(r for r in report["b5"] if r["pool"] == "bf16"
                   and r["case"] == "C=4")
+    rep_b1_split = next(r for r in report["b1"] if r["pool"] == "bf16"
+                        and r["case"] == "verify R=8 C=4")
+    rep_b2_tiled = next(r for r in report["b2"] if r["qtype"] == "sym_int4"
+                        and r["weight"] == "gate_up" and r["m"] == 128)
+    serve_routes = report["serve"][0]["launches_by_route"]
+    for name, routes in serve_routes.items():
+        if min(routes.values()) == 0:
+            fail(f"serve: an instance of {name} never launched ({routes})")
     src = "ipex_llm_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # B2's launches in each format on that format's main-path run: the
@@ -1349,15 +1434,37 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: rep[k] for k in keys}})
     line = {"kernels": b2_entries + [
+        # the tiled instance alone: its launches in the sym_int4 serving run
+        {"name": "qmatmul[sym_int4, tiled]", "route": "cuda",
+         "source": src + "qmatmul.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
+         "shape": "M=128 K=4096 N=22016 (gate_up, a mixed tick's prefill "
+                  "rows)",
+         "launches": serve_routes["qmatmul"]["tiled"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b2"]
+                            if r["route"] == "tiled"),
+         **{k: rep_b2_tiled[k] for k in keys}},
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": src + "ragged_paged_attention.cu",
          "replaces":
              "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
          "shape": "R=8 C=128 Hq=Hkv=32 D=128 page 128, bf16 pool, "
-                  "decode+chunk+idle rows",
+                  "decode+chunk+idle rows (query tiles)",
          "launches": serve_launches["ragged_paged_attention"],
+         "launches_by_route": serve_routes["ragged_paged_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b1"]),
          **{k: rep_b1[k] for k in keys}},
+        # the key-split instance alone (split pass and merge)
+        {"name": "ragged_paged_attention[split]", "route": "cuda",
+         "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=4 Hq=Hkv=32 D=128 page 128, bf16 pool, rows of "
+                  "130-2048 slots (the verify chunks of spec_k 3)",
+         "launches": serve_routes["ragged_paged_attention"]["split"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b1"]
+                            if r["route"] == "split"),
+         **{k: rep_b1_split[k] for k in keys}},
         {"name": "decode_attention", "route": "cuda",
          "source": src + "decode_attention.cu",
          "replaces": "ipex_llm_tpu/ops/pallas/decode_attention.py:166",

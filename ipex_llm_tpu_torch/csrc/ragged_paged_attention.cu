@@ -6,105 +6,132 @@
 // ipex_llm_tpu/ops/pallas/ragged_paged_attention.py::ragged_paged_sdpa
 // (body _ragged, _kernel).  Semantics kept exactly:
 //   - q [R, C, Hq, D] bf16; the query at chunk index c of row r sits at slot
-//     kv_len[r] - chunk_len[r] + c; head hq reads kv head hq / (Hq/Hkv);
+//     kv_len[r] - chunk_len[r] + c; head hq reads kv head hq / (Hq/Hkv); a
+//     block's query rows are the GQA group x chunk flattened chunk-minor
+//     (flat row j is head h*G + j/C at chunk index j%C);
 //   - key slot kpos is visible iff kpos <= qpos && kpos < kv_len[r];
-//   - pad queries (c >= chunk_len) compute bounded garbage the caller drops;
+//   - pad queries (c >= chunk_len) are dropped by the caller; here they see
+//     no key and come out as zeros;
 //   - chunk_len == 0 (idle row) writes exact zeros and walks no pages; its
 //     kv_len may be a sentinel past the table width, so the walk is bounded
-//     by min((kv_len-1)/ps, maxP-1), never by kv_len alone;
+//     by the table (maxp * ps slots), never by kv_len alone;
 //   - table entries of -1 clip to page 0 (the engine's scratch page);
-//   - a query with no visible key (l == 0) returns 0.
+//   - a query with no visible key (l == 0) returns 0;
+//   - e5m2 pools widen in the kernel, exactly (e5m2 is a subset of bf16);
+//     scores, m, l and the accumulator are fp32, and p is rounded to bf16
+//     before the P.V product, as the reference rounds it (its compute
+//     dtype), while l sums the unrounded p.
 //
-// What bounds it: reading the row's K/V pages (decode: ~2 bytes per key
-// element per layer for bf16, 1 for e5m2), so the card's memory rate; at
-// prefill the score and value products.
+// What bounds it: reading each row's live K/V slots once (decode and the
+// verify chunks of speculative decoding: ~2 bytes per key element per
+// layer for bf16, 1 for e5m2), so the card's memory rate; at C = 128 the
+// score and value products, 4 D operations per visible (query, key) pair,
+// so the tensor cores.
 //
-// Design: a block owns (row, kv head, 16 query rows); each warp keeps four
-// query rows' online-softmax state (m, l, acc) in registers, fp32
-// throughout, and writes the output once.  The block walks only the row's
-// valid pages, 32 keys at a time: the tile is loaded coalesced (16-byte
-// vectors) into shared memory and widened there, e5m2 -> fp32 exactly (an
-// e5m2 code is the top byte of an fp16), so an fp8 pool streams half the
-// bytes.  Lane t scores key t of the tile (conflict-free: K rows are padded
-// by one float), then the warp broadcasts each probability to accumulate
-// V.  A tile entirely in a query row's future is skipped for that row,
-// which is exact: it would change neither m, l nor acc.
+// Design.  K/V stream through shared memory in tiles of 64 keys, double
+// buffered with 16-byte cp.async in the pool's storage type (each key looks
+// up its own page, so any page size works); an e5m2 tile is widened to bf16
+// in shared memory.  K/V rows are XOR-swizzled by 16-byte chunk so ldmatrix
+// reads are free of bank conflicts.  Each warp keeps 16 query rows as
+// mma.sync A fragments in registers, computes S = Q.K^T with mma.sync
+// m16n8k16 (bf16 in, fp32 out; K fragments by ldmatrix), masks and scales
+// S, runs the FlashAttention-2 online softmax in registers (row max and sum
+// over the quad that holds a row), rounds P to bf16 and reuses its
+// registers as the A fragments of P.V against V (ldmatrix.trans).  Two
+// instances, chosen from shapes alone:
+//   - query tiles (G*C > 16): a block owns 64 query rows (4 warps x 16) of
+//     one (row, kv head) and walks the row's keys up to the block's last
+//     visible slot; a warp skips a tile wholly in its rows' future, which is
+//     exact (it would change neither m, l nor acc); the block writes bf16;
+//   - key split (G*C <= 16: decode, the verify chunks of speculation): a
+//     block owns the row's whole group x chunk (16 rows) and one split of
+//     consecutive pages; its four warps take a quarter of each 64-key tile
+//     each and merge their (m, l, acc) in shared memory at the end; the
+//     block writes fp32 partials (m, l, acc) to scratch, and a second
+//     kernel merges a query row's splits in split order (deterministic, no
+//     atomics).  A split past the row's live pages writes l = 0, which the
+//     merge skips.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kQRows = kWarps * kRowsPerWarp;   // query rows per block
-constexpr int kTK = 32;                         // keys per shared tile
-constexpr float kNegInf = -1e30f;               // the reference's NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kD = 128;                 // head dim (the only instance)
+constexpr int kKT = 64;                 // keys per staged tile
+constexpr int kThreads = 128;           // 4 warps
+constexpr float kNegInf = -1e30f;       // the reference's NEG_INF
+constexpr float kFloor = -1e29f;        // the reference's m clamp
+constexpr int kTileBytes = kKT * kD * 2;            // one bf16 K or V tile
+constexpr int kSmemBytes = 4 * kTileBytes + 16;     // 64 KiB + q_hi
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+__device__ __forceinline__ int kv_chunk(int key, int c) {
+  return key * (kD / 8) + (c ^ (key & 7));   // swizzled 16-byte chunk index
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// bf16 pool: 8 elements per 16-byte vector
-template <int D>
-__device__ __forceinline__ void load_tile(const uint16_t* __restrict__ kp,
-                                          const uint16_t* __restrict__ vp,
-                                          float (*ks)[D + 1],
-                                          float (*vs)[D]) {
-  constexpr int kVec = 8;
-  for (int i = threadIdx.x; i < kTK * D / kVec; i += kThreads) {
-    const int e = i * kVec;
-    const int t = e / D, d = e % D;
-    const uint4 kr = __ldg(reinterpret_cast<const uint4*>(kp) + i);
-    const uint4 vr = __ldg(reinterpret_cast<const uint4*>(vp) + i);
-    const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(&kr);
-    const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(&vr);
-#pragma unroll
-    for (int u = 0; u < kVec; ++u) {
-      ks[t][d + u] = __bfloat162float(kb[u]);
-      vs[t][d + u] = __bfloat162float(vb[u]);
+// stage the keys [k0, k0 + 64) of (row r, kv head h) into `kd`/`vd`: bf16
+// pools swizzled, e5m2 pools as stored; keys at or past k_hi are zeros
+template <typename KV>
+__device__ __forceinline__ void stage_tile(
+    uint8_t* kd, uint8_t* vd, const KV* __restrict__ kpool,
+    const KV* __restrict__ vpool, const int* __restrict__ table_row, int k0,
+    int k_hi, int h, int Hkv, int ps, int n_pages) {
+  constexpr int kChunks = kD * (int)sizeof(KV) / 16;   // 16 or 8 per key
+  for (int i = threadIdx.x; i < kKT * kChunks; i += kThreads) {
+    const int key = i / kChunks, c = i - key * kChunks;
+    const int kpos = k0 + key;
+    const bool ok = kpos < k_hi;
+    size_t off = 0;
+    if (ok) {
+      const int pid = min(max(__ldg(table_row + kpos / ps), 0), n_pages - 1);
+      off = (((size_t)pid * Hkv + h) * ps + kpos % ps) * kD +
+            c * (16 / sizeof(KV));
     }
+    const int dst = sizeof(KV) == 2 ? kv_chunk(key, c) * 16
+                                    : key * (kD * (int)sizeof(KV)) + c * 16;
+    hopper::cp_async<16>(kd + dst, kpool + off, ok);
+    hopper::cp_async<16>(vd + dst, vpool + off, ok);
   }
 }
 
-__device__ __forceinline__ float e5m2_to_float(uint8_t c) {
-  return __half2float(__ushort_as_half((unsigned short)(c) << 8));
-}
-
-// e5m2 pool: 16 elements per 16-byte vector
-template <int D>
-__device__ __forceinline__ void load_tile(const uint8_t* __restrict__ kp,
-                                          const uint8_t* __restrict__ vp,
-                                          float (*ks)[D + 1],
-                                          float (*vs)[D]) {
-  constexpr int kVec = 16;
-  for (int i = threadIdx.x; i < kTK * D / kVec; i += kThreads) {
-    const int e = i * kVec;
-    const int t = e / D, d = e % D;
-    const uint4 kr = __ldg(reinterpret_cast<const uint4*>(kp) + i);
-    const uint4 vr = __ldg(reinterpret_cast<const uint4*>(vp) + i);
-    const uint8_t* kb = reinterpret_cast<const uint8_t*>(&kr);
-    const uint8_t* vb = reinterpret_cast<const uint8_t*>(&vr);
+// widen an e5m2 tile pair (as stored) into bf16 swizzled tiles: an e5m2
+// code is the top byte of an fp16, and every e5m2 value is a bf16 value
+__device__ __forceinline__ void widen_tile(const uint8_t* kraw,
+                                           const uint8_t* vraw, uint8_t* kw,
+                                           uint8_t* vw) {
+  for (int i = threadIdx.x; i < 2 * kKT * (kD / 16); i += kThreads) {
+    const int which = i / (kKT * (kD / 16));
+    const int rem = i - which * (kKT * (kD / 16));
+    const int key = rem / (kD / 16), c = rem % (kD / 16);
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        (which ? vraw : kraw) + key * kD + c * 16);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t o[8];
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) {
-      ks[t][d + u] = e5m2_to_float(kb[u]);
-      vs[t][d + u] = e5m2_to_float(vb[u]);
+    for (int e = 0; e < 4; ++e) {
+      // bytes b0..b3 -> fp16 pairs (b0, b1) and (b2, b3)
+      const uint32_t lo = ((w[e] & 0xFFu) << 8) | ((w[e] & 0xFF00u) << 16);
+      const uint32_t hi = ((w[e] >> 8) & 0xFF00u) | (w[e] & 0xFF000000u);
+      const float2 flo = __half22float2(*reinterpret_cast<const __half2*>(&lo));
+      const float2 fhi = __half22float2(*reinterpret_cast<const __half2*>(&hi));
+      o[2 * e] = hopper::pack_bf16(flo.x, flo.y);
+      o[2 * e + 1] = hopper::pack_bf16(fhi.x, fhi.y);
     }
+    uint8_t* dst = which ? vw : kw;
+    *reinterpret_cast<uint4*>(dst + kv_chunk(key, 2 * c) * 16) =
+        make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(dst + kv_chunk(key, 2 * c + 1) * 16) =
+        make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
 
-template <typename KV, int D>
+// SPLIT == false: the query-tile instance (64 rows a block, 4 warps along
+// the rows, writes bf16 out).  SPLIT == true: the key-split instance (16
+// rows a block, 4 warps along the keys, writes fp32 partials for the merge)
+template <typename KV, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const KV* __restrict__ kpool,
@@ -113,145 +140,356 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const int* __restrict__ kv_len_arr,
                    const int* __restrict__ chunk_arr,
                    __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
                    int C, int Hq, int Hkv, int ps, int n_pages, int maxp,
-                   float scale) {
-  constexpr int kDPL = D / 32;              // head dims per lane
-  __shared__ float qs[kQRows][D];
-  __shared__ float ks[kTK][D + 1];
-  __shared__ float vs[kTK][D];
+                   int n_qtiles, int n_splits, int pps, float scale) {
+  constexpr int kQRows = SPLIT ? 16 : 64;        // query rows per block
+  constexpr int kKW = SPLIT ? kKT / 4 : kKT;     // keys per warp per tile
+  constexpr int kSN = kKW / 8;                   // n8 score tiles per warp
+  constexpr bool kFp8 = sizeof(KV) == 1;
+  extern __shared__ __align__(128) uint8_t smem[];
+  int* q_hi_s = reinterpret_cast<int*>(smem + 4 * kTileBytes);
 
-  const int r = blockIdx.z;
+  const int qt = blockIdx.x % n_qtiles;
+  const int split = blockIdx.x / n_qtiles;
   const int h = blockIdx.y;
+  const int r = blockIdx.z;
   const int G = Hq / Hkv;
   const int GC = G * C;
-  const int j0 = blockIdx.x * kQRows;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int kv_len = kv_len_arr[r];
   const int chunk = chunk_arr[r];
+  const int j0 = qt * kQRows;
+  const int jw = j0 + (SPLIT ? 0 : warp * 16);   // the warp's first row
+  const int wk = SPLIT ? warp * kKW : 0;         // the warp's key slice
 
-  // flat query row j -> (g, c): head h*G + g at chunk index c (chunk-minor,
-  // the reference's [G*C] flattening)
+  // flat row j: its q/out offset and its slot (-1: a pad or missing row,
+  // which sees no key)
   auto q_off = [&](int j) -> size_t {
-    const int g = j / C, c = j % C;
-    return (((size_t)r * C + c) * Hq + (size_t)h * G + g) * D;
+    const int g = j / C, c = j - (j / C) * C;
+    return (((size_t)r * C + c) * Hq + (size_t)h * G + g) * kD;
+  };
+  auto qpos_of = [&](int j) -> int {
+    const int c = j % C;
+    return (j < GC && c < chunk && chunk > 0) ? kv_len - chunk + c : -1;
   };
 
-  if (chunk <= 0) {                         // idle row: zeros, no page walk
-    for (int i = threadIdx.x; i < kQRows * D; i += kThreads) {
-      const int j = j0 + i / D;
-      if (j < GC) out[q_off(j) + i % D] = __float2bfloat16(0.f);
+  // the block's and the warp's last visible slot
+  if (threadIdx.x == 0) *q_hi_s = -1;
+  __syncthreads();
+  if (threadIdx.x < kQRows) atomicMax(q_hi_s, qpos_of(j0 + threadIdx.x));
+  const int warp_q_hi = __reduce_max_sync(
+      0xffffffffu, lane < 16 ? qpos_of(jw + lane) : -1);
+  __syncthreads();
+  const int q_hi = *q_hi_s;
+  const int kv_end = min(kv_len, maxp * ps);     // slots the table holds
+  int k_lo = 0, k_hi = min(kv_end, q_hi + 1);
+  if (SPLIT) {
+    k_lo = split * pps * ps;
+    k_hi = min(k_hi, (split + 1) * pps * ps);
+  }
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kKT - 1) / kKT : 0;
+
+  // the warp's 16 query rows as A fragments: rows lane/4 and lane/4 + 8
+  const int r0 = lane >> 2;
+  const int qp[2] = {qpos_of(jw + r0), qpos_of(jw + r0 + 8)};
+  uint32_t qa[kD / 16][4];
+  {
+    const bool ok0 = jw + r0 < GC, ok1 = jw + r0 + 8 < GC;
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
+        q + (ok0 ? q_off(jw + r0) : 0));
+    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(
+        q + (ok1 ? q_off(jw + r0 + 8) : 0));
+#pragma unroll
+    for (int kc = 0; kc < kD / 16; ++kc) {
+      const int d2 = (kc * 16 + (lane & 3) * 2) / 2;   // in bf16 pairs
+      qa[kc][0] = ok0 ? __ldg(q0 + d2) : 0u;
+      qa[kc][1] = ok1 ? __ldg(q1 + d2) : 0u;
+      qa[kc][2] = ok0 ? __ldg(q0 + d2 + 4) : 0u;
+      qa[kc][3] = ok1 ? __ldg(q1 + d2 + 4) : 0u;
     }
-    return;
   }
-  for (int i = threadIdx.x; i < kQRows * D; i += kThreads) {
-    const int j = j0 + i / D;
-    qs[i / D][i % D] = j < GC ? __bfloat162float(q[q_off(j) + i % D]) : 0.f;
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDPL];
-  int qpos[kRowsPerWarp];
-  bool live[kRowsPerWarp];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kD / 8][4];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int j = j0 + warp * kRowsPerWarp + i;
-    live[i] = j < GC;
-    qpos[i] = kv_len - chunk + (j % C);
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int i = 0; i < kD / 8; ++i)
 #pragma unroll
-    for (int dd = 0; dd < kDPL; ++dd) acc[i][dd] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
-  const int last_page = kv_len > 0 ? min((kv_len - 1) / ps, maxp - 1) : -1;
-  const size_t page_stride = (size_t)Hkv * ps * D;
-  for (int pi = 0; pi <= last_page; ++pi) {
-    int pid = tables[(size_t)r * maxp + pi];
-    pid = min(max(pid, 0), n_pages - 1);
-    const KV* kp = kpool + (size_t)pid * page_stride + (size_t)h * ps * D;
-    const KV* vp = vpool + (size_t)pid * page_stride + (size_t)h * ps * D;
-    for (int sub = 0; sub < ps / kTK; ++sub) {
-      const int kpos0 = pi * ps + sub * kTK;
-      if (kpos0 >= kv_len) break;           // block-uniform
-      __syncthreads();                      // previous tile consumed
-      load_tile<D>(kp + (size_t)sub * kTK * D, vp + (size_t)sub * kTK * D,
-                   ks, vs);
+  const int* table_row = tables + (size_t)r * maxp;
+  // bf16: stages at [0, 2) and [2, 4) tiles (K, V each); e5m2: raw stages
+  // in the first two tiles' bytes, the widened K/V in tiles 2 and 3
+  auto stage_k = [&](int slot) -> uint8_t* {
+    return smem + (kFp8 ? slot * kTileBytes : slot * 2 * kTileBytes);
+  };
+  auto stage_v = [&](int slot) -> uint8_t* {
+    return stage_k(slot) + (kFp8 ? kTileBytes / 2 : kTileBytes);
+  };
+  if (n_tiles > 0)
+    stage_tile<KV>(stage_k(0), stage_v(0), kpool, vpool, table_row, k_lo,
+                   k_hi, h, Hkv, ps, n_pages);
+  hopper::cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_lo + t * kKT;
+    if (t + 1 < n_tiles)
+      stage_tile<KV>(stage_k((t + 1) & 1), stage_v((t + 1) & 1), kpool,
+                     vpool, table_row, k0 + kKT, k_hi, h, Hkv, ps, n_pages);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
+    __syncthreads();
+    const uint8_t* kt;
+    const uint8_t* vt;
+    if constexpr (kFp8) {
+      widen_tile(stage_k(t & 1), stage_v(t & 1), smem + 2 * kTileBytes,
+                 smem + 3 * kTileBytes);
       __syncthreads();
-      const int kpos = kpos0 + lane;
+      kt = smem + 2 * kTileBytes;
+      vt = smem + 3 * kTileBytes;
+    } else {
+      kt = stage_k(t & 1);
+      vt = stage_v(t & 1);
+    }
+    // warp-uniform: a slice wholly past the warp's last visible slot
+    // changes none of its rows' m, l or acc
+    if (k0 + wk <= warp_q_hi) {
+      float s[kSN][4];
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        if (!live[i] || kpos0 > qpos[i]) continue;   // warp-uniform
-        const float* qrow = qs[warp * kRowsPerWarp + i];
-        float sdot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) sdot = fmaf(qrow[d], ks[lane][d], sdot);
-        sdot *= scale;
-        if (!(kpos <= qpos[i] && kpos < kv_len)) sdot = kNegInf;
-        const float m_new = fmaxf(m[i], warp_max(sdot));
-        const float m_safe = fmaxf(m_new, -1e29f);
-        const float p = expf(sdot - m_safe);
-        const float alpha = expf(fmaxf(m[i], -1e29f) - m_safe);
-        l[i] = l[i] * alpha + warp_sum(p);
+      for (int i = 0; i < kSN; ++i)
 #pragma unroll
-        for (int dd = 0; dd < kDPL; ++dd) acc[i][dd] *= alpha;
-#pragma unroll 8
-        for (int t = 0; t < kTK; ++t) {
-          const float pt = __shfl_sync(kFull, p, t);
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
-          for (int dd = 0; dd < kDPL; ++dd)
-            acc[i][dd] = fmaf(pt, vs[t][lane + 32 * dd], acc[i][dd]);
+      for (int kc = 0; kc < kD / 16; ++kc) {
+#pragma unroll
+        for (int np = 0; np < kSN; np += 2) {
+          const int key = wk + np * 8 + (lane >> 4) * 8 + (lane & 7);
+          const int c = kc * 2 + ((lane >> 3) & 1);
+          uint32_t b0, b1, b2, b3;
+          hopper::ldsm_x4(b0, b1, b2, b3, kt + kv_chunk(key, c) * 16);
+          hopper::mma_bf16(s[np], qa[kc], b0, b1);
+          hopper::mma_bf16(s[np + 1], qa[kc], b2, b3);
         }
-        m[i] = m_new;
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kSN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + wk + nt * 8 + (lane & 3) * 2 + (e & 1);
+          const int row = e >> 1;
+          const float v = (kpos < k_hi && kpos <= qp[row] && kpos < kv_len)
+                              ? s[nt][e] * scale
+                              : kNegInf;
+          s[nt][e] = v;
+          mx[row] = fmaxf(mx[row], v);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+        const float m_new = fmaxf(m[row], mx[row]);
+        const float m_safe = fmaxf(m_new, kFloor);
+        alpha[row] = expf(fmaxf(m[row], kFloor) - m_safe);
+        m[row] = m_new;
+        mx[row] = m_safe;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < kSN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[nt][e] - mx[e >> 1]);
+          s[nt][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 1);
+        sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 2);
+        l[row] = l[row] * alpha[row] + sum[row];
+      }
+#pragma unroll
+      for (int dn = 0; dn < kD / 8; ++dn) {
+        acc[dn][0] *= alpha[0];
+        acc[dn][1] *= alpha[0];
+        acc[dn][2] *= alpha[1];
+        acc[dn][3] *= alpha[1];
+      }
+      // P.V: the score tiles (2kk, 2kk + 1) are the A fragment of keys
+      // [16kk, 16kk + 16), p rounded to bf16
+#pragma unroll
+      for (int kk = 0; kk < kSN / 2; ++kk) {
+        const uint32_t pa[4] = {
+            hopper::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            hopper::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            hopper::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const int key = wk + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+        for (int dn = 0; dn < kD / 8; dn += 2) {
+          uint32_t b0, b1, b2, b3;
+          hopper::ldsm_x4_trans(b0, b1, b2, b3,
+                                vt + kv_chunk(key, dn + (lane >> 4)) * 16);
+          hopper::mma_bf16(acc[dn], pa, b0, b1);
+          hopper::mma_bf16(acc[dn + 1], pa, b2, b3);
+        }
       }
     }
+    __syncthreads();       // the tile's slot is refilled next iteration
   }
+  hopper::cp_async_wait<0>();
 
+  if constexpr (!SPLIT) {
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    if (!live[i]) continue;
-    const int j = j0 + warp * kRowsPerWarp + i;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    const size_t o = q_off(j);
+    for (int row = 0; row < 2; ++row) {
+      const int j = jw + r0 + 8 * row;
+      if (j >= GC) continue;
+      const float denom = l[row] == 0.f ? 1.f : l[row];
+      __nv_bfloat16* o = out + q_off(j);
 #pragma unroll
-    for (int dd = 0; dd < kDPL; ++dd)
-      out[o + lane + 32 * dd] = __float2bfloat16(acc[i][dd] * inv);
+      for (int dn = 0; dn < kD / 8; ++dn) {
+        const int d = dn * 8 + (lane & 3) * 2;
+        *reinterpret_cast<uint32_t*>(o + d) = hopper::pack_bf16(
+            acc[dn][2 * row] / denom, acc[dn][2 * row + 1] / denom);
+      }
+    }
+  } else {
+    // merge the four warps' key slices in warp order, in shared memory
+    __syncthreads();
+    float* acc_s = reinterpret_cast<float*>(smem);          // [4][16][D]
+    float2* ml_s = reinterpret_cast<float2*>(smem + 4 * 16 * kD * 4);
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const int i = r0 + 8 * row;
+      float* a = acc_s + (warp * 16 + i) * kD;
+#pragma unroll
+      for (int dn = 0; dn < kD / 8; ++dn) {
+        const int d = dn * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(a + d) =
+            make_float2(acc[dn][2 * row], acc[dn][2 * row + 1]);
+      }
+      if ((lane & 3) == 0) ml_s[warp * 16 + i] = make_float2(m[row], l[row]);
+    }
+    __syncthreads();
+    const int d = threadIdx.x;                 // kThreads == kD
+    const size_t ws_row =
+        (((size_t)r * Hkv + h) * n_splits + split) * (size_t)GC;
+    for (int i = 0; i < kQRows && i < GC; ++i) {
+      float m_all = kNegInf;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 ml = ml_s[w * 16 + i];
+        if (ml.y > 0.f) m_all = fmaxf(m_all, ml.x);
+      }
+      const float m_ref = fmaxf(m_all, kFloor);
+      float lsum = 0.f, o = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 ml = ml_s[w * 16 + i];
+        if (!(ml.y > 0.f)) continue;
+        const float wt = expf(fmaxf(ml.x, kFloor) - m_ref);
+        lsum = fmaf(ml.y, wt, lsum);
+        o = fmaf(acc_s[(w * 16 + i) * kD + d], wt, o);
+      }
+      ws_acc[(ws_row + i) * kD + d] = o;
+      if (d == 0) ws_ml[ws_row + i] = make_float2(m_all, lsum);
+    }
   }
 }
 
-template <typename KV, int D>
-void launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
-            const void* vpool, const void* tables, const void* kv_len,
-            const void* chunk_len, void* out, int C, int Hq, int Hkv, int ps,
-            int n_pages, int maxp, float scale) {
-  ragged_attn_kernel<KV, D><<<grid, kThreads, 0, st>>>(
+// one block per (query row, kv head, row): thread d merges output dim d of
+// the row's splits in split order; a split that saw no visible key (l == 0)
+// contributes nothing
+__global__ void __launch_bounds__(kThreads)
+ragged_merge_kernel(const float* __restrict__ ws_acc,
+                    const float2* __restrict__ ws_ml,
+                    __nv_bfloat16* __restrict__ out, int C, int Hq, int Hkv,
+                    int n_splits) {
+  const int j = blockIdx.x;
+  const int h = blockIdx.y;
+  const int r = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int GC = G * C;
+  const size_t base = ((size_t)r * Hkv + h) * n_splits * (size_t)GC + j;
+  float m_all = kNegInf;
+  for (int s = 0; s < n_splits; ++s) {
+    const float2 ml = ws_ml[base + (size_t)s * GC];
+    if (ml.y > 0.f) m_all = fmaxf(m_all, ml.x);
+  }
+  const float m_ref = fmaxf(m_all, kFloor);
+  float l = 0.f, o = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const float2 ml = ws_ml[base + (size_t)s * GC];
+    if (!(ml.y > 0.f)) continue;
+    const float w = expf(fmaxf(ml.x, kFloor) - m_ref);
+    l = fmaf(ml.y, w, l);
+    o = fmaf(ws_acc[(base + (size_t)s * GC) * kD + threadIdx.x], w, o);
+  }
+  const int g = j / C, c = j % C;
+  const size_t off = (((size_t)r * C + c) * Hq + (size_t)h * G + g) * kD;
+  out[off + threadIdx.x] = __float2bfloat16(o / (l == 0.f ? 1.f : l));
+}
+
+template <typename KV, bool SPLIT>
+int launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
+           const void* vpool, const void* tables, const void* kv_len,
+           const void* chunk_len, void* out, void* ws_acc, void* ws_ml,
+           int C, int Hq, int Hkv, int ps, int n_pages, int maxp,
+           int n_qtiles, int n_splits, int pps, float scale) {
+  cudaError_t e = cudaFuncSetAttribute(
+      ragged_attn_kernel<KV, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  ragged_attn_kernel<KV, SPLIT><<<grid, kThreads, kSmemBytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kpool),
       static_cast<const KV*>(vpool), static_cast<const int*>(tables),
       static_cast<const int*>(kv_len), static_cast<const int*>(chunk_len),
-      static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, ps, n_pages, maxp, scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws_acc),
+      static_cast<float2*>(ws_ml), C, Hq, Hkv, ps, n_pages, maxp, n_qtiles,
+      n_splits, pps, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q bf16 [R,C,Hq,D]; pools [P,Hkv,ps,D] bf16 (kv_fp8=0) or e5m2 (kv_fp8=1);
-// tables int32 [R,maxp]; kv_len, chunk_len int32 [R]; out bf16 [R,C,Hq,D].
-// D is 128 (the only instance), ps a multiple of 32.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for another D.
+// q bf16 [R,C,Hq,D] (4-byte aligned); pools [P,Hkv,ps,D] bf16 (kv_fp8=0)
+// or e5m2 (kv_fp8=1), 16-byte aligned; tables int32 [R,maxp]; kv_len,
+// chunk_len int32 [R]; out bf16 [R,C,Hq,D].  D is 128.  Given scratch
+// ws_acc fp32 [R,Hkv,n_splits,G*C,D] and ws_ml fp32 [R,Hkv,n_splits,G*C,2]
+// (G = Hq/Hkv, G*C <= 16), the key-split instance runs over n_splits
+// splits of pps pages and then the merge; without (null), the query-tile
+// instance (n_splits 1).  Returns the first non-zero cudaGetLastError(),
+// or cudaErrorInvalidValue for another D or a split of more than 16 rows.
 extern "C" int ragged_paged_attention(const void* q, const void* kpool,
                                       const void* vpool, const void* tables,
                                       const void* kv_len,
                                       const void* chunk_len, void* out,
-                                      int R, int C, int Hq, int Hkv, int D,
-                                      int ps, int n_pages, int maxp,
-                                      int kv_fp8, float scale, void* stream) {
+                                      void* ws_acc, void* ws_ml, int R,
+                                      int C, int Hq, int Hkv, int D, int ps,
+                                      int n_pages, int maxp, int n_splits,
+                                      int pps, int kv_fp8, float scale,
+                                      void* stream) {
+  if (D != kD) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int gc = (Hq / Hkv) * C;
-  dim3 grid((gc + kQRows - 1) / kQRows, Hkv, R);
-  if (D != 128) return (int)cudaErrorInvalidValue;
+  const bool split = ws_acc != nullptr;
+  if (split ? gc > 16 : n_splits != 1) return (int)cudaErrorInvalidValue;
+  const int n_qtiles = split ? 1 : (gc + 63) / 64;
+  const dim3 grid(n_qtiles * n_splits, Hkv, R);
+  int err;
+#define RPA_LAUNCH(KV, SPLIT)                                                \
+  launch<KV, SPLIT>(grid, st, q, kpool, vpool, tables, kv_len, chunk_len,   \
+                    out, ws_acc, ws_ml, C, Hq, Hkv, ps, n_pages, maxp,       \
+                    n_qtiles, n_splits, pps, scale)
   if (kv_fp8)
-    launch<uint8_t, 128>(grid, st, q, kpool, vpool, tables, kv_len, chunk_len,
-                         out, C, Hq, Hkv, ps, n_pages, maxp, scale);
+    err = split ? RPA_LAUNCH(uint8_t, true) : RPA_LAUNCH(uint8_t, false);
   else
-    launch<uint16_t, 128>(grid, st, q, kpool, vpool, tables, kv_len,
-                          chunk_len, out, C, Hq, Hkv, ps, n_pages, maxp, scale);
+    err = split ? RPA_LAUNCH(uint16_t, true) : RPA_LAUNCH(uint16_t, false);
+#undef RPA_LAUNCH
+  if (err || !split) return err;
+  ragged_merge_kernel<<<dim3(gc, Hkv, R), kThreads, 0, st>>>(
+      static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
+      static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits);
   return (int)cudaGetLastError();
 }

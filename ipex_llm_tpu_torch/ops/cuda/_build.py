@@ -55,6 +55,9 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers too: a library is stale when one of them changes
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -103,6 +106,25 @@ def load(name: str, declare) -> ctypes.CDLL:
             declare(lib)
             _libs[name] = lib
         return lib
+
+
+def sass_counts(name: str, opcode: str = "HMMA") -> dict[str, int]:
+    """Instructions whose text holds ``opcode`` in each kernel of the built
+    library for ``csrc/<name>.cu`` (``cuobjdump -sass``), by mangled kernel
+    name: shows which instances run on the tensor cores."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib_path(name))],
+                          capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    counts: dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
 
 
 def check(err: int, what: str):

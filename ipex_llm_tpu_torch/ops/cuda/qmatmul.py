@@ -1,9 +1,13 @@
 """Fused block dequant-matmul in the ten block formats (kernel B2; port of
 ``ipex_llm_tpu/ops/pallas/qmatmul.py::qmatmul_pallas``).
 
-``csrc/qmatmul.cu`` holds the kernel, one body templated on the format,
-and the note on its design and bound.  :func:`qmatmul` launches it for
-CUDA tensors and runs :func:`qmatmul_plain` for CPU tensors.
+``csrc/qmatmul.cu`` holds the kernel, templated on the format, in two
+instances, and the note on their design and bound: a GEMV on the CUDA
+cores for M <= 8 (decode) and a tiled tensor-core product for M > 8 (the
+verify forward, the mixed tick's prefill rows, generate's prefill).
+:func:`plan` picks the instance, its row tile and its K split from the
+shapes alone.  :func:`qmatmul` launches it for CUDA tensors and runs
+:func:`qmatmul_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,18 +30,26 @@ FORMATS = ("sym_int4", "asym_int4", "nf4", "fp4", "sym_int5", "asym_int5",
 _NIB4 = FORMATS[:4]
 _BIT5 = ("sym_int5", "asym_int5")
 _TABLES = {"nf4": numerics.NF4_TABLE, "fp4": numerics.FP4_TABLE}
-_COLS_PER_BLOCK = 512       # columns one CUDA block covers (csrc constant)
-_TARGET_BLOCKS = 4 * 132    # about four resident blocks per SM
-_MIN_SPLIT_ROWS = 128       # contraction rows of the shortest K split
+ROUTES = ("gemv", "tiled")  # the kernel's two instances
+_GEMV_MAX_M = 8             # the GEMV instance takes M <= 8
+_COLS_PER_BLOCK = 512       # columns one GEMV block covers (csrc constant)
+_TARGET_BLOCKS = 4 * 132    # GEMV: about four resident blocks per SM
+_MIN_SPLIT_ROWS = 128       # GEMV: contraction rows of the shortest K split
+_TILE_N = 128               # tiled: output columns per block (csrc kTN)
+_TILE_K = 64                # tiled: contraction rows per step (csrc kTK)
+_TC_TARGET_BLOCKS = 2 * 132  # tiled: split K below two waves of 132 SMs
+_TC_MIN_SPLIT_ROWS = 512    # tiled: contraction rows of the shortest split
 
 
 class _Counts(_build.Counts):
     """The kernel's launch accounting, with the launches of each format
-    (``by_format``) beside the totals."""
+    (``by_format``) and of each instance (``by_route``: ``gemv``,
+    ``tiled``) beside the totals."""
 
     def reset(self):
         super().reset()
         self.by_format = dict.fromkeys(FORMATS, 0)
+        self.by_route = dict.fromkeys(ROUTES, 0)
 
 
 COUNTS = _Counts()
@@ -69,24 +81,50 @@ def qmatmul_plain(x: torch.Tensor, qt: QTensor, *,
     return y.to(torch.float32) if keep_f32 else y.to(x.dtype)
 
 
-def row_tile(m: int) -> int:
-    """Rows of x one CUDA block holds (a template instance of the kernel)."""
-    return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8 if m <= 8 \
-        else 16
+def route(m: int) -> str:
+    """The instance that takes ``m`` rows of x: ``gemv`` or ``tiled``."""
+    return "gemv" if m <= _GEMV_MAX_M else "tiled"
+
+
+def tile_rows(m: int) -> int:
+    """Rows of x one CUDA block holds (a template instance of the kernel):
+    1, 2, 4 or 8 on the GEMV instance, 16, 64 or 128 on the tiled one."""
+    for t in (1, 2, 4, 8, 16, 64):
+        if m <= t:
+            return t
+    return 128
 
 
 @functools.lru_cache(maxsize=1024)
 def split_plan(m: int, n: int, k: int, bs: int) -> tuple[int, int]:
-    """(splits, quant blocks per split) over the K axis: enough CUDA blocks
-    in flight to cover the card, each split whole quantization blocks of
-    ``bs`` rows and at least 128 rows."""
-    mt = row_tile(m)
-    tiles = -(-m // mt) * -(-n // _COLS_PER_BLOCK)
+    """(splits, quant blocks per split) over the K axis, from shapes alone.
+    Each split holds whole quantization blocks of ``bs`` rows.  GEMV: enough
+    CUDA blocks in flight to cover the card, each split at least 128 rows.
+    Tiled: splits only while the output tiles are under two waves of 132
+    SMs, each split whole 64-row K steps and at least 512 rows."""
     nqb = k // bs
-    min_qb = max(1, _MIN_SPLIT_ROWS // bs)
-    splits = max(1, min(math.ceil(_TARGET_BLOCKS / tiles), nqb // min_qb))
-    per = -(-nqb // splits)
-    return -(-nqb // per), per
+    mt = tile_rows(m)
+    if route(m) == "gemv":
+        tiles = -(-m // mt) * -(-n // _COLS_PER_BLOCK)
+        min_qb = max(1, _MIN_SPLIT_ROWS // bs)
+        splits = max(1, min(math.ceil(_TARGET_BLOCKS / tiles), nqb // min_qb))
+        per = -(-nqb // splits)
+        return -(-nqb // per), per
+    tiles = -(-m // mt) * -(-n // _TILE_N)
+    if tiles >= _TC_TARGET_BLOCKS:
+        return 1, nqb
+    unit = max(1, _TILE_K // bs)            # quant blocks per K step
+    units = -(-nqb // unit)
+    min_units = max(1, _TC_MIN_SPLIT_ROWS // (unit * bs))
+    splits = max(1, min(math.ceil(_TC_TARGET_BLOCKS / tiles),
+                        units // min_units))
+    per = -(-units // splits) * unit
+    return (-(-nqb // per), per) if per < nqb else (1, nqb)
+
+
+def plan(m: int, n: int, k: int, bs: int) -> tuple[str, int, int, int]:
+    """(route, rows per block, splits, quant blocks per split)."""
+    return (route(m), tile_rows(m), *split_plan(m, n, k, bs))
 
 
 # per format: (kernel format id, block size, num, den, zeros plane); the
@@ -148,7 +186,11 @@ def _launch(x: torch.Tensor, qt: QTensor, keep_f32: bool) -> torch.Tensor:
                       device=dev)
     if m == 0:
         return out
-    splits, per = split_plan(m, n, k, bs)
+    rt, tile, splits, per = plan(m, n, k, bs)
+    if rt == "tiled" and x.data_ptr() % 16:
+        x = x.clone()                # the tiled instance's 16-byte copies
+    vec16 = n % 16 == 0 and all(
+        t is None or t.data_ptr() % 16 == 0 for t in (data, scales, zeros))
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
                if splits > 1 else None)
     table = _table(qt.qtype, dev) if qt.qtype in _TABLES else None
@@ -158,11 +200,12 @@ def _launch(x: torch.Tensor, qt: QTensor, keep_f32: bool) -> torch.Tensor:
         0 if zeros is None else zeros.data_ptr(),
         0 if table is None else table.data_ptr(), out.data_ptr(),
         int(keep_f32), 0 if partial is None else partial.data_ptr(), m, n, k,
-        splits, per, row_tile(m), _build.stream_handle(x))
+        splits, per, tile, int(vec16), _build.stream_handle(x))
     # a K split launches the product and then the reduce of its partials
     launches = 2 if splits > 1 else 1
     COUNTS.launches += launches
     COUNTS.by_format[qt.qtype] += launches
+    COUNTS.by_route[rt] += launches
     _build.check(err, NAME)
     return out
 
@@ -178,5 +221,6 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *,
 
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qmatmul.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p]
+    lib.qmatmul.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i,
+                           p]
     lib.qmatmul.restype = ctypes.c_int

@@ -1,15 +1,19 @@
 """Ragged paged attention (kernel B1; port of
 ``ipex_llm_tpu/ops/pallas/ragged_paged_attention.py::ragged_paged_sdpa``).
 
-``csrc/ragged_paged_attention.cu`` holds the kernel and the note on its
-design and bound.  :func:`ragged_paged_sdpa` keeps the reference's public
-signature, launches the kernel for CUDA tensors and runs
+``csrc/ragged_paged_attention.cu`` holds the kernel, in two instances, and
+the note on their design and bound: query tiles for many-query rows, and
+a key split (a split pass, then a merge) for few-query rows (G*C <= 16:
+decode, the verify chunks of speculation).  :func:`split_plan` plans the
+split from shapes alone.  :func:`ragged_paged_sdpa` keeps the reference's
+public signature, launches the kernel for CUDA tensors and runs
 :func:`ragged_paged_sdpa_plain` for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -17,10 +21,25 @@ from ipex_llm_tpu_torch.kv import gather_rows
 from ipex_llm_tpu_torch.ops.cuda import _build
 
 NAME = "ragged_paged_attention"
-COUNTS = _build.Counts()
+ROUTES = ("tiles", "split")     # the kernel's two instances
 _HEAD_DIMS = (128,)         # template instances in the source
-_KEY_TILE = 32              # keys per shared-memory tile (csrc constant)
+_FEW_ROWS = 16              # G*C at or below: the key split (its blocks hold 16 rows)
+_TILE_KEYS = 64             # keys per shared-memory tile (csrc kKT)
+_TARGET_BLOCKS = 1024       # split-pass blocks to aim for (about 8 per SM)
 _POOL_DTYPES = (torch.bfloat16, torch.float8_e5m2)
+
+
+class _Counts(_build.Counts):
+    """The kernel's launch accounting, with the launches of each instance
+    (``by_route``: ``tiles``, ``split``; a split counts its merge launch)
+    beside the totals."""
+
+    def reset(self):
+        super().reset()
+        self.by_route = dict.fromkeys(ROUTES, 0)
+
+
+COUNTS = _Counts()
 
 
 def ragged_paged_sdpa_plain(q, k_pool, v_pool, tables, kv_len, chunk_len, *,
@@ -50,6 +69,21 @@ def ragged_paged_sdpa_plain(q, k_pool, v_pool, tables, kv_len, chunk_len, *,
     return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
 
 
+def split_plan(r: int, hkv: int, gc: int, maxp: int,
+               ps: int) -> tuple[int, int]:
+    """(splits, pages per split) of the key axis, from shapes alone (no
+    read of ``kv_len``): rows of ``gc`` = G*C <= 16 queries split into
+    whole pages, enough split-pass blocks to cover the card, each split at
+    least one 64-key tile; many-query rows do not split."""
+    if gc > _FEW_ROWS:
+        return 1, maxp
+    min_pages = -(-_TILE_KEYS // ps)
+    splits = max(1, min(-(-maxp // min_pages),
+                        math.ceil(_TARGET_BLOCKS / (r * hkv))))
+    pps = -(-maxp // splits)
+    return -(-maxp // pps), pps
+
+
 def _launch(q, k_pool, v_pool, tables, kv_len, chunk_len, scale):
     r, c, hq, d = q.shape
     n_pages, hkv, ps, dk = k_pool.shape
@@ -63,14 +97,11 @@ def _launch(q, k_pool, v_pool, tables, kv_len, chunk_len, scale):
         raise ValueError("k/v pools must be [P, Hkv, ps, D] with q's D")
     if d not in _HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
-    if ps % _KEY_TILE:
-        raise NotImplementedError(f"page size {ps} is not a multiple of "
-                                  f"{_KEY_TILE}")
     if tables.dtype != torch.int32 or tables.dim() != 2 \
             or tables.shape[0] != r:
         raise ValueError("tables must be int32 [R, maxP]")
-    if r > 65535:
-        raise ValueError("more than 65535 rows in one launch")
+    if r > 65535 or hkv > 65535:
+        raise ValueError("more than 65535 rows or kv heads in one launch")
     kv_len = kv_len.to(torch.int32).contiguous()
     chunk_len = chunk_len.to(torch.int32).contiguous()
     for t in (k_pool, v_pool, tables, kv_len, chunk_len):
@@ -81,19 +112,31 @@ def _launch(q, k_pool, v_pool, tables, kv_len, chunk_len, scale):
         if not t.is_contiguous():
             raise ValueError("ragged attention kernel needs contiguous "
                              "tensors")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16 or q.data_ptr() % 4:
+        raise ValueError("pools must be 16-byte and q 4-byte aligned")
+    gc = hq // hkv * c
+    maxp = tables.shape[1]
+    splits, pps = split_plan(r, hkv, gc, maxp, ps)
     lib = _build.load(NAME, _declare)
     out = torch.empty_like(q)
+    ws_acc = ws_ml = None
+    if gc <= _FEW_ROWS:
+        ws_acc = torch.empty((r, hkv, splits, gc, d), dtype=torch.float32,
+                             device=dev)
+        ws_ml = torch.empty((r, hkv, splits, gc, 2), dtype=torch.float32,
+                            device=dev)
     err = lib.ragged_paged_attention(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_pool.data_ptr()),
-        ctypes.c_void_p(v_pool.data_ptr()), ctypes.c_void_p(tables.data_ptr()),
-        ctypes.c_void_p(kv_len.data_ptr()),
-        ctypes.c_void_p(chunk_len.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        r, c, hq, hkv, d, ps, n_pages, tables.shape[1],
-        int(k_pool.dtype == torch.float8_e5m2), ctypes.c_float(scale),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+        kv_len.data_ptr(), chunk_len.data_ptr(), out.data_ptr(),
+        0 if ws_acc is None else ws_acc.data_ptr(),
+        0 if ws_ml is None else ws_ml.data_ptr(),
+        r, c, hq, hkv, d, ps, n_pages, maxp, splits, pps,
+        int(k_pool.dtype == torch.float8_e5m2), scale,
         _build.stream_handle(q))
-    COUNTS.launches += 1
+    # the key split launches the split pass and then the merge
+    route, launches = ("split", 2) if ws_acc is not None else ("tiles", 1)
+    COUNTS.launches += launches
+    COUNTS.by_route[route] += launches
     _build.check(err, NAME)
     return out
 
@@ -127,6 +170,7 @@ def ragged_paged_sdpa(q: torch.Tensor, k_pool: torch.Tensor,
 
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ragged_paged_attention.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                           i, i, i, i, i, ctypes.c_float, p]
+    lib.ragged_paged_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                           i, i, i, i, i, i, i, i, i,
+                                           ctypes.c_float, p]
     lib.ragged_paged_attention.restype = ctypes.c_int

@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Time the port's sym_int4 dequant-matmul (B2) from one source tree, so
-that two trees can be compared on one card.
+"""Time the port's dequant-matmul (B2) from one source tree, so that two
+trees can be compared on one card.
 
     python3 scripts/torch_qmatmul_ab.py TREE build   # build TREE's kernel
     python3 scripts/torch_qmatmul_ab.py TREE time    # time it, one JSON line
+    python3 scripts/torch_qmatmul_ab.py turns PARENT CHANGE [ROUNDS]
 
 ``TREE`` is the root of a checkout (this repository, or a ``git archive``
-of another commit unpacked beside it).  Build both trees first, then time
-them in alternating order (parent, change, change, parent, ...) within
-one session on one card, and compare medians.  It times qkv, gate_up and
-down at Llama-2-7B widths and M = 1, 8, 128 and 8192 with CUDA events
-(100 launches, 3 at M=8192), rotating over five weights so that each
-launch finds its weight out of L2.  It takes the wrapper of either API:
-``qmatmul(x, qt)`` or, on trees from before the ten-format kernel,
-``qmatmul_int4(x, data, scales)``.
+of another commit unpacked beside it).  ``turns`` builds both trees, then
+times them in alternating order (parent, change, change, parent, ...; one
+process per timing, ROUNDS of each, 3 by default) in one run on
+one card, and prints each case's times, its medians and the ratio of the
+parent's median to the change's.
+
+It times sym_int4 at Llama-2-7B's qkv, gate_up and down at M = 1, 8
+(decode), 32 (the verify forward of spec_k 3 over 8 rows) and 128 (a
+mixed tick's prefill rows), Mistral-7B's gate_up at M = 8192 (generate's
+prefill), and fp8_e5m2 at Llama-2-7B's gate_up at M = 8, 32 and 128, with
+CUDA events (100 launches, 3 at M=8192), rotating over five weights so
+that each launch finds its weight out of L2.  It takes the wrapper of
+either API: ``qmatmul(x, qt)`` or, on trees from before the ten-format
+kernel, ``qmatmul_int4(x, data, scales)`` (sym_int4 only).
 """
 
 from __future__ import annotations
@@ -21,33 +28,35 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import statistics
+import subprocess
 import sys
 
+LLAMA = {"qkv": (4096, 12288), "gate_up": (4096, 22016),
+         "down": (11008, 4096)}
+CASES = ([("sym_int4", w, k, n, (1, 8, 32, 128))
+          for w, (k, n) in LLAMA.items()]
+         + [("sym_int4", "mistral gate_up", 4096, 28672, (8192,)),
+            ("fp8_e5m2", "gate_up", 4096, 22016, (8, 32, 128))])
 
-def main() -> int:
-    root = pathlib.Path(sys.argv[1]).resolve()
+
+def time_tree(root: pathlib.Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
     from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
     from ipex_llm_tpu_torch.quantize.core import quantize
 
-    if sys.argv[2] == "build":
-        from ipex_llm_tpu_torch.ops.cuda import _build
-
-        print(root.name, "build", _build.build([b2.NAME]))
-        return 0
     new = hasattr(b2, "FORMATS")
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for name, (k, n) in {"qkv": (4096, 12288), "gate_up": (4096, 22016),
-                         "down": (11008, 4096)}.items():
-        wq = quantize(torch.randn(k, n, generator=g, device=dev)
-                      * (1.2 / math.sqrt(k)), "sym_int4")
-        copies = [wq] + [quantize(torch.randn(k, n, generator=g, device=dev),
-                                  "sym_int4") for _ in range(4)]
-        for m in (1, 8, 128, 8192):
+    for qtype, name, k, n, ms in CASES:
+        if qtype != "sym_int4" and not new:
+            continue
+        copies = [quantize(torch.randn(k, n, generator=g, device=dev)
+                           * (1.2 / math.sqrt(k)), qtype) for _ in range(5)]
+        for m in ms:
             x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
             it = [0]
 
@@ -69,8 +78,48 @@ def main() -> int:
                 run()
             e.record()
             e.synchronize()
-            out[f"{name} M={m}"] = s.elapsed_time(e) / n_it
-    print(json.dumps({"tree": str(root), **out}))
+            out[f"{qtype} {name} M={m}"] = s.elapsed_time(e) / n_it
+        del copies
+    return out
+
+
+def turns(script: str, parent: str, change: str, rounds: int) -> int:
+    """Build both trees, time them in alternating order, print medians."""
+    for tree in (parent, change):
+        subprocess.run([sys.executable, script, tree, "build"], check=True)
+    runs: dict[str, list] = {parent: [], change: []}
+    for i in range(2 * rounds):
+        tree = (parent, change)[(i + i // 2) % 2]   # P C C P P C ...
+        line = subprocess.run([sys.executable, script, tree, "time"],
+                              check=True, capture_output=True,
+                              text=True).stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs[tree].append(json.loads(line))
+    keys = [k for k in runs[change][0] if k != "tree"
+            and k in runs[parent][0]]
+    summary = {}
+    for k in keys:
+        mp = statistics.median(r[k] for r in runs[parent])
+        mc = statistics.median(r[k] for r in runs[change])
+        summary[k] = {"parent_ms": mp, "change_ms": mc,
+                      "parent_over_change": mp / mc}
+    print(json.dumps({"medians": summary, "rounds": rounds}), flush=True)
+    return 0
+
+
+def main() -> int:
+    if sys.argv[1] == "turns":
+        rounds = int(sys.argv[4]) if len(sys.argv) > 4 else 3
+        return turns(__file__, sys.argv[2], sys.argv[3], rounds)
+    root = pathlib.Path(sys.argv[1]).resolve()
+    if sys.argv[2] == "build":
+        sys.path.insert(0, str(root))
+        from ipex_llm_tpu_torch.ops.cuda import _build
+        from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+
+        print(root.name, "build", _build.build([b2.NAME]))
+        return 0
+    print(json.dumps({"tree": str(root), **time_tree(root)}))
     return 0
 
 

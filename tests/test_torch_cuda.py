@@ -1,5 +1,7 @@
-"""The port's hand-written kernels on a card: B5 (split paged attention)
-against its plain version.  Every case carries the ``cuda`` marker and
+"""The port's hand-written kernels on a card against their plain versions:
+B5 (split paged attention), B2's tiled tensor-core instance (M > 8) in
+every block format, and B1 (ragged paged attention) in both its instances
+(query tiles, key split).  Every case carries the ``cuda`` marker and
 skips without a card.  The file imports neither JAX nor the JAX package,
 so it runs where they are not installed; on a machine with a card:
 
@@ -8,10 +10,16 @@ so it runs where they are not installed; on a machine with a card:
 (``chip_smoke.py`` holds every kernel at the main paths' full widths.)
 """
 
+import math
+
 import pytest
 import torch
 
 from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
+from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
+from ipex_llm_tpu_torch.quantize.core import quantize
+from ipex_llm_tpu_torch.quantize.qtypes import resolve
 
 ULP = 2.0 ** -7         # one bf16 ulp, relative to a row's largest output
 
@@ -51,3 +59,82 @@ def test_paged_attention_kernel_matches_plain(storage, c):
     top = want.abs().amax(dim=(2, 3), keepdim=True)
     assert ((got - want).abs() <= ULP * top).all()
     assert not got[want.abs().amax(dim=(2, 3)) == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", b2.FORMATS)
+def test_qmatmul_tiled_kernel_matches_plain(qtype):
+    """B2's tiled instance at ragged M (9 to 128), N a multiple of 16 and
+    not (200: the 4-byte copies, a part-full column tile), K of whole
+    blocks and with a half 64-row step (224, 32-row formats), bf16 and fp32
+    out: each output row within one bf16 ulp of its largest plain output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(7)
+    for k, n in ((256, 384), (224, 200)):
+        if k % resolve(qtype).block_size:
+            continue
+        wq = quantize(torch.randn(k, n, generator=gen) / math.sqrt(k), qtype)
+        wq_dev = wq.planes(lambda t: t.cuda())
+        for m in (9, 16, 17, 32, 100, 128):
+            x = torch.randn(m, k, generator=gen).to(torch.bfloat16)
+            for keep_f32 in (False, True):
+                want = b2.qmatmul_plain(x, wq, keep_f32=keep_f32).float()
+                b2.COUNTS.reset()
+                got = b2.qmatmul(x.cuda(), wq_dev, keep_f32=keep_f32)
+                torch.cuda.synchronize()
+                assert b2.COUNTS.by_route["tiled"] >= 1
+                assert b2.COUNTS.plain_calls == 0
+                assert got.dtype == (torch.float32 if keep_f32
+                                     else torch.bfloat16)
+                got = got.float().cpu()
+                top = want.abs().amax(dim=1, keepdim=True)
+                assert ((got - want).abs() <= ULP * top).all(), (k, n, m)
+
+
+def _b1_case(storage: str, c: int, g: int, gen):
+    """Rows at staggered lengths over 32-slot pages in random order, -1
+    past each row's last page; a decode row, chunk rows (one shorter than
+    its history allows, one full), and an idle row with the sentinel
+    kv_len past the table."""
+    r, hkv, d, ps, maxp = 5, 2, 128, 32, 6
+    dtype = torch.bfloat16 if storage == "bf16" else torch.float8_e5m2
+    n_pages = 1 + r * maxp
+    k = torch.randn(n_pages, hkv, ps, d, generator=gen).to(dtype)
+    v = torch.randn(n_pages, hkv, ps, d, generator=gen).to(dtype)
+    chunk = torch.tensor([1, c, max(1, c // 2), c, 0], dtype=torch.int32)
+    kv_len = torch.tensor([150, 190, 41, c, maxp * ps], dtype=torch.int32)
+    tables = (1 + torch.randperm(r * maxp, generator=gen)).to(
+        torch.int32).reshape(r, maxp)
+    for i in range(r - 1):
+        tables[i, -(-int(kv_len[i]) // ps):] = -1
+    tables[-1] = -1
+    q = torch.randn(r, c, hkv * g, d, generator=gen).to(torch.bfloat16)
+    return q, k, v, tables, kv_len, chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("c", [1, 2, 4, 16, 128])
+def test_ragged_attention_kernel_matches_plain(storage, g, c):
+    """Both instances (G*C <= 16: key split and merge, two launches; else
+    query tiles, one): every valid query row within one bf16 ulp of its
+    largest plain output, the idle row exact zeros, pad queries finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = _b1_case(storage, c, g, torch.Generator().manual_seed(10 * c + g))
+    want = b1.ragged_paged_sdpa(*args).float()
+    b1.COUNTS.reset()
+    got = b1.ragged_paged_sdpa(*[t.cuda() for t in args]).float().cpu()
+    split = g * c <= 16
+    assert b1.COUNTS.launches == (2 if split else 1)
+    assert b1.COUNTS.by_route["split" if split else "tiles"] == \
+        b1.COUNTS.launches and b1.COUNTS.plain_calls == 0
+    assert torch.isfinite(got).all()
+    for i, n in enumerate(args[5].tolist()):
+        if n == 0:
+            assert not got[i].any()
+            continue
+        top = want[i, :n].abs().amax(dim=(1, 2), keepdim=True)
+        assert ((got[i, :n] - want[i, :n]).abs() <= ULP * top).all(), i
