@@ -10,8 +10,9 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 
 1. device: the card's name and power limit, the torch and CUDA versions,
    the build of every CUDA kernel (one ``nvcc`` per source, all started
-   together), and the tensor-core (``HMMA``) instructions in the SASS of
-   B2's tiled instances and of B1's (each must have some);
+   together), and the tensor-core instructions in the SASS of B2's tiled
+   instances, of B1's and of B3's split pass (``HMMA``, from ``mma.sync``)
+   and of B4's (``HGMMA``, from ``wgmma``): each instance must have some;
 2. ``b2``: the dequant-matmul in each of its ten block formats against
    its plain PyTorch version at the five Llama-2-7B weight shapes and M =
    1, 8 (decode) and 128 (the prefill tokens of a mixed tick at
@@ -66,9 +67,18 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    capacity 2304, ragged ``kv_start``/``kv_len``, over bf16 and e5m2
    caches: window off, a 1024 window that cuts, and softcap 50; then at
    run (d)'s decode shape (B=1, capacity 4864, the 4096 window cutting);
+   each timed as device time per call from a CUDA graph of many calls (a
+   call's host work, not the card, would pace eager launches), as is
+   ``scaled_dot_product_attention`` beside it; then, checked only, G = 1,
+   2, 4 and 8 over bf16 and e5m2 at a capacity of 700 (not a multiple of
+   the 64-key tile), ragged kv_len, left padding, a row that sees no key
+   and a per-row window enable, with the window and with softcap 50;
 7. ``b4``: flash attention against its plain version: B=4, T=2048 left
    padded (the bucket of the generate phase); B=1, T=4608 with the 4096
-   window, which cuts; softcap and non-causal cases at a small T;
+   window, which cuts; softcap and non-causal cases at a small T; then,
+   checked only, T = 200 and 1000 (not multiples of the 64-query tile) at
+   G = 1 and 4: left padding with a window that cuts, softcap 50, and
+   non-causal with kv_len < S;
 8. ``b2m``: B2 at Mistral-7B's weight shapes, M=4 (decode) and M=8192
    (the largest prefill, 4 rows x 2048);
 9. ``mistral``: a small windowed GQA mistral on the card against the same
@@ -166,6 +176,9 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_attention_ab import graph_ms  # device time of captured calls
+
     from ipex_llm_tpu_torch.ops.cuda import _build
     from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
     from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
@@ -241,18 +254,24 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln] if log.exists() \
             else []
         report.setdefault("ptxas", {})[mod.NAME] = regs
-    # the redesigned instances must run on the tensor cores
+    # the redesigned instances must run on the tensor cores: mma.sync is
+    # HMMA in the SASS, B4's wgmma HGMMA
     hmma = {}
-    for mod, kernel in ((b2, "qmm_tc_kernel"), (b1, "ragged_attn_kernel")):
-        counts = {fn: n for fn, n in _build.sass_counts(mod.NAME).items()
+    for mod, kernel, opcode in ((b2, "qmm_tc_kernel", "HMMA"),
+                                (b1, "ragged_attn_kernel", "HMMA"),
+                                (b3, "decode_split_kernel", "HMMA"),
+                                (b4, "flash_attn_kernel", "HGMMA")):
+        counts = {fn: n for fn, n in
+                  _build.sass_counts(mod.NAME, opcode).items()
                   if kernel in fn}
         if not counts or min(counts.values()) == 0:
-            fail(f"{kernel}: an instance has no HMMA instruction ({counts})")
-        hmma[kernel] = dict(instances=len(counts),
-                            hmma_min=min(counts.values()),
-                            hmma_max=max(counts.values()))
+            fail(f"{kernel}: an instance has no {opcode} instruction "
+                 f"({counts})")
+        hmma[kernel] = dict(opcode=opcode, instances=len(counts),
+                            count_min=min(counts.values()),
+                            count_max=max(counts.values()))
     report["sass_hmma"] = hmma
-    print("SASS HMMA " + json.dumps(hmma), flush=True)
+    print("SASS tensor-core instructions " + json.dumps(hmma), flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     from ipex_llm_tpu_torch.quantize.core import dequantize, quantize
@@ -1032,14 +1051,10 @@ def main() -> int:
         lay_bytes = 2 * k.numel() * k.element_size()
         copies = [(k, v)] + [(k.clone(), v.clone()) for _ in range(
             math.ceil(2 * L2_BYTES / lay_bytes))]
-        it = [0]
-
-        def run_kernel():
-            kc, vc = copies[it[0] % len(copies)]
-            it[0] += 1
-            b3.decode_sdpa(q, kc, vc, **kwargs)
-
-        ms = time_ms(run_kernel, 50)
+        calls = [lambda kc=kc, vc=vc: b3.decode_sdpa(q, kc, vc, **kwargs)
+                 for kc, vc in copies * max(1, 24 // len(copies))]
+        ms = graph_ms(torch, calls)
+        eager_ms = time_ms(calls[0], 50)
         plain_ms = time_ms(plain, 3)
         lo = b3.first_visible(kl, ks, won, window)
         n_vis = (kl - lo).clamp(min=0)
@@ -1054,13 +1069,14 @@ def main() -> int:
                     )[:, None, None, :]
             kw, vw = k.to(torch.bfloat16), v.to(torch.bfloat16)
             qt = q.transpose(1, 2)
-            lib_ms = time_ms(lambda: sdpa_gqa(qt, kw, vw, mask), 50)
+            lib_ms = graph_ms(torch, [lambda: sdpa_gqa(qt, kw, vw, mask)] * 24)
             del kw, vw
         row = dict(case=name, shape=f"B={b} Hq={hq} Hkv={hkv} D={d} "
                    f"S={k.shape[2]}",
                    max_abs_err=err, max_rel_err=worst, tol_rel=ATTN_TOL_REL,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bms, bound_by=by)
+                   ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                   splits=b3.split_plan(b, hkv, k.shape[2]))
         print("B3 " + json.dumps(row), flush=True)
         return row
 
@@ -1091,7 +1107,35 @@ def main() -> int:
                                kv_start=ks, won=won, window=1024,
                                softcap=None)
     check_rows(out, ref, "B3 per-row window enable")
+    # checked only: every GQA group the kernel takes, at a capacity that is
+    # not a multiple of the tile, with ragged rows, left padding, a row
+    # that sees no key (row 3) and the window off on row 2
+    b3_checks = 0
+    for kv_name, kv_dtype in (("bf16", torch.bfloat16),
+                              ("e5m2", torch.float8_e5m2)):
+        for g in (1, 2, 4, 8):
+            for extra in ({}, dict(window=100), dict(softcap=50.0)):
+                q, k, v, kl, ks, _ = b3_case(
+                    kv_dtype, None, None, s=700,
+                    kv_len=(700, 333, 65, 1, 150),
+                    kv_start=(0, 37, 64, 1, 100))
+                q = q[:, :, :2 * g].contiguous()
+                k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
+                won = torch.tensor([1, 1, 0, 1, 1], dtype=torch.int32,
+                                   device=dev)
+                out = b3.decode_sdpa(q, k, v, kv_len=kl, kv_start=ks,
+                                     window_on=won, **extra)
+                ref = b3.decode_sdpa_plain(
+                    q, k, v, scale=128 ** -0.5, kv_len=kl, kv_start=ks,
+                    won=won, window=extra.get("window"),
+                    softcap=extra.get("softcap"))
+                check_rows(out, ref, f"B3 {kv_name} G={g} {extra}")
+                if out[3].any():
+                    fail(f"B3 {kv_name} G={g}: a row with no key is not 0")
+                b3_checks += 1
+    print(f"B3: {b3_checks} small cases within tolerance", flush=True)
     report["b3"] = rows
+    report["b3_small_checks"] = b3_checks
     torch.cuda.empty_cache()
 
     # -- 7. B4 ---------------------------------------------------------------
@@ -1175,7 +1219,34 @@ def main() -> int:
         b4_run("non-causal", b4_case(2, 200, 300, [200, 183],
                                      causal=False, kv_len=[300, 250])),
     ]
+    # checked only: T not a multiple of the 64-query tile, G = 1 and 4
+    b4_checks = 0
+    for t in (200, 1000):
+        for g in (1, 4):
+            for kind in ("window cuts", "softcap", "non-causal"):
+                c = b4_case(2, t, t + 64, [t, t - 77], hq=2 * g, hkv=2,
+                            **({"window": 150} if kind == "window cuts" else
+                               {"softcap": 50.0} if kind == "softcap" else
+                               {"causal": False, "kv_len": [t + 64, t + 24]}))
+                q, k, v = c["q"], c["k_hm"].transpose(1, 2), \
+                    c["v_hm"].transpose(1, 2)
+                kl, ks, won = b3.row_vectors(2, t + 64, dev, c["kv_len"],
+                                             c["kv_start"], True)
+                out = b4.flash_sdpa(
+                    q, k, v, causal=c["causal"],
+                    q_positions=c["q_positions"], kv_len=c["kv_len"],
+                    kv_start=c["kv_start"], window=c["window"],
+                    softcap=c["softcap"])
+                ref = b4.flash_sdpa_plain(
+                    q, k, v, scale=128 ** -0.5, causal=c["causal"],
+                    q_positions=c["q_positions"].long(), kv_len=kl,
+                    kv_start=ks, won=won, window=c["window"],
+                    softcap=c["softcap"])
+                check_rows(out, ref, f"B4 T={t} G={g} {kind}")
+                b4_checks += 1
+    print(f"B4: {b4_checks} small cases within tolerance", flush=True)
     report["b4"] = rows
+    report["b4_small_checks"] = b4_checks
     torch.cuda.empty_cache()
 
     # -- 8. B2 at Mistral-7B's shapes ------------------------------------------

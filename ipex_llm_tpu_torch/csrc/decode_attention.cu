@@ -15,105 +15,134 @@
 //     output; a row that sees no key gives 0 (l == 0 -> denominator 1).
 //
 // What bounds it: the bytes of the visible K/V slots (a decode step does
-// ~2 flops per byte read), so the card's memory rate.
+// ~2 operations per byte read), so the card's memory rate.  The design
+// keeps many bytes in flight and reads each visible slot once.
 //
 // Design: the TPU grid walks S in order carrying (m, l, acc) in scratch;
-// here the S axis splits over blocks.  A block owns one (row, kv head,
-// S-split) and walks only the slots of its split that the row's kv_start,
-// window and kv_len leave visible: dead tiles are never read (the TPU
-// kernel still DMAs them).  Each of its 4 warps takes 32-key sub-tiles in
-// turn: lane t reads key t's row with 16-byte loads and scores it against
-// all G queries of the group (q sits in shared memory, read as
-// broadcasts), the warp reduces max and sum with shuffles, then each lane
-// accumulates 4 head dims of P.V (one 8- or 4-byte load per key, the warp
-// reading the V row contiguously).  The 4 warps' states merge in shared
-// memory into the split's fp32 partial (m, l, acc); a second kernel merges
-// the splits in split order (deterministic, no atomics) and writes bf16.
+// here each row's *visible* range [lo, kv_len) (lo = kv_start, or with the
+// window on kv_len - window) splits over blocks.  The number of splits
+// comes from shapes alone (ops/cuda/decode_attention.py::split_plan); each
+// block computes its own sub-range from lo and kv_len on the device
+// (split_bounds there mirrors it), so every split holds its share of the
+// row's visible slots and none is empty while another holds more than one
+// tile.  A block owns one (row, kv head, split).  Its K/V tiles of 64 keys
+// (contiguous in the head-major layer) stream through a ring of shared
+// memory with 16-byte cp.async in the storage type, all of a split's tiles
+// in flight at once at the main path's shapes (three stages of 32 KiB for
+// bf16; four raw stages of 16 KiB for e5m2, widened into one bf16 tile
+// pair in shared memory).  Form chosen: the tensor cores, as B1's key-split
+// instance (ragged_paged_attention.cu): the G query rows of the kv head,
+// padded to one 16-row tile, are mma.sync A fragments in registers; each of
+// the 4 warps takes a 16-key slice of every tile, computes its scores with
+// m16n8k16 (K by ldmatrix), its online softmax in base 2, and P.V with P's
+// registers as A fragments (V by ldmatrix.trans).  The kernel is bound by
+// bytes, not products: the tensor cores only take the score and value
+// arithmetic off the dependent chain of one-key-per-lane loads, so the
+// warps keep issuing copies.  The 4 warps' states merge in shared memory
+// into the split's fp32 partial (m, l, acc); a second kernel merges a
+// head's splits in split order (deterministic, no atomics), skipping
+// splits with l = 0, and writes bf16.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = 128;            // 4 warps
 constexpr int kD = 128;                  // head dim (the only instance)
-constexpr int kDPL = kD / 32;            // head dims per lane in P.V
+constexpr int kKT = 64;                  // keys per staged tile
+constexpr int kKW = kKT / 4;             // keys per warp per tile
+constexpr int kRows = 16;                // query rows of the mma tile
+constexpr int kMaxSplits = 64;           // decode_attention.py _MAX_SPLITS
 constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
+constexpr float kFloor = -1e29f;         // the reference's m clamp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTileBytes = kKT * kD * 2;  // one bf16 K or V tile (16 KiB)
+constexpr int kResident = 2;             // blocks an SM holds (96 KiB each)
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+template <typename KV>
+struct Ring {
+  // bf16: 3 stages of (K, V) tiles; e5m2: 4 raw stages (8 KiB each of K
+  // and V), then the widened bf16 K/V pair
+  static constexpr bool kFp8 = sizeof(KV) == 1;
+  static constexpr int kStages = kFp8 ? 4 : 3;
+  static constexpr int kStageBytes = kFp8 ? kTileBytes : 2 * kTileBytes;
+  static constexpr int kHalf = kStageBytes / 2;   // K part, then V part
+  static constexpr int kWiden = kStages * kStageBytes;
+  static constexpr int kSmem = kWiden + (kFp8 ? 2 * kTileBytes : 0);
+};
+
+__device__ __forceinline__ int kv_chunk(int key, int c) {
+  return key * (kD / 8) + (c ^ (key & 7));   // swizzled 16-byte chunk index
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float e5m2_to_float(uint32_t c) {
-  return __half2float(__ushort_as_half((unsigned short)((c & 0xFF) << 8)));
-}
-
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float((bits16 & 0xFFFF) << 16);
-}
-
-// 8 consecutive elements of a K row as fp32 (bf16: one 16-byte load)
-__device__ __forceinline__ void load8(const uint16_t* p, float* out) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = bf16_bits_to_float(w[i]);
-    out[2 * i + 1] = bf16_bits_to_float(w[i] >> 16);
+// stage the keys [k0, k0 + 64) of one kv head (as stored: bf16 swizzled,
+// e5m2 plain); keys at or past k_end are zeros
+template <typename KV>
+__device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
+                                           const KV* __restrict__ kh,
+                                           const KV* __restrict__ vh, int k0,
+                                           int k_end) {
+  constexpr int kChunks = kD * (int)sizeof(KV) / 16;   // 16 or 8 per key
+  for (int i = threadIdx.x; i < kKT * kChunks; i += kThreads) {
+    const int key = i / kChunks, c = i - key * kChunks;
+    const int kpos = k0 + key;
+    const bool ok = kpos < k_end;
+    const size_t off = ok ? (size_t)kpos * kD + c * (16 / sizeof(KV)) : 0;
+    const int dst = sizeof(KV) == 2 ? kv_chunk(key, c) * 16
+                                    : key * (kD * (int)sizeof(KV)) + c * 16;
+    hopper::cp_async<16>(kd + dst, kh + off, ok);
+    hopper::cp_async<16>(vd + dst, vh + off, ok);
   }
 }
 
-// e5m2: 8 elements per 8-byte load, widened exactly (an e5m2 code is the
-// top byte of an fp16)
-__device__ __forceinline__ void load8(const uint8_t* p, float* out) {
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+// widen an e5m2 tile pair (as stored) into bf16 swizzled tiles: an e5m2
+// code is the top byte of an fp16, and every e5m2 value is a bf16 value
+__device__ __forceinline__ void widen_tile(const uint8_t* kraw,
+                                           const uint8_t* vraw, uint8_t* kw,
+                                           uint8_t* vw) {
+  for (int i = threadIdx.x; i < 2 * kKT * (kD / 16); i += kThreads) {
+    const int which = i / (kKT * (kD / 16));
+    const int rem = i - which * (kKT * (kD / 16));
+    const int key = rem / (kD / 16), c = rem % (kD / 16);
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        (which ? vraw : kraw) + key * kD + c * 16);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t o[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[i] = e5m2_to_float(r.x >> (8 * i));
-    out[4 + i] = e5m2_to_float(r.y >> (8 * i));
+    for (int e = 0; e < 4; ++e) {
+      // bytes b0..b3 -> fp16 pairs (b0, b1) and (b2, b3)
+      const uint32_t lo = ((w[e] & 0xFFu) << 8) | ((w[e] & 0xFF00u) << 16);
+      const uint32_t hi = ((w[e] >> 8) & 0xFF00u) | (w[e] & 0xFF000000u);
+      const float2 flo = __half22float2(*reinterpret_cast<const __half2*>(&lo));
+      const float2 fhi = __half22float2(*reinterpret_cast<const __half2*>(&hi));
+      o[2 * e] = hopper::pack_bf16(flo.x, flo.y);
+      o[2 * e + 1] = hopper::pack_bf16(fhi.x, fhi.y);
+    }
+    uint8_t* dst = which ? vw : kw;
+    *reinterpret_cast<uint4*>(dst + kv_chunk(key, 2 * c) * 16) =
+        make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(dst + kv_chunk(key, 2 * c + 1) * 16) =
+        make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
 
-// 4 consecutive V elements (dims 4*lane .. 4*lane+3)
-__device__ __forceinline__ void load4(const uint16_t* p, float* out) {
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-  out[0] = bf16_bits_to_float(r.x);
-  out[1] = bf16_bits_to_float(r.x >> 16);
-  out[2] = bf16_bits_to_float(r.y);
-  out[3] = bf16_bits_to_float(r.y >> 16);
-}
-
-__device__ __forceinline__ void load4(const uint8_t* p, float* out) {
-  const uint32_t r = __ldg(reinterpret_cast<const uint32_t*>(p));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) out[i] = e5m2_to_float(r >> (8 * i));
-}
-
-template <typename KV, int G>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                   const KV* __restrict__ k, const KV* __restrict__ v,
-                   const int* __restrict__ kv_len_arr,
-                   const int* __restrict__ kv_start_arr,
-                   const int* __restrict__ won_arr,
-                   float* __restrict__ part_acc,   // [B,Hkv,splits,G,D]
-                   float* __restrict__ part_ml,    // [B,Hkv,splits,G,2]
-                   int Hkv, int S, int split_len, float scale, int window,
-                   float softcap) {
-  __shared__ float qs[G][kD];
-  __shared__ float wm[kWarps][G], wl[kWarps][G];
-  __shared__ float wacc[kWarps][G][kD];
+template <typename KV, bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, kResident)
+decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                    const KV* __restrict__ k, const KV* __restrict__ v,
+                    const int* __restrict__ kv_len_arr,
+                    const int* __restrict__ kv_start_arr,
+                    const int* __restrict__ won_arr,
+                    float* __restrict__ ws_acc,    // [B,Hkv,splits,G,D]
+                    float2* __restrict__ ws_ml,    // [B,Hkv,splits,G]
+                    int Hkv, int G, int S, float scale, int window,
+                    float softcap) {
+  using R = Ring<KV>;
+  extern __shared__ __align__(128) uint8_t smem[];
 
   const int split = blockIdx.x;
   const int h = blockIdx.y;
@@ -121,196 +150,306 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int splits = gridDim.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int Hq = Hkv * G;
+  const int wk = warp * kKW;                // the warp's key slice
 
-  for (int i = threadIdx.x; i < G * kD; i += kThreads)
-    qs[i / kD][i % kD] = __bfloat162float(
-        q[((size_t)b * Hq + (size_t)h * G + i / kD) * kD + i % kD]);
-
-  const int kv_len = min(kv_len_arr[b], S);
+  // the row's visible range and this split's share of it
+  // (decode_attention.py::split_bounds)
+  const int kv_len = kv_len_arr[b];
   int lo = max(kv_start_arr[b], 0);
   if (window > 0 && won_arr[b] != 0) lo = max(lo, kv_len - window);
-  lo = max(lo, split * split_len);
-  const int hi = min(kv_len, (split + 1) * split_len);
-  __syncthreads();
-
-  float m[G], l[G], acc[G][kDPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < kDPL; ++dd) acc[g][dd] = 0.f;
-  }
+  const int hi = min(kv_len, S);
+  const int n = max(hi - lo, 0);
+  const int per = (n + splits - 1) / splits;
+  const int a = lo + split * per;
+  const int e = min(hi, a + per);
+  const int n_tiles = e > a ? (e - a + kKT - 1) / kKT : 0;
 
   const size_t head_off = ((size_t)b * Hkv + h) * (size_t)S * kD;
   const KV* kh = k + head_off;
   const KV* vh = v + head_off;
-  // 32-key sub-tiles aligned to 32 slots; warp w takes sub-tiles w, w+4, ..
-  const int t0 = lo & ~31;
-  for (int base = t0 + warp * 32; base < hi; base += kWarps * 32) {
-    const int kpos = base + lane;
-    const bool vis = kpos >= lo && kpos < hi;
-    const int krow = min(kpos, S - 1);            // never read past S
-    float sc[G];
+  auto stage_k = [&](int slot) { return smem + slot * R::kStageBytes; };
+  auto stage_v = [&](int slot) { return stage_k(slot) + R::kHalf; };
 #pragma unroll
-    for (int g = 0; g < G; ++g) sc[g] = 0.f;
-#pragma unroll 4
-    for (int d0 = 0; d0 < kD; d0 += 8) {
-      float kf[8];
-      load8(kh + (size_t)krow * kD + d0, kf);
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int u = 0; u < 8; ++u) sc[g] = fmaf(qs[g][d0 + u], kf[u], sc[g]);
-    }
-    float p[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = sc[g] * scale;
-      if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-      if (!vis) s = kNegInf;
-      const float m_new = fmaxf(m[g], warp_max(s));
-      const float m_safe = fmaxf(m_new, -1e29f);
-      const float pf = expf(s - m_safe);
-      const float alpha = expf(fmaxf(m[g], -1e29f) - m_safe);
-      l[g] = l[g] * alpha + warp_sum(pf);
-#pragma unroll
-      for (int dd = 0; dd < kDPL; ++dd) acc[g][dd] *= alpha;
-      m[g] = m_new;
-      p[g] = __bfloat162float(__float2bfloat16_rn(pf));  // P.V in bf16
-    }
-    const int n_keys = min(32, hi - base);
-    for (int t = 0; t < n_keys; ++t) {
-      if (base + t < lo) continue;                // warp-uniform
-      float vf[kDPL];
-      load4(vh + (size_t)(base + t) * kD + lane * kDPL, vf);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float pt = __shfl_sync(kFull, p[g], t);
-#pragma unroll
-        for (int dd = 0; dd < kDPL; ++dd)
-          acc[g][dd] = fmaf(pt, vf[dd], acc[g][dd]);
-      }
-    }
+  for (int s = 0; s < R::kStages - 1; ++s) {
+    if (s < n_tiles)
+      stage_tile<KV>(stage_k(s), stage_v(s), kh, vh, a + s * kKT, e);
+    hopper::cp_async_commit();
   }
 
-  // merge the 4 warps' states
+  // the group's G query rows (of 16) as A fragments; rows >= G are zero
+  const int r0 = lane >> 2;
+  uint32_t qa[kD / 16][4];
+  {
+    const bool ok0 = r0 < G, ok1 = r0 + 8 < G;
+    const size_t qrow = (size_t)b * Hkv * G + (size_t)h * G;
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
+        q + (ok0 ? (qrow + r0) * kD : 0));
+    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(
+        q + (ok1 ? (qrow + r0 + 8) * kD : 0));
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      wm[warp][g] = m[g];
-      wl[warp][g] = l[g];
+    for (int kc = 0; kc < kD / 16; ++kc) {
+      const int d2 = (kc * 16 + (lane & 3) * 2) / 2;   // in bf16 pairs
+      qa[kc][0] = ok0 ? __ldg(q0 + d2) : 0u;
+      qa[kc][1] = ok1 ? __ldg(q1 + d2) : 0u;
+      qa[kc][2] = ok0 ? __ldg(q0 + d2 + 4) : 0u;
+      qa[kc][3] = ok1 ? __ldg(q1 + d2 + 4) : 0u;
     }
+  }
+  const float sl2 = scale * kLog2e;         // scores in base-2 units
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kD / 8][4];
 #pragma unroll
-    for (int dd = 0; dd < kDPL; ++dd) wacc[warp][g][lane * kDPL + dd] = acc[g][dd];
+  for (int i = 0; i < kD / 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = a + t * kKT;
+    {
+      const int tn = t + R::kStages - 1;
+      if (tn < n_tiles)
+        stage_tile<KV>(stage_k(tn % R::kStages), stage_v(tn % R::kStages), kh,
+                       vh, a + tn * kKT, e);
+      hopper::cp_async_commit();
+    }
+    hopper::cp_async_wait<R::kStages - 1>();
+    __syncthreads();
+    const uint8_t* kt;
+    const uint8_t* vt;
+    if constexpr (R::kFp8) {
+      uint8_t* kw = smem + R::kWiden;
+      widen_tile(stage_k(t % R::kStages), stage_v(t % R::kStages), kw,
+                 kw + kTileBytes);
+      __syncthreads();
+      kt = kw;
+      vt = kw + kTileBytes;
+    } else {
+      kt = stage_k(t % R::kStages);
+      vt = stage_v(t % R::kStages);
+    }
+    // warp-uniform: a slice wholly past the split's end changes nothing
+    if (k0 + wk < e) {
+      float s[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kD / 16; ++kc) {
+        const int key = wk + (lane >> 4) * 8 + (lane & 7);
+        const int c = kc * 2 + ((lane >> 3) & 1);
+        uint32_t b0, b1, b2, b3;
+        hopper::ldsm_x4(b0, b1, b2, b3, kt + kv_chunk(key, c) * 16);
+        hopper::mma_bf16(s[0], qa[kc], b0, b1);
+        hopper::mma_bf16(s[1], qa[kc], b2, b3);
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kpos = k0 + wk + nt * 8 + (lane & 3) * 2 + (c & 1);
+          float x;
+          if constexpr (SOFTCAP) {
+            x = tanhf(s[nt][c] * scale / softcap) * softcap * kLog2e;
+          } else {
+            x = s[nt][c] * sl2;
+          }
+          x = kpos < e ? x : kNegInf;
+          s[nt][c] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+        const float m_new = fmaxf(m[row], mx[row]);
+        const float m_safe = fmaxf(m_new, kFloor);
+        alpha[row] = exp2f(fmaxf(m[row], kFloor) - m_safe);
+        m[row] = m_new;
+        mx[row] = m_safe;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float p = exp2f(s[nt][c] - mx[c >> 1]);
+          s[nt][c] = p;
+          sum[c >> 1] += p;
+        }
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 1);
+        sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 2);
+        l[row] = l[row] * alpha[row] + sum[row];
+      }
+#pragma unroll
+      for (int dn = 0; dn < kD / 8; ++dn) {
+        acc[dn][0] *= alpha[0];
+        acc[dn][1] *= alpha[0];
+        acc[dn][2] *= alpha[1];
+        acc[dn][3] *= alpha[1];
+      }
+      // P.V over the slice's 16 keys, p rounded to bf16
+      const uint32_t pa[4] = {hopper::pack_bf16(s[0][0], s[0][1]),
+                              hopper::pack_bf16(s[0][2], s[0][3]),
+                              hopper::pack_bf16(s[1][0], s[1][1]),
+                              hopper::pack_bf16(s[1][2], s[1][3])};
+      const int key = wk + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+      for (int dn = 0; dn < kD / 8; dn += 2) {
+        uint32_t b0, b1, b2, b3;
+        hopper::ldsm_x4_trans(b0, b1, b2, b3,
+                              vt + kv_chunk(key, dn + (lane >> 4)) * 16);
+        hopper::mma_bf16(acc[dn], pa, b0, b1);
+        hopper::mma_bf16(acc[dn + 1], pa, b2, b3);
+      }
+    }
+    __syncthreads();       // the tile's slot is refilled next iteration
+  }
+  hopper::cp_async_wait<0>();
+
+  // merge the four warps' key slices in warp order, in shared memory
+  float* acc_s = reinterpret_cast<float*>(smem);          // [4][16][D]
+  float2* ml_s = reinterpret_cast<float2*>(smem + 4 * kRows * kD * 4);
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int i = r0 + 8 * row;
+    if (i >= G) continue;
+    float* dst = acc_s + (warp * kRows + i) * kD;
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn) {
+      const int d = dn * 8 + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(dst + d) =
+          make_float2(acc[dn][2 * row], acc[dn][2 * row + 1]);
+    }
+    if ((lane & 3) == 0) ml_s[warp * kRows + i] = make_float2(m[row], l[row]);
   }
   __syncthreads();
-  const size_t pidx = ((size_t)b * Hkv + h) * splits + split;
-  for (int i = threadIdx.x; i < G * kD; i += kThreads) {
-    const int g = i / kD, d = i % kD;
-    float mt = kNegInf;
+  const int d = threadIdx.x;                 // kThreads == kD
+  const size_t ws_row = (((size_t)b * Hkv + h) * splits + split) * G;
+  for (int i = 0; i < G; ++i) {
+    float m_all = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, wm[w][g]);
-    const float m_safe = fmaxf(mt, -1e29f);
-    float a = 0.f, lt = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      const float2 ml = ml_s[w * kRows + i];
+      if (ml.y > 0.f) m_all = fmaxf(m_all, ml.x);
+    }
+    const float m_ref = fmaxf(m_all, kFloor);
+    float lsum = 0.f, o = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(fmaxf(wm[w][g], -1e29f) - m_safe);
-      a = fmaf(wacc[w][g][d], f, a);
-      lt = fmaf(wl[w][g], f, lt);
+    for (int w = 0; w < 4; ++w) {
+      const float2 ml = ml_s[w * kRows + i];
+      if (!(ml.y > 0.f)) continue;
+      const float wt = exp2f(fmaxf(ml.x, kFloor) - m_ref);
+      lsum = fmaf(ml.y, wt, lsum);
+      o = fmaf(acc_s[(w * kRows + i) * kD + d], wt, o);
     }
-    part_acc[(pidx * G + g) * kD + d] = a;
-    if (d == 0) {
-      part_ml[(pidx * G + g) * 2] = mt;
-      part_ml[(pidx * G + g) * 2 + 1] = lt;
-    }
+    ws_acc[(ws_row + i) * kD + d] = o;
+    if (d == 0) ws_ml[ws_row + i] = make_float2(m_all, lsum);
   }
 }
 
-// One block per (row, q head): merge the splits in split order, write bf16.
+// one block per (q head, row): merges the head's splits in split order
+// and writes bf16.  Thread s < splits reads split s's (m, l) and sets its
+// weight in shared memory (0 for a split that saw no visible key, l == 0);
+// then thread d sums output dim d over the splits, its loads independent
+// of each other.  m is in base-2 units, as the split kernel keeps it.
 __global__ void __launch_bounds__(kD)
-decode_combine_kernel(const float* __restrict__ part_acc,
-                      const float* __restrict__ part_ml,
-                      __nv_bfloat16* __restrict__ out, int Hkv, int G,
-                      int splits) {
+decode_merge_kernel(const float* __restrict__ ws_acc,
+                    const float2* __restrict__ ws_ml,
+                    __nv_bfloat16* __restrict__ out, int Hkv, int G,
+                    int splits) {
+  __shared__ float wt_s[kMaxSplits], l_s[kMaxSplits], m_s[2];
   const int hq = blockIdx.x;
   const int b = blockIdx.y;
   const int h = hq / G, g = hq % G;
   const int d = threadIdx.x;
-  const size_t base = ((size_t)b * Hkv + h) * splits;
-  float mt = kNegInf;
-  for (int s = 0; s < splits; ++s)
-    mt = fmaxf(mt, part_ml[((base + s) * G + g) * 2]);
-  const float m_safe = fmaxf(mt, -1e29f);
-  float a = 0.f, lt = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const size_t pi = (base + s) * G + g;
-    const float f = expf(fmaxf(part_ml[pi * 2], -1e29f) - m_safe);
-    a = fmaf(part_acc[pi * kD + d], f, a);
-    lt = fmaf(part_ml[pi * 2 + 1], f, lt);
+  const size_t base = ((size_t)b * Hkv + h) * splits * (size_t)G + g;
+  float2 ml = make_float2(kNegInf, 0.f);
+  if (d < splits) ml = ws_ml[base + (size_t)d * G];
+  const bool live = ml.y > 0.f;
+  float mv = live ? ml.x : kNegInf;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mv = fmaxf(mv, __shfl_xor_sync(0xffffffffu, mv, o));
+  if ((d & 31) == 0 && d < 64) m_s[d >> 5] = mv;    // splits <= 64
+  __syncthreads();
+  const float m_ref = fmaxf(fmaxf(m_s[0], m_s[1]), kFloor);
+  if (d < splits) {
+    wt_s[d] = live ? exp2f(fmaxf(ml.x, kFloor) - m_ref) : 0.f;
+    l_s[d] = live ? ml.y : 0.f;
   }
-  const float denom = lt == 0.f ? 1.f : lt;
-  out[((size_t)b * Hkv * G + hq) * kD + d] = __float2bfloat16_rn(a / denom);
+  __syncthreads();
+  float lt = 0.f, o = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < splits; ++s) {
+    const float w = wt_s[s];
+    const float a = ws_acc[(base + (size_t)s * G) * kD + d];
+    if (w != 0.f) {
+      lt = fmaf(l_s[s], w, lt);
+      o = fmaf(a, w, o);
+    }
+  }
+  out[((size_t)b * Hkv * G + hq) * kD + d] =
+      __float2bfloat16_rn(o / (lt == 0.f ? 1.f : lt));
 }
 
-template <typename KV>
-int launch(int G, dim3 grid, cudaStream_t st, const void* q, const void* k,
-           const void* v, const int* kv_len, const int* kv_start,
-           const int* won, float* pacc, float* pml, int Hkv, int S,
-           int split_len, float scale, int window, float softcap) {
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const KV*>(k);
-  const auto* vp = static_cast<const KV*>(v);
-#define DECODE_CASE(GG)                                                     \
-  case GG:                                                                  \
-    decode_attn_kernel<KV, GG><<<grid, kThreads, 0, st>>>(                  \
-        qp, kp, vp, kv_len, kv_start, won, pacc, pml, Hkv, S, split_len,    \
-        scale, window, softcap);                                            \
-    break;
-  switch (G) {
-    DECODE_CASE(1)
-    DECODE_CASE(2)
-    DECODE_CASE(4)
-    DECODE_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DECODE_CASE
-  return 0;
+template <typename KV, bool SOFTCAP>
+int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
+           const void* v, const void* kv_len, const void* kv_start,
+           const void* won, void* ws_acc, void* ws_ml, int Hkv, int G, int S,
+           float scale, int window, float softcap) {
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_split_kernel<KV, SOFTCAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<KV>::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  decode_split_kernel<KV, SOFTCAP><<<grid, kThreads, Ring<KV>::kSmem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const int*>(kv_len),
+      static_cast<const int*>(kv_start), static_cast<const int*>(won),
+      static_cast<float*>(ws_acc), static_cast<float2*>(ws_ml), Hkv, G, S,
+      scale, window, softcap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q bf16 [B,1,Hq,D]; k/v [B,Hkv,S,D] bf16 (kv_fp8=0) or e5m2 (kv_fp8=1),
-// contiguous; kv_len, kv_start, won int32 [B]; out bf16 [B,1,Hq,D];
-// part_acc fp32 [B,Hkv,splits,G,D] and part_ml fp32 [B,Hkv,splits,G,2]
-// scratch.  D = 128, G = Hq/Hkv in {1,2,4,8}; window <= 0 means none,
-// softcap <= 0 none.  Launches the split kernel and the combine kernel;
-// returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported
-// D or G).
+// contiguous, 16-byte aligned; kv_len, kv_start, won int32 [B]; out bf16
+// [B,1,Hq,D]; ws_acc fp32 [B,Hkv,splits,G,D] and ws_ml fp32
+// [B,Hkv,splits,G,2] scratch.  D = 128, G = Hq/Hkv <= 16, splits <= 64;
+// window <= 0
+// means none, softcap <= 0 none.  Launches the split kernel and the merge
+// kernel; returns the first non-zero cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported D or G).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* kv_len, const void* kv_start,
-                                const void* won, void* out, void* part_acc,
-                                void* part_ml, int B, int Hq, int Hkv, int S,
-                                int D, int splits, int split_len, int kv_fp8,
-                                float scale, int window, float softcap,
-                                void* stream) {
+                                const void* won, void* out, void* ws_acc,
+                                void* ws_ml, int B, int Hq, int Hkv, int S,
+                                int D, int splits, int kv_fp8, float scale,
+                                int window, float softcap, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D != kD || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  if (D != kD || Hq % Hkv || Hq / Hkv > kRows || splits < 1 ||
+      splits > kMaxSplits)
+    return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  dim3 grid(splits, Hkv, B);
-  auto* pacc = static_cast<float*>(part_acc);
-  auto* pml = static_cast<float*>(part_ml);
-  const auto* kl = static_cast<const int*>(kv_len);
-  const auto* ks = static_cast<const int*>(kv_start);
-  const auto* wo = static_cast<const int*>(won);
-  const int rc = kv_fp8
-      ? launch<uint8_t>(G, grid, st, q, k, v, kl, ks, wo, pacc, pml, Hkv, S,
-                        split_len, scale, window, softcap)
-      : launch<uint16_t>(G, grid, st, q, k, v, kl, ks, wo, pacc, pml, Hkv, S,
-                         split_len, scale, window, softcap);
-  if (rc != 0) return rc;
-  decode_combine_kernel<<<dim3(Hq, B), kD, 0, st>>>(
-      pacc, pml, static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
+  const dim3 grid(splits, Hkv, B);
+  const bool cap = softcap > 0.f;
+  int err;
+#define DECODE_LAUNCH(KV, CAP)                                            \
+  launch<KV, CAP>(grid, st, q, k, v, kv_len, kv_start, won, ws_acc, ws_ml, \
+                  Hkv, G, S, scale, window, softcap)
+  if (kv_fp8)
+    err = cap ? DECODE_LAUNCH(uint8_t, true) : DECODE_LAUNCH(uint8_t, false);
+  else
+    err = cap ? DECODE_LAUNCH(uint16_t, true) : DECODE_LAUNCH(uint16_t, false);
+#undef DECODE_LAUNCH
+  if (err) return err;
+  decode_merge_kernel<<<dim3(Hq, B), kD, 0, st>>>(
+      static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
+      static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
   return (int)cudaGetLastError();
 }

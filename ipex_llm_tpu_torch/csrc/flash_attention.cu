@@ -1,4 +1,5 @@
-// Flash attention for Hopper: tiled online-softmax SDPA for prefill.
+// Flash attention for Hopper: tiled online-softmax SDPA for prefill, on the
+// tensor cores.
 //
 // Replaces the TPU kernel ipex_llm_tpu/ops/pallas/flash_attention.py::
 // flash_sdpa (body _flash, _kernel).  Semantics kept exactly:
@@ -14,65 +15,95 @@
 //     fp32 p, the P.V product takes p rounded to bf16; one rounding of the
 //     output; a query that sees no key gives 0 (l == 0 -> denominator 1).
 //
-// What bounds it: the score and value products, 4 * D flops per visible
-// (query, key) pair, against the bf16 tensor-core rate; this first
-// version runs them on the CUDA cores (FMAs in fp32, no mma/wgmma yet).
+// What bounds it: the score and value products, 4 * D operations per
+// visible (query, key) pair, so the bf16 tensor cores.
 //
-// Design: a block owns (row, q head, 64-query tile) and walks 64-key tiles
-// only from the first slot any of its queries can see (kv_start, or with
-// the window on qpos_min - window + 1) to the last (kv_len, or qpos_max
-// with causal masking): tiles that are wholly masked, such as the pad
-// slots of a left-padded bucket or the far past of a sliding window, are
-// never read.  Q (bf16, transposed), K (fp32, transposed), V (fp32) and P
-// live in shared memory; each of the 128 threads owns a 4-query x 8-key
-// block of the score tile and a 4-query x 16-dim block of the output, so
-// every product reads its operands as 16-byte shared-memory vectors.  The
-// 8 threads that share 4 query rows reduce their max and sum with
-// shuffles.  Keys outside [kv_start, kv_len) load as zeros, so no
-// uninitialised slot can reach the sums.
+// Design (wgmma on the tensor cores).  A block is one warpgroup (4 warps)
+// and owns 64 queries of one (row, q head); warp w holds rows 16w..16w+15,
+// its Q as register A fragments.  The block walks 64-key tiles only from
+// the first slot any of its queries can see (kv_start, or with the window
+// on qpos_min - window + 1) to the last (kv_len, or qpos_max + 1 with
+// causal masking): the pad slots of a left-padded bucket and the far past
+// of a sliding window are never read.  K and V tiles (16 KiB each, bf16 as
+// stored) stream through a ring of three stages of shared memory with
+// 16-byte cp.async, two tiles in flight while one is computed, laid out
+// with the 128-byte swizzle that wgmma's descriptors read (two 64-dim
+// halves of 64 rows of 128 bytes); keys outside [kv_start, kv_len) are
+// zero-filled, so no uninitialised slot can reach the sums.  S = Q.K^T is
+// eight wgmma m64n64k16 (Q from registers, K K-major from shared memory);
+// the online softmax runs in registers in base 2 (scale * log2(e) folded
+// into the scores; row max and sum over the quad that holds a row); P is
+// rounded to bf16 in the score registers, which are the A fragments of
+// O += P.V, four wgmma m64n128k16 with V MN-major (transposed by the
+// descriptor).  Each warp classifies each tile for its own 16 rows
+// (warp-uniform): a tile it cannot see gives it P = 0 and no softmax
+// work (exact: m, l and acc are unchanged), interior tiles skip the mask,
+// and only tiles that cross kv_start, kv_len, the diagonal or the window
+// edge compare slots (ops/cuda/flash_attention.py::tile_kind mirrors the
+// rule).  The softcap is a template flag, so the common instance has no
+// tanh.  Under causal masking the q tiles launch last first (grid z
+// reversed, heads and rows fastest), so the tiles with the most keys start
+// in the first wave.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;            // 4 warps
 constexpr int kD = 128;                  // head dim (the only instance)
-constexpr int kBQ = 64;                  // queries per block
+constexpr int kBQ = 64;                  // queries per block (4 warps x 16)
 constexpr int kBK = 64;                  // keys per tile
-constexpr int kPPad = kBK + 4;           // P row stride (floats)
+constexpr int kStages = 3;               // K/V ring depth
+constexpr int kSN = kBK / 8;             // n8 score tiles per warp
 constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
+constexpr float kFloor = -1e29f;         // the reference's m clamp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTileBytes = kBK * kD * 2;             // one bf16 K or V tile
+constexpr int kHalfBytes = kTileBytes / 2;           // 64 dims of 64 keys
+// 96 KiB of stages and the slack to align them to 1024 bytes (the swizzle)
+constexpr int kSmemBytes = kStages * 2 * kTileBytes + 1024;
+constexpr int kBig = 0x3fffffff;
 
-constexpr size_t kSmemQ = sizeof(uint16_t) * kD * kBQ;   // Qs[d][q] bf16
-constexpr size_t kSmemK = sizeof(float) * kD * kBK;      // Ks[d][key]
-constexpr size_t kSmemV = sizeof(float) * kBK * kD;      // Vs[key][d]
-constexpr size_t kSmemP = sizeof(float) * kBQ * kPPad;   // Ps[q][key]
-constexpr size_t kSmem = kSmemQ + kSmemK + kSmemV + kSmemP;
+// the tile kinds of one warp's 16 rows (flash_attention.py::tile_kind)
+constexpr int kSkip = 0, kFree = 1, kMasked = 2;
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float((bits16 & 0xFFFF) << 16);
+__device__ __forceinline__ int tile_kind(int kt, int qmin, int qmax,
+                                         bool live, int kvs, int kvl,
+                                         bool causal, bool win, int window) {
+  if (!live) return kSkip;
+  if (causal && kt > qmax) return kSkip;
+  if (win && kt + kBK - 1 <= qmin - window) return kSkip;
+  if (kt + kBK <= kvs || kt >= kvl) return kSkip;
+  const bool no_mask = kt >= kvs && kt + kBK <= kvl &&
+                       (!causal || (kt + kBK - 1 <= qmin &&
+                                    (!win || kt > qmax - window)));
+  return no_mask ? kFree : kMasked;
 }
 
-__device__ __forceinline__ float group_max(float v) {   // over 8 lanes
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+// stage the keys [k0, k0 + 64) of one kv head into `kd`/`vd` (each two
+// 128-byte swizzled halves: dims 0-63, then 64-127); keys outside
+// [kvs, kvl) are zeros
+__device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
+                                           const __nv_bfloat16* kh,
+                                           const __nv_bfloat16* vh,
+                                           long long kss, int k0, int kvs,
+                                           int kvl) {
+  for (int i = threadIdx.x; i < kBK * (kD / 8); i += kThreads) {
+    const int key = i >> 4, c = i & 15;
+    const int kpos = k0 + key;
+    const bool ok = kpos >= kvs && kpos < kvl;
+    const size_t off = ok ? (size_t)kpos * kss + c * 8 : 0;
+    const int dst = (c >> 3) * kHalfBytes + hopper::sw128_offset(key, c & 7);
+    hopper::cp_async<16>(kd + dst, kh + off, ok);
+    hopper::cp_async<16>(vd + dst, vh + off, ok);
+  }
 }
 
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// column j (0..7) of thread c's score block: keys 4c..4c+3, 32+4c..32+4c+3
-// (neighbouring lanes read neighbouring 16-byte vectors: no bank conflict)
-__device__ __forceinline__ int col_of(int c, int j) {
-  return (j < 4 ? 4 * c : 32 + 4 * c) + (j & 3);
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
@@ -80,233 +111,263 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ kv_len_arr,
                   const int* __restrict__ kv_start_arr,
                   const int* __restrict__ won_arr,
-                  __nv_bfloat16* __restrict__ out,
-                  int T, int Hq, int Hkv, int S, long long ksb, long long kss,
-                  long long ksh, float scale, int causal, int window,
-                  float softcap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem);
-  float* Ks = reinterpret_cast<float*>(smem + kSmemQ);
-  float* Vs = reinterpret_cast<float*>(smem + kSmemQ + kSmemK);
-  float* Ps = reinterpret_cast<float*>(smem + kSmemQ + kSmemK + kSmemV);
-  __shared__ int qmin_s, qmax_s;
+                  __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv,
+                  int S, long long ksb, long long kss, long long ksh,
+                  float scale, int causal_i, int window, float softcap) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __shared__ int qmin_s[4], qmax_s[4];
+  uint8_t* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
 
-  const int q0 = blockIdx.x * kBQ;
-  const int hq = blockIdx.y;
-  const int b = blockIdx.z;
+  const int hq = blockIdx.x;
+  const int b = blockIdx.y;
+  const bool causal = causal_i != 0;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * kBQ;
   const int hkv = hq / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int r = tid >> 3;                  // query rows 4r .. 4r+3
-  const int c = tid & 7;                   // score cols / output dims
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int kvs = max(kv_start_arr[b], 0);
   const int kvl = min(kv_len_arr[b], S);
   const bool win = causal && window > 0 && won_arr[b] != 0;
 
-  // Q tile, transposed to Qs[d][q]: lanes take consecutive queries
-  for (int i = tid; i < kBQ * (kD / 8); i += kThreads) {
-    const int qi = i % kBQ, d0 = (i / kBQ) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q0 + qi < T)
-      raw = *reinterpret_cast<const uint4*>(
-          q + (((size_t)b * T + q0 + qi) * Hq + hq) * kD + d0);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      Qs[(d0 + 2 * u) * kBQ + qi] = (uint16_t)(w[u] & 0xFFFF);
-      Qs[(d0 + 2 * u + 1) * kBQ + qi] = (uint16_t)(w[u] >> 16);
-    }
-  }
-  int qp[4];
-  bool qlive[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + 4 * r + i;
-    qlive[i] = t < T;
-    qp[i] = qlive[i] ? qpos_arr[(size_t)b * T + t] : 0;
-  }
-  if (tid < 32) {                          // the block's query slot range
-    int mn = 0x7fffffff, mx = -0x7fffffff;
-    for (int t = q0 + tid; t < min(q0 + kBQ, T); t += 32) {
-      const int p = qpos_arr[(size_t)b * T + t];
-      mn = min(mn, p);
-      mx = max(mx, p);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      mn = min(mn, __shfl_xor_sync(kFull, mn, o));
-      mx = max(mx, __shfl_xor_sync(kFull, mx, o));
-    }
-    if (tid == 0) {
-      qmin_s = mn;
-      qmax_s = mx;
-    }
-  }
-  __syncthreads();
-  int lo = kvs, hi = kvl;
-  if (causal) hi = min(hi, qmax_s + 1);
-  if (win) lo = max(lo, qmin_s - window + 1);
-
-  float m[4], l[4], acc[4][16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
-  }
-
   const __nv_bfloat16* kh = k + (size_t)b * ksb + (size_t)hkv * ksh;
   const __nv_bfloat16* vh = v + (size_t)b * ksb + (size_t)hkv * ksh;
-  for (int kt = (max(lo, 0) / kBK) * kBK; kt < hi; kt += kBK) {
-    __syncthreads();                       // previous tile consumed
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      // K transposed (lanes take consecutive keys), V as stored
-      const int key = i % kBK, d0 = (i / kBK) * 8;
-      const int kpos = kt + key;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (kpos >= kvs && kpos < kvl)
-        raw = *reinterpret_cast<const uint4*>(kh + (size_t)kpos * kss + d0);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+
+  // the warp's rows' slot range (live rows only), then the block's
+  const int jw = q0 + warp * 16;            // the warp's first query
+  const int my_t = jw + (lane & 15);
+  const bool my_live = lane < 16 && my_t < T;
+  const int my_p = my_live ? qpos_arr[(size_t)b * T + my_t] : 0;
+  const int wq_min = __reduce_min_sync(0xffffffffu, my_live ? my_p : kBig);
+  const int wq_max = __reduce_max_sync(0xffffffffu, my_live ? my_p : -kBig);
+  const bool w_live = jw < T;
+  if (lane == 0) {
+    qmin_s[warp] = wq_min;
+    qmax_s[warp] = wq_max;
+  }
+  __syncthreads();
+  const int bq_min = min(min(qmin_s[0], qmin_s[1]), min(qmin_s[2], qmin_s[3]));
+  const int bq_max = max(max(qmax_s[0], qmax_s[1]), max(qmax_s[2], qmax_s[3]));
+  int lo = kvs, hi = kvl;
+  if (causal) hi = min(hi, bq_max + 1);
+  if (win) lo = max(lo, bq_min - window + 1);
+  const int kt0 = (lo / kBK) * kBK;
+  const int n_tiles = hi > lo ? (hi - kt0 + kBK - 1) / kBK : 0;
+
+  auto stage_k = [&](int slot) { return smem + slot * 2 * kTileBytes; };
+  auto stage_v = [&](int slot) { return stage_k(slot) + kTileBytes; };
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        Ks[(d0 + 2 * u) * kBK + key] = bf16_bits_to_float(w[u]);
-        Ks[(d0 + 2 * u + 1) * kBK + key] = bf16_bits_to_float(w[u] >> 16);
-      }
-      const int vkey = i / (kD / 8), vd0 = (i % (kD / 8)) * 8;
-      const int vpos = kt + vkey;
-      uint4 vraw = make_uint4(0, 0, 0, 0);
-      if (vpos >= kvs && vpos < kvl)
-        vraw = *reinterpret_cast<const uint4*>(vh + (size_t)vpos * kss + vd0);
-      const uint32_t vw[4] = {vraw.x, vraw.y, vraw.z, vraw.w};
-      float4* vdst = reinterpret_cast<float4*>(Vs + vkey * kD + vd0);
-      vdst[0] = make_float4(bf16_bits_to_float(vw[0]),
-                            bf16_bits_to_float(vw[0] >> 16),
-                            bf16_bits_to_float(vw[1]),
-                            bf16_bits_to_float(vw[1] >> 16));
-      vdst[1] = make_float4(bf16_bits_to_float(vw[2]),
-                            bf16_bits_to_float(vw[2] >> 16),
-                            bf16_bits_to_float(vw[3]),
-                            bf16_bits_to_float(vw[3] >> 16));
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles)
+      stage_tile(stage_k(s), stage_v(s), kh, vh, kss, kt0 + s * kBK, kvs,
+                 kvl);
+    hopper::cp_async_commit();
+  }
+
+  // the warp's 16 query rows as A fragments: rows lane/4 and lane/4 + 8
+  const int r0 = lane >> 2;
+  const int t_row[2] = {jw + r0, jw + r0 + 8};
+  int qp[2];
+  uint32_t qa[kD / 16][4];
+  {
+    const bool ok0 = t_row[0] < T, ok1 = t_row[1] < T;
+    // a row past T sees no key
+    qp[0] = ok0 ? qpos_arr[(size_t)b * T + t_row[0]] : -kBig;
+    qp[1] = ok1 ? qpos_arr[(size_t)b * T + t_row[1]] : -kBig;
+    const uint32_t* qr0 = reinterpret_cast<const uint32_t*>(
+        q + (ok0 ? (((size_t)b * T + t_row[0]) * Hq + hq) * kD : 0));
+    const uint32_t* qr1 = reinterpret_cast<const uint32_t*>(
+        q + (ok1 ? (((size_t)b * T + t_row[1]) * Hq + hq) * kD : 0));
+#pragma unroll
+    for (int kc = 0; kc < kD / 16; ++kc) {
+      const int d2 = (kc * 16 + (lane & 3) * 2) / 2;   // in bf16 pairs
+      qa[kc][0] = ok0 ? __ldg(qr0 + d2) : 0u;
+      qa[kc][1] = ok1 ? __ldg(qr1 + d2) : 0u;
+      qa[kc][2] = ok0 ? __ldg(qr0 + d2 + 4) : 0u;
+      qa[kc][3] = ok1 ? __ldg(qr1 + d2 + 4) : 0u;
     }
+  }
+  const float sl2 = scale * kLog2e;         // scores in base-2 units
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kt = kt0 + t * kBK;
+    {
+      const int tn = t + kStages - 1;
+      if (tn < n_tiles)
+        stage_tile(stage_k(tn % kStages), stage_v(tn % kStages), kh, vh, kss,
+                   kt0 + tn * kBK, kvs, kvl);
+      hopper::cp_async_commit();
+    }
+    hopper::cp_async_wait<kStages - 1>();
+    hopper::fence_proxy_async();     // the copies, visible to wgmma
     __syncthreads();
-
-    float s[4][8];
+    const uint8_t* ks = stage_k(t % kStages);
+    const uint8_t* vs = stage_v(t % kStages);
+    const int kind = tile_kind(kt, wq_min, wq_max, w_live, kvs, kvl, causal,
+                               win, window);
+    // S = Q.K^T for the warpgroup's 64 rows: 8 steps of 16 dims
+    float s[kSN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < kSN; ++nt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kD; ++d) {
-      const uint2 qr = *reinterpret_cast<const uint2*>(Qs + d * kBQ + 4 * r);
-      const float qf[4] = {bf16_bits_to_float(qr.x),
-                           bf16_bits_to_float(qr.x >> 16),
-                           bf16_bits_to_float(qr.y),
-                           bf16_bits_to_float(qr.y >> 16)};
-      const float4 k0 = *reinterpret_cast<const float4*>(Ks + d * kBK + 4 * c);
-      const float4 k1 =
-          *reinterpret_cast<const float4*>(Ks + d * kBK + 32 + 4 * c);
-      const float kf[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kc = 0; kc < kD / 16; ++kc)
+      hopper::wgmma_m64n64k16_rs<0>(
+          &s[0][0], qa[kc],
+          hopper::sw128_desc(ks + (kc >> 2) * kHalfBytes + (kc & 3) * 32, 16,
+                             1024),
+          kc);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<kSN * 4>(&s[0][0]);
+    if (kind == kSkip) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qf[i], kf[j], s[i][j]);
-    }
-
+      for (int nt = 0; nt < kSN; ++nt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = kNegInf;
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;    // P = 0
+    } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kpos = kt + col_of(c, j);
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        bool vis = qlive[i] && kpos >= kvs && kpos < kvl;
-        if (causal) {
-          vis = vis && kpos <= qp[i];
-          if (win) vis = vis && kpos > qp[i] - window;
-        }
-        s[i][j] = vis ? x : kNegInf;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(tmax));
-      const float m_safe = fmaxf(m_new, -1e29f);
-      const float alpha = expf(fmaxf(m[i], -1e29f) - m_safe);
-      float psum = 0.f;
-      float p[8];
+      for (int nt = 0; nt < kSN; ++nt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float pf = expf(s[i][j] - m_safe);
-        psum += pf;
-        p[j] = __bfloat162float(__float2bfloat16_rn(pf));   // P.V in bf16
-      }
-      l[i] = l[i] * alpha + group_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[i][e] *= alpha;
-      float* prow = Ps + (4 * r + i) * kPPad;
-      *reinterpret_cast<float4*>(prow + 4 * c) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(prow + 32 + 4 * c) =
-          make_float4(p[4], p[5], p[6], p[7]);
-    }
-    __syncthreads();
-
-    const int n_keys = min(kBK, hi - kt);
-#pragma unroll 1
-    for (int kk = 0; kk < n_keys; kk += 4) {
-      float pr[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 t4 =
-            *reinterpret_cast<const float4*>(Ps + (4 * r + i) * kPPad + kk);
-        pr[i][0] = t4.x; pr[i][1] = t4.y; pr[i][2] = t4.z; pr[i][3] = t4.w;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (kk + u) * kD + 4 * c;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float4 vv = *reinterpret_cast<const float4*>(vrow + 32 * jj);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][4 * jj + 0] = fmaf(pr[i][u], vv.x, acc[i][4 * jj + 0]);
-            acc[i][4 * jj + 1] = fmaf(pr[i][u], vv.y, acc[i][4 * jj + 1]);
-            acc[i][4 * jj + 2] = fmaf(pr[i][u], vv.z, acc[i][4 * jj + 2]);
-            acc[i][4 * jj + 3] = fmaf(pr[i][u], vv.w, acc[i][4 * jj + 3]);
+        for (int e = 0; e < 4; ++e) {
+          float x;
+          if constexpr (SOFTCAP) {
+            x = tanhf(s[nt][e] * scale / softcap) * softcap * kLog2e;
+          } else {
+            x = s[nt][e] * sl2;
           }
+          s[nt][e] = x;
         }
+      if (kind == kMasked) {
+#pragma unroll
+        for (int nt = 0; nt < kSN; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = kt + nt * 8 + (lane & 3) * 2 + (e & 1);
+            const int p = qp[e >> 1];
+            bool vis = kpos >= kvs && kpos < kvl;
+            if (causal) {
+              vis = vis && kpos <= p;
+              if (win) vis = vis && kpos > p - window;
+            }
+            if (!vis) s[nt][e] = kNegInf;
+          }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kSN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      float alpha[2];
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+        const float m_new = fmaxf(m[row], mx[row]);
+        const float m_safe = fmaxf(m_new, kFloor);
+        alpha[row] = exp2f(fmaxf(m[row], kFloor) - m_safe);
+        m[row] = m_new;
+        mx[row] = m_safe;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < kSN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[nt][e] - mx[e >> 1]);
+          s[nt][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 1);
+        sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 2);
+        l[row] = l[row] * alpha[row] + sum[row];
+      }
+#pragma unroll
+      for (int dn = 0; dn < kD / 8; ++dn) {
+        acc[dn][0] *= alpha[0];
+        acc[dn][1] *= alpha[0];
+        acc[dn][2] *= alpha[1];
+        acc[dn][3] *= alpha[1];
       }
     }
+    // O += P.V: the score blocks (2kk, 2kk + 1) are the A fragment of keys
+    // [16kk, 16kk + 16), p rounded to bf16; 4 steps of 16 keys
+    uint32_t pa[kSN / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < kSN / 2; ++kk) {
+      pa[kk][0] = hopper::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = hopper::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = hopper::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    hopper::fence_regs<kD / 2>(&acc[0][0]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSN / 2; ++kk)
+      hopper::wgmma_m64n128k16_rs<1>(
+          &acc[0][0], pa[kk],
+          hopper::sw128_desc(vs + kk * 16 * 128, kHalfBytes, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<kD / 2>(&acc[0][0]);
+    __syncthreads();       // the tile's slot is refilled next iteration
   }
+  hopper::cp_async_wait<0>();
 
-  // output dims of thread c: 32*jj + 4c .. 32*jj + 4c + 3
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!qlive[i]) continue;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    __nv_bfloat16* orow =
-        out + (((size_t)b * T + q0 + 4 * r + i) * Hq + hq) * kD + 4 * c;
+  for (int row = 0; row < 2; ++row) {
+    const int t = t_row[row];
+    if (t >= T) continue;
+    const float inv = 1.f / (l[row] == 0.f ? 1.f : l[row]);
+    __nv_bfloat16* o = out + (((size_t)b * T + t) * Hq + hq) * kD;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      __nv_bfloat162 lo2 = __floats2bfloat162_rn(acc[i][4 * jj] * inv,
-                                                 acc[i][4 * jj + 1] * inv);
-      __nv_bfloat162 hi2 = __floats2bfloat162_rn(acc[i][4 * jj + 2] * inv,
-                                                 acc[i][4 * jj + 3] * inv);
-      uint2 w;
-      w.x = *reinterpret_cast<uint32_t*>(&lo2);
-      w.y = *reinterpret_cast<uint32_t*>(&hi2);
-      *reinterpret_cast<uint2*>(orow + 32 * jj) = w;
+    for (int dn = 0; dn < kD / 8; ++dn) {
+      const int d = dn * 8 + (lane & 3) * 2;
+      *reinterpret_cast<uint32_t*>(o + d) = hopper::pack_bf16(
+          acc[dn][2 * row] * inv, acc[dn][2 * row + 1] * inv);
     }
   }
+}
+
+template <bool SOFTCAP>
+int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
+           const void* v, const void* qpos, const void* kv_len,
+           const void* kv_start, const void* won, void* out, int T, int Hq,
+           int Hkv, int S, long long ksb, long long kss, long long ksh,
+           float scale, int causal, int window, float softcap) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attn_kernel<SOFTCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_attn_kernel<SOFTCAP><<<grid, kThreads, kSmemBytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
+      static_cast<const int*>(kv_len), static_cast<const int*>(kv_start),
+      static_cast<const int*>(won), static_cast<__nv_bfloat16*>(out), T, Hq,
+      Hkv, S, ksb, kss, ksh, scale, causal, window, softcap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q bf16 [B,T,Hq,D] contiguous; k/v bf16 with element strides (ksb, kss,
-// ksh) over (B, S, Hkv) and a contiguous D (the same strides for both);
-// qpos int32 [B,T]; kv_len, kv_start, won int32 [B]; out bf16 [B,T,Hq,D].
-// D = 128; window <= 0 means none, softcap <= 0 none.  Returns
-// cudaGetLastError() (cudaErrorInvalidValue for another D).
+// ksh) over (B, S, Hkv), multiples of 8, and a contiguous D (the same
+// strides for both), 16-byte aligned; qpos int32 [B,T]; kv_len, kv_start,
+// won int32 [B]; out bf16 [B,T,Hq,D].  D = 128; window <= 0 means none,
+// softcap <= 0 none.  Returns cudaGetLastError() (cudaErrorInvalidValue
+// for another D).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* qpos, const void* kv_len,
                                const void* kv_start, const void* won,
@@ -316,17 +377,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int window, float softcap, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D != kD || Hq % Hkv) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + kBQ - 1) / kBQ, Hq, B);
-  flash_attn_kernel<<<grid, kThreads, kSmem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(kv_len), static_cast<const int*>(kv_start),
-      static_cast<const int*>(won), static_cast<__nv_bfloat16*>(out), T, Hq,
-      Hkv, S, ksb, kss, ksh, scale, causal, window, softcap);
-  return (int)cudaGetLastError();
+  const dim3 grid(Hq, B, (T + kBQ - 1) / kBQ);
+  return softcap > 0.f
+             ? launch<true>(grid, st, q, k, v, qpos, kv_len, kv_start, won,
+                            out, T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,
+                            window, softcap)
+             : launch<false>(grid, st, q, k, v, qpos, kv_len, kv_start, won,
+                             out, T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,
+                             window, softcap);
 }

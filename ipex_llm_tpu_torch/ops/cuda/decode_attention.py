@@ -2,15 +2,17 @@
 ``ipex_llm_tpu/ops/pallas/decode_attention.py::decode_sdpa``).
 
 ``csrc/decode_attention.cu`` holds the kernel and the note on its design
-and bound.  :func:`decode_sdpa` keeps the reference's public signature,
-launches the kernel for CUDA tensors and runs :func:`decode_sdpa_plain`
-for CPU tensors.
+and bound.  :func:`split_plan` sets the number of splits of each row's
+visible range from shapes alone, and :func:`split_bounds` is the sub-range
+each split's block computes for itself on the device.
+:func:`decode_sdpa` keeps the reference's public signature, launches the
+kernel for CUDA tensors and runs :func:`decode_sdpa_plain` for CPU
+tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -19,10 +21,12 @@ from ipex_llm_tpu_torch.ops.cuda import _build
 NAME = "decode_attention"
 COUNTS = _build.Counts()
 _HEAD_DIMS = (128,)          # the kernel's instance
-_GROUPS = (1, 2, 4, 8)       # Hq / Hkv instances
+_MAX_GROUP = 16              # Hq / Hkv: the query rows of one mma tile
 _KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
-_TARGET_BLOCKS = 4 * 132     # about four resident blocks per SM
-_SPLIT_ALIGN = 128           # one pass of the block's 4 warps x 32 keys
+_TILE_KEYS = 64              # keys per staged tile (csrc kKT)
+_RESIDENT = 2                # split blocks an SM holds (csrc kResident)
+_SMS = 132                   # the H100's SMs
+_MAX_SPLITS = 64             # keeps every split non-empty (split_plan)
 
 
 def row_vectors(b: int, s: int, device, kv_len, kv_start, window_on):
@@ -86,13 +90,28 @@ def decode_sdpa_plain(q, k_raw, v_raw, *, scale: float, kv_len, kv_start,
     return torch.where(keep[:, None, None, None], out, torch.zeros_like(out))
 
 
-def split_plan(b: int, hkv: int, s: int) -> tuple[int, int]:
-    """(splits, slots per split) of the S axis: enough blocks to cover the
-    card, each split a whole number of the block's 128-key passes."""
-    passes = -(-s // _SPLIT_ALIGN)
-    splits = max(1, min(math.ceil(_TARGET_BLOCKS / (b * hkv)), passes))
-    split_len = -(-passes // splits) * _SPLIT_ALIGN
-    return -(-s // split_len), split_len
+def split_plan(b: int, hkv: int, s: int) -> int:
+    """The number of splits of each row's visible range, from shapes alone
+    (reading ``kv_len`` on the host would sync the device every step): as
+    many as one wave of the split blocks the card holds at once (2 an SM)
+    takes, at most one split per 64-key tile of the capacity, and at most
+    64.  With the range cut evenly (:func:`split_bounds`), 64 splits or
+    fewer leave no split empty while another holds more than one tile."""
+    wave = _RESIDENT * _SMS // (b * hkv)
+    return max(1, min(wave, -(-s // _TILE_KEYS), _MAX_SPLITS))
+
+
+def split_bounds(lo, hi, splits: int):
+    """([B, splits], [B, splits]): the slots ``[start, end)`` of each split
+    of the visible range ``[lo, hi)`` (``lo`` from :func:`first_visible`,
+    ``hi`` the clipped ``kv_len``), as each block computes its own on the
+    device: ``ceil(n / splits)`` slots a split, the last ones short or
+    empty (``end <= start``)."""
+    n = (hi - lo).clamp(min=0)
+    per = (n + splits - 1) // splits
+    start = lo[:, None] + torch.arange(splits, device=lo.device) * per[:, None]
+    end = torch.minimum(hi[:, None], start + per[:, None])
+    return start, end
 
 
 def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
@@ -109,9 +128,9 @@ def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
         raise ValueError("k/v must be [B, Hkv, S, D] with q's B and D")
     if d not in _HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
-    if hq // hkv not in _GROUPS:
-        raise NotImplementedError(f"GQA group {hq // hkv} (kernel has "
-                                  f"{_GROUPS})")
+    if hq // hkv > _MAX_GROUP:
+        raise NotImplementedError(f"GQA group {hq // hkv} (kernel takes at "
+                                  f"most {_MAX_GROUP})")
     for t in (k_raw, v_raw, kv_len, kv_start, won):
         if t.device != dev:
             raise ValueError("all decode attention inputs must be on q's "
@@ -124,20 +143,20 @@ def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
             raise ValueError("decode attention kernel needs 16-byte aligned "
                              "tensors")
     lib = _build.load(NAME, _declare)
-    splits, split_len = split_plan(b, hkv, s)
+    splits = split_plan(b, hkv, s)
     g = hq // hkv
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((b, hkv, splits, g, 2), dtype=torch.float32,
-                          device=dev)
+    ws_acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32,
+                         device=dev)
+    ws_ml = torch.empty((b, hkv, splits, g, 2), dtype=torch.float32,
+                        device=dev)
     err = lib.decode_attention(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_raw.data_ptr()),
         ctypes.c_void_p(v_raw.data_ptr()), ctypes.c_void_p(kv_len.data_ptr()),
         ctypes.c_void_p(kv_start.data_ptr()), ctypes.c_void_p(won.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(part_acc.data_ptr()),
-        ctypes.c_void_p(part_ml.data_ptr()), b, hq, hkv, s, d, splits,
-        split_len, int(k_raw.dtype == torch.float8_e5m2), ctypes.c_float(scale),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(ws_acc.data_ptr()),
+        ctypes.c_void_p(ws_ml.data_ptr()), b, hq, hkv, s, d, splits,
+        int(k_raw.dtype == torch.float8_e5m2), ctypes.c_float(scale),
         -1 if window is None else window,
         ctypes.c_float(0.0 if softcap is None else softcap),
         _build.stream_handle(q))
@@ -174,5 +193,5 @@ def decode_sdpa(q: torch.Tensor, k_raw: torch.Tensor, v_raw: torch.Tensor,
 def _declare(lib: ctypes.CDLL):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                     i, i, i, f, i, f, p]
+                                     i, i, f, i, f, p]
     lib.decode_attention.restype = ctypes.c_int

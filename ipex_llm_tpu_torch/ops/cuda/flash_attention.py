@@ -2,12 +2,13 @@
 ``ipex_llm_tpu/ops/pallas/flash_attention.py::flash_sdpa``).
 
 ``csrc/flash_attention.cu`` holds the kernel and the note on its design
-and bound.  :func:`flash_sdpa` keeps the reference's public signature,
-launches the kernel for CUDA tensors and runs :func:`flash_sdpa_plain` for
-CPU tensors.  K/V are bf16 (the caller widens an e5m2 cache layer once, as
-the reference's ``cached_sdpa`` does) and are read through their strides,
-so the dense cache's head-major layer seen as ``[B, S, Hkv, D]`` is not
-copied.
+and bound; :func:`key_tiles` and :func:`tile_kind` are its walk over the
+key tiles, the rule the kernel applies on the device.  :func:`flash_sdpa`
+keeps the reference's public signature, launches the kernel for CUDA
+tensors and runs :func:`flash_sdpa_plain` for CPU tensors.  K/V are bf16
+(the caller widens an e5m2 cache layer once, as the reference's
+``cached_sdpa`` does) and are read through their strides, so the dense
+cache's head-major layer seen as ``[B, S, Hkv, D]`` is not copied.
 """
 
 from __future__ import annotations
@@ -22,6 +23,45 @@ from ipex_llm_tpu_torch.ops.cuda.decode_attention import call_args
 NAME = "flash_attention"
 COUNTS = _build.Counts()
 _HEAD_DIMS = (128,)          # the kernel's instance
+Q_TILE = 64                  # queries per block (csrc kBQ)
+WARP_ROWS = 16               # queries per warp
+K_TILE = 64                  # keys per tile (csrc kBK)
+SKIP, FREE, MASKED = 0, 1, 2  # tile kinds (csrc kSkip, kFree, kMasked)
+
+
+def key_tiles(qmin: int, qmax: int, kvs: int, kvl: int, *, causal: bool,
+              window: int | None) -> range:
+    """The first slots of the key tiles a block walks, whose live queries
+    sit at slots ``[qmin, qmax]``: from the first slot any of them can see
+    to the last.  ``kvs``/``kvl`` are the row's clipped kv_start and
+    kv_len; ``window`` is None unless the window is on for the row (it
+    applies only under causal masking)."""
+    lo, hi = kvs, kvl
+    if causal:
+        hi = min(hi, qmax + 1)
+        if window is not None:
+            lo = max(lo, qmin - window + 1)
+    if hi <= lo:
+        return range(0)
+    return range(lo // K_TILE * K_TILE, hi, K_TILE)
+
+
+def tile_kind(kt: int, qmin: int, qmax: int, kvs: int, kvl: int, *,
+              causal: bool, window: int | None) -> int:
+    """What one warp does with the key tile at ``kt`` for its rows, whose
+    live queries sit at slots ``[qmin, qmax]``: SKIP (no visible pair),
+    FREE (every pair visible: no mask) or MASKED (compare each slot)."""
+    last = kt + K_TILE - 1
+    if causal and kt > qmax:
+        return SKIP
+    if causal and window is not None and last <= qmin - window:
+        return SKIP
+    if last < kvs or kt >= kvl:
+        return SKIP
+    free = kt >= kvs and last < kvl and (
+        not causal or (last <= qmin and (window is None
+                                         or kt > qmax - window)))
+    return FREE if free else MASKED
 
 
 def visible_queries(q_positions, kv_len, kv_start, won, *, causal: bool,
@@ -84,7 +124,7 @@ def _launch(q, k, v, q_positions, kv_len, kv_start, won, scale, causal,
         if x.device != dev:
             raise ValueError("all flash attention inputs must be on q's "
                              "device")
-    if t > 65535 * 64 or hq > 65535 or b > 65535:
+    if -(-t // Q_TILE) > 65535 or b > 65535:
         raise ValueError("grid too large for one launch")
     qpos = q_positions.to(torch.int32).contiguous()
     lib = _build.load(NAME, _declare)

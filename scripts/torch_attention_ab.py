@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Time the port's ragged paged attention (B1) from one source tree, so that
-two trees can be compared on one card.
+"""Time the port's attention kernels B1 (ragged paged), B3 (dense decode)
+and B4 (flash) from one source tree, so that two trees can be compared on
+one card.
 
-    python3 scripts/torch_attention_ab.py TREE build   # build TREE's kernel
-    python3 scripts/torch_attention_ab.py TREE time    # time it, one JSON line
+    python3 scripts/torch_attention_ab.py TREE build   # build TREE's kernels
+    python3 scripts/torch_attention_ab.py TREE time    # one JSON line of times
     python3 scripts/torch_attention_ab.py turns PARENT CHANGE [ROUNDS]
 
 ``TREE`` is the root of a checkout (this repository, or a ``git archive``
 of another commit unpacked beside it).  ``turns`` builds both trees, then
 times them in alternating order (parent, change, change, parent, ...; one
 process per timing, ROUNDS of each, 3 by default) in one run on
-one card, and prints each case's times, its medians and the ratio of the
-parent's median to the change's.
+one card, and prints each case's times, its medians, the ratio of the
+parent's median to the change's and each side's spread.
 
 It times B1 at Llama-2-7B's attention widths (32 query and 32 kv heads of
 128, page 128, 8 rows of up to 16 pages) with CUDA events over 50
@@ -19,6 +20,18 @@ launches, over bf16 and e5m2 pools, in four cases: the row mix of a mixed
 tick at C=128 and at C=16 (even rows decode at 2,048 slots, odd rows take
 a ragged chunk, the last two idle), the verify chunks of speculation (C=4)
 and decode (C=1), both at staggered lengths of 130 to 2,048 slots.
+
+B3 and B4 run at Mistral-7B's widths (32 query heads over 8 kv heads of
+128) on the shapes of ``chip_smoke.py``'s generate runs: B4 on run (a)'s
+prefill (B=4, the 2048 bucket, rows of 1990, 1327, 611 and 203 ids,
+capacity 2304) and run (d)'s (one 4500-id prompt in the 4608 bucket, the
+4096 window cutting); B3 on run (a)'s decode (capacity 2304, kv_start 0,
+211, 1003, 37, kv_len 2100, 1500, 1990, 777, window off) and run (d)'s
+last step (capacity 4864, kv_start 108, kv_len 4639, window 4096), over
+bf16 and e5m2 caches.  Their calls are captured in a CUDA graph and
+replayed, so the time is the kernels' device time per call, not the pace
+at which Python can launch them; B3 rotates over copies of the cache
+layer, so each call finds it out of L2, as each layer's is in decode.
 """
 
 from __future__ import annotations
@@ -66,6 +79,86 @@ def cases(torch, dev, gen, pool_dtype):
     return res
 
 
+def graph_ms(torch, calls, replays: int = 5) -> float:
+    """Device ms per call of ``calls`` (a list of closures), captured once
+    into a CUDA graph and replayed ``replays`` times: the kernels' time
+    without the host's pace of launching them (``chip_smoke.py`` times B3
+    and its library yardstick with it too)."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for fn in calls:                   # warm the allocator on the stream
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(replays):
+        graph.replay()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / (replays * len(calls))
+
+
+def dense_cases(torch, dev, gen, b3, b4) -> dict:
+    """B3 and B4 on the generate runs' shapes: label -> list of calls."""
+    hq, hkv, d = 32, 8, 128
+    out = {}
+    for label, t, cap, lengths in (("b4 run (a) T=2048", 2048, 2304,
+                                    [1990, 1327, 611, 203]),
+                                   ("b4 run (d) T=4608", 4608, 4864,
+                                    [4500])):
+        b = len(lengths)
+        q = torch.randn(b, t, hq, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        k = torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        kw = dict(q_positions=torch.arange(t, device=dev)[None].expand(b, t),
+                  kv_start=torch.tensor([t - n for n in lengths],
+                                        dtype=torch.int32, device=dev),
+                  kv_len=torch.full((b,), t, dtype=torch.int32, device=dev),
+                  window=4096)
+        out[label] = [lambda q=q, k=k, v=v, kw=kw: b4.flash_sdpa(
+            q, k.transpose(1, 2), v.transpose(1, 2), **kw)] * 3
+    l2_bytes = 50 * 2 ** 20
+    for kv_name, kv_dtype in (("bf16", torch.bfloat16),
+                              ("e5m2", torch.float8_e5m2)):
+        for label, cap, kv_len, kv_start, window in (
+                ("run (a)", 2304, [2100, 1500, 1990, 777], [0, 211, 1003, 37],
+                 None),
+                ("run (d)", 4864, [4639], [108], 4096)):
+            b = len(kv_len)
+            q = torch.randn(b, 1, hq, d, generator=gen, device=dev).to(
+                torch.bfloat16)
+            k = torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(
+                kv_dtype)
+            v = torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(
+                kv_dtype)
+            lay = 2 * k.numel() * k.element_size()
+            copies = [(k, v)] + [(k.clone(), v.clone()) for _ in range(
+                -(-2 * l2_bytes // lay))]
+            kw = dict(kv_len=torch.tensor(kv_len, dtype=torch.int32,
+                                          device=dev),
+                      kv_start=torch.tensor(kv_start, dtype=torch.int32,
+                                            device=dev), window=window)
+            out[f"b3 {kv_name} {label}"] = [
+                lambda q=q, kc=kc, vc=vc, kw=kw: b3.decode_sdpa(
+                    q, kc, vc, **kw)
+                for kc, vc in copies * max(1, 24 // len(copies))]
+    return out
+
+
 def time_tree(root: pathlib.Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -88,6 +181,12 @@ def time_tree(root: pathlib.Path) -> dict:
             e.record()
             e.synchronize()
             out[f"{pool_name} {label}"] = s.elapsed_time(e) / 50
+    from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
+    from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
+
+    for label, calls in dense_cases(torch, dev, gen, b3, b4).items():
+        out[label] = graph_ms(torch, calls)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -100,7 +199,8 @@ def main() -> int:
         sys.path.insert(0, str(root))
         from ipex_llm_tpu_torch.ops.cuda import _build
 
-        print(root.name, "build", _build.build(["ragged_paged_attention"]))
+        print(root.name, "build", _build.build(
+            ["ragged_paged_attention", "decode_attention", "flash_attention"]))
         return 0
     print(json.dumps({"tree": str(root), **time_tree(root)}))
     return 0

@@ -83,6 +83,10 @@ def time_tree(root: pathlib.Path) -> dict:
     return out
 
 
+def spread(xs: list) -> float:
+    return (max(xs) - min(xs)) / statistics.median(xs)
+
+
 def turns(script: str, parent: str, change: str, rounds: int) -> int:
     """Build both trees, time them in alternating order, print medians."""
     for tree in (parent, change):
@@ -102,7 +106,10 @@ def turns(script: str, parent: str, change: str, rounds: int) -> int:
         mp = statistics.median(r[k] for r in runs[parent])
         mc = statistics.median(r[k] for r in runs[change])
         summary[k] = {"parent_ms": mp, "change_ms": mc,
-                      "parent_over_change": mp / mc}
+                      "parent_over_change": mp / mc,
+                      # each side's runs: (max - min) / median
+                      "parent_spread": spread([r[k] for r in runs[parent]]),
+                      "change_spread": spread([r[k] for r in runs[change]])}
     print(json.dumps({"medians": summary, "rounds": rounds}), flush=True)
     return 0
 

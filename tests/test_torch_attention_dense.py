@@ -137,14 +137,27 @@ def test_decode_sdpa_refuses_what_it_does_not_take():
 
 
 def test_decode_split_plan_covers_the_cache():
-    """The kernel's S splits tile the whole capacity in whole 128-key
-    passes, and fill the card at the generate phase's shapes."""
+    """The kernel's splits of each row's visible range cover it from its
+    first visible slot to kv_len exactly once, over the whole capacity
+    too, and at the generate phase's shapes fill one wave of the blocks
+    the card holds at once (2 an SM on 132 SMs; one more split would not
+    fit)."""
     for b, hkv, s in ((4, 8, 2304), (1, 8, 4864), (1, 2, 128), (64, 32, 256),
                       (4, 8, 100)):
-        splits, split_len = b3.split_plan(b, hkv, s)
-        assert split_len % 128 == 0
-        assert (splits - 1) * split_len < s <= splits * split_len
-    assert b3.split_plan(4, 8, 2304)[0] * 4 * 8 >= 132
+        splits = b3.split_plan(b, hkv, s)
+        assert 1 <= splits <= min(64, -(-s // 64))
+        kv_len = torch.tensor([s, s // 2 + 1, 1, s][:b] + [s] * (b - 4))
+        kv_start = torch.tensor([0, 3, 1, s - 7][:b] + [0] * (b - 4))
+        won = torch.ones(b, dtype=torch.int32)
+        lo = b3.first_visible(kv_len, kv_start, won, None)
+        start, end = b3.split_bounds(lo, kv_len, splits)
+        for r in range(b):
+            covered = [k for a, e in zip(start[r].tolist(), end[r].tolist())
+                       for k in range(a, e)]
+            assert covered == list(range(int(lo[r]), int(kv_len[r])))
+    for b, s in ((4, 2304), (1, 4864)):
+        blocks = b3.split_plan(b, 8, s) * b * 8
+        assert 2 * 132 - b * 8 < blocks <= 2 * 132
 
 
 # -- B4: flash attention ------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's hand-written kernels on a card against their plain versions:
 B5 (split paged attention), B2's tiled tensor-core instance (M > 8) in
-every block format, and B1 (ragged paged attention) in both its instances
-(query tiles, key split).  Every case carries the ``cuda`` marker and
+every block format, B1 (ragged paged attention) in both its instances
+(query tiles, key split), B3 (dense decode attention) and B4 (flash
+attention).  Every case carries the ``cuda`` marker and
 skips without a card.  The file imports neither JAX nor the JAX package,
 so it runs where they are not installed; on a machine with a card:
 
@@ -15,6 +16,8 @@ import math
 import pytest
 import torch
 
+from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
+from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
 from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
 from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
 from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
@@ -138,3 +141,93 @@ def test_ragged_attention_kernel_matches_plain(storage, g, c):
             continue
         top = want[i, :n].abs().amax(dim=(1, 2), keepdim=True)
         assert ((got[i, :n] - want[i, :n]).abs() <= ULP * top).all(), i
+
+
+def _rows_close(got, want, what=""):
+    """Each query row of [B, T, H, D] within one bf16 ulp of its largest
+    plain output; a row whose plain output is 0 (no visible key) is 0."""
+    assert torch.isfinite(got).all(), what
+    top = want.abs().amax(dim=(2, 3), keepdim=True)
+    bad = ((got - want).abs() > ULP * top).any(dim=(2, 3))
+    assert not bad.any(), (what, bad.nonzero()[:4].tolist())
+
+
+B3_VARIANTS = {"plain": {}, "window": dict(window=100),
+               "softcap": dict(softcap=50.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
+def test_decode_attention_kernel_matches_plain(storage, g, variant):
+    """B3 over a 700-slot head-major cache (not a multiple of the 64-key
+    tile): ragged kv_len (700, 333, 65, 1, 150), left padding (kv_start 37,
+    64, 100), a row that sees no key (kv_start == kv_len), and with the
+    100-slot window, which cuts, a per-row enable vector (off on row 2).
+    Two launches (split pass, merge), each row within one bf16 ulp of its
+    largest plain output, the empty row exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(100 * g + len(variant))
+    b, hkv, s, d = 5, 2, 700, 128
+    dtype = torch.bfloat16 if storage == "bf16" else torch.float8_e5m2
+    q = torch.randn(b, 1, hkv * g, d, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, hkv, s, d, generator=gen).to(dtype)
+    v = torch.randn(b, hkv, s, d, generator=gen).to(dtype)
+    kw = dict(kv_len=torch.tensor([700, 333, 65, 1, 150], dtype=torch.int32),
+              kv_start=torch.tensor([0, 37, 64, 1, 100], dtype=torch.int32),
+              window_on=torch.tensor([1, 1, 0, 1, 1], dtype=torch.int32),
+              **B3_VARIANTS[variant])
+    want = b3.decode_sdpa(q, k, v, **kw).float()
+    b3.COUNTS.reset()
+    got = b3.decode_sdpa(q.cuda(), k.cuda(), v.cuda(),
+                         **{n: x.cuda() if isinstance(x, torch.Tensor) else x
+                            for n, x in kw.items()}).float().cpu()
+    assert b3.COUNTS.launches == 2 and b3.COUNTS.plain_calls == 0
+    _rows_close(got, want, f"{storage} G={g} {variant}")
+    assert not got[3].any() and not want[3].any()
+
+
+B4_VARIANTS = ("causal, window cuts", "softcap", "non-causal")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [200, 1000])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("variant", B4_VARIANTS)
+def test_flash_attention_kernel_matches_plain(t, g, variant):
+    """B4 at T not a multiple of its 64-query tile, K/V read through the
+    [B, S, Hkv, D] view of a head-major cache of T + 64 slots: left
+    padding (row 1 starts at slot 77); causal with a 150-slot window that
+    cuts; softcap 50 (causal, no window); non-causal with kv_len < S on
+    row 1.  One launch, each query row within one bf16 ulp of its largest
+    plain output, rows that see no key exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(t + g)
+    b, hkv, d, s = 2, 2, 128, t + 64
+    q = torch.randn(b, t, hkv * g, d, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, hkv, s, d, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, hkv, s, d, generator=gen).to(torch.bfloat16)
+    kw = dict(kv_start=torch.tensor([0, 77], dtype=torch.int32),
+              kv_len=torch.tensor([t, t], dtype=torch.int32),
+              q_positions=torch.arange(t)[None].expand(b, t))
+    if variant == "causal, window cuts":
+        kw["window"] = 150
+    elif variant == "softcap":
+        kw["softcap"] = 50.0
+    else:
+        kw.update(causal=False, kv_start=torch.tensor([0, 11],
+                                                      dtype=torch.int32),
+                  kv_len=torch.tensor([s, s - 40], dtype=torch.int32))
+    want = b4.flash_sdpa(q, k.transpose(1, 2), v.transpose(1, 2),
+                         **kw).float()
+    b4.COUNTS.reset()
+    got = b4.flash_sdpa(q.cuda(), k.cuda().transpose(1, 2),
+                        v.cuda().transpose(1, 2),
+                        **{n: x.cuda() if isinstance(x, torch.Tensor) else x
+                           for n, x in kw.items()}).float().cpu()
+    assert b4.COUNTS.launches == 1 and b4.COUNTS.plain_calls == 0
+    _rows_close(got, want, f"T={t} G={g} {variant}")
+    assert not got[want.abs().amax(dim=(2, 3)) == 0].any()

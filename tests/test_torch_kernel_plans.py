@@ -1,16 +1,19 @@
-"""The launch plans of the port's two redesigned kernels, and B1's key
-split emulated on the CPU.
+"""The launch plans of the port's redesigned kernels, and the key splits
+of B1 and B3 emulated on the CPU.
 
 B2 (the dequant-matmul) runs a GEMV for M <= 8 and a tiled tensor-core
 product above, with a K split whose pieces hold whole quantization blocks
 and whole 64-row steps.  B1 (ragged paged attention) splits the keys of
 few-query rows (G*C <= 16) into whole pages, runs the split pass and
-merges the partials in split order.  The kernels run only on a card
-(``tests/test_torch_cuda.py``); here the plans are checked from shapes, and
-the split-then-merge arithmetic is emulated in float64 (four warp slices of
-each 64-key tile merged inside a split, then the splits, empty ones with
-l = 0) and held against ``ragged_paged_sdpa_plain`` and the JAX kernel,
-run as the JAX tests run it on the CPU.
+merges the partials in split order.  B3 (dense decode attention) splits
+each row's visible range evenly on the device and merges the same way.
+B4 (flash attention) walks only the key tiles its queries can see and
+compares slots only on tiles that cross a boundary.  The kernels run only
+on a card (``tests/test_torch_cuda.py``); here the plans are checked from
+shapes, and the split-then-merge arithmetic is emulated in float64 (four
+warp slices of each 64-key tile merged inside a split, then the splits,
+empty ones with l = 0) and held against the plain versions and the JAX
+kernels, run as the JAX tests run them on the CPU.
 """
 
 import jax.numpy as jnp
@@ -18,10 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from ipex_llm_tpu.ops.pallas.decode_attention import decode_sdpa as ref_decode
 from ipex_llm_tpu.ops.pallas.ragged_paged_attention import \
     ragged_paged_sdpa as ref_ragged_paged_sdpa
+from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
+from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
 from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
 from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
+from tests.test_torch_attention_dense import _pair, assert_rows_close
 from tests.test_torch_ops import B1_ULP, _f32, _ragged_case
 
 # -- B2 ------------------------------------------------------------------------
@@ -185,3 +192,173 @@ def test_ragged_split_then_merge_matches_plain_and_pallas(pool, c, plan):
             np.testing.assert_allclose(
                 got[i, :n], ref[i, :n], rtol=0,
                 atol=B1_ULP * np.abs(ref[i, :n]).max())
+
+
+# -- B3 ------------------------------------------------------------------------
+
+B3_SHAPES = [(4, 8, 2304), (1, 8, 4864), (1, 2, 128), (64, 32, 256),
+             (4, 8, 100), (2, 1, 70000), (3, 2, 700)]
+
+
+@pytest.mark.parametrize("b,hkv,s", B3_SHAPES)
+def test_decode_split_bounds_cover_the_visible_range(b, hkv, s):
+    """Each row's visible range [lo, kv_len) splits, on the device, into
+    the plan's number of pieces that cover it exactly once; no split is
+    empty while another holds more than one 64-key tile; the plan takes
+    as many splits as one wave of resident blocks (2 an SM on 132 SMs)
+    holds, within the caps of 64 and one split per 64-key tile."""
+    splits = b3.split_plan(b, hkv, s)
+    cap = min(64, -(-s // 64))
+    assert 1 <= splits <= cap
+    assert splits == 1 or b * hkv * splits <= 2 * 132      # one wave
+    assert splits == cap or b * hkv * (splits + 1) > 2 * 132   # all of it
+    gen = torch.Generator().manual_seed(s)
+    for _ in range(20):
+        hi = torch.randint(0, s + 1, (b,), generator=gen)
+        lo = (torch.rand(b, generator=gen) * (hi + 1)).long().clamp(max=hi)
+        lo[0], hi[0] = 0, s                 # a full row
+        start, end = b3.split_bounds(lo, hi, splits)
+        for r in range(b):
+            keys = [k for a, e in zip(start[r].tolist(), end[r].tolist())
+                    for k in range(a, e)]
+            assert keys == list(range(int(lo[r]), int(hi[r])))
+            n = (end[r] - start[r]).clamp(min=0)
+            assert n.max() <= 64 or n.min() > 0
+
+
+def _emulate_decode_split(q, k, v, kv_len, kv_start, won, *, scale, window,
+                          softcap, splits):
+    """B3's split pass and merge in float64: each split's slots (from
+    ``split_bounds``) dealt to four warps by 16-key slices of each 64-key
+    tile from the split's first slot, the warps merged in warp order, then
+    the splits in split order (l = 0 skipped)."""
+    b, _, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g_ = hq // hkv
+    qf, kf, vf = (x.to(torch.float64) for x in (q, k.to(torch.bfloat16),
+                                                v.to(torch.bfloat16)))
+    lo = b3.first_visible(kv_len, kv_start, won, window)
+    start, end = b3.split_bounds(lo, kv_len.clamp(max=s), splits)
+    out = torch.zeros(b, 1, hq, d, dtype=torch.float64)
+    for r in range(b):
+        for h in range(hkv):
+            for g in range(g_):
+                qv = qf[r, 0, h * g_ + g]
+
+                def part(keys, r=r, h=h, qv=qv):
+                    if not keys:
+                        return -1e30, 0.0, np.zeros(d)
+                    x = kf[r, h, keys] @ qv * scale
+                    if softcap is not None:
+                        x = torch.tanh(x / softcap) * softcap
+                    m = x.max()
+                    p = torch.exp(x - m)
+                    return float(m), float(p.sum()), (p @ vf[r, h, keys]
+                                                      ).numpy()
+
+                split_parts = []
+                for a, e in zip(start[r].tolist(), end[r].tolist()):
+                    warp_parts = [part([kp for kp in range(a, e)
+                                        if (kp - a) % 64 // 16 == w])
+                                  for w in range(4)]
+                    split_parts.append(_merge(warp_parts))
+                _, l, acc = _merge(split_parts)
+                out[r, 0, h * g_ + g] = torch.from_numpy(
+                    acc / (l if l > 0 else 1.0))
+    return out.to(torch.bfloat16)
+
+
+B3_EMULATED = {"plain": {}, "window cuts": dict(window=48),
+               "softcap": dict(softcap=30.0)}
+
+
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("case", sorted(B3_EMULATED))
+@pytest.mark.parametrize("plan", ["planned", "many splits"])
+def test_decode_split_then_merge_matches_plain_and_pallas(storage, case,
+                                                          plan):
+    """G = 4 over a 256-slot cache, rows with left padding and ragged fill
+    and one row that sees no key: the split-then-merge emulation, at the
+    wrapper's plan and at 40 splits (short splits, the last ones empty),
+    agrees with ``decode_sdpa_plain`` and the JAX kernel within 2^-7 of
+    each row's largest output, and gives exact zeros on the empty row."""
+    kw = B3_EMULATED[case]
+    rng = np.random.default_rng(11)
+    b, s, hq, hkv, d = 3, 256, 8, 2, 128
+    q_t, q_j = _pair(rng, (b, 1, hq, d))
+    k_t, k_j = _pair(rng, (b, hkv, s, d), storage)
+    v_t, v_j = _pair(rng, (b, hkv, s, d), storage)
+    kv_len = np.array([200, 256, 90], np.int32)
+    kv_start = np.array([0, 37, 90], np.int32)
+    kl, ks = torch.from_numpy(kv_len), torch.from_numpy(kv_start)
+    won = torch.ones(b, dtype=torch.int32)
+    splits = b3.split_plan(b, hkv, s) if plan == "planned" else 40
+    got = _emulate_decode_split(q_t, k_t, v_t, kl, ks, won,
+                                scale=d ** -0.5, window=kw.get("window"),
+                                softcap=kw.get("softcap"), splits=splits)
+    plain = b3.decode_sdpa(q_t, k_t, v_t, kv_len=kl, kv_start=ks, **kw)
+    want = ref_decode(q_j, k_j, v_j, kv_len=jnp.asarray(kv_len),
+                      kv_start=jnp.asarray(kv_start), **kw)
+    assert not got[2].float().any()
+    for ref in (plain, want):
+        assert_rows_close(got, ref, what=f"{storage} {case} {plan}")
+
+
+# -- B4 ------------------------------------------------------------------------
+
+FLASH_WALKS = {
+    "left padded, T=200": dict(t=200, kv_start=[0, 77, 199]),
+    "window cuts, T=1000": dict(t=1000, kv_start=[0, 300, 990], window=150),
+    "window per row": dict(t=300, kv_start=[0, 5, 64], window=100,
+                           won=[1, 0, 1]),
+    "chunk after a prefix": dict(t=100, offset=437, kv_start=[0, 8, 100],
+                                 window=64),
+    "non-causal, kv_len < S": dict(t=130, causal=False, kv_start=[0, 11, 3],
+                                   kv_len=[194, 150, 77]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_WALKS))
+def test_flash_tile_walk_covers_visible_pairs(case):
+    """Per block of 64 queries, the key tiles it walks hold every (query,
+    key) pair its live queries see; per warp of 16 queries, a tile the
+    warp skips holds no visible pair of its rows and a tile it runs
+    without the mask holds no masked one."""
+    c = FLASH_WALKS[case]
+    t, causal, off = c["t"], c.get("causal", True), c.get("offset", 0)
+    s = t + off + 64
+    window = c.get("window")
+    for r, kvs in enumerate(c["kv_start"]):
+        kvl = min(c.get("kv_len", [t + off] * 3)[r], s)
+        win = window if causal and window and c.get("won", [1] * 3)[r] \
+            else None
+        qpos = np.arange(t) + off
+        kpos = np.arange(s)
+        vis = np.broadcast_to((kpos >= kvs) & (kpos < kvl), (t, s)).copy()
+        if causal:
+            vis &= kpos[None] <= qpos[:, None]
+            if win is not None:
+                vis &= kpos[None] > qpos[:, None] - win
+        for q0 in range(0, t, b4.Q_TILE):
+            blk = qpos[q0:q0 + b4.Q_TILE]
+            tiles = b4.key_tiles(int(blk.min()), int(blk.max()), kvs, kvl,
+                                 causal=causal, window=win)
+            walked = np.zeros(s, bool)
+            for kt in tiles:
+                walked[kt:kt + b4.K_TILE] = True
+            assert not (vis[q0:q0 + b4.Q_TILE] & ~walked[None]).any()
+            for w0 in range(q0, min(q0 + b4.Q_TILE, t), b4.WARP_ROWS):
+                rows = vis[w0:w0 + b4.WARP_ROWS]
+                wq = qpos[w0:w0 + b4.WARP_ROWS]
+                for kt in tiles:
+                    kind = b4.tile_kind(kt, int(wq.min()), int(wq.max()),
+                                        kvs, kvl, causal=causal, window=win)
+                    tile = rows[:, kt:kt + b4.K_TILE]
+                    if kind == b4.SKIP:
+                        assert not tile.any(), (case, r, w0, kt)
+                    elif kind == b4.FREE:
+                        assert tile.all() and tile.shape[1] == b4.K_TILE, \
+                            (case, r, w0, kt)
+    # the mask-free rule is not vacuous on these cases
+    assert b4.tile_kind(0, 64, 79, 0, 2048, causal=True, window=None) == \
+        b4.FREE
