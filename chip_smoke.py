@@ -10,20 +10,22 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 
 1. device: the card's name and power limit, the torch and CUDA versions,
    the build of every CUDA kernel (one ``nvcc`` per source, all started
-   together), and the tensor-core instructions in the SASS of B2's tiled
-   instances, of B1's and of B3's split pass (``HMMA``, from ``mma.sync``)
+   together), no register spills in B2's and B5's sources, and the
+   tensor-core instructions in the SASS of B2's GEMV and tiled instances,
+   of B1's, of B3's and of B5's split pass (``HMMA``, from ``mma.sync``)
    and of B4's (``HGMMA``, from ``wgmma``): each instance must have some;
 2. ``b2``: the dequant-matmul in each of its ten block formats against
    its plain PyTorch version at the five Llama-2-7B weight shapes and M =
-   1, 8 (decode) and 128 (the prefill tokens of a mixed tick at
+   1, 2, 4, 8 (decode) and 128 (the prefill tokens of a mixed tick at
    ``prefill_bucket`` 128), plus in sym_int4 M = 32 (the verify forward of
    ``spec_k`` 3 over 8 rows) and, off the serving path, M = 512 as a
    larger prefill (3, 13 and 100 checked only), each output row
    to one bf16 ulp of its largest value, with the instance that ran
-   (``route``: the GEMV for M <= 8, the tiled tensor-core product above),
-   the kernel's, the plain
-   version's and ``torch.matmul`` on the dequantized weight's times, and
-   the card's least time for the work; in every format, the tiled
+   (``route``: the GEMV for M <= 8, one launch a call, the tiled
+   tensor-core product above), the kernel's and ``torch.matmul`` on the
+   dequantized weight's device times (from CUDA-graph replays), the plain
+   version's time, and the card's least time for the work; a profile of
+   one GEMV call shows no reduce kernel; in every format, the tiled
    instance at small K and ragged M (9 to 100; N of 200 and 384; bf16 and
    fp32 out), checked only; then ``codec``: one 4096x4096
    weight quantized in the nine other formats on the card and on the CPU,
@@ -39,7 +41,8 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    1 to 2048 slots with -1 table tails, in decode (C=1), at the verify
    width of ``spec_k`` 3 (C=4) and at C=128, over bf16 and e5m2 pools,
    and B1 against B5 on the same inputs (B5 is B1's oracle; it is off the
-   serving path); then ``spec_verify``: one B1 launch over [R, 4] verify
+   serving path), B5, B1 and SDPA timed as device time from CUDA-graph
+   replays; then ``spec_verify``: one B1 launch over [R, 4] verify
    chunks against the four B5 decode launches the same tokens cost
    without speculation;
 4. ``decoder``: a small GQA decoder on the card against the same decoder on
@@ -255,12 +258,20 @@ def main() -> int:
             else []
         report.setdefault("ptxas", {})[mod.NAME] = regs
     # the redesigned instances must run on the tensor cores: mma.sync is
-    # HMMA in the SASS, B4's wgmma HGMMA
+    # HMMA in the SASS, B4's wgmma HGMMA; and none may spill
+    # (B2's and B5's sources; B1's merge kernel keeps a 4-byte spill)
+    spills = {name: [ln for ln in report["ptxas"][name] if "spill" in ln
+                     and " 0 bytes spill stores" not in ln]
+              for name in (b2.NAME, b5.NAME)}
+    if any(spills.values()):
+        fail(f"ptxas reports spills: {spills}")
     hmma = {}
-    for mod, kernel, opcode in ((b2, "qmm_tc_kernel", "HMMA"),
+    for mod, kernel, opcode in ((b2, "qmm_kernel", "HMMA"),
+                                (b2, "qmm_tc_kernel", "HMMA"),
                                 (b1, "ragged_attn_kernel", "HMMA"),
                                 (b3, "decode_split_kernel", "HMMA"),
-                                (b4, "flash_attn_kernel", "HGMMA")):
+                                (b4, "flash_attn_kernel", "HGMMA"),
+                                (b5, "paged_split_kernel", "HMMA")):
         counts = {fn: n for fn, n in
                   _build.sass_counts(mod.NAME, opcode).items()
                   if kernel in fn}
@@ -292,12 +303,18 @@ def main() -> int:
                 (err / top.clamp_min(1e-30)).max().item())
 
     def b2_route(call) -> str:
-        """The B2 instance one call launched (its ``by_route`` count)."""
+        """The B2 instance one call launched (its ``by_route`` count); a
+        GEMV call must be one launch (its K split meets in shared memory,
+        no reduce kernel)."""
         before = dict(b2.COUNTS.by_route)
+        launches = b2.COUNTS.launches
         call()
         ran = [r for r, v in b2.COUNTS.by_route.items() if v > before[r]]
         if len(ran) != 1:
             fail(f"B2: one call launched the instances {ran}")
+        if ran[0] == "gemv" and b2.COUNTS.launches - launches != 1:
+            fail(f"B2: a GEMV call made {b2.COUNTS.launches - launches} "
+                 "launches, want 1")
         return ran[0]
 
     def b2_ragged(qtype: str) -> list:
@@ -356,9 +373,19 @@ def main() -> int:
                     it[0] += 1
                     b2.qmatmul(x, q)
 
-                ms_k = time_ms(run_kernel, iters(m))
+                # device time of calls captured in a CUDA graph (eager
+                # launches of the small GEMVs would time the host's pace)
+                if m <= 512:
+                    ms_k = graph_ms(torch, [
+                        lambda q=q: b2.qmatmul(x, q) for q in copies] *
+                        max(1, 24 // len(copies)))
+                    lib_ms = graph_ms(torch, [
+                        lambda: torch.matmul(x, w_bf16)] * 20)
+                else:
+                    ms_k = time_ms(run_kernel, iters(m))
+                    lib_ms = time_ms(lambda: torch.matmul(x, w_bf16),
+                                     iters(m))
                 plain_ms = time_ms(lambda: b2.qmatmul_plain(x, wq), 1)
-                lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), iters(m))
                 bms, by = bound(m * k * 2 + wbytes + m * n * 2,
                                 2.0 * m * n * k)
                 row = dict(model=tag, qtype=qtype, weight=wname, m=m, k=k,
@@ -377,13 +404,37 @@ def main() -> int:
     report["b2_ragged_tiled"] = {}
     for qtype in b2.FORMATS:
         # M=32: the verify forward of spec_k 3 over 8 rows
-        ms = (1, 8, 32, 128, 512) if qtype == "sym_int4" else (1, 8, 128)
+        ms = ((1, 2, 4, 8, 32, 128, 512) if qtype == "sym_int4"
+              else (1, 2, 4, 8, 128))
         report["b2"] += b2_rows(LLAMA2_7B_SHAPES, ms,
                                 lambda w, m: m != 512, "llama2-7b", qtype)
         report["b2_ragged_tiled"][qtype] = b2_ragged(qtype)
     print("B2 tiled instance at ragged M, every format: " + json.dumps(
         {q: len(v) for q, v in report["b2_ragged_tiled"].items()}) +
         " shapes within tolerance", flush=True)
+    # the GEMV route launches its kernel alone: no qmm_reduce_kernel (and
+    # one launch a call, b2_route)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wq = quantize(torch.randn(4096, 22016, generator=gen, device=dev)
+                  / 64, "sym_int4")
+    x8 = torch.randn(8, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    b2.qmatmul(x8, wq)
+    torch.cuda.synchronize()
+    launches = b2.COUNTS.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        b2.qmatmul(x8, wq)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    if any("qmm_reduce_kernel" in n for n in names) or not any(
+            "qmm_kernel" in n for n in names):
+        fail(f"B2 GEMV route at gate_up M=8 ran {names}")
+    report["b2_gemv_launches_per_call"] = b2.COUNTS.launches - launches
+    print(f"B2 GEMV at gate_up M=8: {report['b2_gemv_launches_per_call']} "
+          f"launch a call, kernels {names}", flush=True)
+    del wq, x8
     torch.cuda.empty_cache()
 
     # -- 2b. the codec on the card against the CPU ---------------------------
@@ -567,12 +618,16 @@ def main() -> int:
             nq = (kv_len[:, None] - c + torch.arange(c, device=dev)) < 0
             if out[nq].any():
                 fail(f"{label}: a query with no visible key is not zero")
-            ms = time_ms(lambda: b5_call(*args), 30)
+            # device time of calls captured in a CUDA graph, for B5, B1
+            # and SDPA alike (eager, the host's pace; kept as eager_ms)
+            ms = graph_ms(torch, [lambda: b5_call(*args)] * 10)
+            eager_ms = time_ms(lambda: b5_call(*args), 30)
             plain_ms = time_ms(lambda: b5.paged_sdpa_plain(
                 *args, scale=128 ** -0.5), 3)
-            lib_ms = time_ms(b1_library(q, kp, vp, tables, kv_len, chunk), 30)
-            b1_ms = time_ms(lambda: b1.ragged_paged_sdpa(
-                q, kp, vp, tables, kv_len, chunk), 30)
+            lib_ms = graph_ms(torch, [b1_library(q, kp, vp, tables, kv_len,
+                                                 chunk)] * 10)
+            b1_ms = graph_ms(torch, [lambda: b1.ragged_paged_sdpa(
+                q, kp, vp, tables, kv_len, chunk)] * 10)
             # B1's reckoning: q in and out once, each row's K/V slots once,
             # 4 D operations per visible (query head, key) pair
             kvl = kv_len.cpu().tolist()
@@ -582,7 +637,8 @@ def main() -> int:
                 4.0 * 128 * q.shape[2] * pairs)
             row = dict(pool=pool_name, case=f"C={c}", max_abs_err=err,
                        max_rel_err=worst, tol_rel=ATTN_TOL_REL, ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                       eager_ms=eager_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bms,
                        bound_by=by, b1_ms=b1_ms, b1_vs_b5_max_abs=b1_err,
                        b1_vs_b5_max_rel=b1_worst,
                        b1_equals_b5_bitwise=bool(torch.equal(via_b1, out)))
@@ -1473,6 +1529,8 @@ def main() -> int:
     rep_b4 = report["b4"][0]
     rep_b5 = next(r for r in report["b5"] if r["pool"] == "bf16"
                   and r["case"] == "C=4")
+    rep_b5_wide = next(r for r in report["b5"] if r["pool"] == "bf16"
+                       and r["case"] == "C=128")
     rep_b1_split = next(r for r in report["b1"] if r["pool"] == "bf16"
                         and r["case"] == "verify R=8 C=4")
     rep_b2_tiled = next(r for r in report["b2"] if r["qtype"] == "sym_int4"
@@ -1502,6 +1560,7 @@ def main() -> int:
             "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
             "shape": "M=8 K=4096 N=22016 (gate_up, decode)",
             "launches": b2_launches[qtype],
+            "launches_per_call": report["b2_gemv_launches_per_call"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: rep[k] for k in keys}})
     line = {"kernels": b2_entries + [
@@ -1565,6 +1624,8 @@ def main() -> int:
          "check_launches_from": "the b5 and spec_verify phases (B1's "
                                 "oracle)",
          "max_abs_err": max(r["max_abs_err"] for r in report["b5"]),
+         # the 64-row tiles at C=128, beside B1 on the same inputs
+         "c128": {k: rep_b5_wide[k] for k in keys + ("b1_ms",)},
          **{k: rep_b5[k] for k in keys}},
     ]}
     out_dir = ROOT / "chiprun_out"

@@ -1,10 +1,12 @@
 // PTX building blocks shared by the tensor-core kernels (qmatmul.cu,
-// ragged_paged_attention.cu, decode_attention.cu, flash_attention.cu): 16-
-// and 4-byte cp.async with zero fill, ldmatrix (plain and transposed) and
-// the bf16 m16n8k16 mma.sync with fp32 accumulators (sm_80+), and the
-// warpgroup products wgmma m64n64k16 and m64n128k16 (A from registers)
-// with their 128-byte swizzled shared-memory descriptors and fences
-// (sm_90a only).  The kernels are built for sm_90a.
+// ragged_paged_attention.cu, decode_attention.cu, flash_attention.cu,
+// paged_attention.cu): 16- and 4-byte cp.async with zero fill, ldmatrix
+// (plain and transposed) and the bf16 m16n8k16 mma.sync with fp32
+// accumulators (sm_80+); the cluster rank, barrier and distributed
+// shared-memory reads (sm_90); and the warpgroup products wgmma m64n64k16
+// and m64n128k16 (A from registers) with their 128-byte swizzled
+// shared-memory descriptors and fences (sm_90a only).  The kernels are
+// built for sm_90a.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +34,45 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
                      smem_addr(dst)),
                  "l"(src), "r"(n));
   }
+}
+
+// cp_async with the destination as a shared-window address (smem_addr)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_s(uint32_t dst, const void* src,
+                                           bool valid) {
+  static_assert(BYTES == 4 || BYTES == 16, "cp.async copies 4 or 16 bytes");
+  const uint32_t n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n));
+  }
+}
+
+// 16, 8 and 4 bytes from a shared-window address, each one instruction;
+// volatile, so they stay after the cp_async_wait that makes them valid
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -80,6 +121,46 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+
+// -- thread-block clusters (sm_90) -------------------------------------------
+// A cluster's blocks run on neighbouring SMs and can read each other's
+// shared memory (distributed shared memory) between cluster barriers.
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes before it are visible to the whole cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p` (a shared-memory pointer of this
+// block) in the block of cluster rank `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// 16 bytes from a shared::cluster address (map_rank)
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 

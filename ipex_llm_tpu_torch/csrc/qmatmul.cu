@@ -29,13 +29,22 @@
 // Two instances, chosen by the wrapper from M alone:
 //
 // GEMV (M <= 8, decode).  What bounds it: the packed weight stream, 0.53
-// to 1.06 bytes per weight by format, so the card's memory rate.  A warp
-// owns 128 output columns, each lane 4 neighbouring columns, so one 32-bit
-// load per lane per packed row reads 128 contiguous bytes per warp
-// (coalesced; the planes are read as stored, no repack).  A block is 4
-// warps = 512 columns and MT <= 8 rows of x; x is staged through shared
-// memory in chunks of 512 K-rows as fp32 and read back as broadcasts; the
-// multiply-adds run on the CUDA cores.
+// to 1.06 bytes per weight by format, so the card's memory rate -- as long
+// as the decode keeps up, since every weight costs a few instructions and
+// the ALUs issue about 128 of them a cycle per SM.  So the decode runs
+// without conversion instructions (value(), as the tiled instance's), two
+// weights rounded to bf16 at once straight into the registers of an
+// mma.sync A fragment, and the multiply-adds run on the tensor cores
+// (m16n8k16: 16 output columns x 16 contraction rows of weights against
+// the M <= 8 rows of x, zero-padded to 8); a lane reads whole 16-byte
+// chunks of its own 16 columns, which the fragment map below puts in its
+// A rows (the planes are read as stored, no repack).  Each warp streams
+// its columns' packed planes through a 4-stage ring of 16-byte cp.async
+// in shared memory; x is staged once per block in bf16.  The K split that
+// fills the card never writes partials to device memory: the warps of a
+// block and the blocks of a thread-block cluster (at most 8) split K, and
+// their fp32 sums meet in (distributed) shared memory, added in split
+// order: one launch, the same output every run.
 //
 // Tiled (M > 8: the verify forward, the mixed tick's prefill rows,
 // generate's prefill).  What bounds it: at M >= 128 the multiply-adds
@@ -50,11 +59,11 @@
 // zeros), filled with 16-byte cp.async (4-byte where N is not a multiple
 // of 16) two steps ahead of the step being multiplied; rows and columns
 // past the edges are zero-filled.  The block decodes a step's packed
-// planes into a bf16 [64 x 128] tile in shared memory with weight<T>()'s
-// arithmetic (bitwise the weights the plain version uses), but without
-// its conversions, which run at a quarter of the ALU rate: codes become
-// floats by bit tricks (fast()), and each weight is rounded to bf16 once,
-// two at a time, as it is packed.  Two weight tiles alternate, so with one
+// planes into a bf16 [64 x 128] tile in shared memory (bitwise the
+// weights the plain version uses) without conversion instructions, which
+// run at a quarter of the ALU rate: codes become floats by bit tricks
+// (value()), and each weight is rounded to bf16 once, two at a time, as
+// it is packed.  Two weight tiles alternate, so with one
 // barrier a step the warps decode step s + 1 while they multiply step s:
 // each warp runs ldmatrix (.trans for the K-major weight) and mma.sync
 // m16n8k16 bf16 with fp32 accumulators in registers over its warp tile
@@ -63,11 +72,11 @@
 // XOR-swizzled by 16-byte chunk so ldmatrix reads are free of bank
 // conflicts.  The epilogue writes bf16 or fp32.
 //
-// Both instances split K over gridDim.z when their tiles cannot fill the
-// card, in whole quantization blocks (the tiled one also in whole K steps);
-// each split writes an fp32 partial and a second kernel sums the splits in
-// a fixed order (deterministic, no atomics).  With one split the product
-// kernel writes the output directly.
+// The tiled instance splits K over gridDim.z when its tiles cannot fill
+// the card, in whole quantization blocks and whole K steps; each split
+// writes an fp32 partial and a second kernel sums the splits in a fixed
+// order (deterministic, no atomics).  With one split it writes the output
+// directly.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -77,14 +86,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kColsPerLane = 4;
-constexpr int kColsPerWarp = 32 * kColsPerLane;        // 128
-constexpr int kColsPerBlock = kWarps * kColsPerWarp;   // 512
-constexpr int kChunkRows = 512;                        // x staging rows
-constexpr int kLoadRows = 16;                          // packed rows / load
-
 // format ids: the order of FORMATS in ops/cuda/qmatmul.py
 enum Format : int {
   kSymInt4 = 0, kAsymInt4, kNF4, kFP4, kSymInt5, kAsymInt5, kSymInt8,
@@ -93,22 +94,6 @@ enum Format : int {
 
 enum class Layout { kNib4, kBit5, kByte };
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// 1+EB+MB minifloat with bias BIAS (subnormals, no inf/nan), exact in fp32:
-// sign x (1 + m/2^MB) x 2^(e-BIAS), subnormals m/2^MB x 2^(1-BIAS)
-template <int EB, int MB, int BIAS>
-__device__ __forceinline__ float minifloat(int c) {
-  const int e = (c >> MB) & ((1 << EB) - 1);
-  const int m = c & ((1 << MB) - 1);
-  const float mag =
-      e > 0 ? __int_as_float(((e - BIAS + 127) << 23) | (m << (23 - MB)))
-            : (float)m * __int_as_float((1 - BIAS - MB + 127) << 23);
-  return ((c >> (EB + MB)) & 1) ? -mag : mag;
-}
-
 // c - BIAS in fp32, exactly, for 0 <= c < 2^23, without an int-to-float
 // conversion (a quarter-rate instruction): 2^23 + c holds c in its mantissa
 template <int BIAS>
@@ -116,244 +101,472 @@ __device__ __forceinline__ float code_minus(int c) {
   return __int_as_float(0x4B000000 | c) - (8388608.f + (float)BIAS);
 }
 
-// minifloat() with the subnormal mantissa converted by code_minus
+// 1+EB+MB minifloat with bias BIAS (subnormals, no inf/nan), exactly in
+// fp32 and without a branch or a conversion: sign x (1 + m/2^MB) x
+// 2^(e-BIAS), subnormals m/2^MB x 2^(1-BIAS).  The code's exponent and
+// mantissa bits are placed where an fp32 keeps them (an fp32 subnormal
+// when e == 0), the sign at bit 31, then one exact multiply by
+// 2^(127 - BIAS) turns 2^(e-127) (1 + m/2^MB) into the first and the
+// subnormal m/2^MB x 2^-126 into the second (fp32 subnormals are not
+// flushed without --use_fast_math)
 template <int EB, int MB, int BIAS>
-__device__ __forceinline__ float minifloat_fast(int c) {
-  const int e = (c >> MB) & ((1 << EB) - 1);
-  const int m = c & ((1 << MB) - 1);
-  const float mag =
-      e > 0 ? __int_as_float(((e - BIAS + 127) << 23) | (m << (23 - MB)))
-            : code_minus<0>(m) * __int_as_float((1 - BIAS - MB + 127) << 23);
-  return ((c >> (EB + MB)) & 1) ? -mag : mag;
+__device__ __forceinline__ float minifloat(int c) {
+  const uint32_t bits = (((uint32_t)c >> (EB + MB)) & 1u) << 31 |
+                        ((uint32_t)c & ((1u << (EB + MB)) - 1u)) << (23 - MB);
+  return __fmul_rn(__uint_as_float(bits),
+                   __uint_as_float((uint32_t)(254 - BIAS) << 23));
 }
 
-template <int BS, Layout L, bool ZEROS, bool TABLE>
+// INT: the integer formats' code bias (value = code - INT), -1 for the
+// codebook and minifloat formats
+template <int BS, Layout L, bool ZEROS, bool TABLE, int INT = -1>
 struct FormatBase {
   static constexpr int kBS = BS;
   static constexpr Layout kLayout = L;
   static constexpr bool kZeros = ZEROS;
   static constexpr bool kTable = TABLE;
+  static constexpr int kIntBias = INT;
 };
 
 template <int F> struct Traits;
-template <> struct Traits<kSymInt4> : FormatBase<32, Layout::kNib4, false, false> {
-  __device__ static float value(int c, const float*) { return (float)(c - 8); }
-  __device__ static float fast(int c, const float* tab) { return code_minus<8>(c); }
+template <> struct Traits<kSymInt4> : FormatBase<32, Layout::kNib4, false, false, 8> {
+  __device__ static float value(int c, const float* tab) { return code_minus<8>(c); }
 };
-template <> struct Traits<kAsymInt4> : FormatBase<32, Layout::kNib4, true, false> {
-  __device__ static float value(int c, const float*) { return (float)c; }
-  __device__ static float fast(int c, const float* tab) { return code_minus<0>(c); }
+template <> struct Traits<kAsymInt4> : FormatBase<32, Layout::kNib4, true, false, 0> {
+  __device__ static float value(int c, const float* tab) { return code_minus<0>(c); }
 };
 template <> struct Traits<kNF4> : FormatBase<64, Layout::kNib4, false, true> {
   __device__ static float value(int c, const float* tab) { return tab[c]; }
-  __device__ static float fast(int c, const float* tab) { return tab[c]; }
 };
 template <> struct Traits<kFP4> : FormatBase<64, Layout::kNib4, false, true> {
   __device__ static float value(int c, const float* tab) { return tab[c]; }
-  __device__ static float fast(int c, const float* tab) { return tab[c]; }
 };
-template <> struct Traits<kSymInt5> : FormatBase<32, Layout::kBit5, false, false> {
-  __device__ static float value(int c, const float*) { return (float)(c - 16); }
-  __device__ static float fast(int c, const float* tab) { return code_minus<16>(c); }
+template <> struct Traits<kSymInt5> : FormatBase<32, Layout::kBit5, false, false, 16> {
+  __device__ static float value(int c, const float* tab) { return code_minus<16>(c); }
 };
-template <> struct Traits<kAsymInt5> : FormatBase<32, Layout::kBit5, true, false> {
-  __device__ static float value(int c, const float*) { return (float)c; }
-  __device__ static float fast(int c, const float* tab) { return code_minus<0>(c); }
+template <> struct Traits<kAsymInt5> : FormatBase<32, Layout::kBit5, true, false, 0> {
+  __device__ static float value(int c, const float* tab) { return code_minus<0>(c); }
 };
-template <> struct Traits<kSymInt8> : FormatBase<32, Layout::kByte, false, false> {
-  __device__ static float value(int c, const float*) { return (float)(c - 128); }
-  __device__ static float fast(int c, const float* tab) { return code_minus<128>(c); }
+template <> struct Traits<kSymInt8> : FormatBase<32, Layout::kByte, false, false, 128> {
+  __device__ static float value(int c, const float* tab) { return code_minus<128>(c); }
 };
 template <> struct Traits<kFP6> : FormatBase<64, Layout::kByte, false, false> {
-  __device__ static float value(int c, const float*) { return minifloat<3, 2, 3>(c); }
-  __device__ static float fast(int c, const float* tab) { return minifloat_fast<3, 2, 3>(c); }
+  __device__ static float value(int c, const float* tab) { return minifloat<3, 2, 3>(c); }
 };
 template <> struct Traits<kFP8E4M3> : FormatBase<128, Layout::kByte, false, false> {
-  __device__ static float value(int c, const float*) { return minifloat<4, 3, 7>(c); }
-  __device__ static float fast(int c, const float* tab) { return minifloat_fast<4, 3, 7>(c); }
+  __device__ static float value(int c, const float* tab) { return minifloat<4, 3, 7>(c); }
 };
 template <> struct Traits<kFP8E5M2> : FormatBase<128, Layout::kByte, false, false> {
-  __device__ static float value(int c, const float*) { return minifloat<5, 2, 15>(c); }
-  __device__ static float fast(int c, const float* tab) { return minifloat_fast<5, 2, 15>(c); }
+  __device__ static float value(int c, const float* tab) { return minifloat<5, 2, 15>(c); }
 };
 
-// one weight: value(code) * scale (+ zero), fp32, rounded once to bf16.
-// The product and the sum are rounded separately (no fused multiply-add),
-// as the plain version computes them.
+// one weight, value(code) * scale (+ zero) in fp32, the product and the
+// sum rounded separately (no fused multiply-add) as the plain version
+// computes them, before its one rounding to bf16: both instances round two
+// weights at once as they pack them (the GEMV decodes the integer formats
+// with int_weight(), bitwise the same)
 template <class T>
-__device__ __forceinline__ float weight(int c, float s, float z,
-                                        const float* tab) {
+__device__ __forceinline__ float weight_unrounded(int c, float s, float z,
+                                                  const float* tab) {
   const float v = __fmul_rn(T::value(c, tab), s);
-  return bf16_round(T::kZeros ? __fadd_rn(v, z) : v);
+  return T::kZeros ? __fadd_rn(v, z) : v;
 }
 
-template <int F, int MT>
-__global__ void __launch_bounds__(kThreads)
+// The integer formats' GEMV decode, in three instructions a weight or
+// fewer: byte k of `word` (a code of at most 8 bits) placed in bits 8..15
+// of 1.0f's mantissa by one byte permute gives f = 1 + code x 2^-15
+// exactly; with a = s x 2^15, one fused multiply-add f a - (2^15 + bias) s
+// is (code - bias) s computed exactly and rounded once, bitwise
+// __fmul_rn(code - bias, s) (both constants are exact in fp32: s has 11
+// significant bits, 2^15 + bias at most 13); the asymmetric formats take
+// f a - a = code x s, exact, then add the zero with one rounding, as
+// weight_unrounded() does
+__device__ __forceinline__ float code_float(uint32_t word, int k) {
+  return __uint_as_float(__byte_perm(word, 0x3F800000u, 0x7604 | (k << 4)));
+}
+
+template <class T>
+__device__ __forceinline__ float int_weight(float f, float a, float b) {
+  if constexpr (T::kZeros)
+    return __fadd_rn(__fmaf_rn(f, a, -a), b);   // b: the zero
+  else
+    return __fmaf_rn(f, a, b);                  // b: -(2^15 + bias) s
+}
+
+// ---- GEMV instance (M <= 8): decode into mma.sync fragments ------------
+
+constexpr int kGemvWarps = 4;
+constexpr int kGemvThreads = 32 * kGemvWarps;
+constexpr int kGemvCols = 128;      // output columns per warp
+constexpr int kGemvStages = 4;      // k-steps in a warp's ring
+constexpr int kLaneChunk = 16;      // bytes a lane copies per ring chunk
+constexpr int kWarpChunk = 32 * kLaneChunk;
+
+// A k-step is 16 contraction rows.  The 16-byte chunks one lane copies for
+// a k-step: its packed data rows (2 nibble rows or 4 byte rows) and its two
+// fifth-bit rows (5-bit formats); and for a quantization block, on the
+// block's first k-step, the block's scales and zeros of its 16 columns (2
+// chunks each), into a slot of their own.  A warp's ring holds kGemvStages
+// k-steps and kBlockSlots blocks' scales: enough that a block's slot is
+// refilled only after its first k-step has read it.
+template <class T>
+struct GemvStage {
+  static constexpr int kSteps = T::kBS / 16;       // k-steps per quant block
+  static constexpr int kData = T::kLayout == Layout::kByte ? 4 : 2;
+  static constexpr int kBits = T::kLayout == Layout::kBit5 ? 2 : 0;
+  static constexpr int kStepChunks = kData + kBits;
+  static constexpr int kBlockChunks = T::kZeros ? 4 : 2;
+  static constexpr int kBlockSlots = (kGemvStages - 1) / kSteps + 1;
+  static constexpr int kBlockBase = kGemvStages * kStepChunks * kWarpChunk;
+  static constexpr int kWarpBytes =
+      kBlockBase + kBlockSlots * kBlockChunks * kWarpChunk;
+  // x rows are padded so that the lanes' B-fragment reads (4 bytes at
+  // stride 2t for the nibble layouts, 8 bytes at 4t for the byte layout)
+  // fall in distinct banks across the 8 rows
+  static constexpr int kXPad = T::kLayout == Layout::kByte ? 16 : 8;
+};
+
+// dynamic shared memory of one block: the warps' rings, x (MT rows of
+// x_rows contraction rows, bf16) and the 16-entry code table
+template <class T, int MT>
+__host__ __device__ constexpr int gemv_smem_bytes(int x_rows) {
+  return kGemvWarps * GemvStage<T>::kWarpBytes +
+         MT * (x_rows + GemvStage<T>::kXPad) * 2 + 16 * 4;
+}
+
+// The products are mma.sync m16n8k16 with the decoded weights as A (16
+// output columns x 16 contraction rows) and x as B (16 rows x 8, rows of
+// x past M zero).  Lane l (g = l / 4, t = l % 4) of a warp owns the 16
+// neighbouring columns n0 + 16g .. n0 + 16g + 15 of the warp's 128, and in
+// each of the warp's 8 A tiles T the two columns 16g + 2T (A row g) and
+// 16g + 2T + 1 (A row g + 8); the k index of each A row is a permutation
+// of the k-step's 16 rows chosen so that the lane reads whole 16-byte
+// chunks of its own columns:
+//   byte layout:   rows 4t .. 4t+3 of the k-step; A k (2t, 2t+1) is rows
+//                  4t, 4t+1 and A k (2t+8, 2t+9) rows 4t+2, 4t+3;
+//   nibble layouts: k-step s of a block reads data rows 8s + 2t and
+//                  8s + 2t + 1; their low nibbles (block rows 8s + 2t, +1)
+//                  are A k (2t, 2t+1), their high nibbles (block rows
+//                  BS/2 + 8s + 2t, +1) A k (2t+8, 2t+9).
+// x's B fragment follows the same permutation, so each lane reads its two
+// registers of row m = g from shared memory in one 8-byte or two 4-byte
+// loads.  D tile T holds out[2t][16g + 2T], out[2t + 1][16g + 2T] and the
+// same two rows at column 16g + 2T + 1.
+//
+// Grid (cluster ranks, column blocks); a block is 4 warps, warps_k along K
+// and 4 / warps_k along N (128 columns each).  Split s = rank * warps_k +
+// wk owns quantization blocks [s * qb_per_warp, (s + 1) * qb_per_warp).
+// Each warp keeps a ring of kGemvStages k-steps, filled with 16-byte (or
+// 4-byte, where N % 16 != 0) cp.async that each lane reads back itself, so
+// the ring needs no barrier.  At the end the warps' fp32 D tiles meet in
+// shared memory; after a cluster barrier, rank r sums its share of the
+// column block's outputs over every (rank, warp) in split order, reading
+// the other blocks' shared memory (distributed shared memory), and writes
+// them; a second cluster barrier keeps each block resident until its
+// partials have been read.
+template <int F, int MT, bool VEC16>
+__global__ void __launch_bounds__(kGemvThreads)
 qmm_kernel(const __nv_bfloat16* __restrict__ x,
            const uint8_t* __restrict__ w,
            const uint8_t* __restrict__ hbits,
            const __half* __restrict__ s,
            const __half* __restrict__ z,
            const float* __restrict__ table,
-           float* __restrict__ partial,
            __nv_bfloat16* __restrict__ out_bf16,
            float* __restrict__ out_f32,
-           int M, int N, int K, int qb_per_split) {
+           int M, int N, int K, int warps_k, int qb_per_warp) {
   using T = Traits<F>;
+  using G = GemvStage<T>;
   constexpr int kBS = T::kBS;
-  constexpr int kChunkQB = kChunkRows / kBS;
-  __shared__ float xs[MT][kChunkRows];
-  __shared__ float tab[16];
-  if constexpr (T::kTable) {
-    if (threadIdx.x < 16) tab[threadIdx.x] = table[threadIdx.x];
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * MT;
-  const int n0 = blockIdx.y * kColsPerBlock + warp * kColsPerWarp +
-                 lane * kColsPerLane;
-  const int split = blockIdx.z;
+  constexpr int kSteps = G::kSteps;
+  constexpr int kHalf = kBS / 2;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int warps_n = kGemvWarps / warps_k;
+  const int wn = warp % warps_n, wk = warp / warps_n;
+  const int cs = gridDim.x;                   // the cluster spans grid x
+  const int rank = (int)hopper::cluster_rank();
   const int nqb = K / kBS;
-  const int qb_begin = split * qb_per_split;
-  const int qb_end = min(nqb, qb_begin + qb_per_split);
-  // N % 4 == 0 (checked by the wrapper): n0 < N means all 4 columns exist
-  const bool col_ok = n0 < N;
-  const size_t n_words = (size_t)(N / 4);   // 32-bit words per packed row
+  // the block's contraction rows (its x stage) and the warp's blocks
+  const int qb_block = rank * warps_k * qb_per_warp;
+  const int x_rows = warps_k * qb_per_warp * kBS;
+  const int kx0 = qb_block * kBS;
+  const int kx1 = min(K, kx0 + x_rows);
+  const int qb0 = qb_block + wk * qb_per_warp;
+  const int qb1 = min(nqb, qb0 + qb_per_warp);
+  const int n_warp = (blockIdx.y * warps_n + wn) * kGemvCols;
+  const int n_lane = n_warp + 16 * g;         // the lane's first column
+  const int nsteps = (qb1 > qb0 && n_warp < N) ? (qb1 - qb0) * kSteps : 0;
+  const int xs_stride = x_rows + G::kXPad;
+  __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(smem + kGemvWarps * G::kWarpBytes);
+  float* tab = reinterpret_cast<float*>(xs + MT * xs_stride);
 
-  float acc[MT][kColsPerLane];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) acc[m][c] = 0.f;
-
-  for (int c0 = qb_begin; c0 < qb_end; c0 += kChunkQB) {
-    const int nq = min(kChunkQB, qb_end - c0);
-    const int klen = nq * kBS;
-    __syncthreads();                       // previous chunk fully consumed
-    for (int i = threadIdx.x; i < MT * klen; i += kThreads) {
-      const int m = i / klen;
-      const int k = i - m * klen;
-      float v = 0.f;
-      if (m0 + m < M)
-        v = __bfloat162float(x[(size_t)(m0 + m) * K + (size_t)c0 * kBS + k]);
-      xs[m][k] = v;
-    }
-    __syncthreads();
-    if (!col_ok) continue;
-    for (int q = 0; q < nq; ++q) {
-      const int qb = c0 + q;
-      const int kq = q * kBS;              // block's first row in xs
-      const uint2 sraw =
-          *reinterpret_cast<const uint2*>(s + (size_t)qb * N + n0);
-      const __half2 s01 = *reinterpret_cast<const __half2*>(&sraw.x);
-      const __half2 s23 = *reinterpret_cast<const __half2*>(&sraw.y);
-      const float sc[kColsPerLane] = {__low2float(s01), __high2float(s01),
-                                      __low2float(s23), __high2float(s23)};
-      float zc[kColsPerLane] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (T::kZeros) {
-        const uint2 zraw =
-            *reinterpret_cast<const uint2*>(z + (size_t)qb * N + n0);
-        const __half2 z01 = *reinterpret_cast<const __half2*>(&zraw.x);
-        const __half2 z23 = *reinterpret_cast<const __half2*>(&zraw.y);
-        zc[0] = __low2float(z01);
-        zc[1] = __high2float(z01);
-        zc[2] = __low2float(z23);
-        zc[3] = __high2float(z23);
-      }
-      if constexpr (T::kLayout == Layout::kByte) {
-        const uint32_t* wp =
-            reinterpret_cast<const uint32_t*>(w + (size_t)qb * kBS * N + n0);
-        for (int r0 = 0; r0 < kBS; r0 += kLoadRows) {
-          uint32_t pk[kLoadRows];
-#pragma unroll
-          for (int j = 0; j < kLoadRows; ++j)
-            pk[j] = __ldg(wp + (size_t)(r0 + j) * n_words);
-#pragma unroll
-          for (int j = 0; j < kLoadRows; ++j) {
-            float wv[kColsPerLane];
-#pragma unroll
-            for (int c = 0; c < kColsPerLane; ++c)
-              wv[c] = weight<T>((pk[j] >> (8 * c)) & 0xFF, sc[c], zc[c], tab);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              const float xv = xs[m][kq + r0 + j];
-#pragma unroll
-              for (int c = 0; c < kColsPerLane; ++c)
-                acc[m][c] = fmaf(xv, wv[c], acc[m][c]);
-            }
-          }
-        }
-      } else {
-        constexpr int kHalf = kBS / 2;
-        const uint32_t* wp = reinterpret_cast<const uint32_t*>(
-            w + (size_t)qb * kHalf * N + n0);
-        // 5-bit: the block's 32 fifth bits of each column, 4 bit-plane rows
-        uint32_t hw[4] = {0u, 0u, 0u, 0u};
-        if constexpr (T::kLayout == Layout::kBit5) {
-          static_assert(kBS == 32, "the 5-bit layout has 32-row blocks");
-          const uint32_t* hp = reinterpret_cast<const uint32_t*>(
-              hbits + (size_t)qb * 4 * N + n0);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) hw[i] = __ldg(hp + (size_t)i * n_words);
-        }
-#pragma unroll
-        for (int j0 = 0; j0 < kHalf; j0 += kLoadRows) {
-          uint32_t pk[kLoadRows];
-#pragma unroll
-          for (int j = 0; j < kLoadRows; ++j)
-            pk[j] = __ldg(wp + (size_t)(j0 + j) * n_words);
-#pragma unroll
-          for (int j = 0; j < kLoadRows; ++j) {
-            const int rl = j0 + j;          // low nibble: block row rl
-            const int rh = rl + kHalf;      // high nibble: block row rh
-            float wl[kColsPerLane], wh[kColsPerLane];
-#pragma unroll
-            for (int c = 0; c < kColsPerLane; ++c) {
-              const int byte = (pk[j] >> (8 * c)) & 0xFF;
-              int lo = byte & 0xF, hi = byte >> 4;
-              if constexpr (T::kLayout == Layout::kBit5) {
-                lo |= ((hw[rl >> 3] >> (8 * c + (rl & 7))) & 1) << 4;
-                hi |= ((hw[rh >> 3] >> (8 * c + (rh & 7))) & 1) << 4;
-              }
-              wl[c] = weight<T>(lo, sc[c], zc[c], tab);
-              wh[c] = weight<T>(hi, sc[c], zc[c], tab);
-            }
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              const float xl = xs[m][kq + rl];
-              const float xh = xs[m][kq + rh];
-#pragma unroll
-              for (int c = 0; c < kColsPerLane; ++c) {
-                acc[m][c] = fmaf(xl, wl[c], acc[m][c]);
-                acc[m][c] = fmaf(xh, wh[c], acc[m][c]);
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-  if (!col_ok) return;
+  // x: MT rows of the block's contraction rows, bf16, rows past M zero
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
-    const int row = m0 + m;
-    if (row >= M) break;
-    if (partial != nullptr) {
-      float4 v = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-      *reinterpret_cast<float4*>(
-          partial + ((size_t)split * M + row) * N + n0) = v;
-    } else if (out_f32 != nullptr) {
-      float4 v = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-      *reinterpret_cast<float4*>(out_f32 + (size_t)row * N + n0) = v;
-    } else {
-      __nv_bfloat162 lo = __floats2bfloat162_rn(acc[m][0], acc[m][1]);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(acc[m][2], acc[m][3]);
-      uint2 v;
-      v.x = *reinterpret_cast<uint32_t*>(&lo);
-      v.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(out_bf16 + (size_t)row * N + n0) = v;
+    for (int c = tid; c < x_rows / 8; c += kGemvThreads) {
+      const int k = kx0 + c * 8;
+      const bool ok = m < M && k < kx1;
+      hopper::cp_async<16>(xs + m * xs_stride + c * 8,
+                           ok ? x + (size_t)m * K + k : x, ok);
     }
   }
+  hopper::cp_async_commit();
+  if constexpr (T::kTable) {
+    if (tid < 16) tab[tid] = table[tid];
+  }
+
+  // the lane's ring chunks as shared-window addresses: chunk c of step
+  // slot i at step_s + (i * kStepChunks + c) * kWarpChunk, of block slot i
+  // at block_s + (i * kBlockChunks + c) * kWarpChunk
+  const uint32_t step_s =
+      hopper::smem_addr(smem + warp * G::kWarpBytes) + lane * kLaneChunk;
+  const uint32_t block_s = step_s + G::kBlockBase;
+  const bool col_ok = n_lane < N;
+  // 16 bytes of a row-major [*, N] plane of ELEM-byte elements at `src`
+  // (row start + the lane's column col0) into the chunk at `dst`
+  auto copy = [&](uint32_t dst, const uint8_t* src, int col0, int elem) {
+    if constexpr (VEC16) {
+      hopper::cp_async_s<16>(dst, col_ok ? src : w, col_ok);
+    } else {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const bool ok = col0 + p * (4 / elem) < N;
+        hopper::cp_async_s<4>(dst + 4 * p, ok ? src + 4 * p : w, ok);
+      }
+    }
+  };
+  // the lane's sources, advanced as steps are issued in order: its first
+  // data row (byte layout rows 16 st + 4t + d, nibble layouts data rows
+  // 8 st + 2t + d, st counted from the warp's first block), its block's
+  // fifth-bit rows and its block's scales (and zeros)
+  constexpr int kRowsPerStep = T::kLayout == Layout::kByte ? 16 : 8;
+  const size_t step_bytes = (size_t)kRowsPerStep * N;
+  const uint8_t* wsrc =
+      w + ((size_t)qb0 * kSteps * kRowsPerStep +
+           (T::kLayout == Layout::kByte ? 4 : 2) * t) * N + n_lane;
+  const uint8_t* hsrc = hbits + (size_t)qb0 * 4 * N + n_lane;
+  const size_t soff = ((size_t)qb0 * N + n_lane) * 2;
+  const uint8_t* ssrc = reinterpret_cast<const uint8_t*>(s) + soff;
+  const uint8_t* zsrc = reinterpret_cast<const uint8_t*>(z) + soff;
+  auto issue = [&](int st) {
+    const uint32_t dst = step_s + (st % kGemvStages) * G::kStepChunks * kWarpChunk;
+    const int si = st % kSteps;
+#pragma unroll
+    for (int d = 0; d < G::kData; ++d)
+      copy(dst + d * kWarpChunk, wsrc + d * N, n_lane, 1);
+    wsrc += step_bytes;
+    if constexpr (T::kLayout == Layout::kBit5) {
+      copy(dst + 2 * kWarpChunk, hsrc + si * N, n_lane, 1);
+      copy(dst + 3 * kWarpChunk, hsrc + (2 + si) * N, n_lane, 1);
+      if (si == kSteps - 1) hsrc += 4 * (size_t)N;
+    }
+    if (si == 0) {      // in the same commit group as the block's first step
+      const uint32_t bdst = block_s + ((st / kSteps) % G::kBlockSlots) *
+                                          G::kBlockChunks * kWarpChunk;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        copy(bdst + h * kWarpChunk, ssrc + 16 * h, n_lane + 8 * h, 2);
+        if constexpr (T::kZeros)
+          copy(bdst + (2 + h) * kWarpChunk, zsrc + 16 * h, n_lane + 8 * h, 2);
+      }
+      ssrc += 2 * (size_t)N;
+      if constexpr (T::kZeros) zsrc += 2 * (size_t)N;
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  // per column of the lane: the integer formats' a and b of int_weight(),
+  // the others' scale and zero
+  float ca[16], cb[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) ca[c] = cb[c] = 0.f;
+
+#pragma unroll
+  for (int p = 0; p < kGemvStages - 1; ++p) {
+    if (p < nsteps) issue(p);
+    hopper::cp_async_commit();
+  }
+  hopper::cp_async_wait<kGemvStages - 1>();   // this thread's x copies
+  __syncthreads();                            // every thread's, and the table
+  // x's B column m = g: the step's rows from the warp's first block
+  const uint32_t x_s = hopper::smem_addr(xs + g * xs_stride) +
+                       2 * ((qb0 * kBS - kx0) +
+                            (T::kLayout == Layout::kByte ? 4 : 2) * t);
+  const bool x_ok = g < MT;
+
+  for (int st = 0; st < nsteps; ++st) {
+    hopper::cp_async_wait<kGemvStages - 2>();   // step st has landed
+    const uint32_t slot =
+        step_s + (st % kGemvStages) * G::kStepChunks * kWarpChunk;
+    const int si = st % kSteps;
+    uint4 dat[G::kData], bit[2];
+#pragma unroll
+    for (int d = 0; d < G::kData; ++d)
+      dat[d] = hopper::lds128(slot + d * kWarpChunk);
+    if constexpr (T::kLayout == Layout::kBit5) {
+#pragma unroll
+      for (int d = 0; d < 2; ++d)
+        bit[d] = hopper::lds128(slot + (2 + d) * kWarpChunk);
+    }
+    if (si == 0) {                              // a new quant block
+      const uint32_t bslot = block_s + ((st / kSteps) % G::kBlockSlots) *
+                                           G::kBlockChunks * kWarpChunk;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 raw = hopper::lds128(bslot + h * kWarpChunk);
+        const __half2* p = reinterpret_cast<const __half2*>(&raw);
+        float zr[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if constexpr (T::kZeros) {
+          const uint4 zraw = hopper::lds128(bslot + (2 + h) * kWarpChunk);
+          const __half2* q = reinterpret_cast<const __half2*>(&zraw);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            zr[2 * e] = __low2float(q[e]);
+            zr[2 * e + 1] = __high2float(q[e]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int c = 8 * h + e;
+          const float sv = (e & 1) ? __high2float(p[e >> 1])
+                                   : __low2float(p[e >> 1]);
+          if constexpr (T::kIntBias >= 0) {
+            ca[c] = __fmul_rn(sv, 32768.f);
+            cb[c] = T::kZeros ? zr[e]
+                              : __fmul_rn(sv, -(32768.f + T::kIntBias));
+          } else {
+            ca[c] = sv;
+            cb[c] = zr[e];
+          }
+        }
+      }
+    }
+    // x's B fragment: the byte layout's rows 4t .. 4t+3 of the step in one
+    // load; the nibble layouts' rows 2t, 2t+1 and the same + BS/2
+    uint32_t b0 = 0u, b1 = 0u;
+    if (x_ok) {
+      const uint32_t xa =
+          x_s + 2 * ((st / kSteps) * kBS + si * kRowsPerStep);
+      if constexpr (T::kLayout == Layout::kByte) {
+        const uint2 v = hopper::lds64(xa);
+        b0 = v.x;
+        b1 = v.y;
+      } else {
+        b0 = hopper::lds32(xa);
+        b1 = hopper::lds32(xa + 2 * kHalf);
+      }
+    }
+    __syncwarp();       // the slot refilled below was read a step earlier
+    if (st + kGemvStages - 1 < nsteps) issue(st + kGemvStages - 1);
+    hopper::cp_async_commit();
+
+    // the step's codes as words of 4 columns: the byte layout's data rows
+    // as stored; the nibble layouts' low and high nibbles of each data row
+    // (with the fifth bit at bit 4 of each byte for the 5-bit formats)
+    uint32_t wrd[4][4];                 // [A k pair][word of 4 columns]
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (T::kLayout == Layout::kByte) {
+        const uint32_t v[4] = {dat[q].x, dat[q].y, dat[q].z, dat[q].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wrd[q][i] = v[i];
+      } else {
+        const int d = q & 1, hi = q >> 1;     // data row d, high nibbles
+        const uint32_t v[4] = {dat[d].x, dat[d].y, dat[d].z, dat[d].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t c = (hi ? v[i] >> 4 : v[i]) & 0x0F0F0F0Fu;
+          if constexpr (T::kLayout == Layout::kBit5) {
+            // block rows 8si + 2t + d (bit-plane row si) and 16 + the
+            // same (row 2 + si): bit 2t + d of each column's byte
+            const uint32_t bv[4] = {bit[hi].x, bit[hi].y, bit[hi].z,
+                                    bit[hi].w};
+            c |= ((bv[i] >> (2 * t + d)) & 0x01010101u) << 4;
+          }
+          wrd[q][i] = c;
+        }
+      }
+    }
+    // weight of column c (0..15) from k-pair word q: A k (2t, 2t+1) are
+    // q = 0, 1 and A k (2t+8, 2t+9) q = 2, 3
+    auto wt = [&](int q, int c) -> float {
+      const uint32_t word = wrd[q][c >> 2];
+      if constexpr (T::kIntBias >= 0)
+        return int_weight<T>(code_float(word, c & 3), ca[c], cb[c]);
+      else
+        return weight_unrounded<T>((word >> (8 * (c & 3))) & 0xFF, ca[c],
+                                   cb[c], tab);
+    };
+#pragma unroll
+    for (int tile = 0; tile < 8; ++tile) {
+      const int c0 = 2 * tile, c1 = c0 + 1;   // A rows g and g + 8
+      const uint32_t a[4] = {hopper::pack_bf16(wt(0, c0), wt(1, c0)),
+                             hopper::pack_bf16(wt(0, c1), wt(1, c1)),
+                             hopper::pack_bf16(wt(2, c0), wt(3, c0)),
+                             hopper::pack_bf16(wt(2, c1), wt(3, c1))};
+      hopper::mma_bf16(acc[tile], a, b0, b1);
+    }
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();              // every warp is done with its ring
+
+  // the warps' D tiles, [warp][tile][lane] float4, over the rings
+  float4* red = reinterpret_cast<float4*>(smem);
+#pragma unroll
+  for (int tile = 0; tile < 8; ++tile)
+    red[(warp * 8 + tile) * 32 + lane] =
+        make_float4(acc[tile][0], acc[tile][1], acc[tile][2], acc[tile][3]);
+  if (cs > 1)
+    hopper::cluster_sync();
+  else
+    __syncthreads();
+  // rank r sums its share of the column block's warps_n * 256 float4s over
+  // the splits in order (rank, then the block's warps along K)
+  const int total = warps_n * 256;
+  const int share = (total + cs - 1) / cs;
+  const int i_end = min(total, (rank + 1) * share);
+  for (int i = rank * share + tid; i < i_end; i += kGemvThreads) {
+    const int wn_i = i >> 8, rest = i & 255;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < cs; ++q) {
+      for (int kk = 0; kk < warps_k; ++kk) {
+        const float4* p = red + (kk * warps_n + wn_i) * 256 + rest;
+        const float4 v =
+            cs > 1 ? hopper::ld_cluster_f4(hopper::map_rank(p, q)) : *p;
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+    }
+    const int tile = rest >> 5, ln = rest & 31;
+    const int n =
+        (blockIdx.y * warps_n + wn_i) * kGemvCols + 16 * (ln >> 2) + 2 * tile;
+    const int m0 = 2 * (ln & 3);
+    if (n >= N) continue;           // N % 4 == 0: n even, n + 1 < N too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + h;
+      if (m >= M) break;
+      const float v0 = h ? sum.y : sum.x;   // column n
+      const float v1 = h ? sum.w : sum.z;   // column n + 1
+      if (out_f32 != nullptr)
+        *reinterpret_cast<float2*>(out_f32 + (size_t)m * N + n) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(out_bf16 + (size_t)m * N + n) =
+            hopper::pack_bf16(v0, v1);
+    }
+  }
+  if (cs > 1) hopper::cluster_sync();   // partials stay until all are read
 }
 
 // ---- tiled instance (M > 8): cp.async ring, decode to bf16, mma.sync ----
@@ -415,16 +628,6 @@ __device__ __forceinline__ void stage_plane(uint8_t* dst, const uint8_t* base,
         ok ? base + ((size_t)(r0 + r) * N + col) * ELEM : base;
     hopper::cp_async<CHUNK>(dst + r * kRowBytes + c * CHUNK, src, ok);
   }
-}
-
-// weight() before its bf16 rounding, with value() computed by fast(): the
-// tiled instance rounds two weights at once as it packs them, so each is
-// bitwise weight()'s
-template <class T>
-__device__ __forceinline__ float weight_unrounded(int c, float s, float z,
-                                                  const float* tab) {
-  const float v = __fmul_rn(T::fast(c, tab), s);
-  return T::kZeros ? __fadd_rn(v, z) : v;
 }
 
 template <int F, int BM>
@@ -723,65 +926,100 @@ int launch_tc(cudaStream_t st, int splits, const Args& a) {
   return 0;
 }
 
+// the GEMV instance: one launch, grid (cluster, column blocks), the
+// cluster spanning grid x
+template <int F, int MT, bool VEC16>
+int launch_gemv(cudaStream_t st, int warps_k, int cluster, const Args& a) {
+  using T = Traits<F>;
+  const int smem = gemv_smem_bytes<T, MT>(warps_k * a.qbps * T::kBS);
+  cudaError_t e = cudaFuncSetAttribute(
+      qmm_kernel<F, MT, VEC16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const int cols = kGemvWarps / warps_k * kGemvCols;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (a.N + cols - 1) / cols, 1);
+  cfg.blockDim = dim3(kGemvThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, qmm_kernel<F, MT, VEC16>, a.x, a.w,
+                                 a.hbits, a.s, a.z, a.table, a.ob, a.of, a.M,
+                                 a.N, a.K, warps_k, a.qbps);
+}
+
+template <int F, int MT>
+int launch_gemv(cudaStream_t st, int warps_k, int cluster, const Args& a) {
+  return a.vec16 ? launch_gemv<F, MT, true>(st, warps_k, cluster, a)
+                 : launch_gemv<F, MT, false>(st, warps_k, cluster, a);
+}
+
 // tile: rows of x per block; 1, 2, 4 or 8 launch the GEMV instance, 16, 64
 // or 128 the tiled one
 template <int F>
-int launch_format(int tile, cudaStream_t st, int splits, const Args& a) {
-  const dim3 grid((a.M + tile - 1) / tile,
-                  (a.N + kColsPerBlock - 1) / kColsPerBlock, splits);
-#define QMM_CASE(MTV)                                                       \
-  case MTV:                                                                 \
-    qmm_kernel<F, MTV><<<grid, kThreads, 0, st>>>(                          \
-        a.x, a.w, a.hbits, a.s, a.z, a.table, a.part, a.ob, a.of, a.M, a.N, \
-        a.K, a.qbps);                                                       \
-    return 0;
+int launch_format(int tile, cudaStream_t st, int splits, int warps_k,
+                  const Args& a) {
   switch (tile) {
-    QMM_CASE(1)
-    QMM_CASE(2)
-    QMM_CASE(4)
-    QMM_CASE(8)
+    case 1: return launch_gemv<F, 1>(st, warps_k, splits / warps_k, a);
+    case 2: return launch_gemv<F, 2>(st, warps_k, splits / warps_k, a);
+    case 4: return launch_gemv<F, 4>(st, warps_k, splits / warps_k, a);
+    case 8: return launch_gemv<F, 8>(st, warps_k, splits / warps_k, a);
     case 16: return launch_tc<F, 16>(st, splits, a);
     case 64: return launch_tc<F, 64>(st, splits, a);
     case 128: return launch_tc<F, 128>(st, splits, a);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef QMM_CASE
 }
 
 }  // namespace
 
-// x bf16 [M,K] contiguous (16-byte aligned for the tiled instance); data
-// uint8 in the format's layout (for the 5-bit formats the K/2 nibble rows
-// then the K/8 bit-plane rows); scales fp16 [K/BS,N]; zeros fp16 [K/BS,N]
-// (asym formats, else null); table fp32 [16] (nf4, fp4, else null); out
-// bf16 or fp32 [M,N]; partial fp32 [splits,M,N] when splits > 1; tile the
-// rows of x per block (the wrapper's tile_rows: 1, 2, 4, 8 the GEMV
-// instance, 16, 64, 128 the tiled one, whose K splits hold whole 64-row
-// steps); vec16 != 0 when N % 16 == 0 and the planes are 16-byte aligned
-// (the tiled instance's 16-byte copies; else 4-byte); format one of the
-// Format ids.  Returns cudaGetLastError() after the launches
-// (cudaErrorInvalidValue for an unknown format or tile).
+// x bf16 [M,K] contiguous, 16-byte aligned; data uint8 in the format's
+// layout (for the 5-bit formats the K/2 nibble rows then the K/8 bit-plane
+// rows); scales fp16 [K/BS,N]; zeros fp16 [K/BS,N] (asym formats, else
+// null); table fp32 [16] (nf4, fp4, else null); out bf16 or fp32 [M,N];
+// tile the rows of x per block (the wrapper's tile_rows).  GEMV (tile 1, 2,
+// 4 or 8): splits = warps_k x the cluster size (at most 8), qb_per_split
+// the quant blocks of each warp, one launch.  Tiled (tile 16, 64 or 128):
+// splits over gridDim.z, each qb_per_split quant blocks of whole 64-row
+// steps, then, when splits > 1, the reduce of partial fp32
+// [splits,M,N]; warps_k is not read.  vec16 != 0 when N % 16 == 0 and the
+// planes are 16-byte aligned (16-byte copies; else 4-byte); format one of
+// the Format ids.  Returns the launch's error or cudaGetLastError() after
+// the launches (cudaErrorInvalidValue for an unknown format or tile, or a
+// GEMV split that is not warps_k x a cluster of 1 to 8).
 extern "C" int qmatmul(int format, const void* x, const void* data,
                        const void* scales, const void* zeros,
                        const void* table, void* out, int out_f32,
                        void* partial, int M, int N, int K, int splits,
-                       int qb_per_split, int tile, int vec16, void* stream) {
+                       int qb_per_split, int tile, int vec16, int warps_k,
+                       void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bool gemv = tile <= 8;
+  if (gemv && (warps_k < 1 || kGemvWarps % warps_k || splits % warps_k ||
+               splits / warps_k < 1 || splits / warps_k > 8))
+    return (int)cudaErrorInvalidValue;
+  const bool reduce = !gemv && splits > 1;
   const auto* wp = static_cast<const uint8_t*>(data);
   Args a{static_cast<const __nv_bfloat16*>(x), wp,
          wp + (size_t)(K / 2) * N,
          static_cast<const __half*>(scales),
          static_cast<const __half*>(zeros),
          static_cast<const float*>(table),
-         splits > 1 ? static_cast<float*>(partial) : nullptr,
-         (splits == 1 && !out_f32) ? static_cast<__nv_bfloat16*>(out) : nullptr,
-         (splits == 1 && out_f32) ? static_cast<float*>(out) : nullptr,
+         reduce ? static_cast<float*>(partial) : nullptr,
+         (!reduce && !out_f32) ? static_cast<__nv_bfloat16*>(out) : nullptr,
+         (!reduce && out_f32) ? static_cast<float*>(out) : nullptr,
          M, N, K, qb_per_split, vec16};
   int err;
   switch (format) {
 #define QMM_FORMAT(FID) \
-    case FID: err = launch_format<FID>(tile, st, splits, a); break;
+    case FID: err = launch_format<FID>(tile, st, splits, warps_k, a); break;
     QMM_FORMAT(kSymInt4)
     QMM_FORMAT(kAsymInt4)
     QMM_FORMAT(kNF4)
@@ -796,7 +1034,7 @@ extern "C" int qmatmul(int format, const void* x, const void* data,
     default: err = (int)cudaErrorInvalidValue;
   }
   if (err != 0) return err;
-  if (splits > 1) {
+  if (reduce) {
     const long long mn = (long long)M * N;
     const int threads = 256;
     const unsigned blocks = (unsigned)((mn + threads - 1) / threads);

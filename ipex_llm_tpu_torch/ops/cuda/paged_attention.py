@@ -7,9 +7,12 @@ causal queries at slots ``[kv_len - C, kv_len)`` over the paged pool.  As in
 the JAX package, the engine does not dispatch it: the ragged kernel (B1)
 carries every attention of the tick, and B5 is its oracle in these two
 regimes, which are exactly the shapes of the speculative verify step.
-``csrc/paged_attention.cu`` holds the kernel (a key-split pass and a merge
-pass) and the note on its design and bound.  The wrappers launch it for
-CUDA tensors and run :func:`paged_sdpa_plain` for CPU tensors.
+``csrc/paged_attention.cu`` holds the kernel (a page-split pass on the
+tensor cores and a merge pass) and the note on its design and bound;
+:func:`split_plan` and :func:`query_rows` plan its grid from shapes, and
+:func:`key_tiles` / :func:`tile_kind` mirror which key tiles a warp runs
+and which it masks.  The wrappers launch it for CUDA tensors and run
+:func:`paged_sdpa_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,9 +28,12 @@ from ipex_llm_tpu_torch.ops.cuda import _build
 NAME = "paged_attention"
 COUNTS = _build.Counts()
 _HEAD_DIMS = (128,)         # the kernel's instance
-_KEY_TILE = 32              # keys per shared-memory tile (csrc constant)
-_QUERY_TILE = 16            # query rows per block (csrc constant)
-_TARGET_BLOCKS = 1024       # pass-1 blocks to aim for (about 8 per SM)
+_PAGE_ALIGN = 32            # page sizes the kernel takes: multiples of 32
+WARP_ROWS = 16              # query rows per warp (one mma.sync fragment)
+# pass-1 blocks to aim for: 64-row tiles (4 warps, about 3 resident an SM)
+# and single-warp 16-row blocks, whose splits carry the parallelism
+_TARGET_BLOCKS = {64: 1024, 16: 2048}
+SKIP, FREE, MASKED = "skip", "free", "masked"   # what a warp does to a tile
 _POOL_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 
 
@@ -55,13 +61,48 @@ def paged_sdpa_plain(q, k_pool, v_pool, tables, kv_len, *,
     return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
 
 
+def query_rows(gc: int) -> int:
+    """Query rows of a pass-1 block: 64 (four warps sharing each key tile)
+    when the GQA group x chunk has more than 16 rows (C = 128), else one
+    16-row fragment (one warp: decode and the verify chunks)."""
+    return 64 if gc > 16 else 16
+
+
+def key_tile(gc: int) -> int:
+    """Keys per staged tile: 64 for the 64-row blocks, 16 for the
+    single-warp ones (csrc ``key_tile``)."""
+    return 64 if gc > 16 else 16
+
+
 def split_plan(r: int, hkv: int, gc: int, maxp: int) -> tuple[int, int]:
-    """(splits, pages per split) of the key axis: enough pass-1 blocks to
-    cover the card, from shapes alone (no read of ``kv_len``)."""
-    base = r * hkv * -(-gc // _QUERY_TILE)
-    splits = max(1, min(maxp, math.ceil(_TARGET_BLOCKS / base)))
+    """(splits, pages per split) of each row's pages, for every chunk
+    width: enough pass-1 blocks to cover the card, from shapes alone (no
+    read of ``kv_len``)."""
+    rows = query_rows(gc)
+    base = r * hkv * -(-gc // rows)
+    splits = max(1, min(maxp, math.ceil(_TARGET_BLOCKS[rows] / base)))
     pps = -(-maxp // splits)
     return -(-maxp // pps), pps
+
+
+def key_tiles(k_lo: int, k_hi: int, kt: int) -> list[int]:
+    """First slots of the ``kt``-key tiles a block walks over its keys
+    [k_lo, k_hi): k_hi is already cut at the split's end, ``kv_len``, the
+    table and the block's last visible slot."""
+    return list(range(k_lo, k_hi, kt)) if k_hi > k_lo else []
+
+
+def tile_kind(k0: int, q_lo: int, q_hi: int, k_hi: int, kt: int) -> str:
+    """What a warp whose valid rows sit at slots ``q_lo`` .. ``q_hi`` (the
+    earliest and the latest) does with the ``kt``-key tile at ``k0``: SKIP
+    it when its first key is past every row's slot; FREE (no slot
+    compared) when every row sees all its keys and the tile ends by
+    ``k_hi``; else MASKED."""
+    if k0 > q_hi:
+        return SKIP
+    if k0 + kt - 1 <= q_lo and k0 + kt <= k_hi:
+        return FREE
+    return MASKED
 
 
 def _launch(q, k_pool, v_pool, tables, kv_len, scale):
@@ -77,9 +118,9 @@ def _launch(q, k_pool, v_pool, tables, kv_len, scale):
         raise ValueError("k/v pools must be [P, Hkv, ps, D] with q's D")
     if d not in _HEAD_DIMS:
         raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
-    if ps % _KEY_TILE:
+    if ps % _PAGE_ALIGN:
         raise NotImplementedError(f"page size {ps} is not a multiple of "
-                                  f"{_KEY_TILE}")
+                                  f"{_PAGE_ALIGN}")
     if tables.dtype != torch.int32 or tables.dim() != 2 \
             or tables.shape[0] != r:
         raise ValueError("tables must be int32 [R, maxP]")
@@ -94,8 +135,8 @@ def _launch(q, k_pool, v_pool, tables, kv_len, scale):
         if not t.is_contiguous():
             raise ValueError("paged attention kernel needs contiguous "
                              "tensors")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16 or q.data_ptr() % 4:
+        raise ValueError("pools must be 16-byte aligned, q 4-byte aligned")
     gc = hq // hkv * c
     maxp = tables.shape[1]
     splits, pps = split_plan(r, hkv, gc, maxp)
@@ -110,10 +151,10 @@ def _launch(q, k_pool, v_pool, tables, kv_len, scale):
         ctypes.c_void_p(v_pool.data_ptr()), ctypes.c_void_p(tables.data_ptr()),
         ctypes.c_void_p(kv_len.data_ptr()), ctypes.c_void_p(ws_acc.data_ptr()),
         ctypes.c_void_p(ws_ml.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        r, c, hq, hkv, d, ps, n_pages, maxp, splits, pps,
+        r, c, hq, hkv, d, ps, n_pages, maxp, splits, pps, query_rows(gc),
         int(k_pool.dtype == torch.float8_e5m2), ctypes.c_float(scale),
         _build.stream_handle(q))
-    COUNTS.launches += 2          # the key-split pass and the merge pass
+    COUNTS.launches += 2          # the page-split pass and the merge pass
     _build.check(err, NAME)
     return out
 
@@ -156,5 +197,5 @@ def paged_prefill_sdpa(q: torch.Tensor, k_pool: torch.Tensor,
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                    i, i, i, i, i, ctypes.c_float, p]
+                                    i, i, i, i, i, i, ctypes.c_float, p]
     lib.paged_attention.restype = ctypes.c_int

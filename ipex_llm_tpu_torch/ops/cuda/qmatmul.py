@@ -2,11 +2,15 @@
 ``ipex_llm_tpu/ops/pallas/qmatmul.py::qmatmul_pallas``).
 
 ``csrc/qmatmul.cu`` holds the kernel, templated on the format, in two
-instances, and the note on their design and bound: a GEMV on the CUDA
-cores for M <= 8 (decode) and a tiled tensor-core product for M > 8 (the
-verify forward, the mixed tick's prefill rows, generate's prefill).
+instances, and the note on their design and bound: a GEMV for M <= 8
+(decode) that decodes into tensor-core fragments and splits K over the
+warps of a block and the blocks of a thread-block cluster, summing in
+shared memory (one launch), and a tiled tensor-core product for M > 8
+(the verify forward, the mixed tick's prefill rows, generate's prefill).
 :func:`plan` picks the instance, its row tile and its K split from the
-shapes alone.  :func:`qmatmul` launches it for CUDA tensors and runs
+shapes alone (:func:`gemv_plan` the GEMV's warps and cluster, and
+:func:`gemv_fragment_map` says which codes each lane decodes).
+:func:`qmatmul` launches it for CUDA tensors and runs
 :func:`qmatmul_plain` for CPU tensors.
 """
 
@@ -15,7 +19,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ipex_llm_tpu_torch.ops.cuda import _build
@@ -32,9 +38,13 @@ _BIT5 = ("sym_int5", "asym_int5")
 _TABLES = {"nf4": numerics.NF4_TABLE, "fp4": numerics.FP4_TABLE}
 ROUTES = ("gemv", "tiled")  # the kernel's two instances
 _GEMV_MAX_M = 8             # the GEMV instance takes M <= 8
-_COLS_PER_BLOCK = 512       # columns one GEMV block covers (csrc constant)
-_TARGET_BLOCKS = 4 * 132    # GEMV: about four resident blocks per SM
-_MIN_SPLIT_ROWS = 128       # GEMV: contraction rows of the shortest K split
+_GEMV_WARPS = 4             # warps per GEMV block (csrc kGemvWarps)
+_GEMV_COLS = 128            # output columns per GEMV warp (csrc kGemvCols)
+_GEMV_MAX_CLUSTER = 8       # the portable thread-block cluster size
+_GEMV_MAX_SPLITS = _GEMV_WARPS * _GEMV_MAX_CLUSTER
+_GEMV_TARGET_WARPS = 720      # GEMV warps to aim for (about 5.5 an SM)
+_GEMV_MIN_SPLIT_ROWS = 128  # contraction rows of the shortest GEMV split
+_GEMV_X_BYTES = 64 * 1024   # a GEMV block's bf16 x stage at most
 _TILE_N = 128               # tiled: output columns per block (csrc kTN)
 _TILE_K = 64                # tiled: contraction rows per step (csrc kTK)
 _TC_TARGET_BLOCKS = 2 * 132  # tiled: split K below two waves of 132 SMs
@@ -81,9 +91,111 @@ def qmatmul_plain(x: torch.Tensor, qt: QTensor, *,
     return y.to(torch.float32) if keep_f32 else y.to(x.dtype)
 
 
-def route(m: int) -> str:
-    """The instance that takes ``m`` rows of x: ``gemv`` or ``tiled``."""
-    return "gemv" if m <= _GEMV_MAX_M else "tiled"
+class GemvPlan(NamedTuple):
+    """The GEMV instance's launch: ``warps_k`` of a block's 4 warps split K
+    (the other ``4 // warps_k`` take 128 columns each), ``cluster`` blocks
+    of a thread-block cluster split it further, and split ``s = rank *
+    warps_k + wk`` holds quantization blocks ``[s * qb_per_warp, (s + 1) *
+    qb_per_warp)``; the grid is ``(cluster, col_blocks)`` and the partial
+    sums meet in the cluster's shared memory, so a call is one launch."""
+    warps_k: int
+    cluster: int
+    qb_per_warp: int
+    col_blocks: int
+
+    @property
+    def splits(self) -> int:
+        return self.warps_k * self.cluster
+
+    def x_rows(self, bs: int) -> int:
+        """Contraction rows of x one block stages."""
+        return self.warps_k * self.qb_per_warp * bs
+
+
+@functools.lru_cache(maxsize=1024)
+def gemv_plan(m: int, n: int, k: int, bs: int) -> GemvPlan | None:
+    """The GEMV plan, from shapes alone: the fewest K splits (a power of
+    two, at most 4 warps x 8 ranks) that put at least 720 warps on the
+    card (about 5.5 an SM: fewer, longer streams timed faster on the H100
+    than a full wave of shorter ones), each split at least 128 rows of
+    whole quantization blocks; the block's warps split K before the
+    cluster does, unless the block's x stage would pass 64 KiB.  None when
+    no plan fits (K past about 32,768 rows at 8 rows of x): the tiled
+    instance takes the call."""
+    nqb = k // bs
+    tiles = -(-n // _GEMV_COLS)
+    max_splits = max(1, min(_GEMV_MAX_SPLITS,
+                            nqb // max(1, _GEMV_MIN_SPLIT_ROWS // bs)))
+    splits = 1
+    while splits * 2 <= max_splits and tiles * splits < _GEMV_TARGET_WARPS:
+        splits *= 2
+    x_cap = _GEMV_X_BYTES // (2 * tile_rows(m))   # rows of x a block holds
+    while splits <= _GEMV_MAX_SPLITS:
+        per = -(-nqb // splits)
+        for wk in (4, 2, 1):
+            if (splits % wk == 0 and splits // wk <= _GEMV_MAX_CLUSTER
+                    and wk * per * bs <= x_cap):
+                cols = (_GEMV_WARPS // wk) * _GEMV_COLS
+                return GemvPlan(wk, splits // wk, per, -(-n // cols))
+        splits *= 2
+    return None
+
+
+def gemv_fragment_map(layout: str, bs: int) -> dict[str, np.ndarray]:
+    """Which weight each lane of a GEMV warp decodes into each bf16 half of
+    its mma.sync A registers, and which x row into its B registers, as
+    ``csrc/qmatmul.cu`` reads them (``layout``: ``nib4``, ``bit5`` or
+    ``byte``; ``bs`` the block size).  A arrays are [k-steps of a block, 32
+    lanes, 8 tiles, 4 registers, 2 halves]: ``a_row``/``a_k`` the position
+    in the 16 x 16 A tile (mma.sync's fragment layout), ``n`` the column of
+    the warp's 128, ``k`` the row of the block; ``data_row`` the row of the
+    block's data plane that holds the code (of the byte at column ``n``),
+    ``shift`` its bit offset in that byte (0, or 4 for a high nibble),
+    ``bit_row``/``bit`` where the fifth bit lies in the block's bit-plane
+    rows (5-bit; else -1).  ``x_k`` [k-steps, 32 lanes, 2 registers, 2
+    halves]: the block row of x in B register b0/b1 of lane l (column m =
+    l // 4)."""
+    steps = bs // 16
+    sh = (steps, 32, 8, 4, 2)
+    st, ln, tile, reg, half = np.meshgrid(
+        *(np.arange(d) for d in sh), indexing="ij")
+    g, t = ln // 4, ln % 4
+    hi = reg // 2                           # a[2], a[3]: A k 8..15
+    out = {"a_row": g + 8 * (reg % 2), "a_k": 2 * t + half + 8 * hi,
+           "n": 16 * g + 2 * tile + reg % 2}
+    xs, xl, xr, xh = np.meshgrid(*(np.arange(d) for d in (steps, 32, 2, 2)),
+                                 indexing="ij")
+    xt = xl % 4
+    if layout == "byte":
+        out["k"] = 16 * st + 4 * t + 2 * hi + half
+        out["data_row"] = out["k"]
+        out["shift"] = np.zeros(sh, np.int64)
+        out["x_k"] = 16 * xs + 4 * xt + 2 * xr + xh
+    else:
+        out["data_row"] = 8 * st + 2 * t + half
+        out["k"] = out["data_row"] + (bs // 2) * hi
+        out["shift"] = 4 * hi
+        out["x_k"] = 8 * xs + 2 * xt + xh + (bs // 2) * xr
+    if layout == "bit5":
+        out["bit_row"] = st + 2 * hi
+        out["bit"] = 2 * t + half
+    else:
+        out["bit_row"] = out["bit"] = np.full(sh, -1)
+    return out
+
+
+def route(m: int, n: int, k: int, bs: int) -> str:
+    """The instance that takes ``m`` rows of x: ``gemv`` for M <= 8 (when
+    its plan fits the shapes), else ``tiled``."""
+    if m <= _GEMV_MAX_M and gemv_plan(m, n, k, bs) is not None:
+        return "gemv"
+    return "tiled"
+
+
+def launches(rt: str, splits: int) -> int:
+    """Kernel launches of one call: the tiled instance's K split adds the
+    reduce of its fp32 partials; the GEMV's splits meet in shared memory."""
+    return 2 if rt == "tiled" and splits > 1 else 1
 
 
 def tile_rows(m: int) -> int:
@@ -98,18 +210,16 @@ def tile_rows(m: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def split_plan(m: int, n: int, k: int, bs: int) -> tuple[int, int]:
     """(splits, quant blocks per split) over the K axis, from shapes alone.
-    Each split holds whole quantization blocks of ``bs`` rows.  GEMV: enough
-    CUDA blocks in flight to cover the card, each split at least 128 rows.
-    Tiled: splits only while the output tiles are under two waves of 132
-    SMs, each split whole 64-row K steps and at least 512 rows."""
+    Each split holds whole quantization blocks of ``bs`` rows.  GEMV: the
+    non-empty splits of :func:`gemv_plan` (its warps x cluster ranks), each
+    at least 128 rows.  Tiled: splits only while the output tiles are under two waves
+    of 132 SMs, each split whole 64-row K steps and at least 512 rows."""
     nqb = k // bs
-    mt = tile_rows(m)
-    if route(m) == "gemv":
-        tiles = -(-m // mt) * -(-n // _COLS_PER_BLOCK)
-        min_qb = max(1, _MIN_SPLIT_ROWS // bs)
-        splits = max(1, min(math.ceil(_TARGET_BLOCKS / tiles), nqb // min_qb))
-        per = -(-nqb // splits)
+    if route(m, n, k, bs) == "gemv":
+        # the non-empty splits: the plan's warps x ranks past them get none
+        per = gemv_plan(m, n, k, bs).qb_per_warp
         return -(-nqb // per), per
+    mt = max(16, tile_rows(m))
     tiles = -(-m // mt) * -(-n // _TILE_N)
     if tiles >= _TC_TARGET_BLOCKS:
         return 1, nqb
@@ -124,7 +234,9 @@ def split_plan(m: int, n: int, k: int, bs: int) -> tuple[int, int]:
 
 def plan(m: int, n: int, k: int, bs: int) -> tuple[str, int, int, int]:
     """(route, rows per block, splits, quant blocks per split)."""
-    return (route(m), tile_rows(m), *split_plan(m, n, k, bs))
+    rt = route(m, n, k, bs)
+    tile = tile_rows(m) if rt == "gemv" else max(16, tile_rows(m))
+    return (rt, tile, *split_plan(m, n, k, bs))
 
 
 # per format: (kernel format id, block size, num, den, zeros plane); the
@@ -187,12 +299,18 @@ def _launch(x: torch.Tensor, qt: QTensor, keep_f32: bool) -> torch.Tensor:
     if m == 0:
         return out
     rt, tile, splits, per = plan(m, n, k, bs)
-    if rt == "tiled" and x.data_ptr() % 16:
-        x = x.clone()                # the tiled instance's 16-byte copies
+    if x.data_ptr() % 16:
+        x = x.clone()                # both instances' 16-byte copies of x
     vec16 = n % 16 == 0 and all(
         t is None or t.data_ptr() % 16 == 0 for t in (data, scales, zeros))
+    if rt == "gemv":                 # the launch's splits: warps x ranks
+        gp = gemv_plan(m, n, k, bs)
+        warps_k, splits = gp.warps_k, gp.splits
+    else:
+        warps_k = 1
+    n_launch = launches(rt, splits)
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
+               if n_launch == 2 else None)
     table = _table(qt.qtype, dev) if qt.qtype in _TABLES else None
     # the argtypes declared in _declare convert the Python ints
     err = lib.qmatmul(
@@ -200,12 +318,10 @@ def _launch(x: torch.Tensor, qt: QTensor, keep_f32: bool) -> torch.Tensor:
         0 if zeros is None else zeros.data_ptr(),
         0 if table is None else table.data_ptr(), out.data_ptr(),
         int(keep_f32), 0 if partial is None else partial.data_ptr(), m, n, k,
-        splits, per, tile, int(vec16), _build.stream_handle(x))
-    # a K split launches the product and then the reduce of its partials
-    launches = 2 if splits > 1 else 1
-    COUNTS.launches += launches
-    COUNTS.by_format[qt.qtype] += launches
-    COUNTS.by_route[rt] += launches
+        splits, per, tile, int(vec16), warps_k, _build.stream_handle(x))
+    COUNTS.launches += n_launch
+    COUNTS.by_format[qt.qtype] += n_launch
+    COUNTS.by_route[rt] += n_launch
     _build.check(err, NAME)
     return out
 
@@ -222,5 +338,5 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *,
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.qmatmul.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i,
-                           p]
+                           i, p]
     lib.qmatmul.restype = ctypes.c_int

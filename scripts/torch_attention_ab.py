@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels B1 (ragged paged), B3 (dense decode)
-and B4 (flash) from one source tree, so that two trees can be compared on
+"""Time the port's attention kernels B1 (ragged paged), B3 (dense decode),
+B4 (flash) and B5 (split paged) from one source tree, so that two trees can be compared on
 one card.
 
     python3 scripts/torch_attention_ab.py TREE build   # build TREE's kernels
@@ -20,6 +20,12 @@ launches, over bf16 and e5m2 pools, in four cases: the row mix of a mixed
 tick at C=128 and at C=16 (even rows decode at 2,048 slots, odd rows take
 a ragged chunk, the last two idle), the verify chunks of speculation (C=4)
 and decode (C=1), both at staggered lengths of 130 to 2,048 slots.
+
+B5 runs on ``chip_smoke.py``'s ``b5`` shapes: the same widths, rows of 1,
+100, 130, 511, 900, 1300, 2047 and 2048 slots, pages in random order with
+-1 past each row's last page, at C = 1 (decode), 4 (the verify chunks of
+spec_k 3) and 128, over bf16 and e5m2 pools, as device time from CUDA-graph
+replays (below).
 
 B3 and B4 run at Mistral-7B's widths (32 query heads over 8 kv heads of
 128) on the shapes of ``chip_smoke.py``'s generate runs: B4 on run (a)'s
@@ -41,7 +47,7 @@ import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-from torch_qmatmul_ab import turns  # noqa: E402  (the shared alternation)
+from torch_qmatmul_ab import graph_ms, turns  # noqa: E402  (shared)
 
 LENS = [130, 300, 511, 700, 900, 1064, 1500, 2048]
 
@@ -77,36 +83,6 @@ def cases(torch, dev, gen, pool_dtype):
                             torch.tensor(chunk, dtype=torch.int32,
                                          device=dev))))
     return res
-
-
-def graph_ms(torch, calls, replays: int = 5) -> float:
-    """Device ms per call of ``calls`` (a list of closures), captured once
-    into a CUDA graph and replayed ``replays`` times: the kernels' time
-    without the host's pace of launching them (``chip_smoke.py`` times B3
-    and its library yardstick with it too)."""
-    for fn in calls:
-        fn()
-    torch.cuda.synchronize()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for fn in calls:                   # warm the allocator on the stream
-            fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in calls:
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(replays):
-        graph.replay()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / (replays * len(calls))
 
 
 def dense_cases(torch, dev, gen, b3, b4) -> dict:
@@ -159,6 +135,35 @@ def dense_cases(torch, dev, gen, b3, b4) -> dict:
     return out
 
 
+B5_LENS = [1, 100, 130, 511, 900, 1300, 2047, 2048]
+
+
+def b5_cases(torch, dev, gen, b5) -> dict:
+    """B5 at chip_smoke.py's b5 shapes: label -> list of calls."""
+    r, hq, hkv, d, ps, maxp = 8, 32, 32, 128, 128, 16
+    out = {}
+    for pool_name, pool_dtype in (("bf16", torch.bfloat16),
+                                  ("e5m2", torch.float8_e5m2)):
+        n_pages = 1 + r * maxp
+        kp = torch.randn(n_pages, hkv, ps, d, generator=gen, device=dev).to(
+            pool_dtype)
+        vp = torch.randn(n_pages, hkv, ps, d, generator=gen, device=dev).to(
+            pool_dtype)
+        tables = (1 + torch.randperm(r * maxp, generator=gen, device=dev)
+                  ).to(torch.int32).reshape(r, maxp)
+        for i, n in enumerate(B5_LENS):
+            tables[i, -(-n // ps):] = -1
+        kv_len = torch.tensor(B5_LENS, dtype=torch.int32, device=dev)
+        for c in (1, 4, 128):
+            q = torch.randn(r, c, hq, d, generator=gen, device=dev).to(
+                torch.bfloat16)
+            fn = b5.paged_decode_sdpa if c == 1 else b5.paged_prefill_sdpa
+            out[f"b5 {pool_name} C={c}"] = [
+                lambda fn=fn, q=q, kp=kp, vp=vp: fn(q, kp, vp, tables,
+                                                    kv_len)] * 10
+    return out
+
+
 def time_tree(root: pathlib.Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -184,7 +189,10 @@ def time_tree(root: pathlib.Path) -> dict:
     from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
     from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
 
-    for label, calls in dense_cases(torch, dev, gen, b3, b4).items():
+    from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
+
+    for label, calls in {**dense_cases(torch, dev, gen, b3, b4),
+                         **b5_cases(torch, dev, gen, b5)}.items():
         out[label] = graph_ms(torch, calls)
         torch.cuda.empty_cache()
     return out
@@ -200,7 +208,8 @@ def main() -> int:
         from ipex_llm_tpu_torch.ops.cuda import _build
 
         print(root.name, "build", _build.build(
-            ["ragged_paged_attention", "decode_attention", "flash_attention"]))
+            ["ragged_paged_attention", "decode_attention", "flash_attention",
+             "paged_attention"]))
         return 0
     print(json.dumps({"tree": str(root), **time_tree(root)}))
     return 0

@@ -15,12 +15,15 @@ parent's median to the change's.
 
 It times sym_int4 at Llama-2-7B's qkv, gate_up and down at M = 1, 8
 (decode), 32 (the verify forward of spec_k 3 over 8 rows) and 128 (a
-mixed tick's prefill rows), Mistral-7B's gate_up at M = 8192 (generate's
-prefill), and fp8_e5m2 at Llama-2-7B's gate_up at M = 8, 32 and 128, with
-CUDA events (100 launches, 3 at M=8192), rotating over five weights so
-that each launch finds its weight out of L2.  It takes the wrapper of
-either API: ``qmatmul(x, qt)`` or, on trees from before the ten-format
-kernel, ``qmatmul_int4(x, data, scales)`` (sym_int4 only).
+mixed tick's prefill rows), Mistral-7B's gate_up at M = 4 (generate's
+decode) and 8192 (generate's prefill), every other format at Llama-2-7B's
+gate_up at M = 1, 4 and 8 (the GEMV instance), and fp8_e5m2 there at M =
+32 and 128 too.  Each case is the device time per call of calls captured
+in a CUDA graph and replayed (:func:`graph_ms`), rotating over five
+weights so that each call finds its weight out of L2 (three calls at
+M=8192).  It takes the wrapper of either API: ``qmatmul(x, qt)`` or, on
+trees from before the ten-format kernel, ``qmatmul_int4(x, data,
+scales)`` (sym_int4 only).
 """
 
 from __future__ import annotations
@@ -34,10 +37,44 @@ import sys
 
 LLAMA = {"qkv": (4096, 12288), "gate_up": (4096, 22016),
          "down": (11008, 4096)}
-CASES = ([("sym_int4", w, k, n, (1, 8, 32, 128))
-          for w, (k, n) in LLAMA.items()]
-         + [("sym_int4", "mistral gate_up", 4096, 28672, (8192,)),
-            ("fp8_e5m2", "gate_up", 4096, 22016, (8, 32, 128))])
+FORMATS = ("sym_int4", "asym_int4", "nf4", "fp4", "sym_int5", "asym_int5",
+           "sym_int8", "fp6", "fp8_e4m3", "fp8_e5m2")
+CASES = ([("sym_int4", w, k, n, (1, 4, 8, 32, 128) if w == "gate_up"
+           else (1, 8, 32, 128)) for w, (k, n) in LLAMA.items()]
+         + [("sym_int4", "mistral gate_up", 4096, 28672, (4, 8192))]
+         + [(q, "gate_up", 4096, 22016,
+             (1, 4, 8, 32, 128) if q == "fp8_e5m2" else (1, 4, 8))
+            for q in FORMATS[1:]])
+
+
+def graph_ms(torch, calls, replays: int = 5) -> float:
+    """Device ms per call of ``calls`` (a list of closures), captured once
+    into a CUDA graph and replayed ``replays`` times: the kernels' time
+    without the host's pace of launching them (``chip_smoke.py`` and
+    ``torch_attention_ab.py`` time with it too)."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for fn in calls:                   # warm the allocator on the stream
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(replays):
+        graph.replay()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / (replays * len(calls))
 
 
 def time_tree(root: pathlib.Path) -> dict:
@@ -58,27 +95,16 @@ def time_tree(root: pathlib.Path) -> dict:
                            * (1.2 / math.sqrt(k)), qtype) for _ in range(5)]
         for m in ms:
             x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
-            it = [0]
 
-            def run():
-                q = copies[it[0] % len(copies)]
-                it[0] += 1
+            def call(q, x=x):
                 if new:
-                    b2.qmatmul(x, q)
-                else:
-                    b2.qmatmul_int4(x, q.data, q.scales)
+                    return b2.qmatmul(x, q)
+                return b2.qmatmul_int4(x, q.data, q.scales)
 
-            run()
-            torch.cuda.synchronize()
-            n_it = 3 if m == 8192 else 100
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            for _ in range(n_it):
-                run()
-            e.record()
-            e.synchronize()
-            out[f"{qtype} {name} M={m}"] = s.elapsed_time(e) / n_it
+            calls = [lambda q=q: call(q) for q in copies]
+            out[f"{qtype} {name} M={m}"] = graph_ms(
+                torch, calls[:3] if m == 8192 else calls * 4)
+            torch.cuda.empty_cache()
         del copies
     return out
 

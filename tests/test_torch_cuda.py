@@ -1,6 +1,6 @@
 """The port's hand-written kernels on a card against their plain versions:
-B5 (split paged attention), B2's tiled tensor-core instance (M > 8) in
-every block format, B1 (ragged paged attention) in both its instances
+B5 (split paged attention) in both its tile heights, B2's GEMV (M <= 8)
+and tiled (M > 8) instances in every block format, B1 (ragged paged attention) in both its instances
 (query tiles, key split), B3 (dense decode attention) and B4 (flash
 attention).  Every case carries the ``cuda`` marker and
 skips without a card.  The file imports neither JAX nor the JAX package,
@@ -27,41 +27,88 @@ from ipex_llm_tpu_torch.quantize.qtypes import resolve
 ULP = 2.0 ** -7         # one bf16 ulp, relative to a row's largest output
 
 
-def _b5_case(storage: str, c: int, gen):
-    """Rows of 0 to 96 slots over 32-slot pages, -1 past each row's last
-    page; two rows shorter than C=4 and one empty."""
-    r, hkv, hq, d, ps, maxp = 6, 2, 8, 128, 32, 3
+def _b5_case(storage: str, c: int, gen, g: int = 4):
+    """Rows of 0 to 96 slots (C <= 4) or to 333 (wider chunks) over 32-slot
+    pages, -1 past each row's last page; rows shorter than C (their early
+    queries see no key) and one empty row."""
+    wide = c > 4
+    r, hkv, d, ps, maxp = 6, 2, 128, 32, 11 if wide else 3
     dtype = torch.bfloat16 if storage == "bf16" else torch.float8_e5m2
     n_pages = 1 + r * maxp
     k = torch.randn(n_pages, hkv, ps, d, generator=gen).to(dtype)
     v = torch.randn(n_pages, hkv, ps, d, generator=gen).to(dtype)
-    kv_len = torch.tensor([1, 2, 37, 96, 0, 50], dtype=torch.int32)
+    kv_len = torch.tensor([1, 100, 130, 200, 0, 333] if wide
+                          else [1, 2, 37, 96, 0, 50], dtype=torch.int32)
     tables = (1 + torch.randperm(r * maxp, generator=gen)).to(
         torch.int32).reshape(r, maxp)
     for i in range(r):
         tables[i, -(-int(kv_len[i]) // ps):] = -1
-    q = torch.randn(r, c, hq, d, generator=gen).to(torch.bfloat16)
+    q = torch.randn(r, c, hkv * g, d, generator=gen).to(torch.bfloat16)
     return q, k, v, tables, kv_len
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["bf16", "e5m2"])
-@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("c", [1, 4, 16, 128])
 def test_paged_attention_kernel_matches_plain(storage, c):
-    """Two launches (the key-split pass and the merge), every query row
-    within one bf16 ulp of its largest plain output, exact zeros where a
-    query sees no key."""
+    """Two launches (the page-split pass and the merge), G = 4: one
+    16-row block per split at C = 1 and 4 (G*C <= 16), 64-row tiles at C =
+    16 and 128; every query row within one bf16 ulp of its largest plain
+    output, exact zeros where a query sees no key, and the same bits on a
+    second call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     args = _b5_case(storage, c, torch.Generator().manual_seed(c))
     fn = b5.paged_decode_sdpa if c == 1 else b5.paged_prefill_sdpa
     want = fn(*args).float()
     b5.COUNTS.reset()
-    got = fn(*[t.cuda() for t in args]).float().cpu()
+    got_t = fn(*[t.cuda() for t in args])
     assert b5.COUNTS.launches == 2 and b5.COUNTS.plain_calls == 0
+    got = got_t.float().cpu()
     top = want.abs().amax(dim=(2, 3), keepdim=True)
     assert ((got - want).abs() <= ULP * top).all()
     assert not got[want.abs().amax(dim=(2, 3)) == 0].any()
+    assert torch.equal(fn(*[t.cuda() for t in args]), got_t)
+
+
+# (K, N): N % 16 == 0 (16-byte copies) and not (200, 1028: 4-byte copies),
+# and shapes whose plans split K over 2 warps, 4 warps and clusters of up
+# to 8 blocks
+B2_GEMV_SHAPES = ((256, 384), (224, 200), (1024, 1040), (4096, 1024),
+                  (2048, 1028), (4096, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", b2.FORMATS)
+def test_qmatmul_gemv_kernel_matches_plain(qtype):
+    """B2's GEMV instance at M = 1 to 8, bf16 and fp32 out: one launch a
+    call, each output row within one bf16 ulp of its largest plain output,
+    and the same bits on a second call (the splits meet in a fixed
+    order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(11)
+    bs = resolve(qtype).block_size
+    for k, n in B2_GEMV_SHAPES:
+        if k % bs:
+            continue
+        wq = quantize(torch.randn(k, n, generator=gen) / math.sqrt(k), qtype)
+        wq_dev = wq.planes(lambda t: t.cuda())
+        for m in (1, 2, 3, 4, 5, 8):
+            x = torch.randn(m, k, generator=gen).to(torch.bfloat16)
+            for keep_f32 in (False, True):
+                want = b2.qmatmul_plain(x, wq, keep_f32=keep_f32).float()
+                b2.COUNTS.reset()
+                got = b2.qmatmul(x.cuda(), wq_dev, keep_f32=keep_f32)
+                torch.cuda.synchronize()
+                assert b2.COUNTS.launches == 1
+                assert b2.COUNTS.by_route["gemv"] == 1
+                assert b2.COUNTS.plain_calls == 0
+                assert torch.equal(
+                    b2.qmatmul(x.cuda(), wq_dev, keep_f32=keep_f32), got)
+                got = got.float().cpu()
+                top = want.abs().amax(dim=1, keepdim=True)
+                assert ((got - want).abs() <= ULP * top).all(), (k, n, m)
 
 
 @pytest.mark.cuda

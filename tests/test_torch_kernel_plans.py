@@ -1,19 +1,23 @@
-"""The launch plans of the port's redesigned kernels, and the key splits
-of B1 and B3 emulated on the CPU.
+"""The launch plans of the port's redesigned kernels, and the splits of
+B1, B3, B5 and B2's GEMV emulated on the CPU.
 
-B2 (the dequant-matmul) runs a GEMV for M <= 8 and a tiled tensor-core
-product above, with a K split whose pieces hold whole quantization blocks
-and whole 64-row steps.  B1 (ragged paged attention) splits the keys of
-few-query rows (G*C <= 16) into whole pages, runs the split pass and
-merges the partials in split order.  B3 (dense decode attention) splits
-each row's visible range evenly on the device and merges the same way.
-B4 (flash attention) walks only the key tiles its queries can see and
-compares slots only on tiles that cross a boundary.  The kernels run only
-on a card (``tests/test_torch_cuda.py``); here the plans are checked from
-shapes, and the split-then-merge arithmetic is emulated in float64 (four
-warp slices of each 64-key tile merged inside a split, then the splits,
-empty ones with l = 0) and held against the plain versions and the JAX
-kernels, run as the JAX tests run them on the CPU.
+B2 (the dequant-matmul) runs a GEMV for M <= 8, whose K split over a
+block's warps and a thread-block cluster meets in shared memory (one
+launch), and a tiled tensor-core product above, with a K split whose
+pieces hold whole quantization blocks and whole 64-row steps; the GEMV's
+fragment map (which codes each lane decodes into its mma.sync registers)
+is checked against planes the codec packs.  B1 (ragged paged attention)
+splits the keys of few-query rows (G*C <= 16) into whole pages, runs the
+split pass and merges the partials in split order.  B3 (dense decode
+attention) splits each row's visible range evenly on the device and
+merges the same way.  B4 (flash attention) walks only the key tiles its
+queries can see and compares slots only on tiles that cross a boundary.
+B5 (split paged attention) splits every row's pages at every chunk width
+and walks, skips and masks key tiles per warp.  The kernels run only on a
+card (``tests/test_torch_cuda.py``); here the plans are checked from
+shapes, and the split-then-merge arithmetic is emulated in float64 and
+held against the plain versions and the JAX kernels, run as the JAX tests
+run them on the CPU.
 """
 
 import jax.numpy as jnp
@@ -22,14 +26,24 @@ import pytest
 import torch
 
 from ipex_llm_tpu.ops.pallas.decode_attention import decode_sdpa as ref_decode
+from ipex_llm_tpu.ops.pallas.paged_attention import \
+    paged_decode_sdpa as ref_paged_decode
+from ipex_llm_tpu.ops.pallas.paged_attention import \
+    paged_prefill_sdpa as ref_paged_prefill
+from ipex_llm_tpu.ops.pallas.qmatmul import qmatmul_pallas
 from ipex_llm_tpu.ops.pallas.ragged_paged_attention import \
     ragged_paged_sdpa as ref_ragged_paged_sdpa
+from ipex_llm_tpu.quantize import core as ref_core
 from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
 from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
+from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
 from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
 from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
+from ipex_llm_tpu_torch.quantize import core as qcore
+from ipex_llm_tpu_torch.quantize.qtypes import resolve
 from tests.test_torch_attention_dense import _pair, assert_rows_close
-from tests.test_torch_ops import B1_ULP, _f32, _ragged_case
+from tests.test_torch_ops import (B1_ULP, _bf16, _f32, _port_qtensor,
+                                  _ragged_case)
 
 # -- B2 ------------------------------------------------------------------------
 
@@ -362,3 +376,268 @@ def test_flash_tile_walk_covers_visible_pairs(case):
     # the mask-free rule is not vacuous on these cases
     assert b4.tile_kind(0, 64, 79, 0, 2048, causal=True, window=None) == \
         b4.FREE
+
+
+# -- B2's GEMV instance (M <= 8) -------------------------------------------
+
+LLAMA2_7B = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+             (4096, 32000))
+MISTRAL_7B = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+              (4096, 32000))
+
+
+@pytest.mark.parametrize("model", ["llama2-7b", "mistral-7b"])
+@pytest.mark.parametrize("qtype", b2.FORMATS)
+def test_qmatmul_gemv_plan_covers_every_block_once(model, qtype):
+    """At M = 1 .. 8 and each of the model's five weight shapes, the GEMV
+    plan takes the call in one launch, with at most 8 cluster ranks and
+    4 warps along K; its splits (rank * warps_k + warp) cover every
+    quantization block exactly once, its column blocks every column, and
+    a block's bf16 x stage fits in 64 KiB."""
+    bs = resolve(qtype).block_size
+    for m in range(1, 9):
+        for k, n in (LLAMA2_7B if model == "llama2-7b" else MISTRAL_7B):
+            route, tile, splits, per = b2.plan(m, n, k, bs)
+            gp = b2.gemv_plan(m, n, k, bs)
+            assert route == "gemv" and tile == b2.tile_rows(m)
+            assert b2.launches(route, splits) == 1 and 1 <= gp.cluster <= 8
+            assert gp.warps_k in (1, 2, 4) and per == gp.qb_per_warp
+            nqb = k // bs
+            seen = np.zeros(nqb, int)
+            for rank in range(gp.cluster):
+                for wk in range(gp.warps_k):
+                    s = rank * gp.warps_k + wk
+                    seen[s * per:min(nqb, (s + 1) * per)] += 1
+            assert (seen == 1).all()
+            assert (splits - 1) * per < nqb <= splits * per <= \
+                gp.splits * per
+            assert gp.col_blocks * (4 // gp.warps_k) * 128 >= n
+            assert tile * gp.x_rows(bs) * 2 <= 64 * 1024
+
+
+@pytest.mark.parametrize("layout,bs,qtype", [
+    ("nib4", 32, "sym_int4"), ("nib4", 64, "nf4"), ("bit5", 32, "sym_int5"),
+    ("byte", 32, "sym_int8"), ("byte", 64, "fp6"), ("byte", 128, "fp8_e5m2")])
+def test_qmatmul_gemv_fragment_map(layout, bs, qtype):
+    """The GEMV lanes' A fragments, as ``gemv_fragment_map`` mirrors the
+    kernel: in every k-step each 16 x 16 A tile is filled exactly once,
+    from 16 distinct columns (two per lane group) and the step's 16
+    contraction rows, every row of the block once over its steps; the A k
+    index maps to the same contraction row in every A row and in x's B
+    fragment; and each code read where the map says (data row, nibble,
+    fifth bit) of planes packed by the codec is the code of that (row,
+    column)."""
+    fm = b2.gemv_fragment_map(layout, bs)
+    steps = bs // 16
+    bits = {"nib4": 4, "bit5": 5, "byte": 8}[layout]
+    rng = np.random.default_rng(bs + bits)
+    codes = rng.integers(0, 2 ** min(bits, 8), (bs, 128))
+    packed = qcore._pack_codes(torch.from_numpy(codes).to(torch.uint8), bs,
+                               bits).numpy()
+    data = packed[:bs // 2] if bits in (4, 5) else packed
+    hb = packed[bs // 2:] if bits == 5 else None
+    covered = np.zeros((bs, 128), int)
+    for st in range(steps):
+        for tile in range(8):
+            sl = (st, slice(None), tile)
+            ar, ak = fm["a_row"][sl].ravel(), fm["a_k"][sl].ravel()
+            n, k = fm["n"][sl].ravel(), fm["k"][sl].ravel()
+            assert len(set(zip(ar, ak))) == 256 and ar.max() < 16
+            assert len(set(zip(n, k))) == 256
+            assert set(n) == {16 * g + 2 * tile + j for g in range(8)
+                              for j in range(2)}
+            assert set(k) == set(range(16 * st, 16 * st + 16)) or \
+                layout != "byte"
+            # one contraction row per A k, shared by x's B fragment
+            k_of = {}
+            for a, kk in zip(ak, k):
+                assert k_of.setdefault(a, kk) == kk
+            for ln in range(32):
+                for reg in range(2):
+                    for h in range(2):
+                        a = 2 * (ln % 4) + h + 8 * reg
+                        assert fm["x_k"][st, ln, reg, h] == k_of[a]
+            np.add.at(covered, (k, n), 1)
+            dr, sh = fm["data_row"][sl].ravel(), fm["shift"][sl].ravel()
+            got = (data[dr, n] >> sh) & (0xF if bits in (4, 5) else 0xFF)
+            if bits == 5:
+                br, bt = fm["bit_row"][sl].ravel(), fm["bit"][sl].ravel()
+                got = got | (((hb[br, n] >> bt) & 1) << 4)
+            np.testing.assert_array_equal(got, codes[k, n])
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("qtype", b2.FORMATS)
+def test_qmatmul_gemv_split_order_matches_plain_and_pallas(qtype):
+    """The GEMV's summation in float64: each split's partial over its
+    quantization blocks (dequantized bf16 weights), rounded to fp32 as the
+    warps' accumulators hold it, summed in split order (rank, then the
+    block's warps) in fp32 and rounded to bf16 -- at the wrapper's plan and
+    at one block a split (splits past the last block empty) -- agrees with
+    the plain version and the JAX Pallas kernel (interpreted) within one
+    bf16 ulp of each row's largest output."""
+    bs = resolve(qtype).block_size
+    k, n = 4 * bs * 2, 200
+    rng = np.random.default_rng(17)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    ref_qt = ref_core.quantize(jnp.asarray(w), qtype)
+    qt = _port_qtensor(ref_qt)
+    wq = qcore.dequantize_padded(qt).to(torch.bfloat16).double().numpy()
+    nqb = k // bs
+    for m in (1, 5, 8):
+        xj, xt = _bf16(rng.standard_normal((m, k)))
+        xd = xt.double().numpy()
+        want_pallas = _f32(qmatmul_pallas(xj, ref_qt))
+        plain = _f32(b2.qmatmul(xt, qt))
+        gp = b2.gemv_plan(m, n, k, bs)
+        for splits, per in ((gp.splits, gp.qb_per_warp), (nqb + 3, 1)):
+            acc = np.zeros((m, n), np.float32)
+            for s in range(splits):
+                rows = slice(s * per * bs, min(k, (s + 1) * per * bs))
+                acc = acc + (xd[:, rows] @ wq[rows]).astype(np.float32)
+            got = _f32(torch.from_numpy(acc).to(torch.bfloat16))
+            for ref in (plain, want_pallas):
+                tol = 2.0 ** -7 * np.abs(ref).max(axis=1, keepdims=True)
+                assert (np.abs(got - ref) <= tol).all(), (qtype, m, splits)
+
+
+# -- B5 ------------------------------------------------------------------------
+
+def _b5_rows(c, g, rng):
+    """Rows at ragged lengths over 16-slot pages (64-slot pages for C >
+    4, so that a split holds whole 64-key tiles), -1 past each row's last
+    page: one empty, some shorter than C, one at the table's end."""
+    r, hkv, d = 4, 2, 16
+    ps, maxp = (64, 5) if c > 4 else (16, 13)
+    kv_len = np.array([0, max(1, c // 2), 61 + c, maxp * ps], np.int32)
+    tables = rng.permutation(np.arange(1, 1 + r * maxp)).astype(np.int32)
+    tables = tables.reshape(r, maxp)
+    for i in range(r):
+        tables[i, -(-int(kv_len[i]) // ps):] = -1
+    return r, hkv, hkv * g, d, ps, maxp, kv_len, tables
+
+
+def _b5_walk(c, g, kv_len, hkv, ps, maxp, splits, pps):
+    """Per (row, flat query row j): the keys the kernel's blocks would give
+    it, by split: a block (query tile, split) walks key_tiles() cut at its
+    rows' last slot; its warp of 16 rows runs each tile unless SKIP, and on
+    a FREE tile sees every key, on a MASKED one only its visible keys."""
+    gc = g * c
+    rows_blk, kt = b5.query_rows(gc), b5.key_tile(gc)
+    out = {}
+    for r, kvl in enumerate(kv_len):
+        kvl = int(kvl)
+        live = min(kvl, maxp * ps)
+        qpos = [kvl - c + j % c for j in range(gc)]
+        for j0 in range(0, gc, rows_blk):
+            blk = range(j0, min(gc, j0 + rows_blk))
+            q_hi = max(qpos[j] for j in blk)
+            for s in range(splits):
+                k_lo = s * pps * ps
+                k_hi = min(live, (s + 1) * pps * ps, q_hi + 1)
+                for w0 in range(j0, j0 + rows_blk, b5.WARP_ROWS):
+                    wrows = [j for j in range(w0, w0 + b5.WARP_ROWS)
+                             if j < gc]
+                    if not wrows:
+                        continue
+                    lo = min(qpos[j] for j in wrows)
+                    hi = max(qpos[j] for j in wrows)
+                    for k0 in b5.key_tiles(k_lo, k_hi, kt):
+                        kind = b5.tile_kind(k0, lo, hi, k_hi, kt)
+                        for j in wrows:
+                            keys = [kp for kp in range(k0, k0 + kt)
+                                    if kp < k_hi and kp <= qpos[j]]
+                            if kind == b5.SKIP:
+                                assert not keys
+                                continue
+                            if kind == b5.FREE:
+                                assert len(keys) == kt
+                            out.setdefault((r, j), {}).setdefault(
+                                s, []).extend(keys)
+    return out
+
+
+@pytest.mark.parametrize("c", [1, 4, 128])
+@pytest.mark.parametrize("g", [1, 4])
+def test_paged_split_walk_covers_visible_pairs_once(c, g):
+    """B5's page split at every C (G*C <= 16: 16-row single-warp blocks
+    over 16-key tiles; else 64-row blocks over 64-key tiles): the planned
+    splits cover each row's pages once; every (query, visible key) pair
+    is walked exactly once over the splits, by a tile its warp runs; a
+    skipped tile holds no visible pair and a tile run without the mask
+    only visible ones; a query with no visible key gets no key."""
+    rng = np.random.default_rng(10 * c + g)
+    r, hkv, hq, d, ps, maxp, kv_len, tables = _b5_rows(c, g, rng)
+    splits, pps = b5.split_plan(r, hkv, g * c, maxp)
+    assert (splits - 1) * pps < maxp <= splits * pps
+    walked = _b5_walk(c, g, kv_len, hkv, ps, maxp, splits, pps)
+    for rr, kvl in enumerate(kv_len):
+        for j in range(g * c):
+            qpos = int(kvl) - c + j % c
+            want = list(range(0, min(qpos + 1, int(kvl), maxp * ps)))
+            got = sorted(kp for keys in walked.get((rr, j), {}).values()
+                         for kp in keys)
+            assert got == want, (rr, j)
+    kinds = {b5.tile_kind(k0, lo, hi, k_hi, b5.key_tile(g * c))
+             for k0, lo, hi, k_hi in ((0, 200, 260, 320), (64, 0, 70, 128),
+                                      (256, 100, 200, 320))}
+    assert kinds == {b5.FREE, b5.MASKED, b5.SKIP}
+    # the plan covers the card at Llama-2-7B widths: 1,024 or more blocks
+    for cc in (1, 4, 128):
+        sp, _ = b5.split_plan(8, 32, cc, 16)
+        rows_blk = b5.query_rows(cc)
+        assert sp > 1 and 8 * 32 * -(-cc // rows_blk) * sp >= 1024
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e5m2"])
+@pytest.mark.parametrize("c", [1, 4, 128])
+def test_paged_split_then_merge_matches_plain_and_pallas(pool, c):
+    """G = 4: each split's (m, l, acc) over the keys the walk gives it, in
+    float64 over the widened pool, merged in split order with splits of l
+    == 0 skipped (the merge pass), agrees with ``paged_sdpa_plain`` and the
+    JAX kernel (interpreted) within 2^-7 of each query row's largest
+    output; queries with no visible key are exact zeros."""
+    g = 4
+    rng = np.random.default_rng(c)
+    r, hkv, hq, d, ps, maxp, kv_len, tables = _b5_rows(c, g, rng)
+    n_pages = 1 + r * maxp
+    dt = jnp.bfloat16 if pool == "bf16" else jnp.float8_e5m2
+    from tests.test_torch_paged_attention import _pool
+    k_j, k_t = _pool(rng, (n_pages, hkv, ps, d), pool)
+    v_j, v_t = _pool(rng, (n_pages, hkv, ps, d), pool)
+    q_j, q_t = _bf16(rng.standard_normal((r, c, hq, d)))
+    assert k_j.dtype == dt
+    splits, pps = b5.split_plan(r, hkv, g * c, maxp)
+    walked = _b5_walk(c, g, kv_len, hkv, ps, maxp, splits, pps)
+    kf = k_t.to(torch.float32).double().numpy()
+    vf = v_t.to(torch.float32).double().numpy()
+    qf = q_t.double().numpy()
+    tab = np.clip(tables, 0, n_pages - 1)
+    scale = d ** -0.5
+    got = np.zeros((r, c, hq, d))
+    for rr in range(r):
+        for h in range(hkv):
+            def rows(pool_, keys, rr=rr, h=h):
+                return np.stack([pool_[tab[rr, kp // ps], h, kp % ps]
+                                 for kp in keys])
+            for j in range(g * c):
+                gg, cc = j // c, j % c
+                qv = qf[rr, cc, h * g + gg]
+                by_split = walked.get((rr, j), {})
+                parts = [_partial(qv, by_split.get(s, []),
+                                  lambda ks: rows(kf, ks),
+                                  lambda ks: rows(vf, ks), scale)
+                         for s in range(splits)]
+                _, l, acc = _merge(parts)
+                got[rr, cc, h * g + gg] = acc / (l if l > 0 else 1.0)
+    got = _f32(torch.from_numpy(got).to(torch.bfloat16))
+    args_t = (q_t, k_t, v_t, torch.from_numpy(tables),
+              torch.from_numpy(kv_len))
+    args_j = (q_j, k_j, v_j, jnp.asarray(tables), jnp.asarray(kv_len))
+    fn = b5.paged_decode_sdpa if c == 1 else b5.paged_prefill_sdpa
+    ref_fn = ref_paged_decode if c == 1 else ref_paged_prefill
+    for ref in (_f32(fn(*args_t)), _f32(ref_fn(*args_j))):
+        top = np.abs(ref).max(axis=(2, 3), keepdims=True)
+        assert (np.abs(got - ref) <= 2.0 ** -7 * top).all(), (pool, c)
+    empty = (kv_len[:, None] - c + np.arange(c)) < 0
+    assert not got[empty].any()

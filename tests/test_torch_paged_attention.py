@@ -133,9 +133,9 @@ def test_wrappers_reject_what_they_do_not_take():
 
 
 @pytest.mark.parametrize("r,hkv,gc,maxp,want", [
-    (8, 32, 1, 16, (4, 4)),         # decode at Llama-2-7B widths
-    (8, 32, 4, 16, (4, 4)),         # verify chunks, spec_k = 3
-    (8, 32, 128, 16, (1, 16)),      # C = 128: the query tiles fill the card
+    (8, 32, 1, 16, (8, 2)),         # decode at Llama-2-7B widths
+    (8, 32, 4, 16, (8, 2)),         # verify chunks, spec_k = 3
+    (8, 32, 128, 16, (2, 8)),       # C = 128: 64-row tiles, still split
     (1, 1, 1, 3, (3, 1)),           # never more splits than pages
 ])
 def test_split_plan(r, hkv, gc, maxp, want):
