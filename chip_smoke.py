@@ -65,6 +65,20 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    24 new tokens, greedy and seeded sampling).  In each run every kernel
    of the path must have launched (B2 in the run's formats) and no plain
    version may have run;
+   then ``serve_http``: the OpenAI/TGI front end (``OpenAIServer``) over
+   the same weights and the serving configuration, over 127.0.0.1 when
+   aiohttp imports and else through its route coroutines in process
+   (``"transport"``): eight ``/v1/completions`` at once (prompts of
+   64-1000 ids, 32-64 new tokens, half greedy, half seeded), whose texts
+   must equal token for token the same requests sent straight to an
+   engine of the same configuration; two SSE chat streams in flight, a
+   stop string, a TGI ``/generate_stream`` and its ``/trace/{id}``; a
+   1000-id prompt with a 0.05 s deadline (408, and an SSE error event);
+   ``/metrics`` in both forms, ``/debug/flight``, ``/v1/models``,
+   ``/health``; then an engine of one row and a queue of one: 429, a
+   drain, ``/health`` "draining", 503.  B1 and B2 (GEMV and tiled) must
+   launch and no plain version run; output tok/s and TTFT p50/p95 of the
+   server and of the engine alone are printed with the card;
 6. ``b3``: dense decode attention against its plain version at
    Mistral-7B widths (32 query heads over 8 kv heads of 128), B=4,
    capacity 2304, ragged ``kv_start``/``kv_len``, over bf16 and e5m2
@@ -831,7 +845,11 @@ def main() -> int:
                    launches_by_route=by_route,
                    metrics={k: eng.metrics[k] for k in (
                        "mixed_steps", "steps", "host_syncs", "epoch_syncs",
-                       "liveness_syncs", "decode_horizon_effective")})
+                       "liveness_syncs", "decode_horizon_effective",
+                       "host_sync_s")},
+                   # one block read a tick plus the loop's liveness reads
+                   host_syncs_per_tick=1 + eng.metrics["liveness_syncs"]
+                   / eng.metrics["host_syncs"])
         if eng.ec.spec_k:
             m = eng.metrics
             if m["spec_steps"] == 0 or m["draft_proposed"] == 0:
@@ -839,9 +857,7 @@ def main() -> int:
             res.update(spec_stats=eng.spec_stats(), verify_rounds=m[
                 "spec_steps"], spec_ticks=m["spec_ticks"],
                 spec_emitted=m["spec_emitted"],
-                tokens_per_row_round=m["spec_emitted"] / m["spec_row_steps"],
-                # one block read a tick plus the loop's liveness reads
-                host_syncs_per_tick=1 + m["liveness_syncs"] / m["host_syncs"])
+                tokens_per_row_round=m["spec_emitted"] / m["spec_row_steps"])
         print("serve " + json.dumps(res), flush=True)
         return res
 
@@ -876,7 +892,7 @@ def main() -> int:
             return res
 
         rows = [serve("bf16", 8, 7), serve("fp8", 2, 8)]
-        return rows, serve_spec_phase(params)
+        return rows, serve_spec_phase(params), serve_http_phase(params)
 
     def spec_requests(seed: int):
         """Eight requests of 48 new tokens: four prompts repeat a random
@@ -1009,7 +1025,402 @@ def main() -> int:
                     greedy_worst_below_top_ulps=greedy_low,
                     tol_ulps=SPEC_ULPS)
 
-    report["serve"], report["serve_spec"] = serve_phase()
+    def serve_http_phase(params) -> dict:
+        """The OpenAI/TGI front end (``serving/api_server.py``) over the
+        engine at Llama-2-7B widths: over 127.0.0.1 when aiohttp imports,
+        else through the route coroutines in process.  Eight completions
+        whose greedy and seeded texts must equal, token for token, the
+        same requests sent straight to an engine of the same
+        configuration; two SSE chat streams, a stop string, a TGI stream
+        and its trace; /metrics, /debug/flight, /v1/models and /health;
+        then 429, 503 (drain) and 408 (deadline) as the clients see them."""
+        import asyncio
+        import threading
+        import urllib.error
+        import urllib.request
+        import zlib
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ipex_llm_tpu_torch.serving.api_server import (EventStream,
+                                                           OpenAIServer)
+        from ipex_llm_tpu_torch.serving.observe import Histogram
+
+        t_phase = time.perf_counter()
+        try:
+            import aiohttp  # noqa: F401
+            transport = "http"
+        except ImportError:
+            transport = "in_process"
+
+        class Tok:
+            """Id passthrough: a number is its id, another word a hash."""
+            eos_token_id = None
+            chat_template = None
+
+            def __call__(self, text):
+                return {"input_ids": [
+                    int(w) % cfg.vocab_size if w.isdigit()
+                    else zlib.crc32(w.encode()) % cfg.vocab_size
+                    for w in text.split()]}
+
+            def decode(self, ids):
+                return " ".join(str(i) for i in ids)
+
+        def parse_events(lines) -> list:
+            out = []
+            for ln in lines:
+                ln = ln.strip()
+                if ln.startswith("data: "):
+                    ev = ln[6:]
+                    out.append(ev if ev == "[DONE]" else json.loads(ev))
+            return out
+
+        class Client:
+            """One server on a loop of its own: reached over 127.0.0.1
+            (``transport`` "http") or through ``OpenAIServer.call``."""
+
+            def __init__(self, srv):
+                self.srv = srv
+                self.loop = asyncio.new_event_loop()
+                ready = threading.Event()
+
+                def run():
+                    asyncio.set_event_loop(self.loop)
+                    if transport == "http":
+                        from aiohttp import web
+                        self.runner = web.AppRunner(srv.app)
+                        self.loop.run_until_complete(self.runner.setup())
+                        site = web.TCPSite(self.runner, "127.0.0.1", 0)
+                        self.loop.run_until_complete(site.start())
+                        self.port = site._server.sockets[0].getsockname()[1]
+                    ready.set()
+                    self.loop.run_forever()
+
+                self.thread = threading.Thread(target=run, daemon=True)
+                self.thread.start()
+                if not ready.wait(60):
+                    fail("serve_http: the server did not start")
+
+            def request(self, method, path, body=None, headers=None):
+                """(status, headers, payload): the JSON body, the text
+                body, or the list of an event stream's events."""
+                if transport == "http":
+                    rq = urllib.request.Request(
+                        f"http://127.0.0.1:{self.port}{path}",
+                        data=None if body is None else json.dumps(
+                            body).encode(), method=method,
+                        headers={"Content-Type": "application/json",
+                                 **(headers or {})})
+                    try:
+                        resp = urllib.request.urlopen(rq, timeout=600)
+                    except urllib.error.HTTPError as e:
+                        resp = e
+                    raw = resp.read().decode()
+                    ctype = resp.headers.get("Content-Type", "")
+                    if "event-stream" in ctype:
+                        payload = parse_events(raw.splitlines())
+                    elif "json" in ctype:
+                        payload = json.loads(raw)
+                    else:
+                        payload = raw
+                    return resp.getcode(), dict(resp.headers), payload
+
+                async def go():
+                    out = await self.srv.call(method, path, body, headers)
+                    if isinstance(out, EventStream):
+                        frames = [f.decode() async for f in out.events]
+                        return out.status, out.headers, parse_events(frames)
+                    return out.status, out.headers, out.body
+                return asyncio.run_coroutine_threadsafe(
+                    go(), self.loop).result(600)
+
+            def close(self):
+                """Shut the server down (over HTTP, aiohttp's shutdown
+                drains and stops the engine), then its loop."""
+                if transport == "http":
+                    asyncio.run_coroutine_threadsafe(
+                        self.runner.cleanup(), self.loop).result(180)
+                else:
+                    self.srv.engine.drain(self.srv.drain_timeout_s)
+                    self.srv.engine.stop()
+                self.loop.call_soon_threadsafe(self.loop.stop)
+                self.thread.join(30)
+                if self.srv.engine._thread.is_alive():
+                    fail("serve_http: the engine thread did not stop")
+
+        def expect(cond, what):
+            if not cond:
+                fail(f"serve_http: {what}")
+
+        ec = dict(max_rows=8, max_seq_len=2048, page_size=128,
+                  prefill_bucket=128, decode_horizon=4, kv_storage="bf16")
+
+        def gated_engine(n_wave: int):
+            """An engine whose thread holds its first tick until
+            ``n_wave`` requests wait, so that the server's run and the
+            direct run admit the same wave and run the same ticks."""
+            eng = ServingEngine(cfg, params, EngineConfig(
+                trace_requests=True, **ec), device=dev)
+            step, gate = eng._step_once, threading.Event()
+
+            def gated_step():
+                if gate.is_set() or eng.queue_depth >= n_wave:
+                    gate.set()
+                    step()
+                else:
+                    time.sleep(0.001)
+            eng._step_once = gated_step
+            return eng
+
+        def hist_delta(after: Histogram, before: Histogram) -> Histogram:
+            h = Histogram(after.bounds)
+            h.counts = [a - b for a, b in zip(after.counts, before.counts)]
+            h.count, h.sum = after.count - before.count, after.sum - before.sum
+            return h
+
+        rng = np.random.default_rng(41)
+        lens, news = rng.integers(64, 1001, 8), rng.integers(32, 65, 8)
+        prompts = [[int(v) for v in rng.integers(1, cfg.vocab_size, n)]
+                   for n in lens]
+        bodies = []
+        for i, (ids, m) in enumerate(zip(prompts, news)):
+            b = {"prompt": " ".join(map(str, ids)), "max_tokens": int(m)}
+            b.update(dict(temperature=0.8, top_p=0.9, seed=3000 + i)
+                     if i % 2 else dict(temperature=0.0))
+            bodies.append(b)
+        res = {"transport": transport, "card": card}
+
+        # -- the server: eight completions at once, then the other routes
+        eng = gated_engine(len(bodies))
+        srv = OpenAIServer(eng, Tok(), "llama-2-7b-width")
+        client = Client(srv)
+        eng.start()
+        pool = ThreadPoolExecutor(max_workers=16)
+        for mod in kernels.values():
+            mod.COUNTS.reset()
+        h0 = {k: h.copy() for k, h in eng.histograms().items()}
+        # a trace id each, whose first_token span carries the TTFT
+        tids = [f"{0x5e7e000 + i:032x}" for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        wave = list(pool.map(lambda bt: client.request(
+            "POST", "/v1/completions", bt[0],
+            {"traceparent": f"00-{bt[1]}-00f067aa0ba902b7-01"}),
+            zip(bodies, tids)))
+        wall = time.perf_counter() - t0
+        hist = hist_delta(eng.histograms()["ttft_s"], h0["ttft_s"])
+        for i, (status, _, body) in enumerate(wave):
+            expect(status == 200, f"completion {i}: {status} {body}")
+            ch = body["choices"][0]
+            expect(ch["finish_reason"] == "length"
+                   and body["usage"]["completion_tokens"]
+                   == bodies[i]["max_tokens"]
+                   and len(ch["text"].split()) == bodies[i]["max_tokens"],
+                   f"completion {i}: {ch['finish_reason']}, {body['usage']}")
+        out_tok = sum(b["usage"]["completion_tokens"] for _, _, b in wave)
+        ttft = []
+        for t in tids:
+            st, _, trace = client.request("GET", f"/trace/{t}")
+            ttft += [sp["attrs"]["ttft_s"] for sp in trace.get("spans", ())
+                     if sp["name"] == "first_token"]
+        expect(len(ttft) == len(bodies), f"{len(ttft)} first_token spans")
+        res["server"] = dict(
+            requests=len(wave), output_tokens=out_tok, wall_s=wall,
+            output_tok_s=out_tok / wall, ttft_p50_s=hist.percentile(50),
+            ttft_p95_s=hist.percentile(95), ttft_count=hist.count,
+            ttft_exact_p50_s=float(np.percentile(ttft, 50)),
+            ttft_exact_p95_s=float(np.percentile(ttft, 95)))
+
+        tid = "5a1e3f2b9c8d7e6f0a1b2c3d4e5f6a7b"
+        chat = [{"messages": [{"role": "user", "content": " ".join(
+            map(str, prompts[i][:200]))}], "max_tokens": 32,
+            "temperature": 0.0, "stream": True} for i in (0, 1)]
+        jobs = [pool.submit(client.request, "POST", "/v1/chat/completions",
+                            b) for b in chat]
+        jobs.append(pool.submit(client.request, "POST", "/v1/completions", {
+            "prompt": bodies[2]["prompt"], "max_tokens": 16,
+            "temperature": 0.0, "stop": " "}))
+        jobs.append(pool.submit(
+            client.request, "POST", "/generate_stream",
+            {"inputs": bodies[3]["prompt"],
+             "parameters": {"max_new_tokens": 24}},
+            {"traceparent": f"00-{tid}-00f067aa0ba902b7-01"}))
+        (s1, _, ev1), (s2, _, ev2), (s3, _, stop_body), (s4, _, tgi) = [
+            j.result() for j in jobs]
+        for status, ev in ((s1, ev1), (s2, ev2)):
+            expect(status == 200 and ev[-1] == "[DONE]", f"chat stream "
+                   f"{status} {ev[-2:]}")
+            pieces = [e["choices"][0]["delta"].get("content", "")
+                      for e in ev[:-1]]
+            expect(sum(1 for p in pieces if p) == 32 and ev[-2]["choices"][
+                0]["finish_reason"] == "length", "a chat stream ended "
+                f"with {len(pieces)} events")
+        text = stop_body["choices"][0]["text"]
+        expect(s3 == 200 and text.isdigit() and stop_body["choices"][0][
+            "finish_reason"] == "stop", f"stop string: {stop_body}")
+        toks = [e for e in tgi if e.get("token")]
+        expect(s4 == 200 and len(toks) == 24 and tgi[-1]["details"][
+            "finish_reason"] == "length" and tgi[-1]["generated_text"]
+            == " ".join(str(e["token"]["id"]) for e in toks),
+            f"TGI stream: {tgi[-1:]}")
+        st, _, trace = client.request("GET", f"/trace/{tid}")
+        names = {sp["name"] for sp in trace.get("spans", [])}
+        expect(st == 200 and {"queue", "prefill_chunk", "first_token",
+                              "decode_horizon", "finish"} <= names,
+               f"trace: {st} {sorted(names)}")
+
+        # deadlines: a 1000-id prompt cannot prefill within 0.05 s
+        long_prompt = " ".join(map(str, rng.integers(1, cfg.vocab_size,
+                                                     1000)))
+        st408, _, body = client.request("POST", "/v1/completions", {
+            "prompt": long_prompt, "max_tokens": 32, "deadline_s": 0.05})
+        expect(st408 == 408 and body["error"]["code"] == "timeout",
+               f"deadline (whole): {st408} {body}")
+        st, _, ev = client.request("POST", "/v1/completions", {
+            "prompt": long_prompt, "max_tokens": 32, "deadline_s": 0.05,
+            "stream": True})
+        expect(st == 200 and any(isinstance(e, dict) and e.get(
+            "error", {}).get("code") == "timeout" for e in ev),
+            f"deadline (stream): {st} {ev[-2:]}")
+
+        st, hdrs, metrics_text = client.request("GET", "/metrics")
+        series = {ln.split("{")[0]: float(ln.rpartition(" ")[2])
+                  for ln in metrics_text.splitlines()}
+        expect(st == 200 and series.get("ipex_llm_tpu_ttft_s_count", 0)
+               >= len(bodies) and series.get("ipex_llm_tpu_timeouts") == 2,
+               f"/metrics: {st} {len(series)} series")
+        st, _, mj = client.request("GET", "/metrics?format=json")
+        expect(st == 200 and mj["metrics"]["tokens"] > 0
+               and set(mj["histograms"]) == {"ttft_s", "token_latency_s",
+                                             "tick_sync_s"},
+               f"/metrics?format=json: {st}")
+        st, _, flight = client.request("GET", "/debug/flight")
+        expect(st == 200 and flight["recorded"] > 0 and flight["ring"],
+               f"/debug/flight: {st}")
+        st, _, models = client.request("GET", "/v1/models")
+        expect(st == 200 and models["data"][0]["id"] == "llama-2-7b-width",
+               f"/v1/models: {st} {models}")
+        st, _, health = client.request("GET", "/health")
+        expect(st == 200 and health["status"] == "ok"
+               and health["weights"]["qtype"] == "sym_int4"
+               and health["kv"]["spill_enabled"] is False
+               and health["fault_domain"]["timeouts"] == 2,
+               f"/health: {st} {health}")
+        counts = {name: (mod.COUNTS.launches, mod.COUNTS.plain_calls)
+                  for name, mod in kernels.items()}
+        routes = {"qmatmul": dict(b2.COUNTS.by_route),
+                  "ragged_paged_attention": dict(b1.COUNTS.by_route)}
+        for name, (launches, plain) in counts.items():
+            if plain != 0 or (name in serve_path and launches == 0):
+                fail(f"serve_http: {name} launched {launches} times, plain "
+                     f"version called {plain} times")
+        if min(routes["qmatmul"].values()) == 0:
+            fail(f"serve_http: an instance of B2 never launched ({routes})")
+        m = dict(eng.metrics)
+        res.update(launches={k: v[0] for k, v in counts.items()},
+                   plain_calls={k: v[1] for k, v in counts.items()},
+                   launches_by_route=routes,
+                   host_syncs_per_tick=1 + m["liveness_syncs"]
+                   / m["host_syncs"], host_sync_s=m["host_sync_s"],
+                   tokens_per_sync=m["tokens_per_sync"],
+                   flight_records=flight["recorded"],
+                   metrics_series=len(series), health_decode=health[
+                       "decode"])
+        client.close()      # drains the engine and stops it
+        del eng, srv, client
+        torch.cuda.empty_cache()
+
+        # -- admission under load: one row, a queue of one ---------------
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_queue=1, pool_pages=20, **dict(ec, max_rows=1)), device=dev)
+        client = Client(OpenAIServer(eng, Tok(), "llama-2-7b-width"))
+        eng.start()
+        first = pool.submit(client.request, "POST", "/v1/completions", {
+            "prompt": bodies[0]["prompt"], "max_tokens": 48,
+            "temperature": 0.0})
+        for _ in range(6000):
+            if eng.metrics["requests"] >= 1:
+                break
+            time.sleep(0.005)
+        queued = pool.submit(client.request, "POST", "/v1/completions", {
+            "prompt": bodies[1]["prompt"], "max_tokens": 4})
+        for _ in range(2000):
+            if eng.queue_depth >= 1:
+                break
+            time.sleep(0.005)
+        st429, hdrs, body = client.request("POST", "/v1/completions", {
+            "prompt": "9", "max_tokens": 2})
+        expect(st429 == 429 and body["error"]["code"] == "queue_full"
+               and int(hdrs["Retry-After"]) >= 1,
+               f"the third request: {st429} {body}")
+        st, _, health = client.request("GET", "/health")
+        expect(health["fault_domain"]["queue_depth"] == 1
+               and health["fault_domain"]["rejected"] >= 1,
+               f"/health under load: {health['fault_domain']}")
+        t_drain = time.perf_counter()
+        expect(eng.drain(timeout=120), "drain did not finish the work")
+        res["drain_s"] = time.perf_counter() - t_drain
+        for job, n in ((first, 48), (queued, 4)):
+            st, _, body = job.result()
+            expect(st == 200 and body["usage"]["completion_tokens"] == n,
+                   f"a drained request: {st} {body}")
+        st, _, health = client.request("GET", "/health")
+        expect(health["status"] == "draining", f"/health: {health}")
+        st503, hdrs, body = client.request("POST", "/v1/completions", {
+            "prompt": "9", "max_tokens": 2})
+        expect(st503 == 503 and body["error"]["code"] == "engine_draining",
+               f"a request while draining: {st503} {body}")
+        res["admission"] = dict(
+            rejected=eng.metrics["rejected"], queue_full=st429,
+            draining=st503, deadline=st408,
+            retry_after_draining_s=int(hdrs["Retry-After"]))
+        client.close()
+        del eng, client
+        torch.cuda.empty_cache()
+
+        # -- the same eight requests straight to an engine of the same
+        # configuration (the server's engine would serve these prompts
+        # from its prefix cache and so run other ticks)
+        eng = gated_engine(len(bodies)).start()
+        reqs = [Request(prompt_ids=ids, max_new_tokens=b["max_tokens"],
+                        temperature=b["temperature"],
+                        top_p=b.get("top_p", 1.0), seed=b.get("seed"))
+                for ids, b in zip(prompts, bodies)]
+        h0 = {k: h.copy() for k, h in eng.histograms().items()}
+        t0 = time.perf_counter()
+        for q in reqs:
+            eng.submit(q)
+        streams = [list(stream_tokens(q, timeout=600)) for q in reqs]
+        wall = time.perf_counter() - t0
+        hist = hist_delta(eng.histograms()["ttft_s"], h0["ttft_s"])
+        eng.stop()
+        pool.shutdown()
+        ttft = [q.first_token_s for q in reqs]
+        res["direct"] = dict(
+            requests=len(reqs), output_tokens=sum(map(len, streams)),
+            wall_s=wall, output_tok_s=sum(map(len, streams)) / wall,
+            ttft_p50_s=hist.percentile(50), ttft_p95_s=hist.percentile(95),
+            ttft_exact_p50_s=float(np.percentile(ttft, 50)),
+            ttft_exact_p95_s=float(np.percentile(ttft, 95)))
+        same = []
+        for i, ((_, _, body), st) in enumerate(zip(wave, streams)):
+            text = body["choices"][0]["text"]
+            same.append(text == " ".join(map(str, st)))
+            if not same[-1]:
+                a, b = text.split(), [str(t) for t in st]
+                j = next((j for j in range(min(len(a), len(b)))
+                          if a[j] != b[j]), min(len(a), len(b)))
+                fail(f"serve_http: request {i} ("
+                     f"{'seeded' if i % 2 else 'greedy'}) differs from the "
+                     f"engine's stream at token {j} of {len(b)}")
+        res["server_equals_engine"] = all(same)
+        del eng
+        torch.cuda.empty_cache()
+        res["phase_s"] = time.perf_counter() - t_phase
+        print("serve_http " + json.dumps(res), flush=True)
+        return res
+
+    report["serve"], report["serve_spec"], report["serve_http"] = \
+        serve_phase()
     torch.cuda.empty_cache()
 
     # -- 5b. serving a bf16 tree in each block format ------------------------
@@ -1547,6 +1958,9 @@ def main() -> int:
     for r in report["serve_formats"]:
         if r["qtype"] in b2.FORMATS:
             b2_launches[r["qtype"]] = r["b2_launches_by_format"][r["qtype"]]
+    # the front end's run (serve_http) is a main path of its own: B2 and
+    # B1's launches there ride beside each entry's
+    http_launches = report["serve_http"]["launches"]
     b2_entries = []
     for qtype in b2.FORMATS:
         rows = [r for r in report["b2"] if r["qtype"] == qtype]
@@ -1560,6 +1974,8 @@ def main() -> int:
             "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
             "shape": "M=8 K=4096 N=22016 (gate_up, decode)",
             "launches": b2_launches[qtype],
+            **({"launches_serve_http": http_launches["qmatmul"]}
+               if qtype == "sym_int4" else {}),
             "launches_per_call": report["b2_gemv_launches_per_call"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: rep[k] for k in keys}})
@@ -1582,6 +1998,7 @@ def main() -> int:
                   "decode+chunk+idle rows (query tiles)",
          "launches": serve_launches["ragged_paged_attention"],
          "launches_by_route": serve_routes["ragged_paged_attention"],
+         "launches_serve_http": http_launches["ragged_paged_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b1"]),
          **{k: rep_b1[k] for k in keys}},
         # the key-split instance alone (split pass and merge)

@@ -1,0 +1,699 @@
+"""OpenAI- and TGI-compatible HTTP front end over the port's
+``ServingEngine`` (port of ``ipex_llm_tpu/serving/api_server.py``).
+
+Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions`` (both
+with server-sent events under ``"stream": true``; completions with
+chosen-token ``logprobs``), ``GET /v1/models``, ``GET /health``, ``GET
+/metrics`` (Prometheus text, or JSON with ``?format=json``), the TGI
+``POST /generate`` and ``POST /generate_stream``, and the observability
+routes ``GET /trace/{trace_id}``, ``GET /debug/traces`` and ``GET
+/debug/flight``.
+
+Admission maps onto HTTP: a full bounded queue is 429 and a draining
+engine 503, both with ``Retry-After``; a request whose deadline expired is
+408, one the drain shed 503, one the engine failed 500 (or, once a stream
+has begun, a terminal error event).  A client that goes away mid-stream
+has its request aborted.  On shutdown the server drains the engine.
+
+Every route's logic is a coroutine free of any transport: it takes the
+parsed JSON body, the request headers and the query, and returns a
+``Reply`` (status, headers, a JSON or text body) or an ``EventStream``
+(an async iterator of server-sent-event frames).  ``OpenAIServer.call``
+routes a method and path to them in process; ``OpenAIServer.app`` wraps
+them in aiohttp routes and imports aiohttp only then, so this module
+imports, and its protocol can be driven, where aiohttp is absent.
+
+To serve over HTTP::
+
+    from aiohttp import web
+    srv = OpenAIServer(engine.start(), tokenizer, "llama-2-7b")
+    web.run_app(srv.app, host="127.0.0.1", port=8000)
+
+Left out, with the slices that bring them: ``/kv/prefill`` and
+``/kv/import`` (KV transport and the spill tier); the ``perf``,
+``planner`` and ``dispatch`` blocks of ``/health`` and ``/debug/profile``
+(the planner and perfwatch); the ``parallel`` block (multi-GPU serving);
+``response_format`` (structured decoding: refused with 400 here);
+``/v1/audio/transcriptions`` (whisper); ``build_server`` and ``main``,
+which load a checkpoint through ``from_pretrained`` (the model API).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import time
+import urllib.parse
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, AsyncIterator, Mapping
+
+from ipex_llm_tpu_torch.serving.engine import (Request, ServingEngine,
+                                               next_stream_item)
+from ipex_llm_tpu_torch.serving.faults import EngineOverloaded
+from ipex_llm_tpu_torch.serving.observe import Tracer, parse_traceparent
+
+
+def _now() -> int:
+    return int(time.time())
+
+
+def _req_failed(req: Request) -> bool:
+    """True when the request's terminal state is a server-side failure the
+    client must see as an error object: an engine fault, an expired
+    deadline, or a server-initiated abort (a drain's shed).  A
+    client-initiated abort (``req.cancelled``: a disconnect or a stop
+    string) is not a failure: the client asked for it."""
+    return (req.finish_reason in ("error", "timeout")
+            or (req.finish_reason == "abort" and not req.cancelled))
+
+
+def _sse(obj) -> bytes:
+    return f"data: {json.dumps(obj)}\n\n".encode()
+
+
+@dataclass
+class Reply:
+    """A whole response: a dict or list body is JSON, a str body text."""
+    status: int = 200
+    body: Any = None
+    headers: dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class EventStream:
+    """A server-sent-event response: ``events`` yields each frame
+    (``data: {...}\\n\\n``) of the engine request ``request``.  Closing
+    it before its end (``aclose()``, what a transport does when the client
+    goes away) aborts the request."""
+    events: AsyncIterator[bytes]
+    request: Request
+    status: int = 200
+    headers: dict[str, str] = field(default_factory=lambda: {
+        "Content-Type": "text/event-stream", "Cache-Control": "no-cache"})
+
+
+class Refused(Exception):
+    """A route's early answer (429, 503, 400): the reply to send."""
+
+    def __init__(self, reply: Reply):
+        super().__init__(reply.status)
+        self.reply = reply
+
+
+def _match(pattern: str, path: str) -> dict[str, str] | None:
+    """The ``{name}`` segments of ``pattern`` that ``path`` binds, or
+    None when it does not match."""
+    want, got = pattern.split("/"), path.split("/")
+    if len(want) != len(got):
+        return None
+    params = {}
+    for w, g in zip(want, got):
+        if w.startswith("{") and w.endswith("}"):
+            if not g:
+                return None
+            params[w[1:-1]] = urllib.parse.unquote(g)
+        elif w != g:
+            return None
+    return params
+
+
+class OpenAIServer:
+    # (method, path, route coroutine)
+    ROUTES = (
+        ("POST", "/v1/chat/completions", "chat"),
+        ("POST", "/v1/completions", "completions"),
+        ("GET", "/v1/models", "models"),
+        ("GET", "/health", "health"),
+        ("GET", "/metrics", "metrics"),
+        ("POST", "/generate", "tgi_generate"),
+        ("POST", "/generate_stream", "tgi_generate_stream"),
+        ("GET", "/trace/{trace_id}", "trace_get"),
+        ("GET", "/debug/traces", "traces_export"),
+        ("GET", "/debug/flight", "debug_flight"),
+    )
+
+    def __init__(self, engine: ServingEngine, tokenizer, model_name: str,
+                 drain_timeout_s: float = 30.0):
+        self.engine = engine
+        self.tok = tokenizer
+        self.model_name = model_name
+        self.drain_timeout_s = drain_timeout_s
+        # replica identity for a router: a uuid per server start (a
+        # restart mints a new one) and the uptime /health reports
+        self.replica_id = uuid.uuid4().hex
+        self.started_monotonic = time.monotonic()
+        self._app = None
+
+    # -- transports ---------------------------------------------------------
+
+    async def call(self, method: str, path: str, body: dict | None = None,
+                   headers: Mapping[str, str] | None = None,
+                   query: Mapping[str, str] | None = None
+                   ) -> Reply | EventStream:
+        """Serve one request in process: the route's ``Reply`` or
+        ``EventStream``, or a 404/405 reply.  A query string in ``path`` is
+        merged into ``query``; header names match in any case."""
+        path, _, qs = path.partition("?")
+        q = dict(urllib.parse.parse_qsl(qs))
+        q.update(query or {})
+        hdrs = {k.lower(): v for k, v in (headers or {}).items()}
+        allowed = []
+        for m, pattern, name in self.ROUTES:
+            params = _match(pattern, path)
+            if params is None:
+                continue
+            if m != method:
+                allowed.append(m)
+                continue
+            return await self._dispatch(name, body or {}, hdrs, q, params)
+        if allowed:
+            return Reply(405, {"error": {
+                "message": f"{method} not allowed on {path}",
+                "type": "invalid_request_error",
+                "code": "method_not_allowed"}},
+                {"Allow": ", ".join(allowed)})
+        return Reply(404, {"error": {"message": f"no route {path!r}",
+                                     "type": "invalid_request_error",
+                                     "code": "not_found"}})
+
+    async def _dispatch(self, name: str, body: dict, headers, query,
+                        params: Mapping[str, str]) -> Reply | EventStream:
+        try:
+            return await getattr(self, name)(body, headers, query, **params)
+        except Refused as e:
+            return e.reply
+
+    @property
+    def app(self):
+        """The aiohttp ``web.Application`` serving every route (built on
+        first use; aiohttp is imported only here)."""
+        if self._app is None:
+            try:
+                from aiohttp import web
+            except ImportError as e:
+                raise ImportError(
+                    f"aiohttp is required to serve over HTTP ({e}); "
+                    "OpenAIServer.call serves in process without it") from e
+            app = web.Application()
+            for method, path, name in self.ROUTES:
+                app.router.add_route(method, path,
+                                     self._aiohttp_route(name, web))
+            # graceful drain: aiohttp's shutdown awaits on_shutdown before
+            # it closes connections, so requests in flight finish inside
+            # the drain window while /health reports "draining"
+            app.on_shutdown.append(self._on_shutdown)
+            self._app = app
+        return self._app
+
+    def _aiohttp_route(self, name: str, web):
+        async def handler(request):
+            body = await request.json() if request.method == "POST" else {}
+            out = await self._dispatch(name, body, request.headers,
+                                       request.query, request.match_info)
+            if isinstance(out, Reply):
+                if isinstance(out.body, str):
+                    return web.Response(text=out.body, status=out.status,
+                                        headers=out.headers,
+                                        content_type="text/plain")
+                return web.json_response(out.body, status=out.status,
+                                         headers=out.headers)
+            resp = web.StreamResponse(status=out.status, headers=out.headers)
+            await resp.prepare(request)
+            try:
+                async for frame in out.events:
+                    await resp.write(frame)
+                await resp.write_eof()
+            except (ConnectionResetError, asyncio.CancelledError):
+                await out.events.aclose()   # the client went away: abort
+                raise
+            return resp
+        return handler
+
+    async def _on_shutdown(self, app):
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, self.engine.drain,
+                                   self.drain_timeout_s)
+        self.engine.stop()
+
+    # -- helpers ------------------------------------------------------------
+
+    def _encode_chat(self, messages: list[dict]) -> list[int]:
+        if hasattr(self.tok, "apply_chat_template") and getattr(
+                self.tok, "chat_template", None):
+            return list(self.tok.apply_chat_template(
+                messages, add_generation_prompt=True))
+        text = "\n".join(f"{m['role']}: {m['content']}" for m in messages)
+        text += "\nassistant:"
+        return list(self.tok(text)["input_ids"])
+
+    def _mk_request(self, body: dict, prompt_ids: list[int],
+                    headers=None) -> Request:
+        def num(key, default, cast):
+            v = body.get(key)
+            return cast(default if v is None else v)
+
+        # W3C trace context: the HTTP header wins, the body field is the
+        # carrier of callers that cannot set headers; either way the
+        # engine's spans key to the caller's trace id
+        tp = parse_traceparent((headers or {}).get("traceparent")
+                               or body.get("traceparent"))
+        eos: tuple[int, ...] = ()
+        if self.tok.eos_token_id is not None:
+            eos = (int(self.tok.eos_token_id),)
+        req = Request(
+            prompt_ids=prompt_ids,
+            max_new_tokens=num("max_tokens", 128, int),
+            # the OpenAI API's defaults: temperature 1.0, top_p 1.0
+            temperature=num("temperature", 1.0, float),
+            top_p=num("top_p", 1.0, float),
+            top_k=int(body.get("top_k") or 0),
+            seed=(int(body["seed"]) if body.get("seed") is not None
+                  else None),
+            eos_token_id=eos,
+            request_id=str(uuid.uuid4()),
+            # wall-clock budget covering queue wait and generation
+            deadline_s=(float(body["deadline_s"])
+                        if body.get("deadline_s") else None),
+            trace_id=tp[0] if tp else None,
+        )
+        stop = body.get("stop")
+        req.stop_strings = ([stop] if isinstance(stop, str) else stop) or []
+        return req
+
+    @staticmethod
+    def _find_stop(text: str, stops: list[str]) -> int:
+        """Earliest stop-sequence offset in ``text``, or -1."""
+        hits = [text.find(s) for s in stops if s and text.find(s) >= 0]
+        return min(hits) if hits else -1
+
+    # Finish reasons: the engine's "stop" (EOS), "length", "abort", "error"
+    # (an engine failure) and "timeout" (a deadline), and the server's
+    # "stop_string" (stop-sequence truncation).  The OpenAI surface maps
+    # stop_string to "stop" and answers error, timeout and a server-side
+    # abort (_req_failed) with error objects (HTTP 500/408/503, or a
+    # terminal SSE error event); the TGI surface maps stop to "eos_token",
+    # stop_string to "stop_sequence" and failures to its {"error",
+    # "error_type"} shape.
+    @staticmethod
+    def _openai_reason(fr: str | None) -> str | None:
+        return "stop" if fr == "stop_string" else fr
+
+    def _retry_after_s(self, e: EngineOverloaded) -> int:
+        """Retry-After of a refused submission.  Draining: the rest of the
+        drain window.  Queue full: the backlog in waves of the engine's
+        rows (a queue of depth D ahead of R rows clears in about D/R
+        admission waves), clamped to [1, 30] seconds."""
+        if e.draining:
+            return max(1, int(self.engine.drain_seconds_left) + 1)
+        rows = max(1, self.engine.ec.max_rows)
+        return max(1, min(30, -(-e.queue_depth // rows)))
+
+    def _submit(self, req: Request) -> Request:
+        """Engine submit with load shedding mapped onto HTTP: a full
+        bounded queue is 429 (retry later), a draining engine 503 (this
+        replica is going away), both OpenAI-style error objects with a
+        Retry-After."""
+        try:
+            return self.engine.submit(req)
+        except EngineOverloaded as e:
+            raise Refused(Reply(
+                503 if e.draining else 429,
+                {"error": {"message": str(e), "type": "overloaded_error",
+                           "code": ("engine_draining" if e.draining
+                                    else "queue_full"),
+                           "queue_depth": e.queue_depth}},
+                {"Retry-After": str(self._retry_after_s(e))})) from None
+
+    @staticmethod
+    def _error_payload(req: Request) -> dict:
+        if req.finish_reason == "timeout":
+            return {"error": {"message": "request deadline exceeded "
+                                         "(queue wait + generation)",
+                              "type": "timeout_error", "code": "timeout"}}
+        if req.finish_reason == "abort":
+            return {"error": {"message": "request aborted: server "
+                                         "draining (retry elsewhere)",
+                              "type": "unavailable_error",
+                              "code": "server_draining"}}
+        return {"error": {"message": "request failed in the engine "
+                                     "(isolated fault)",
+                          "type": "server_error", "code": "error"}}
+
+    @staticmethod
+    def _error_status(req: Request) -> int:
+        return {"timeout": 408, "abort": 503}.get(req.finish_reason, 500)
+
+    async def _next_tok(self, req: Request) -> int | None:
+        """One stream item through the engine's dead-engine-detecting
+        fetch, off the event loop."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, next_stream_item,
+                                          self.engine, req)
+
+    async def _collect(self, req: Request) -> str:
+        toks: list[int] = []
+        drop = set(req.eos_token_id)
+        while True:
+            tok = await self._next_tok(req)
+            if tok is None:
+                break
+            if tok in drop:
+                continue
+            toks.append(tok)
+            if req.stop_strings:
+                text = self.tok.decode(toks)
+                cut = self._find_stop(text, req.stop_strings)
+                if cut >= 0:
+                    self.engine.abort(req)
+                    req.finish_reason = "stop_string"
+                    return text[:cut]
+        return self.tok.decode(toks)
+
+    def _stream_sse(self, req: Request, chunk_fn, final_fn=None,
+                    send_done: bool = True, error_fn=None) -> EventStream:
+        """The streaming loop of both surfaces.  ``chunk_fn(piece, finish,
+        tok)`` renders one incremental event; ``final_fn(sent_text,
+        finish_reason)`` (optional) renders the terminal event in place of
+        ``chunk_fn("", finish, None)``; ``error_fn(req)`` (optional) renders
+        the terminal error event of a failed request in the surface's own
+        shape."""
+        async def events():
+            drop = set(req.eos_token_id)
+            stops = req.stop_strings
+            sent = ""
+            toks: list[int] = []
+            ended = False
+            try:
+                while True:
+                    tok = await self._next_tok(req)
+                    if tok is None:
+                        break
+                    if tok in drop:
+                        continue
+                    toks.append(tok)
+                    text = self.tok.decode(toks)
+                    cut = self._find_stop(text, stops) if stops else -1
+                    if cut >= 0:
+                        piece, done = text[:cut][len(sent):], True
+                    else:
+                        piece, done = text[len(sent):], False
+                    if piece:
+                        sent += piece
+                        yield _sse(chunk_fn(piece, None, tok))
+                    if done:
+                        self.engine.abort(req)
+                        req.finish_reason = "stop_string"
+                        break
+                if _req_failed(req):
+                    # the stream's 200 status line is already out: an
+                    # error object in the stream is the OpenAI convention
+                    yield _sse((error_fn or self._error_payload)(req))
+                else:
+                    yield _sse(final_fn(sent, req.finish_reason) if final_fn
+                               else chunk_fn("", req.finish_reason, None))
+                if send_done:
+                    yield b"data: [DONE]\n\n"
+                ended = True
+            finally:
+                if not ended:
+                    # the reader went away: free the engine row instead of
+                    # decoding on
+                    self.engine.abort(req)
+        return EventStream(events(), req)
+
+    def _usage(self, req: Request) -> dict:
+        return {"prompt_tokens": len(req.prompt_ids),
+                "completion_tokens": len(req.output_ids),
+                "total_tokens": len(req.prompt_ids) + len(req.output_ids)}
+
+    # -- OpenAI routes ------------------------------------------------------
+
+    async def chat(self, body: dict, headers=None, query=None):
+        rf = body.get("response_format") or {}
+        if rf.get("type") in ("json_object", "json_schema"):
+            return Reply(400, {"error": {
+                "message": "response_format (constrained JSON decoding) is "
+                           "not supported by this server",
+                "type": "invalid_request_error",
+                "code": "unsupported_response_format"}})
+        ids = self._encode_chat(body.get("messages", []))
+        req = self._submit(self._mk_request(body, ids, headers))
+        rid = f"chatcmpl-{req.request_id[:12]}"
+
+        if body.get("stream"):
+            def chunk(piece: str, finish, tok=None):
+                delta = {"content": piece} if piece else {}
+                return {
+                    "id": rid, "object": "chat.completion.chunk",
+                    "created": _now(), "model": self.model_name,
+                    "choices": [{"index": 0, "delta": delta,
+                                 "finish_reason":
+                                     self._openai_reason(finish)}],
+                }
+            return self._stream_sse(req, chunk)
+
+        text = await self._collect(req)
+        if _req_failed(req):
+            return Reply(self._error_status(req), self._error_payload(req))
+        return Reply(200, {
+            "id": rid, "object": "chat.completion", "created": _now(),
+            "model": self.model_name,
+            "choices": [{
+                "index": 0,
+                "message": {"role": "assistant", "content": text},
+                "finish_reason": self._openai_reason(req.finish_reason),
+            }],
+            "usage": self._usage(req),
+        })
+
+    async def completions(self, body: dict, headers=None, query=None):
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, list):
+            prompt = prompt[0]
+        ids = list(self.tok(prompt)["input_ids"])
+        req = self._submit(self._mk_request(body, ids, headers))
+        rid = f"cmpl-{req.request_id[:12]}"
+
+        if body.get("stream"):
+            def chunk(piece: str, finish, tok=None):
+                return {
+                    "id": rid, "object": "text_completion", "created": _now(),
+                    "model": self.model_name,
+                    "choices": [{"index": 0, "text": piece,
+                                 "finish_reason":
+                                     self._openai_reason(finish)}],
+                }
+            return self._stream_sse(req, chunk)
+
+        text = await self._collect(req)
+        if _req_failed(req):
+            return Reply(self._error_status(req), self._error_payload(req))
+        choice = {"index": 0, "text": text,
+                  "finish_reason": self._openai_reason(req.finish_reason)}
+        if body.get("logprobs"):
+            # chosen-token logprobs (top alternatives are not tracked)
+            choice["logprobs"] = {
+                "tokens": [self.tok.decode([t]) for t in req.output_ids],
+                "token_logprobs": [round(lp, 6) for lp in req.logprobs],
+                "top_logprobs": None,
+                "text_offset": [],
+            }
+        return Reply(200, {
+            "id": rid, "object": "text_completion", "created": _now(),
+            "model": self.model_name,
+            "choices": [choice],
+            "usage": self._usage(req),
+        })
+
+    async def models(self, body=None, headers=None, query=None):
+        return Reply(200, {
+            "object": "list",
+            "data": [{"id": self.model_name, "object": "model",
+                      "owned_by": "ipex_llm_tpu_torch"}],
+        })
+
+    async def health(self, body=None, headers=None, query=None):
+        """Liveness that reflects the engine: a dead engine thread is 503;
+        a recorded engine error reports "degraded"; a draining engine
+        "draining", so that load balancers stop routing here."""
+        eng = self.engine
+        thread = eng._thread
+        if thread is None or not thread.is_alive():
+            return Reply(503, {"status": "dead",
+                               "error": "engine thread not running"})
+        m = dict(eng.metrics)   # one copy: the engine thread writes it
+        body = {"status": "ok"}
+        if m.get("last_error"):
+            body = {"status": "degraded", "last_error": str(m["last_error"])}
+        if eng.draining:
+            body["status"] = "draining"
+        # identity and liveness: `ticks` frozen while `uptime_s` advances
+        # is the wedged-engine signal
+        body["replica"] = {
+            "replica_id": self.replica_id,
+            "uptime_s": round(time.monotonic() - self.started_monotonic, 3),
+            "ticks": m.get("ticks", 0),
+        }
+        # host-sync economics of the decode horizon and of admission waves
+        body["decode"] = {
+            "tokens_per_sync": m.get("tokens_per_sync", 0.0),
+            "host_sync_s": m.get("host_sync_s", 0.0),
+            "decode_horizon_effective": m.get("decode_horizon_effective", 0),
+            "mixed_steps": m.get("mixed_steps", 0),
+            "prefill_tokens_per_step": m.get("prefill_tokens_per_step", 0.0),
+            "ttft_p95_s": m.get("ttft_p95_s", 0.0),
+        }
+        # the KV pool and the weights: the two byte lines of one HBM budget
+        body["kv"] = eng.kv_stats()
+        body["weights"] = eng.weight_stats()
+        # admission backlog against its bound (what a 429 means), and the
+        # refused, expired and isolated counts
+        body["fault_domain"] = {
+            "queue_depth": eng.queue_depth,
+            "max_queue": eng.ec.max_queue,
+            "errors_isolated": m.get("errors_isolated", 0),
+            "retries": m.get("retries", 0),
+            "rejected": m.get("rejected", 0),
+            "timeouts": m.get("timeouts", 0),
+        }
+        if eng.ec.spec_k > 0:
+            body["spec"] = eng.spec_stats()
+        return Reply(200, body)
+
+    def _metrics_numeric(self) -> dict:
+        """Flat numeric series: engine metrics, the KV pool's (``kv_``) and
+        the weights' (``weights_``) numbers, and the uptime."""
+        def numeric(d: dict, prefix: str = "") -> dict:
+            return {f"{prefix}{k}": v for k, v in d.items()
+                    if isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+        out = numeric(dict(self.engine.metrics))
+        out.update(numeric(self.engine.kv_stats(), "kv_"))
+        out.update(numeric(self.engine.weight_stats(), "weights_"))
+        out["uptime_s"] = round(time.monotonic() - self.started_monotonic, 3)
+        return out
+
+    async def metrics(self, body=None, headers=None, query=None):
+        """Prometheus text exposition, every series labelled with this
+        server's id, histograms as real ``_bucket``/``_sum``/``_count``
+        series; ``?format=json`` gives the same as one JSON object."""
+        vals = self._metrics_numeric()
+        hists = self.engine.histograms()
+        if (query or {}).get("format") == "json":
+            return Reply(200, {
+                "replica_id": self.replica_id, "metrics": vals,
+                "histograms": {k: h.to_dict() for k, h in hists.items()}})
+        label = f'replica_id="{self.replica_id}"'
+        lines = [f"ipex_llm_tpu_{name}{{{label}}} {vals[name]}"
+                 for name in sorted(vals)]
+        for name in sorted(hists):
+            lines.extend(hists[name].prometheus_lines(
+                f"ipex_llm_tpu_{name}", labels=label))
+        return Reply(200, "\n".join(lines) + "\n")
+
+    # -- observability (serving/observe.py) ---------------------------------
+
+    async def trace_get(self, body=None, headers=None, query=None, *,
+                        trace_id: str):
+        """One request's lifecycle trace (``?format=chrome`` renders Chrome
+        trace events); 404 when tracing is off or the trace aged out."""
+        tr = self.engine.trace_view(trace_id)
+        if tr is None:
+            return Reply(404, {"error": {
+                "message": f"unknown trace {trace_id!r} (tracing disabled, "
+                           "or aged out)",
+                "type": "invalid_request_error", "code": "unknown_trace"}})
+        if (query or {}).get("format") == "chrome":
+            return Reply(200, Tracer.chrome_events([tr]))
+        return Reply(200, tr)
+
+    async def traces_export(self, body=None, headers=None, query=None):
+        """Every trace still held: their ids, or (``?format=chrome``) one
+        Chrome trace-event document."""
+        tracer = self.engine.tracer
+        if tracer is None:
+            return Reply(404, {"error": {
+                "message": "tracing disabled (EngineConfig.trace_requests)",
+                "type": "invalid_request_error",
+                "code": "tracing_disabled"}})
+        if (query or {}).get("format") == "chrome":
+            return Reply(200, tracer.export_chrome())
+        return Reply(200, {"trace_ids": tracer.trace_ids()})
+
+    async def debug_flight(self, body=None, headers=None, query=None):
+        """The tick flight recorder: the last working ticks' records and
+        the frozen dumps (``_fail_all`` takes one)."""
+        return Reply(200, self.engine.flight.view())
+
+    # -- TGI protocol -------------------------------------------------------
+
+    def _tgi_request(self, body: dict, headers=None) -> Request:
+        """TGI's ``{"inputs": str, "parameters": {...}}``."""
+        p = body.get("parameters") or {}
+        mapped = {
+            "max_tokens": p.get("max_new_tokens", 64),
+            "temperature": (p.get("temperature", 1.0)
+                            if p.get("do_sample", False) else 0.0),
+            "top_p": p.get("top_p", 1.0),
+            "top_k": p.get("top_k", 0),
+            "stop": p.get("stop"),
+            "seed": p.get("seed"),
+            "deadline_s": body.get("deadline_s"),
+        }
+        if body.get("traceparent"):
+            mapped["traceparent"] = body["traceparent"]
+        ids = list(self.tok(body.get("inputs", ""))["input_ids"])
+        return self._mk_request(mapped, ids, headers)
+
+    @staticmethod
+    def _tgi_reason(fr: str | None) -> str:
+        return {"stop": "eos_token", "stop_string": "stop_sequence"}.get(
+            fr, fr or "length")
+
+    @staticmethod
+    def _tgi_error_payload(req: Request) -> dict:
+        """TGI's error shape: a flat {"error", "error_type"}."""
+        if req.finish_reason == "timeout":
+            return {"error": "request deadline exceeded",
+                    "error_type": "timeout"}
+        if req.finish_reason == "abort":
+            return {"error": "request aborted: server draining",
+                    "error_type": "unavailable"}
+        return {"error": "request failed in the engine (isolated fault)",
+                "error_type": "generation"}
+
+    async def tgi_generate(self, body: dict, headers=None, query=None):
+        req = self._submit(self._tgi_request(body, headers))
+        text = await self._collect(req)
+        if _req_failed(req):
+            return Reply(self._error_status(req),
+                         self._tgi_error_payload(req))
+        return Reply(200, {
+            "generated_text": text,
+            "details": {
+                "finish_reason": self._tgi_reason(req.finish_reason),
+                "generated_tokens": len(req.output_ids),
+                "prefill": [],
+            },
+        })
+
+    async def tgi_generate_stream(self, body: dict, headers=None,
+                                  query=None):
+        req = self._submit(self._tgi_request(body, headers))
+
+        def chunk(piece, finish, tok):
+            n = len(req.output_ids)
+            lp = req.logprobs[n - 1] if 0 < n <= len(req.logprobs) else 0.0
+            return {"token": {"id": int(tok), "text": piece,
+                              "logprob": round(float(lp), 6),
+                              "special": False},
+                    "generated_text": None}
+
+        def final(sent, finish):
+            return {"token": None, "generated_text": sent,
+                    "details": {"finish_reason": self._tgi_reason(finish),
+                                "generated_tokens": len(req.output_ids)}}
+
+        return self._stream_sse(req, chunk, final_fn=final, send_done=False,
+                                error_fn=self._tgi_error_payload)

@@ -31,12 +31,24 @@ prefix-cache refcounts and request bookkeeping; the per-row decode state
 history of speculation) lives on the device and is uploaded only at epochs
 (admission, prefill progress, finish).
 
+Admission is bounded: ``submit`` raises ``EngineOverloaded`` when
+``max_queue`` requests already wait or the engine is draining; ``drain``
+lets the work in flight finish and sheds what is left at its deadline;
+per-request deadlines expire at each tick boundary.  The engine keeps the
+host-side surfaces the HTTP front end (``serving/api_server.py``) reads:
+``metrics``, ``kv_stats``, ``weight_stats``, ``spec_stats``, the latency
+``histograms``, the request ``tracer`` and the tick ``flight`` recorder
+(``serving/observe.py``).  None of them touches a device tensor, and their
+timings read the host clock around block reads the tick already makes.
+
 What the reference has and this slice leaves out: the transactional tick
-with fault recovery (and with it the rollback of a speculative tick), the
-model-predictive planner (so no plan masks speculation off for a tick, and
-the device history never goes stale between epochs), perfwatch, request
-tracing, the host-RAM spill tier, tensor and pipeline parallelism (and the
-pipelined verify step), deadlines and the HTTP front end.
+with fault recovery (rollback, retry, bisection and quarantine, and with
+them the rollback of a speculative tick: any exception in a tick fails
+every request in flight), the model-predictive planner (so no plan masks
+speculation off for a tick, and the device history never goes stale
+between epochs), perfwatch, the host-RAM spill tier, KV export and
+import, and tensor and pipeline parallelism (and the pipelined verify
+step).
 
 The reference runs its whole tick as one compiled program with an
 on-device early exit from the horizon loop; PyTorch runs eagerly, so the
@@ -67,6 +79,11 @@ from ipex_llm_tpu_torch.models.decoder import decoder_forward
 from ipex_llm_tpu_torch.ops.sampling import sample_rows_with_logprobs
 from ipex_llm_tpu_torch.ops.speculate import propose_ngram_rows
 from ipex_llm_tpu_torch.quantize.qtypes import resolve as qtype_info
+from ipex_llm_tpu_torch.serving.faults import EngineOverloaded
+from ipex_llm_tpu_torch.serving.observe import (FAST_LATENCY_BUCKETS_S,
+                                                LATENCY_BUCKETS_S,
+                                                FlightRecorder, Histogram,
+                                                Tracer, span)
 
 
 @dataclass(frozen=True)
@@ -91,6 +108,23 @@ class EngineConfig:
     # and the longest n-gram the proposer matches
     spec_k: int = 0
     spec_ngram: int = 3
+    # admission control: submit() raises EngineOverloaded once this many
+    # requests wait for a row (inbox and pending, not the rows in flight);
+    # the HTTP surfaces map it to 429.  0 = unbounded
+    max_queue: int = 256
+    # default per-request deadline covering queue wait and generation
+    # (Request.deadline_s overrides it); 0 = none.  An expired request
+    # finishes "timeout": in the queue without ever taking a row, or in
+    # flight at the next tick boundary
+    request_deadline_s: float = 0.0
+    # request-lifecycle tracing (serving/observe.py): per-request spans
+    # (queue wait, prefill chunks, first token, decode horizons, spec
+    # rounds, finish) served at /trace/{id}.  False = no tracer, and a
+    # trace site costs one `is None` check.  The flight recorder and the
+    # latency histograms are always on
+    trace_requests: bool = False
+    trace_buffer: int = 256     # traces retained (LRU)
+    flight_ring: int = 256      # tick records the flight recorder keeps
 
     @property
     def n_pages(self) -> int:
@@ -132,6 +166,16 @@ class Request:
     speculative: bool | None = None
     # the request's draft width, capped at EngineConfig.spec_k; None = that
     spec_k: int | None = None
+    # the HTTP surfaces' stop sequences, cut on the decoded text there
+    stop_strings: list[str] = field(default_factory=list)
+    # wall-clock budget from submission covering queue wait and
+    # generation; None = EngineConfig.request_deadline_s (0 there = none)
+    deadline_s: float | None = None
+    # the caller's W3C trace id (None = the engine keys the trace on
+    # request_id)
+    trace_id: str | None = None
+    # last emission time (perf_counter), for the inter-token histogram
+    _last_tok_s: float = 0.0
 
     def abort(self):
         self.cancelled = True
@@ -142,12 +186,19 @@ class PageAllocator:
     chained-hash prefix cache (LRU-evicted when the pool runs dry)."""
 
     def __init__(self, n_pages: int):
+        self.n_pages = n_pages
         # page 0 is the device scratch page (update_layer routes pad and
         # out-of-range writes there): never handed out
         self.free: list[int] = list(range(n_pages - 1, 0, -1))
         self.ref = np.zeros((n_pages,), np.int32)
         self.prefix: "OrderedDict[bytes, int]" = OrderedDict()
         self._page_key: dict[int, bytes] = {}
+        # cached prefix pages dropped to satisfy new allocations
+        self.prefix_evictions = 0
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.n_pages - 1 - len(self.free)
 
     def alloc(self) -> int | None:
         if not self.free and not self._evict(1):
@@ -173,6 +224,7 @@ class PageAllocator:
             del self.prefix[key]
             del self._page_key[pid]
             self.decref(pid)
+        self.prefix_evictions += len(picks)
         return len(picks)
 
     def register_prefix(self, key: bytes, pid: int):
@@ -536,22 +588,67 @@ class ServingEngine:
         # device-resident row state, re-uploaded only when _dirty
         self._dev: dict[str, torch.Tensor] | None = None
         self._dirty = True
+        # drain: submit() refuses while set; _drain_abort asks the engine
+        # thread to shed what is left at the drain's deadline
+        self._draining = False
+        self._drain_deadline: float | None = None
+        self._drain_abort = threading.Event()
+        # submit()'s check of the bound and its put, one caller at a time
+        self._admission = threading.Lock()
+        # device programs (tick shapes) issued by the current tick
+        self._tick_dispatches = 0
+        # request-lifecycle spans, None unless EngineConfig.trace_requests
+        self.tracer = (Tracer(ec.trace_buffer) if ec.trace_requests
+                       else None)
+        # one record a working tick; _fail_all freezes the ring
+        self.flight = FlightRecorder(ec.flight_ring)
+        # latency histograms: TTFT, client-visible inter-token latency
+        # (bursty under a decode horizon: H tokens reach the stream at
+        # once), and the tick's blocking read of its results
+        self.hists: dict[str, Histogram] = {
+            "ttft_s": Histogram(LATENCY_BUCKETS_S),
+            "token_latency_s": Histogram(LATENCY_BUCKETS_S),
+            "tick_sync_s": Histogram(FAST_LATENCY_BUCKETS_S),
+        }
+        # the copies histograms() serves, republished after every tick, so
+        # that a reader never sees one the engine thread is updating
+        self._hists_published = {k: h.copy() for k, h in self.hists.items()}
+        # rolling TTFT window of /health's ttft_p95_s
+        self._ttfts: "deque[float]" = deque(maxlen=128)
         self.metrics = {"requests": 0, "tokens": 0, "steps": 0,
+                        # ticks run: frozen while the server's uptime
+                        # advances is the wedged-engine signal
+                        "ticks": 0,
                         "mixed_steps": 0, "decode_horizon_effective": 0,
-                        "host_syncs": 0, "epoch_syncs": 0,
+                        # one block read of a tick's results a tick, the
+                        # seconds blocked in it, tokens emitted per read,
+                        # uploads of row state, scatters of dirty table rows
+                        "host_syncs": 0, "host_sync_s": 0.0,
+                        "tokens_per_sync": 0.0, "epoch_syncs": 0,
+                        "table_row_syncs": 0,
+                        # admission waves: prompt tokens run in mixed ticks,
+                        # per mixed tick, and the rolling TTFT p95
+                        "mixed_prefill_tokens": 0,
+                        "prefill_tokens_per_step": 0.0, "ttft_p95_s": 0.0,
                         "prefix_hits": 0, "prefix_pages_shared": 0,
-                        "alloc_fail_clamps": 0, "errors": 0,
+                        "alloc_fail_clamps": 0, "pages_in_use": 0,
+                        # fault domain: requests isolated and ticks retried
+                        # (0 until the transactional tick is ported),
+                        # submissions refused, deadlines expired, requests
+                        # waiting for a row
+                        "errors_isolated": 0, "retries": 0, "rejected": 0,
+                        "timeouts": 0, "queue_depth": 0,
                         "last_error": "",
                         # the horizon loop's per-iteration liveness reads,
                         # beside host_syncs (one block read a tick)
-                        "liveness_syncs": 0,
-                        # speculation: verify rounds, ticks that ran them,
-                        # tokens emitted, row-rounds, drafts proposed and
-                        # accepted
-                        "spec_steps": 0, "spec_ticks": 0, "spec_emitted": 0,
-                        "spec_row_steps": 0, "spec_accept_rate": 0.0,
-                        "draft_proposed": 0, "draft_accepted": 0,
-                        "spec_tokens_per_dispatch": 0.0}
+                        "liveness_syncs": 0}
+        if ec.spec_k > 0:
+            # speculation: verify rounds, ticks that ran them, tokens
+            # emitted, row-rounds, drafts proposed and accepted
+            self.metrics.update(
+                spec_steps=0, spec_ticks=0, spec_emitted=0, spec_row_steps=0,
+                spec_accept_rate=0.0, draft_proposed=0, draft_accepted=0,
+                spec_tokens_per_dispatch=0.0)
         # rolling (drafts proposed, drafts accepted) of the last 128 spec
         # ticks: the accept rate an operator tunes spec_k and spec_ngram on
         self._spec_window: "deque[tuple[int, int]]" = deque(maxlen=128)
@@ -591,17 +688,18 @@ class ServingEngine:
         rate over the rolling window of the last 128 spec ticks and over
         the engine's life, and tokens emitted per spec tick."""
         m = self.metrics
-        w_prop = sum(p for p, _ in self._spec_window)
-        w_acc = sum(a for _, a in self._spec_window)
+        win = list(self._spec_window)   # one copy: the engine appends
+        w_prop = sum(p for p, _ in win)
+        w_acc = sum(a for _, a in win)
         return {
             "spec_k": self.ec.spec_k,
             "spec_ngram": self.ec.spec_ngram,
             "fused": self._fused_spec,
-            "draft_proposed": m["draft_proposed"],
-            "draft_accepted": m["draft_accepted"],
+            "draft_proposed": m.get("draft_proposed", 0),
+            "draft_accepted": m.get("draft_accepted", 0),
             "accept_rate": round(w_acc / w_prop, 4) if w_prop else 0.0,
-            "accept_rate_lifetime": m["spec_accept_rate"],
-            "tokens_per_dispatch": m["spec_tokens_per_dispatch"],
+            "accept_rate_lifetime": m.get("spec_accept_rate", 0.0),
+            "tokens_per_dispatch": m.get("spec_tokens_per_dispatch", 0.0),
         }
 
     def weight_stats(self) -> dict:
@@ -618,6 +716,113 @@ class ServingEngine:
             "bytes_saved": self._weight_dense_bytes - self._weight_bytes,
         }
 
+    def kv_stats(self) -> dict:
+        """The KV pool (port of the reference's ``kv_stats``): storage
+        format, page and pool bytes, occupancy, and the pressure trace
+        (prefix-cache evictions, allocation failures that forced a clamp).
+        The host-RAM spill tier is not ported, so ``spill_enabled`` is
+        False."""
+        a = self.alloc
+        return {
+            "storage": self.ec.kv_storage,
+            "page_size": self.ec.page_size,
+            "pages_total": a.n_pages,       # page 0 = reserved scratch
+            "pages_free": len(a.free),
+            "pages_in_use": a.pages_in_use,
+            "page_bytes": self.page_bytes,
+            "pool_bytes": a.n_pages * self.page_bytes,
+            "prefix_pages_cached": len(a.prefix),
+            "prefix_evictions": a.prefix_evictions,
+            "alloc_fail_clamps": self.metrics.get("alloc_fail_clamps", 0),
+            "horizon_clamped": self.metrics.get("horizon_clamped", 0),
+            "spill_enabled": False,
+        }
+
+    def histograms(self) -> dict[str, Histogram]:
+        """The latency histograms as of the last finished tick (frozen
+        copies: the engine thread never mutates what a reader holds)."""
+        return self._hists_published
+
+    def trace_view(self, trace_id: str) -> dict | None:
+        """One trace's spans (/trace/{id}); None when tracing is off or
+        the trace aged out of the LRU."""
+        if self.tracer is None:
+            return None
+        return self.tracer.get(trace_id)
+
+    def _trace(self, req: Request | None, name: str, t0: float | None = None,
+               t1: float | None = None, **attrs):
+        """Record one lifecycle span (or, with no ``t1``, an instant event)
+        on ``req``'s trace; one ``is None`` check when tracing is off."""
+        if self.tracer is None or req is None:
+            return
+        self.tracer.add(req.trace_id or req.request_id,
+                        span(name, time.time() if t0 is None else t0, t1,
+                             origin="engine", **attrs))
+
+    def _decode_parts(self, active: np.ndarray):
+        """The (row, request, tokens so far) of a decode drain's rows, so
+        that each request's span reports the tokens this tick emitted;
+        None when tracing is off."""
+        if self.tracer is None:
+            return None
+        return [(i, self.rows[i], len(self.rows[i].output_ids))
+                for i in np.flatnonzero(active) if self.rows[i] is not None]
+
+    def _trace_decode(self, parts, t0_w: float, executed: int, take_np):
+        """One span a request for a decode tick: ``decode_horizon`` (steps
+        and tokens) or, speculating, ``spec_round`` (rounds and accepted
+        drafts, from the take block the tick already read)."""
+        if not parts:
+            return
+        t1 = time.time()
+        for i, req, n0 in parts:
+            toks = len(req.output_ids) - n0
+            if toks == 0 and req.finish_reason is None:
+                continue            # a row that idled through the tick
+            if take_np is not None:
+                row = take_np[i]
+                rounds = int((row > 0).sum())
+                self._trace(req, "spec_round", t0=t0_w, t1=t1,
+                            rounds=rounds, tokens=toks,
+                            accepted=max(int(row.sum()) - rounds, 0))
+            else:
+                self._trace(req, "decode_horizon", t0=t0_w, t1=t1,
+                            steps=executed, tokens=toks)
+
+    def _flight_record(self, m0: dict, pages0: int, evictions0: int,
+                       t_wall: float):
+        """One working tick's record: deltas against the metrics before it
+        (``m0``), so the ring reads as what each tick did.  Idle ticks are
+        counted, not recorded (the idle loop runs ~50 ticks a second and
+        would flush real work out of the ring)."""
+        m = self.metrics
+
+        def d(key):
+            return m.get(key, 0) - m0.get(key, 0)
+
+        tokens, admitted = d("tokens"), d("requests")
+        if not (tokens or admitted or d("timeouts")
+                or self._tick_dispatches):
+            self.flight.skip_idle()
+            return
+        self.flight.record({
+            "t": round(t_wall, 3),
+            "tick": m["ticks"],
+            "dispatches": self._tick_dispatches,
+            "sync_s": round(d("host_sync_s"), 6),
+            "rows_active": int(self._active_mask().sum()),
+            "rows_prefilling": len(self._prefilling),
+            "queue_depth": m["queue_depth"],
+            "tokens": tokens,
+            "admitted": admitted,
+            "pages_in_use": self.alloc.pages_in_use,
+            "pages_delta": self.alloc.pages_in_use - pages0,
+            "prefix_evictions": self.alloc.prefix_evictions - evictions0,
+            "alloc_fail_clamps": d("alloc_fail_clamps"),
+            "retries": 0,
+        })
+
     # -- public API ---------------------------------------------------------
 
     def start(self):
@@ -631,13 +836,122 @@ class ServingEngine:
             self._thread.join(timeout=30)
 
     def submit(self, req: Request) -> Request:
+        """Queue a request.  Raises ``EngineOverloaded`` when the engine is
+        draining (the HTTP surfaces answer 503) or ``max_queue`` requests
+        already wait (429): load shedding instead of an unbounded backlog.
+        Safe to call from many threads: the bound is checked and the
+        request queued under one lock."""
         if not req.request_id:
             req.request_id = uuid.uuid4().hex
         if not req.eos_token_id:
             req.eos_token_id = self.default_eos
-        self._inbox.put(req)
+        with self._admission:
+            if self._draining:
+                self.metrics["rejected"] += 1
+                raise EngineOverloaded("engine is draining",
+                                       queue_depth=self.queue_depth,
+                                       draining=True)
+            depth = self.queue_depth
+            if self.ec.max_queue and depth >= self.ec.max_queue:
+                self.metrics["rejected"] += 1
+                raise EngineOverloaded(
+                    f"queue full ({depth} requests waiting)",
+                    queue_depth=depth)
+            self._inbox.put(req)
         self._work.set()
         return req
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for a row (inbox and pending, not in flight)."""
+        return self._inbox.qsize() + len(self._pending)
+
+    def abort(self, req: Request):
+        """Cancel a request (a client that went away, a stop string); its
+        row frees at the next tick boundary."""
+        req.cancelled = True
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drain_seconds_left(self) -> float:
+        """Seconds until the drain's window closes (0.0 when not draining):
+        what a 503's Retry-After is derived from."""
+        if not self._draining or self._drain_deadline is None:
+            return 0.0
+        return max(0.0, self._drain_deadline - time.monotonic())
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Graceful shutdown: refuse new submissions (503), let queued and
+        in-flight requests finish, then have the engine thread abort what
+        is left at the deadline.  Returns True when everything finished in
+        ``timeout``.  The engine thread keeps running (``stop()`` ends it);
+        /health reports "draining" meanwhile."""
+        with self._admission:
+            self._draining = True
+            self._drain_deadline = time.monotonic() + timeout
+
+        def busy():
+            return (any(r is not None for r in self.rows)
+                    or bool(self._pending) or not self._inbox.empty())
+
+        while busy() and time.monotonic() < self._drain_deadline:
+            time.sleep(0.01)
+        clean = not busy()
+        if not clean:
+            # the engine thread owns the rows: it sheds them at the top of
+            # its next tick
+            self._drain_abort.set()
+            self._work.set()
+            hard = time.monotonic() + 10.0
+            while busy() and time.monotonic() < hard:
+                time.sleep(0.01)
+        return clean
+
+    def _shed_remaining(self):
+        """The drain's deadline passed (engine thread): abort every row in
+        flight and every queued request, so that ``drain`` returns."""
+        for i, r in enumerate(self.rows):
+            if r is not None:
+                self._finish(i, "abort")
+        self._drain_inbox()
+        while self._pending:
+            req = self._pending.popleft()
+            if req.finish_reason is None:
+                req.finish_reason = "abort"
+            req.stream_queue.put(None)
+        self.metrics["queue_depth"] = self.queue_depth
+
+    def _deadline_of(self, req: Request) -> float | None:
+        d = (req.deadline_s if req.deadline_s is not None
+             else self.ec.request_deadline_s)
+        return d if d and d > 0 else None
+
+    def _expire_deadlines(self):
+        """Finish the requests past their budget: rows in flight, and
+        queued requests before they ever take a row."""
+        now = time.perf_counter()
+        for i, r in enumerate(self.rows):
+            if r is None:
+                continue
+            d = self._deadline_of(r)
+            if d is not None and now - r.submitted_s > d:
+                self.metrics["timeouts"] += 1
+                self._finish(i, "timeout")
+        if self._pending:
+            keep: "deque[Request]" = deque()
+            for r in self._pending:
+                d = self._deadline_of(r)
+                if d is not None and now - r.submitted_s > d:
+                    self.metrics["timeouts"] += 1
+                    if r.finish_reason is None:
+                        r.finish_reason = "timeout"
+                    r.stream_queue.put(None)
+                else:
+                    keep.append(r)
+            self._pending = keep
 
     def _h2d(self, a, dtype=None) -> torch.Tensor:
         """Upload a host array: ``torch.tensor`` copies, so the device
@@ -721,6 +1035,7 @@ class ServingEngine:
             rows = np.array(sorted(self._dirty_tables), np.int64)
             self.cache.with_table_rows(self._h2d(rows),
                                        self._h2d(self.tables[rows]))
+            self.metrics["table_row_syncs"] += 1
             self._dirty_tables.clear()
         return self.cache
 
@@ -743,7 +1058,9 @@ class ServingEngine:
 
     def _fail_all(self, exc: BaseException):
         """Finish every in-flight and queued request with 'error' so no
-        client blocks forever, record the error, and keep serving."""
+        client blocks forever, record the error, and keep serving.  The
+        flight recorder's ring is frozen first, as the failure's evidence."""
+        self.flight.dump("fail_all", error=f"{type(exc).__name__}: {exc}")
         for i, req in enumerate(self.rows):
             if req is not None:
                 self._finish(i, "error")
@@ -753,8 +1070,9 @@ class ServingEngine:
             req.finish_reason = req.finish_reason or "error"
             req.stream_queue.put(None)
         self._dev = None
-        self.metrics["errors"] += 1
+        self.metrics["errors"] = self.metrics.get("errors", 0) + 1
         self.metrics["last_error"] = f"{type(exc).__name__}: {exc}"
+        self.metrics["queue_depth"] = self.queue_depth
 
     def _free_row(self) -> int | None:
         for i, r in enumerate(self.rows):
@@ -779,8 +1097,33 @@ class ServingEngine:
         return 1 if joining else self.ec.decode_horizon
 
     def _step_once(self):
+        """One engine tick: shed what a drain left at its deadline, run the
+        tick (:meth:`_step`), then count it, record it in the flight
+        recorder and publish the histograms.  A tick that raises is neither
+        counted nor recorded."""
+        if self._drain_abort.is_set():
+            self._shed_remaining()
+            self._drain_abort.clear()
+        m0 = dict(self.metrics)
+        pages0, evictions0 = self.alloc.pages_in_use, \
+            self.alloc.prefix_evictions
+        t_wall = time.time()
+        self._tick_dispatches = 0
+        self._step()
+        self.metrics["ticks"] += 1
+        self._flight_record(m0, pages0, evictions0, t_wall)
+        if self.metrics["tokens"] != m0["tokens"] or \
+                self.metrics["host_syncs"] != m0["host_syncs"]:
+            self._hists_published = {k: h.copy()
+                                     for k, h in self.hists.items()}
+
+    def _step(self):
+        """The scheduler: expire deadlines at the tick boundary, admit,
+        then run one tick shape."""
         self._horizon = self._plan_horizon()
         self._drain_inbox()
+        self._expire_deadlines()
+        self.metrics["queue_depth"] = self.queue_depth
         self._admit()
         for i, req in enumerate(self.rows):  # drop disconnected clients
             if req is not None and req.cancelled:
@@ -848,6 +1191,13 @@ class ServingEngine:
             if shared:
                 self.metrics["prefix_hits"] += 1
                 self.metrics["prefix_pages_shared"] += shared
+            if self.tracer is not None:
+                # the queue wait, its start rebuilt from submit()'s stamp
+                now_w = time.time()
+                waited = time.perf_counter() - req.submitted_s
+                self._trace(req, "queue", t0=now_w - waited, t1=now_w,
+                            queue_depth=self.queue_depth,
+                            prompt_tokens=n_p, shared_pages=shared)
             base = shared * ps
             self.rows[row] = req
             self.row_lens[row] = base
@@ -882,6 +1232,8 @@ class ServingEngine:
         toks[0, :n_valid] = chunk
         cache = self._flush_dirty_tables()
         pos = np.arange(base, base + cp, dtype=np.int32)[None, :]
+        t0_w = time.time()
+        self._tick_dispatches += 1
         logits, _ = decoder_forward(
             self.cfg, self.params, self._h2d(toks),
             cache.with_tables(cache.tables[row:row + 1]), self._h2d(pos),
@@ -889,6 +1241,8 @@ class ServingEngine:
             gather_positions=self._h2d([n_valid - 1], torch.int32),
             chunk_lens=self._h2d([n_valid], torch.int32))
         self.row_lens[row] = base + n_valid
+        self._trace(req, "prefill_chunk", t0=t0_w, t1=time.time(),
+                    tokens=n_valid, base=base)
         self._dirty = True
         if n_valid < len(remaining):
             self._prefilling[row] = remaining[n_valid:]
@@ -900,8 +1254,9 @@ class ServingEngine:
             self._h2d(self.seeds[row:row + 1]),
             self._h2d([0], torch.int32),
             top_ks=self._h2d(self.top_ks[row:row + 1]))
+        t0 = time.perf_counter()
         first, lp = int(first_t.cpu()[0]), float(first_lp.cpu()[0])
-        self.metrics["host_syncs"] += 1
+        self._count_sync(time.perf_counter() - t0)
         self._finish_prompt(row, first, lp)
 
     def _finish_prompt(self, row: int, first: int, logprob: float):
@@ -913,8 +1268,19 @@ class ServingEngine:
             self.alloc.register_prefix(keys[j], int(self.tables[row, j]))
         req = self.rows[row]
         req.first_token_s = time.perf_counter() - req.submitted_s
+        self._record_ttft(req.first_token_s)
+        self._trace(req, "first_token", ttft_s=round(req.first_token_s, 6))
         self.toks[row] = first
         self._emit(row, first, logprob)
+
+    def _record_ttft(self, seconds: float):
+        """TTFT into its histogram and the rolling p95 of /health (the
+        last 128 requests)."""
+        self._ttfts.append(seconds)
+        self.hists["ttft_s"].observe(seconds)
+        self.metrics["ttft_p95_s"] = round(
+            float(np.percentile(np.fromiter(self._ttfts, np.float64), 95)),
+            4)
 
     def _emit(self, row: int, token: int, logprob: float = 0.0):
         req = self.rows[row]
@@ -923,6 +1289,11 @@ class ServingEngine:
             return
         req.output_ids.append(token)
         req.logprobs.append(logprob)
+        # client-visible inter-token latency (the first token is TTFT's)
+        now = time.perf_counter()
+        if req._last_tok_s:
+            self.hists["token_latency_s"].observe(now - req._last_tok_s)
+        req._last_tok_s = now
         req.stream_queue.put(token)
         self.metrics["tokens"] += 1
         if token in req.eos_token_id:
@@ -934,6 +1305,8 @@ class ServingEngine:
         req = self.rows[row]
         if req.finish_reason is None:
             req.finish_reason = reason
+        self._trace(req, "finish", reason=req.finish_reason,
+                    output_tokens=len(req.output_ids))
         req.stream_queue.put(None)
         self.rows[row] = None
         self.row_lens[row] = 0
@@ -1024,6 +1397,8 @@ class ServingEngine:
         # a pure-chunk tick (with_decode False) emits nothing, so it runs
         # without speculation
         spec = spec_ks is not None and with_decode
+        t0_w = time.time()
+        self._tick_dispatches += 1
         (first_t, first_lp, tok_block, lp_block, executed, take_block, prop,
          acc) = tick_body(
             self.cfg, self.params, self.cache, dev, prefill=prefill,
@@ -1032,34 +1407,48 @@ class ServingEngine:
             spec_k=self.ec.spec_k if spec else 0,
             spec_ngram=self.ec.spec_ngram)
         completing: list[tuple[int, int]] = []   # (slot, row)
-        for s, (row, n_i, _) in enumerate(chunks):
+        t1_w = time.time()
+        for s, (row, n_i, b) in enumerate(chunks):
             self.row_lens[row] += n_i
+            self._trace(self.rows[row], "prefill_chunk", t0=t0_w, t1=t1_w,
+                        tokens=n_i, base=b, fused=True)
             if emit[s]:
                 self._prefilling.pop(row)
                 completing.append((s, row))
             else:
                 self._prefilling[row] = self._prefilling[row][n_i:]
-        self.metrics["mixed_steps"] += 1
+        m = self.metrics
+        m["mixed_steps"] += 1
+        m["mixed_prefill_tokens"] += sum(n for _, n, _ in chunks)
+        m["prefill_tokens_per_step"] = round(
+            m["mixed_prefill_tokens"] / m["mixed_steps"], 2)
+        m["pages_in_use"] = self.alloc.pages_in_use
         if not with_decode:
             return      # pure-chunk tick: nothing to read back
         if completing:
             self._dirty = True
+        t0 = time.perf_counter()
+        if completing:
             nxt, lp = first_t.cpu().numpy(), first_lp.cpu().numpy()
         tok_np, lp_np = tok_block.cpu().numpy(), lp_block.cpu().numpy()
-        self._count_syncs(executed, 1)
+        self._count_syncs(executed, 1, time.perf_counter() - t0)
         for s, row in completing:
             self._finish_prompt(row, int(nxt[s]), float(lp[s]))
             if not canjoin[s] and self.rows[row] is not None:
                 self._finish(row, "length")  # no KV slot for its decode
-        self.metrics["steps"] += executed
-        self.metrics["decode_horizon_effective"] = 1
+        m["steps"] += executed
+        m["decode_horizon_effective"] = 1
         mask = self._active_mask()
+        parts = self._decode_parts(mask)
         if take_block is not None:
             take_np = take_block.cpu().numpy()
             self._spec_metrics(take_np, int(prop), int(acc), executed)
             self._drain_spec_block(tok_np, lp_np, take_np, mask, executed)
         else:
+            take_np = None
             self._drain_block(tok_np, lp_np, mask, executed)
+        self._trace_decode(parts, t0_w, executed, take_np)
+        m["tokens_per_sync"] = round(m["tokens"] / m["host_syncs"], 2)
 
     def _horizon_step(self, active: np.ndarray):
         """Up to ``decode_horizon`` decode steps (with speculation, verify
@@ -1093,29 +1482,48 @@ class ServingEngine:
             return
         if h < horizon:
             h = 1 << (h.bit_length() - 1)      # largest power of two <= h
+            self.metrics["horizon_clamped"] = (
+                self.metrics.get("horizon_clamped", 0) + 1)
         dev = self._sync_device_state()
+        t0_w = time.time()
+        self._tick_dispatches += 1
         _, _, tok_block, lp_block, executed, take_block, prop, acc = \
             tick_body(self.cfg, self.params, self.cache, dev, horizon=h,
                       spec_ks=(self._h2d(spec_ks) if spec_ks is not None
                                else None),
                       spec_k=self.ec.spec_k if spec_ks is not None else 0,
                       spec_ngram=self.ec.spec_ngram)
+        t0 = time.perf_counter()
         tok_np, lp_np = tok_block.cpu().numpy(), lp_block.cpu().numpy()
-        self._count_syncs(executed, h)
-        self.metrics["steps"] += executed
-        self.metrics["decode_horizon_effective"] = h
+        self._count_syncs(executed, h, time.perf_counter() - t0)
+        m = self.metrics
+        m["steps"] += executed
+        m["decode_horizon_effective"] = h
+        m["pages_in_use"] = self.alloc.pages_in_use
+        parts = self._decode_parts(active)
         if take_block is not None:
             take_np = take_block.cpu().numpy()
             self._spec_metrics(take_np, int(prop), int(acc), executed)
             self._drain_spec_block(tok_np, lp_np, take_np, active, executed)
         else:
+            take_np = None
             self._drain_block(tok_np, lp_np, active, executed)
+        self._trace_decode(parts, t0_w, executed, take_np)
+        m["tokens_per_sync"] = round(m["tokens"] / m["host_syncs"], 2)
 
-    def _count_syncs(self, executed: int, horizon: int):
-        """One block read a tick, and the loop's liveness reads: one per
+    def _count_sync(self, seconds: float):
+        """One block read of a tick's results and the seconds it blocked
+        (timed around the read the tick makes anyway)."""
+        self.metrics["host_syncs"] += 1
+        self.hists["tick_sync_s"].observe(seconds)
+        self.metrics["host_sync_s"] = round(
+            self.metrics["host_sync_s"] + seconds, 6)
+
+    def _count_syncs(self, executed: int, horizon: int, seconds: float):
+        """The tick's block read, and the loop's liveness reads: one per
         iteration, plus the one that found every row dead before
         ``horizon``."""
-        self.metrics["host_syncs"] += 1
+        self._count_sync(seconds)
         self.metrics["liveness_syncs"] += executed + (executed < horizon)
 
     def _drain_block(self, tok_block, lp_block, active: np.ndarray, h: int):
@@ -1233,6 +1641,8 @@ class ServingEngine:
                             for q in self.rows], np.int32)
         tokens = np.concatenate([self.toks[:, None], drafts], axis=1)
         pos = write_at[:, None] + np.arange(k1, dtype=np.int32)[None, :]
+        t0_w = time.time()
+        self._tick_dispatches += 1
         logits, _ = decoder_forward(
             self.cfg, self.params, self._h2d(tokens), cache, self._h2d(pos),
             slot_offsets=self._h2d(write_at),
@@ -1241,8 +1651,9 @@ class ServingEngine:
             logits, self._h2d(active), self._h2d(self.temps),
             self._h2d(self.top_ps), self._h2d(self.seeds), self._h2d(steps),
             self._h2d(self.top_ks))
+        t0 = time.perf_counter()
         t_all, lp_all = t_all.cpu().numpy(), lp_all.cpu().numpy()
-        self.metrics["host_syncs"] += 1
+        self._count_sync(time.perf_counter() - t0)
         self.metrics["steps"] += 1
         self._dirty = True      # the host walked the chains: state diverges
         take = np.zeros((r, 1), np.int32)
@@ -1266,13 +1677,39 @@ class ServingEngine:
                 take[i, 0] += len(req.output_ids) - n_out
                 if self.rows[i] is None:   # EOS, budget or abort mid-chain
                     break
+            self._trace(req, "spec_round", t0=t0_w, t1=time.time(),
+                        rounds=1, tokens=int(take[i, 0]),
+                        accepted=max(int(take[i, 0]) - 1, 0))
         self._spec_metrics(take, int(n_prop.sum()),
                            int(np.maximum(take - 1, 0).sum()), 1)
+        m = self.metrics
+        m["tokens_per_sync"] = round(m["tokens"] / m["host_syncs"], 2)
 
 
-def stream_tokens(req: Request, timeout: float = 120.0):
-    """Yield tokens from a submitted request until completion; ``timeout``
-    is the longest wait between two tokens."""
+def next_stream_item(engine: ServingEngine, req: Request,
+                     poll_s: float = 0.5) -> int | None:
+    """One item of a request's stream, waited for in slices of ``poll_s``
+    so that a dead engine thread fails the request (``finish_reason``
+    "error") instead of hanging its reader: the next token, or None at the
+    end of the stream or when the engine is dead."""
+    while True:
+        try:
+            return req.stream_queue.get(timeout=poll_s)
+        except queue.Empty:
+            t = engine._thread
+            if t is None or not t.is_alive():
+                if req.finish_reason is None:
+                    req.finish_reason = "error"
+                return None
+
+
+def stream_tokens(req: Request, timeout: float | None = None):
+    """Yield tokens from a submitted request until completion.  ``timeout``
+    is the longest wait between two tokens; None = the request's deadline
+    plus 30 s of grace for the engine's expiry tick when it has one, else
+    120 s."""
+    if timeout is None:
+        timeout = (req.deadline_s + 30.0) if req.deadline_s else 120.0
     while True:
         tok = req.stream_queue.get(timeout=timeout)
         if tok is None:
