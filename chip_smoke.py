@@ -79,6 +79,17 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    drain, ``/health`` "draining", 503.  B1 and B2 (GEMV and tiled) must
    launch and no plain version run; output tok/s and TTFT p50/p95 of the
    server and of the engine alone are printed with the card;
+   then ``serve_faults``: the transactional tick on five requests (64-1000
+   ids, 24 new tokens; greedy, seeded and engine-seeded sampling), all
+   waiting before the first tick so that every run runs the same ticks:
+   clean; a ``TransientFault`` at the second hit of page-alloc,
+   mixed-step, decode-dispatch and sample; a real ``torch.OutOfMemoryError``
+   (from a ``torch.empty`` larger than the card) at decode-dispatch; a
+   ``DeterministicFault`` bound to a decoding request.  Each retry (one a
+   run) and the isolation's survivors must equal the clean run bitwise in
+   tokens and logprobs, the culprit alone finish "error" with its pages
+   back; each run prints its wall time, committed ticks, bisection probes
+   and B1's and B2's launches;
 6. ``b3``: dense decode attention against its plain version at
    Mistral-7B widths (32 query heads over 8 kv heads of 128), B=4,
    capacity 2304, ragged ``kv_start``/``kv_len``, over bf16 and e5m2
@@ -892,7 +903,8 @@ def main() -> int:
             return res
 
         rows = [serve("bf16", 8, 7), serve("fp8", 2, 8)]
-        return rows, serve_spec_phase(params), serve_http_phase(params)
+        return (rows, serve_spec_phase(params), serve_http_phase(params),
+                serve_faults_phase(params))
 
     def spec_requests(seed: int):
         """Eight requests of 48 new tokens: four prompts repeat a random
@@ -1024,6 +1036,156 @@ def main() -> int:
         return dict(runs=runs, forks=forks, forks_vs_host_walk=oracle,
                     greedy_worst_below_top_ulps=greedy_low,
                     tol_ulps=SPEC_ULPS)
+
+    def serve_faults_phase(params) -> dict:
+        """The transactional tick at Llama-2-7B widths: five requests
+        (prompts of 64-1000 ids, 24 new tokens; two greedy, two seeded
+        t=0.8 top-p 0.9, one sampled with a seed the engine draws) through
+        the serving configuration, all waiting before the engine's first
+        tick so that every run runs the same ticks: (1) clean; (2) a
+        TransientFault at the second hit of each of page-alloc,
+        mixed-step, decode-dispatch and sample; (3) the
+        torch.OutOfMemoryError a ``torch.empty`` larger than the card
+        raises, injected as that instance at decode-dispatch; (4) a
+        DeterministicFault bound to a decoding request at decode-dispatch.
+        (2) and (3) retry once and equal (1) bitwise in tokens and
+        logprobs (the retried tick has the same shapes, and B1 and B2 sum
+        in a fixed split order); (4) isolates the culprit alone and the
+        survivors equal (1) bitwise (a decode tick runs every row of the
+        pool, so dropping a row changes no kernel's shape).  B1 and B2
+        must launch in every run and no plain version run."""
+        from ipex_llm_tpu_torch.serving.faults import (DeterministicFault,
+                                                       FaultInjector,
+                                                       TransientFault,
+                                                       is_transient)
+
+        t_phase = time.perf_counter()
+        ec = dict(max_rows=8, max_seq_len=2048, page_size=128,
+                  prefill_bucket=128, decode_horizon=4, kv_storage="bf16")
+        rng = np.random.default_rng(51)
+        lens = [int(n) for n in rng.integers(64, 1001, 5)]
+        prompts = [[int(v) for v in rng.integers(1, cfg.vocab_size, n)]
+                   for n in lens]
+        sampling = [{}, {}, dict(temperature=0.8, top_p=0.9, seed=3001),
+                    dict(temperature=0.8, top_p=0.9, seed=3002),
+                    dict(temperature=0.8, top_p=0.9)]     # engine-seeded
+
+        def run(label: str, inj) -> tuple[dict, list]:
+            reqs = [Request(prompt_ids=p, max_new_tokens=24,
+                            request_id=f"f{i}", **kw)
+                    for i, (p, kw) in enumerate(zip(prompts, sampling))]
+            eng = ServingEngine(cfg, params, EngineConfig(**ec), device=dev,
+                                fault_injector=inj)
+            probes = [0]
+            real_probe = eng._probe
+
+            def probe(masked):
+                probes[0] += 1
+                return real_probe(masked)
+            eng._probe = probe
+            for q in reqs:
+                eng.submit(q)
+            for mod in kernels.values():
+                mod.COUNTS.reset()
+            t0 = time.perf_counter()
+            eng.start()
+            streams = [list(stream_tokens(q, timeout=600)) for q in reqs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {name: (mod.COUNTS.launches, mod.COUNTS.plain_calls)
+                      for name, mod in kernels.items()}
+            by_route = {name: dict(serve_path[name].COUNTS.by_route)
+                        for name in serve_path}
+            m = dict(eng.metrics)
+            pages, cached = eng.alloc.pages_in_use, len(eng.alloc.prefix)
+            ticks = eng.flight.recorded     # committed working ticks
+            eng.stop()
+            if eng._thread.is_alive():
+                fail(f"serve_faults {label}: engine thread did not stop")
+            for name, (launches, plain) in counts.items():
+                if plain != 0 or (name in serve_path and launches == 0):
+                    fail(f"serve_faults {label}: {name} launched "
+                         f"{launches} times, plain version called {plain} "
+                         "times")
+            for q, st in zip(reqs, streams):
+                if st != q.output_ids or not all(
+                        0 <= v < cfg.vocab_size for v in st) or not all(
+                        math.isfinite(lp) and lp <= 0 for lp in q.logprobs):
+                    fail(f"serve_faults {label}: request {q.request_id} "
+                         "streamed other tokens than it holds, or a token "
+                         "or logprob is out of range")
+            res = dict(run=label, wall_s=wall, ticks=ticks, probes=probes[0],
+                       retries=m["retries"],
+                       errors_isolated=m["errors_isolated"],
+                       errors=m.get("errors", 0),
+                       fired=inj.fired if inj is not None else 0,
+                       site_hits=dict(inj.site_hits) if inj is not None
+                       else {},
+                       reasons=[q.finish_reason for q in reqs],
+                       output_tokens=sum(len(st) for st in streams),
+                       pages_in_use=pages, prefix_pages=cached,
+                       launches={k: v[0] for k, v in counts.items()
+                                 if k in serve_path},
+                       launches_by_route=by_route)
+            print("serve_faults " + json.dumps(res), flush=True)
+            del eng
+            torch.cuda.empty_cache()
+            return res, [(q.output_ids, q.logprobs) for q in reqs]
+
+        runs = []
+        clean, want = run("clean", None)
+        runs.append(clean)
+        if clean["reasons"] != ["length"] * 5 or clean["output_tokens"] \
+                != 5 * 24:
+            fail(f"serve_faults clean: {clean['reasons']}")
+        try:
+            torch.empty(2 ** 50, dtype=torch.uint8, device=dev)
+            fail("serve_faults: a 1 PiB torch.empty did not raise")
+        except torch.OutOfMemoryError as exc:
+            oom = exc
+        if not is_transient(oom):
+            fail(f"serve_faults: {type(oom).__name__} is not transient")
+        scripts = [(f"transient {site}", site, TransientFault, 2, None)
+                   for site in ("page-alloc", "mixed-step",
+                                "decode-dispatch", "sample")]
+        scripts += [("OutOfMemoryError decode-dispatch", "decode-dispatch",
+                     oom, 2, None),
+                    # the culprit's third decode dispatch: it is decoding
+                    ("poisoned f0 decode-dispatch", "decode-dispatch",
+                     DeterministicFault, 3, "f0")]
+        for label, site, exc, nth, bound in scripts:
+            inj = FaultInjector().inject(site, exc, nth=nth,
+                                         times=None if bound else 1,
+                                         request_id=bound)
+            res, got = run(label, inj)
+            runs.append(res)
+            if bound is None:
+                if (res["retries"], res["fired"], res["errors_isolated"],
+                        res["errors"]) != (1, 1, 0, 0) or got != want:
+                    fail(f"serve_faults {label}: retries {res['retries']}, "
+                         f"fired {res['fired']}, isolated "
+                         f"{res['errors_isolated']}, errors {res['errors']},"
+                         f" bitwise equal to the clean run: {got == want}")
+                continue
+            culprit = int(bound[1:])
+            n_ok = len(got[culprit][0])
+            survivors = [g == w for i, (g, w) in enumerate(zip(got, want))
+                         if i != culprit]
+            if (res["reasons"][culprit] != "error"
+                    or res["errors_isolated"] != 1 or res["errors"] != 0
+                    or res["pages_in_use"] != res["prefix_pages"]
+                    or got[culprit][0] != want[culprit][0][:n_ok]
+                    or not all(survivors)
+                    or any(r != "length" for i, r in enumerate(
+                        res["reasons"]) if i != culprit)):
+                fail(f"serve_faults {label}: {res}; survivors bitwise "
+                     f"equal to the clean run: {survivors}")
+        out = dict(runs=runs, phase_s=time.perf_counter() - t_phase,
+                   launches={k: sum(r["launches"][k] for r in runs)
+                             for k in serve_path})
+        print(f"serve_faults: {len(runs)} runs, all gates held, "
+              f"{out['phase_s']:.1f} s", flush=True)
+        return out
 
     def serve_http_phase(params) -> dict:
         """The OpenAI/TGI front end (``serving/api_server.py``) over the
@@ -1161,15 +1323,15 @@ def main() -> int:
             direct run admit the same wave and run the same ticks."""
             eng = ServingEngine(cfg, params, EngineConfig(
                 trace_requests=True, **ec), device=dev)
-            step, gate = eng._step_once, threading.Event()
+            tick, gate = eng._tick, threading.Event()
 
-            def gated_step():
+            def gated_tick():
                 if gate.is_set() or eng.queue_depth >= n_wave:
                     gate.set()
-                    step()
-                else:
-                    time.sleep(0.001)
-            eng._step_once = gated_step
+                    return tick()
+                time.sleep(0.001)
+                return True
+            eng._tick = gated_tick
             return eng
 
         def hist_delta(after: Histogram, before: Histogram) -> Histogram:
@@ -1419,8 +1581,8 @@ def main() -> int:
         print("serve_http " + json.dumps(res), flush=True)
         return res
 
-    report["serve"], report["serve_spec"], report["serve_http"] = \
-        serve_phase()
+    (report["serve"], report["serve_spec"], report["serve_http"],
+     report["serve_faults"]) = serve_phase()
     torch.cuda.empty_cache()
 
     # -- 5b. serving a bf16 tree in each block format ------------------------
@@ -1961,6 +2123,8 @@ def main() -> int:
     # the front end's run (serve_http) is a main path of its own: B2 and
     # B1's launches there ride beside each entry's
     http_launches = report["serve_http"]["launches"]
+    # the transactional tick's runs (serve_faults), summed over its runs
+    faults_launches = report["serve_faults"]["launches"]
     b2_entries = []
     for qtype in b2.FORMATS:
         rows = [r for r in report["b2"] if r["qtype"] == qtype]
@@ -1974,7 +2138,8 @@ def main() -> int:
             "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
             "shape": "M=8 K=4096 N=22016 (gate_up, decode)",
             "launches": b2_launches[qtype],
-            **({"launches_serve_http": http_launches["qmatmul"]}
+            **({"launches_serve_http": http_launches["qmatmul"],
+                "launches_serve_faults": faults_launches["qmatmul"]}
                if qtype == "sym_int4" else {}),
             "launches_per_call": report["b2_gemv_launches_per_call"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1999,6 +2164,8 @@ def main() -> int:
          "launches": serve_launches["ragged_paged_attention"],
          "launches_by_route": serve_routes["ragged_paged_attention"],
          "launches_serve_http": http_launches["ragged_paged_attention"],
+         "launches_serve_faults":
+             faults_launches["ragged_paged_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b1"]),
          **{k: rep_b1[k] for k in keys}},
         # the key-split instance alone (split pass and merge)

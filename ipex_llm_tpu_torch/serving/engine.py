@@ -41,14 +41,19 @@ host-side surfaces the HTTP front end (``serving/api_server.py``) reads:
 (``serving/observe.py``).  None of them touches a device tensor, and their
 timings read the host clock around block reads the tick already makes.
 
-What the reference has and this slice leaves out: the transactional tick
-with fault recovery (rollback, retry, bisection and quarantine, and with
-them the rollback of a speculative tick: any exception in a tick fails
-every request in flight), the model-predictive planner (so no plan masks
-speculation off for a tick, and the device history never goes stale
-between epochs), perfwatch, the host-RAM spill tier, KV export and
-import, and tensor and pipeline parallelism (and the pipelined verify
-step).
+Every tick the engine thread runs is a transaction (:meth:`_tick`): the
+host state is checkpointed, client-visible emissions and trace spans are
+staged and flushed only when the tick commits, and a tick that raises is
+rolled back.  A transient fault (``faults.is_transient``) retries the
+tick, which recomputes it bitwise; a deterministic one is bisected to one
+request, which alone finishes "error" (the reference's fault domain,
+``serving/faults.py``).
+
+What the reference has and this slice leaves out: the model-predictive
+planner (so no plan masks speculation off for a tick, and the device
+history never goes stale between epochs), perfwatch, the host-RAM spill
+tier, KV export and import (and their fault sites), and tensor and
+pipeline parallelism (and the pipelined verify step).
 
 The reference runs its whole tick as one compiled program with an
 on-device early exit from the horizon loop; PyTorch runs eagerly, so the
@@ -79,7 +84,7 @@ from ipex_llm_tpu_torch.models.decoder import decoder_forward
 from ipex_llm_tpu_torch.ops.sampling import sample_rows_with_logprobs
 from ipex_llm_tpu_torch.ops.speculate import propose_ngram_rows
 from ipex_llm_tpu_torch.quantize.qtypes import resolve as qtype_info
-from ipex_llm_tpu_torch.serving.faults import EngineOverloaded
+from ipex_llm_tpu_torch.serving.faults import EngineOverloaded, is_transient
 from ipex_llm_tpu_torch.serving.observe import (FAST_LATENCY_BUCKETS_S,
                                                 LATENCY_BUCKETS_S,
                                                 FlightRecorder, Histogram,
@@ -112,6 +117,13 @@ class EngineConfig:
     # requests wait for a row (inbox and pending, not the rows in flight);
     # the HTTP surfaces map it to 429.  0 = unbounded
     max_queue: int = 256
+    # fault domain: a transient tick fault retries up to max_step_retries
+    # times, the nth retry after a backoff of retry_backoff_s * 2^(n-1); a
+    # deterministic one (or exhausted retries) bisects the tick to one
+    # culprit request.  Both fields carry the reference engine's names and
+    # defaults, so one config dict builds either engine
+    max_step_retries: int = 3
+    retry_backoff_s: float = 0.02
     # default per-request deadline covering queue wait and generation
     # (Request.deadline_s overrides it); 0 = none.  An expired request
     # finishes "timeout": in the queue without ever taking a row, or in
@@ -195,10 +207,24 @@ class PageAllocator:
         self._page_key: dict[int, bytes] = {}
         # cached prefix pages dropped to satisfy new allocations
         self.prefix_evictions = 0
+        # the pages rows held at a tick's checkpoint: released during the
+        # tick, they are not handed out (or evicted) again before it
+        # commits, so a rollback gives them back to their rows unwritten
+        self.pinned: frozenset = frozenset()
+        self._deferred: list[int] = []
 
     @property
     def pages_in_use(self) -> int:
-        return self.n_pages - 1 - len(self.free)
+        return self.n_pages - 1 - len(self.free) - len(self._deferred)
+
+    def pin(self, pids):
+        self.pinned = frozenset(pids)
+        self._deferred = []
+
+    def unpin(self):
+        """The tick committed: the pages its rows released are free."""
+        self.free.extend(self._deferred)
+        self.pin(())
 
     def alloc(self) -> int | None:
         if not self.free and not self._evict(1):
@@ -213,13 +239,13 @@ class PageAllocator:
     def decref(self, pid: int):
         self.ref[pid] -= 1
         if self.ref[pid] == 0:
-            self.free.append(pid)
+            (self._deferred if pid in self.pinned else self.free).append(pid)
 
     def _evict(self, n: int) -> int:
         """Drop up to ``n`` least-recently-used prefix pages held only by
         the cache; returns how many were dropped."""
         picks = [(key, pid) for key, pid in self.prefix.items()
-                 if self.ref[pid] == 1][:n]
+                 if self.ref[pid] == 1 and pid not in self.pinned][:n]
         for key, pid in picks:
             del self.prefix[key]
             del self._page_key[pid]
@@ -500,13 +526,20 @@ def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
     return first_t, first_lp, tok_block, lp_block, n_exec, None, None, None
 
 
+# _bisect_culprit's answer when the fault does not reproduce
+_FAULT_VANISHED = object()
+
+
 class ServingEngine:
     """Threaded continuous-batching engine around one llama model."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  engine_config: EngineConfig | None = None,
-                 default_eos: tuple[int, ...] = (), device=None):
-        """``params`` must already lie on ``device`` (``None`` = cuda)."""
+                 default_eos: tuple[int, ...] = (), device=None,
+                 fault_injector=None):
+        """``params`` must already lie on ``device`` (``None`` = cuda);
+        ``fault_injector`` (``faults.FaultInjector``) scripts faults at the
+        tick's guarded sites."""
         self.device = resolve_device(device)
         if cfg.sliding_window is not None:
             raise NotImplementedError(
@@ -584,7 +617,24 @@ class ServingEngine:
         self._work = threading.Event()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        # the tick's plan: planned once a logical tick (before its
+        # checkpoint), replayed by a retry and by every bisection probe
         self._horizon = ec.decode_horizon
+        # the transaction: client-visible puts and trace spans staged until
+        # the tick commits (None = outside a tick: they land directly),
+        # requests a bisection probe masks out, arrivals drained mid-tick
+        # (a rollback returns them to the queue), and the retry count
+        self.injector = fault_injector
+        self._staging: list[tuple["queue.Queue", int | None]] | None = None
+        self._span_staging: list[tuple[str, dict]] = []
+        self._masked: set[str] = set()
+        self._tick_arrivals: list[Request] = []
+        self._retries = 0
+        # recovery evidence since the last flight record: a failed tick
+        # rolls back and never records, so its retries and injector hits
+        # ride the next record (_flight_pending)
+        self._flight_retries0 = 0
+        self._flight_hits0: dict = {}
         # device-resident row state, re-uploaded only when _dirty
         self._dev: dict[str, torch.Tensor] | None = None
         self._dirty = True
@@ -610,8 +660,9 @@ class ServingEngine:
             "token_latency_s": Histogram(LATENCY_BUCKETS_S),
             "tick_sync_s": Histogram(FAST_LATENCY_BUCKETS_S),
         }
-        # the copies histograms() serves, republished after every tick, so
-        # that a reader never sees one the engine thread is updating
+        # the copies histograms() serves, republished after every committed
+        # tick, so that a reader never sees one the engine thread is
+        # updating nor an observation a rollback takes back
         self._hists_published = {k: h.copy() for k, h in self.hists.items()}
         # rolling TTFT window of /health's ttft_p95_s
         self._ttfts: "deque[float]" = deque(maxlen=128)
@@ -632,8 +683,7 @@ class ServingEngine:
                         "prefill_tokens_per_step": 0.0, "ttft_p95_s": 0.0,
                         "prefix_hits": 0, "prefix_pages_shared": 0,
                         "alloc_fail_clamps": 0, "pages_in_use": 0,
-                        # fault domain: requests isolated and ticks retried
-                        # (0 until the transactional tick is ported),
+                        # fault domain: requests isolated and ticks retried,
                         # submissions refused, deadlines expired, requests
                         # waiting for a row
                         "errors_isolated": 0, "retries": 0, "rejected": 0,
@@ -739,8 +789,9 @@ class ServingEngine:
         }
 
     def histograms(self) -> dict[str, Histogram]:
-        """The latency histograms as of the last finished tick (frozen
-        copies: the engine thread never mutates what a reader holds)."""
+        """The latency histograms as of the last committed tick (frozen
+        copies: the engine thread never mutates what a reader holds, and a
+        rolled-back tick's observations never show)."""
         return self._hists_published
 
     def trace_view(self, trace_id: str) -> dict | None:
@@ -753,12 +804,18 @@ class ServingEngine:
     def _trace(self, req: Request | None, name: str, t0: float | None = None,
                t1: float | None = None, **attrs):
         """Record one lifecycle span (or, with no ``t1``, an instant event)
-        on ``req``'s trace; one ``is None`` check when tracing is off."""
+        on ``req``'s trace; one ``is None`` check when tracing is off.
+        Inside a tick the span is staged and lands only when the tick
+        commits, so a rolled-back tick leaves none."""
         if self.tracer is None or req is None:
             return
-        self.tracer.add(req.trace_id or req.request_id,
-                        span(name, time.time() if t0 is None else t0, t1,
-                             origin="engine", **attrs))
+        s = span(name, time.time() if t0 is None else t0, t1,
+                 origin="engine", **attrs)
+        tid = req.trace_id or req.request_id
+        if self._staging is not None:
+            self._span_staging.append((tid, s))
+        else:
+            self.tracer.add(tid, s)
 
     def _decode_parts(self, active: np.ndarray):
         """The (row, request, tokens so far) of a decode drain's rows, so
@@ -790,23 +847,41 @@ class ServingEngine:
                 self._trace(req, "decode_horizon", t0=t0_w, t1=t1,
                             steps=executed, tokens=toks)
 
-    def _flight_record(self, m0: dict, pages0: int, evictions0: int,
-                       t_wall: float):
-        """One working tick's record: deltas against the metrics before it
-        (``m0``), so the ring reads as what each tick did.  Idle ticks are
+    def _flight_pending(self) -> dict:
+        """Recovery evidence since the last record: a failed tick rolls
+        back and never records, and ``_recover`` counts its retry after
+        the rollback, so the retries and injector site hits ride the next
+        committed record (and the dumps taken at a recovery decision)."""
+        out = {"retries": self.metrics.get("retries", 0)
+               - self._flight_retries0}
+        if self.injector is not None:
+            hits = {k: v - self._flight_hits0.get(k, 0)
+                    for k, v in self.injector.site_hits.items()
+                    if v != self._flight_hits0.get(k, 0)}
+            if hits:
+                out["fault_sites"] = hits
+        return out
+
+    def _flight_record(self, snap: dict, t_wall: float):
+        """One committed working tick's record: deltas against its
+        checkpoint (``snap``), and the recovery evidence against the last
+        record, so the ring reads as what each tick did.  Idle ticks are
         counted, not recorded (the idle loop runs ~50 ticks a second and
         would flush real work out of the ring)."""
-        m = self.metrics
+        m, m0 = self.metrics, snap["metrics"]
 
         def d(key):
             return m.get(key, 0) - m0.get(key, 0)
 
+        pend = self._flight_pending()
         tokens, admitted = d("tokens"), d("requests")
-        if not (tokens or admitted or d("timeouts")
+        if not (tokens or admitted or d("timeouts") or pend["retries"]
+                or pend.get("fault_sites") or d("errors_isolated")
                 or self._tick_dispatches):
             self.flight.skip_idle()
             return
-        self.flight.record({
+        free0, _, _, _, evictions0 = snap["alloc"]
+        rec = {
             "t": round(t_wall, 3),
             "tick": m["ticks"],
             "dispatches": self._tick_dispatches,
@@ -817,11 +892,17 @@ class ServingEngine:
             "tokens": tokens,
             "admitted": admitted,
             "pages_in_use": self.alloc.pages_in_use,
-            "pages_delta": self.alloc.pages_in_use - pages0,
+            "pages_delta": len(free0) - len(self.alloc.free),
             "prefix_evictions": self.alloc.prefix_evictions - evictions0,
             "alloc_fail_clamps": d("alloc_fail_clamps"),
-            "retries": 0,
-        })
+            "retries": pend["retries"],
+        }
+        if pend.get("fault_sites"):
+            rec["fault_sites"] = pend["fault_sites"]
+        self._flight_retries0 = m.get("retries", 0)
+        if self.injector is not None:
+            self._flight_hits0 = dict(self.injector.site_hits)
+        self.flight.record(rec)
 
     # -- public API ---------------------------------------------------------
 
@@ -921,7 +1002,7 @@ class ServingEngine:
             req = self._pending.popleft()
             if req.finish_reason is None:
                 req.finish_reason = "abort"
-            req.stream_queue.put(None)
+            self._queue_put(req, None)
         self.metrics["queue_depth"] = self.queue_depth
 
     def _deadline_of(self, req: Request) -> float | None:
@@ -948,10 +1029,318 @@ class ServingEngine:
                     self.metrics["timeouts"] += 1
                     if r.finish_reason is None:
                         r.finish_reason = "timeout"
-                    r.stream_queue.put(None)
+                    self._queue_put(r, None)
                 else:
                     keep.append(r)
             self._pending = keep
+
+    # -- fault domain -------------------------------------------------------
+
+    def _fault_point(self, site: str, rows=(), reqs=()):
+        """A guarded site: the injector may raise here, before the device
+        or allocator operation the site names.  ``rows`` and ``reqs`` name
+        the requests taking part, which scope a poisoned-request fault and
+        which bisection masks."""
+        if self.injector is None:
+            return
+        ids = [r.request_id for r in reqs if r is not None]
+        for i in rows:
+            r = self.rows[i]
+            if r is not None:
+                ids.append(r.request_id)
+        self.injector.hit(site, ids)
+
+    def _queue_put(self, req: Request, item: int | None):
+        """A client-visible emission: staged inside a tick and flushed only
+        when it commits, so a rolled-back (retried or bisected) tick never
+        leaks a token or a terminal None."""
+        if self._staging is not None:
+            self._staging.append((req.stream_queue, item))
+        else:
+            req.stream_queue.put(item)
+
+    def _checkpoint(self) -> dict:
+        """Snapshot every piece of host state a tick can mutate: row
+        bookkeeping, the page allocator and prefix cache, the pending
+        queue, the generator that seeds unseeded requests, the plan,
+        metrics, histograms and the mutable fields of every request in
+        flight or queued.  It holds no device tensor: K/V written past the
+        committed ``row_lens`` is scratch (a retried tick writes the same
+        slots with the same values), and the decode loops mutate the
+        device row state in place, so a rollback marks it all stale and
+        the next dispatch uploads it again from the restored host state.
+
+        Two kinds of page hold committed K/V and may be written by the tick
+        all the same: a page a row holds, once the row finishes mid-tick
+        and another row takes the page, and a page only the prefix cache
+        holds, once evicted and handed out.  The first kind is pinned (not
+        handed out again before the commit); the second is dropped from
+        the cache by the rollback."""
+        reqs = [r for r in self.rows if r is not None] + list(self._pending)
+        self.alloc.pin(int(p) for p in np.unique(self.tables)
+                       if p > 0)
+        return {
+            "rows": list(self.rows),
+            "row_lens": self.row_lens.copy(),
+            "row_budget": self.row_budget.copy(),
+            "toks": self.toks.copy(),
+            "temps": self.temps.copy(),
+            "top_ps": self.top_ps.copy(),
+            "seeds": self.seeds.copy(),
+            "top_ks": self.top_ks.copy(),
+            "tables": self.tables.copy(),
+            "prefilling": dict(self._prefilling),
+            "row_keys": dict(self._row_keys),
+            "pending": list(self._pending),
+            "alloc": (list(self.alloc.free), self.alloc.ref.copy(),
+                      OrderedDict(self.alloc.prefix),
+                      dict(self.alloc._page_key),
+                      self.alloc.prefix_evictions),
+            # the seeds of unseeded requests admitted by a retried tick
+            # are drawn again from the same state
+            "gen": self._gen.get_state(),
+            "plan": self._horizon,
+            "metrics": dict(self.metrics),
+            "ttfts": list(self._ttfts),
+            "spec_window": list(self._spec_window),
+            "hists": {k: h.snapshot() for k, h in self.hists.items()},
+            "reqs": [(r, len(r.output_ids), len(r.logprobs),
+                      r.finish_reason, r.first_token_s, r._last_tok_s)
+                     for r in reqs],
+        }
+
+    def _rollback(self, snap: dict):
+        """Restore the checkpoint: the tick never happened.  Staged
+        emissions and spans are dropped (clients saw nothing), arrivals
+        drained mid-tick go back to the pending queue, and the device row
+        state and every table row are marked stale."""
+        self._staging = None
+        self._span_staging = []
+        self.rows = list(snap["rows"])
+        self.row_lens = snap["row_lens"].copy()
+        self.row_budget = snap["row_budget"].copy()
+        self.toks = snap["toks"].copy()
+        self.temps = snap["temps"].copy()
+        self.top_ps = snap["top_ps"].copy()
+        self.seeds = snap["seeds"].copy()
+        self.top_ks = snap["top_ks"].copy()
+        self.tables = snap["tables"].copy()
+        self._prefilling = dict(snap["prefilling"])
+        self._row_keys = dict(snap["row_keys"])
+        free, ref, prefix, pkey, evictions = snap["alloc"]
+        # cached pages the tick evicted may have been handed out and
+        # written: their keys are not restored, the pages go back free in
+        # eviction order (after the free list), and the evictions stand
+        gone = [(k, p) for k, p in prefix.items()
+                if self.alloc.prefix.get(k) != p]
+        self.alloc.free = [p for _, p in reversed(gone)] + list(free)
+        self.alloc.ref = ref.copy()
+        self.alloc.prefix = OrderedDict(prefix)
+        self.alloc._page_key = dict(pkey)
+        for k, p in gone:
+            del self.alloc.prefix[k]
+            del self.alloc._page_key[p]
+            self.alloc.ref[p] = 0
+        self.alloc.prefix_evictions = evictions + len(gone)
+        self.alloc.pin(())
+        self._gen.set_state(snap["gen"])
+        self._horizon = snap["plan"]
+        self._ttfts = deque(snap["ttfts"], maxlen=self._ttfts.maxlen)
+        self._spec_window = deque(snap["spec_window"],
+                                  maxlen=self._spec_window.maxlen)
+        # metrics revert but for the counter submit() moves from other
+        # threads (a refusal during the doomed tick really happened)
+        m = dict(snap["metrics"])
+        m["rejected"] = max(self.metrics.get("rejected", 0),
+                            m.get("rejected", 0))
+        self.metrics = m
+        for k, h in self.hists.items():
+            h.restore(snap["hists"][k])
+        for r, n_out, n_lp, fin, fts, lts in snap["reqs"]:
+            del r.output_ids[n_out:]
+            del r.logprobs[n_lp:]
+            r.finish_reason = fin
+            r.first_token_s = fts
+            r._last_tok_s = lts
+        self._pending = deque(snap["pending"])
+        for r in self._tick_arrivals:   # drained mid-tick: fresh again
+            r.output_ids.clear()
+            r.logprobs.clear()
+            r.finish_reason = None
+            r.first_token_s = 0.0
+            r._last_tok_s = 0.0
+            self._pending.append(r)
+        self._tick_arrivals = []
+        self._dev = None
+        self._dirty = True
+        self._dirty_tables = set(range(self.ec.max_rows))
+
+    def _commit(self):
+        """Flush the tick's staged emissions to the client queues in
+        emission order, and its spans to the tracer: the only point a
+        tick's output becomes visible."""
+        staged, self._staging = self._staging, None
+        staged_spans, self._span_staging = self._span_staging, []
+        self._tick_arrivals = []
+        self.alloc.unpin()
+        for q, item in staged:
+            q.put(item)
+        if self.tracer is not None:
+            for tid, s in staged_spans:
+                self.tracer.add(tid, s)
+        self.metrics["queue_depth"] = self.queue_depth
+
+    def _tick(self) -> bool:
+        """One transactional tick, the one the engine thread runs: plan,
+        checkpoint, run the scheduler (:meth:`_step`), commit; on an
+        exception, roll back (clients saw nothing) and recover
+        (:meth:`_recover`).  Then count the tick, record it in the flight
+        recorder and publish the histograms.  Returns True when the tick
+        committed.
+
+        Every tick that decodes ends in a blocking read of its results
+        before it can commit, so a fault its kernels raise on the device
+        is charged to it.  A tick that only prefills (no row decoding, no
+        prompt completing) reads nothing back; a fault of its kernels
+        surfaces at the next tick's read.  The faults that surface late
+        are CUDA context errors, sticky (``faults.is_transient``), which
+        fail every request whichever tick they are charged to."""
+        if self._drain_abort.is_set():
+            self._shed_remaining()
+            self._drain_abort.clear()
+        # planned before the checkpoint, so that a retry and every probe
+        # replay the failed tick's plan instead of re-planning against the
+        # queue as the fault left it
+        if self._retries == 0:
+            self._horizon = self._plan_horizon()
+        snap = self._checkpoint()
+        self._staging = []
+        self._span_staging = []
+        self._tick_arrivals = []
+        self._tick_dispatches = 0
+        t_wall = time.time()
+        try:
+            self._step()
+        except Exception as exc:  # noqa: BLE001 -- the tick's fault domain
+            self._rollback(snap)
+            self._recover(exc)
+            return False
+        self._commit()
+        self._retries = 0
+        # after the commit: a rolled-back tick never moves the liveness
+        # counter, so `ticks` moves only while the engine makes progress
+        self.metrics["ticks"] += 1
+        self._flight_record(snap, t_wall)
+        m0 = snap["metrics"]
+        if self.metrics["tokens"] != m0["tokens"] or \
+                self.metrics["host_syncs"] != m0["host_syncs"]:
+            self._hists_published = {k: h.copy()
+                                     for k, h in self.hists.items()}
+        return True
+
+    def _recover(self, exc: BaseException):
+        """After the rollback: a transient fault backs off exponentially
+        and lets the loop run the tick again from the committed state
+        (bitwise the same tick).  Exhausted retries or a deterministic
+        fault bisect the tick's requests and quarantine the culprit; only
+        a fault bisection cannot place on a request reaches
+        ``_fail_all``."""
+        if is_transient(exc) and self._retries < self.ec.max_step_retries:
+            self._retries += 1
+            self.metrics["retries"] += 1
+            if self.tracer is not None:
+                # after the rollback, so these land directly
+                for req in [r for r in self.rows if r is not None] + \
+                        list(self._pending):
+                    self._trace(req, "retry", attempt=self._retries,
+                                error=f"{type(exc).__name__}: {exc}")
+            self._stop.wait(
+                self.ec.retry_backoff_s * (2 ** (self._retries - 1)))
+            return
+        self._retries = 0
+        culprit = self._bisect_culprit()
+        if culprit is _FAULT_VANISHED:
+            # it did not reproduce: carry on from the committed state
+            self.metrics["last_error"] = f"{type(exc).__name__}: {exc}"
+            return
+        if culprit is None:
+            self._fail_all(exc)
+            return
+        self._quarantine(culprit, exc)
+
+    def _probe(self, masked_ids: set) -> BaseException | None:
+        """Run the tick again with ``masked_ids`` sat out (skipped by
+        admission and prefill, inactive on the device), emissions muted and
+        everything rolled back afterwards: a probe only observes whether
+        the fault fires."""
+        snap = self._checkpoint()
+        self._staging = []
+        self._span_staging = []
+        self._tick_arrivals = []
+        self._masked = set(masked_ids)
+        self._dirty = True   # the active mask differs from the device's
+        try:
+            self._step()
+            return None
+        except Exception as e:  # noqa: BLE001 -- what the probe observes
+            return e
+        finally:
+            self._masked = set()
+            self._rollback(snap)
+
+    def _bisect_culprit(self):
+        """Place a deterministic fault on one request by running the tick
+        with halves of the suspects masked.  Returns the culprit, None when
+        the fault fires with every suspect masked (engine-level), or
+        ``_FAULT_VANISHED`` when it does not reproduce."""
+        suspects = [r for r in self.rows if r is not None]
+        suspects += [r for r in self._pending if r not in suspects]
+        if not suspects:
+            return None
+        if self._probe(set()) is None:
+            return _FAULT_VANISHED
+        all_ids = {r.request_id for r in suspects}
+        if self._probe(all_ids) is not None:
+            return None
+        cands = suspects
+        while len(cands) > 1:
+            half = cands[:len(cands) // 2]
+            if self._probe({r.request_id for r in half}) is None:
+                cands = half            # silenced: the culprit is masked
+            else:
+                cands = cands[len(cands) // 2:]
+        culprit = cands[0]
+        # confirm with the culprit alone taking part, so that a fault that
+        # stopped firing mid-bisection quarantines no innocent request
+        if self._probe(all_ids - {culprit.request_id}) is None:
+            return _FAULT_VANISHED
+        return culprit
+
+    def _quarantine(self, req: Request, exc: BaseException):
+        """Finish the culprit alone with ``finish_reason="error"``, whether
+        it holds a row (its pages go back) or waits in the queue, after
+        freezing the flight ring with the evidence.  The next tick runs
+        without it, so the survivors' streams are the unfaulted run's."""
+        err = f"{type(exc).__name__}: {exc}"
+        self.metrics["errors_isolated"] += 1
+        self.metrics["last_error"] = (
+            f"isolated to request {req.request_id[:12]}: {err}")
+        self.flight.dump("quarantine", request_id=req.request_id,
+                         error=err,
+                         **{f"{k}_pending": v for k, v
+                            in self._flight_pending().items() if v})
+        self._trace(req, "quarantine", error=err)
+        for i, r in enumerate(self.rows):
+            if r is req:
+                self._finish(i, "error")
+                return
+        try:
+            self._pending.remove(req)
+        except ValueError:
+            pass
+        if req.finish_reason is None:
+            req.finish_reason = "error"
+        self._queue_put(req, None)
 
     def _h2d(self, a, dtype=None) -> torch.Tensor:
         """Upload a host array: ``torch.tensor`` copies, so the device
@@ -960,10 +1349,13 @@ class ServingEngine:
 
     # -- page bookkeeping ---------------------------------------------------
 
-    def _ensure_pages(self, row: int, upto_slot: int) -> bool:
+    def _ensure_pages(self, row: int, upto_slot: int,
+                      req: Request | None = None) -> bool:
         """Allocate pages so slots [0, upto_slot) are backed; False = dry.
         Slots past the table width are right-padded prefill slack, which
-        update_layer routes to the scratch page."""
+        update_layer routes to the scratch page.  ``req`` names an
+        admission's request, which holds no row yet."""
+        self._fault_point("page-alloc", rows=(row,), reqs=(req,))
         need = min(-(-upto_slot // self.ec.page_size), self.ec.max_pages)
         for j in range(need):
             if self.tables[row, j] < 0:
@@ -986,8 +1378,11 @@ class ServingEngine:
     # -- device state -------------------------------------------------------
 
     def _active_mask(self) -> np.ndarray:
-        """Rows decoding: occupied and past prefill."""
+        """Rows decoding: occupied, past prefill and not masked by a
+        bisection probe (a masked row goes inactive on the device, so it
+        takes no part in the tick)."""
         return np.array([r is not None and i not in self._prefilling
+                         and r.request_id not in self._masked
                          for i, r in enumerate(self.rows)], bool)
 
     def _upload_row_state(self):
@@ -1052,15 +1447,27 @@ class ServingEngine:
     def _loop(self):
         while not self._stop.is_set():
             try:
-                self._step_once()
-            except Exception as exc:  # noqa: BLE001 -- keep serving
+                committed = self._tick()
+                # a committed tick: the engine recovered, so /health goes
+                # back to "ok" (an isolation stays in errors_isolated)
+                if committed and self.metrics.get("last_error"):
+                    self.metrics["last_error"] = ""
+            except Exception as exc:  # noqa: BLE001 -- recovery failed
                 self._fail_all(exc)
 
     def _fail_all(self, exc: BaseException):
-        """Finish every in-flight and queued request with 'error' so no
-        client blocks forever, record the error, and keep serving.  The
-        flight recorder's ring is frozen first, as the failure's evidence."""
-        self.flight.dump("fail_all", error=f"{type(exc).__name__}: {exc}")
+        """The engine-level backstop, reached only when bisection cannot
+        place a fault on a request or the recovery itself failed: finish
+        every in-flight and queued request with 'error' so no client
+        blocks forever, record the error, and keep serving.  The flight
+        recorder's ring is frozen first, as the failure's evidence."""
+        self._staging = None    # emissions land directly from here on
+        self._span_staging = []
+        self._tick_arrivals = []
+        self._masked = set()
+        self.flight.dump("fail_all", error=f"{type(exc).__name__}: {exc}",
+                         **{f"{k}_pending": v for k, v
+                            in self._flight_pending().items() if v})
         for i, req in enumerate(self.rows):
             if req is not None:
                 self._finish(i, "error")
@@ -1068,7 +1475,7 @@ class ServingEngine:
         while self._pending:
             req = self._pending.popleft()
             req.finish_reason = req.finish_reason or "error"
-            req.stream_queue.put(None)
+            self._queue_put(req, None)
         self._dev = None
         self.metrics["errors"] = self.metrics.get("errors", 0) + 1
         self.metrics["last_error"] = f"{type(exc).__name__}: {exc}"
@@ -1081,11 +1488,26 @@ class ServingEngine:
         return None
 
     def _drain_inbox(self):
+        """Move submissions into the pending queue; inside a tick, note
+        them, so that a rollback puts them back instead of losing them
+        (the inbox itself is never rolled back)."""
         while True:
             try:
-                self._pending.append(self._inbox.get_nowait())
+                req = self._inbox.get_nowait()
             except queue.Empty:
                 return
+            self._pending.append(req)
+            if self._staging is not None:
+                self._tick_arrivals.append(req)
+
+    def _pop_pending(self) -> Request | None:
+        """The head of the pending queue, skipping requests a bisection
+        probe masks (they stay queued, in order)."""
+        for i, req in enumerate(self._pending):
+            if req.request_id not in self._masked:
+                del self._pending[i]
+                return req
+        return None
 
     def _plan_horizon(self) -> int:
         """The static planner's horizon, from pre-tick state: 1 while
@@ -1097,30 +1519,15 @@ class ServingEngine:
         return 1 if joining else self.ec.decode_horizon
 
     def _step_once(self):
-        """One engine tick: shed what a drain left at its deadline, run the
-        tick (:meth:`_step`), then count it, record it in the flight
-        recorder and publish the histograms.  A tick that raises is neither
-        counted nor recorded."""
-        if self._drain_abort.is_set():
-            self._shed_remaining()
-            self._drain_abort.clear()
-        m0 = dict(self.metrics)
-        pages0, evictions0 = self.alloc.pages_in_use, \
-            self.alloc.prefix_evictions
-        t_wall = time.time()
-        self._tick_dispatches = 0
+        """One tick outside a transaction: plan, then run the scheduler.
+        Nothing is staged, checkpointed, counted or recorded, and an
+        exception propagates (the engine thread runs :meth:`_tick`)."""
+        self._horizon = self._plan_horizon()
         self._step()
-        self.metrics["ticks"] += 1
-        self._flight_record(m0, pages0, evictions0, t_wall)
-        if self.metrics["tokens"] != m0["tokens"] or \
-                self.metrics["host_syncs"] != m0["host_syncs"]:
-            self._hists_published = {k: h.copy()
-                                     for k, h in self.hists.items()}
 
     def _step(self):
         """The scheduler: expire deadlines at the tick boundary, admit,
-        then run one tick shape."""
-        self._horizon = self._plan_horizon()
+        then run one tick shape at the planned horizon."""
         self._drain_inbox()
         self._expire_deadlines()
         self.metrics["queue_depth"] = self.queue_depth
@@ -1153,12 +1560,14 @@ class ServingEngine:
         ps = self.ec.page_size
         while True:
             row = self._free_row()
-            if row is None or not self._pending:
+            if row is None:
                 return
-            req = self._pending.popleft()
+            req = self._pop_pending()
+            if req is None:
+                return
             if req.cancelled:
                 req.finish_reason = "abort"
-                req.stream_queue.put(None)
+                self._queue_put(req, None)
                 continue
             prompt = np.asarray(req.prompt_ids, np.int32)
             n_p = len(prompt)
@@ -1166,7 +1575,7 @@ class ServingEngine:
                            (self.ec.n_pages - 1) * ps)
             if n_p + req.max_new_tokens > capacity or n_p == 0:
                 req.finish_reason = "length"
-                req.stream_queue.put(None)
+                self._queue_put(req, None)
                 continue
             # reuse the longest chain of cached full pages covering at most
             # the first n_p - 1 tokens (one token must run for logits)
@@ -1180,13 +1589,13 @@ class ServingEngine:
                 self.tables[row, shared] = pid
                 self._dirty_tables.add(row)
                 shared += 1
-            if not self._ensure_pages(row, n_p):
+            if not self._ensure_pages(row, n_p, req=req):
                 self._release_row_pages(row)
                 if any(r is not None for r in self.rows):
                     self._pending.appendleft(req)   # retry at the head
                 else:
                     req.finish_reason = "length"    # it will never fit
-                    req.stream_queue.put(None)
+                    self._queue_put(req, None)
                 return
             if shared:
                 self.metrics["prefix_hits"] += 1
@@ -1216,9 +1625,11 @@ class ServingEngine:
     def _prefill_one_chunk(self):
         """Sequential engine: advance ONE prefilling row by one chunk and,
         when its prompt completes, sample its first token."""
-        if not self._prefilling:
+        # the first prefilling row a bisection probe does not mask
+        row = next((r for r in self._prefilling
+                    if self.rows[r].request_id not in self._masked), None)
+        if row is None:
             return
-        row = next(iter(self._prefilling))
         req = self.rows[row]
         remaining = self._prefilling[row]
         cp = self.ec.prefill_bucket
@@ -1230,6 +1641,7 @@ class ServingEngine:
             return
         toks = np.zeros((1, cp), np.int32)
         toks[0, :n_valid] = chunk
+        self._fault_point("prefill-chunk", rows=(row,))
         cache = self._flush_dirty_tables()
         pos = np.arange(base, base + cp, dtype=np.int32)[None, :]
         t0_w = time.time()
@@ -1254,6 +1666,7 @@ class ServingEngine:
             self._h2d(self.seeds[row:row + 1]),
             self._h2d([0], torch.int32),
             top_ks=self._h2d(self.top_ks[row:row + 1]))
+        self._fault_point("sample", rows=(row,))
         t0 = time.perf_counter()
         first, lp = int(first_t.cpu()[0]), float(first_lp.cpu()[0])
         self._count_sync(time.perf_counter() - t0)
@@ -1294,7 +1707,7 @@ class ServingEngine:
         if req._last_tok_s:
             self.hists["token_latency_s"].observe(now - req._last_tok_s)
         req._last_tok_s = now
-        req.stream_queue.put(token)
+        self._queue_put(req, token)
         self.metrics["tokens"] += 1
         if token in req.eos_token_id:
             self._finish(row, "stop")
@@ -1307,7 +1720,7 @@ class ServingEngine:
             req.finish_reason = reason
         self._trace(req, "finish", reason=req.finish_reason,
                     output_tokens=len(req.output_ids))
-        req.stream_queue.put(None)
+        self._queue_put(req, None)
         self.rows[row] = None
         self.row_lens[row] = 0
         self.toks[row] = 0
@@ -1319,8 +1732,15 @@ class ServingEngine:
     def _mixed_step(self):
         """One admission-wave tick: a ragged chunk for every prefilling
         row, on-device first-token sampling and merge for the prompts that
-        complete, and one decode step for every decoding row."""
-        rows = sorted(self._prefilling)
+        complete, and one decode step for every decoding row.  Rows a
+        bisection probe masks sit the tick out."""
+        rows = sorted(r for r in self._prefilling
+                      if self.rows[r].request_id not in self._masked)
+        if not rows:
+            active = self._active_mask()
+            if active.any():
+                self._horizon_step(active)
+            return
         # per-row chunk width: the budget fair-shares across joining rows,
         # power-of-two floor, at least 4, at most the prefill bucket
         share = max(1, self._step_budget // len(rows))
@@ -1382,6 +1802,15 @@ class ServingEngine:
             if spec_ks is not None:
                 spec_ks[i] = k_i
         with_decode = bool(active.any() or any(emit))
+        self._fault_point("mixed-step", rows=[row for row, _, _ in chunks])
+        # the decode participants: rows decoding and completions that join
+        # the decode this tick, so that a request's fault at this site
+        # fires on the tick its first token would commit
+        decode_rows = list(np.flatnonzero(active)) + [
+            row for (row, _, _), e, ok in zip(chunks, emit, canjoin)
+            if e and ok]
+        if with_decode and decode_rows:
+            self._fault_point("decode-dispatch", rows=decode_rows)
         p = len(chunks)
         toks = np.zeros((p, width), np.int32)
         for s, (row, n_i, _) in enumerate(chunks):
@@ -1427,6 +1856,7 @@ class ServingEngine:
             return      # pure-chunk tick: nothing to read back
         if completing:
             self._dirty = True
+            self._fault_point("sample", rows=[row for _, row in completing])
         t0 = time.perf_counter()
         if completing:
             nxt, lp = first_t.cpu().numpy(), first_lp.cpu().numpy()
@@ -1484,6 +1914,8 @@ class ServingEngine:
             h = 1 << (h.bit_length() - 1)      # largest power of two <= h
             self.metrics["horizon_clamped"] = (
                 self.metrics.get("horizon_clamped", 0) + 1)
+        self._fault_point("decode-dispatch",
+                          rows=[int(i) for i in np.flatnonzero(active)])
         dev = self._sync_device_state()
         t0_w = time.time()
         self._tick_dispatches += 1
@@ -1634,6 +2066,8 @@ class ServingEngine:
             valid = d >= 0
             n_prop[i] = k_req if valid.all() else int(valid.argmin())
             drafts[i, :k_req] = np.where(valid, d, 0)
+        self._fault_point("decode-dispatch",
+                          rows=[int(i) for i in np.flatnonzero(active)])
         cache = self._flush_dirty_tables()
         sentinel = self.ec.max_pages * self.ec.page_size
         write_at = np.where(active, self.row_lens, sentinel).astype(np.int32)

@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It serves Llama-2-7B widths (random sym_int4 weights from a seed) with the
 engine of ``chip_smoke.py`` (8 rows, page 128, prefill bucket 128, decode
-horizon 4), driving the engine's tick by hand, over two windows: the
+horizon 4), driving the engine's transactional tick (``_tick``, what the
+engine thread runs) by hand, over two windows: the
 admission wave (mixed ticks, 8 prompts of 512 tokens) and the steady
 decode that follows (64 new tokens each); first without speculation, then
 with prompt-lookup speculation (``spec_k`` 3) on the same traffic.  The
@@ -15,8 +16,10 @@ traffic runs twice: once for the host wall clock, once under
 ``torch.profiler`` for the kernels' device time.  For each window it
 prints the wall time, the summed device time of the kernels, the device's
 idle share (1 - device time / wall), the kernel launches per tick, the
-decode iterations (verify rounds with speculation) and the kernels ranked
-by device time.
+decode iterations (verify rounds with speculation), the host time per tick
+of the transaction's checkpoint and of its commit (which flushes the
+tick's staged emissions to the client queues) on the unprofiled pass, and
+the kernels ranked by device time.
 """
 
 from __future__ import annotations
@@ -48,15 +51,35 @@ def profile_engine(eng, cfg, spec_k: int) -> list:
             eng.submit(r)
         return reqs
 
-    def run_window(more) -> tuple[float, int, int]:
+    # host seconds inside the transaction's checkpoint and commit
+    txn = {"checkpoint": 0.0, "commit": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                txn[name] += time.perf_counter() - t0
+        return run
+
+    eng._checkpoint = timed("checkpoint", eng._checkpoint)
+    eng._commit = timed("commit", eng._commit)
+
+    def run_window(more) -> tuple[float, int, int, dict]:
         torch.cuda.synchronize()
+        txn0 = dict(txn)
         t0 = time.perf_counter()
         ticks, steps = 0, eng.metrics["steps"]
         while more():
-            eng._step_once()
+            if not eng._tick():
+                raise RuntimeError(f"tick rolled back: "
+                                   f"{eng.metrics.get('last_error')}")
             ticks += 1
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, ticks, eng.metrics["steps"] - steps
+        return (time.perf_counter() - t0, ticks,
+                eng.metrics["steps"] - steps,
+                {k: txn[k] - txn0[k] for k in txn})
 
     # warm-up: builds the kernels and touches every code path
     warm = submit_wave(2, 128, 8)
@@ -77,7 +100,7 @@ def profile_engine(eng, cfg, spec_k: int) -> list:
                 continue
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall_prof, _, _ = run_window(more)
+                wall_prof, _, _, _ = run_window(more)
             kern: dict[str, list] = {}
             for ev in prof.events():
                 if ev.device_type != DeviceType.CUDA:
@@ -85,7 +108,7 @@ def profile_engine(eng, cfg, spec_k: int) -> list:
                 k = kern.setdefault(ev.name, [0.0, 0])
                 k[0] += ev.device_time_total / 1e6
                 k[1] += 1
-            wall, ticks, steps = walls[name]
+            wall, ticks, steps, host = walls[name]
             busy = sum(v[0] for v in kern.values())
             top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
             row = {"spec_k": spec_k, "window": name, "ticks": ticks,
@@ -94,6 +117,11 @@ def profile_engine(eng, cfg, spec_k: int) -> list:
                    "idle_share": 1.0 - busy / wall,
                    "launches_per_tick": sum(v[1] for v in kern.values())
                    / max(ticks, 1),
+                   "checkpoint_ms_per_tick": 1e3 * host["checkpoint"]
+                   / max(ticks, 1),
+                   "commit_ms_per_tick": 1e3 * host["commit"]
+                   / max(ticks, 1),
+                   "checkpoint_share_of_wall": host["checkpoint"] / wall,
                    "top": [{"kernel": k[:80], "s": v[0], "launches": v[1]}
                            for k, v in top]}
             rows.append(row)

@@ -333,6 +333,84 @@ def test_call_trace_and_debug_routes(server):
                         "prefix_evictions", "alloc_fail_clamps", "retries"}
 
 
+def test_call_isolated_fault_and_health(pair):
+    """A request bound to a poisoned fault gets the error object of an
+    isolated failure (500, ``server_error``) while a request beside it
+    completes; /health counts the retry of a transient fault and the
+    isolation, reports "degraded" while the isolation is the engine's last
+    event and "ok" again after a committed tick."""
+    import threading
+
+    from ipex_llm_tpu_torch.serving.faults import (DeterministicFault,
+                                                   FaultInjector,
+                                                   TransientFault)
+
+    _, _, port_cfg, port_params = pair
+    inj = (FaultInjector()
+           .inject("mixed-step", TransientFault)
+           .inject("decode-dispatch", DeterministicFault,
+                   request_id="poisoned", times=None))
+    eng = ServingEngine(port_cfg, port_params,
+                        EngineConfig(retry_backoff_s=0.001, **EC),
+                        device="cpu", fault_injector=inj)
+    poison = [7, 7, 7, 7]
+    real_submit, real_tick = eng.submit, eng._tick
+    held, release = threading.Event(), threading.Event()
+
+    def submit(req):
+        if req.prompt_ids == poison:    # bind the fault to this request
+            req.request_id = "poisoned"
+        return real_submit(req)
+
+    def tick():
+        # hold the engine thread after the isolation, before any
+        # committed tick could clear it
+        committed = real_tick()
+        if eng.metrics["errors_isolated"] and not release.is_set():
+            held.set()
+            release.wait(60)
+        return committed
+
+    eng.submit, eng._tick = submit, tick
+    srv = OpenAIServer(eng.start(), _Tok(), "tiny")
+
+    async def scenario():
+        bad = asyncio.create_task(srv.call(
+            "POST", "/v1/completions", {"prompt": "7 7 7 7",
+                                        "max_tokens": 6}))
+        good = asyncio.create_task(srv.call(
+            "POST", "/v1/completions", {"prompt": "1 2 3 4 5",
+                                        "max_tokens": 8}))
+        assert await asyncio.get_running_loop().run_in_executor(
+            None, held.wait, 60)
+        degraded = (await srv.call("GET", "/health")).body
+        release.set()
+        return await bad, await good, degraded
+
+    try:
+        bad, good, degraded = _run(scenario())
+        assert bad.status == 500
+        assert bad.body["error"]["type"] == "server_error"
+        assert bad.body["error"]["code"] == "error"
+        assert good.status == 200
+        assert good.body["choices"][0]["finish_reason"] == "length"
+        assert len(good.body["choices"][0]["text"].split()) == 8
+        assert degraded["status"] == "degraded"
+        assert "isolated to request poisoned" in degraded["last_error"]
+        for _ in range(500):
+            health = _run(srv.call("GET", "/health")).body
+            if health["status"] == "ok":
+                break
+            threading.Event().wait(0.01)
+        assert health["status"] == "ok" and "last_error" not in health
+        assert health["fault_domain"]["errors_isolated"] == 1
+        assert health["fault_domain"]["retries"] >= 1
+        assert eng.metrics.get("errors", 0) == 0
+    finally:
+        release.set()
+        eng.stop()
+
+
 def test_call_refusals(server):
     """Unknown routes 404, a wrong method 405, response_format 400, and a
     bounded queue or a draining engine 429/503 with Retry-After."""

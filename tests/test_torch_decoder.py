@@ -22,13 +22,14 @@ from tests.test_decoder import rand_params, tiny_cfg
 from tests.test_torch_quantize import reference_tree
 
 
-def tiny_pair(qtype: str):
+def tiny_pair(qtype: str, **widths):
     """(reference cfg, reference params, port cfg, port params): 2 layers,
-    hidden 64, 4 heads over 2 kv heads (GQA), head_dim 16, vocab 256."""
-    cfg = tiny_cfg(vocab_size=256, hidden_size=64, intermediate_size=160,
-                   num_heads=4, num_kv_heads=2, head_dim=16,
-                   max_position_embeddings=512,
-                   rope=RopeScaling(head_dim=16))
+    hidden 64, 4 heads over 2 kv heads (GQA), head_dim 16, vocab 256, or
+    the ``tiny_cfg`` widths given."""
+    kw = {**dict(vocab_size=256, hidden_size=64, intermediate_size=160,
+                 num_heads=4, num_kv_heads=2, head_dim=16,
+                 max_position_embeddings=512), **widths}
+    cfg = tiny_cfg(rope=RopeScaling(head_dim=kw["head_dim"]), **kw)
     params = rand_params(cfg, qtype=qtype)
     port_cfg = ModelConfig.from_fields(dataclasses.asdict(cfg))
     return cfg, params, port_cfg, params_from_reference(

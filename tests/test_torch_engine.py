@@ -264,29 +264,32 @@ def test_abort_frees_the_row_mid_stream(pair):
 
 def test_a_failing_tick_fails_its_requests_and_the_engine_serves_on(
         pair, monkeypatch):
-    """An exception inside a tick finishes every in-flight and queued
-    request with 'error' (no client waits forever); the next request is
+    """A fault of the engine, not of a request (it fires with every
+    request masked, so bisection cannot place it), finishes every
+    in-flight and queued request with 'error' (no client waits forever)
+    and freezes the flight ring with the error; the next request is
     served normally."""
-    import ipex_llm_tpu_torch.serving.engine as engine_mod
-
     _, _, port_cfg, port_params = pair
-    real = engine_mod.tick_body
-    calls = []
-
-    def fail_once(*a, **kw):
-        calls.append(1)
-        if len(calls) == 1:
-            raise RuntimeError("injected tick failure")
-        return real(*a, **kw)
-
-    monkeypatch.setattr(engine_mod, "tick_body", fail_once)
     eng = ServingEngine(port_cfg, port_params, EngineConfig(**EC),
-                        device="cpu").start()
+                        device="cpu")
+    first = Request(prompt_ids=[3, 4, 5], max_new_tokens=4)
+    real = eng._expire_deadlines
+
+    def fails_while_first_waits():
+        if any(r is first for r in eng._pending):
+            raise RuntimeError("injected tick failure")
+        real()
+
+    monkeypatch.setattr(eng, "_expire_deadlines", fails_while_first_waits)
+    eng.start()
     try:
-        first = eng.submit(Request(prompt_ids=[3, 4, 5], max_new_tokens=4))
+        eng.submit(first)
         assert list(stream_tokens(first, timeout=60)) == []
         assert first.finish_reason == "error"
-        assert "injected" in eng.metrics["last_error"]
+        assert eng.metrics["errors"] == 1
+        assert eng.metrics["errors_isolated"] == 0
+        dump = eng.flight.view()["dumps"][-1]
+        assert dump["reason"] == "fail_all" and "injected" in dump["error"]
         second = eng.submit(Request(prompt_ids=[3, 4, 5], max_new_tokens=4))
         assert len(list(stream_tokens(second, timeout=60))) == 4
         assert second.finish_reason == "length"
