@@ -90,6 +90,21 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    tokens and logprobs, the culprit alone finish "error" with its pages
    back; each run prints its wall time, committed ticks, bisection probes
    and B1's and B2's launches;
+   then ``load`` (``scripts/torch_load_smoke.py``): the model API over a
+   Llama-2-7B-width HF checkpoint written with random bf16 weights (all
+   32 layers, sharded safetensors): ``from_pretrained(load_in_low_bit=
+   "sym_int4")`` onto the card under a peak of the packed tree + 1.5 GB,
+   layer 0's, the last layer's and the head's planes bitwise the CPU
+   codec's, ``save_low_bit``/``load_low_bit`` bitwise, both models'
+   greedy ``generate`` equal (B2, B3, B4), ``build_server`` over the
+   checkpoint answering eight completions equal to an engine's over the
+   loaded tree (B1, B2), and over the low-bit directory reporting its
+   recorded width; write, load, save and reload seconds, load GB/s, peak
+   memory and tok/s printed with the card;
+   then ``sticky_fault``: ``scripts/torch_sticky_fault.py`` in a child
+   process raises a real device-side assert inside a tick; the engine
+   must classify it not transient and end in ``_fail_all`` (``errors``
+   1, every request "error");
 6. ``b3``: dense decode attention against its plain version at
    Mistral-7B widths (32 query heads over 8 kv heads of 128), B=4,
    capacity 2304, ragged ``kv_start``/``kv_len``, over bf16 and e5m2
@@ -1196,119 +1211,23 @@ def main() -> int:
         configuration; two SSE chat streams, a stop string, a TGI stream
         and its trace; /metrics, /debug/flight, /v1/models and /health;
         then 429, 503 (drain) and 408 (deadline) as the clients see them."""
-        import asyncio
-        import threading
-        import urllib.error
-        import urllib.request
-        import zlib
         from concurrent.futures import ThreadPoolExecutor
 
-        from ipex_llm_tpu_torch.serving.api_server import (EventStream,
-                                                           OpenAIServer)
+        from torch_http_client import (Client as HttpClient, IdTokenizer,
+                                       hold_first_tick, http_transport)
+
+        from ipex_llm_tpu_torch.serving.api_server import OpenAIServer
         from ipex_llm_tpu_torch.serving.observe import Histogram
 
         t_phase = time.perf_counter()
-        try:
-            import aiohttp  # noqa: F401
-            transport = "http"
-        except ImportError:
-            transport = "in_process"
+        transport = http_transport()
 
-        class Tok:
-            """Id passthrough: a number is its id, another word a hash."""
-            eos_token_id = None
-            chat_template = None
+        def Tok():
+            return IdTokenizer(cfg.vocab_size)
 
-            def __call__(self, text):
-                return {"input_ids": [
-                    int(w) % cfg.vocab_size if w.isdigit()
-                    else zlib.crc32(w.encode()) % cfg.vocab_size
-                    for w in text.split()]}
-
-            def decode(self, ids):
-                return " ".join(str(i) for i in ids)
-
-        def parse_events(lines) -> list:
-            out = []
-            for ln in lines:
-                ln = ln.strip()
-                if ln.startswith("data: "):
-                    ev = ln[6:]
-                    out.append(ev if ev == "[DONE]" else json.loads(ev))
-            return out
-
-        class Client:
-            """One server on a loop of its own: reached over 127.0.0.1
-            (``transport`` "http") or through ``OpenAIServer.call``."""
-
-            def __init__(self, srv):
-                self.srv = srv
-                self.loop = asyncio.new_event_loop()
-                ready = threading.Event()
-
-                def run():
-                    asyncio.set_event_loop(self.loop)
-                    if transport == "http":
-                        from aiohttp import web
-                        self.runner = web.AppRunner(srv.app)
-                        self.loop.run_until_complete(self.runner.setup())
-                        site = web.TCPSite(self.runner, "127.0.0.1", 0)
-                        self.loop.run_until_complete(site.start())
-                        self.port = site._server.sockets[0].getsockname()[1]
-                    ready.set()
-                    self.loop.run_forever()
-
-                self.thread = threading.Thread(target=run, daemon=True)
-                self.thread.start()
-                if not ready.wait(60):
-                    fail("serve_http: the server did not start")
-
-            def request(self, method, path, body=None, headers=None):
-                """(status, headers, payload): the JSON body, the text
-                body, or the list of an event stream's events."""
-                if transport == "http":
-                    rq = urllib.request.Request(
-                        f"http://127.0.0.1:{self.port}{path}",
-                        data=None if body is None else json.dumps(
-                            body).encode(), method=method,
-                        headers={"Content-Type": "application/json",
-                                 **(headers or {})})
-                    try:
-                        resp = urllib.request.urlopen(rq, timeout=600)
-                    except urllib.error.HTTPError as e:
-                        resp = e
-                    raw = resp.read().decode()
-                    ctype = resp.headers.get("Content-Type", "")
-                    if "event-stream" in ctype:
-                        payload = parse_events(raw.splitlines())
-                    elif "json" in ctype:
-                        payload = json.loads(raw)
-                    else:
-                        payload = raw
-                    return resp.getcode(), dict(resp.headers), payload
-
-                async def go():
-                    out = await self.srv.call(method, path, body, headers)
-                    if isinstance(out, EventStream):
-                        frames = [f.decode() async for f in out.events]
-                        return out.status, out.headers, parse_events(frames)
-                    return out.status, out.headers, out.body
-                return asyncio.run_coroutine_threadsafe(
-                    go(), self.loop).result(600)
-
-            def close(self):
-                """Shut the server down (over HTTP, aiohttp's shutdown
-                drains and stops the engine), then its loop."""
-                if transport == "http":
-                    asyncio.run_coroutine_threadsafe(
-                        self.runner.cleanup(), self.loop).result(180)
-                else:
-                    self.srv.engine.drain(self.srv.drain_timeout_s)
-                    self.srv.engine.stop()
-                self.loop.call_soon_threadsafe(self.loop.stop)
-                self.thread.join(30)
-                if self.srv.engine._thread.is_alive():
-                    fail("serve_http: the engine thread did not stop")
+        def Client(srv):
+            return HttpClient(srv, transport,
+                              lambda msg: fail(f"serve_http: {msg}"))
 
         def expect(cond, what):
             if not cond:
@@ -1321,18 +1240,8 @@ def main() -> int:
             """An engine whose thread holds its first tick until
             ``n_wave`` requests wait, so that the server's run and the
             direct run admit the same wave and run the same ticks."""
-            eng = ServingEngine(cfg, params, EngineConfig(
-                trace_requests=True, **ec), device=dev)
-            tick, gate = eng._tick, threading.Event()
-
-            def gated_tick():
-                if gate.is_set() or eng.queue_depth >= n_wave:
-                    gate.set()
-                    return tick()
-                time.sleep(0.001)
-                return True
-            eng._tick = gated_tick
-            return eng
+            return hold_first_tick(ServingEngine(cfg, params, EngineConfig(
+                trace_requests=True, **ec), device=dev), n_wave)
 
         def hist_delta(after: Histogram, before: Histogram) -> Histogram:
             h = Histogram(after.bounds)
@@ -1585,7 +1494,39 @@ def main() -> int:
      report["serve_faults"]) = serve_phase()
     torch.cuda.empty_cache()
 
-    # -- 5b. serving a bf16 tree in each block format ------------------------
+    # -- 5a. the model API over a Llama-2-7B-width checkpoint ----------------
+    from torch_load_smoke import load_phase
+
+    report["load"] = load_phase(kernels, card, fail, dev)
+    print("load " + json.dumps(report["load"]), flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 5b. a real sticky CUDA error inside a tick, in a child process ------
+    def sticky_fault_phase() -> dict:
+        """``scripts/torch_sticky_fault.py`` in a process of its own (the
+        poisoned context dies with it): its report must show the
+        device-side assert classified not transient, ``errors`` 1 and every
+        request finished "error"."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_sticky_fault.py")],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if not lines:
+            fail(f"sticky_fault: the child printed no report (exit "
+                 f"{proc.returncode}): {proc.stderr[-2000:]}")
+        rep = json.loads(lines[-1])
+        if (proc.returncode != 0 or rep.get("is_transient") is not False
+                or rep.get("errors") != 1 or not rep.get("finish_reasons")
+                or any(r != "error" for r in rep["finish_reasons"])):
+            fail(f"sticky_fault: exit {proc.returncode}, report {rep}")
+        rep["phase_s"] = time.perf_counter() - t0
+        print("sticky_fault " + json.dumps(rep), flush=True)
+        return rep
+
+    report["sticky_fault"] = sticky_fault_phase()
+
+    # -- 5c. serving a bf16 tree in each block format ------------------------
     def serve_formats_phase():
         """One random bf16 tree, repacked by the engine into each of the
         nine other formats (``EngineConfig.weight_qtype``), then a tree
@@ -2125,6 +2066,10 @@ def main() -> int:
     http_launches = report["serve_http"]["launches"]
     # the transactional tick's runs (serve_faults), summed over its runs
     faults_launches = report["serve_faults"]["launches"]
+    # the model API's runs (load): the loaded model's generate and the
+    # server build_server started over the checkpoint
+    load_gen = report["load"]["generate"]["loaded"]["launches"]
+    load_srv = report["load"]["server"]["launches"]
     b2_entries = []
     for qtype in b2.FORMATS:
         rows = [r for r in report["b2"] if r["qtype"] == qtype]
@@ -2139,7 +2084,9 @@ def main() -> int:
             "shape": "M=8 K=4096 N=22016 (gate_up, decode)",
             "launches": b2_launches[qtype],
             **({"launches_serve_http": http_launches["qmatmul"],
-                "launches_serve_faults": faults_launches["qmatmul"]}
+                "launches_serve_faults": faults_launches["qmatmul"],
+                "launches_load_generate": load_gen["qmatmul"],
+                "launches_load_serve": load_srv["qmatmul"]}
                if qtype == "sym_int4" else {}),
             "launches_per_call": report["b2_gemv_launches_per_call"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2166,6 +2113,7 @@ def main() -> int:
          "launches_serve_http": http_launches["ragged_paged_attention"],
          "launches_serve_faults":
              faults_launches["ragged_paged_attention"],
+         "launches_load_serve": load_srv["ragged_paged_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b1"]),
          **{k: rep_b1[k] for k in keys}},
         # the key-split instance alone (split pass and merge)
@@ -2185,6 +2133,7 @@ def main() -> int:
          "shape": "B=4 Hq=32 Hkv=8 D=128 S=2304, bf16 cache, ragged "
                   "kv_start/kv_len, window off",
          "launches": gen_launches["decode_attention"],
+         "launches_load_generate": load_gen["decode_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b3"]),
          **{k: rep_b3[k] for k in keys}},
         {"name": "flash_attention", "route": "cuda",
@@ -2193,6 +2142,7 @@ def main() -> int:
          "shape": "B=4 T=2048 S=2304 Hq=32 Hkv=8 D=128, causal, left "
                   "padded",
          "launches": gen_launches["flash_attention"],
+         "launches_load_generate": load_gen["flash_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b4"]),
          **{k: rep_b4[k] for k in keys}},
         {"name": "paged_attention", "route": "cuda",

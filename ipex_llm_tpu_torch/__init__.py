@@ -10,7 +10,10 @@ Ported so far: the serving engine's paged, ragged tick on a llama-family
 decoder with weights in bf16 or any of the ten block formats (repacked
 from bf16 through ``EngineConfig.weight_qtype``), with prompt-lookup
 speculative decoding (``EngineConfig.spec_k``), and the HF-shaped
-``generate()`` over the dense cache, with five CUDA kernels: ragged paged
+``generate()`` over the dense cache, the model API that loads a local HF
+checkpoint (``transformers.AutoModelForCausalLM.from_pretrained``,
+``save_low_bit``/``load_low_bit``, ``optimize.optimize_model``) and the
+server's ``build_server``/``main``, with five CUDA kernels: ragged paged
 attention, the dequant-matmul in all ten formats (``ops/cuda/qmatmul.py``),
 dense decode attention, flash attention, and split paged attention (the
 ragged kernel's oracle at the verify shapes).  Configurations outside the

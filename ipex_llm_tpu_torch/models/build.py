@@ -1,16 +1,200 @@
-"""Parameter-tree helpers of the serving engine's weight axis (port of the
-``requantize_params`` and ``param_bytes`` half of
-``ipex_llm_tpu/models/build.py``; checkpoint loading is not ported).
+"""Build the decoder's parameter tree from a weight source, and the
+helpers of the serving engine's weight axis (port of
+``ipex_llm_tpu/models/build.py``).
+
+``build_params`` constructs the tree of the llama scheme straight from a
+name -> tensor source (a checkpoint reader, a torch ``state_dict``):
+q, k and v merge into ``qkv`` and gate and up into ``gate_up`` (rows
+concatenated, then transposed to ``[in, out]``), each weight is quantized
+on the target device as soon as it is read, and layers stack into
+``[L, ...]`` leaves preallocated once and filled layer by layer.  So the
+device never holds more than one full-precision weight (and a slice of
+its fp32 working copy) beside the packed tree.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any, Callable
 
 import torch
 
+from ipex_llm_tpu_torch.device import resolve_device
+from ipex_llm_tpu_torch.models.config import ModelConfig
+from ipex_llm_tpu_torch.models.families import WeightScheme
 from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
 from ipex_llm_tpu_torch.quantize.qtypes import resolve
+
+NORM_DTYPE = torch.float32
+# fp32 elements of one weight quantized at a time: the codec's temporaries
+# stay a few hundred MB whatever the weight (quantization runs down each
+# output column on its own, so a slice of rows of the HF [out, in] weight
+# packs to the same bytes as the whole)
+_CHUNK_ELEMS = 1 << 24
+
+
+def _cat_columns(qts: list[QTensor]) -> QTensor:
+    """QTensors of the same ``in`` side by side along ``out``."""
+    if len(qts) == 1:
+        return qts[0]
+    q0 = qts[0]
+
+    def cat(planes):
+        return None if planes[0] is None else torch.cat(planes, dim=-1)
+    return QTensor(cat([q.data for q in qts]), cat([q.scales for q in qts]),
+                   cat([q.zeros for q in qts]), q0.qtype,
+                   (q0.in_features, sum(q.out_features for q in qts)),
+                   q0.block_size)
+
+
+def quantize_weight(w: torch.Tensor, qtype: str, imatrix=None) -> QTensor:
+    """Quantize one HF-layout ``[out, in]`` weight (on any device) to an
+    ``[in, out]`` QTensor on the same device.
+
+    The reference's ``mixed_fp4``/``mixed_fp8`` pick-the-better-format
+    policy and ``imatrix`` weighting are not ported (ROADMAP item 13)."""
+    if qtype in ("mixed_fp4", "mixed_fp8"):
+        raise NotImplementedError(
+            f"{qtype!r} (the per-tensor format pick) is not ported "
+            "(ROADMAP item 13)")
+    if imatrix is not None:
+        raise NotImplementedError(
+            "imatrix-weighted quantization is not ported (ROADMAP item 13)")
+    rows = max(1, _CHUNK_ELEMS // max(1, w.shape[1]))
+    return _cat_columns([
+        quantize(w[r:r + rows].t().to(torch.float32).contiguous(), qtype)
+        for r in range(0, w.shape[0], rows)])
+
+
+class LayerStack:
+    """``[L, ...]`` leaves filled layer by layer: each plane is allocated
+    once, at its first layer, and written in place."""
+
+    def __init__(self, n_layers: int):
+        self.n = n_layers
+        self.tree: dict[str, Any] = {}
+
+    def put(self, i: int, key: str, leaf) -> None:
+        if key not in self.tree:
+            def empty(t):
+                return torch.empty((self.n,) + tuple(t.shape), dtype=t.dtype,
+                                   device=t.device)
+            self.tree[key] = (leaf.planes(empty) if isinstance(leaf, QTensor)
+                              else empty(leaf))
+        dst = self.tree[key]
+        if isinstance(leaf, QTensor):
+            for d, s in ((dst.data, leaf.data), (dst.scales, leaf.scales),
+                         (dst.zeros, leaf.zeros)):
+                if s is not None:
+                    d[i] = s
+        else:
+            dst[i] = leaf
+
+
+def stack_layer_trees(trees: list[dict[str, Any]]) -> dict[str, Any]:
+    """Stack per-layer trees (QTensor-aware) along a new leading axis."""
+    st = LayerStack(len(trees))
+    for i, tree in enumerate(trees):
+        for key, leaf in tree.items():
+            st.put(i, key, leaf)
+    return st.tree
+
+
+# scheme fields whose weights the llama tree has no slot for
+_SCHEME_UNSERVED = ("post_attn_norm", "post_mlp_norm", "qkv", "gate_up",
+                    "q_norm", "k_norm", "pos_embed", "embed_norm", "q_a",
+                    "q_a_norm", "q_b", "kv_a", "kv_a_norm", "kv_b")
+
+
+def build_params(
+    cfg: ModelConfig,
+    scheme: WeightScheme,
+    get: Callable[[str], torch.Tensor],
+    has: Callable[[str], bool],
+    qtype: str = "sym_int4",
+    lm_head_qtype: str | None = None,
+    mixed_precision: bool = False,
+    progress: Callable[[str], None] | None = None,
+    moe_scheme=None,
+    embedding_qtype: str | None = None,
+    qkv_transform: Callable | None = None,
+    transpose_weights: bool = False,
+    imatrix_data: dict | None = None,
+    device=None,
+) -> dict[str, Any]:
+    """The decoder's tree from ``get(name)`` (a tensor in any float width,
+    on the CPU) on ``device`` (``None`` = cuda), quantizing as it
+    streams.  ``mixed_precision`` packs the lm head at sym_int8 rather
+    than ``qtype`` (the reference's flag); ``lm_head_qtype`` outranks
+    both.  The keyword arguments of other families' trees raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    for what, val, item in (
+            ("imatrix_data", imatrix_data, "13"),
+            ("embedding_qtype (a quantized embedding table)",
+             embedding_qtype, "12"),
+            ("moe_scheme", moe_scheme, "14"),
+            ("qkv_transform", qkv_transform, "14"),
+            ("transpose_weights", transpose_weights, "14")):
+        if val:
+            raise NotImplementedError(
+                f"build_params: {what} is not ported (ROADMAP item {item})")
+    unserved = [f for f in _SCHEME_UNSERVED if getattr(scheme, f) is not None]
+    if unserved or None in (scheme.q, scheme.k, scheme.v, scheme.gate,
+                            scheme.up):
+        raise NotImplementedError(
+            f"weight scheme fields {unserved or ['q/k/v/gate/up = None']} "
+            "are not ported (ROADMAP item 14)")
+    dev = resolve_device(device)
+
+    def load(n: str) -> torch.Tensor:
+        return get(n).to(dev)
+
+    def refuse_bias(n: str) -> None:
+        b = n[: -len(".weight")] + ".bias" if n.endswith(".weight") else None
+        if b is not None and has(b):
+            raise NotImplementedError(
+                f"bias {b!r} is not ported (ROADMAP item 14)")
+
+    def merged(names: list[str], q: str) -> QTensor:
+        """Rows of ``names`` concatenated, quantized as one [in, out]
+        weight: each part is uploaded, quantized and freed in turn (a
+        quantized column does not depend on its neighbours)."""
+        qts = []
+        for n in names:
+            refuse_bias(n)
+            qts.append(quantize_weight(load(n), q))
+        return _cat_columns(qts)
+
+    st = LayerStack(cfg.num_layers)
+    for i in range(cfg.num_layers):
+        if progress:
+            progress(f"layer {i + 1}/{cfg.num_layers}")
+
+        def name(t: str) -> str:
+            return t.format(i=i, p="weight")
+        for key, tmpl in (("attn_norm", scheme.attn_norm),
+                          ("mlp_norm", scheme.mlp_norm)):
+            refuse_bias(name(tmpl))
+            st.put(i, key, load(name(tmpl)).to(NORM_DTYPE))
+        st.put(i, "qkv", merged([name(scheme.q), name(scheme.k),
+                                 name(scheme.v)], qtype))
+        st.put(i, "o", merged([name(scheme.o)], qtype))
+        st.put(i, "gate_up", merged([name(scheme.gate), name(scheme.up)],
+                                    qtype))
+        st.put(i, "down", merged([name(scheme.down)], qtype))
+
+    params: dict[str, Any] = {"layers": st.tree}
+    emb = load(scheme.embed)
+    params["embed"] = (emb if emb.dtype == torch.bfloat16
+                       else emb.to(torch.float32).to(torch.bfloat16))
+    del emb
+    refuse_bias(scheme.final_norm)
+    params["final_norm"] = load(scheme.final_norm).to(NORM_DTYPE)
+    head_q = lm_head_qtype or ("sym_int8" if mixed_precision else qtype)
+    params["lm_head"] = merged([scheme.lm_head], head_q)
+    params["inv_freq"] = torch.from_numpy(cfg.rope.inv_freq()).to(dev)
+    params["rope_mscale"] = 1.0     # the default rope, the only one ported
+    return params
 
 
 def _requant_leaf(qt: QTensor, qtype: str) -> QTensor:

@@ -1,18 +1,69 @@
-"""Model families: an HF ``config.json`` dict to a ``ModelConfig`` (port of
-the llama and mistral rows of ``ipex_llm_tpu/models/families.py``).
+"""Model families: an HF ``config.json`` dict to a ``ModelConfig`` and a
+weight-naming scheme (port of the llama and mistral rows of
+``ipex_llm_tpu/models/families.py``).
 
 Both families share the reference's llama weight names and the port's one
 decoder; mistral adds its sliding window.  Every other ``model_type``
-raises ``NotImplementedError``, as do rope scalings other than the default
-(``ops.rope.RopeScaling`` refuses them).
+raises ``NotImplementedError`` (ROADMAP item 14), ``aquila`` included,
+which the reference maps to the llama row; so do rope scalings other than
+the default (``ops.rope.RopeScaling`` refuses them).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Callable
 
 from ipex_llm_tpu_torch.models.config import ModelConfig
 from ipex_llm_tpu_torch.ops.rope import RopeScaling
+
+
+@dataclass(frozen=True)
+class WeightScheme:
+    """Weight-name templates ({i} = layer index, {p} = weight or bias);
+    None = not present.  The fields are the reference's; the port's
+    ``build_params`` serves the default (llama) scheme and refuses a
+    scheme that sets any of the others."""
+
+    embed: str = "model.embed_tokens.weight"
+    final_norm: str = "model.norm.weight"
+    lm_head: str = "lm_head.weight"
+    attn_norm: str = "model.layers.{i}.input_layernorm.weight"
+    mlp_norm: str = "model.layers.{i}.post_attention_layernorm.weight"
+    post_attn_norm: str | None = None
+    post_mlp_norm: str | None = None
+    q: str | None = "model.layers.{i}.self_attn.q_proj.{p}"
+    k: str | None = "model.layers.{i}.self_attn.k_proj.{p}"
+    v: str | None = "model.layers.{i}.self_attn.v_proj.{p}"
+    qkv: str | None = None      # pre-merged (phi3 / chatglm / baichuan W_pack)
+    o: str = "model.layers.{i}.self_attn.o_proj.{p}"
+    gate: str | None = "model.layers.{i}.mlp.gate_proj.{p}"
+    up: str | None = "model.layers.{i}.mlp.up_proj.{p}"
+    gate_up: str | None = None  # pre-merged (phi3)
+    down: str = "model.layers.{i}.mlp.down_proj.{p}"
+    q_norm: str | None = None
+    k_norm: str | None = None
+    pos_embed: str | None = None   # learned absolute positions (gpt2 wpe)
+    embed_norm: str | None = None  # bloom word_embeddings_layernorm
+    # MLA (deepseek): q (or q_a/q_b low-rank pair), kv_a, kv_b replace q/k/v
+    q_a: str | None = None
+    q_a_norm: str | None = None
+    q_b: str | None = None
+    kv_a: str | None = None
+    kv_a_norm: str | None = None
+    kv_b: str | None = None
+
+
+@dataclass(frozen=True)
+class Family:
+    name: str
+    to_config: Callable[[dict], ModelConfig]
+    scheme: WeightScheme = field(default_factory=WeightScheme)
+    # the reference's MoE scheme, packed-qkv fixup and Conv1D transpose:
+    # None / False for both ported families (build_params refuses them)
+    moe: object | None = None
+    qkv_transform: Callable | None = None
+    transpose_weights: bool = False
 
 
 def _rope_from_hf(hf: dict, head_dim: int) -> RopeScaling:
@@ -61,17 +112,24 @@ def _mistral(hf: dict) -> ModelConfig:
         _base_cfg(hf, sliding_window=hf.get("sliding_window")))
 
 
-FAMILIES: dict[str, Callable[[dict], ModelConfig]] = {
-    "llama": _llama,
-    "mistral": _mistral,
+FAMILIES: dict[str, Family] = {
+    "llama": Family("llama", _llama),
+    "mistral": Family("mistral", _mistral),
 }
 
 
-def config_from_hf(hf: dict) -> ModelConfig:
-    """``ModelConfig`` for an HF ``config.json`` dict."""
-    model_type = hf.get("model_type", "llama")
+def get_family(model_type: str, hf_config: dict | None = None) -> Family:
+    """The family of ``model_type`` (``hf_config`` is the reference's
+    disambiguation argument; no ported family needs it)."""
     if model_type not in FAMILIES:
         raise NotImplementedError(
-            f"model_type {model_type!r} is not ported; available: "
-            f"{sorted(FAMILIES)}")
-    return FAMILIES[model_type](hf)
+            f"model_type {model_type!r} is not ported (ROADMAP item 14, "
+            f"family breadth); available: {sorted(FAMILIES)}")
+    return FAMILIES[model_type]
+
+
+def config_from_hf(hf: dict) -> ModelConfig:
+    """``ModelConfig`` for an HF ``config.json`` dict: the family's
+    ``to_config``."""
+    model_type = hf.get("model_type", "llama")
+    return get_family(model_type, hf).to_config(hf)

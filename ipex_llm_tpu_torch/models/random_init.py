@@ -20,10 +20,11 @@ from dataclasses import replace
 import torch
 
 from ipex_llm_tpu_torch.device import resolve_device
+from ipex_llm_tpu_torch.models.build import LayerStack
 from ipex_llm_tpu_torch.models.config import ModelConfig
 from ipex_llm_tpu_torch.models.families import config_from_hf
 from ipex_llm_tpu_torch.ops.rope import RopeScaling
-from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
+from ipex_llm_tpu_torch.quantize.core import quantize
 
 
 def llama_config(hidden_size: int = 64, intermediate_size: int = 256,
@@ -95,21 +96,12 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
 
     shapes = {"qkv": (h, cfg.q_dim + 2 * cfg.kv_dim), "o": (cfg.q_dim, h),
               "gate_up": (h, 2 * ffn), "down": (ffn, h)}
-    stacks: dict[str, QTensor] = {}
+    stacks = LayerStack(n_l)
     for i in range(n_l):
         for name, (n_in, n_out) in shapes.items():
-            qt = quantize(weight(n_in, n_out), qtype)
-            if name not in stacks:
-                stacks[name] = qt.planes(lambda t: torch.empty(
-                    (n_l,) + tuple(t.shape), dtype=t.dtype, device=dev))
-            st = stacks[name]
-            for dst, src in ((st.data, qt.data), (st.scales, qt.scales),
-                             (st.zeros, qt.zeros)):
-                if src is not None:
-                    dst[i] = src
-            del qt
+            stacks.put(i, name, quantize(weight(n_in, n_out), qtype))
     layers = {"attn_norm": norm_w((n_l, h)), "mlp_norm": norm_w((n_l, h)),
-              **stacks}
+              **stacks.tree}
     return {
         "layers": layers,
         "embed": (normal((v, h)) * (1.2 / math.sqrt(h))).to(torch.bfloat16),

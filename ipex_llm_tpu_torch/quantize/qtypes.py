@@ -76,7 +76,12 @@ def resolve(qtype: str) -> QTypeInfo:
                 f"qtype {qtype!r} is not ported yet; supported: "
                 f"{sorted(_REGISTRY)}")
         raise ValueError(f"Unknown load_in_low_bit qtype {qtype!r}. "
-                         f"Supported: {sorted(_REGISTRY)}")
+                         f"Supported: {all_qtypes()}")
     while info.kind == "alias":
         info = _REGISTRY[info.alias_of]
     return info
+
+
+def all_qtypes() -> list[str]:
+    """Every name ``resolve`` accepts (formats and aliases), sorted."""
+    return sorted(_REGISTRY)

@@ -23,33 +23,41 @@ routes a method and path to them in process; ``OpenAIServer.app`` wraps
 them in aiohttp routes and imports aiohttp only then, so this module
 imports, and its protocol can be driven, where aiohttp is absent.
 
-To serve over HTTP::
+To serve a checkpoint directory (an HF one, or a ``save_low_bit`` one)::
 
-    from aiohttp import web
-    srv = OpenAIServer(engine.start(), tokenizer, "llama-2-7b")
-    web.run_app(srv.app, host="127.0.0.1", port=8000)
+    ipex-llm-tpu-torch-serve --model DIR --low-bit sym_int4 --port 8000
 
-Left out, with the slices that bring them: ``/kv/prefill`` and
-``/kv/import`` (KV transport and the spill tier); the ``perf``,
+or from Python, ``build_server(DIR)`` (it loads the checkpoint through
+``from_pretrained`` or ``load_low_bit`` and starts the engine) and
+``web.run_app(srv.app, ...)``; an engine built by hand serves the same
+way through ``OpenAIServer(engine.start(), tokenizer, name)``.
+
+Left out, with the ROADMAP items that bring them: ``/kv/prefill`` and
+``/kv/import`` (item 11, KV transport and the spill tier); the ``perf``,
 ``planner`` and ``dispatch`` blocks of ``/health`` and ``/debug/profile``
-(the planner and perfwatch); the ``parallel`` block (multi-GPU serving);
-``response_format`` (structured decoding: refused with 400 here);
-``/v1/audio/transcriptions`` (whisper); ``build_server`` and ``main``,
-which load a checkpoint through ``from_pretrained`` (the model API).
+(item 10, the planner and perfwatch); the ``parallel`` block and tensor
+parallel serving (item 15); ``response_format`` (item 12, structured
+decoding: refused with 400 here); ``/v1/audio/transcriptions`` (item 14,
+whisper).  ``main`` refuses the flags of those machines by name.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import json
+import os
 import time
 import urllib.parse
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Mapping
 
-from ipex_llm_tpu_torch.serving.engine import (Request, ServingEngine,
-                                               next_stream_item)
+from ipex_llm_tpu_torch.serving.engine import (EngineConfig, Request,
+                                               ServingEngine,
+                                               default_weight_qtype,
+                                               next_stream_item,
+                                               resolve_load_low_bit)
 from ipex_llm_tpu_torch.serving.faults import EngineOverloaded
 from ipex_llm_tpu_torch.serving.observe import Tracer, parse_traceparent
 
@@ -697,3 +705,150 @@ class OpenAIServer:
 
         return self._stream_sse(req, chunk, final_fn=final, send_done=False,
                                 error_fn=self._tgi_error_payload)
+
+
+def build_server(model_path: str, low_bit: str = "sym_int4",
+                 engine_config: EngineConfig | None = None,
+                 model=None, tokenizer=None, drain_timeout_s: float = 30.0,
+                 device=None) -> OpenAIServer:
+    """An ``OpenAIServer`` over a started ``ServingEngine`` serving the
+    checkpoint at ``model_path`` on ``device`` (``None`` = cuda).
+
+    A directory holding ``bigdl_config.json`` (a ``save_low_bit`` one)
+    reloads at its recorded width; any other loads through
+    ``from_pretrained`` at :func:`resolve_load_low_bit`'s width (a pinned
+    ``EngineConfig.weight_qtype`` outranks ``low_bit``).  The loaded width
+    then becomes the engine's ``weight_qtype`` unless the caller pinned
+    one, so ``/health``'s ``weights`` block reports what the tree holds.
+    A ``model`` handed in keeps its width (a caller's full-width tree is
+    repacked only through ``EngineConfig(weight_qtype=...)``).  Without a
+    ``tokenizer`` the checkpoint's is loaded through ``transformers``."""
+    from ipex_llm_tpu_torch.transformers import AutoModelForCausalLM
+
+    ec = engine_config or EngineConfig()
+    if model is None:
+        if os.path.exists(os.path.join(model_path, "bigdl_config.json")):
+            model = AutoModelForCausalLM.load_low_bit(model_path,
+                                                      device=device)
+            ec = default_weight_qtype(ec, model.qtype)
+        else:
+            load_q = resolve_load_low_bit(ec, low_bit)
+            model = AutoModelForCausalLM.from_pretrained(
+                model_path, load_in_low_bit=load_q, device=device)
+            ec = default_weight_qtype(ec, load_q)
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(model_path,
+                                                  trust_remote_code=True)
+    engine = ServingEngine(
+        model.config, model.params, ec,
+        default_eos=model.generation_config.eos_token_id,
+        device=model.device).start()
+    return OpenAIServer(engine, tokenizer, model_name=model_path,
+                        drain_timeout_s=drain_timeout_s)
+
+
+# flags of the reference's server whose machinery the port does not have:
+# (flag, attribute, the value that asks for nothing, ROADMAP item)
+_REFUSED_FLAGS = (
+    ("--tensor-parallel-size", "tensor_parallel_size", 1,
+     "15, multi-GPU serving"),
+    ("--asr-model", "asr_model", None, "14, whisper"),
+    ("--collective-qtype", "collective_qtype", None, "15, multi-GPU serving"),
+    ("--kv-spill-bytes", "kv_spill_bytes", 0, "11, the host spill tier"),
+    ("--kv-import-token", "kv_import_token", None, "11, KV transport"),
+    ("--profile-dir", "profile_dir", None, "10, perfwatch's /debug/profile"),
+    ("--planner", "planner", "static", "10, the tick planner"),
+)
+
+
+def main(argv=None):
+    """The OpenAI/TGI server's command line (the reference's flags that map
+    onto the port's engine).  The port has no tick planner yet, so
+    ``--planner static`` is its only value and its default until ROADMAP
+    item 10; that flag and the others of machinery not ported
+    (``--tensor-parallel-size`` above 1, ``--asr-model``,
+    ``--collective-qtype``, ``--kv-spill-bytes``, ``--kv-import-token``,
+    ``--profile-dir``) exit with an error naming their ROADMAP item."""
+    ap = argparse.ArgumentParser("ipex-llm-tpu-torch OpenAI-compatible server")
+    ap.add_argument("--model", required=True,
+                    help="a local HF checkpoint or save_low_bit directory")
+    ap.add_argument("--low-bit", default="sym_int4")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the first CUDA card; cpu "
+                         "runs every kernel's plain version)")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--max-rows", type=int, default=16)
+    ap.add_argument("--max-seq-len", type=int, default=4096)
+    ap.add_argument("--spec-k", "--speculative", type=int, default=0,
+                    metavar="K", dest="spec_k",
+                    help="prompt-lookup speculative serving: up to K drafts "
+                         "per row per decode step, verified on the device "
+                         "inside the tick")
+    ap.add_argument("--spec-ngram", type=int, default=3, metavar="N",
+                    help="longest n-gram the lookup proposer matches")
+    ap.add_argument("--decode-horizon", type=int, default=1, metavar="H",
+                    help="decode steps per tick (one host sync per H "
+                         "tokens)")
+    ap.add_argument("--step-token-budget", type=int, default=None,
+                    metavar="B",
+                    help="prefill tokens of a mixed tick (default: the "
+                         "prefill bucket; 0 = one row, one chunk a tick)")
+    ap.add_argument("--weight-qtype", default=None, metavar="QTYPE",
+                    help="serving weight width (default: --low-bit); the "
+                         "checkpoint loads at this width, a save_low_bit "
+                         "one keeps its own")
+    ap.add_argument("--kv-storage", default="bf16", choices=("bf16", "fp8"),
+                    metavar="FMT", help="paged KV pool: bf16 or fp8 (e5m2)")
+    ap.add_argument("--kv-pool-bytes", type=int, default=0, metavar="BYTES",
+                    help="KV pool byte budget (0 = sized in pages)")
+    ap.add_argument("--max-queue", type=int, default=256,
+                    help="bounded admission queue (429 beyond it; 0 = "
+                         "unbounded)")
+    ap.add_argument("--request-deadline", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="default per-request deadline (408; 0 = none)")
+    ap.add_argument("--max-step-retries", type=int, default=3,
+                    help="retries of a transient tick fault before the "
+                         "engine bisects it to one request")
+    ap.add_argument("--drain-timeout", type=float, default=30.0,
+                    metavar="SECONDS",
+                    help="graceful-drain window on shutdown")
+    ap.add_argument("--trace", action="store_true",
+                    help="request-lifecycle tracing (/trace/{id}, "
+                         "/debug/traces)")
+    ap.add_argument("--tensor-parallel-size", type=int, default=1)
+    ap.add_argument("--asr-model", default=None)
+    ap.add_argument("--collective-qtype", default=None)
+    ap.add_argument("--kv-spill-bytes", type=int, default=0)
+    ap.add_argument("--kv-import-token", default=None)
+    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--planner", default="static", choices=("mpc", "static"))
+    args = ap.parse_args(argv)
+    for flag, attr, idle, item in _REFUSED_FLAGS:
+        if getattr(args, attr) != idle:
+            ap.error(f"{flag}={getattr(args, attr)} is not ported "
+                     f"(ROADMAP item {item})")
+    srv = build_server(
+        args.model, args.low_bit,
+        EngineConfig(max_rows=args.max_rows, max_seq_len=args.max_seq_len,
+                     spec_k=args.spec_k, spec_ngram=args.spec_ngram,
+                     decode_horizon=args.decode_horizon,
+                     step_token_budget=args.step_token_budget,
+                     kv_storage=args.kv_storage,
+                     kv_pool_bytes=args.kv_pool_bytes,
+                     weight_qtype=args.weight_qtype,
+                     max_queue=args.max_queue,
+                     request_deadline_s=args.request_deadline,
+                     max_step_retries=args.max_step_retries,
+                     trace_requests=args.trace),
+        drain_timeout_s=args.drain_timeout, device=args.device)
+    from aiohttp import web
+
+    web.run_app(srv.app, host=args.host, port=args.port)
+
+
+if __name__ == "__main__":
+    main()

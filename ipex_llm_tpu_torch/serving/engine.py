@@ -84,7 +84,8 @@ from ipex_llm_tpu_torch.models.decoder import decoder_forward
 from ipex_llm_tpu_torch.ops.sampling import sample_rows_with_logprobs
 from ipex_llm_tpu_torch.ops.speculate import propose_ngram_rows
 from ipex_llm_tpu_torch.quantize.qtypes import resolve as qtype_info
-from ipex_llm_tpu_torch.serving.faults import EngineOverloaded, is_transient
+from ipex_llm_tpu_torch.serving.faults import (EngineOverloaded, is_sticky,
+                                               is_transient)
 from ipex_llm_tpu_torch.serving.observe import (FAST_LATENCY_BUCKETS_S,
                                                 LATENCY_BUCKETS_S,
                                                 FlightRecorder, Histogram,
@@ -149,6 +150,34 @@ class EngineConfig:
     @property
     def max_pages(self) -> int:
         return self.max_seq_len // self.page_size
+
+
+def resolve_load_low_bit(engine_config: EngineConfig | None,
+                         low_bit: str | None) -> str | None:
+    """The load-width half of the serving width rule (one definition for
+    every server entry point): a pinned ``EngineConfig.weight_qtype``
+    outranks the ``low_bit`` load argument, so the pinned width drives the
+    checkpoint load itself (loading packed at one width and asking the
+    engine for another would leave the request a no-op: packed codes are
+    not requantized)."""
+    if engine_config is not None and engine_config.weight_qtype:
+        return engine_config.weight_qtype
+    return low_bit
+
+
+def default_weight_qtype(engine_config: EngineConfig | None,
+                         low_bit: str | None) -> EngineConfig:
+    """The config half of the serving width rule, beside
+    :func:`resolve_load_low_bit`: the width the checkpoint was loaded at
+    becomes ``EngineConfig.weight_qtype`` unless the caller pinned one.
+    Only for a server that also loaded the checkpoint at that width (the
+    repack is then a pass-through and the config records the width
+    truthfully); a caller handing in a full-width tree opts into repacking
+    through ``weight_qtype`` itself."""
+    ec = engine_config or EngineConfig()
+    if ec.weight_qtype is None and low_bit:
+        ec = replace(ec, weight_qtype=low_bit)
+    return ec
 
 
 @dataclass
@@ -1242,9 +1271,11 @@ class ServingEngine:
         """After the rollback: a transient fault backs off exponentially
         and lets the loop run the tick again from the committed state
         (bitwise the same tick).  Exhausted retries or a deterministic
-        fault bisect the tick's requests and quarantine the culprit; only
-        a fault bisection cannot place on a request reaches
-        ``_fail_all``."""
+        fault bisect the tick's requests and quarantine the culprit; a
+        fault bisection cannot place on a request, and a sticky CUDA
+        context error (``faults.is_sticky``: no request is its culprit,
+        and a probe with every request masked runs no kernel, so
+        bisection would quarantine each in turn), reach ``_fail_all``."""
         if is_transient(exc) and self._retries < self.ec.max_step_retries:
             self._retries += 1
             self.metrics["retries"] += 1
@@ -1258,6 +1289,9 @@ class ServingEngine:
                 self.ec.retry_backoff_s * (2 ** (self._retries - 1)))
             return
         self._retries = 0
+        if is_sticky(exc):
+            self._fail_all(exc)
+            return
         culprit = self._bisect_culprit()
         if culprit is _FAULT_VANISHED:
             # it did not reproduce: carry on from the committed state
@@ -1517,13 +1551,6 @@ class ServingEngine:
             (bool(self._pending) or not self._inbox.empty())
             and self._free_row() is not None)
         return 1 if joining else self.ec.decode_horizon
-
-    def _step_once(self):
-        """One tick outside a transaction: plan, then run the scheduler.
-        Nothing is staged, checkpointed, counted or recorded, and an
-        exception propagates (the engine thread runs :meth:`_tick`)."""
-        self._horizon = self._plan_horizon()
-        self._step()
 
     def _step(self):
         """The scheduler: expire deadlines at the tick boundary, admit,

@@ -30,9 +30,11 @@ Classification, by exception type first and then by message:
 - not transient: ``DeterministicFault``, and CUDA context errors
   (``torch.AcceleratorError``, or a message naming an illegal memory
   access, a device-side assert, a misaligned address or an unspecified
-  launch failure).  Those are sticky: the context is lost and every later
-  call fails too, so bisection sees the fault with every request masked
-  and ``_fail_all`` runs.  That is the right outcome; the engine does not
+  launch failure).  Those are sticky (``is_sticky``): the context is
+  lost and every later call fails too, so no request is the culprit.
+  The engine does not bisect them (a probe with every request masked
+  runs no kernel, so bisection would quarantine each request in turn):
+  it ends the tick's work in ``_fail_all`` at once.  The engine does not
   try to rebuild the context.
 
 ``FaultInjector`` raises scripted exceptions at named sites of the engine
@@ -58,6 +60,7 @@ __all__ = [
     "FaultInjector",
     "FAULT_SITES",
     "REPLICA_FAULT_SITES",
+    "is_sticky",
     "is_transient",
     "rate_injector",
 ]
@@ -110,20 +113,28 @@ _STICKY_MARKERS = (
 _ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", None)
 
 
+def is_sticky(exc: BaseException) -> bool:
+    """A CUDA context error: every later call in the process fails too."""
+    if isinstance(exc, (TransientFault, DeterministicFault,
+                        torch.OutOfMemoryError)):
+        return False
+    if _ACCELERATOR_ERROR is not None and isinstance(exc,
+                                                     _ACCELERATOR_ERROR):
+        return True
+    msg = str(exc).lower()
+    return any(m in msg for m in _STICKY_MARKERS)
+
+
 def is_transient(exc: BaseException) -> bool:
     """Classify a tick's exception: True = bounded retry, False = isolate
     (module docstring)."""
     if isinstance(exc, (TransientFault, torch.OutOfMemoryError)):
         return True
-    if isinstance(exc, DeterministicFault):
-        return False
-    msg = str(exc).lower()
-    if (_ACCELERATOR_ERROR is not None
-            and isinstance(exc, _ACCELERATOR_ERROR)) or any(
-                m in msg for m in _STICKY_MARKERS):
+    if isinstance(exc, DeterministicFault) or is_sticky(exc):
         return False
     if isinstance(exc, (ConnectionError, TimeoutError, OSError)):
         return True
+    msg = str(exc).lower()
     return any(m.lower() in msg for m in _TRANSIENT_MARKERS)
 
 

@@ -1,7 +1,7 @@
 """Admission control, deadlines and drain in the port's engine and HTTP
 front end: ports of the JAX package's ``tests/test_serving_faults.py``
-tests of them, with the port engine's ``_step_once`` (the tick its engine
-thread runs) in place of the reference's transactional ``_tick``.
+tests of them, driving the port engine's transactional ``_tick`` (the
+tick its engine thread runs), as the reference's tests drive theirs.
 
 - A deadline covers queue wait and generation: an expired request
   finishes ``"timeout"``, in the queue without ever taking a row or in
@@ -58,7 +58,7 @@ def test_deadline_expires_in_queue_without_row(cfg_params):
     req = Request(prompt_ids=[1, 2, 3], max_new_tokens=4, deadline_s=0.05)
     req.submitted_s -= 10.0          # aged in the queue
     eng.submit(req)
-    eng._step_once()
+    eng._tick()
     assert req.finish_reason == "timeout"
     assert eng.metrics["timeouts"] == 1
     assert eng.metrics["requests"] == 0      # never occupied a row
@@ -71,10 +71,10 @@ def test_deadline_expires_mid_generation(cfg_params):
                   deadline_s=60.0)
     eng.submit(req)
     for _ in range(5):
-        eng._step_once()
+        eng._tick()
     assert req.finish_reason is None and len(req.output_ids) > 0
     req.submitted_s -= 120.0         # deadline now past
-    eng._step_once()
+    eng._tick()
     assert req.finish_reason == "timeout"
     assert eng.metrics["timeouts"] == 1
     # the tokens emitted before the deadline reached the stream

@@ -53,7 +53,7 @@ def _drive(eng, schedule, max_ticks=2000):
     for t in range(max_ticks):
         for r in schedule.get(t, ()):
             eng.submit(r)
-        eng._step_once()
+        eng._tick()
         if all(r.finish_reason is not None for r in reqs):
             break
     assert all(r.finish_reason is not None for r in reqs)
@@ -246,12 +246,12 @@ def test_abort_frees_the_row_mid_stream(pair):
     eng.submit(keep)
     eng.submit(gone)
     for _ in range(3):
-        eng._step_once()
+        eng._tick()
     gone.abort()
     for _ in range(100):
         if keep.finish_reason and gone.finish_reason:
             break
-        eng._step_once()
+        eng._tick()
     assert gone.finish_reason == "abort" and len(gone.output_ids) < 6
     assert keep.finish_reason == "length"
     (alone,) = _drive(ServingEngine(port_cfg, port_params,

@@ -32,8 +32,8 @@ from ipex_llm_tpu_torch.serving.faults import (FAULT_SITES,
                                                REPLICA_FAULT_SITES,
                                                DeterministicFault,
                                                FaultInjector,
-                                               TransientFault, is_transient,
-                                               rate_injector)
+                                               TransientFault, is_sticky,
+                                               is_transient, rate_injector)
 from tests.test_torch_decoder import tiny_pair
 
 # the reference's fault tests' engine and model widths
@@ -220,8 +220,8 @@ def test_vanished_fault_resolves_without_quarantine(port, baseline):
 
 
 def test_fail_all_only_when_bisection_fails(port):
-    """A fault that fires with every request masked is the only path to
-    ``_fail_all``."""
+    """A fault that fires with every request masked reaches ``_fail_all``
+    (the other path there is a sticky CUDA context error, below)."""
     rng = np.random.default_rng(6)
     eng = _engine(port)
     reqs = [Request(prompt_ids=[int(v) for v in rng.integers(0, 131, 20)],
@@ -240,6 +240,32 @@ def test_fail_all_only_when_bisection_fails(port):
     for r in reqs:     # the terminal None arrived: no client hangs
         assert list(stream_tokens(r, timeout=1)) == []
     assert eng.flight.view()["dumps"][-1]["reason"] == "fail_all"
+
+
+@pytest.mark.parametrize("exc", [
+    RuntimeError("CUDA error: device-side assert triggered"),
+    torch.AcceleratorError("CUDA error: an illegal memory access was "
+                           "encountered")], ids=["message", "class"])
+def test_sticky_context_error_reaches_fail_all_without_bisection(port, exc):
+    """A lost CUDA context (here raised at every decode dispatch, as every
+    later call fails on the card) is no request's fault: the engine does
+    not bisect it (a probe with every request masked runs no kernel, so it
+    would quarantine each request in turn) but fails every request once
+    through ``_fail_all``."""
+    eng = _engine(port, FaultInjector().inject("decode-dispatch", exc,
+                                               times=None))
+    reqs = _wave(port[0].vocab_size)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(200):
+        if eng._tick() is False:
+            break
+    assert all(r.finish_reason == "error" for r in reqs)
+    assert eng.metrics["errors"] == 1
+    assert eng.metrics["errors_isolated"] == 0
+    assert eng.metrics["retries"] == 0
+    assert eng.flight.view()["dumps"][-1]["reason"] == "fail_all"
+    assert is_sticky(exc) and not is_transient(exc)
 
 
 def test_recovery_that_raises_reaches_fail_all_in_the_loop(port):
@@ -291,6 +317,10 @@ def test_is_transient_classification():
                 "CUDA error: unspecified launch failure"):
         assert not is_transient(RuntimeError(msg)), msg
     assert not is_transient(torch.AcceleratorError("CUDA error: x"))
+    assert is_sticky(torch.AcceleratorError("CUDA error: x"))
+    assert is_sticky(RuntimeError("CUDA error: misaligned address"))
+    assert not is_sticky(DeterministicFault("illegal memory access"))
+    assert not is_sticky(oom) and not is_sticky(TransientFault("x"))
 
 
 def test_pool_dry_requeue_preserves_fifo(port):

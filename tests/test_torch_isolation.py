@@ -51,6 +51,30 @@ def test_port_imports_without_jax_or_the_reference():
     assert set(out.stdout.split()) == on_disk
 
 
+def test_port_imports_without_safetensors_or_transformers():
+    """The card's machine has neither package: every module of the port
+    imports with both poisoned in ``sys.modules`` (the loader parses
+    safetensors with numpy; ``build_server`` imports ``transformers`` only
+    when it is given no tokenizer)."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("safetensors", "transformers", "jax", "jaxlib"):
+            sys.modules[name] = None
+        import ipex_llm_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        from ipex_llm_tpu_torch.transformers import AutoModelForCausalLM
+        from ipex_llm_tpu_torch.optimize import optimize_model
+        from ipex_llm_tpu_torch.serving.api_server import build_server, main
+        loaded = [m for m in sys.modules if m.split(".")[0] in (
+            "safetensors", "transformers") and sys.modules[m] is not None]
+        assert not loaded, loaded
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py"]))

@@ -68,7 +68,7 @@ def _run(pair, ec: dict, req_kws):
                         device="cpu")
     reqs = [eng.submit(Request(**kw)) for kw in req_kws]
     for _ in range(2000):
-        eng._step_once()
+        eng._tick()
         if all(r.finish_reason is not None for r in reqs):
             break
     assert all(r.finish_reason is not None for r in reqs)
@@ -167,7 +167,7 @@ def test_spec_greedy_streams_match_reference_engine(pair):
         planner="static", perfwatch=False, **EC, **SPEC))
     ref = [ref_eng.submit(RefRequest(**kw)) for kw in kws]
     for _ in range(2000):
-        ref_eng._step_once()
+        ref_eng._tick()
         if all(r.finish_reason is not None for r in ref):
             break
     assert [r.output_ids for r in ref] == port[0]
