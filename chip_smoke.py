@@ -33,9 +33,11 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 3. ``b1``: ragged paged attention against its plain version on decode,
    chunk (width 128 and 16) and idle rows, and on the verify chunks of
    ``spec_k`` 3 (C=4), at 32 heads, head_dim 128, page 128, and at GQA
-   (32 query heads over 8 kv heads: decode and C=128), over bf16 and e5m2
-   pools, with the instance that ran (``route``: query tiles, or the key
-   split and its merge for G*C <= 16) and ``scaled_dot_product_attention``
+   (32 query heads over 8 kv heads: decode and C=128) and at Qwen2-7B's
+   group of 7 (28 query heads over 4 kv heads: decode, C=4 and C=128),
+   over bf16 and e5m2 pools, with the instance that ran (``route``: query
+   tiles, or the key split and its merge for G*C <= 16) and
+   ``scaled_dot_product_attention``
    over the gathered pages as the library yardstick; then ``b5``: split
    paged attention against its plain version at the same widths, rows of
    1 to 2048 slots with -1 table tails, in decode (C=1), at the verify
@@ -104,7 +106,8 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    then ``sticky_fault``: ``scripts/torch_sticky_fault.py`` in a child
    process raises a real device-side assert inside a tick; the engine
    must classify it not transient and end in ``_fail_all`` (``errors``
-   1, every request "error");
+   1, every request "error"), its thread must end, ``/health`` answer
+   503 "dead" and a later request fail at once;
 6. ``b3``: dense decode attention against its plain version at
    Mistral-7B widths (32 query heads over 8 kv heads of 128), B=4,
    capacity 2304, ragged ``kv_start``/``kv_len``, over bf16 and e5m2
@@ -115,15 +118,24 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    ``scaled_dot_product_attention`` beside it; then, checked only, G = 1,
    2, 4 and 8 over bf16 and e5m2 at a capacity of 700 (not a multiple of
    the 64-key tile), ragged kv_len, left padding, a row that sees no key
-   and a per-row window enable, with the window and with softcap 50;
+   and a per-row window enable, with the window and with softcap 50; then
+   the head_dim-256 instance at Gemma-2-9B's heads (16 over 8 kv heads),
+   B=4 and 8 over the engine's gathered capacity of 6144, bf16 and e5m2,
+   the 4096 window cutting, alone (SDPA beside it) and with softcap 50;
 7. ``b4``: flash attention against its plain version: B=4, T=2048 left
    padded (the bucket of the generate phase); B=1, T=4608 with the 4096
    window, which cuts; softcap and non-causal cases at a small T; then,
    checked only, T = 200 and 1000 (not multiples of the 64-query tile) at
    G = 1 and 4: left padding with a window that cuts, softcap 50, and
-   non-causal with kv_len < S;
+   non-causal with kv_len < S; then the head_dim-256 instance at
+   Gemma-2-9B's heads over a 6144-slot layer with per-row query slots and
+   the 4096 window: T=128 chunks (8 rows), the T=4 verify width (8 rows)
+   and a T=2048 prompt (2 rows), each alone (SDPA beside it) and with
+   softcap 50 (every B4 row timed from CUDA-graph replays);
 8. ``b2m``: B2 at Mistral-7B's weight shapes, M=4 (decode) and M=8192
-   (the largest prefill, 4 rows x 2048);
+   (the largest prefill, 4 rows x 2048); then ``b2f``: sym_int4 at
+   Qwen2-7B's and Gemma-2-9B's weight shapes, M = 1, 8 and 128, timed,
+   and the nine other formats checked at K = 18944 and 14336;
 9. ``mistral``: a small windowed GQA mistral on the card against the same
    model on the CPU's plain versions, dense form (left-padded prefill and
    decode steps, the window cutting);
@@ -136,11 +148,22 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     no plain call.  Then run (a)'s prefill and decode loop by stage, once
     for the host wall clock and once under ``torch.profiler`` for the
     kernels' device time: each stage's device idle share, launches per
-    step and largest kernels.
+    step and largest kernels;
+11. ``families`` (``scripts/torch_families_smoke.py``): small qwen2 (B1
+    at G = 7) and gemma2 (B3 and B4 at head_dim 256) decoders card
+    against CPU, paged and dense; Mistral-7B-v0.1, Qwen2-7B and
+    Gemma-2-9B at full width and depth through ``ServingEngine`` (eight
+    requests of 64-5000 ids over a bf16 pool, two over e5m2; the windowed
+    ones on the gathered route, B1 never launched), the gather's share of
+    one decode tick's device time, and ``generate()`` for Qwen2-7B and
+    Gemma-2-9B (a 4500-id prompt among four), with tok/s, TTFT and peak
+    device memory.
 
-Kernel times come from CUDA events over many launches after a warm-up;
-the plain version's from a few calls; ``library_ms`` times one PyTorch
-call computing the same function (never called by the port).  Each
+Kernel times come from CUDA events over many launches after a warm-up
+(B2's up to M = 512, B3's, B4's and B5's, and their yardsticks, as
+device time from CUDA-graph replays); the plain version's from a few
+calls; ``library_ms`` times one PyTorch call computing the same function
+(never called by the port).  Each
 kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 989 TFLOP/s (H100 SXM data sheet).
 
@@ -179,6 +202,13 @@ B2_TOL_REL = 2.0 ** -7
 # (batch row and query, over heads and dims), as rows over few keys have
 # outputs far larger than rows over thousands.
 ATTN_TOL_REL = 2.0 ** -7
+# the softcap cases scale q so that scores (N(0, 1) from randn q and k at
+# scale d^-0.5) spread as N(0, 24^2) and pass the cap of 50 on many keys;
+# each then requires the capped plain output to differ from the uncapped
+# one by CAP_GAP_TOLS * ATTN_TOL_REL on some row, so a kernel that left
+# the softcap out would fail
+CAP_Q_SCALE = 24.0
+CAP_GAP_TOLS = 10
 # two serving paths over one model (fused spec tick, spec off, the host
 # walk) run B2 at different M, and its split plan follows M, so their fp32
 # sums round to bf16 differently at every layer and the logits differ by a
@@ -194,6 +224,13 @@ LLAMA2_7B_SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096),
 MISTRAL_7B_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096),
                      "gate_up": (4096, 28672), "down": (14336, 4096),
                      "lm_head": (4096, 32000)}
+# (K, N) of each linear of Qwen2-7B and Gemma-2-9B (whose head is the bf16
+# embedding table, a plain product outside B2)
+QWEN2_7B_SHAPES = {"qkv": (3584, 4608), "o": (3584, 3584),
+                   "gate_up": (3584, 37888), "down": (18944, 3584),
+                   "lm_head": (3584, 152064)}
+GEMMA2_9B_SHAPES = {"qkv": (3584, 8192), "o": (4096, 3584),
+                    "gate_up": (3584, 28672), "down": (14336, 3584)}
 
 
 def fail(msg: str):
@@ -273,6 +310,18 @@ def main() -> int:
                  f"{top.flatten()[i].item()}")
         return (err.max().item(),
                 (err / top.clamp_min(1e-30)).max().item())
+
+    def cap_binds(ref, uncapped, what: str) -> float:
+        """The largest per-row gap between the capped and the uncapped
+        plain output, relative to the row's largest |ref|; fails under
+        CAP_GAP_TOLS * ATTN_TOL_REL."""
+        r, u = ref.float(), uncapped.float()
+        gap = ((r - u).abs().amax(dim=(2, 3)) / r.abs().amax(
+            dim=(2, 3)).clamp_min(1e-30)).max().item()
+        if gap < CAP_GAP_TOLS * ATTN_TOL_REL:
+            fail(f"{what}: the softcap moves no row by more than {gap} "
+                 f"(need {CAP_GAP_TOLS} * {ATTN_TOL_REL})")
+        return gap
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(
@@ -565,6 +614,7 @@ def main() -> int:
 
     b1_rows = []
     gqa = dict(hkv=8)
+    g7 = dict(hq=28, hkv=4)     # Qwen2-7B: a GQA group of 7
     for pool_name, pool_dtype in (("bf16", torch.bfloat16),
                                   ("e5m2", torch.float8_e5m2)):
         for label, kw in (("row mix R=8 C=128", {}),
@@ -572,7 +622,12 @@ def main() -> int:
                           ("verify R=8 C=4", dict(c=4)),
                           ("decode R=8 C=1", dict(c=1)),
                           ("GQA row mix R=8 C=128 Hkv=8", gqa),
-                          ("GQA decode R=8 C=1 Hkv=8", dict(c=1, **gqa))):
+                          ("GQA decode R=8 C=1 Hkv=8", dict(c=1, **gqa)),
+                          ("G=7 decode R=8 C=1 Hq=28 Hkv=4",
+                           dict(c=1, **g7)),
+                          ("G=7 verify R=8 C=4 Hq=28 Hkv=4",
+                           dict(c=4, **g7)),
+                          ("G=7 row mix R=8 C=128 Hq=28 Hkv=4", g7)):
             q, kp, vp, tables, kv_len, chunk = ragged_case(pool_dtype,
                                                            **kw)
             if kw.get("c") in (1, 4):   # decode or verify rows at
@@ -1505,8 +1560,9 @@ def main() -> int:
     def sticky_fault_phase() -> dict:
         """``scripts/torch_sticky_fault.py`` in a process of its own (the
         poisoned context dies with it): its report must show the
-        device-side assert classified not transient, ``errors`` 1 and every
-        request finished "error"."""
+        device-side assert classified not transient, ``errors`` 1, every
+        request finished "error", the engine thread ended, ``/health`` 503
+        "dead" and a later request failed at once."""
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, str(ROOT / "scripts" / "torch_sticky_fault.py")],
@@ -1518,7 +1574,11 @@ def main() -> int:
         rep = json.loads(lines[-1])
         if (proc.returncode != 0 or rep.get("is_transient") is not False
                 or rep.get("errors") != 1 or not rep.get("finish_reasons")
-                or any(r != "error" for r in rep["finish_reasons"])):
+                or any(r != "error" for r in rep["finish_reasons"])
+                or rep.get("thread_ended") is not True
+                or rep.get("health") != [503, "dead"]
+                or rep.get("late_request", [0])[0] is not None
+                or rep["late_request"][1] != "error"):
             fail(f"sticky_fault: exit {proc.returncode}, report {rep}")
         rep["phase_s"] = time.perf_counter() - t0
         print("sticky_fault " + json.dumps(rep), flush=True)
@@ -1590,14 +1650,16 @@ def main() -> int:
 
     # -- 6. B3 at Mistral-7B widths ------------------------------------------
     def b3_case(kv_dtype, window, softcap, s=2304,
-                kv_len=(2100, 1500, 1990, 777), kv_start=(0, 211, 1003, 37)):
+                kv_len=(2100, 1500, 1990, 777), kv_start=(0, 211, 1003, 37),
+                hq=32, hkv=8, d=128):
         """By default B=4 rows over a capacity of 2304 slots, ragged left
-        padding and fill (a 1024 window cuts rows 0 and 1)."""
-        b, hq, hkv, d = len(kv_len), 32, 8, 128
+        padding and fill (a 1024 window cuts rows 0 and 1), at Mistral-7B's
+        heads; q scaled by CAP_Q_SCALE where a softcap is set."""
+        b = len(kv_len)
         kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         kv_start = torch.tensor(kv_start, dtype=torch.int32, device=dev)
-        q = torch.randn(b, 1, hq, d, generator=gen, device=dev).to(
-            torch.bfloat16)
+        q = (torch.randn(b, 1, hq, d, generator=gen, device=dev)
+             * (CAP_Q_SCALE if softcap else 1.0)).to(torch.bfloat16)
         k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(kv_dtype)
         v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(kv_dtype)
         return q, k, v, kv_len, kv_start, dict(window=window,
@@ -1616,6 +1678,10 @@ def main() -> int:
         ref = plain()
         torch.cuda.synchronize()
         err, worst = check_rows(out, ref, f"B3 {name}")
+        gap = None if softcap is None else cap_binds(
+            ref, b3.decode_sdpa_plain(q, k, v, scale=d ** -0.5, kv_len=kl,
+                                      kv_start=ks, won=won, window=window,
+                                      softcap=None), f"B3 {name}")
         # rotate over copies of the cache layer so each launch finds it out
         # of L2, as each layer's cache is on the decode path
         lay_bytes = 2 * k.numel() * k.element_size()
@@ -1644,9 +1710,10 @@ def main() -> int:
         row = dict(case=name, shape=f"B={b} Hq={hq} Hkv={hkv} D={d} "
                    f"S={k.shape[2]}",
                    max_abs_err=err, max_rel_err=worst, tol_rel=ATTN_TOL_REL,
+                   softcap_gap=gap,
                    ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                   splits=b3.split_plan(b, hkv, k.shape[2]))
+                   splits=b3.split_plan(b, hkv, k.shape[2], d))
         print("B3 " + json.dumps(row), flush=True)
         return row
 
@@ -1690,6 +1757,8 @@ def main() -> int:
                     kv_len=(700, 333, 65, 1, 150),
                     kv_start=(0, 37, 64, 1, 100))
                 q = q[:, :, :2 * g].contiguous()
+                if "softcap" in extra:
+                    q = (q.float() * CAP_Q_SCALE).to(torch.bfloat16)
                 k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
                 won = torch.tensor([1, 1, 0, 1, 1], dtype=torch.int32,
                                    device=dev)
@@ -1700,6 +1769,11 @@ def main() -> int:
                     won=won, window=extra.get("window"),
                     softcap=extra.get("softcap"))
                 check_rows(out, ref, f"B3 {kv_name} G={g} {extra}")
+                if "softcap" in extra:
+                    cap_binds(ref, b3.decode_sdpa_plain(
+                        q, k, v, scale=128 ** -0.5, kv_len=kl, kv_start=ks,
+                        won=won, window=None, softcap=None),
+                        f"B3 {kv_name} G={g} {extra}")
                 if out[3].any():
                     fail(f"B3 {kv_name} G={g}: a row with no key is not 0")
                 b3_checks += 1
@@ -1708,14 +1782,37 @@ def main() -> int:
     report["b3_small_checks"] = b3_checks
     torch.cuda.empty_cache()
 
+    # -- 6b. B3 at head_dim 256: Gemma-2-9B's 16 query heads over 8 kv heads,
+    # the engine's gathered layer (capacity 6144), the 4096 window cutting;
+    # the window alone (SDPA beside it) and with softcap 50
+    rows = []
+    for kv_name, kv_dtype in (("bf16", torch.bfloat16),
+                              ("e5m2", torch.float8_e5m2)):
+        for b in (4, 8):
+            fills = (6100, 4500, 5050, 900, 6144, 4097, 2000, 64)[:b]
+            for label, softcap in (("window 4096", None),
+                                   ("window 4096 softcap 50", 50.0)):
+                q, k, v, kl, ks, kw = b3_case(
+                    kv_dtype, 4096, softcap, s=6144, kv_len=fills,
+                    kv_start=(0,) * b, hq=16, hkv=8, d=256)
+                rows.append(b3_run(f"D=256 {kv_name} B={b} {label}", q, k,
+                                   v, kl, ks, **kw))
+                del q, k, v
+    report["b3_d256"] = rows
+    torch.cuda.empty_cache()
+
     # -- 7. B4 ---------------------------------------------------------------
     def b4_case(b, t, cap, lengths, *, causal=True, window=None,
-                softcap=None, hq=32, hkv=8, d=128, kv_len=None):
+                softcap=None, hq=32, hkv=8, d=128, kv_len=None,
+                offsets=None):
         """K/V as the dense cache holds them (head-major [B, Hkv, cap, D],
         read through the [B, cap, Hkv, D] view); causal rows left padded
-        to ``t`` (kv_start = t - length), queries at slots 0..t-1."""
-        q = torch.randn(b, t, hq, d, generator=gen, device=dev).to(
-            torch.bfloat16)
+        to ``t`` (kv_start = t - length), queries at slots 0..t-1; or, with
+        per-row ``offsets``, each row's queries at slots offset..offset+t-1
+        of the engine's gathered layer (kv_len = offset + t, kv_start 0);
+        q scaled by CAP_Q_SCALE where a softcap is set."""
+        q = (torch.randn(b, t, hq, d, generator=gen, device=dev)
+             * (CAP_Q_SCALE if softcap else 1.0)).to(torch.bfloat16)
         k_hm = torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(
             torch.bfloat16)
         v_hm = torch.randn(b, hkv, cap, d, generator=gen, device=dev).to(
@@ -1724,11 +1821,18 @@ def main() -> int:
                           device=dev)
         kl = torch.tensor(kv_len or [t] * b, dtype=torch.int32, device=dev)
         qpos = torch.arange(t, device=dev)[None].expand(b, t)
+        if offsets is not None:
+            off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+            ks = torch.zeros_like(off)
+            kl = off + t
+            qpos = off[:, None] + torch.arange(t, device=dev)[None]
         return dict(q=q, k_hm=k_hm, v_hm=v_hm, kv_start=ks, kv_len=kl,
                     q_positions=qpos, causal=causal, window=window,
                     softcap=softcap)
 
     def b4_run(name, c):
+        """The kernel and SDPA timed as device time from CUDA-graph
+        replays (a short call's eager time is the host's pace)."""
         q, k_hm, v_hm = c["q"], c["k_hm"], c["v_hm"]
         k, v = k_hm.transpose(1, 2), v_hm.transpose(1, 2)
         b, t, hq, d = q.shape
@@ -1745,8 +1849,13 @@ def main() -> int:
         ref = plain()
         torch.cuda.synchronize()
         err, worst = check_rows(out, ref, f"B4 {name}")
+        gap = None if c["softcap"] is None else cap_binds(
+            ref, b4.flash_sdpa_plain(
+                q, k, v, scale=d ** -0.5, causal=c["causal"],
+                q_positions=c["q_positions"].long(), kv_len=kl, kv_start=ks,
+                won=won, window=c["window"], softcap=None), f"B4 {name}")
         del out, ref
-        ms = time_ms(lambda: b4.flash_sdpa(q, k, v, **kw), 10)
+        ms = graph_ms(torch, [lambda: b4.flash_sdpa(q, k, v, **kw)] * 10)
         plain_ms = time_ms(plain, 1)
         # visible (query, key) pairs and the slots they read
         qp = c["q_positions"].long()
@@ -1758,7 +1867,12 @@ def main() -> int:
                 lo = torch.maximum(lo, qp - c["window"] + 1)
         pairs = int((hi - lo).clamp(min=0).sum())
         hkv = k.shape[2]
-        slots = int((kl - ks).clamp(min=0).sum())
+        # each row reads the union of its queries' visible keys once (the
+        # ranges are contiguous and move with the query slot)
+        seen = hi > lo
+        row_lo = torch.where(seen, lo, torch.iinfo(lo.dtype).max).amin(1)
+        row_hi = torch.where(seen, hi, 0).amax(1)
+        slots = int((row_hi - row_lo).clamp(min=0).sum())
         nbytes = 2 * q.numel() * 2 + slots * hkv * d * 2 * 2
         bms, by = bound(nbytes, 4.0 * d * hq * pairs)
         lib_ms = None
@@ -1767,12 +1881,14 @@ def main() -> int:
             mask = (kpos[None, None] >= lo[:, :, None]) & (
                 kpos[None, None] < hi[:, :, None])
             qt = q.transpose(1, 2)
-            lib_ms = time_ms(lambda: sdpa_gqa(qt, k_hm, v_hm,
-                                              mask[:, None]), 10)
+
+            lib_ms = graph_ms(torch, [lambda: sdpa_gqa(
+                qt, k_hm, v_hm, mask[:, None])] * 10)
             del mask
         row = dict(case=name, shape=f"B={b} T={t} S={k.shape[1]} Hq={hq} "
                    f"Hkv={hkv} D={d}", max_abs_err=err, max_rel_err=worst,
-                   tol_rel=ATTN_TOL_REL, ms=ms, plain_ms=plain_ms,
+                   tol_rel=ATTN_TOL_REL, softcap_gap=gap, ms=ms,
+                   plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bms, bound_by=by,
                    visible_pairs=pairs)
         print("B4 " + json.dumps(row), flush=True)
@@ -1813,10 +1929,37 @@ def main() -> int:
                     kv_start=ks, won=won, window=c["window"],
                     softcap=c["softcap"])
                 check_rows(out, ref, f"B4 T={t} G={g} {kind}")
+                if kind == "softcap":
+                    cap_binds(ref, b4.flash_sdpa_plain(
+                        q, k, v, scale=128 ** -0.5, causal=True,
+                        q_positions=c["q_positions"].long(), kv_len=kl,
+                        kv_start=ks, won=won, window=None, softcap=None),
+                        f"B4 T={t} G={g} {kind}")
                 b4_checks += 1
     print(f"B4: {b4_checks} small cases within tolerance", flush=True)
     report["b4"] = rows
     report["b4_small_checks"] = b4_checks
+    torch.cuda.empty_cache()
+
+    # -- 7b. B4 at head_dim 256: Gemma-2-9B's heads over the engine's
+    # gathered layer (capacity 6144), per-row query slots, the 4096 window:
+    # prefill chunks of 128, the verify width of spec_k 3 (T = 4) and a
+    # 2048-query prompt, each with softcap 50 and, for the yardstick, the
+    # window alone
+    g2 = dict(hq=16, hkv=8, d=256, window=4096)
+    rows = []
+    for label, b, t, offsets in (
+            ("T=128 chunks", 8, 128, [0, 500, 1000, 3000, 4200, 4800,
+                                      5500, 6000]),
+            ("T=4 verify", 8, 4, [40, 700, 1500, 3000, 4095, 4500, 5800,
+                                  6140]),
+            ("T=2048 prompt", 2, 2048, [0, 4000])):
+        for softcap in (None, 50.0):
+            rows.append(b4_run(
+                f"D=256 {label}" + (" softcap 50" if softcap else ""),
+                b4_case(b, t, 6144, [t] * b, offsets=offsets,
+                        softcap=softcap, **g2)))
+    report["b4_d256"] = rows
     torch.cuda.empty_cache()
 
     # -- 8. B2 at Mistral-7B's shapes ------------------------------------------
@@ -1825,6 +1968,31 @@ def main() -> int:
                             lambda w, m: w != "lm_head" or m == 4,
                             "mistral-7b", "sym_int4",
                             iters=lambda m: 30 if m < 1024 else 3)
+    torch.cuda.empty_cache()
+
+    # -- 8b. B2 at Qwen2-7B's and Gemma-2-9B's shapes -------------------------
+    report["b2f"] = []
+    for tag, shapes in (("qwen2-7b", QWEN2_7B_SHAPES),
+                        ("gemma2-9b", GEMMA2_9B_SHAPES)):
+        report["b2f"] += b2_rows(shapes, (1, 8, 128),
+                                 lambda w, m: w != "lm_head" or m <= 8,
+                                 tag, "sym_int4")
+    # the other nine formats, checked only, at the two new K
+    b2f_checks = 0
+    for qtype in b2.FORMATS[1:]:
+        for k, n in ((18944, 3584), (14336, 3584)):
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * (1.2 / math.sqrt(k)), qtype)
+            for m in (1, 8, 128):
+                x = torch.randn(m, k, generator=gen, device=dev).to(
+                    torch.bfloat16)
+                check_b2(b2.qmatmul(x, wq), b2.qmatmul_plain(x, wq),
+                         f"{qtype} K={k} N={n} M={m}")
+                b2f_checks += 1
+            del wq
+    report["b2f_format_checks"] = b2f_checks
+    print(f"B2: {b2f_checks} checks of the nine other formats at K = 18944 "
+          "and 14336 within tolerance", flush=True)
     torch.cuda.empty_cache()
 
     # -- 9. a small mistral, dense form: card against CPU -------------------
@@ -2034,6 +2202,14 @@ def main() -> int:
 
     report["generate"], report["generate_profile"] = generate_phase()
 
+    # -- 11. the qwen2 and gemma2 families, and three paths at full width ----
+    from torch_families_smoke import families_phase
+
+    report["families"] = families_phase(kernels, card, fail, dev)
+    print(f"families phase: {report['families']['phase_s']:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
     # -- summary -------------------------------------------------------------
     serve_launches = report["serve"][0]["launches"]
     gen_launches = report["generate"][0]["launches"]
@@ -2049,6 +2225,17 @@ def main() -> int:
                         and r["case"] == "verify R=8 C=4")
     rep_b2_tiled = next(r for r in report["b2"] if r["qtype"] == "sym_int4"
                         and r["weight"] == "gate_up" and r["m"] == 128)
+    fam = report["families"]
+    fam_serve = {(r["model"], r["storage"]): r for r in fam["serve"]}
+    fam_gen = {r["model"]: r for r in fam["generate"]}
+    gemma_serve = fam_serve[("Gemma-2-9B", "bf16")]
+    qwen_serve = fam_serve[("Qwen2-7B", "bf16")]
+    rep_b3_256 = next(r for r in report["b3_d256"]
+                      if r["case"] == "D=256 bf16 B=8 window 4096")
+    rep_b4_256 = next(r for r in report["b4_d256"]
+                      if r["case"] == "D=256 T=128 chunks")
+    rep_b1_g7 = next(r for r in report["b1"] if r["pool"] == "bf16"
+                     and r["case"].startswith("G=7 decode"))
     serve_routes = report["serve"][0]["launches_by_route"]
     for name, routes in serve_routes.items():
         if min(routes.values()) == 0:
@@ -2161,6 +2348,41 @@ def main() -> int:
          # the 64-row tiles at C=128, beside B1 on the same inputs
          "c128": {k: rep_b5_wide[k] for k in keys + ("b1_ms",)},
          **{k: rep_b5[k] for k in keys}},
+        # the head_dim-256 instances: their launches in the Gemma-2-9B
+        # serving run (the gathered route) and its generate()
+        {"name": "decode_attention[D=256]", "route": "cuda",
+         "source": src + "decode_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/decode_attention.py:166",
+         "shape": "B=8 Hq=16 Hkv=8 D=256 S=6144, bf16 cache, window 4096",
+         "launches": gemma_serve["launches_by_head_dim"][
+             "decode_attention"][256],
+         "launches_generate": fam_gen["Gemma-2-9B"]["launches_by_head_dim"][
+             "decode_attention"][256],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b3_d256"]),
+         **{k: rep_b3_256[k] for k in keys}},
+        {"name": "flash_attention[D=256]", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/flash_attention.py:166",
+         "shape": "B=8 T=128 S=6144 Hq=16 Hkv=8 D=256, per-row query "
+                  "slots, window 4096",
+         "launches": gemma_serve["launches_by_head_dim"][
+             "flash_attention"][256],
+         "launches_generate": fam_gen["Gemma-2-9B"]["launches_by_head_dim"][
+             "flash_attention"][256],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b4_d256"]),
+         **{k: rep_b4_256[k] for k in keys}},
+        # B1 at Qwen2-7B's GQA group of 7: its launches in that serving run
+        {"name": "ragged_paged_attention[G=7]", "route": "cuda",
+         "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=1 Hq=28 Hkv=4 D=128 page 128, bf16 pool (key "
+                  "split)",
+         "launches": qwen_serve["launches"]["ragged_paged_attention"],
+         "launches_by_route": qwen_serve["b1_launches_by_route"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b1"]
+                            if r["case"].startswith("G=7")),
+         **{k: rep_b1_g7[k] for k in keys}},
     ]}
     out_dir = ROOT / "chiprun_out"
     try:

@@ -42,6 +42,14 @@
 // into the split's fp32 partial (m, l, acc); a second kernel merges a
 // head's splits in split order (deterministic, no atomics), skipping
 // splits with l = 0, and writes bf16.
+//
+// Two instances of the head dim D, 128 and 256 (Gemma-2).  At 256 a tile
+// pair is 64 KiB and the accumulator alone takes 128 registers a thread,
+// so that instance keeps the 16 query rows in shared memory (8 KiB) and
+// reads each step's A fragment with ldmatrix instead of holding all 16
+// steps' fragments in registers, and its three bf16 stages (192 KiB; four
+// raw e5m2 stages of 32 KiB and the widened pair) leave room for one
+// block an SM instead of two; split_plan reads the resident count.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -52,7 +60,6 @@
 namespace {
 
 constexpr int kThreads = 128;            // 4 warps
-constexpr int kD = 128;                  // head dim (the only instance)
 constexpr int kKT = 64;                  // keys per staged tile
 constexpr int kKW = kKT / 4;             // keys per warp per tile
 constexpr int kRows = 16;                // query rows of the mma tile
@@ -60,40 +67,48 @@ constexpr int kMaxSplits = 64;           // decode_attention.py _MAX_SPLITS
 constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
 constexpr float kFloor = -1e29f;         // the reference's m clamp
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTileBytes = kKT * kD * 2;  // one bf16 K or V tile (16 KiB)
-constexpr int kResident = 2;             // blocks an SM holds (96 KiB each)
 
-template <typename KV>
+// blocks an SM holds: 2 of 96 KiB at D = 128, 1 of 200 KiB at D = 256
+// (decode_attention.py::ring_plan)
+template <int D>
+constexpr int kResident = D == 128 ? 2 : 1;
+
+template <typename KV, int D>
 struct Ring {
-  // bf16: 3 stages of (K, V) tiles; e5m2: 4 raw stages (8 KiB each of K
-  // and V), then the widened bf16 K/V pair
+  // bf16: 3 stages of (K, V) tiles; e5m2: 4 raw stages (half a bf16 tile
+  // each of K and V), then the widened bf16 K/V pair; at D = 256 the 16
+  // query rows (bf16, swizzled) after them
+  static constexpr int kTileBytes = kKT * D * 2;  // one bf16 K or V tile
   static constexpr bool kFp8 = sizeof(KV) == 1;
+  static constexpr bool kQSmem = D > 128;
   static constexpr int kStages = kFp8 ? 4 : 3;
   static constexpr int kStageBytes = kFp8 ? kTileBytes : 2 * kTileBytes;
   static constexpr int kHalf = kStageBytes / 2;   // K part, then V part
   static constexpr int kWiden = kStages * kStageBytes;
-  static constexpr int kSmem = kWiden + (kFp8 ? 2 * kTileBytes : 0);
+  static constexpr int kQOff = kWiden + (kFp8 ? 2 * kTileBytes : 0);
+  static constexpr int kSmem = kQOff + (kQSmem ? kRows * D * 2 : 0);
 };
 
+template <int D>
 __device__ __forceinline__ int kv_chunk(int key, int c) {
-  return key * (kD / 8) + (c ^ (key & 7));   // swizzled 16-byte chunk index
+  return key * (D / 8) + (c ^ (key & 7));    // swizzled 16-byte chunk index
 }
 
 // stage the keys [k0, k0 + 64) of one kv head (as stored: bf16 swizzled,
 // e5m2 plain); keys at or past k_end are zeros
-template <typename KV>
+template <typename KV, int D>
 __device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
                                            const KV* __restrict__ kh,
                                            const KV* __restrict__ vh, int k0,
                                            int k_end) {
-  constexpr int kChunks = kD * (int)sizeof(KV) / 16;   // 16 or 8 per key
+  constexpr int kChunks = D * (int)sizeof(KV) / 16;   // 16-byte chunks a key
   for (int i = threadIdx.x; i < kKT * kChunks; i += kThreads) {
     const int key = i / kChunks, c = i - key * kChunks;
     const int kpos = k0 + key;
     const bool ok = kpos < k_end;
-    const size_t off = ok ? (size_t)kpos * kD + c * (16 / sizeof(KV)) : 0;
-    const int dst = sizeof(KV) == 2 ? kv_chunk(key, c) * 16
-                                    : key * (kD * (int)sizeof(KV)) + c * 16;
+    const size_t off = ok ? (size_t)kpos * D + c * (16 / sizeof(KV)) : 0;
+    const int dst = sizeof(KV) == 2 ? kv_chunk<D>(key, c) * 16
+                                    : key * (D * (int)sizeof(KV)) + c * 16;
     hopper::cp_async<16>(kd + dst, kh + off, ok);
     hopper::cp_async<16>(vd + dst, vh + off, ok);
   }
@@ -101,15 +116,16 @@ __device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
 
 // widen an e5m2 tile pair (as stored) into bf16 swizzled tiles: an e5m2
 // code is the top byte of an fp16, and every e5m2 value is a bf16 value
+template <int D>
 __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
                                            const uint8_t* vraw, uint8_t* kw,
                                            uint8_t* vw) {
-  for (int i = threadIdx.x; i < 2 * kKT * (kD / 16); i += kThreads) {
-    const int which = i / (kKT * (kD / 16));
-    const int rem = i - which * (kKT * (kD / 16));
-    const int key = rem / (kD / 16), c = rem % (kD / 16);
+  for (int i = threadIdx.x; i < 2 * kKT * (D / 16); i += kThreads) {
+    const int which = i / (kKT * (D / 16));
+    const int rem = i - which * (kKT * (D / 16));
+    const int key = rem / (D / 16), c = rem % (D / 16);
     const uint4 raw = *reinterpret_cast<const uint4*>(
-        (which ? vraw : kraw) + key * kD + c * 16);
+        (which ? vraw : kraw) + key * D + c * 16);
     const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
     uint32_t o[8];
 #pragma unroll
@@ -123,15 +139,15 @@ __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
       o[2 * e + 1] = hopper::pack_bf16(fhi.x, fhi.y);
     }
     uint8_t* dst = which ? vw : kw;
-    *reinterpret_cast<uint4*>(dst + kv_chunk(key, 2 * c) * 16) =
+    *reinterpret_cast<uint4*>(dst + kv_chunk<D>(key, 2 * c) * 16) =
         make_uint4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<uint4*>(dst + kv_chunk(key, 2 * c + 1) * 16) =
+    *reinterpret_cast<uint4*>(dst + kv_chunk<D>(key, 2 * c + 1) * 16) =
         make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
 
-template <typename KV, bool SOFTCAP>
-__global__ void __launch_bounds__(kThreads, kResident)
+template <typename KV, int D, bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, kResident<D>)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const KV* __restrict__ k, const KV* __restrict__ v,
                     const int* __restrict__ kv_len_arr,
@@ -141,7 +157,8 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     float2* __restrict__ ws_ml,    // [B,Hkv,splits,G]
                     int Hkv, int G, int S, float scale, int window,
                     float softcap) {
-  using R = Ring<KV>;
+  using R = Ring<KV, D>;
+  constexpr int kTileBytes = R::kTileBytes;
   extern __shared__ __align__(128) uint8_t smem[];
 
   const int split = blockIdx.x;
@@ -164,30 +181,43 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int e = min(hi, a + per);
   const int n_tiles = e > a ? (e - a + kKT - 1) / kKT : 0;
 
-  const size_t head_off = ((size_t)b * Hkv + h) * (size_t)S * kD;
+  const size_t head_off = ((size_t)b * Hkv + h) * (size_t)S * D;
   const KV* kh = k + head_off;
   const KV* vh = v + head_off;
   auto stage_k = [&](int slot) { return smem + slot * R::kStageBytes; };
   auto stage_v = [&](int slot) { return stage_k(slot) + R::kHalf; };
+  const int r0 = lane >> 2;
+  const size_t qrow = (size_t)b * Hkv * G + (size_t)h * G;
+  uint8_t* q_s = smem + R::kQOff;
+  if constexpr (R::kQSmem) {
+    // the query rows (swizzled like a K tile) join the first tile's group
+    for (int i = threadIdx.x; i < kRows * (D / 8); i += kThreads) {
+      const int row = i / (D / 8), c = i % (D / 8);
+      const bool ok = row < G;
+      hopper::cp_async<16>(q_s + kv_chunk<D>(row, c) * 16,
+                           q + (ok ? (qrow + row) * D + c * 8 : 0), ok);
+    }
+  }
 #pragma unroll
   for (int s = 0; s < R::kStages - 1; ++s) {
     if (s < n_tiles)
-      stage_tile<KV>(stage_k(s), stage_v(s), kh, vh, a + s * kKT, e);
+      stage_tile<KV, D>(stage_k(s), stage_v(s), kh, vh, a + s * kKT, e);
     hopper::cp_async_commit();
   }
 
-  // the group's G query rows (of 16) as A fragments; rows >= G are zero
-  const int r0 = lane >> 2;
-  uint32_t qa[kD / 16][4];
-  {
+  // the group's G query rows (of 16) as A fragments; rows >= G are zero.
+  // D = 128: all steps' fragments in registers; D = 256: the rows in
+  // shared memory (staged above with the first tile), a step's fragment
+  // read with ldmatrix where it is used
+  uint32_t qa[R::kQSmem ? 1 : D / 16][4];
+  if constexpr (!R::kQSmem) {
     const bool ok0 = r0 < G, ok1 = r0 + 8 < G;
-    const size_t qrow = (size_t)b * Hkv * G + (size_t)h * G;
     const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
-        q + (ok0 ? (qrow + r0) * kD : 0));
+        q + (ok0 ? (qrow + r0) * D : 0));
     const uint32_t* q1 = reinterpret_cast<const uint32_t*>(
-        q + (ok1 ? (qrow + r0 + 8) * kD : 0));
+        q + (ok1 ? (qrow + r0 + 8) * D : 0));
 #pragma unroll
-    for (int kc = 0; kc < kD / 16; ++kc) {
+    for (int kc = 0; kc < D / 16; ++kc) {
       const int d2 = (kc * 16 + (lane & 3) * 2) / 2;   // in bf16 pairs
       qa[kc][0] = ok0 ? __ldg(q0 + d2) : 0u;
       qa[kc][1] = ok1 ? __ldg(q1 + d2) : 0u;
@@ -197,9 +227,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float sl2 = scale * kLog2e;         // scores in base-2 units
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[kD / 8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
 
@@ -208,8 +238,8 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int tn = t + R::kStages - 1;
       if (tn < n_tiles)
-        stage_tile<KV>(stage_k(tn % R::kStages), stage_v(tn % R::kStages), kh,
-                       vh, a + tn * kKT, e);
+        stage_tile<KV, D>(stage_k(tn % R::kStages), stage_v(tn % R::kStages),
+                          kh, vh, a + tn * kKT, e);
       hopper::cp_async_commit();
     }
     hopper::cp_async_wait<R::kStages - 1>();
@@ -218,8 +248,8 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     const uint8_t* vt;
     if constexpr (R::kFp8) {
       uint8_t* kw = smem + R::kWiden;
-      widen_tile(stage_k(t % R::kStages), stage_v(t % R::kStages), kw,
-                 kw + kTileBytes);
+      widen_tile<D>(stage_k(t % R::kStages), stage_v(t % R::kStages), kw,
+                    kw + kTileBytes);
       __syncthreads();
       kt = kw;
       vt = kw + kTileBytes;
@@ -235,13 +265,20 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < kD / 16; ++kc) {
+      for (int kc = 0; kc < D / 16; ++kc) {
         const int key = wk + (lane >> 4) * 8 + (lane & 7);
         const int c = kc * 2 + ((lane >> 3) & 1);
         uint32_t b0, b1, b2, b3;
-        hopper::ldsm_x4(b0, b1, b2, b3, kt + kv_chunk(key, c) * 16);
-        hopper::mma_bf16(s[0], qa[kc], b0, b1);
-        hopper::mma_bf16(s[1], qa[kc], b2, b3);
+        hopper::ldsm_x4(b0, b1, b2, b3, kt + kv_chunk<D>(key, c) * 16);
+        const uint32_t* af = qa[R::kQSmem ? 0 : kc];
+        if constexpr (R::kQSmem) {
+          // rows lane % 16, dims 16kc + 8(lane / 16): the m16n8k16 A tile
+          hopper::ldsm_x4(qa[0][0], qa[0][1], qa[0][2], qa[0][3],
+                          q_s + kv_chunk<D>(lane & 15, kc * 2 + (lane >> 4))
+                                    * 16);
+        }
+        hopper::mma_bf16(s[0], af, b0, b1);
+        hopper::mma_bf16(s[1], af, b2, b3);
       }
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -286,7 +323,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
         l[row] = l[row] * alpha[row] + sum[row];
       }
 #pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
+      for (int dn = 0; dn < D / 8; ++dn) {
         acc[dn][0] *= alpha[0];
         acc[dn][1] *= alpha[0];
         acc[dn][2] *= alpha[1];
@@ -299,10 +336,10 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                               hopper::pack_bf16(s[1][2], s[1][3])};
       const int key = wk + ((lane >> 3) & 1) * 8 + (lane & 7);
 #pragma unroll
-      for (int dn = 0; dn < kD / 8; dn += 2) {
+      for (int dn = 0; dn < D / 8; dn += 2) {
         uint32_t b0, b1, b2, b3;
         hopper::ldsm_x4_trans(b0, b1, b2, b3,
-                              vt + kv_chunk(key, dn + (lane >> 4)) * 16);
+                              vt + kv_chunk<D>(key, dn + (lane >> 4)) * 16);
         hopper::mma_bf16(acc[dn], pa, b0, b1);
         hopper::mma_bf16(acc[dn + 1], pa, b2, b3);
       }
@@ -313,14 +350,14 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 
   // merge the four warps' key slices in warp order, in shared memory
   float* acc_s = reinterpret_cast<float*>(smem);          // [4][16][D]
-  float2* ml_s = reinterpret_cast<float2*>(smem + 4 * kRows * kD * 4);
+  float2* ml_s = reinterpret_cast<float2*>(smem + 4 * kRows * D * 4);
 #pragma unroll
   for (int row = 0; row < 2; ++row) {
     const int i = r0 + 8 * row;
     if (i >= G) continue;
-    float* dst = acc_s + (warp * kRows + i) * kD;
+    float* dst = acc_s + (warp * kRows + i) * D;
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
+    for (int dn = 0; dn < D / 8; ++dn) {
       const int d = dn * 8 + (lane & 3) * 2;
       *reinterpret_cast<float2*>(dst + d) =
           make_float2(acc[dn][2 * row], acc[dn][2 * row + 1]);
@@ -328,7 +365,6 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     if ((lane & 3) == 0) ml_s[warp * kRows + i] = make_float2(m[row], l[row]);
   }
   __syncthreads();
-  const int d = threadIdx.x;                 // kThreads == kD
   const size_t ws_row = (((size_t)b * Hkv + h) * splits + split) * G;
   for (int i = 0; i < G; ++i) {
     float m_all = kNegInf;
@@ -338,26 +374,31 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
       if (ml.y > 0.f) m_all = fmaxf(m_all, ml.x);
     }
     const float m_ref = fmaxf(m_all, kFloor);
-    float lsum = 0.f, o = 0.f;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float2 ml = ml_s[w * kRows + i];
-      if (!(ml.y > 0.f)) continue;
-      const float wt = exp2f(fmaxf(ml.x, kFloor) - m_ref);
-      lsum = fmaf(ml.y, wt, lsum);
-      o = fmaf(acc_s[(w * kRows + i) * kD + d], wt, o);
+    for (int dd = 0; dd < D / kThreads; ++dd) {
+      const int d = threadIdx.x + dd * kThreads;
+      float lsum = 0.f, o = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 ml = ml_s[w * kRows + i];
+        if (!(ml.y > 0.f)) continue;
+        const float wt = exp2f(fmaxf(ml.x, kFloor) - m_ref);
+        lsum = fmaf(ml.y, wt, lsum);
+        o = fmaf(acc_s[(w * kRows + i) * D + d], wt, o);
+      }
+      ws_acc[(ws_row + i) * D + d] = o;
+      if (d == 0) ws_ml[ws_row + i] = make_float2(m_all, lsum);
     }
-    ws_acc[(ws_row + i) * kD + d] = o;
-    if (d == 0) ws_ml[ws_row + i] = make_float2(m_all, lsum);
   }
 }
 
-// one block per (q head, row): merges the head's splits in split order
-// and writes bf16.  Thread s < splits reads split s's (m, l) and sets its
+// one block of D threads per (q head, row): merges the head's splits in
+// split order and writes bf16.  Thread s < splits reads split s's (m, l) and sets its
 // weight in shared memory (0 for a split that saw no visible key, l == 0);
 // then thread d sums output dim d over the splits, its loads independent
 // of each other.  m is in base-2 units, as the split kernel keeps it.
-__global__ void __launch_bounds__(kD)
+template <int D>
+__global__ void __launch_bounds__(D)
 decode_merge_kernel(const float* __restrict__ ws_acc,
                     const float2* __restrict__ ws_ml,
                     __nv_bfloat16* __restrict__ out, int Hkv, int G,
@@ -387,26 +428,28 @@ decode_merge_kernel(const float* __restrict__ ws_acc,
 #pragma unroll 8
   for (int s = 0; s < splits; ++s) {
     const float w = wt_s[s];
-    const float a = ws_acc[(base + (size_t)s * G) * kD + d];
+    const float a = ws_acc[(base + (size_t)s * G) * D + d];
     if (w != 0.f) {
       lt = fmaf(l_s[s], w, lt);
       o = fmaf(a, w, o);
     }
   }
-  out[((size_t)b * Hkv * G + hq) * kD + d] =
+  out[((size_t)b * Hkv * G + hq) * D + d] =
       __float2bfloat16_rn(o / (lt == 0.f ? 1.f : lt));
 }
 
-template <typename KV, bool SOFTCAP>
+template <typename KV, int D, bool SOFTCAP>
 int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
            const void* v, const void* kv_len, const void* kv_start,
            const void* won, void* ws_acc, void* ws_ml, int Hkv, int G, int S,
            float scale, int window, float softcap) {
+  constexpr int kSmem = Ring<KV, D>::kSmem;
+  static_assert(kSmem <= 232448, "the ring exceeds a block's shared memory");
   cudaError_t e = cudaFuncSetAttribute(
-      decode_split_kernel<KV, SOFTCAP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<KV>::kSmem);
+      decode_split_kernel<KV, D, SOFTCAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  decode_split_kernel<KV, SOFTCAP><<<grid, kThreads, Ring<KV>::kSmem, st>>>(
+  decode_split_kernel<KV, D, SOFTCAP><<<grid, kThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<const int*>(kv_len),
       static_cast<const int*>(kv_start), static_cast<const int*>(won),
@@ -420,9 +463,8 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // q bf16 [B,1,Hq,D]; k/v [B,Hkv,S,D] bf16 (kv_fp8=0) or e5m2 (kv_fp8=1),
 // contiguous, 16-byte aligned; kv_len, kv_start, won int32 [B]; out bf16
 // [B,1,Hq,D]; ws_acc fp32 [B,Hkv,splits,G,D] and ws_ml fp32
-// [B,Hkv,splits,G,2] scratch.  D = 128, G = Hq/Hkv <= 16, splits <= 64;
-// window <= 0
-// means none, softcap <= 0 none.  Launches the split kernel and the merge
+// [B,Hkv,splits,G,2] scratch.  D = 128 or 256, G = Hq/Hkv <= 16,
+// splits <= 64; window <= 0 means none, softcap <= 0 none.  Launches the split kernel and the merge
 // kernel; returns the first non-zero cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported D or G).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
@@ -432,24 +474,33 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int D, int splits, int kv_fp8, float scale,
                                 int window, float softcap, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D != kD || Hq % Hkv || Hq / Hkv > kRows || splits < 1 ||
-      splits > kMaxSplits)
+  if ((D != 128 && D != 256) || Hq % Hkv || Hq / Hkv > kRows ||
+      splits < 1 || splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const dim3 grid(splits, Hkv, B);
   const bool cap = softcap > 0.f;
   int err;
-#define DECODE_LAUNCH(KV, CAP)                                            \
-  launch<KV, CAP>(grid, st, q, k, v, kv_len, kv_start, won, ws_acc, ws_ml, \
-                  Hkv, G, S, scale, window, softcap)
-  if (kv_fp8)
-    err = cap ? DECODE_LAUNCH(uint8_t, true) : DECODE_LAUNCH(uint8_t, false);
-  else
-    err = cap ? DECODE_LAUNCH(uint16_t, true) : DECODE_LAUNCH(uint16_t, false);
+#define DECODE_LAUNCH(KV, HD, CAP)                                          \
+  launch<KV, HD, CAP>(grid, st, q, k, v, kv_len, kv_start, won, ws_acc,     \
+                      ws_ml, Hkv, G, S, scale, window, softcap)
+#define DECODE_LAUNCH_D(HD)                                                 \
+  (kv_fp8 ? (cap ? DECODE_LAUNCH(uint8_t, HD, true)                         \
+                 : DECODE_LAUNCH(uint8_t, HD, false))                       \
+          : (cap ? DECODE_LAUNCH(uint16_t, HD, true)                        \
+                 : DECODE_LAUNCH(uint16_t, HD, false)))
+  err = D == 128 ? DECODE_LAUNCH_D(128) : DECODE_LAUNCH_D(256);
+#undef DECODE_LAUNCH_D
 #undef DECODE_LAUNCH
   if (err) return err;
-  decode_merge_kernel<<<dim3(Hq, B), kD, 0, st>>>(
-      static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
-      static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
+  const dim3 mgrid(Hq, B);
+  if (D == 128)
+    decode_merge_kernel<128><<<mgrid, 128, 0, st>>>(
+        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
+        static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
+  else
+    decode_merge_kernel<256><<<mgrid, 256, 0, st>>>(
+        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
+        static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
   return (int)cudaGetLastError();
 }

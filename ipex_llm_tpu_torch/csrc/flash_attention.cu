@@ -44,6 +44,15 @@
 // tanh.  Under causal masking the q tiles launch last first (grid z
 // reversed, heads and rows fastest), so the tiles with the most keys start
 // in the first wave.
+//
+// Two instances of the head dim D, 128 and 256 (Gemma-2).  At 256 the
+// 64 x 256 fp32 accumulator takes 128 registers a thread, and Q's
+// register fragments as many again, which does not fit under 255: that
+// instance keeps the block's 64 query rows in shared memory (32 KiB, four
+// 64-dim swizzled blocks, staged with the first tile) and reads them
+// through a descriptor (wgmma with A from shared memory), runs O += P.V as
+// two m64n128k16 per 16 keys (one on each 128-dim half of O), and holds
+// two stages of 64 KiB K/V tile pairs (161 KiB in all, one block an SM).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,19 +62,29 @@
 namespace {
 
 constexpr int kThreads = 128;            // 4 warps
-constexpr int kD = 128;                  // head dim (the only instance)
 constexpr int kBQ = 64;                  // queries per block (4 warps x 16)
 constexpr int kBK = 64;                  // keys per tile
-constexpr int kStages = 3;               // K/V ring depth
 constexpr int kSN = kBK / 8;             // n8 score tiles per warp
 constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
 constexpr float kFloor = -1e29f;         // the reference's m clamp
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTileBytes = kBK * kD * 2;             // one bf16 K or V tile
-constexpr int kHalfBytes = kTileBytes / 2;           // 64 dims of 64 keys
-// 96 KiB of stages and the slack to align them to 1024 bytes (the swizzle)
-constexpr int kSmemBytes = kStages * 2 * kTileBytes + 1024;
+constexpr int kBlockBytes = kBK * 128;   // 64 dims of 64 rows (swizzled)
 constexpr int kBig = 0x3fffffff;
+
+// the instance of head dim D (flash_attention.py::smem_plan)
+template <int D>
+struct Plan {
+  static constexpr int kTileBytes = kBK * D * 2;      // one bf16 K or V tile
+  static constexpr bool kQSmem = D > 128;             // Q from a descriptor
+  static constexpr int kStages = D == 128 ? 3 : 2;    // K/V ring depth
+  static constexpr int kResident = D == 128 ? 2 : 1;  // blocks an SM holds
+  static constexpr int kQOff = kStages * 2 * kTileBytes;
+  // the stages, Q's rows at D = 256, and the slack to align them to 1024
+  // bytes (the swizzle): 96 KiB + 1 KiB at D = 128, 160 KiB + 1 KiB at 256
+  static constexpr int kSmem =
+      kQOff + (kQSmem ? kBQ * D * 2 : 0) + 1024;
+  static_assert(kSmem <= 232448, "exceeds a block's shared memory");
+};
 
 // the tile kinds of one warp's 16 rows (flash_attention.py::tile_kind)
 constexpr int kSkip = 0, kFree = 1, kMasked = 2;
@@ -83,27 +102,29 @@ __device__ __forceinline__ int tile_kind(int kt, int qmin, int qmax,
   return no_mask ? kFree : kMasked;
 }
 
-// stage the keys [k0, k0 + 64) of one kv head into `kd`/`vd` (each two
-// 128-byte swizzled halves: dims 0-63, then 64-127); keys outside
+// stage the keys [k0, k0 + 64) of one kv head into `kd`/`vd` (each D / 64
+// 128-byte swizzled blocks: dims 0-63, then 64-127, ...); keys outside
 // [kvs, kvl) are zeros
+template <int D>
 __device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
                                            const __nv_bfloat16* kh,
                                            const __nv_bfloat16* vh,
                                            long long kss, int k0, int kvs,
                                            int kvl) {
-  for (int i = threadIdx.x; i < kBK * (kD / 8); i += kThreads) {
-    const int key = i >> 4, c = i & 15;
+  // unsigned: the chunk index splits with a shift and a mask
+  for (unsigned i = threadIdx.x; i < kBK * (D / 8); i += kThreads) {
+    const int key = i / (D / 8), c = i % (D / 8);
     const int kpos = k0 + key;
     const bool ok = kpos >= kvs && kpos < kvl;
     const size_t off = ok ? (size_t)kpos * kss + c * 8 : 0;
-    const int dst = (c >> 3) * kHalfBytes + hopper::sw128_offset(key, c & 7);
+    const int dst = (c >> 3) * kBlockBytes + hopper::sw128_offset(key, c & 7);
     hopper::cp_async<16>(kd + dst, kh + off, ok);
     hopper::cp_async<16>(vd + dst, vh + off, ok);
   }
 }
 
-template <bool SOFTCAP>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, Plan<D>::kResident)
 flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
@@ -114,6 +135,9 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv,
                   int S, long long ksb, long long kss, long long ksh,
                   float scale, int causal_i, int window, float softcap) {
+  using P = Plan<D>;
+  constexpr int kStages = P::kStages;
+  constexpr int kTileBytes = P::kTileBytes;
   extern __shared__ __align__(128) uint8_t smem_raw[];
   __shared__ int qmin_s[4], qmax_s[4];
   uint8_t* smem =
@@ -157,42 +181,58 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
   auto stage_k = [&](int slot) { return smem + slot * 2 * kTileBytes; };
   auto stage_v = [&](int slot) { return stage_k(slot) + kTileBytes; };
+  uint8_t* q_s = smem + P::kQOff;
+  if constexpr (P::kQSmem) {
+    // the block's 64 query rows (a row past T is zeros), in D / 64 swizzled
+    // blocks as a K tile, join the first tile's group
+    for (int i = threadIdx.x; i < kBQ * (D / 8); i += kThreads) {
+      const int row = i / (D / 8), c = i % (D / 8);
+      const bool ok = q0 + row < T;
+      hopper::cp_async<16>(
+          q_s + (c >> 3) * kBlockBytes + hopper::sw128_offset(row, c & 7),
+          q + (ok ? (((size_t)b * T + q0 + row) * Hq + hq) * D + c * 8 : 0),
+          ok);
+    }
+  }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles)
-      stage_tile(stage_k(s), stage_v(s), kh, vh, kss, kt0 + s * kBK, kvs,
-                 kvl);
+      stage_tile<D>(stage_k(s), stage_v(s), kh, vh, kss, kt0 + s * kBK, kvs,
+                    kvl);
     hopper::cp_async_commit();
   }
 
   // the warp's 16 query rows as A fragments: rows lane/4 and lane/4 + 8
+  // (at D = 256 they stay in shared memory)
   const int r0 = lane >> 2;
   const int t_row[2] = {jw + r0, jw + r0 + 8};
   int qp[2];
-  uint32_t qa[kD / 16][4];
+  uint32_t qa[P::kQSmem ? 1 : D / 16][4];
   {
     const bool ok0 = t_row[0] < T, ok1 = t_row[1] < T;
     // a row past T sees no key
     qp[0] = ok0 ? qpos_arr[(size_t)b * T + t_row[0]] : -kBig;
     qp[1] = ok1 ? qpos_arr[(size_t)b * T + t_row[1]] : -kBig;
-    const uint32_t* qr0 = reinterpret_cast<const uint32_t*>(
-        q + (ok0 ? (((size_t)b * T + t_row[0]) * Hq + hq) * kD : 0));
-    const uint32_t* qr1 = reinterpret_cast<const uint32_t*>(
-        q + (ok1 ? (((size_t)b * T + t_row[1]) * Hq + hq) * kD : 0));
+    if constexpr (!P::kQSmem) {
+      const uint32_t* qr0 = reinterpret_cast<const uint32_t*>(
+          q + (ok0 ? (((size_t)b * T + t_row[0]) * Hq + hq) * D : 0));
+      const uint32_t* qr1 = reinterpret_cast<const uint32_t*>(
+          q + (ok1 ? (((size_t)b * T + t_row[1]) * Hq + hq) * D : 0));
 #pragma unroll
-    for (int kc = 0; kc < kD / 16; ++kc) {
-      const int d2 = (kc * 16 + (lane & 3) * 2) / 2;   // in bf16 pairs
-      qa[kc][0] = ok0 ? __ldg(qr0 + d2) : 0u;
-      qa[kc][1] = ok1 ? __ldg(qr1 + d2) : 0u;
-      qa[kc][2] = ok0 ? __ldg(qr0 + d2 + 4) : 0u;
-      qa[kc][3] = ok1 ? __ldg(qr1 + d2 + 4) : 0u;
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const int d2 = (kc * 16 + (lane & 3) * 2) / 2;   // in bf16 pairs
+        qa[kc][0] = ok0 ? __ldg(qr0 + d2) : 0u;
+        qa[kc][1] = ok1 ? __ldg(qr1 + d2) : 0u;
+        qa[kc][2] = ok0 ? __ldg(qr0 + d2 + 4) : 0u;
+        qa[kc][3] = ok1 ? __ldg(qr1 + d2 + 4) : 0u;
+      }
     }
   }
   const float sl2 = scale * kLog2e;         // scores in base-2 units
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[kD / 8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
@@ -201,8 +241,8 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int tn = t + kStages - 1;
       if (tn < n_tiles)
-        stage_tile(stage_k(tn % kStages), stage_v(tn % kStages), kh, vh, kss,
-                   kt0 + tn * kBK, kvs, kvl);
+        stage_tile<D>(stage_k(tn % kStages), stage_v(tn % kStages), kh, vh,
+                      kss, kt0 + tn * kBK, kvs, kvl);
       hopper::cp_async_commit();
     }
     hopper::cp_async_wait<kStages - 1>();
@@ -220,12 +260,18 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kD / 16; ++kc)
-      hopper::wgmma_m64n64k16_rs<0>(
-          &s[0][0], qa[kc],
-          hopper::sw128_desc(ks + (kc >> 2) * kHalfBytes + (kc & 3) * 32, 16,
-                             1024),
-          kc);
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint64_t kdesc = hopper::sw128_desc(
+          ks + (kc >> 2) * kBlockBytes + (kc & 3) * 32, 16, 1024);
+      if constexpr (P::kQSmem)
+        hopper::wgmma_m64n64k16_ss<0>(
+            &s[0][0],
+            hopper::sw128_desc(q_s + (kc >> 2) * kBlockBytes + (kc & 3) * 32,
+                               16, 1024),
+            kdesc, kc);
+      else
+        hopper::wgmma_m64n64k16_rs<0>(&s[0][0], qa[kc], kdesc, kc);
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs<kSN * 4>(&s[0][0]);
@@ -294,7 +340,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
         l[row] = l[row] * alpha[row] + sum[row];
       }
 #pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
+      for (int dn = 0; dn < D / 8; ++dn) {
         acc[dn][0] *= alpha[0];
         acc[dn][1] *= alpha[0];
         acc[dn][2] *= alpha[1];
@@ -311,16 +357,20 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
       pa[kk][2] = hopper::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[kk][3] = hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
-    hopper::fence_regs<kD / 2>(&acc[0][0]);
+    hopper::fence_regs<D / 2>(&acc[0][0]);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kSN / 2; ++kk)
-      hopper::wgmma_m64n128k16_rs<1>(
-          &acc[0][0], pa[kk],
-          hopper::sw128_desc(vs + kk * 16 * 128, kHalfBytes, 1024), 1);
+#pragma unroll
+      for (int dh = 0; dh < D / 128; ++dh)   // 128-dim halves of O
+        hopper::wgmma_m64n128k16_rs<1>(
+            &acc[dh * 16][0], pa[kk],
+            hopper::sw128_desc(vs + dh * 2 * kBlockBytes + kk * 16 * 128,
+                               kBlockBytes, 1024),
+            1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
-    hopper::fence_regs<kD / 2>(&acc[0][0]);
+    hopper::fence_regs<D / 2>(&acc[0][0]);
     __syncthreads();       // the tile's slot is refilled next iteration
   }
   hopper::cp_async_wait<0>();
@@ -330,9 +380,9 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
     const int t = t_row[row];
     if (t >= T) continue;
     const float inv = 1.f / (l[row] == 0.f ? 1.f : l[row]);
-    __nv_bfloat16* o = out + (((size_t)b * T + t) * Hq + hq) * kD;
+    __nv_bfloat16* o = out + (((size_t)b * T + t) * Hq + hq) * D;
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
+    for (int dn = 0; dn < D / 8; ++dn) {
       const int d = dn * 8 + (lane & 3) * 2;
       *reinterpret_cast<uint32_t*>(o + d) = hopper::pack_bf16(
           acc[dn][2 * row] * inv, acc[dn][2 * row + 1] * inv);
@@ -340,17 +390,17 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool SOFTCAP>
+template <int D, bool SOFTCAP>
 int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
            const void* v, const void* qpos, const void* kv_len,
            const void* kv_start, const void* won, void* out, int T, int Hq,
            int Hkv, int S, long long ksb, long long kss, long long ksh,
            float scale, int causal, int window, float softcap) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attn_kernel<SOFTCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_attn_kernel<D, SOFTCAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<D>::kSmem);
   if (e != cudaSuccess) return (int)e;
-  flash_attn_kernel<SOFTCAP><<<grid, kThreads, kSmemBytes, st>>>(
+  flash_attn_kernel<D, SOFTCAP><<<grid, kThreads, Plan<D>::kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
@@ -365,9 +415,9 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // q bf16 [B,T,Hq,D] contiguous; k/v bf16 with element strides (ksb, kss,
 // ksh) over (B, S, Hkv), multiples of 8, and a contiguous D (the same
 // strides for both), 16-byte aligned; qpos int32 [B,T]; kv_len, kv_start,
-// won int32 [B]; out bf16 [B,T,Hq,D].  D = 128; window <= 0 means none,
-// softcap <= 0 none.  Returns cudaGetLastError() (cudaErrorInvalidValue
-// for another D).
+// won int32 [B]; out bf16 [B,T,Hq,D].  D = 128 or 256; window <= 0 means
+// none, softcap <= 0 none.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for another D).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* qpos, const void* kv_len,
                                const void* kv_start, const void* won,
@@ -376,13 +426,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                long long ksh, float scale, int causal,
                                int window, float softcap, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D != kD || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  if ((D != 128 && D != 256) || Hq % Hkv)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(Hq, B, (T + kBQ - 1) / kBQ);
-  return softcap > 0.f
-             ? launch<true>(grid, st, q, k, v, qpos, kv_len, kv_start, won,
-                            out, T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,
-                            window, softcap)
-             : launch<false>(grid, st, q, k, v, qpos, kv_len, kv_start, won,
-                             out, T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,
-                             window, softcap);
+#define FLASH_LAUNCH(HD, CAP)                                              \
+  launch<HD, CAP>(grid, st, q, k, v, qpos, kv_len, kv_start, won, out, T,  \
+                  Hq, Hkv, S, ksb, kss, ksh, scale, causal, window, softcap)
+  const bool cap = softcap > 0.f;
+  const int err = D == 128
+                      ? (cap ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false))
+                      : (cap ? FLASH_LAUNCH(256, true) : FLASH_LAUNCH(256, false));
+#undef FLASH_LAUNCH
+  return err;
 }

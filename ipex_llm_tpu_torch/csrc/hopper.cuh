@@ -4,7 +4,8 @@
 // (plain and transposed) and the bf16 m16n8k16 mma.sync with fp32
 // accumulators (sm_80+); the cluster rank, barrier and distributed
 // shared-memory reads (sm_90); and the warpgroup products wgmma m64n64k16
-// and m64n128k16 (A from registers) with their 128-byte swizzled
+// and m64n128k16 (A from registers; m64n64k16 also with A from shared
+// memory) with their 128-byte swizzled
 // shared-memory descriptors and fences (sm_90a only).  The kernels are
 // built for sm_90a.
 #pragma once
@@ -239,6 +240,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d,
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(TRANS_B));
+}
+
+// the same product with A from a shared-memory descriptor too (K-major,
+// 128-byte swizzle): the 64 rows' operand costs no registers
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
 template <int TRANS_B>

@@ -86,10 +86,6 @@ class KVCache:
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.k.dtype)
 
-    def decode_layer(self, kl: torch.Tensor,
-                     compute_dtype=torch.bfloat16) -> torch.Tensor:
-        return kl.to(compute_dtype)
-
     def update_layer(self, kl: torch.Tensor, vl: torch.Tensor,
                      new_k: torch.Tensor, new_v: torch.Tensor, pos: int):
         """Write new_k/new_v [B, T, H, D] into the layer views [B, H, S, D]
@@ -185,9 +181,13 @@ class PagedKVCache:
 def gather_rows(pool_layer: torch.Tensor, tables: torch.Tensor
                 ) -> torch.Tensor:
     """Each row's pages in table order: pool layer [P, H, page, D] and
-    tables [R, maxP] -> [R, H, maxP*page, D].  Unallocated (-1) entries
-    read scratch page 0; slots past a row's length are garbage the
-    caller masks."""
+    tables [R, maxP] -> [R, H, maxP*page, D], contiguous, in the pool's
+    dtype (a float8 pool is gathered through a uint8 view of its bytes).
+    Unallocated (-1) entries read scratch page 0; slots past a row's
+    length are garbage the caller masks."""
+    if pool_layer.is_floating_point() and pool_layer.element_size() == 1:
+        return gather_rows(pool_layer.view(torch.uint8),
+                           tables).view(pool_layer.dtype)
     r, maxp = tables.shape
     t = tables.long().clamp(0, pool_layer.shape[0] - 1)
     g = pool_layer[t].permute(0, 2, 1, 3, 4)        # [R, H, maxP, page, D]

@@ -2,12 +2,16 @@
 helpers of the serving engine's weight axis (port of
 ``ipex_llm_tpu/models/build.py``).
 
-``build_params`` constructs the tree of the llama scheme straight from a
-name -> tensor source (a checkpoint reader, a torch ``state_dict``):
-q, k and v merge into ``qkv`` and gate and up into ``gate_up`` (rows
-concatenated, then transposed to ``[in, out]``), each weight is quantized
-on the target device as soon as it is read, and layers stack into
-``[L, ...]`` leaves preallocated once and filled layer by layer.  So the
+``build_params`` constructs the tree of a ported family's scheme straight
+from a name -> tensor source (a checkpoint reader, a torch
+``state_dict``): q, k and v merge into ``qkv`` and gate and up into
+``gate_up`` (rows concatenated, then transposed to ``[in, out]``; qwen2's
+q, k and v biases concatenate likewise into an fp32 ``qkv_bias``), each
+weight is quantized on the target device as soon as it is read, and
+layers stack into ``[L, ...]`` leaves preallocated once and filled layer
+by layer.  gemma2's post norms become ``post_attn_norm`` and
+``post_mlp_norm``, and a tied head leaves no ``lm_head`` leaf (the decoder
+reads the embedding table).  So the
 device never holds more than one full-precision weight (and a slice of
 its fp32 working copy) beside the packed tree.
 """
@@ -100,10 +104,10 @@ def stack_layer_trees(trees: list[dict[str, Any]]) -> dict[str, Any]:
     return st.tree
 
 
-# scheme fields whose weights the llama tree has no slot for
-_SCHEME_UNSERVED = ("post_attn_norm", "post_mlp_norm", "qkv", "gate_up",
-                    "q_norm", "k_norm", "pos_embed", "embed_norm", "q_a",
-                    "q_a_norm", "q_b", "kv_a", "kv_a_norm", "kv_b")
+# scheme fields whose weights the port's tree has no slot for
+_SCHEME_UNSERVED = ("qkv", "gate_up", "q_norm", "k_norm", "pos_embed",
+                    "embed_norm", "q_a", "q_a_norm", "q_b", "kv_a",
+                    "kv_a_norm", "kv_b")
 
 
 def build_params(
@@ -150,6 +154,8 @@ def build_params(
         return get(n).to(dev)
 
     def refuse_bias(n: str) -> None:
+        """Biases the port does not serve: all but those of q, k and v
+        when the config has ``attention_bias``."""
         b = n[: -len(".weight")] + ".bias" if n.endswith(".weight") else None
         if b is not None and has(b):
             raise NotImplementedError(
@@ -173,11 +179,22 @@ def build_params(
         def name(t: str) -> str:
             return t.format(i=i, p="weight")
         for key, tmpl in (("attn_norm", scheme.attn_norm),
-                          ("mlp_norm", scheme.mlp_norm)):
+                          ("mlp_norm", scheme.mlp_norm),
+                          ("post_attn_norm", scheme.post_attn_norm),
+                          ("post_mlp_norm", scheme.post_mlp_norm)):
+            if tmpl is None:
+                continue
             refuse_bias(name(tmpl))
             st.put(i, key, load(name(tmpl)).to(NORM_DTYPE))
-        st.put(i, "qkv", merged([name(scheme.q), name(scheme.k),
-                                 name(scheme.v)], qtype))
+        qkv = [name(t) for t in (scheme.q, scheme.k, scheme.v)]
+        biases = [n[: -len(".weight")] + ".bias" for n in qkv]
+        if cfg.attention_bias and has(biases[0]):
+            st.put(i, "qkv_bias", torch.cat([load(b).to(torch.float32)
+                                             for b in biases]))
+            st.put(i, "qkv", _cat_columns([quantize_weight(load(n), qtype)
+                                           for n in qkv]))
+        else:
+            st.put(i, "qkv", merged(qkv, qtype))
         st.put(i, "o", merged([name(scheme.o)], qtype))
         st.put(i, "gate_up", merged([name(scheme.gate), name(scheme.up)],
                                     qtype))
@@ -190,8 +207,9 @@ def build_params(
     del emb
     refuse_bias(scheme.final_norm)
     params["final_norm"] = load(scheme.final_norm).to(NORM_DTYPE)
-    head_q = lm_head_qtype or ("sym_int8" if mixed_precision else qtype)
-    params["lm_head"] = merged([scheme.lm_head], head_q)
+    if not cfg.tie_word_embeddings:
+        head_q = lm_head_qtype or ("sym_int8" if mixed_precision else qtype)
+        params["lm_head"] = merged([scheme.lm_head], head_q)
     params["inv_freq"] = torch.from_numpy(cfg.rope.inv_freq()).to(dev)
     params["rope_mscale"] = 1.0     # the default rope, the only one ported
     return params

@@ -1,26 +1,36 @@
 """Decoder configuration (port of ``ipex_llm_tpu/models/config.py``).
 
-The port keeps the reference's field names for the llama and mistral
-families, so a reference config maps across field by field
-(:meth:`ModelConfig.from_fields`).  Every architectural switch the port does
-not cover is checked in ``__post_init__`` and raises
-``NotImplementedError``: other families, a sliding window outside mistral,
-per-layer window patterns, softcaps, biases, MLA and MoE are not routed to
-a plain path.
+The port keeps the reference's field names for the families it serves
+(llama, mistral, qwen2, gemma2), so a reference config maps across field
+by field (:meth:`ModelConfig.from_fields`): sliding windows (on every
+layer, or per layer through ``layer_types``), attention and final-logit
+softcaps, an attention scale, the qkv bias, (1 + w) norms, the post-block
+norms, an embedding multiplier, tied embeddings and the tanh GELU.  Every
+other architectural switch is checked in ``__post_init__`` or
+``from_fields`` and raises ``NotImplementedError`` (ROADMAP item 14):
+other families, qk norms, other biases, MLA and MoE are not routed to a
+plain path.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
 
+from ipex_llm_tpu_torch.ops.mlp import ACT_FNS
 from ipex_llm_tpu_torch.ops.rope import RopeScaling
+
+LAYER_TYPES = ("sliding_attention", "full_attention")
+# the model_types this decoder serves (``families.FAMILIES`` maps each)
+MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A llama-family decoder: pre-RMSNorm blocks, merged qkv and gate_up
-    projections, SwiGLU MLP, rotary positions in the "half" layout; mistral
-    adds a sliding window on every layer."""
+    """A llama-style decoder: pre-RMSNorm blocks, merged qkv and gate_up
+    projections, a gated MLP, rotary positions in the "half" layout.
+    mistral adds a sliding window on every layer, qwen2 a qkv bias, gemma2
+    (1 + w) norms, post-attention and post-MLP norms, a window on its even
+    layers, softcaps, ``sqrt(hidden)`` embeddings and a tied head."""
 
     model_type: str
     vocab_size: int
@@ -37,33 +47,48 @@ class ModelConfig:
     rope_layout: str = "half"
     tie_word_embeddings: bool = False
     sliding_window: int | None = None
+    layer_types: tuple[str, ...] | None = None   # per layer, LAYER_TYPES
+    attention_bias: bool = False    # on q, k and v (not on o)
+    norm_offset: float = 0.0        # 1.0: gemma's (1 + w) RMSNorm
+    post_attn_norm: bool = False    # gemma2's norms of the block outputs
+    post_mlp_norm: bool = False
+    attn_softcap: float | None = None
+    logit_softcap: float | None = None
+    attn_scale: float | None = None  # None: head_dim ** -0.5
+    embedding_multiplier: float = 1.0
 
     def __post_init__(self):
-        if self.model_type not in ("llama", "mistral"):
+        if self.model_type not in MODEL_TYPES:
             raise NotImplementedError(
-                f"model_type {self.model_type!r} is not ported (llama, "
-                "mistral)")
-        if self.sliding_window is not None:
-            if self.model_type != "mistral":
-                raise NotImplementedError(
-                    f"a sliding window on {self.model_type!r} is not ported")
-            if int(self.sliding_window) <= 0:
-                raise ValueError("sliding_window must be positive")
-        if self.act != "silu" or self.rope_layout != "half":
+                f"model_type {self.model_type!r} is not ported (ROADMAP "
+                f"item 14; ported: {', '.join(MODEL_TYPES)})")
+        if self.sliding_window is not None and int(self.sliding_window) <= 0:
+            raise ValueError("sliding_window must be positive")
+        if self.layer_types is not None:
+            if len(self.layer_types) != self.num_layers or any(
+                    t not in LAYER_TYPES for t in self.layer_types):
+                raise ValueError(
+                    f"layer_types must name {LAYER_TYPES} for each of the "
+                    f"{self.num_layers} layers")
+            if self.sliding_window is None and \
+                    "sliding_attention" in self.layer_types:
+                raise ValueError("sliding layers need a sliding_window")
+        if self.act not in ACT_FNS or self.rope_layout != "half":
             raise NotImplementedError(
                 f"act={self.act!r} rope_layout={self.rope_layout!r} is not "
-                "ported (silu, half)")
+                f"ported ({', '.join(ACT_FNS)}; half)")
         if self.rope is None or self.rope.rotary_dim != self.head_dim:
             raise NotImplementedError(
                 "rope over the whole head_dim is the only form ported")
-        if self.tie_word_embeddings:
-            raise NotImplementedError("tied embeddings are not ported")
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
 
     def layer_is_sliding(self, layer_idx: int) -> bool:
-        """Every layer of a windowed model slides (per-layer patterns,
-        ``layer_types``, are not ported)."""
+        """Whether layer ``layer_idx`` attends through the window: the
+        ``layer_types`` entry where there is one, else every layer of a
+        windowed model (the reference's rule)."""
+        if self.layer_types is not None:
+            return self.layer_types[layer_idx] == "sliding_attention"
         return self.sliding_window is not None
 
     @property
@@ -77,16 +102,13 @@ class ModelConfig:
     # Reference fields whose default value is the only one the port
     # serves; any other value raises in from_fields.
     _DEFAULTS = {
-        "norm_kind": "rms", "norm_offset": 0.0, "qk_norm": False,
-        "post_attn_norm": False, "post_mlp_norm": False, "rope_local": None,
+        "norm_kind": "rms", "qk_norm": False, "rope_local": None,
         "partial_rotary": 1.0, "mrope_section": None,
-        "attention_bias": False, "attention_out_bias": False,
+        "attention_out_bias": False,
         "mlp_bias": False, "mlp_gated": True, "parallel_blocks": False,
         "alibi": False, "learned_pos": 0, "embed_norm": False,
         "norm_after": False, "logit_scale": 1.0, "glm_alpha": 0.0,
-        "rope_2d": False, "layer_types": None,
-        "attn_softcap": None, "logit_softcap": None, "attn_scale": None,
-        "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+        "rope_2d": False, "residual_multiplier": 1.0,
         "kv_heads_per_layer": None, "num_experts": 0,
         "num_experts_per_tok": 0, "moe_intermediate_size": 0,
         "num_shared_experts": 0, "q_lora_rank": None, "kv_lora_rank": None,
@@ -108,11 +130,14 @@ class ModelConfig:
                 want = cls._DEFAULTS[name]
                 if val != want and not (val is None and want is None):
                     raise NotImplementedError(
-                        f"config field {name}={val!r} is not ported")
+                        f"config field {name}={val!r} is not ported "
+                        "(ROADMAP item 14)")
             elif name.startswith("moe_"):
                 continue   # MoE router knobs; num_experts == 0 gates them
             else:
                 raise NotImplementedError(f"config field {name!r} unknown")
+        if kw.get("layer_types") is not None:
+            kw["layer_types"] = tuple(kw["layer_types"])
         rope = kw.get("rope")
         if isinstance(rope, dict):
             kw["rope"] = RopeScaling(**{k: rope[k] for k in (

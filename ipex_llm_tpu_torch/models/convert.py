@@ -19,9 +19,11 @@ from ipex_llm_tpu_torch.quantize.core import QTensor
 from ipex_llm_tpu_torch.quantize.qtypes import resolve
 
 _QTENSOR_KEYS = {"data", "scales", "zeros", "qtype", "shape", "block_size"}
-# the llama tree the slice serves; anything else (biases, MoE stacks, a
-# quantized embedding, extra rope tables) raises
-_LAYER_KEYS = {"attn_norm", "mlp_norm", "qkv", "o", "gate_up", "down"}
+# the tree of the ported families (qwen2's qkv bias, gemma2's post norms
+# and its tied head, which has no lm_head leaf); anything else (other
+# biases, MoE stacks, a quantized embedding, extra rope tables) raises
+_LAYER_KEYS = {"attn_norm", "mlp_norm", "qkv", "o", "gate_up", "down",
+               "qkv_bias", "post_attn_norm", "post_mlp_norm"}
 _TOP_KEYS = {"layers", "embed", "final_norm", "lm_head", "inv_freq",
              "rope_mscale"}
 
@@ -51,7 +53,8 @@ def _leaf(x, device):
 
 
 def params_from_reference(tree: dict, device=None) -> dict:
-    """The port's params for a reference llama tree (see module doc)."""
+    """The port's params for a reference tree of a ported family (see the
+    module doc)."""
     dev = resolve_device(device)
     extra = (set(tree) - _TOP_KEYS) | (set(tree["layers"]) - _LAYER_KEYS)
     if extra:

@@ -1,4 +1,4 @@
-"""The llama-family decoder (port of ``ipex_llm_tpu/models/decoder.py``).
+"""The shared decoder (port of ``ipex_llm_tpu/models/decoder.py``).
 
 The reference scans one compiled layer body over stacked layer params; the
 port keeps the params stacked (``[L, ...]`` leaves) and runs a Python loop
@@ -6,15 +6,22 @@ over the layer index.  Two forms, as in the reference:
 
 - paged (the serving engine): every call carries per-row ``slot_offsets``,
   K/V are written into the pool in place through its block tables, and
-  attention reads the pool through the ragged paged kernel;
+  attention reads the pool through the ragged paged kernel, or, for a
+  layer with a window or a softcap, gathers each row's pages first
+  (``ops.attention.cached_sdpa``);
 - dense (``generate()``): ``slot_offsets=None`` writes at the cache's
   ``length`` (one offset for every row), ``kv_start`` masks each row's left
   padding, and attention goes to the flash kernel (prefill) or the decode
   kernel (T=1), with the sliding window on where ``cfg.layer_is_sliding``.
 
 Rounding points follow the reference: activations are bf16, norms and rope
-compute in fp32, linear layers accumulate in fp32 and round to bf16, the
-logits are the lm head's bf16 output widened to fp32.
+compute in fp32, linear layers accumulate in fp32 and round to bf16 (a
+bias is added in bf16), the embedding multiplier is rounded to bf16 before
+the multiply, the logits are the lm head's bf16 output widened to fp32, or
+a tied head's bf16 x bf16 product summed and kept in fp32, then softcapped
+in fp32.  The per-family switches (qkv bias, (1 + w) norms, post-block
+norms, softcaps, attention scale, per-layer windows) follow the
+reference's order (``decoder.py:70-210``, ``:334-352``, ``:422-450``).
 """
 
 from __future__ import annotations
@@ -46,12 +53,16 @@ def layer_params(layers: dict[str, Any], i: int) -> dict[str, Any]:
     return out
 
 
+def _norm(cfg: ModelConfig, x, w):
+    return rms_norm(x, w, cfg.norm_eps, cfg.norm_offset)
+
+
 def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
                      q_slots, kv_len, kv_start, sliding: bool, cache,
                      chunk_lens):
     b, t, _ = x.shape
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    qkv = linear_ops.linear(h, lp["qkv"])
+    h = _norm(cfg, x, lp["attn_norm"])
+    qkv = linear_ops.linear(h, lp["qkv"], lp.get("qkv_bias"))
     q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
     q = qkv[..., :q_dim].reshape(b, t, cfg.num_heads, cfg.head_dim)
     k = qkv[..., q_dim:q_dim + kv_dim].reshape(b, t, cfg.num_kv_heads,
@@ -64,30 +75,64 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
     attn = cached_sdpa(q, kl, vl, cache, causal=True, q_positions=q_slots,
                        kv_len=kv_len, kv_start=kv_start,
                        window=cfg.sliding_window, window_on=sliding,
+                       softcap=cfg.attn_softcap, scale=cfg.attn_scale,
                        chunk_lens=chunk_lens)
     attn = attn.reshape(b, t, cfg.q_dim)
-    return linear_ops.linear(attn, lp["o"])
+    out = linear_ops.linear(attn, lp["o"])
+    if cfg.post_attn_norm:
+        out = _norm(cfg, out, lp["post_attn_norm"])
+    return out
 
 
 def _mlp_block(cfg: ModelConfig, lp: dict, x):
-    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    h = _norm(cfg, x, lp["mlp_norm"])
     gate, up = mlp_ops.split_gate_up(linear_ops.linear(h, lp["gate_up"]))
-    return linear_ops.linear(mlp_ops.gated_act_mul(gate, up, cfg.act),
-                             lp["down"])
+    out = linear_ops.linear(mlp_ops.gated_act_mul(gate, up, cfg.act),
+                            lp["down"])
+    if cfg.post_mlp_norm:
+        out = _norm(cfg, out, lp["post_mlp_norm"])
+    return out
 
 
 def embed_prelude(cfg: ModelConfig, params, tokens, rope_positions):
-    """Token embeddings and the rope cos/sin tables: (x, cos, sin)."""
+    """Token embeddings (times the embedding multiplier, rounded to bf16
+    first as the reference rounds it) and the rope cos/sin tables:
+    (x, cos, sin)."""
     x = embed_lookup(params["embed"], tokens, COMPUTE_DTYPE)
+    if cfg.embedding_multiplier != 1.0:
+        # the bf16 value as a Python float (exact): no upload a forward
+        x = x * float(torch.tensor(cfg.embedding_multiplier,
+                                   dtype=COMPUTE_DTYPE))
     cos, sin = rope_ops.cos_sin(rope_positions, params["inv_freq"],
                                 params.get("rope_mscale", 1.0))
     return x, cos, sin
 
 
+def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of a head tied to the bf16 embedding table: x [..., H]
+    bf16 against ``embed.T`` with fp32 sums, kept in fp32 (the reference's
+    ``preferred_element_type``).  A plain product outside any kernel (the
+    reference leaves it to XLA); the CPU sums in float64."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+    if x2.is_cuda:
+        y = torch.mm(x2, embed.t(), out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.double(), embed.double().t()).float()
+    return y.reshape(*lead, embed.shape[0])
+
+
 def logits_tail(cfg: ModelConfig, params, x):
-    """Final norm and lm head: fp32 logits of the head's bf16 output."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return linear_ops.linear(x, params["lm_head"]).to(torch.float32)
+    """Final norm and lm head (fp32 logits of an untied head's bf16 output,
+    or of the tied product), then the final-logit softcap in fp32."""
+    x = _norm(cfg, x, params["final_norm"])
+    if "lm_head" in params:
+        logits = linear_ops.linear(x, params["lm_head"]).to(torch.float32)
+    else:
+        logits = tied_logits(x, params["embed"])
+    if cfg.logit_softcap is not None:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
 
 
 def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
@@ -114,12 +159,8 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
     dev = tokens.device
     x, cos, sin = embed_prelude(cfg, params, tokens, rope_positions)
     if slot_offsets is not None:
-        if kv_start is not None or cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "left padding and sliding windows over the paged pool are "
-                "not ported")
         slot0 = slot_offsets
-        q_slots = None
+        q_slots = slot0[:, None] + torch.arange(t, device=dev)[None, :]
         kv_len = slot0 + (chunk_lens if chunk_lens is not None else t)
     else:
         slot0 = int(cache.length)

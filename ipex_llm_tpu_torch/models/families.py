@@ -1,20 +1,23 @@
 """Model families: an HF ``config.json`` dict to a ``ModelConfig`` and a
-weight-naming scheme (port of the llama and mistral rows of
+weight-naming scheme (port of the llama, mistral, qwen2 and gemma2 rows of
 ``ipex_llm_tpu/models/families.py``).
 
-Both families share the reference's llama weight names and the port's one
-decoder; mistral adds its sliding window.  Every other ``model_type``
-raises ``NotImplementedError`` (ROADMAP item 14), ``aquila`` included,
-which the reference maps to the llama row; so do rope scalings other than
-the default (``ops.rope.RopeScaling`` refuses them).
+All four run the port's one decoder.  llama, mistral and qwen2 share the
+reference's llama weight names (mistral adds its sliding window, qwen2 its
+qkv bias and ignores ``sliding_window`` as the reference does); gemma2 has
+its own norm names and reads its head from the embedding table.  Every
+other ``model_type`` raises ``NotImplementedError`` (ROADMAP item 14),
+``aquila`` included, which the reference maps to the llama row; so do rope
+scalings other than the default (``ops.rope.RopeScaling`` refuses them).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable
 
-from ipex_llm_tpu_torch.models.config import ModelConfig
+from ipex_llm_tpu_torch.models.config import MODEL_TYPES, ModelConfig
 from ipex_llm_tpu_torch.ops.rope import RopeScaling
 
 
@@ -22,8 +25,8 @@ from ipex_llm_tpu_torch.ops.rope import RopeScaling
 class WeightScheme:
     """Weight-name templates ({i} = layer index, {p} = weight or bias);
     None = not present.  The fields are the reference's; the port's
-    ``build_params`` serves the default (llama) scheme and refuses a
-    scheme that sets any of the others."""
+    ``build_params`` serves separate q/k/v and gate/up projections and the
+    post norms, and refuses a scheme that sets any of the others."""
 
     embed: str = "model.embed_tokens.weight"
     final_norm: str = "model.norm.weight"
@@ -60,7 +63,7 @@ class Family:
     to_config: Callable[[dict], ModelConfig]
     scheme: WeightScheme = field(default_factory=WeightScheme)
     # the reference's MoE scheme, packed-qkv fixup and Conv1D transpose:
-    # None / False for both ported families (build_params refuses them)
+    # None / False for every ported family (build_params refuses them)
     moe: object | None = None
     qkv_transform: Callable | None = None
     transpose_weights: bool = False
@@ -79,7 +82,7 @@ def _rope_from_hf(hf: dict, head_dim: int) -> RopeScaling:
 
 def _base_cfg(hf: dict, **over) -> dict:
     """The reference fields an HF config sets; ``ModelConfig.from_fields``
-    refuses any whose value the port does not serve (biases)."""
+    refuses any whose value the port does not serve (MLP biases)."""
     head_dim = hf.get("head_dim") or (hf["hidden_size"]
                                       // hf["num_attention_heads"])
     d = dict(
@@ -112,10 +115,52 @@ def _mistral(hf: dict) -> ModelConfig:
         _base_cfg(hf, sliding_window=hf.get("sliding_window")))
 
 
+def _qwen2(hf: dict) -> ModelConfig:
+    # a bias on q, k and v, none on o; ``sliding_window`` (with
+    # ``use_sliding_window`` false in the published configs) is ignored,
+    # as the reference's _qwen2 ignores it
+    return ModelConfig.from_fields(
+        _base_cfg(hf, attention_bias=True, attention_out_bias=False))
+
+
+def _gemma2(hf: dict) -> ModelConfig:
+    n_layers = hf["num_hidden_layers"]
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        norm_offset=1.0,
+        act=hf.get("hidden_activation", "gelu_pytorch_tanh"),
+        embedding_multiplier=float(math.sqrt(hf["hidden_size"])),
+        tie_word_embeddings=True,
+        post_attn_norm=True,
+        post_mlp_norm=True,
+        attn_softcap=hf.get("attn_logit_softcapping", 50.0),
+        logit_softcap=hf.get("final_logit_softcapping", 30.0),
+        sliding_window=hf.get("sliding_window", 4096),
+        # sliding (even) and full (odd) attention layers alternate
+        layer_types=tuple(
+            "sliding_attention" if i % 2 == 0 else "full_attention"
+            for i in range(n_layers)),
+        attn_scale=hf.get("query_pre_attn_scalar", hf["hidden_size"]
+                          // hf["num_attention_heads"]) ** -0.5,
+    ))
+
+
+# the reference's _GEMMA2_SCHEME: pre- and post-feedforward norms, the
+# attention block's output norm, and the head tied to the embedding table
+_GEMMA2_SCHEME = WeightScheme(
+    lm_head="model.embed_tokens.weight",
+    mlp_norm="model.layers.{i}.pre_feedforward_layernorm.weight",
+    post_attn_norm="model.layers.{i}.post_attention_layernorm.weight",
+    post_mlp_norm="model.layers.{i}.post_feedforward_layernorm.weight",
+)
+
 FAMILIES: dict[str, Family] = {
     "llama": Family("llama", _llama),
     "mistral": Family("mistral", _mistral),
+    "qwen2": Family("qwen2", _qwen2),
+    "gemma2": Family("gemma2", _gemma2, _GEMMA2_SCHEME),
 }
+assert tuple(FAMILIES) == MODEL_TYPES, "config.MODEL_TYPES names the families"
 
 
 def get_family(model_type: str, hf_config: dict | None = None) -> Family:

@@ -1,15 +1,18 @@
-"""Random llama-family weights made on the device (port of
-``ipex_llm_tpu/models/random_init.py`` and the llama half of
+"""Random weights of the ported families made on the device (port of
+``ipex_llm_tpu/models/random_init.py`` and the tree half of
 ``models/build.py``).
 
 Weights come from a seeded ``torch.Generator`` on the target device and
 are quantized one layer at a time with the port's own codec, so a
 full-width model never sits in memory as fp32 at once.  The scale rules
 are the reference's: norm weights ``1 + 0.05 * N(0, 1)``, every other
-tensor ``N(0, 1) * 1.2 / sqrt(fan_in)``.  The tree has the layout
+tensor ``N(0, 1) * 1.2 / sqrt(fan_in)`` (a qkv bias ``0.1 * N(0, 1)``;
+a ``(1 + w)`` norm's weight ``0.05 * N(0, 1)``, so that both forms scale
+by about 1).  The tree has the layout
 :func:`ipex_llm_tpu_torch.models.convert.params_from_reference` produces:
 stacked ``[L, ...]`` layer leaves, merged qkv and gate_up, weights
-``[in, out]``.
+``[in, out]``, the qkv bias fp32, post norms where the config has them,
+and no ``lm_head`` when the head is tied to the embedding table.
 """
 
 from __future__ import annotations
@@ -74,6 +77,56 @@ def mistral_7b_config(**over) -> ModelConfig:
     return replace(cfg, **over) if over else cfg
 
 
+# huggingface.co/Qwen/Qwen2-7B, config.json (the fields the decoder reads;
+# use_sliding_window is false, so sliding_window is not a window)
+QWEN2_7B_HF = {
+    "model_type": "qwen2", "vocab_size": 152064, "hidden_size": 3584,
+    "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4,
+    "max_position_embeddings": 131072, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "sliding_window": 131072,
+    "use_sliding_window": False, "max_window_layers": 28,
+    "hidden_act": "silu", "tie_word_embeddings": False,
+    "bos_token_id": 151643, "eos_token_id": 151643,
+}
+
+# huggingface.co/google/gemma-2-9b, config.json (the fields the decoder
+# reads)
+GEMMA2_9B_HF = {
+    "model_type": "gemma2", "vocab_size": 256000, "hidden_size": 3584,
+    "intermediate_size": 14336, "num_hidden_layers": 42,
+    "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256,
+    "max_position_embeddings": 8192, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "sliding_window": 4096,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 256, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "attention_bias": False,
+    "tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1,
+    "pad_token_id": 0,
+}
+
+
+def qwen2_7b_config(**over) -> ModelConfig:
+    """Qwen2-7B's published widths (huggingface.co/Qwen/Qwen2-7B
+    ``config.json``: hidden 3584, ffn 18944, 28 layers, 28 query heads
+    over 4 kv heads of 128, vocab 152064, rope theta 1e6, qkv bias, no
+    window), through the families lookup; ``over`` replaces fields of the
+    result."""
+    cfg = config_from_hf(QWEN2_7B_HF)
+    return replace(cfg, **over) if over else cfg
+
+
+def gemma2_9b_config(**over) -> ModelConfig:
+    """Gemma-2-9B's published widths (huggingface.co/google/gemma-2-9b
+    ``config.json``: hidden 3584, ffn 14336, 42 layers, 16 query heads
+    over 8 kv heads of 256, vocab 256000 tied, a 4096 window on even
+    layers, softcaps 50 and 30, query_pre_attn_scalar 256), through the
+    families lookup; ``over`` replaces fields of the result
+    (``num_layers`` with a ``layer_types`` of that length)."""
+    cfg = config_from_hf(GEMMA2_9B_HF)
+    return replace(cfg, **over) if over else cfg
+
+
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
                   device=None) -> dict:
     """Full-width random params on ``device`` (``None`` = cuda), the
@@ -92,21 +145,28 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         return normal((n_in, n_out)) * (1.2 / math.sqrt(n_in))
 
     def norm_w(shape):
-        return 1.0 + 0.05 * normal(shape)
+        return 1.0 - cfg.norm_offset + 0.05 * normal(shape)
 
-    shapes = {"qkv": (h, cfg.q_dim + 2 * cfg.kv_dim), "o": (cfg.q_dim, h),
+    qkv_out = cfg.q_dim + 2 * cfg.kv_dim
+    shapes = {"qkv": (h, qkv_out), "o": (cfg.q_dim, h),
               "gate_up": (h, 2 * ffn), "down": (ffn, h)}
     stacks = LayerStack(n_l)
     for i in range(n_l):
         for name, (n_in, n_out) in shapes.items():
             stacks.put(i, name, quantize(weight(n_in, n_out), qtype))
-    layers = {"attn_norm": norm_w((n_l, h)), "mlp_norm": norm_w((n_l, h)),
-              **stacks.tree}
-    return {
+    norms = ["attn_norm", "mlp_norm"] + [
+        n for n in ("post_attn_norm", "post_mlp_norm") if getattr(cfg, n)]
+    layers = {n: norm_w((n_l, h)) for n in norms}
+    if cfg.attention_bias:
+        layers["qkv_bias"] = 0.1 * normal((n_l, qkv_out))
+    layers.update(stacks.tree)
+    params = {
         "layers": layers,
         "embed": (normal((v, h)) * (1.2 / math.sqrt(h))).to(torch.bfloat16),
         "final_norm": norm_w((h,)),
-        "lm_head": quantize(weight(h, v), qtype),
         "inv_freq": torch.from_numpy(cfg.rope.inv_freq()).to(dev),
         "rope_mscale": 1.0,
     }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = quantize(weight(h, v), qtype)
+    return params

@@ -9,8 +9,10 @@ dense cache to the decode kernel (B3), each wrapper running its kernel on
 a CUDA tensor and its plain version on a CPU one.  (The reference's
 ``T >= 128`` rule picks the flash kernel on a TPU by measurement; on the
 card it would leave short prefills on the plain version.)  Attention over
-the serving engine's paged pool goes to the ragged paged kernel (B1).
-Biases, and windows or softcaps over the paged pool, raise.
+the serving engine's paged pool goes to the ragged paged kernel (B1),
+unless the layer has a window, a softcap or left padding: then, as in the
+reference, each row's pages are gathered into a head-major layer that B3
+(T=1) or B4 reads.  Biases raise.
 """
 
 from __future__ import annotations
@@ -89,29 +91,36 @@ def cached_sdpa(q: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, cache,
                 **kwargs) -> torch.Tensor:
     """SDPA over one cache layer in its storage layout and dtype.
 
-    Paged pool (``cache.tables``): the ragged paged kernel reads each row's
-    pages; queries sit right-aligned at slots ``[kv_len - chunk_lens,
-    kv_len)`` (the engine's invariant).  Dense cache (layer [B, Hkv, S,
-    D]): a T=1 step reads the layer as stored through the decode kernel
-    (e5m2 widened inside it); every other shape widens the layer once and
-    runs ``sdpa`` on its ``[B, S, Hkv, D]`` view (no copy: the flash kernel
-    reads through the strides)."""
+    Paged pool (``cache.tables``): queries sit right-aligned at slots
+    ``[kv_len - chunk_lens, kv_len)`` (the engine's invariant).  Without a
+    window, a softcap or left padding the ragged paged kernel reads each
+    row's pages.  With any of them (the reference's fallback,
+    ``ipex_llm_tpu/ops/attention.py:196-236``) each row's pages are
+    gathered (``cache.gather_layer``) into a head-major ``[R, Hkv, S, D]``
+    layer in storage dtype, ``kv_len`` is clipped to its S (an idle row's
+    write slot is a sentinel at or past S), and the layer goes the dense
+    cache's way, with ``q_positions`` the queries' slots.  Dense cache
+    (layer [B, Hkv, S, D]): a T=1 step reads the layer as stored through
+    the decode kernel (e5m2 widened inside it); every other shape widens
+    the layer once and runs ``sdpa`` on its ``[B, S, Hkv, D]`` view (no
+    copy: the flash kernel reads through the strides)."""
     if kwargs.get("bias") is not None:
         raise NotImplementedError("attention biases are not ported")
     if hasattr(cache, "tables"):
-        if kwargs.get("kv_start") is not None or kwargs.get("softcap") \
-                is not None or kwargs.get("window") is not None:
-            raise NotImplementedError(
-                "left padding, windows and softcaps over the paged pool are "
-                "not ported")
-        return ragged_paged_sdpa(q, kl, vl, cache.tables, kwargs["kv_len"],
-                                 chunk_lens, scale=kwargs.get("scale"))
+        if kwargs.get("kv_start") is None and kwargs.get("softcap") is None \
+                and kwargs.get("window") is None:
+            return ragged_paged_sdpa(q, kl, vl, cache.tables,
+                                     kwargs["kv_len"], chunk_lens,
+                                     scale=kwargs.get("scale"))
+        kl = cache.gather_layer(kl)
+        vl = cache.gather_layer(vl)
+        kwargs["kv_len"] = kwargs["kv_len"].clamp(max=kl.shape[2])
     if q.shape[1] == 1:
         return decode_sdpa(
             q, kl, vl, scale=kwargs.get("scale"), kv_len=kwargs.get("kv_len"),
             kv_start=kwargs.get("kv_start"), window=kwargs.get("window"),
             window_on=kwargs.get("window_on", True),
             softcap=kwargs.get("softcap"))
-    kd = cache.decode_layer(kl, compute_dtype).transpose(1, 2)
-    vd = cache.decode_layer(vl, compute_dtype).transpose(1, 2)
+    kd = kl.to(compute_dtype).transpose(1, 2)
+    vd = vl.to(compute_dtype).transpose(1, 2)
     return sdpa(q, kd, vd, **kwargs)

@@ -10,6 +10,7 @@ once, and waits for all of them.  Nothing here runs at import time.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -35,7 +36,8 @@ class Counts:
     launches (the wrapper adds one for each kernel it launches, where it
     launches them, nowhere else);
     ``plain_calls`` counts calls of the plain PyTorch version, so a run on
-    the card can show the plain path was never taken."""
+    the card can show the plain path was never taken; ``by_head_dim``
+    splits the launches of a kernel with more than one head-dim instance."""
 
     def __init__(self):
         self.reset()
@@ -43,6 +45,7 @@ class Counts:
     def reset(self):
         self.launches = 0
         self.plain_calls = 0
+        self.by_head_dim = collections.Counter()
 
 
 def nvcc() -> str:

@@ -19,14 +19,29 @@ import torch
 from ipex_llm_tpu_torch.ops.cuda import _build
 
 NAME = "decode_attention"
-COUNTS = _build.Counts()
-_HEAD_DIMS = (128,)          # the kernel's instance
+_HEAD_DIMS = (128, 256)      # the kernel's instances
 _MAX_GROUP = 16              # Hq / Hkv: the query rows of one mma tile
 _KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 _TILE_KEYS = 64              # keys per staged tile (csrc kKT)
-_RESIDENT = 2                # split blocks an SM holds (csrc kResident)
 _SMS = 132                   # the H100's SMs
 _MAX_SPLITS = 64             # keeps every split non-empty (split_plan)
+
+
+COUNTS = _build.Counts()
+
+
+def ring_plan(d: int, fp8: bool) -> tuple[int, int, int]:
+    """(stages, shared-memory bytes, blocks an SM holds) of the split
+    pass at head dim ``d`` over a bf16 or e5m2 layer (csrc ``Ring`` and
+    ``kResident``): three bf16 stages of a K/V tile pair, or four raw e5m2
+    stages and the widened bf16 pair; at d = 256 the 16 query rows in
+    shared memory too, and one block an SM."""
+    tile = _TILE_KEYS * d * 2                # one bf16 K or V tile
+    stages = 4 if fp8 else 3
+    smem = stages * (tile if fp8 else 2 * tile) + (2 * tile if fp8 else 0)
+    if d > 128:
+        smem += 16 * d * 2
+    return stages, smem, 2 if d == 128 else 1
 
 
 def row_vectors(b: int, s: int, device, kv_len, kv_start, window_on):
@@ -90,14 +105,15 @@ def decode_sdpa_plain(q, k_raw, v_raw, *, scale: float, kv_len, kv_start,
     return torch.where(keep[:, None, None, None], out, torch.zeros_like(out))
 
 
-def split_plan(b: int, hkv: int, s: int) -> int:
+def split_plan(b: int, hkv: int, s: int, d: int = 128) -> int:
     """The number of splits of each row's visible range, from shapes alone
     (reading ``kv_len`` on the host would sync the device every step): as
-    many as one wave of the split blocks the card holds at once (2 an SM)
-    takes, at most one split per 64-key tile of the capacity, and at most
-    64.  With the range cut evenly (:func:`split_bounds`), 64 splits or
-    fewer leave no split empty while another holds more than one tile."""
-    wave = _RESIDENT * _SMS // (b * hkv)
+    many as one wave of the split blocks the card holds at once (2 an SM
+    at head dim 128, 1 at 256: :func:`ring_plan`) takes, at most one split
+    per 64-key tile of the capacity, and at most 64.  With the range cut
+    evenly (:func:`split_bounds`), 64 splits or fewer leave no split empty
+    while another holds more than one tile."""
+    wave = ring_plan(d, False)[2] * _SMS // (b * hkv)
     return max(1, min(wave, -(-s // _TILE_KEYS), _MAX_SPLITS))
 
 
@@ -143,7 +159,7 @@ def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
             raise ValueError("decode attention kernel needs 16-byte aligned "
                              "tensors")
     lib = _build.load(NAME, _declare)
-    splits = split_plan(b, hkv, s)
+    splits = split_plan(b, hkv, s, d)
     g = hq // hkv
     out = torch.empty_like(q)
     ws_acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32,
@@ -162,6 +178,7 @@ def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
         _build.stream_handle(q))
     # the split kernel and the merge of its partials
     COUNTS.launches += 2
+    COUNTS.by_head_dim[d] += 2
     _build.check(err, NAME)
     return out
 

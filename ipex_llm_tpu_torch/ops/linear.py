@@ -2,8 +2,9 @@
 
 Weights in the ten block formats go to the fused dequant-matmul kernel
 (B2, the reference's ``_PALLAS_QTYPES``); ``bf16`` weights are a plain
-product (the reference leaves those to XLA).  Other formats, LoRA weights
-and biases raise.  The reference's oracle, ``qmatmul_reference``, is B2's
+product (the reference leaves those to XLA).  A bias (fp32, as the
+reference keeps it) is cast to the output's dtype and added, as the
+reference adds it.  Other formats and LoRA weights raise.  The reference's oracle, ``qmatmul_reference``, is B2's
 plain version here: ``ops/cuda/qmatmul.py::qmatmul_plain``, which the
 wrapper runs for CPU tensors.
 """
@@ -36,15 +37,18 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None
            ) -> torch.Tensor:
     """Linear over a QTensor (a block format or bf16) or a plain bf16
-    matrix."""
+    matrix, plus ``bias`` in the output's dtype."""
+    if isinstance(w, QTensor) and w.qtype != "bf16":
+        y = qmatmul(x, w)
+    else:
+        if isinstance(w, QTensor):
+            w = w.data
+        if x.is_cuda:
+            # a plain bf16 product outside any kernel (fp32 accumulation)
+            y = torch.matmul(x.to(w.dtype), w).to(x.dtype)
+        else:
+            y = torch.matmul(x.to(w.dtype).to(torch.float64),
+                             w.to(torch.float64)).to(x.dtype)
     if bias is not None:
-        raise NotImplementedError("linear biases are not ported")
-    if isinstance(w, QTensor):
-        if w.qtype != "bf16":
-            return qmatmul(x, w)
-        w = w.data
-    if x.is_cuda:
-        # a plain bf16 product outside any kernel (fp32 accumulation)
-        return torch.matmul(x.to(w.dtype), w).to(x.dtype)
-    return torch.matmul(x.to(w.dtype).to(torch.float64),
-                        w.to(torch.float64)).to(x.dtype)
+        y = y + bias.to(y.dtype)
+    return y

@@ -1,4 +1,6 @@
-"""Gated MLP activation (port of ``ipex_llm_tpu/ops/mlp.py``): SwiGLU only."""
+"""Gated MLP activations (port of ``ipex_llm_tpu/ops/mlp.py``): SwiGLU and
+the tanh GELU of gemma (``gelu_pytorch_tanh``, the reference's
+``jax.nn.gelu(approximate=True)``)."""
 
 from __future__ import annotations
 
@@ -6,13 +8,19 @@ import torch
 import torch.nn.functional as F
 
 
+ACT_FNS = {
+    "silu": F.silu,
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
 def gated_act_mul(gate: torch.Tensor, up: torch.Tensor,
                   act: str = "silu") -> torch.Tensor:
-    """silu(gate) * up: silu in fp32, cast to ``up.dtype``, then the product
-    in that dtype (the reference's rounding points)."""
-    if act != "silu":
+    """act(gate) * up: the activation in fp32, cast to ``up.dtype``, then
+    the product in that dtype (the reference's rounding points)."""
+    if act not in ACT_FNS:
         raise NotImplementedError(f"activation {act!r} is not ported")
-    return F.silu(gate.to(torch.float32)).to(up.dtype) * up
+    return ACT_FNS[act](gate.to(torch.float32)).to(up.dtype) * up
 
 
 def split_gate_up(gate_up: torch.Tensor):

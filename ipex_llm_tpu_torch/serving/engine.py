@@ -560,7 +560,8 @@ _FAULT_VANISHED = object()
 
 
 class ServingEngine:
-    """Threaded continuous-batching engine around one llama model."""
+    """Threaded continuous-batching engine around one model of a ported
+    family (``models/families.py``)."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  engine_config: EngineConfig | None = None,
@@ -570,10 +571,6 @@ class ServingEngine:
         ``fault_injector`` (``faults.FaultInjector``) scripts faults at the
         tick's guarded sites."""
         self.device = resolve_device(device)
-        if cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "serving a windowed model over the paged pool is not ported "
-                "(generate() serves it over the dense cache)")
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
@@ -1275,7 +1272,10 @@ class ServingEngine:
         fault bisection cannot place on a request, and a sticky CUDA
         context error (``faults.is_sticky``: no request is its culprit,
         and a probe with every request masked runs no kernel, so
-        bisection would quarantine each in turn), reach ``_fail_all``."""
+        bisection would quarantine each in turn), reach ``_fail_all``.
+        After a sticky error the context is dead, so the engine loop ends
+        there: the thread stops, ``/health`` answers 503 "dead", and a
+        later request fails at once (``next_stream_item``)."""
         if is_transient(exc) and self._retries < self.ec.max_step_retries:
             self._retries += 1
             self.metrics["retries"] += 1
@@ -1291,6 +1291,7 @@ class ServingEngine:
         self._retries = 0
         if is_sticky(exc):
             self._fail_all(exc)
+            self._stop.set()
             return
         culprit = self._bisect_culprit()
         if culprit is _FAULT_VANISHED:

@@ -6,7 +6,8 @@ here (``tests/test_torch_loader.py``'s writer), on the CPU:
   and ``/health`` reports the width it was loaded at; a ``save_low_bit``
   directory keeps its recorded width over ``low_bit``; a pinned
   ``EngineConfig.weight_qtype`` drives the load itself;
-- a mistral checkpoint reaches the engine's refusal of sliding windows;
+- a windowed mistral checkpoint serves its completion over the paged
+  pool (the gathered route), the engine's tokens, as the llama one does;
 - ``main`` maps its flags onto ``EngineConfig`` and ``build_server`` and
   refuses the flags of machinery not ported, naming the ROADMAP item.
 """
@@ -116,11 +117,26 @@ def test_width_rule():
 
 
 def test_build_server_refuses_a_windowed_checkpoint(tmp_path):
+    """Once refused, a windowed checkpoint now serves: the mistral's
+    window of 16 cuts the 12-id prompt and its 8 new tokens, and the text
+    equals the engine's over ``from_pretrained``'s tree."""
     hf = tiny_hf("mistral")
     path = write_checkpoint(str(tmp_path), hf, hf_weights(hf, seed=6))
-    with pytest.raises(NotImplementedError, match="window"):
-        build_server(path, tokenizer=Tok(), device="cpu",
-                     engine_config=EngineConfig(**EC))
+    body, health, _ = _serve(path, low_bit="sym_int4",
+                             engine_config=EngineConfig(**EC))
+    model = AutoModelForCausalLM.from_pretrained(
+        path, load_in_low_bit="sym_int4", device="cpu")
+    assert model.config.sliding_window == 16
+    eng = ServingEngine(model.config, model.params, EngineConfig(**EC),
+                        default_eos=(2,), device="cpu").start()
+    try:
+        want = list(stream_tokens(eng.submit(Request(
+            prompt_ids=PROMPT, max_new_tokens=8, eos_token_id=(2,))),
+            timeout=120))
+    finally:
+        eng.stop()
+    assert body["choices"][0]["text"] == " ".join(map(str, want))
+    assert health["status"] == "ok"
 
 
 def test_main_maps_its_flags(monkeypatch):

@@ -25,6 +25,9 @@ from ipex_llm_tpu_torch.quantize.core import quantize
 from ipex_llm_tpu_torch.quantize.qtypes import resolve
 
 ULP = 2.0 ** -7         # one bf16 ulp, relative to a row's largest output
+# the softcap cases scale q so that scores (N(0, 1) from randn q and k at
+# scale d^-0.5) spread as N(0, 24^2) and pass the cap of 50
+CAP_Q = 24.0
 
 
 def _b5_case(storage: str, c: int, gen, g: int = 4):
@@ -199,6 +202,14 @@ def _rows_close(got, want, what=""):
     assert not bad.any(), (what, bad.nonzero()[:4].tolist())
 
 
+def _cap_binds(want, uncapped):
+    """The softcap moves some row's plain output by ten ulps of its
+    largest value, so a kernel that left it out would fail."""
+    top = want.abs().amax(dim=(2, 3)).clamp_min(1e-30)
+    gap = ((want - uncapped).abs().amax(dim=(2, 3)) / top).max()
+    assert gap > 10 * ULP, gap
+
+
 B3_VARIANTS = {"plain": {}, "window": dict(window=100),
                "softcap": dict(softcap=50.0)}
 
@@ -213,13 +224,30 @@ def test_decode_attention_kernel_matches_plain(storage, g, variant):
     64, 100), a row that sees no key (kv_start == kv_len), and with the
     100-slot window, which cuts, a per-row enable vector (off on row 2).
     Two launches (split pass, merge), each row within one bf16 ulp of its
-    largest plain output, the empty row exact zeros."""
+    largest plain output, the empty row exact zeros.  The softcap case
+    scales q by CAP_Q so that the cap of 50 binds."""
+    _decode_case(storage, g, variant, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 2, 7, 16])
+@pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
+def test_decode_attention_head_dim_256_matches_plain(storage, g, variant):
+    """B3's head_dim-256 instance (query rows in shared memory, one block
+    an SM) on the cases of the 128 instance, at GQA groups up to the full
+    16-row tile."""
+    _decode_case(storage, g, variant, 256)
+
+
+def _decode_case(storage, g, variant, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    gen = torch.Generator().manual_seed(100 * g + len(variant))
-    b, hkv, s, d = 5, 2, 700, 128
+    gen = torch.Generator().manual_seed(100 * g + len(variant) + d)
+    b, hkv, s = 5, 2, 700
     dtype = torch.bfloat16 if storage == "bf16" else torch.float8_e5m2
-    q = torch.randn(b, 1, hkv * g, d, generator=gen).to(torch.bfloat16)
+    q = (torch.randn(b, 1, hkv * g, d, generator=gen)
+         * (CAP_Q if variant == "softcap" else 1.0)).to(torch.bfloat16)
     k = torch.randn(b, hkv, s, d, generator=gen).to(dtype)
     v = torch.randn(b, hkv, s, d, generator=gen).to(dtype)
     kw = dict(kv_len=torch.tensor([700, 333, 65, 1, 150], dtype=torch.int32),
@@ -227,6 +255,8 @@ def test_decode_attention_kernel_matches_plain(storage, g, variant):
               window_on=torch.tensor([1, 1, 0, 1, 1], dtype=torch.int32),
               **B3_VARIANTS[variant])
     want = b3.decode_sdpa(q, k, v, **kw).float()
+    if variant == "softcap":
+        _cap_binds(want, b3.decode_sdpa(q, k, v, **{**kw, "softcap": None}))
     b3.COUNTS.reset()
     got = b3.decode_sdpa(q.cuda(), k.cuda(), v.cuda(),
                          **{n: x.cuda() if isinstance(x, torch.Tensor) else x
@@ -247,19 +277,37 @@ def test_flash_attention_kernel_matches_plain(t, g, variant):
     """B4 at T not a multiple of its 64-query tile, K/V read through the
     [B, S, Hkv, D] view of a head-major cache of T + 64 slots: left
     padding (row 1 starts at slot 77); causal with a 150-slot window that
-    cuts; softcap 50 (causal, no window); non-causal with kv_len < S on
+    cuts; softcap 50 (causal, no window, q scaled by CAP_Q so that it
+    binds); non-causal with kv_len < S on
     row 1.  One launch, each query row within one bf16 ulp of its largest
     plain output, rows that see no key exact zeros."""
+    _flash_case(t, g, variant, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 200, 1000])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("variant", B4_VARIANTS)
+def test_flash_attention_head_dim_256_matches_plain(t, g, variant):
+    """B4's head_dim-256 instance (Q through a descriptor, O in two
+    128-column halves, two stages) on the cases of the 128 instance, and
+    at T = 4, the verify width of speculation; the causal queries sit
+    after 64 cached slots, as a verify chunk does."""
+    _flash_case(t, g, variant, 256, lead=64)
+
+
+def _flash_case(t, g, variant, d, lead=0):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    gen = torch.Generator().manual_seed(t + g)
-    b, hkv, d, s = 2, 2, 128, t + 64
-    q = torch.randn(b, t, hkv * g, d, generator=gen).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(t + g + d)
+    b, hkv, s = 2, 2, t + 64
+    q = (torch.randn(b, t, hkv * g, d, generator=gen)
+         * (CAP_Q if variant == "softcap" else 1.0)).to(torch.bfloat16)
     k = torch.randn(b, hkv, s, d, generator=gen).to(torch.bfloat16)
     v = torch.randn(b, hkv, s, d, generator=gen).to(torch.bfloat16)
-    kw = dict(kv_start=torch.tensor([0, 77], dtype=torch.int32),
-              kv_len=torch.tensor([t, t], dtype=torch.int32),
-              q_positions=torch.arange(t)[None].expand(b, t))
+    kw = dict(kv_start=torch.tensor([0, min(77, t - 1)], dtype=torch.int32),
+              kv_len=torch.tensor([lead + t] * b, dtype=torch.int32),
+              q_positions=lead + torch.arange(t)[None].expand(b, t))
     if variant == "causal, window cuts":
         kw["window"] = 150
     elif variant == "softcap":
@@ -270,6 +318,10 @@ def test_flash_attention_kernel_matches_plain(t, g, variant):
                   kv_len=torch.tensor([s, s - 40], dtype=torch.int32))
     want = b4.flash_sdpa(q, k.transpose(1, 2), v.transpose(1, 2),
                          **kw).float()
+    if variant == "softcap":
+        _cap_binds(want, b4.flash_sdpa(q, k.transpose(1, 2),
+                                       v.transpose(1, 2),
+                                       **{**kw, "softcap": None}))
     b4.COUNTS.reset()
     got = b4.flash_sdpa(q.cuda(), k.cuda().transpose(1, 2),
                         v.cuda().transpose(1, 2),

@@ -22,6 +22,9 @@ against the JAX engine under the same scripted faults is in
 ``tests/test_torch_faults_reference.py``.
 """
 
+import asyncio
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -266,6 +269,50 @@ def test_sticky_context_error_reaches_fail_all_without_bisection(port, exc):
     assert eng.metrics["retries"] == 0
     assert eng.flight.view()["dumps"][-1]["reason"] == "fail_all"
     assert is_sticky(exc) and not is_transient(exc)
+    # the context is dead: the engine loop ends after the backstop
+    assert eng._stop.is_set()
+
+
+def test_sticky_error_ends_the_engine_thread(port):
+    """After a sticky error the engine thread fails every request once and
+    ends: ``/health`` answers 503 "dead" and a later request fails at once
+    (its reader sees the dead thread) instead of each going through the
+    backstop."""
+    from ipex_llm_tpu_torch.serving.api_server import OpenAIServer
+    from ipex_llm_tpu_torch.serving.engine import next_stream_item
+
+    class Tok:
+        eos_token_id = None
+
+        def __call__(self, text):
+            return {"input_ids": [int(w) for w in text.split()]}
+
+        def decode(self, ids):
+            return " ".join(map(str, ids))
+
+    eng = _engine(port, FaultInjector().inject(
+        "decode-dispatch", RuntimeError("CUDA error: device-side assert "
+                                        "triggered"), times=None))
+    reqs = _wave(port[0].vocab_size)
+    for r in reqs:
+        eng.submit(r)
+    eng.start()
+    try:
+        eng._thread.join(timeout=60)
+        assert not eng._thread.is_alive()
+        assert all(r.finish_reason == "error" for r in reqs)
+        assert eng.metrics["errors"] == 1
+        reply = asyncio.run(OpenAIServer(eng, Tok(), "tiny").call(
+            "GET", "/health"))
+        assert reply.status == 503 and reply.body["status"] == "dead"
+        late = eng.submit(Request(prompt_ids=[3, 4, 5], max_new_tokens=4))
+        t0 = time.monotonic()
+        assert next_stream_item(eng, late, poll_s=0.05) is None
+        assert late.finish_reason == "error"
+        assert time.monotonic() - t0 < 5
+        assert eng.metrics["errors"] == 1      # no second backstop
+    finally:
+        eng.stop()
 
 
 def test_recovery_that_raises_reaches_fail_all_in_the_loop(port):

@@ -42,7 +42,8 @@ from ipex_llm_tpu_torch.models.random_init import (MISTRAL_7B_V01_HF,
 from ipex_llm_tpu_torch.ops import sampling as port_sampling
 from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
 from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
-from ipex_llm_tpu_torch.serving.engine import ServingEngine
+from ipex_llm_tpu_torch.serving.engine import (EngineConfig, Request,
+                                               ServingEngine)
 from ipex_llm_tpu_torch.transformers.model import TPUModelForCausalLM
 from tests.test_decoder import rand_params, tiny_cfg
 from tests.test_torch_quantize import reference_tree, to_bytes
@@ -395,12 +396,29 @@ def test_mistral_7b_config_matches_reference_family():
         4096, 14336, 32, 32, 8, 128, 32000, 4096)
     assert config_from_hf({**MISTRAL_7B_V01_HF, "model_type": "llama",
                            "sliding_window": None}).sliding_window is None
-    for other in ("gemma2", "qwen2", "mixtral"):
+    for other in ("aquila", "mixtral", "qwen3", "gemma3_text"):
         with pytest.raises(NotImplementedError):
             config_from_hf({**MISTRAL_7B_V01_HF, "model_type": other})
 
 
 def test_serving_engine_refuses_a_window():
-    _, _, cfg, params = tiny_pair("bf16", "mistral")
-    with pytest.raises(NotImplementedError, match="window"):
-        ServingEngine(cfg, params, device="cpu")
+    """Once refused, a windowed model now serves over the paged pool (the
+    gathered route: B3 and B4 over each row's gathered pages): the
+    engine's greedy streams equal ``generate()``'s over the dense cache on
+    prompts of 40, 9 and 27 ids, which the window of 16 cuts."""
+    _, _, cfg, params = tiny_pair("sym_int4", "mistral")
+    prompts = _prompts(cfg.vocab_size, PROMPT_LENS["mistral"],
+                       GREEDY_SEEDS[("mistral", "sym_int4")])
+    want = port_gen.generate(cfg, params, prompts, port_gen.GenerationConfig(
+        max_new_tokens=NEW_TOKENS))
+    eng = ServingEngine(cfg, params, EngineConfig(
+        max_rows=4, max_seq_len=256, page_size=16, prefill_bucket=32),
+        device="cpu")
+    reqs = [eng.submit(Request(prompt_ids=p, max_new_tokens=NEW_TOKENS))
+            for p in prompts]
+    for _ in range(500):
+        eng._tick()
+        if all(r.finish_reason is not None for r in reqs):
+            break
+    for i, r in enumerate(reqs):
+        assert r.output_ids == want.sequences[i, -NEW_TOKENS:].tolist(), i

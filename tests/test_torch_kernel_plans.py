@@ -89,7 +89,11 @@ def test_qmatmul_tiled_split_plan(bs):
 @pytest.mark.parametrize("r,hkv,gc,maxp,ps", [
     (8, 32, 1, 16, 128), (8, 32, 4, 16, 128), (8, 8, 16, 16, 128),
     (1, 8, 4, 40, 128), (6, 2, 4, 3, 32), (3, 2, 2, 4, 16),
-    (8, 32, 17, 16, 128), (8, 32, 128, 16, 128)])
+    (8, 32, 17, 16, 128), (8, 32, 128, 16, 128),
+    # Qwen2-7B (G = 7) at the card's serving shape, 48 pages of 128:
+    # decode and C = 2 split, the verify chunks (C = 4) and C = 128 do not
+    (8, 4, 7, 48, 128), (8, 4, 14, 48, 128), (8, 4, 28, 48, 128),
+    (8, 4, 896, 48, 128)])
 def test_ragged_split_plan(r, hkv, gc, maxp, ps):
     """Few-query rows split into whole pages that cover the table once,
     each split at least one 64-key tile, about 1,024 split-pass blocks at
@@ -208,6 +212,35 @@ def test_ragged_split_then_merge_matches_plain_and_pallas(pool, c, plan):
                 atol=B1_ULP * np.abs(ref[i, :n]).max())
 
 
+@pytest.mark.parametrize("pool", ["bf16", "e5m2"])
+@pytest.mark.parametrize("c", [1, 2])
+def test_ragged_split_at_group_7_matches_plain_and_pallas(pool, c):
+    """Qwen2's GQA group of 7 (7 query heads over 1 kv head): G*C = 7 and
+    14 pad to the split instance's 16-row tile; the split-then-merge
+    emulation at the wrapper's plan agrees with the plain version and the
+    JAX kernel on every valid query (G*C > 16, C >= 3, takes the query
+    tiles, which tests/test_torch_cuda.py holds on the card)."""
+    dt = jnp.bfloat16 if pool == "bf16" else jnp.float8_e5m2
+    jax_args, torch_args, chunk = _ragged_case(dt, hq=7, hkv=1, d=16, c=c)
+    q, k, v, tables, kv_len, _ = torch_args
+    r_, _, hq, d = q.shape
+    maxp, ps = tables.shape[1], k.shape[2]
+    assert 7 * c <= 16 < 7 * 3
+    splits, pps = b1.split_plan(r_, 1, 7 * c, maxp, ps)
+    got = _f32(_emulate_split(*torch_args, scale=d ** -0.5, splits=splits,
+                              pps=pps))
+    plain = _f32(b1.ragged_paged_sdpa(*torch_args))
+    want = _f32(ref_ragged_paged_sdpa(*jax_args))
+    for i, n in enumerate(chunk):
+        if n == 0:
+            assert not got[i].any() and not plain[i].any()
+            continue
+        for ref in (plain, want):
+            np.testing.assert_allclose(
+                got[i, :n], ref[i, :n], rtol=0,
+                atol=B1_ULP * np.abs(ref[i, :n]).max())
+
+
 # -- B3 ------------------------------------------------------------------------
 
 B3_SHAPES = [(4, 8, 2304), (1, 8, 4864), (1, 2, 128), (64, 32, 256),
@@ -282,6 +315,75 @@ def _emulate_decode_split(q, k, v, kv_len, kv_start, won, *, scale, window,
     return out.to(torch.bfloat16)
 
 
+# the shared memory an H100 gives a block, and an SM to its blocks
+SMEM_BLOCK, SMEM_SM = 232448, 233472
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("fp8", [False, True])
+def test_decode_ring_plan_fits_the_sm(d, fp8):
+    """B3's ring: three bf16 stages of a 64-key K/V tile pair (or four raw
+    e5m2 stages and the widened pair), 96 KiB at head_dim 128 (two blocks
+    an SM); at 256 the pair doubles and the 16 query rows join it in
+    shared memory: 200 KiB, one block an SM."""
+    stages, smem, resident = b3.ring_plan(d, fp8)
+    assert stages == (4 if fp8 else 3)
+    assert smem <= SMEM_BLOCK and resident * smem <= SMEM_SM
+    assert (smem, resident) == ((96 * 1024, 2) if d == 128
+                                else (200 * 1024, 1))
+
+
+@pytest.mark.parametrize("b,hkv,s", [(4, 8, 6144), (8, 8, 6144),
+                                     (1, 8, 8192), (3, 2, 700)])
+def test_decode_split_plan_at_head_dim_256(b, hkv, s):
+    """At head_dim 256 one wave is one block an SM: the plan fills it
+    (Gemma-2's 8 kv heads at B = 4 and 8 over a 6144-slot capacity) within
+    the caps, from shapes alone, and its splits cover each visible range
+    once."""
+    splits = b3.split_plan(b, hkv, s, 256)
+    cap = min(64, -(-s // 64))
+    assert 1 <= splits <= cap
+    assert splits == 1 or b * hkv * splits <= 132
+    assert splits == cap or b * hkv * (splits + 1) > 132
+    assert splits <= b3.split_plan(b, hkv, s, 128)
+    lo = torch.tensor([0, 2048, 0, 5][:b] + [0] * max(0, b - 4))
+    hi = torch.full((b,), s)
+    start, end = b3.split_bounds(lo, hi, splits)
+    for r in range(b):
+        keys = [k for a, e in zip(start[r].tolist(), end[r].tolist())
+                for k in range(a, e)]
+        assert keys == list(range(int(lo[r]), s))
+
+
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("case", ["window cuts", "softcap"])
+def test_decode_split_then_merge_at_head_dim_256(storage, case):
+    """The split-then-merge emulation at head_dim 256 and the wrapper's
+    plan (G = 2, a 192-slot cache, left padding, a row that sees no key)
+    agrees with ``decode_sdpa_plain`` and the JAX kernel within 2^-7 of
+    each row's largest output."""
+    kw = {"window cuts": dict(window=48), "softcap": dict(softcap=5.0)}[case]
+    rng = np.random.default_rng(12)
+    b, s, hq, hkv, d = 3, 192, 4, 2, 256
+    q_t, q_j = _pair(rng, (b, 1, hq, d))
+    k_t, k_j = _pair(rng, (b, hkv, s, d), storage)
+    v_t, v_j = _pair(rng, (b, hkv, s, d), storage)
+    kv_len = np.array([150, 192, 70], np.int32)
+    kv_start = np.array([0, 37, 70], np.int32)
+    kl, ks = torch.from_numpy(kv_len), torch.from_numpy(kv_start)
+    won = torch.ones(b, dtype=torch.int32)
+    got = _emulate_decode_split(q_t, k_t, v_t, kl, ks, won, scale=d ** -0.5,
+                                window=kw.get("window"),
+                                softcap=kw.get("softcap"),
+                                splits=b3.split_plan(b, hkv, s, d))
+    plain = b3.decode_sdpa(q_t, k_t, v_t, kv_len=kl, kv_start=ks, **kw)
+    want = ref_decode(q_j, k_j, v_j, kv_len=jnp.asarray(kv_len),
+                      kv_start=jnp.asarray(kv_start), **kw)
+    assert not got[2].float().any()
+    for ref in (plain, want):
+        assert_rows_close(got, ref, what=f"{storage} {case} D=256")
+
+
 B3_EMULATED = {"plain": {}, "window cuts": dict(window=48),
                "softcap": dict(softcap=30.0)}
 
@@ -319,6 +421,17 @@ def test_decode_split_then_merge_matches_plain_and_pallas(storage, case,
 
 
 # -- B4 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_smem_plan_fits_the_sm(d):
+    """B4's ring of 64-key K/V tile pairs: three stages at head_dim 128
+    (97 KiB with the swizzle's alignment slack, two blocks an SM); at 256
+    two stages of 64 KiB pairs and the block's 64 query rows (32 KiB, read
+    through a descriptor): 161 KiB, one block an SM."""
+    stages, smem, resident = b4.smem_plan(d)
+    assert smem <= SMEM_BLOCK and resident * smem <= SMEM_SM
+    assert (stages, smem, resident) == ((3, 97 * 1024, 2) if d == 128
+                                        else (2, 161 * 1024, 1))
 
 FLASH_WALKS = {
     "left padded, T=200": dict(t=200, kv_start=[0, 77, 199]),

@@ -387,7 +387,7 @@ def test_build_params_refuses_what_is_not_ported(ckpt):
     for q in ("mixed_fp4", "mixed_fp8"):
         with pytest.raises(NotImplementedError):
             port_build.quantize_weight(torch.zeros(64, 64), q)
-    for other in ("aquila", "qwen2", "gemma2", "mixtral"):
+    for other in ("aquila", "mixtral", "qwen3", "gemma3_text"):
         with pytest.raises(NotImplementedError, match="item 14"):
             get_family(other)
 

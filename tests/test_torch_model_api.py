@@ -210,11 +210,11 @@ def test_from_pretrained_refuses_what_is_not_ported(tmp_path, kw, item):
 
 @pytest.mark.parametrize("over,item", [
     ({"model_type": "bert"}, "14"), ({"model_type": "rwkv"}, "14"),
-    ({"model_type": "yuan"}, "14"), ({"model_type": "qwen2"}, "14"),
+    ({"model_type": "yuan"}, "14"), ({"model_type": "qwen3"}, "14"),
     ({"model_type": "aquila"}, "14"),
     ({"quantization_config": {"quant_method": "gptq"}}, "13"),
     ({"quantization_config": {"quant_method": "awq"}}, "13")],
-    ids=["bert", "rwkv", "yuan", "qwen2", "aquila", "gptq", "awq"])
+    ids=["bert", "rwkv", "yuan", "qwen3", "aquila", "gptq", "awq"])
 def test_from_pretrained_refuses_other_checkpoints(tmp_path, over, item):
     hf = {**tiny_hf(), **over}
     path = write_checkpoint(str(tmp_path), hf, hf_weights(tiny_hf(), seed=4))

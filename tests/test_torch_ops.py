@@ -153,8 +153,14 @@ def test_linear_raises_outside_the_slice():
                  (64, 8), 64)
     with pytest.raises(NotImplementedError):
         linear(torch.zeros(2, 64, dtype=torch.bfloat16), qt)
-    with pytest.raises(NotImplementedError):
-        linear(torch.zeros(2, 32), torch.zeros(32, 8), bias=torch.zeros(8))
+    # a bias is in the slice now (qwen2's qkv): an fp32 leaf cast to the
+    # output's dtype and added there, as the reference adds it
+    x = torch.randn(2, 32).to(torch.bfloat16)
+    w = torch.randn(32, 8).to(torch.bfloat16)
+    b = torch.randn(8)
+    got = linear(x, w, bias=b)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, linear(x, w) + b.to(torch.bfloat16))
 
 
 # -- B1: ragged paged attention ----------------------------------------------
