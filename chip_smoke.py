@@ -157,7 +157,19 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     ones on the gathered route, B1 never launched), the gather's share of
     one decode tick's device time, and ``generate()`` for Qwen2-7B and
     Gemma-2-9B (a 4500-id prompt among four), with tok/s, TTFT and peak
-    device memory.
+    device memory;
+12. ``moe`` (``scripts/torch_moe_smoke.py``): B2e, the expert-grouped
+    dequant-matmul, against its plain version in every format (segments
+    of 0 to 450 rows, both output types) and at Mixtral-8x7B's and
+    Qwen3-30B-A3B's expert shapes for a decode tick and a prefill chunk,
+    timed beside its bound and ``torch._grouped_mm``; small Mixtral-,
+    Qwen1.5-MoE-, Qwen3-MoE- and Qwen3-shaped decoders card against CPU
+    (both dispatch routes, equal expert selections where the router is
+    sure); Mixtral-8x7B and Qwen3-30B-A3B at full width and depth through
+    ``ServingEngine`` (B1, B2, B2e; B1 at G = 8 for Qwen3), one decode
+    tick of each profiled (B2e's share, the idle share), Mixtral
+    ``generate()`` (B2, B3, B4, B2e); a 2-layer Mixtral-width checkpoint
+    through ``from_pretrained`` and ``build_server``.
 
 Kernel times come from CUDA events over many launches after a warm-up
 (B2's up to M = 512, B3's, B4's and B5's, and their yardsticks, as
@@ -264,6 +276,7 @@ def main() -> int:
     from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
     from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
     from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+    from ipex_llm_tpu_torch.ops.cuda import qmatmul_experts as b2e
     from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,7 +347,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     kernels = {"qmatmul": b2, "ragged_paged_attention": b1,
                "decode_attention": b3, "flash_attention": b4,
-               "paged_attention": b5}
+               "paged_attention": b5, "qmatmul_experts": b2e}
     t_build = _build.build([m.NAME for m in kernels.values()])
     print(f"kernel build: {t_build:.1f} s for {len(kernels)} sources",
           flush=True)
@@ -348,15 +361,17 @@ def main() -> int:
         report.setdefault("ptxas", {})[mod.NAME] = regs
     # the redesigned instances must run on the tensor cores: mma.sync is
     # HMMA in the SASS, B4's wgmma HGMMA; and none may spill
-    # (B2's and B5's sources; B1's merge kernel keeps a 4-byte spill)
+    # (B2's, B2e's and B5's sources; B1's merge kernel keeps a 4-byte
+    # spill)
     spills = {name: [ln for ln in report["ptxas"][name] if "spill" in ln
                      and " 0 bytes spill stores" not in ln]
-              for name in (b2.NAME, b5.NAME)}
+              for name in (b2.NAME, b2e.NAME, b5.NAME)}
     if any(spills.values()):
         fail(f"ptxas reports spills: {spills}")
     hmma = {}
     for mod, kernel, opcode in ((b2, "qmm_kernel", "HMMA"),
                                 (b2, "qmm_tc_kernel", "HMMA"),
+                                (b2e, "qmm_experts_kernel", "HMMA"),
                                 (b1, "ragged_attn_kernel", "HMMA"),
                                 (b3, "decode_split_kernel", "HMMA"),
                                 (b4, "flash_attn_kernel", "HGMMA"),
@@ -615,6 +630,7 @@ def main() -> int:
     b1_rows = []
     gqa = dict(hkv=8)
     g7 = dict(hq=28, hkv=4)     # Qwen2-7B: a GQA group of 7
+    g8 = dict(hq=32, hkv=4)     # Qwen3-30B-A3B: a GQA group of 8
     for pool_name, pool_dtype in (("bf16", torch.bfloat16),
                                   ("e5m2", torch.float8_e5m2)):
         for label, kw in (("row mix R=8 C=128", {}),
@@ -627,7 +643,10 @@ def main() -> int:
                            dict(c=1, **g7)),
                           ("G=7 verify R=8 C=4 Hq=28 Hkv=4",
                            dict(c=4, **g7)),
-                          ("G=7 row mix R=8 C=128 Hq=28 Hkv=4", g7)):
+                          ("G=7 row mix R=8 C=128 Hq=28 Hkv=4", g7),
+                          ("G=8 decode R=8 C=1 Hq=32 Hkv=4",
+                           dict(c=1, **g8)),
+                          ("G=8 row mix R=8 C=128 Hq=32 Hkv=4", g8)):
             q, kp, vp, tables, kv_len, chunk = ragged_case(pool_dtype,
                                                            **kw)
             if kw.get("c") in (1, 4):   # decode or verify rows at
@@ -2210,6 +2229,13 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
 
+    # -- 12. mixture of experts: B2e, Mixtral-8x7B, Qwen3-30B-A3B -----------
+    from torch_moe_smoke import moe_phase
+
+    report["moe"] = moe_phase(kernels, card, fail, dev, graph_ms)
+    print(f"moe phase: {report['moe']['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # -- summary -------------------------------------------------------------
     serve_launches = report["serve"][0]["launches"]
     gen_launches = report["generate"][0]["launches"]
@@ -2236,6 +2262,14 @@ def main() -> int:
                       if r["case"] == "D=256 T=128 chunks")
     rep_b1_g7 = next(r for r in report["b1"] if r["pool"] == "bf16"
                      and r["case"].startswith("G=7 decode"))
+    moe = report["moe"]
+    moe_serve = {(r["model"], r["storage"]): r for r in moe["serve"]}
+    mix_serve = moe_serve[("Mixtral-8x7B", "bf16")]
+    q3_serve = moe_serve[("Qwen3-30B-A3B", "bf16")]
+    rep_b2e = {(r["model"], r["weight"], r["tick"]): r for r in moe["b2e"]}
+    b2e_err = max(r["max_abs_err"] for r in moe["b2e"] + moe["b2e_formats"])
+    rep_b1_g8 = next(r for r in report["b1"] if r["pool"] == "bf16"
+                     and r["case"].startswith("G=8 decode"))
     serve_routes = report["serve"][0]["launches_by_route"]
     for name, routes in serve_routes.items():
         if min(routes.values()) == 0:
@@ -2383,6 +2417,45 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in report["b1"]
                             if r["case"].startswith("G=7")),
          **{k: rep_b1_g7[k] for k in keys}},
+        # B1 at Qwen3-30B-A3B's GQA group of 8: its launches in that serving
+        {"name": "ragged_paged_attention[G=8]", "route": "cuda",
+         "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=1 Hq=32 Hkv=4 D=128 page 128, bf16 pool (key "
+                  "split)",
+         "launches": q3_serve["launches"]["ragged_paged_attention"],
+         "launches_by_route": q3_serve["b1_by_route"],
+         "max_abs_err": max(r["max_abs_err"] for r in report["b1"]
+                            if r["case"].startswith("G=8")),
+         **{k: rep_b1_g8[k] for k in keys}},
+        # B2e: B2 as the MoE dispatch reaches it under jax.vmap in the
+        # reference; its launches in each model's serving run (both
+        # instances' output types in Mixtral's) and Mixtral's generate()
+        {"name": "qmatmul_experts[sym_int4, Mixtral-8x7B]", "route": "cuda",
+         "source": src + "qmatmul_experts.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
+         "reached_from": "ipex_llm_tpu/ops/moe.py:97",
+         "shape": "16 pairs over 8 experts, gate_up 4096 -> 28672 (a "
+                  "decode tick of 8 rows, the gather route, bf16 out)",
+         "launches": mix_serve["launches"]["qmatmul_experts"],
+         "launches_by_instance": mix_serve["b2e_by_instance"],
+         "launches_generate":
+             moe["generate"][0]["launches"]["qmatmul_experts"],
+         "max_abs_err": b2e_err,
+         **{k: rep_b2e[("Mixtral-8x7B", "gate_up", "decode")][k]
+            for k in keys}},
+        {"name": "qmatmul_experts[sym_int4, Qwen3-30B-A3B]",
+         "route": "cuda", "source": src + "qmatmul_experts.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
+         "reached_from": "ipex_llm_tpu/ops/moe.py:97",
+         "shape": "64 pairs over 128 experts, gate_up 2048 -> 1536 (a "
+                  "decode tick of 8 rows, the ragged route, fp32 out)",
+         "launches": q3_serve["launches"]["qmatmul_experts"],
+         "launches_by_instance": q3_serve["b2e_by_instance"],
+         "max_abs_err": b2e_err,
+         **{k: rep_b2e[("Qwen3-30B-A3B", "gate_up", "decode")][k]
+            for k in keys}},
     ]}
     out_dir = ROOT / "chiprun_out"
     try:

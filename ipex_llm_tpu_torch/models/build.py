@@ -10,10 +10,14 @@ q, k and v biases concatenate likewise into an fp32 ``qkv_bias``), each
 weight is quantized on the target device as soon as it is read, and
 layers stack into ``[L, ...]`` leaves preallocated once and filled layer
 by layer.  gemma2's post norms become ``post_attn_norm`` and
-``post_mlp_norm``, and a tied head leaves no ``lm_head`` leaf (the decoder
-reads the embedding table).  So the
-device never holds more than one full-precision weight (and a slice of
-its fp32 working copy) beside the packed tree.
+``post_mlp_norm``, qwen3's per-head q/k norms ``q_norm`` and ``k_norm``,
+and a tied head leaves no ``lm_head`` leaf (the decoder reads the
+embedding table).  An MoE layer holds, in place of ``gate_up``/``down``,
+the fp32 router ``[H, E]`` and the experts' ``moe_gate_up``/``moe_down``
+stacks ``[L, E, ...]``, filled expert by expert, and qwen2_moe's
+``shared_gate_up``/``shared_down`` and fp32 ``shared_router`` ``[H, 1]``.
+So the device never holds more than one full-precision weight (and a
+slice of its fp32 working copy) beside the packed tree.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from ipex_llm_tpu_torch.device import resolve_device
 from ipex_llm_tpu_torch.models.config import ModelConfig
-from ipex_llm_tpu_torch.models.families import WeightScheme
+from ipex_llm_tpu_torch.models.families import MoEScheme, WeightScheme
 from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
 from ipex_llm_tpu_torch.quantize.qtypes import resolve
 
@@ -71,28 +75,34 @@ def quantize_weight(w: torch.Tensor, qtype: str, imatrix=None) -> QTensor:
 
 
 class LayerStack:
-    """``[L, ...]`` leaves filled layer by layer: each plane is allocated
-    once, at its first layer, and written in place."""
+    """``[L, ...]`` leaves filled layer by layer (and ``[L, E, ...]`` expert
+    stacks expert by expert, ``n_experts`` E): each plane is allocated
+    once, at its first put, and written in place."""
 
-    def __init__(self, n_layers: int):
+    def __init__(self, n_layers: int, n_experts: int = 0):
         self.n = n_layers
+        self.n_experts = n_experts
         self.tree: dict[str, Any] = {}
 
-    def put(self, i: int, key: str, leaf) -> None:
+    def put(self, i: int, key: str, leaf, expert: int | None = None) -> None:
+        """Write ``leaf`` at layer ``i`` (and expert ``expert``)."""
         if key not in self.tree:
+            lead = (self.n,) if expert is None else (self.n, self.n_experts)
+
             def empty(t):
-                return torch.empty((self.n,) + tuple(t.shape), dtype=t.dtype,
+                return torch.empty(lead + tuple(t.shape), dtype=t.dtype,
                                    device=t.device)
             self.tree[key] = (leaf.planes(empty) if isinstance(leaf, QTensor)
                               else empty(leaf))
+        at = i if expert is None else (i, expert)
         dst = self.tree[key]
         if isinstance(leaf, QTensor):
             for d, s in ((dst.data, leaf.data), (dst.scales, leaf.scales),
                          (dst.zeros, leaf.zeros)):
                 if s is not None:
-                    d[i] = s
+                    d[at] = s
         else:
-            dst[i] = leaf
+            dst[at] = leaf
 
 
 def stack_layer_trees(trees: list[dict[str, Any]]) -> dict[str, Any]:
@@ -105,9 +115,8 @@ def stack_layer_trees(trees: list[dict[str, Any]]) -> dict[str, Any]:
 
 
 # scheme fields whose weights the port's tree has no slot for
-_SCHEME_UNSERVED = ("qkv", "gate_up", "q_norm", "k_norm", "pos_embed",
-                    "embed_norm", "q_a", "q_a_norm", "q_b", "kv_a",
-                    "kv_a_norm", "kv_b")
+_SCHEME_UNSERVED = ("qkv", "gate_up", "pos_embed", "embed_norm", "q_a",
+                    "q_a_norm", "q_b", "kv_a", "kv_a_norm", "kv_b")
 
 
 def build_params(
@@ -119,7 +128,7 @@ def build_params(
     lm_head_qtype: str | None = None,
     mixed_precision: bool = False,
     progress: Callable[[str], None] | None = None,
-    moe_scheme=None,
+    moe_scheme: MoEScheme | None = None,
     embedding_qtype: str | None = None,
     qkv_transform: Callable | None = None,
     transpose_weights: bool = False,
@@ -130,13 +139,15 @@ def build_params(
     on the CPU) on ``device`` (``None`` = cuda), quantizing as it
     streams.  ``mixed_precision`` packs the lm head at sym_int8 rather
     than ``qtype`` (the reference's flag); ``lm_head_qtype`` outranks
-    both.  The keyword arguments of other families' trees raise
+    both.  ``moe_scheme`` names an MoE config's router and expert weights.
+    The keyword arguments of other families' trees raise
     ``NotImplementedError`` naming their ROADMAP item."""
     for what, val, item in (
             ("imatrix_data", imatrix_data, "13"),
             ("embedding_qtype (a quantized embedding table)",
              embedding_qtype, "12"),
-            ("moe_scheme", moe_scheme, "14"),
+            ("moe_scheme.score_bias (DeepSeek-V3 routing)",
+             moe_scheme is not None and moe_scheme.score_bias, "14"),
             ("qkv_transform", qkv_transform, "14"),
             ("transpose_weights", transpose_weights, "14")):
         if val:
@@ -148,6 +159,11 @@ def build_params(
         raise NotImplementedError(
             f"weight scheme fields {unserved or ['q/k/v/gate/up = None']} "
             "are not ported (ROADMAP item 14)")
+    if cfg.num_experts and moe_scheme is None:
+        raise ValueError(f"model has {cfg.num_experts} experts but the "
+                         "family declares no MoE weight scheme")
+    if (scheme.q_norm is not None) != cfg.qk_norm:
+        raise ValueError("q/k norm weights go with cfg.qk_norm")
     dev = resolve_device(device)
 
     def load(n: str) -> torch.Tensor:
@@ -171,7 +187,16 @@ def build_params(
             qts.append(quantize_weight(load(n), q))
         return _cat_columns(qts)
 
-    st = LayerStack(cfg.num_layers)
+    def norm(n: str, width: int) -> torch.Tensor:
+        refuse_bias(n)
+        t = load(n).to(NORM_DTYPE)
+        if t.shape != (width,):
+            raise NotImplementedError(
+                f"{n} of shape {tuple(t.shape)}: only per-head q/k norms "
+                f"({width} wide) are ported (ROADMAP item 14)")
+        return t
+
+    st = LayerStack(cfg.num_layers, cfg.num_experts)
     for i in range(cfg.num_layers):
         if progress:
             progress(f"layer {i + 1}/{cfg.num_layers}")
@@ -186,6 +211,9 @@ def build_params(
                 continue
             refuse_bias(name(tmpl))
             st.put(i, key, load(name(tmpl)).to(NORM_DTYPE))
+        if cfg.qk_norm:
+            st.put(i, "q_norm", norm(name(scheme.q_norm), cfg.head_dim))
+            st.put(i, "k_norm", norm(name(scheme.k_norm), cfg.head_dim))
         qkv = [name(t) for t in (scheme.q, scheme.k, scheme.v)]
         biases = [n[: -len(".weight")] + ".bias" for n in qkv]
         if cfg.attention_bias and has(biases[0]):
@@ -196,6 +224,10 @@ def build_params(
         else:
             st.put(i, "qkv", merged(qkv, qtype))
         st.put(i, "o", merged([name(scheme.o)], qtype))
+        if cfg.layer_is_moe(i):
+            _put_moe_layer(st, i, moe_scheme, cfg.num_experts, load, merged,
+                           qtype)
+            continue
         st.put(i, "gate_up", merged([name(scheme.gate), name(scheme.up)],
                                     qtype))
         st.put(i, "down", merged([name(scheme.down)], qtype))
@@ -213,6 +245,29 @@ def build_params(
     params["inv_freq"] = torch.from_numpy(cfg.rope.inv_freq()).to(dev)
     params["rope_mscale"] = 1.0     # the default rope, the only one ported
     return params
+
+
+def _put_moe_layer(st: LayerStack, i: int, ms: MoEScheme, n_experts: int,
+                   load, merged, qtype: str) -> None:
+    """Layer ``i``'s router (fp32 ``[H, E]``), its experts' gate||up and
+    down, each quantized on the device as it is read and written into the
+    ``[L, E, ...]`` stacks, and the shared expert and its gate where the
+    scheme names them."""
+    st.put(i, "router", load(ms.router.format(i=i)).to(torch.float32).t()
+           .contiguous())
+    for e in range(n_experts):
+        st.put(i, "moe_gate_up", merged([ms.e_gate.format(i=i, e=e),
+                                         ms.e_up.format(i=i, e=e)], qtype),
+               expert=e)
+        st.put(i, "moe_down", merged([ms.e_down.format(i=i, e=e)], qtype),
+               expert=e)
+    if ms.shared_gate is not None:
+        st.put(i, "shared_gate_up", merged([ms.shared_gate.format(i=i),
+                                            ms.shared_up.format(i=i)], qtype))
+        st.put(i, "shared_down", merged([ms.shared_down.format(i=i)], qtype))
+    if ms.shared_router is not None:
+        st.put(i, "shared_router", load(ms.shared_router.format(i=i)).to(
+            torch.float32).t().contiguous())
 
 
 def _requant_leaf(qt: QTensor, qtype: str) -> QTensor:

@@ -1,14 +1,19 @@
 """Decoder configuration (port of ``ipex_llm_tpu/models/config.py``).
 
 The port keeps the reference's field names for the families it serves
-(llama, mistral, qwen2, gemma2), so a reference config maps across field
-by field (:meth:`ModelConfig.from_fields`): sliding windows (on every
-layer, or per layer through ``layer_types``), attention and final-logit
-softcaps, an attention scale, the qkv bias, (1 + w) norms, the post-block
-norms, an embedding multiplier, tied embeddings and the tanh GELU.  Every
-other architectural switch is checked in ``__post_init__`` or
+(llama, mistral, qwen2, gemma2, qwen3, mixtral, qwen2_moe, qwen3_moe), so
+a reference config maps across field by field
+(:meth:`ModelConfig.from_fields`): sliding windows (on every layer, or per
+layer through ``layer_types``), attention and final-logit softcaps, an
+attention scale, the qkv bias, (1 + w) norms, the post-block norms, an
+embedding multiplier, tied embeddings, the tanh GELU, qwen3's per-head q/k
+norms, and the sparse mixture of experts of mixtral and the qwen MoE
+families (top-k routing, softmax before or after the top-k, the optional
+renormalisation and router scale, a shared expert with a sigmoid gate).
+Every other architectural switch is checked in ``__post_init__`` or
 ``from_fields`` and raises ``NotImplementedError`` (ROADMAP item 14):
-other families, qk norms, other biases, MLA and MoE are not routed to a
+other families, other biases, MLA, DeepSeek's group-limited routing,
+sigmoid scores, score bias and dense prefix layers are not routed to a
 plain path.
 """
 
@@ -21,7 +26,8 @@ from ipex_llm_tpu_torch.ops.rope import RopeScaling
 
 LAYER_TYPES = ("sliding_attention", "full_attention")
 # the model_types this decoder serves (``families.FAMILIES`` maps each)
-MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2")
+MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2", "qwen3", "mixtral",
+               "qwen2_moe", "qwen3_moe")
 
 
 @dataclass(frozen=True)
@@ -56,6 +62,17 @@ class ModelConfig:
     logit_softcap: float | None = None
     attn_scale: float | None = None  # None: head_dim ** -0.5
     embedding_multiplier: float = 1.0
+    qk_norm: bool = False           # qwen3: per-head q/k RMSNorm before rope
+    # sparse mixture of experts (0 experts: a dense MLP on every layer)
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    num_shared_experts: int = 0     # qwen2_moe: one shared expert
+    moe_norm_topk_prob: bool = False
+    # True: softmax over all experts, then top-k (qwen MoE); False: top-k
+    # of the logits, then a softmax over the k (mixtral)
+    moe_softmax_before_topk: bool = True
+    moe_shared_expert_gate: bool = False  # qwen2_moe's sigmoid gate
 
     def __post_init__(self):
         if self.model_type not in MODEL_TYPES:
@@ -82,6 +99,16 @@ class ModelConfig:
                 "rope over the whole head_dim is the only form ported")
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
+        if self.num_experts:
+            if not 1 <= self.num_experts_per_tok <= self.num_experts or \
+                    self.moe_intermediate_size <= 0:
+                raise ValueError(
+                    "an MoE config needs 1 <= num_experts_per_tok <= "
+                    "num_experts and a positive moe_intermediate_size")
+            if self.num_shared_experts > 1:
+                raise NotImplementedError(
+                    "more than one shared expert is not ported (ROADMAP "
+                    "item 14)")
 
     def layer_is_sliding(self, layer_idx: int) -> bool:
         """Whether layer ``layer_idx`` attends through the window: the
@@ -90,6 +117,11 @@ class ModelConfig:
         if self.layer_types is not None:
             return self.layer_types[layer_idx] == "sliding_attention"
         return self.sliding_window is not None
+
+    def layer_is_moe(self, layer_idx: int) -> bool:
+        """Whether layer ``layer_idx`` holds experts: every layer of an MoE
+        config (DeepSeek's dense prefix layers are not ported)."""
+        return self.num_experts > 0
 
     @property
     def q_dim(self) -> int:
@@ -102,17 +134,21 @@ class ModelConfig:
     # Reference fields whose default value is the only one the port
     # serves; any other value raises in from_fields.
     _DEFAULTS = {
-        "norm_kind": "rms", "qk_norm": False, "rope_local": None,
+        "norm_kind": "rms", "rope_local": None,
         "partial_rotary": 1.0, "mrope_section": None,
         "attention_out_bias": False,
         "mlp_bias": False, "mlp_gated": True, "parallel_blocks": False,
         "alibi": False, "learned_pos": 0, "embed_norm": False,
         "norm_after": False, "logit_scale": 1.0, "glm_alpha": 0.0,
         "rope_2d": False, "residual_multiplier": 1.0,
-        "kv_heads_per_layer": None, "num_experts": 0,
-        "num_experts_per_tok": 0, "moe_intermediate_size": 0,
-        "num_shared_experts": 0, "q_lora_rank": None, "kv_lora_rank": None,
-        "qk_nope_head_dim": 0, "qk_rope_head_dim": 0, "v_head_dim": None,
+        "kv_heads_per_layer": None, "q_lora_rank": None,
+        "kv_lora_rank": None, "qk_nope_head_dim": 0, "qk_rope_head_dim": 0,
+        "v_head_dim": None,
+        # DeepSeek's routing, its routed scaling factor and its dense
+        # prefix layers (ROADMAP item 14)
+        "moe_layer_start": 0, "moe_n_group": 0, "moe_topk_group": 0,
+        "moe_score_func": "softmax", "moe_group_score": "max",
+        "moe_score_bias": False, "moe_router_scale": 1.0,
     }
 
     @classmethod
@@ -132,8 +168,6 @@ class ModelConfig:
                     raise NotImplementedError(
                         f"config field {name}={val!r} is not ported "
                         "(ROADMAP item 14)")
-            elif name.startswith("moe_"):
-                continue   # MoE router knobs; num_experts == 0 gates them
             else:
                 raise NotImplementedError(f"config field {name!r} unknown")
         if kw.get("layer_types") is not None:

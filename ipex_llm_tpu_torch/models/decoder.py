@@ -20,8 +20,11 @@ bias is added in bf16), the embedding multiplier is rounded to bf16 before
 the multiply, the logits are the lm head's bf16 output widened to fp32, or
 a tied head's bf16 x bf16 product summed and kept in fp32, then softcapped
 in fp32.  The per-family switches (qkv bias, (1 + w) norms, post-block
-norms, softcaps, attention scale, per-layer windows) follow the
-reference's order (``decoder.py:70-210``, ``:334-352``, ``:422-450``).
+norms, softcaps, attention scale, per-layer windows, qwen3's per-head q/k
+norms) follow the reference's order (``decoder.py:70-210``, ``:334-352``,
+``:422-450``).  A layer that holds ``moe_gate_up`` runs the sparse MoE
+block (:func:`_moe_block`, the reference's ``decoder.py:212-306``) in
+place of the MLP.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from ipex_llm_tpu_torch.models.config import ModelConfig
 from ipex_llm_tpu_torch.ops import linear as linear_ops
 from ipex_llm_tpu_torch.ops import mlp as mlp_ops
+from ipex_llm_tpu_torch.ops import moe as moe_ops
 from ipex_llm_tpu_torch.ops import rope as rope_ops
 from ipex_llm_tpu_torch.ops.attention import cached_sdpa
 from ipex_llm_tpu_torch.ops.embedding import embed_lookup
@@ -69,6 +73,9 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
                                                cfg.head_dim)
     v = qkv[..., q_dim + kv_dim:].reshape(b, t, cfg.num_kv_heads,
                                           cfg.head_dim)
+    if cfg.qk_norm:     # per head, over head_dim, before rope
+        q = _norm(cfg, q, lp["q_norm"])
+        k = _norm(cfg, k, lp["k_norm"])
     q = rope_ops.apply_rope(q, cos, sin, cfg.rope_layout)
     k = rope_ops.apply_rope(k, cos, sin, cfg.rope_layout)
     kl, vl = cache.update_layer(kl, vl, k, v, slot0)
@@ -91,6 +98,63 @@ def _mlp_block(cfg: ModelConfig, lp: dict, x):
                             lp["down"])
     if cfg.post_mlp_norm:
         out = _norm(cfg, out, lp["post_mlp_norm"])
+    return out
+
+
+def _f32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h [..., H] widened to fp32 against an fp32 [H, N] matrix (a router):
+    a plain fp32 product outside any kernel on the card (the reference
+    leaves it to XLA); the CPU sums in float64, so each logit is exactly
+    rounded whatever the batch."""
+    if h.is_cuda:
+        return torch.matmul(h.to(torch.float32), w)
+    return torch.matmul(h.to(torch.float64), w.to(torch.float64)).to(
+        torch.float32)
+
+
+def route(cfg: ModelConfig, logits: torch.Tensor):
+    """(weights fp32, expert ids) [..., k] from fp32 router logits [..., E]:
+    mixtral's top-k of the logits then a softmax over the k, or the qwen
+    MoE families' softmax over all experts then top-k (renormalised with
+    ``moe_norm_topk_prob``).  Ties go to the lowest expert index, the
+    reference's ``lax.top_k`` rule: a stable descending sort, then the
+    first k (``torch.topk`` does not promise that order on the card)."""
+    k = cfg.num_experts_per_tok
+
+    def top_k(v):
+        return torch.sort(v, dim=-1, descending=True, stable=True
+                          ).indices[..., :k]
+    if cfg.moe_softmax_before_topk:
+        scores = torch.softmax(logits, dim=-1)
+        idx = top_k(scores)
+        w = torch.gather(scores, -1, idx)
+        if cfg.moe_norm_topk_prob:
+            w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    else:
+        idx = top_k(logits)
+        w = torch.softmax(torch.gather(logits, -1, idx), dim=-1)
+    return w, idx
+
+
+def _moe_block(cfg: ModelConfig, lp: dict, x, experts):
+    """The sparse MoE FFN: the norm, fp32 router logits, the top-k route,
+    the experts through ``experts`` (``ops.moe.dispatch()``: ``moe_ffn``,
+    or the dense all-experts scan under ``IPEX_LLM_TPU_DENSE_MOE=1``),
+    then qwen2_moe's shared expert, gated by ``sigmoid(h .
+    shared_router)``."""
+    h = _norm(cfg, x, lp["mlp_norm"])
+    w, idx = route(cfg, _f32_product(h, lp["router"]))
+    out = experts(h, w, idx, lp["moe_gate_up"], lp["moe_down"], cfg.act,
+                  cfg.num_experts).to(x.dtype)
+    if "shared_gate_up" in lp:
+        gate, up = mlp_ops.split_gate_up(
+            linear_ops.linear(h, lp["shared_gate_up"]))
+        ys = linear_ops.linear(mlp_ops.gated_act_mul(gate, up, cfg.act),
+                               lp["shared_down"])
+        if "shared_router" in lp:
+            g = torch.sigmoid(_f32_product(h, lp["shared_router"]))
+            ys = ys * g.to(ys.dtype)
+        out = out + ys
     return out
 
 
@@ -167,12 +231,16 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
         q_slots = (slot0 + torch.arange(t, device=dev))[None].expand(b, t)
         kv_len = torch.full((b,), slot0 + t, dtype=torch.int32, device=dev)
     layers = params["layers"]
+    experts = moe_ops.dispatch() if cfg.num_experts else None
     for i in range(cfg.num_layers):
         lp = layer_params(layers, i)
         x = x + _attention_block(cfg, lp, x, cache.k[i], cache.v[i], cos,
                                  sin, slot0, q_slots, kv_len, kv_start,
                                  cfg.layer_is_sliding(i), cache, chunk_lens)
-        x = x + _mlp_block(cfg, lp, x)
+        if "moe_gate_up" in lp:
+            x = x + _moe_block(cfg, lp, x, experts)
+        else:
+            x = x + _mlp_block(cfg, lp, x)
     if slot_offsets is None:
         cache.length = slot0 + t
     if last_token_only:

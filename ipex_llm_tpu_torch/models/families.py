@@ -1,14 +1,18 @@
 """Model families: an HF ``config.json`` dict to a ``ModelConfig`` and a
-weight-naming scheme (port of the llama, mistral, qwen2 and gemma2 rows of
+weight-naming scheme (port of the llama, mistral, qwen2, gemma2, qwen3,
+mixtral, qwen2_moe and qwen3_moe rows of
 ``ipex_llm_tpu/models/families.py``).
 
-All four run the port's one decoder.  llama, mistral and qwen2 share the
+All eight run the port's one decoder.  llama, mistral and qwen2 share the
 reference's llama weight names (mistral adds its sliding window, qwen2 its
 qkv bias and ignores ``sliding_window`` as the reference does); gemma2 has
-its own norm names and reads its head from the embedding table.  Every
-other ``model_type`` raises ``NotImplementedError`` (ROADMAP item 14),
-``aquila`` included, which the reference maps to the llama row; so do rope
-scalings other than the default (``ops.rope.RopeScaling`` refuses them).
+its own norm names and reads its head from the embedding table; qwen3 adds
+per-head q/k norms.  The MoE families add an :class:`MoEScheme` (the
+router, each expert's gate/up/down, qwen2_moe's shared expert and its
+gate).  Every other ``model_type`` raises ``NotImplementedError`` (ROADMAP
+item 14), ``aquila`` included, which the reference maps to the llama row;
+so do rope scalings other than the default (``ops.rope.RopeScaling``
+refuses them).
 """
 
 from __future__ import annotations
@@ -58,13 +62,29 @@ class WeightScheme:
 
 
 @dataclass(frozen=True)
+class MoEScheme:
+    """MoE weight-name templates ({i} = layer, {e} = expert), the
+    reference's; ``build_params`` refuses ``score_bias`` (DeepSeek-V3)."""
+
+    router: str = "model.layers.{i}.mlp.gate.weight"
+    e_gate: str = "model.layers.{i}.mlp.experts.{e}.gate_proj.weight"
+    e_up: str = "model.layers.{i}.mlp.experts.{e}.up_proj.weight"
+    e_down: str = "model.layers.{i}.mlp.experts.{e}.down_proj.weight"
+    shared_gate: str | None = None
+    shared_up: str | None = None
+    shared_down: str | None = None
+    shared_router: str | None = None  # qwen2-moe shared_expert_gate
+    score_bias: str | None = None     # deepseek-v3 e_score_correction_bias
+
+
+@dataclass(frozen=True)
 class Family:
     name: str
     to_config: Callable[[dict], ModelConfig]
     scheme: WeightScheme = field(default_factory=WeightScheme)
-    # the reference's MoE scheme, packed-qkv fixup and Conv1D transpose:
-    # None / False for every ported family (build_params refuses them)
-    moe: object | None = None
+    moe: MoEScheme | None = None
+    # the reference's packed-qkv fixup and Conv1D transpose: None / False
+    # for every ported family (build_params refuses them)
     qkv_transform: Callable | None = None
     transpose_weights: bool = False
 
@@ -145,6 +165,50 @@ def _gemma2(hf: dict) -> ModelConfig:
     ))
 
 
+def _qwen3(hf: dict) -> ModelConfig:
+    return ModelConfig.from_fields(_base_cfg(hf, qk_norm=True))
+
+
+def _mixtral(hf: dict) -> ModelConfig:
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        sliding_window=hf.get("sliding_window"),
+        num_experts=hf.get("num_local_experts", 8),
+        num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+        moe_intermediate_size=hf["intermediate_size"],
+        moe_softmax_before_topk=False,   # top-k logits, softmax over the k
+        moe_norm_topk_prob=True,
+    ))
+
+
+def _qwen2_moe(hf: dict) -> ModelConfig:
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        attention_bias=True,
+        num_experts=hf.get("num_experts", 60),
+        num_experts_per_tok=hf.get("num_experts_per_tok", 4),
+        moe_intermediate_size=hf.get("moe_intermediate_size",
+                                     hf["intermediate_size"]),
+        num_shared_experts=1,
+        moe_shared_expert_gate=True,
+        moe_softmax_before_topk=True,
+        moe_norm_topk_prob=hf.get("norm_topk_prob", False),
+    ))
+
+
+def _qwen3_moe(hf: dict) -> ModelConfig:
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        qk_norm=True,
+        num_experts=hf.get("num_experts", 128),
+        num_experts_per_tok=hf.get("num_experts_per_tok", 8),
+        moe_intermediate_size=hf.get("moe_intermediate_size",
+                                     hf["intermediate_size"]),
+        moe_softmax_before_topk=True,
+        moe_norm_topk_prob=hf.get("norm_topk_prob", True),
+    ))
+
+
 # the reference's _GEMMA2_SCHEME: pre- and post-feedforward norms, the
 # attention block's output norm, and the head tied to the embedding table
 _GEMMA2_SCHEME = WeightScheme(
@@ -154,11 +218,33 @@ _GEMMA2_SCHEME = WeightScheme(
     post_mlp_norm="model.layers.{i}.post_feedforward_layernorm.weight",
 )
 
+_QK_NORM_SCHEME = WeightScheme(
+    q_norm="model.layers.{i}.self_attn.q_norm.weight",
+    k_norm="model.layers.{i}.self_attn.k_norm.weight",
+)
+_MIXTRAL_MOE = MoEScheme(
+    router="model.layers.{i}.block_sparse_moe.gate.weight",
+    e_gate="model.layers.{i}.block_sparse_moe.experts.{e}.w1.weight",
+    e_up="model.layers.{i}.block_sparse_moe.experts.{e}.w3.weight",
+    e_down="model.layers.{i}.block_sparse_moe.experts.{e}.w2.weight",
+)
+_QWEN2_MOE = MoEScheme(
+    shared_gate="model.layers.{i}.mlp.shared_expert.gate_proj.weight",
+    shared_up="model.layers.{i}.mlp.shared_expert.up_proj.weight",
+    shared_down="model.layers.{i}.mlp.shared_expert.down_proj.weight",
+    shared_router="model.layers.{i}.mlp.shared_expert_gate.weight",
+)
+
 FAMILIES: dict[str, Family] = {
     "llama": Family("llama", _llama),
     "mistral": Family("mistral", _mistral),
     "qwen2": Family("qwen2", _qwen2),
     "gemma2": Family("gemma2", _gemma2, _GEMMA2_SCHEME),
+    "qwen3": Family("qwen3", _qwen3, _QK_NORM_SCHEME),
+    "mixtral": Family("mixtral", _mixtral, WeightScheme(), _MIXTRAL_MOE),
+    "qwen2_moe": Family("qwen2_moe", _qwen2_moe, WeightScheme(), _QWEN2_MOE),
+    "qwen3_moe": Family("qwen3_moe", _qwen3_moe, _QK_NORM_SCHEME,
+                        MoEScheme()),
 }
 assert tuple(FAMILIES) == MODEL_TYPES, "config.MODEL_TYPES names the families"
 

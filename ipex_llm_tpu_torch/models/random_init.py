@@ -12,7 +12,10 @@ by about 1).  The tree has the layout
 :func:`ipex_llm_tpu_torch.models.convert.params_from_reference` produces:
 stacked ``[L, ...]`` layer leaves, merged qkv and gate_up, weights
 ``[in, out]``, the qkv bias fp32, post norms where the config has them,
-and no ``lm_head`` when the head is tied to the embedding table.
+qwen3's per-head q/k norms, an MoE layer's fp32 router ``[H, E]``, its
+``[L, E, ...]`` expert stacks (each expert quantized on its own) and
+qwen2_moe's shared expert and its gate, and no ``lm_head`` when the head
+is tied to the embedding table.
 """
 
 from __future__ import annotations
@@ -127,11 +130,107 @@ def gemma2_9b_config(**over) -> ModelConfig:
     return replace(cfg, **over) if over else cfg
 
 
+# huggingface.co/mistralai/Mixtral-8x7B-v0.1, config.json (the fields the
+# decoder reads)
+MIXTRAL_8X7B_HF = {
+    "model_type": "mixtral", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "num_local_experts": 8, "num_experts_per_tok": 2,
+    "max_position_embeddings": 32768, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-5, "sliding_window": None, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+}
+
+# huggingface.co/Qwen/Qwen3-30B-A3B, config.json (the fields the decoder
+# reads; q width 32 x 128 = 4096 against a hidden width of 2048)
+QWEN3_30B_A3B_HF = {
+    "model_type": "qwen3_moe", "vocab_size": 151936, "hidden_size": 2048,
+    "intermediate_size": 6144, "moe_intermediate_size": 768,
+    "num_hidden_layers": 48, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "head_dim": 128, "num_experts": 128,
+    "num_experts_per_tok": 8, "norm_topk_prob": True,
+    "decoder_sparse_step": 1, "mlp_only_layers": [],
+    "max_position_embeddings": 40960, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "sliding_window": None, "use_sliding_window": False,
+    "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "bos_token_id": 151643,
+    "eos_token_id": 151645,
+}
+
+# huggingface.co/Qwen/Qwen1.5-MoE-A2.7B, config.json (the fields the
+# decoder reads: 60 experts of 1408, top 4, a shared expert of 5632 behind
+# its sigmoid gate, a qkv bias)
+QWEN15_MOE_A27B_HF = {
+    "model_type": "qwen2_moe", "vocab_size": 151936, "hidden_size": 2048,
+    "intermediate_size": 5632, "moe_intermediate_size": 1408,
+    "shared_expert_intermediate_size": 5632, "num_hidden_layers": 24,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "num_experts": 60, "num_experts_per_tok": 4, "norm_topk_prob": False,
+    "decoder_sparse_step": 1, "max_position_embeddings": 8192,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 151643,
+    "eos_token_id": 151643,
+}
+
+# huggingface.co/Qwen/Qwen3-8B, config.json (the fields the decoder reads:
+# per-head q/k norms)
+QWEN3_8B_HF = {
+    "model_type": "qwen3", "vocab_size": 151936, "hidden_size": 4096,
+    "intermediate_size": 12288, "num_hidden_layers": 36,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+    "max_position_embeddings": 40960, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "sliding_window": None, "use_sliding_window": False,
+    "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "bos_token_id": 151643,
+    "eos_token_id": 151645,
+}
+
+
+def mixtral_8x7b_config(**over) -> ModelConfig:
+    """Mixtral-8x7B-v0.1's published widths (hidden 4096, 32 layers, 32
+    query heads over 8 kv heads of 128, 8 experts of 14336, top 2, vocab
+    32000, rope theta 1e6, no window), through the families lookup;
+    ``over`` replaces fields of the result."""
+    cfg = config_from_hf(MIXTRAL_8X7B_HF)
+    return replace(cfg, **over) if over else cfg
+
+
+def qwen3_30b_a3b_config(**over) -> ModelConfig:
+    """Qwen3-30B-A3B's published widths (hidden 2048, 48 layers, 32 query
+    heads over 4 kv heads of 128, 128 experts of 768, top 8, renormalised,
+    per-head q/k norms, vocab 151936, rope theta 1e6), through the
+    families lookup; ``over`` replaces fields of the result."""
+    cfg = config_from_hf(QWEN3_30B_A3B_HF)
+    return replace(cfg, **over) if over else cfg
+
+
+def qwen15_moe_a27b_config(**over) -> ModelConfig:
+    """Qwen1.5-MoE-A2.7B's published widths through the families lookup;
+    ``over`` replaces fields of the result (the card-against-CPU checks
+    cut widths and depth).  The shared expert's width is not a config
+    field: :func:`random_params` takes it as ``shared_intermediate``."""
+    cfg = config_from_hf(QWEN15_MOE_A27B_HF)
+    return replace(cfg, **over) if over else cfg
+
+
+def qwen3_8b_config(**over) -> ModelConfig:
+    """Qwen3-8B's published widths (hidden 4096, ffn 12288, 36 layers, 32
+    query heads over 8 kv heads of 128, per-head q/k norms), through the
+    families lookup; ``over`` replaces fields of the result."""
+    cfg = config_from_hf(QWEN3_8B_HF)
+    return replace(cfg, **over) if over else cfg
+
+
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
-                  device=None) -> dict:
+                  device=None, shared_intermediate: int | None = None,
+                  router_scale: float = 1.0) -> dict:
     """Full-width random params on ``device`` (``None`` = cuda), the
     linear weights in ``qtype`` (one of the ten block formats, or
-    ``bf16``)."""
+    ``bf16``).  A config with ``num_shared_experts`` gets a shared expert
+    ``shared_intermediate`` wide (default ``cfg.intermediate_size``) and
+    its gate; ``router_scale`` multiplies the router weights (wider router
+    margins for the card-against-CPU checks)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     h, ffn, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -148,17 +247,38 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         return 1.0 - cfg.norm_offset + 0.05 * normal(shape)
 
     qkv_out = cfg.q_dim + 2 * cfg.kv_dim
-    shapes = {"qkv": (h, qkv_out), "o": (cfg.q_dim, h),
-              "gate_up": (h, 2 * ffn), "down": (ffn, h)}
-    stacks = LayerStack(n_l)
+    shapes = {"qkv": (h, qkv_out), "o": (cfg.q_dim, h)}
+    if cfg.num_experts:
+        mi, n_e = cfg.moe_intermediate_size, cfg.num_experts
+        experts = {"moe_gate_up": (h, 2 * mi), "moe_down": (mi, h)}
+        if cfg.num_shared_experts:
+            si = shared_intermediate or ffn
+            shapes.update(shared_gate_up=(h, 2 * si), shared_down=(si, h))
+    else:
+        n_e, experts = 0, {}
+        shapes.update(gate_up=(h, 2 * ffn), down=(ffn, h))
+    stacks = LayerStack(n_l, n_e)
     for i in range(n_l):
         for name, (n_in, n_out) in shapes.items():
             stacks.put(i, name, quantize(weight(n_in, n_out), qtype))
+        for name, (n_in, n_out) in experts.items():
+            for e in range(n_e):
+                stacks.put(i, name, quantize(weight(n_in, n_out), qtype),
+                           expert=e)
     norms = ["attn_norm", "mlp_norm"] + [
         n for n in ("post_attn_norm", "post_mlp_norm") if getattr(cfg, n)]
     layers = {n: norm_w((n_l, h)) for n in norms}
+    if cfg.qk_norm:
+        layers["q_norm"] = norm_w((n_l, cfg.head_dim))
+        layers["k_norm"] = norm_w((n_l, cfg.head_dim))
     if cfg.attention_bias:
         layers["qkv_bias"] = 0.1 * normal((n_l, qkv_out))
+    if cfg.num_experts:
+        layers["router"] = weight(h, n_l * n_e).reshape(h, n_l, n_e).permute(
+            1, 0, 2).contiguous() * router_scale
+        if cfg.moe_shared_expert_gate:
+            layers["shared_router"] = weight(h, n_l).t().reshape(
+                n_l, h, 1).contiguous()
     layers.update(stacks.tree)
     params = {
         "layers": layers,

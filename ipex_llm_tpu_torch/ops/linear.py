@@ -1,12 +1,15 @@
 """Quantized linear (port of ``ipex_llm_tpu/ops/linear.py``).
 
 Weights in the ten block formats go to the fused dequant-matmul kernel
-(B2, the reference's ``_PALLAS_QTYPES``); ``bf16`` weights are a plain
-product (the reference leaves those to XLA).  A bias (fp32, as the
-reference keeps it) is cast to the output's dtype and added, as the
-reference adds it.  Other formats and LoRA weights raise.  The reference's oracle, ``qmatmul_reference``, is B2's
-plain version here: ``ops/cuda/qmatmul.py::qmatmul_plain``, which the
-wrapper runs for CPU tensors.
+(B2, the reference's ``_PALLAS_QTYPES``), and rows sorted by expert
+against an ``[E, ...]`` expert stack to its expert-grouped form (B2e,
+:func:`qmatmul_experts`); ``bf16`` weights are a plain product (the
+reference leaves those to XLA).  A bias (fp32, as the reference keeps it)
+is cast to the output's dtype and added, as the reference adds it.  Other
+formats and LoRA weights raise.  The reference's oracle,
+``qmatmul_reference``, is B2's plain version here:
+``ops/cuda/qmatmul.py::qmatmul_plain``, which the wrapper runs for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+from ipex_llm_tpu_torch.ops.cuda import qmatmul_experts as b2e
 from ipex_llm_tpu_torch.quantize.core import QTensor
 
 
@@ -32,6 +36,25 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         x2 = F.pad(x2, (0, k_pad - k))
     out = b2.qmatmul(x2.contiguous(), qt)
     return out.reshape(*lead, qt.out_features).to(x.dtype)
+
+
+def qmatmul_experts(x_sorted: torch.Tensor, seg: torch.Tensor, qt: QTensor,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x_sorted [P, in] (rows sorted by expert, ``seg`` [E + 1] their
+    offsets) against the ``[E, ...]`` expert stack ``qt`` -> [P, out] in
+    ``out_dtype`` (bf16 or fp32) through the B2e wrapper (the kernel on a
+    CUDA tensor, its plain version on a CPU one)."""
+    if qt.qtype not in b2.FORMATS:
+        raise NotImplementedError(
+            f"qmatmul_experts for {qt.qtype!r} is not ported")
+    k = x_sorted.shape[-1]
+    num, den = b2.data_row_factor(qt.qtype)
+    k_pad = qt.data.shape[-2] * num // den
+    x2 = x_sorted.to(torch.bfloat16)
+    if k_pad != k:   # quantization block padding (core._to_blocks)
+        x2 = F.pad(x2, (0, k_pad - k))
+    return b2e.qmatmul_experts(x2.contiguous(), seg, qt,
+                               keep_f32=out_dtype == torch.float32)
 
 
 def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None

@@ -1,6 +1,8 @@
 """The port's hand-written kernels on a card against their plain versions:
 B5 (split paged attention) in both its tile heights, B2's GEMV (M <= 8)
-and tiled (M > 8) instances in every block format, B1 (ragged paged attention) in both its instances
+and tiled (M > 8) instances in every block format, B2e (B2's tile over
+rows sorted by expert) in every block format and row tile, B1 (ragged
+paged attention) in both its instances
 (query tiles, key split), B3 (dense decode attention) and B4 (flash
 attention).  Every case carries the ``cuda`` marker and
 skips without a card.  The file imports neither JAX nor the JAX package,
@@ -20,8 +22,9 @@ from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
 from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
 from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
 from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+from ipex_llm_tpu_torch.ops.cuda import qmatmul_experts as b2e
 from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
-from ipex_llm_tpu_torch.quantize.core import quantize
+from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
 from ipex_llm_tpu_torch.quantize.qtypes import resolve
 
 ULP = 2.0 ** -7         # one bf16 ulp, relative to a row's largest output
@@ -143,6 +146,51 @@ def test_qmatmul_tiled_kernel_matches_plain(qtype):
                 got = got.float().cpu()
                 top = want.abs().amax(dim=1, keepdim=True)
                 assert ((got - want).abs() <= ULP * top).all(), (k, n, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", b2.FORMATS)
+@pytest.mark.parametrize("counts", [(0, 1, 7, 8, 9, 130), (0, 1, 0, 2, 1, 0),
+                                    (300, 0, 140, 1, 0, 9)],
+                         ids=["tile64", "tile16", "tile128"])
+def test_qmatmul_experts_kernel_matches_plain(qtype, counts):
+    """B2e over 6 experts with segments of 0 to 300 rows (the 64-, 16- and
+    128-row tiles by the mean rows an expert), K = 200 padded to the
+    format's block, N a multiple of 16 and not, bf16 and fp32 out: one
+    launch a call, each output row within one bf16 ulp of its largest
+    plain output, and the same bits on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(5)
+    bs = resolve(qtype).block_size
+    k = -(-200 // bs) * bs
+    seg = torch.zeros(7, dtype=torch.int32)
+    seg[1:] = torch.cumsum(torch.tensor(counts), 0)
+    for n in (384, 200):
+        qts = [quantize(torch.randn(200, n, generator=gen) / math.sqrt(200),
+                        qtype) for _ in range(6)]
+
+        def st(key):
+            planes = [getattr(q, key) for q in qts]
+            return None if planes[0] is None else torch.stack(planes)
+        qt = QTensor(st("data"), st("scales"), st("zeros"), qtype, (200, n),
+                     bs)
+        qt_dev = qt.planes(lambda t: t.cuda())
+        x = torch.zeros(sum(counts), k, dtype=torch.bfloat16)
+        x[:, :200] = torch.randn(sum(counts), 200, generator=gen)
+        for keep_f32 in (False, True):
+            want = b2e.qmatmul_experts_plain(x, seg, qt,
+                                             keep_f32=keep_f32).float()
+            b2e.COUNTS.reset()
+            got = b2e.qmatmul_experts(x.cuda(), seg.cuda(), qt_dev,
+                                      keep_f32=keep_f32)
+            torch.cuda.synchronize()
+            assert b2e.COUNTS.launches == 1 and b2e.COUNTS.plain_calls == 0
+            assert torch.equal(b2e.qmatmul_experts(
+                x.cuda(), seg.cuda(), qt_dev, keep_f32=keep_f32), got)
+            got = got.float().cpu()
+            top = want.abs().amax(dim=1, keepdim=True)
+            assert ((got - want).abs() <= ULP * top).all(), (n, keep_f32)
 
 
 def _b1_case(storage: str, c: int, g: int, gen):

@@ -217,7 +217,16 @@ def test_from_pretrained_refuses_what_is_not_ported(tmp_path, kw, item):
     ids=["bert", "rwkv", "yuan", "qwen3", "aquila", "gptq", "awq"])
 def test_from_pretrained_refuses_other_checkpoints(tmp_path, over, item):
     hf = {**tiny_hf(), **over}
-    path = write_checkpoint(str(tmp_path), hf, hf_weights(tiny_hf(), seed=4))
+    weights = hf_weights(tiny_hf(), seed=4)
+    if hf["model_type"] == "qwen3":
+        # qwen3 is served since its family was ported; q/k norms as wide
+        # as the projections (olmo2's flat form) are not
+        for i in range(hf["num_hidden_layers"]):
+            for proj in ("q", "k"):
+                n = f"model.layers.{i}.self_attn.{proj}_proj.weight"
+                weights[n.replace(f"{proj}_proj", f"{proj}_norm")] = \
+                    torch.ones(weights[n].shape[0], dtype=torch.bfloat16)
+    path = write_checkpoint(str(tmp_path), hf, weights)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         AutoModelForCausalLM.from_pretrained(path, device="cpu")
 
