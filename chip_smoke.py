@@ -10,10 +10,12 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 
 1. device: the card's name and power limit, the torch and CUDA versions,
    the build of every CUDA kernel (one ``nvcc`` per source, all started
-   together), no register spills in B2's and B5's sources, and the
-   tensor-core instructions in the SASS of B2's GEMV and tiled instances,
-   of B1's, of B3's and of B5's split pass (``HMMA``, from ``mma.sync``)
-   and of B4's (``HGMMA``, from ``wgmma``): each instance must have some;
+   together), no register spills in B2's, B2e's and B5's sources, and
+   the tensor-core instructions in the SASS of B2's GEMV and tiled
+   instances, of B2e's gemv and tiled instances, of B1's, of B3's and of
+   B5's split pass (``HMMA``, from ``mma.sync``) and of B4's and B2e's
+   wgmma instance (``HGMMA``, from ``wgmma``): each instance must have
+   some;
 2. ``b2``: the dequant-matmul in each of its ten block formats against
    its plain PyTorch version at the five Llama-2-7B weight shapes and M =
    1, 2, 4, 8 (decode) and 128 (the prefill tokens of a mixed tick at
@@ -159,17 +161,21 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     Gemma-2-9B (a 4500-id prompt among four), with tok/s, TTFT and peak
     device memory;
 12. ``moe`` (``scripts/torch_moe_smoke.py``): B2e, the expert-grouped
-    dequant-matmul, against its plain version in every format (segments
-    of 0 to 450 rows, both output types) and at Mixtral-8x7B's and
-    Qwen3-30B-A3B's expert shapes for a decode tick and a prefill chunk,
-    timed beside its bound and ``torch._grouped_mm``; small Mixtral-,
+    dequant-matmul, each of its instances (gemv, wgmma, tiled) against its
+    plain version in every format (segments of 0 to 640 rows, both output
+    types, a second call bitwise the first) and at Mixtral-8x7B's and
+    Qwen3-30B-A3B's expert shapes for a decode tick, a verify forward and
+    a mixed tick's prefill at two budgets, checked again there and timed
+    beside its bound and ``torch._grouped_mm``; small Mixtral-,
     Qwen1.5-MoE-, Qwen3-MoE- and Qwen3-shaped decoders card against CPU
     (both dispatch routes, equal expert selections where the router is
     sure); Mixtral-8x7B and Qwen3-30B-A3B at full width and depth through
-    ``ServingEngine`` (B1, B2, B2e; B1 at G = 8 for Qwen3), one decode
-    tick of each profiled (B2e's share, the idle share), Mixtral
-    ``generate()`` (B2, B3, B4, B2e); a 2-layer Mixtral-width checkpoint
-    through ``from_pretrained`` and ``build_server``.
+    ``ServingEngine`` at the engine's default prefill budget (B1, B2,
+    B2e's gemv and tiled instances) and at a budget of 1024 tokens (gemv
+    and wgmma; B1 at G = 8 for Qwen3), one decode tick of each profiled (B2e's share, the idle
+    share), Mixtral ``generate()`` (B2, B3, B4, B2e's gemv and wgmma); a
+    2-layer Mixtral-width checkpoint through ``from_pretrained`` and
+    ``build_server``.
 
 Kernel times come from CUDA events over many launches after a warm-up
 (B2's up to M = 512, B3's, B4's and B5's, and their yardsticks, as
@@ -348,36 +354,40 @@ def main() -> int:
     kernels = {"qmatmul": b2, "ragged_paged_attention": b1,
                "decode_attention": b3, "flash_attention": b4,
                "paged_attention": b5, "qmatmul_experts": b2e}
-    t_build = _build.build([m.NAME for m in kernels.values()])
-    print(f"kernel build: {t_build:.1f} s for {len(kernels)} sources",
+    sources = _build.sources(kernels.values())
+    t_build = _build.build(sources)
+    print(f"kernel build: {t_build:.1f} s for {len(sources)} sources",
           flush=True)
     report.update(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=t_build)
-    for mod in kernels.values():
-        log = _build.BUILD_DIR / f"{mod.NAME}.log"
+    for name in sources:
+        log = _build.BUILD_DIR / f"{name}.log"
         regs = [ln.strip() for ln in log.read_text().splitlines()
                 if "registers" in ln or "spill" in ln] if log.exists() \
             else []
-        report.setdefault("ptxas", {})[mod.NAME] = regs
+        report.setdefault("ptxas", {})[name] = regs
     # the redesigned instances must run on the tensor cores: mma.sync is
-    # HMMA in the SASS, B4's wgmma HGMMA; and none may spill
+    # HMMA in the SASS, B4's and B2e's wgmma HGMMA; and none may spill
     # (B2's, B2e's and B5's sources; B1's merge kernel keeps a 4-byte
     # spill)
     spills = {name: [ln for ln in report["ptxas"][name] if "spill" in ln
                      and " 0 bytes spill stores" not in ln]
-              for name in (b2.NAME, b2e.NAME, b5.NAME)}
+              for name in (b2.NAME, *b2e.SOURCES.values(), b5.NAME)}
     if any(spills.values()):
         fail(f"ptxas reports spills: {spills}")
     hmma = {}
-    for mod, kernel, opcode in ((b2, "qmm_kernel", "HMMA"),
-                                (b2, "qmm_tc_kernel", "HMMA"),
-                                (b2e, "qmm_experts_kernel", "HMMA"),
-                                (b1, "ragged_attn_kernel", "HMMA"),
-                                (b3, "decode_split_kernel", "HMMA"),
-                                (b4, "flash_attn_kernel", "HGMMA"),
-                                (b5, "paged_split_kernel", "HMMA")):
+    for src, kernel, opcode in (
+            (b2.NAME, "qmm_kernel", "HMMA"),
+            (b2.NAME, "qmm_tc_kernel", "HMMA"),
+            (b2e.SOURCES["tiled"], "qmm_experts_kernel", "HMMA"),
+            (b2e.SOURCES["gemv"], "qmm_experts_gemv_kernel", "HMMA"),
+            (b2e.SOURCES["wgmma"], "qmm_experts_wgmma_kernel", "HGMMA"),
+            (b1.NAME, "ragged_attn_kernel", "HMMA"),
+            (b3.NAME, "decode_split_kernel", "HMMA"),
+            (b4.NAME, "flash_attn_kernel", "HGMMA"),
+            (b5.NAME, "paged_split_kernel", "HMMA")):
         counts = {fn: n for fn, n in
-                  _build.sass_counts(mod.NAME, opcode).items()
+                  _build.sass_counts(src, opcode).items()
                   if kernel in fn}
         if not counts or min(counts.values()) == 0:
             fail(f"{kernel}: an instance has no {opcode} instruction "
@@ -2263,11 +2273,20 @@ def main() -> int:
     rep_b1_g7 = next(r for r in report["b1"] if r["pool"] == "bf16"
                      and r["case"].startswith("G=7 decode"))
     moe = report["moe"]
-    moe_serve = {(r["model"], r["storage"]): r for r in moe["serve"]}
-    mix_serve = moe_serve[("Mixtral-8x7B", "bf16")]
-    q3_serve = moe_serve[("Qwen3-30B-A3B", "bf16")]
+    # the bf16 serving runs at the engine's default prefill budget (128
+    # tokens a mixed tick) and at the wide one (1024)
+    moe_serve = {(r["model"], r["storage"], r["step_token_budget"]): r
+                 for r in moe["serve"]}
+    mix_serve = moe_serve[("Mixtral-8x7B", "bf16", 128)]
+    mix_wide = moe_serve[("Mixtral-8x7B", "bf16", 1024)]
+    q3_serve = moe_serve[("Qwen3-30B-A3B", "bf16", 128)]
     rep_b2e = {(r["model"], r["weight"], r["tick"]): r for r in moe["b2e"]}
-    b2e_err = max(r["max_abs_err"] for r in moe["b2e"] + moe["b2e_formats"])
+
+    def b2e_launches(run: dict, instance: str) -> int:
+        """B2e's launches of one instance (``gemv``, ``wgmma``, ``tiled``:
+        every row tile and output type) in a run."""
+        return sum(n for k, n in run["b2e_by_instance"].items()
+                   if k.split("/")[0].rstrip("0123456789") == instance)
     rep_b1_g8 = next(r for r in report["b1"] if r["pool"] == "bf16"
                      and r["case"].startswith("G=8 decode"))
     serve_routes = report["serve"][0]["launches_by_route"]
@@ -2430,32 +2449,60 @@ def main() -> int:
                             if r["case"].startswith("G=8")),
          **{k: rep_b1_g8[k] for k in keys}},
         # B2e: B2 as the MoE dispatch reaches it under jax.vmap in the
-        # reference; its launches in each model's serving run (both
-        # instances' output types in Mixtral's) and Mixtral's generate()
-        {"name": "qmatmul_experts[sym_int4, Mixtral-8x7B]", "route": "cuda",
-         "source": src + "qmatmul_experts.cu",
+        # reference; each entry's launches are its instance's in the
+        # model's serving run at the engine's default prefill budget (the
+        # wgmma entry's at the wide budget, which reaches it) and in
+        # Mixtral's generate(), beside B2e's launches by instance there;
+        # its error is its own shape's, against the plain version
+        {"name": "qmatmul_experts[sym_int4, Mixtral-8x7B, gemv]",
+         "route": "cuda", "source": src + "qmatmul_experts_gemv.cu",
          "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
          "reached_from": "ipex_llm_tpu/ops/moe.py:97",
          "shape": "16 pairs over 8 experts, gate_up 4096 -> 28672 (a "
                   "decode tick of 8 rows, the gather route, bf16 out)",
-         "launches": mix_serve["launches"]["qmatmul_experts"],
+         "launches": b2e_launches(mix_serve, "gemv"),
          "launches_by_instance": mix_serve["b2e_by_instance"],
-         "launches_generate":
-             moe["generate"][0]["launches"]["qmatmul_experts"],
-         "max_abs_err": b2e_err,
+         "launches_wide_budget": b2e_launches(mix_wide, "gemv"),
+         "launches_generate": b2e_launches(moe["generate"][0], "gemv"),
          **{k: rep_b2e[("Mixtral-8x7B", "gate_up", "decode")][k]
-            for k in keys}},
-        {"name": "qmatmul_experts[sym_int4, Qwen3-30B-A3B]",
-         "route": "cuda", "source": src + "qmatmul_experts.cu",
+            for k in ("max_abs_err", *keys)}},
+        {"name": "qmatmul_experts[sym_int4, Mixtral-8x7B, wgmma]",
+         "route": "cuda", "source": src + "qmatmul_experts_wgmma.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
+         "reached_from": "ipex_llm_tpu/ops/moe.py:97",
+         "shape": "2048 pairs over 8 experts, gate_up 4096 -> 28672 (a "
+                  "prefill chunk of 8 x 128 tokens, the ragged route, fp32 "
+                  "out)",
+         "launches": b2e_launches(mix_wide, "wgmma"),
+         "launches_by_instance": mix_wide["b2e_by_instance"],
+         "launches_run": "serving at step_token_budget 1024",
+         "launches_generate": b2e_launches(moe["generate"][0], "wgmma"),
+         **{k: rep_b2e[("Mixtral-8x7B", "gate_up", "prefill")][k]
+            for k in ("max_abs_err", *keys)}},
+        {"name": "qmatmul_experts[sym_int4, Qwen3-30B-A3B, gemv]",
+         "route": "cuda", "source": src + "qmatmul_experts_gemv.cu",
          "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
          "reached_from": "ipex_llm_tpu/ops/moe.py:97",
          "shape": "64 pairs over 128 experts, gate_up 2048 -> 1536 (a "
                   "decode tick of 8 rows, the ragged route, fp32 out)",
-         "launches": q3_serve["launches"]["qmatmul_experts"],
+         "launches": b2e_launches(q3_serve, "gemv"),
          "launches_by_instance": q3_serve["b2e_by_instance"],
-         "max_abs_err": b2e_err,
          **{k: rep_b2e[("Qwen3-30B-A3B", "gate_up", "decode")][k]
-            for k in keys}},
+            for k in ("max_abs_err", *keys)}},
+        # the tiled instance, which takes the forwards between (more than 8
+        # tokens, fewer than 64 rows an expert): a mixed tick's prefill at
+        # the engine's default budget
+        {"name": "qmatmul_experts[sym_int4, Qwen3-30B-A3B, tiled]",
+         "route": "cuda", "source": src + "qmatmul_experts.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
+         "reached_from": "ipex_llm_tpu/ops/moe.py:97",
+         "shape": "1024 pairs over 128 experts, gate_up 2048 -> 1536 (a "
+                  "mixed tick's prefill of 128 tokens, the ragged route, "
+                  "fp32 out; the 16-row tile)",
+         "launches": b2e_launches(q3_serve, "tiled"),
+         "launches_by_instance": q3_serve["b2e_by_instance"],
+         **{k: rep_b2e[("Qwen3-30B-A3B", "gate_up", "chunk")][k]
+            for k in ("max_abs_err", *keys)}},
     ]}
     out_dir = ROOT / "chiprun_out"
     try:

@@ -1,5 +1,10 @@
 // Expert-grouped block dequant-matmul for Hopper (B2e), in all ten block
 // formats: y[p] = x[p] @ dequant(W[e(p)]) for P rows sorted by expert.
+// This file holds its tiled instance and the inputs every instance takes;
+// csrc/qmatmul_experts_gemv.cu (decode) and csrc/qmatmul_experts_wgmma.cu
+// (prefill) hold the other two, each with its own design note.  The
+// wrapper (ops/cuda/qmatmul_experts.py::plan) picks one from static
+// shapes and a static bound on the rows any expert holds.
 //
 // Replaces the TPU kernel ipex_llm_tpu/ops/pallas/qmatmul.py::qmatmul_pallas
 // as the reference's sparse MoE dispatch reaches it: under jax.vmap, one
@@ -17,22 +22,23 @@
 // zeros).  y is bf16 (the gather route) or fp32 (the ragged route), its
 // rows in x's order.
 //
-// What bounds it: at decode, the touched experts' packed planes (a few
-// rows an expert, 0.53 to 1.06 bytes a weight), so the card's memory rate;
-// at prefill (hundreds of rows an expert) the multiply-adds.  The design:
-// the grid is (row-tile slots, 128-column tiles), with ceil(P / BM) + E
-// slots, an upper bound on the row tiles of any split of P rows among E
-// experts; each block finds its (expert, row tile) from seg with one warp
-// scan over the experts' tile counts and exits if its slot is past the
-// last tile.  A row tile of one expert runs B2's tiled tile
-// (csrc/qmatmul_tile.cuh: cp.async ring, decode of each weight to bf16
-// once per tile, mma.sync), so the formats decode bitwise as B2 decodes
-// them.  BM (16, 64 or 128 rows) follows the mean rows an expert, P / E:
-// at decode an expert's few rows fit one tile and its planes are read
-// once; at prefill the row tiles of one expert run in the same wave
-// (slots are the grid's fast axis), so its planes come from device memory
-// about once and from L2 after that.  No K split and no atomics: each
-// output is summed over K in one fixed order, the same every run.
+// The tiled instance takes what neither of the others does: more than 8
+// rows an expert may hold, and fewer than 64 an expert on the mean (the
+// verify forward's 32 tokens, a small prefill).  What bounds it there: the
+// touched experts' packed planes against a few dozen rows each, so the
+// memory rate and the decode of each weight.  The design: the grid is
+// (row-tile slots, 128-column tiles), with ceil(P / BM) + E slots, an
+// upper bound on the row tiles of any split of P rows among E experts;
+// each block finds its (expert, row tile) from seg with one warp scan over
+// the experts' tile counts and exits if its slot is past the last tile.  A
+// row tile of one expert runs B2's tiled tile (csrc/qmatmul_tile.cuh:
+// cp.async ring, decode of each weight to bf16 once per tile, mma.sync),
+// so the formats decode bitwise as B2 decodes them.  BM is 16 rows up to
+// a mean of 16 rows an expert, else 64; the row tiles of one expert run in
+// the same wave (slots are the grid's fast axis), so its planes come from
+// device memory about once and from L2 after that.  It has no K split and
+// no atomics: each output is summed over K in one fixed order, the same
+// every run.
 #include "qmatmul_tile.cuh"
 
 namespace {
@@ -128,9 +134,6 @@ int launch_format(int tile, cudaStream_t st, int slots,
     case 64:
       return launch<F, 64>(st, slots, x, w, s, z, table, seg, ob, of, E, N, K,
                            ds, ss, vec16);
-    case 128:
-      return launch<F, 128>(st, slots, x, w, s, z, table, seg, ob, of, E, N,
-                            K, ds, ss, vec16);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -145,7 +148,7 @@ int launch_format(int tile, cudaStream_t st, int slots,
 // data_stride = rows * N bytes; scales (and zeros, asym formats, else
 // null) fp16 [E, K/BS, N], scale_stride = K/BS * N elements; table fp32
 // [16] (nf4, fp4, else null); out bf16 or fp32 [P, N]; tile the rows of a
-// row tile (16, 64 or 128); slots the row-tile slots of the grid (at least
+// row tile (16 or 64); slots the row-tile slots of the grid (at least
 // ceil(P / tile) + E); vec16 != 0 when N % 16 == 0 and the planes are
 // 16-byte aligned.  Returns the launch's error or cudaGetLastError().
 extern "C" int qmatmul_experts(int format, const void* x, const void* data,

@@ -111,6 +111,14 @@ def load(name: str, declare) -> ctypes.CDLL:
         return lib
 
 
+def sources(mods) -> list[str]:
+    """The ``csrc`` sources of kernel wrapper modules: a module's
+    ``SOURCES`` (one for each instance) where it has them, else its
+    ``NAME``."""
+    return [src for m in mods
+            for src in getattr(m, "SOURCES", {m.NAME: m.NAME}).values()]
+
+
 def sass_counts(name: str, opcode: str = "HMMA") -> dict[str, int]:
     """Instructions whose text holds ``opcode`` in each kernel of the built
     library for ``csrc/<name>.cu`` (``cuobjdump -sass``), by mangled kernel

@@ -5,51 +5,82 @@ It replaces ``ipex_llm_tpu/ops/pallas/qmatmul.py::qmatmul_pallas`` as the
 reference's sparse MoE dispatch reaches it, one product per (token,
 expert) pair under ``jax.vmap`` (``ipex_llm_tpu/ops/moe.py::moe_gather``),
 and the reference's ragged route (``moe_ragged``: the whole stack
-dequantized to bf16, then ``lax.ragged_dot``).  ``csrc/qmatmul_experts.cu``
-holds the kernel and the note on its design and bound: B2's tiled tile
-(``csrc/qmatmul_tile.cuh``) over each expert's row tiles, the tiles found
-on the device from the segment offsets ``seg``.  :func:`qmatmul_experts`
-launches it for CUDA tensors and runs :func:`qmatmul_experts_plain` for
-CPU ones.
+dequantized to bf16, then ``lax.ragged_dot``).  Three instances, one
+source each, the work found on the device from the segment offsets
+``seg`` (no host read); :func:`plan` picks one from static shapes and a
+static bound on the rows any expert holds (``max_rows``: the forward's
+token count, since a token's k experts are distinct):
+
+- ``gemv`` (``csrc/qmatmul_experts_gemv.cu``), bound <= 8, decode: B2's
+  GEMV block over each expert's rows, decoding into ``mma.sync``
+  fragments, K split over warps and a cluster (:func:`gemv_plan`);
+- ``wgmma`` (``csrc/qmatmul_experts_wgmma.cu``), P / E >= 64, prefill: a
+  persistent, warp-specialised ``wgmma`` tile of 128 rows x 256 columns
+  (:func:`wgmma_smem_bytes`);
+- ``tiled`` (``csrc/qmatmul_experts.cu``) in between: B2's ``mma.sync``
+  tile of 16 or 64 rows over each expert's row tiles.
+
+Each source's head comment holds its design and bound.
+:func:`qmatmul_experts` launches the chosen instance for CUDA tensors and
+runs :func:`qmatmul_experts_plain` for CPU ones.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ipex_llm_tpu_torch.ops.cuda import _build
-from ipex_llm_tpu_torch.ops.cuda.qmatmul import (_SPECS, _TABLES, FORMATS,
+from ipex_llm_tpu_torch.ops.cuda.qmatmul import (_GEMV_COLS,
+                                                 _GEMV_MAX_CLUSTER,
+                                                 _GEMV_MAX_SPLITS,
+                                                 _GEMV_MIN_SPLIT_ROWS,
+                                                 _GEMV_TARGET_WARPS,
+                                                 _GEMV_WARPS, _GEMV_X_BYTES,
+                                                 _BIT5, _NIB4, _SPECS,
+                                                 _TABLES, FORMATS, GemvPlan,
                                                  _table)
 from ipex_llm_tpu_torch.quantize.core import QTensor, dequantize_padded
+from ipex_llm_tpu_torch.quantize.qtypes import resolve
 
 NAME = "qmatmul_experts"
-TILES = (16, 64, 128)       # rows of a row tile (the kernel's instances)
+# one source, and one library, for each instance
+SOURCES = {"tiled": NAME, "gemv": f"{NAME}_gemv", "wgmma": f"{NAME}_wgmma"}
+TILES = (16, 64)            # rows of a row tile of the tiled instance
+GEMV_MAX_ROWS = 8           # gemv: the bound on an expert's rows
+WGMMA_MIN_MEAN_ROWS = 64    # wgmma: the least mean rows an expert, P / E
+WGMMA_ROWS = 128            # wgmma: rows of a tile (csrc kBM)
+WGMMA_COLS = 256            # wgmma: columns of a tile (csrc kBN)
+WGMMA_STEP = 64             # wgmma: contraction rows a step (csrc kBK)
+_WGMMA_P_STAGES = 4         # wgmma: the producer's packed-plane ring
+_WGMMA_X_STAGES = 4         # wgmma: each consumer's x ring
 
 
 class _Counts(_build.Counts):
     """Launches of B2e with those of each format (``by_format``) and of
-    each instance (``by_instance``: ``"<rows of a tile>/<out dtype>"``)."""
+    each instance (``by_instance``: ``"gemv/<out dtype>"``,
+    ``"wgmma/<out dtype>"`` and ``"tiled<rows of a tile>/<out dtype>"``)."""
 
     def reset(self):
         super().reset()
         self.by_format = dict.fromkeys(FORMATS, 0)
         self.by_instance = dict.fromkeys(
-            (f"{t}/{d}" for t in TILES for d in ("bf16", "f32")), 0)
+            (f"{i}/{d}" for i in ("gemv", "wgmma",
+                                  *(f"tiled{t}" for t in TILES))
+             for d in ("bf16", "f32")), 0)
 
 
 COUNTS = _Counts()
 
 
 def tile_rows(p: int, e: int) -> int:
-    """The row tile for ``p`` rows among ``e`` experts, from the mean rows
-    an expert: 16 up to 16 (decode), 64 up to 64, else 128."""
-    mean = -(-p // max(1, e))
-    for t in TILES[:-1]:
-        if mean <= t:
-            return t
-    return TILES[-1]
+    """The tiled instance's row tile for ``p`` rows among ``e`` experts,
+    from the mean rows an expert: 16 up to 16, else 64 (it takes means
+    below 64: the wgmma instance takes the rest)."""
+    return TILES[0] if -(-p // max(1, e)) <= TILES[0] else TILES[1]
 
 
 def slots(p: int, e: int, tile: int) -> int:
@@ -57,6 +88,85 @@ def slots(p: int, e: int, tile: int) -> int:
     tiles of any split of ``p`` rows among ``e`` experts (each expert adds
     at most one partial tile)."""
     return -(-p // tile) + e if p else 0
+
+
+@functools.lru_cache(maxsize=1024)
+def gemv_plan(p: int, e: int, n: int, k: int, bs: int) -> GemvPlan | None:
+    """The gemv instance's launch, from shapes alone, by the rule of B2's
+    :func:`~ipex_llm_tpu_torch.ops.cuda.qmatmul.gemv_plan` with its warps
+    counted over the grid's ``min(e, p)`` expert slots: the fewest K splits
+    (a power of two, at most 4 warps x 8 cluster ranks) that put at least
+    720 warps on the card, each split at least 128 rows of whole
+    quantization blocks; the block's warps split K before the cluster
+    does, unless the block's x stage (8 rows) would pass 64 KiB.  The grid
+    is ``(cluster, col_blocks, min(e, p))``.  None when no plan fits."""
+    nqb = k // bs
+    warps = min(e, p) * -(-n // _GEMV_COLS)
+    max_splits = max(1, min(_GEMV_MAX_SPLITS,
+                            nqb // max(1, _GEMV_MIN_SPLIT_ROWS // bs)))
+    splits = 1
+    while splits * 2 <= max_splits and warps * splits < _GEMV_TARGET_WARPS:
+        splits *= 2
+    x_cap = _GEMV_X_BYTES // (2 * GEMV_MAX_ROWS)
+    while splits <= _GEMV_MAX_SPLITS:
+        per = -(-nqb // splits)
+        for wk in (4, 2, 1):
+            if (splits % wk == 0 and splits // wk <= _GEMV_MAX_CLUSTER
+                    and wk * per * bs <= x_cap):
+                cols = (_GEMV_WARPS // wk) * _GEMV_COLS
+                return GemvPlan(wk, splits // wk, per, -(-n // cols))
+        splits *= 2
+    return None
+
+
+class Plan(NamedTuple):
+    """B2e's launch: the ``instance`` (``gemv``, ``wgmma`` or ``tiled``),
+    the tiled instance's row tile (``tile``, 0 on the others) and its grid's
+    row-tile slots (``slots``), the gemv plan (``gemv``, else None) and
+    the wgmma instance's persistent blocks (``blocks``, else 0)."""
+    instance: str
+    tile: int = 0
+    slots: int = 0
+    gemv: GemvPlan | None = None
+    blocks: int = 0
+
+
+def plan(p: int, e: int, n: int, k: int, bs: int,
+         max_rows: int | None = None, sms: int = 132) -> Plan:
+    """The instance for ``p`` rows among ``e`` experts, from static shapes
+    and ``max_rows``, a static bound on the rows any expert holds (None:
+    ``p``): ``gemv`` when the bound is 8 or less (and its plan fits),
+    ``wgmma`` when the mean rows an expert is 64 or more, else the tiled
+    instance.  The bound only chooses: every instance is right for any
+    split of the rows.  ``sms``: the card's SMs, one persistent wgmma
+    block each at most."""
+    bound = p if max_rows is None else min(p, max_rows)
+    if bound <= GEMV_MAX_ROWS:
+        gp = gemv_plan(p, e, n, k, bs)
+        if gp is not None:
+            return Plan("gemv", gemv=gp)
+    if p >= WGMMA_MIN_MEAN_ROWS * e:
+        items = slots(p, e, WGMMA_ROWS) * -(-n // WGMMA_COLS)
+        return Plan("wgmma", blocks=max(1, min(sms, items)))
+    tile = tile_rows(p, e)
+    return Plan("tiled", tile=tile, slots=slots(p, e, tile))
+
+
+def wgmma_smem_bytes(qtype: str) -> int:
+    """Dynamic shared memory of one wgmma block in ``qtype``, as the
+    kernel's ``wgmma_smem_bytes`` counts it: two bf16 weight tiles, the two
+    consumers' x rings, the producer's ring of packed planes and 1 KiB to
+    align the swizzled tiles."""
+    q = resolve(qtype)
+    nibbles = qtype in _NIB4 + _BIT5            # two codes a byte
+    data = (WGMMA_STEP // 2 if nibbles else WGMMA_STEP) * WGMMA_COLS
+    hbits = WGMMA_STEP // 8 * WGMMA_COLS if qtype in _BIT5 else 0
+    scales = max(1, WGMMA_STEP // q.block_size) * WGMMA_COLS * 2
+    zeros = scales if q.kind == "int_asym" else 0
+    stage = data + hbits + scales + zeros
+    return (2 * WGMMA_STEP * WGMMA_COLS * 2
+            + 2 * _WGMMA_X_STAGES * 64 * WGMMA_STEP * 2
+            + _WGMMA_P_STAGES * stage + 1024)
 
 
 def segments(sorted_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -93,7 +203,7 @@ def qmatmul_experts_plain(x: torch.Tensor, seg: torch.Tensor, qt: QTensor,
 
 
 def _launch(x: torch.Tensor, seg: torch.Tensor, qt: QTensor,
-            keep_f32: bool) -> torch.Tensor:
+            keep_f32: bool, max_rows: int | None) -> torch.Tensor:
     spec = _SPECS.get(qt.qtype)
     if spec is None:
         raise NotImplementedError(f"B2e has no kernel for {qt.qtype!r}")
@@ -138,44 +248,82 @@ def _launch(x: torch.Tensor, seg: torch.Tensor, qt: QTensor,
             or zeros.data_ptr() % 8):
         raise ValueError(f"{NAME} kernel needs fp16 zeros shaped, placed "
                          "and aligned as the scales")
-    lib = _build.load(NAME, _declare)
     out = torch.empty((p, n), dtype=torch.float32 if keep_f32
                       else torch.bfloat16, device=dev)
     if p == 0:
         return out
+    pl = plan(p, e, n, k, bs, max_rows, _sm_count(dev))
+    lib = _build.load(SOURCES[pl.instance], _DECLARE[pl.instance])
     if x.data_ptr() % 16:
-        x = x.clone()                # the tile's 16-byte copies of x
+        x = x.clone()                # the instances' 16-byte copies of x
     vec16 = n % 16 == 0 and all(
         t is None or t.data_ptr() % 16 == 0 for t in (data, scales, zeros))
-    tile = tile_rows(p, e)
     table = _table(qt.qtype, dev) if qt.qtype in _TABLES else None
-    err = lib.qmatmul_experts(
-        fid, x.data_ptr(), data.data_ptr(), scales.data_ptr(),
-        0 if zeros is None else zeros.data_ptr(),
-        0 if table is None else table.data_ptr(), seg.data_ptr(),
-        out.data_ptr(), int(keep_f32), e, n, k, rows * n, (k // bs) * n,
-        tile, slots(p, e, tile), int(vec16), _build.stream_handle(x))
+    # the argtypes _DECLARE sets convert the Python ints
+    common = (fid, x.data_ptr(), data.data_ptr(), scales.data_ptr(),
+              0 if zeros is None else zeros.data_ptr(),
+              0 if table is None else table.data_ptr(), seg.data_ptr(),
+              out.data_ptr(), int(keep_f32), e, n, k, rows * n,
+              (k // bs) * n)
+    if pl.instance == "gemv":
+        gp = pl.gemv
+        err = lib.qmatmul_experts_gemv(
+            *common, min(e, p), gp.warps_k, gp.cluster, gp.qb_per_warp,
+            int(vec16), _build.stream_handle(x))
+        key = "gemv"
+    elif pl.instance == "wgmma":
+        err = lib.qmatmul_experts_wgmma(*common, pl.blocks, int(vec16),
+                                        _build.stream_handle(x))
+        key = "wgmma"
+    else:
+        err = lib.qmatmul_experts(*common, pl.tile, pl.slots, int(vec16),
+                                  _build.stream_handle(x))
+        key = f"tiled{pl.tile}"
     COUNTS.launches += 1
     COUNTS.by_format[qt.qtype] += 1
-    COUNTS.by_instance[f"{tile}/{'f32' if keep_f32 else 'bf16'}"] += 1
-    _build.check(err, NAME)
+    COUNTS.by_instance[f"{key}/{'f32' if keep_f32 else 'bf16'}"] += 1
+    _build.check(err, SOURCES[pl.instance])
     return out
 
 
+_sms: dict[torch.device, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
+
+
 def qmatmul_experts(x: torch.Tensor, seg: torch.Tensor, qt: QTensor, *,
-                    keep_f32: bool = False) -> torch.Tensor:
+                    keep_f32: bool = False,
+                    max_rows: int | None = None) -> torch.Tensor:
     """x [P, K] (rows sorted by expert, expert e's at ``seg[e]:seg[e+1]``)
     against the ``[E, ...]`` stack ``qt`` -> [P, N] bf16 (fp32 with
     ``keep_f32``); K is the padded contraction width of
-    :func:`~ipex_llm_tpu_torch.ops.cuda.qmatmul.data_row_factor`."""
+    :func:`~ipex_llm_tpu_torch.ops.cuda.qmatmul.data_row_factor`.
+    ``max_rows``: a static bound on the rows any expert holds (None: P),
+    which with the shapes picks the instance (:func:`plan`)."""
     if x.is_cuda:
-        return _launch(x, seg, qt, keep_f32)
+        return _launch(x, seg, qt, keep_f32, max_rows)
     return qmatmul_experts_plain(x, seg, qt, keep_f32=keep_f32)
 
 
-def _declare(lib: ctypes.CDLL):
+# the arguments each source's entry point takes after the common ones:
+# (format, x, data, scales, zeros, table, seg, out, out_f32, E, N, K,
+# data_stride, scale_stride)
+def _declarer(fn: str, tail):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.qmatmul_experts.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, ll,
-                                    ll, i, i, i, p]
-    lib.qmatmul_experts.restype = ctypes.c_int
 
+    def declare(lib: ctypes.CDLL):
+        f = getattr(lib, fn)
+        f.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, ll, ll,
+                      *(i for _ in range(tail)), p]
+        f.restype = ctypes.c_int
+    return declare
+
+
+_DECLARE = {"tiled": _declarer("qmatmul_experts", 3),     # tile, slots, vec16
+            # slots, warps_k, cluster, qb_per_warp, vec16
+            "gemv": _declarer("qmatmul_experts_gemv", 5),
+            "wgmma": _declarer("qmatmul_experts_wgmma", 2)}  # grid, vec16

@@ -39,11 +39,13 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 def qmatmul_experts(x_sorted: torch.Tensor, seg: torch.Tensor, qt: QTensor,
-                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    out_dtype: torch.dtype = torch.bfloat16, *,
+                    max_rows: int | None = None) -> torch.Tensor:
     """x_sorted [P, in] (rows sorted by expert, ``seg`` [E + 1] their
     offsets) against the ``[E, ...]`` expert stack ``qt`` -> [P, out] in
     ``out_dtype`` (bf16 or fp32) through the B2e wrapper (the kernel on a
-    CUDA tensor, its plain version on a CPU one)."""
+    CUDA tensor, its plain version on a CPU one); ``max_rows``, a static
+    bound on the rows any expert holds, picks the kernel's instance."""
     if qt.qtype not in b2.FORMATS:
         raise NotImplementedError(
             f"qmatmul_experts for {qt.qtype!r} is not ported")
@@ -54,7 +56,8 @@ def qmatmul_experts(x_sorted: torch.Tensor, seg: torch.Tensor, qt: QTensor,
     if k_pad != k:   # quantization block padding (core._to_blocks)
         x2 = F.pad(x2, (0, k_pad - k))
     return b2e.qmatmul_experts(x2.contiguous(), seg, qt,
-                               keep_f32=out_dtype == torch.float32)
+                               keep_f32=out_dtype == torch.float32,
+                               max_rows=max_rows)
 
 
 def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None

@@ -6,7 +6,9 @@ The route follows the reference's rule: the *static* pair count
 ragged route.  Both sort the (token, expert) pairs stably by expert and
 run each projection as one expert-grouped dequant-matmul over the sorted
 rows (B2e, ``ops/linear.py::qmatmul_experts``), which reads each touched
-expert's packed planes in place; the reference instead runs one B2
+expert's packed planes in place and takes the forward's token count
+``B * T`` as its static bound on an expert's rows (a token's k experts
+are distinct), which picks its instance; the reference instead runs one B2
 product per pair under ``jax.vmap`` (gather) or dequantizes the whole
 stack for ``lax.ragged_dot`` (ragged).  The rounding of each route is the
 reference's:
@@ -70,12 +72,14 @@ def _bmm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _grouped(x: torch.Tensor, seg: torch.Tensor, stack,
-             out_dtype: torch.dtype) -> torch.Tensor:
+             out_dtype: torch.dtype, max_rows: int) -> torch.Tensor:
     """Rows of x sorted by expert against the stack: B2e for a packed
-    stack; for a bf16 stack one plain product per expert over its rows
-    (the host reads ``seg``), as the reference's ``ragged_dot``."""
+    stack (``max_rows`` bounds an expert's rows); for a bf16 stack one
+    plain product per expert over its rows (the host reads ``seg``), as
+    the reference's ``ragged_dot``."""
     if _packed(stack):
-        return linear_ops.qmatmul_experts(x, seg, stack, out_dtype)
+        return linear_ops.qmatmul_experts(x, seg, stack, out_dtype,
+                                          max_rows=max_rows)
     w = stack.data
     out = torch.empty((x.shape[0], w.shape[-1]), dtype=out_dtype,
                       device=x.device)
@@ -111,10 +115,11 @@ def moe_gather(h, w, idx, gate_up, down, act: str, n_experts: int):
                       rounding_mode="floor")
     if _packed(gate_up):
         order, seg = _sort_pairs(idx, n_experts)
-        inner = linear_ops.qmatmul_experts(hf[tok_f[order]], seg, gate_up)
+        inner = linear_ops.qmatmul_experts(hf[tok_f[order]], seg, gate_up,
+                                           max_rows=n)
         gate, up = mlp_ops.split_gate_up(inner)
         y_s = linear_ops.qmatmul_experts(
-            mlp_ops.gated_act_mul(gate, up, act), seg, down)
+            mlp_ops.gated_act_mul(gate, up, act), seg, down, max_rows=n)
         y = torch.empty_like(y_s)
         y[order] = y_s                      # back to pair order
     else:
@@ -138,10 +143,10 @@ def moe_ragged(h, w, idx, gate_up, down, act: str, n_experts: int):
     order, seg = _sort_pairs(idx, n_experts)
     tok_s = torch.div(order, k, rounding_mode="floor")
     w_s = w.reshape(n * k)[order]
-    inner = _grouped(hf[tok_s], seg, gate_up, torch.float32)
+    inner = _grouped(hf[tok_s], seg, gate_up, torch.float32, n)
     gate, up = mlp_ops.split_gate_up(inner)
     act_x = mlp_ops.gated_act_mul(gate, up, act).to(torch.bfloat16)
-    y = _grouped(act_x, seg, down, torch.float32)
+    y = _grouped(act_x, seg, down, torch.float32, n)
     y = y * w_s[:, None].to(torch.float32)
     # each token's k sorted positions, ascending: its fp32 sum runs in
     # expert-sorted order, as the reference's scatter-add does

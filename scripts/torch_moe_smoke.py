@@ -13,21 +13,28 @@ a checkout on a machine with one CUDA card:
 (no step named: all five).  Steps (each fails the run on a miss; nothing
 retries on the CPU):
 
-1. ``b2e``: B2e against its plain version on the card, every output row
-   within ``B2_TOL_REL`` of its largest value: every format at K = 200
-   (padded to each format's block) and N = 384 and 200 (16- and 4-byte
-   copies), over 6 experts with segments of 0, 1, 7, 8, 9 and 130 rows,
-   of 4 rows among idle experts and of 450 rows (the 16-, 64- and 128-row
-   tiles), both output dtypes; sym_int4 at Mixtral-8x7B's expert shapes
-   (gate_up 4096 -> 28672, down 14336 -> 4096) and Qwen3-30B-A3B's
-   (2048 -> 1536, 768 -> 2048) for a decode tick (8 rows: 16 and 64
-   pairs) and a prefill chunk (8 x 128 tokens: 2048 and 8192 pairs),
-   routed by top-k of random logits; each timed from CUDA-graph replays,
-   beside its bound (the touched experts' planes, x and the output over
-   3.35 TB/s, or 2 P K N over 989 TFLOP/s), the plain version's time and
-   one PyTorch call on the bf16 expert weights (``torch._grouped_mm`` over
-   the same segments, else ``torch.bmm`` over the pairs' gathered weights
-   at decode sizes);
+1. ``b2e``: each instance of B2e against its plain version on the card,
+   every output row within ``B2_TOL_REL`` of its largest value, and a
+   second call bitwise the first: every format at K = 200 (padded to each
+   format's block) and N = 384 and 200 (16- and 4-byte copies), over 6
+   experts, both output dtypes, at the splits of ``B2E_CASES`` (the gemv
+   instance under a bound of 8 rows with empty experts, 1-row segments, a
+   9-row segment and one expert holding every row; the wgmma instance with
+   ragged segment tails and one expert holding every row; the tiled
+   instance's 16- and 64-row tiles); sym_int4 at Mixtral-8x7B's expert
+   shapes (gate_up 4096 -> 28672, down 14336 -> 4096) and Qwen3-30B-A3B's
+   (2048 -> 1536, 768 -> 2048) at the forwards of ``B2E_TICKS`` (a decode
+   tick, a verify forward, a mixed tick's prefill at the engine's default
+   budget and at ``WIDE_BUDGET``), routed by top-k of random logits drawn
+   from their own seed (as ``scripts/torch_experts_ab.py`` draws them),
+   with the token count as the bound (the engine's): the instance that
+   picks checked as above, then timed from CUDA-graph replays, beside its
+   bound (the touched experts' planes, x and the output over 3.35 TB/s,
+   or 2 P K N over 989 TFLOP/s), the plain version's time, one PyTorch
+   call on the bf16 expert weights (``torch._grouped_mm`` over the same
+   segments, else ``torch.bmm`` over the pairs' gathered weights at decode
+   sizes) and, where the bound picks the gemv instance, the tiled
+   instance on the same inputs (no bound), checked and timed likewise;
 2. ``small``: Mixtral-, Qwen1.5-MoE- (60 experts, top 4, a shared expert
    and its gate, a qkv bias), Qwen3-MoE- (128 experts, top 8, q/k norms)
    and Qwen3-shaped decoders (2 layers, hidden 512, vocab 512) on the card
@@ -44,16 +51,22 @@ retries on the CPU):
    wide); flips at near-ties are counted;
 3. ``mixtral``: Mixtral-8x7B at its published widths and depth (random
    sym_int4 weights drawn on the card from a seed) through
-   ``ServingEngine`` with ``SERVE_EC`` over a bf16 pool: eight requests of
-   64-1000 ids, 32-64 new tokens, half greedy; then two over an e5m2
-   pool: every request finishes with its tokens, B1, B2 and B2e launch
-   (B2e in both of its output types: the gather route at decode, the
-   ragged route at prefill), no plain version runs; one decode tick under
+   ``ServingEngine`` with ``SERVE_EC`` (the engine's default prefill
+   budget: mixed ticks of up to 128 prompt tokens) over a bf16 pool:
+   eight requests of 64-1000 ids, 32-64 new tokens, half greedy; the same
+   eight with mixed ticks of up to ``WIDE_BUDGET`` prompt tokens; then
+   two over an e5m2 pool: every request finishes with its tokens, B1, B2
+   and B2e launch (B2e in both of its output types: the gather route at
+   decode, the ragged route at prefill; its gemv instance at decode in
+   both bf16 runs, its tiled instance at prefill at the default budget,
+   its wgmma instance at prefill at the wide one), no plain version
+   runs; one decode tick under
    ``torch.profiler`` gives B2e's share of the tick's device time and the
    device's idle share, with no host sync inside ``moe_ffn`` (torch's
    sync debug mode raises there, and the profile counts none); then
    ``generate()`` on four prompts of 1990, 1327, 611 and 203 ids, 32 new
-   tokens: B2, B3, B4 and B2e launch;
+   tokens: B2, B3, B4 and B2e (both its gemv and wgmma instances)
+   launch;
 4. ``qwen3``: Qwen3-30B-A3B likewise (serving and its profile): the ragged
    route even at decode (64 pairs), B1 at a GQA group of 8;
 5. ``load``: a 2-layer Mixtral-width checkpoint of bf16 weights written
@@ -81,8 +94,19 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 STEPS = ("b2e", "small", "mixtral", "qwen3", "load")
+# the engine's default prefill budget: a mixed tick prefills up to
+# prefill_bucket = 128 prompt tokens
 SERVE_EC = dict(max_rows=8, max_seq_len=2048, page_size=128,
                 prefill_bucket=128, decode_horizon=4)
+# a wider budget served beside it: a mixed tick prefills up to 8 x 128
+# prompt tokens (a chunk of 128 for each of eight rows), the prefill
+# forward B2e's wgmma instance is for
+WIDE_BUDGET = 1024
+# the forwards B2e is timed at, by their token counts: a decode tick of 8
+# rows, a verify forward of 8 rows x 4, a mixed tick's prefill at the
+# default budget and at WIDE_BUDGET
+B2E_TICKS = (("decode", 8), ("verify", 32), ("chunk", 128),
+             ("prefill", WIDE_BUDGET))
 GENERATE_LENGTHS = (1990, 1327, 611, 203)
 B2_TOL_REL = 2.0 ** -7       # chip_smoke.py's B2 bound: one bf16 ulp
 PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3
@@ -97,6 +121,16 @@ SYNC_EVENTS = ("aten::item", "aten::_local_scalar_dense",
                "cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaEventSynchronize", "cudaMemcpy")
 LOAD_LAYERS = 2
+# B2e's checks: (the instance that must launch, rows of each of 6 experts,
+# the bound on an expert's rows handed to the wrapper); the gemv bound of
+# 8 holds for none of the first two splits, and the kernel must be right
+# all the same
+B2E_CASES = (("gemv", (0, 1, 7, 8, 9, 0), 8), ("gemv", (0, 0, 24, 0, 0, 0), 8),
+             ("gemv", (1, 1, 1, 1, 1, 1), 8),
+             ("wgmma", (0, 1, 130, 9, 300, 200), None),
+             ("wgmma", (0, 0, 640, 0, 0, 0), None),
+             ("tiled16", (4, 0, 9, 3, 0, 20), None),
+             ("tiled64", (0, 1, 7, 8, 9, 130), None))
 
 
 def bound(nbytes: float, flops: float):
@@ -167,9 +201,11 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         for mod in kernels.values():
             mod.COUNTS.reset()
 
-    def gate(what, need, absent=()):
-        """Every kernel of ``need`` launched, none of ``absent``, no plain
-        version run; returns the launches by kernel."""
+    def gate(what, need, absent=(), b2e_need=()):
+        """Every kernel of ``need`` launched, none of ``absent``, each B2e
+        instance of ``b2e_need`` (``gemv``, ``wgmma``, ``tiled``: either
+        row tile) at least once, no
+        plain version run; returns the launches by kernel."""
         out = {}
         for name, mod in kernels.items():
             n, plain = mod.COUNTS.launches, mod.COUNTS.plain_calls
@@ -177,6 +213,11 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
                 fail(f"moe {what}: {name} launched {n} times, plain "
                      f"version called {plain} times")
             out[name] = n
+        for inst in b2e_need:
+            if not sum(v for k, v in b2e.COUNTS.by_instance.items()
+                       if k.split("/")[0].rstrip("0123456789") == inst):
+                fail(f"moe {what}: B2e's {inst} instance never launched "
+                     f"({b2e.COUNTS.by_instance})")
         return out
 
     def time_ms(fn, iters: int) -> float:
@@ -214,13 +255,22 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         seg[1:] = torch.cumsum(torch.tensor(counts), 0)
         return seg.to(dev)
 
-    def check(x, seg, qt, keep_f32, what):
-        before = b2e.COUNTS.launches
-        y = b2e.qmatmul_experts(x, seg, qt, keep_f32=keep_f32)
-        if b2e.COUNTS.launches != before + 1:
-            fail(f"B2e {what}: one call did not launch the kernel once")
+    def check(x, seg, qt, keep_f32, what, instance, max_rows):
+        """One call launches ``instance`` once; the output holds against
+        the plain version, and a second call gives the same bits."""
+        key = f"{instance}/{'f32' if keep_f32 else 'bf16'}"
+        before = b2e.COUNTS.launches, b2e.COUNTS.by_instance[key]
+        y = b2e.qmatmul_experts(x, seg, qt, keep_f32=keep_f32,
+                                max_rows=max_rows)
+        if (b2e.COUNTS.launches, b2e.COUNTS.by_instance[key]) != (
+                before[0] + 1, before[1] + 1):
+            fail(f"B2e {what}: one call did not launch {key} once")
+        again = b2e.qmatmul_experts(x, seg, qt, keep_f32=keep_f32,
+                                    max_rows=max_rows)
         ref = b2e.qmatmul_experts_plain(x, seg, qt, keep_f32=keep_f32)
         torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            fail(f"B2e {what}: a second call gave other bits")
         want = torch.float32 if keep_f32 else torch.bfloat16
         if y.dtype != want or y.shape != ref.shape:
             fail(f"B2e {what}: {y.dtype} {tuple(y.shape)}")
@@ -265,11 +315,13 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         return None, why
 
     def routed_counts(tokens, n_e, k):
-        """Rows per expert of ``tokens`` routed by top-k of random
-        logits."""
-        logits = torch.randn(tokens, n_e, generator=gen, device=dev)
-        idx = logits.topk(k, dim=-1).indices.reshape(-1)
-        return torch.bincount(idx, minlength=n_e).tolist()
+        """Rows per expert of ``tokens`` routed by top-k of random logits
+        from their own seed, as ``scripts/torch_experts_ab.py`` routes
+        them: the same experts are touched there and here, whatever ran
+        before."""
+        rng = np.random.default_rng(tokens + n_e)
+        idx = np.argsort(-rng.standard_normal((tokens, n_e)), axis=1)[:, :k]
+        return np.bincount(idx.ravel(), minlength=n_e).tolist()
 
     def b2e_step() -> dict:
         from ipex_llm_tpu_torch.ops.cuda.qmatmul import FORMATS
@@ -277,22 +329,24 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         for qtype in FORMATS:
             for n in (384, 200):
                 qt = stack(6, 200, n, qtype)
-                for counts in ((0, 1, 7, 8, 9, 130), (0, 1, 0, 2, 1, 0),
-                               (300, 0, 140, 1, 0, 9)):
+                for instance, counts, max_rows in B2E_CASES:
                     x = padded_x(sum(counts), 200, qt)
                     seg = seg_of(counts)
                     for keep_f32 in (False, True):
-                        tile = b2e.tile_rows(sum(counts), 6)
                         err, rel = check(x, seg, qt, keep_f32,
-                                         f"{qtype} N={n} {counts}")
+                                         f"{qtype} N={n} {counts}", instance,
+                                         max_rows)
                         rows.append(dict(qtype=qtype, n=n, k=200,
-                                         segments=list(counts), tile=tile,
+                                         segments=list(counts),
+                                         instance=instance,
                                          out="f32" if keep_f32 else "bf16",
                                          max_abs_err=err, max_rel_err=rel))
         res["b2e_formats"] = rows
+        worst = {i: max(r["max_rel_err"] for r in rows
+                        if r["instance"] == i) for i, _, _ in B2E_CASES}
         print(f"B2e: {len(rows)} format cases within {B2_TOL_REL} of each "
-              "row's largest output, worst relative error "
-              f"{max(r['max_rel_err'] for r in rows):.3g}", flush=True)
+              "row's largest output and bitwise on a second call, worst "
+              f"relative error by instance {json.dumps(worst)}", flush=True)
         timed = []
         shapes = (("Mixtral-8x7B", 8, 2, (("gate_up", 4096, 28672),
                                           ("down", 14336, 4096))),
@@ -301,17 +355,34 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         for model, n_e, k, projs in shapes:
             for name, kk, n in projs:
                 qt = stack(n_e, kk, n, "sym_int4")
-                for tick, tokens in (("decode", 8), ("prefill", 8 * 128)):
+                for tick, tokens in B2E_TICKS:
                     p = tokens * k
                     # the engine's routes: the gather route (bf16 out) at
                     # 32 pairs or fewer, else the ragged route (fp32 out)
                     keep_f32 = p > 32
                     counts = routed_counts(tokens, n_e, k)
                     x, seg = padded_x(p, kk, qt), seg_of(counts)
+                    pl = b2e.plan(p, n_e, n, kk, qt.block_size, tokens)
+                    instance = (pl.instance if pl.instance != "tiled"
+                                else f"tiled{pl.tile}")
                     err, rel = check(x, seg, qt, keep_f32,
-                                     f"{model} {name} {tick}")
+                                     f"{model} {name} {tick}", instance,
+                                     tokens)
                     ms = graph_ms(torch, [lambda: b2e.qmatmul_experts(
-                        x, seg, qt, keep_f32=keep_f32)])
+                        x, seg, qt, keep_f32=keep_f32, max_rows=tokens)])
+                    # the tiled instance on the same inputs (no bound),
+                    # where the bound picks the gemv one: checked, then
+                    # timed
+                    free = b2e.plan(p, n_e, n, kk, qt.block_size)
+                    tiled_err = tiled_ms = None
+                    if pl.instance == "gemv" and free.instance == "tiled":
+                        tiled_err, _ = check(
+                            x, seg, qt, keep_f32,
+                            f"{model} {name} {tick} tiled{free.tile}",
+                            f"tiled{free.tile}", None)
+                        tiled_ms = graph_ms(torch, [
+                            lambda: b2e.qmatmul_experts(
+                                x, seg, qt, keep_f32=keep_f32)])
                     plain_ms = time_ms(lambda: b2e.qmatmul_experts_plain(
                         x, seg, qt, keep_f32=keep_f32), 2)
                     touched = sum(1 for c in counts if c)
@@ -324,9 +395,11 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
                     lib_ms = graph_ms(torch, [lib]) if lib else None
                     row = dict(model=model, weight=name, tick=tick,
                                pairs=p, k=kk, n=n, experts=n_e,
-                               touched=touched, tile=b2e.tile_rows(p, n_e),
+                               touched=touched, instance=instance,
                                out="f32" if keep_f32 else "bf16",
                                max_abs_err=err, max_rel_err=rel, ms=ms,
+                               tiled_ms=tiled_ms,
+                               tiled_max_abs_err=tiled_err,
                                plain_ms=plain_ms, bound_ms=bms,
                                bound_by=by, library_ms=lib_ms,
                                library=lib_name, card=card)
@@ -518,10 +591,14 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
                         seed=4000 + i if i % 2 else None)
                 for i, (n, m) in enumerate(zip(lens, news))]
 
-    def serve(label, cfg, params, storage, n_req, seed, need):
-        eng = ServingEngine(cfg, params, EngineConfig(kv_storage=storage,
-                                                      **SERVE_EC),
-                            device=dev)
+    def serve(label, cfg, params, storage, n_req, seed, need,
+              b2e_need=(), budget=None):
+        """``n_req`` requests through the engine of ``SERVE_EC`` with a
+        mixed tick's prefill budget ``budget`` (None: the engine's
+        default)."""
+        eng = ServingEngine(cfg, params, EngineConfig(
+            kv_storage=storage, step_token_budget=budget, **SERVE_EC),
+            device=dev)
         reqs = requests(cfg, n_req, seed)
         reset()
         torch.cuda.synchronize()
@@ -534,7 +611,8 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         eng.stop()
-        launches = gate(f"{label} serve {storage}", need)
+        launches = gate(f"{label} serve {storage} budget "
+                        f"{eng._step_budget}", need, b2e_need=b2e_need)
         for q, st in zip(reqs, streams):
             if q.finish_reason != "length" or len(st) != q.max_new_tokens \
                     or st != q.output_ids or not all(
@@ -546,7 +624,7 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         out_tok = sum(len(st) for st in streams)
         ttft = [q.first_token_s for q in reqs]
         row = dict(model=label, card=card, storage=storage,
-                   requests=len(reqs),
+                   step_token_budget=eng._step_budget, requests=len(reqs),
                    prompt_tokens=sum(len(q.prompt_ids) for q in reqs),
                    output_tokens=out_tok, wall_s=wall,
                    output_tok_s=out_tok / wall,
@@ -642,7 +720,7 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
             # the device copies of the moe_ffn ranges are spans, not work
             if ev.device_type == DeviceType.CUDA and ev.name != "moe_ffn":
                 total += ev.device_time_total
-                if "qmm_experts_kernel" in ev.name:
+                if "qmm_experts" in ev.name:
                     experts += ev.device_time_total
                 spans.append((ev.time_range.start, ev.time_range.end))
         busy, last = 0.0, None
@@ -683,7 +761,8 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
                              attention_mask=torch.from_numpy(mask),
                              max_new_tokens=new, eos_token_id=())
         wall = time.perf_counter() - t0
-        launches = gate(f"{label} generate", (b2, b3, b4, b2e))
+        launches = gate(f"{label} generate", (b2, b3, b4, b2e),
+                        b2e_need=("gemv", "wgmma"))
         got = model.last_result
         if tuple(out.shape) != (len(GENERATE_LENGTHS), width + new) or list(
                 got.num_new_tokens) != [new] * len(GENERATE_LENGTHS) or int(
@@ -716,8 +795,13 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
               f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the "
               "card", flush=True)
         need = (b1, b2, b2e)
+        # eight requests: decode ticks (gemv) and, at the default budget,
+        # prefill chunks of up to 128 tokens (tiled); at the wide budget,
+        # up to 8 x 128 (wgmma)
         res["serve"].append(serve(label, cfg, params, "bf16", 8, seed + 10,
-                                  need))
+                                  need, ("gemv", "tiled")))
+        res["serve"].append(serve(label, cfg, params, "bf16", 8, seed + 10,
+                                  need, ("gemv", "wgmma"), WIDE_BUDGET))
         res["serve"].append(serve(label, cfg, params, "fp8", 2, seed + 20,
                                   need))
         res["tick"].append(tick_profile(label, cfg, params))
@@ -832,6 +916,36 @@ def load_step(kernels: dict, card: str, fail, dev) -> dict:
     return res
 
 
+def b2e_build_report(b2e) -> dict:
+    """For each of B2e's sources, built: ptxas's register, spill and
+    warning lines, and the tensor-core instructions in its kernel's SASS
+    (HMMA from mma.sync in the tiled and gemv instances, HGMMA from wgmma
+    in the wgmma instance's); ``problems`` lists a spill or an instance
+    without them."""
+    from ipex_llm_tpu_torch.ops.cuda import _build
+
+    out = {"problems": []}
+    for inst, kernel, opcode in (("tiled", "qmm_experts_kernel", "HMMA"),
+                                 ("gemv", "qmm_experts_gemv_kernel", "HMMA"),
+                                 ("wgmma", "qmm_experts_wgmma_kernel",
+                                  "HGMMA")):
+        src = b2e.SOURCES[inst]
+        log = (_build.BUILD_DIR / f"{src}.log").read_text().splitlines()
+        lines = [ln.strip() for ln in log if "registers" in ln
+                 or "spill" in ln or "arning" in ln]
+        spills = [ln for ln in lines if "spill" in ln
+                  and " 0 bytes spill stores" not in ln]
+        counts = [n for fn, n in _build.sass_counts(src, opcode).items()
+                  if kernel in fn]
+        if spills or not counts or min(counts) == 0:
+            out["problems"].append(f"B2e {inst}: spills {spills}, {opcode} "
+                                   f"counts {counts}")
+        out[inst] = dict(source=src, opcode=opcode, kernels=len(counts),
+                         count_min=min(counts, default=0),
+                         count_max=max(counts, default=0), ptxas=lines[:8])
+    return out
+
+
 def kernel_modules():
     from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
     from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
@@ -870,14 +984,16 @@ def main(argv) -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = kernel_modules()
-    print(f"kernel build: {_build.build(list(kernels)):.1f} s", flush=True)
-    log = _build.BUILD_DIR / "qmatmul_experts.log"
-    print("B2e ptxas: " + json.dumps(
-        [ln.strip() for ln in log.read_text().splitlines()
-         if "registers" in ln or "spill" in ln][:12]), flush=True)
+    print(f"kernel build: "
+          f"{_build.build(_build.sources(kernels.values())):.1f} s",
+          flush=True)
+    built = b2e_build_report(kernels["qmatmul_experts"])
+    print("B2e build: " + json.dumps(built), flush=True)
     res = moe_phase(kernels, card, fail, torch.device("cuda", 0), graph_ms,
                     steps)
     print(json.dumps(res), flush=True)
+    if built["problems"]:
+        fail("; ".join(built["problems"]))
     return 0
 
 

@@ -150,15 +150,25 @@ def test_qmatmul_tiled_kernel_matches_plain(qtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qtype", b2.FORMATS)
-@pytest.mark.parametrize("counts", [(0, 1, 7, 8, 9, 130), (0, 1, 0, 2, 1, 0),
-                                    (300, 0, 140, 1, 0, 9)],
-                         ids=["tile64", "tile16", "tile128"])
-def test_qmatmul_experts_kernel_matches_plain(qtype, counts):
-    """B2e over 6 experts with segments of 0 to 300 rows (the 64-, 16- and
-    128-row tiles by the mean rows an expert), K = 200 padded to the
-    format's block, N a multiple of 16 and not, bf16 and fp32 out: one
-    launch a call, each output row within one bf16 ulp of its largest
-    plain output, and the same bits on a second call."""
+@pytest.mark.parametrize("instance,counts,max_rows", [
+    ("gemv", (0, 1, 7, 8, 9, 0), 8), ("gemv", (0, 0, 24, 0, 0, 0), 8),
+    ("gemv", (1, 1, 1, 1, 1, 1), 8),
+    ("wgmma", (0, 1, 130, 9, 300, 200), None),
+    ("wgmma", (0, 0, 640, 0, 0, 0), None),
+    ("tiled16", (4, 0, 9, 3, 0, 20), None),
+    ("tiled64", (0, 1, 7, 8, 9, 130), None)],
+    ids=["gemv-9rows", "gemv-one-expert", "gemv-1row", "wgmma-tails",
+         "wgmma-one-expert", "tiled16", "tiled64"])
+def test_qmatmul_experts_kernel_matches_plain(qtype, instance, counts,
+                                              max_rows):
+    """Each instance of B2e over 6 experts (the gemv instance under a bound
+    of 8 rows an expert, which the first two splits break and the kernel
+    must take all the same; wgmma at 64 or more rows an expert with ragged
+    segment tails; the tiled instance's 16- and 64-row tiles), K = 200
+    padded to the format's block, N a multiple of 16 and not, bf16 and
+    fp32 out: one launch of that instance a call, each output row within
+    one bf16 ulp of its largest plain output, and the same bits on a
+    second call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator().manual_seed(5)
@@ -183,11 +193,14 @@ def test_qmatmul_experts_kernel_matches_plain(qtype, counts):
                                              keep_f32=keep_f32).float()
             b2e.COUNTS.reset()
             got = b2e.qmatmul_experts(x.cuda(), seg.cuda(), qt_dev,
-                                      keep_f32=keep_f32)
+                                      keep_f32=keep_f32, max_rows=max_rows)
             torch.cuda.synchronize()
+            key = f"{instance}/{'f32' if keep_f32 else 'bf16'}"
             assert b2e.COUNTS.launches == 1 and b2e.COUNTS.plain_calls == 0
+            assert b2e.COUNTS.by_instance[key] == 1
             assert torch.equal(b2e.qmatmul_experts(
-                x.cuda(), seg.cuda(), qt_dev, keep_f32=keep_f32), got)
+                x.cuda(), seg.cuda(), qt_dev, keep_f32=keep_f32,
+                max_rows=max_rows), got)
             got = got.float().cpu()
             top = want.abs().amax(dim=1, keepdim=True)
             assert ((got - want).abs() <= ULP * top).all(), (n, keep_f32)

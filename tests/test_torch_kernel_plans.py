@@ -30,6 +30,7 @@ from ipex_llm_tpu.ops.pallas.paged_attention import \
     paged_decode_sdpa as ref_paged_decode
 from ipex_llm_tpu.ops.pallas.paged_attention import \
     paged_prefill_sdpa as ref_paged_prefill
+from ipex_llm_tpu.ops.linear import qmatmul_reference
 from ipex_llm_tpu.ops.pallas.qmatmul import qmatmul_pallas
 from ipex_llm_tpu.ops.pallas.ragged_paged_attention import \
     ragged_paged_sdpa as ref_ragged_paged_sdpa
@@ -38,6 +39,7 @@ from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
 from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
 from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
 from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+from ipex_llm_tpu_torch.ops.cuda import qmatmul_experts as b2e
 from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
 from ipex_llm_tpu_torch.quantize import core as qcore
 from ipex_llm_tpu_torch.quantize.qtypes import resolve
@@ -612,6 +614,205 @@ def test_qmatmul_gemv_split_order_matches_plain_and_pallas(qtype):
             for ref in (plain, want_pallas):
                 tol = 2.0 ** -7 * np.abs(ref).max(axis=1, keepdims=True)
                 assert (np.abs(got - ref) <= tol).all(), (qtype, m, splits)
+
+
+# -- B2e -----------------------------------------------------------------------
+
+# per model: (experts a token takes, experts, (K, N) of gate_up and down)
+B2E_MODELS = {"mixtral-8x7b": (2, 8, ((4096, 28672), (14336, 4096))),
+              "qwen3-30b-a3b": (8, 128, ((2048, 1536), (768, 2048)))}
+
+
+@pytest.mark.parametrize("model", sorted(B2E_MODELS))
+def test_b2e_plan_by_forward(model):
+    """B2e's instance from static shapes and the forward's token count:
+    gemv at every decode forward (1 to 8 tokens), the tiled instance at
+    the verify width (8 rows x 4 tokens), at one row's prefill chunk and
+    at decode without a bound, wgmma at a prefill chunk of 8 x 128 tokens
+    (one persistent block an SM); the gemv plan puts at least 720 warps
+    on the card (or splits K as far as whole 128-row splits go), within 8
+    cluster ranks and a 64 KiB x stage."""
+    top, e, shapes = B2E_MODELS[model]
+    for k, n in shapes:
+        for tokens, want in ((1, "gemv"), (4, "gemv"), (8, "gemv"),
+                             (32, "tiled"), (128, "tiled"),
+                             (1024, "wgmma")):
+            p = tokens * top
+            pl = b2e.plan(p, e, n, k, 32, tokens)
+            assert pl.instance == want, (k, n, tokens)
+            if want == "gemv":
+                gp = pl.gemv
+                assert gp.warps_k in (1, 2, 4) and 1 <= gp.cluster <= 8
+                warps = min(e, p) * -(-n // 128) * gp.splits
+                # or no further power of two keeps 128 rows a split
+                assert warps >= 720 or 2 * gp.splits > min(32, k // 128)
+                assert 8 * gp.x_rows(32) * 2 <= 64 * 1024
+                assert gp.col_blocks * (4 // gp.warps_k) * 128 >= n
+            elif want == "wgmma":
+                assert pl.blocks == 132
+            else:
+                assert pl.tile == b2e.tile_rows(p, e)
+                assert pl.slots == b2e.slots(p, e, pl.tile)
+        assert b2e.plan(8 * top, e, n, k, 32).instance == "tiled"
+
+
+def _gemv_cover(counts, gp, n, nqb):
+    """What the gemv instance's blocks cover, as the kernel walks it: block
+    (rank, column block, slot z) takes the z-th expert that holds rows
+    (or exits), 8 of its rows at a time; its warp (wn, wk) takes 128
+    columns and split rank * warps_k + wk's quantization blocks.  Counts
+    over (row, 128-column warp tile, quantization block)."""
+    seg = np.concatenate([[0], np.cumsum(counts)])
+    live = [ex for ex, c in enumerate(counts) if c]
+    p = int(seg[-1])
+    warps_n = 4 // gp.warps_k
+    cover = np.zeros((p, -(-n // 128), nqb), int)
+    for z in range(min(len(counts), p)):
+        if z >= len(live):
+            continue                            # past the last: exits
+        ex = live[z]
+        for m0 in range(seg[ex], seg[ex + 1], 8):
+            rows = slice(m0, min(m0 + 8, seg[ex + 1]))
+            for cb in range(gp.col_blocks):
+                for rank in range(gp.cluster):
+                    for warp in range(4):
+                        col = cb * warps_n + warp % warps_n
+                        s = rank * gp.warps_k + warp // warps_n
+                        if col * 128 < n:
+                            cover[rows, col, s * gp.qb_per_warp:
+                                  (s + 1) * gp.qb_per_warp] += 1
+    return cover
+
+
+def _routed(tokens, e, top, seed):
+    """Rows per expert of ``tokens`` routed to their top experts of random
+    logits."""
+    logits = np.random.default_rng(seed).standard_normal((tokens, e))
+    idx = np.argsort(-logits, axis=1)[:, :top]
+    return tuple(np.bincount(idx.ravel(), minlength=e).tolist())
+
+
+@pytest.mark.parametrize("counts,k,n", [
+    ((0, 1, 7, 8, 9, 0), 2048, 1536), ((0, 0, 24, 0, 0, 0), 14336, 4096),
+    ((1, 1, 1, 1, 1, 1), 768, 2048), ((5,) + (0,) * 127, 2048, 1536),
+    (_routed(8, 8, 2, 1), 14336, 4096), (_routed(8, 8, 2, 2), 4096, 28672),
+    (_routed(8, 128, 8, 3), 768, 2048)])
+def test_b2e_gemv_grid_covers_every_block_once(counts, k, n):
+    """At the decode shapes, under adversarial splits (empty experts, a
+    9-row segment and one expert of 24 rows past the bound of 8, 1-row
+    segments, one expert of 128 holding every row) and routed ones: the
+    gemv grid's ``min(E, P)`` expert slots reach every expert that holds
+    rows, and its blocks cover every (row, 128-column tile, quantization
+    block) of each exactly once."""
+    p, e = sum(counts), len(counts)
+    gp = b2e.gemv_plan(p, e, n, k, 32)
+    assert gp is not None
+    cover = _gemv_cover(counts, gp, n, k // 32)
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("qtype", ["sym_int4", "asym_int5", "fp8_e4m3"])
+def test_b2e_gemv_split_order_matches_plain_and_reference(qtype):
+    """The gemv instance's summation in float64: each split's partial over
+    its quantization blocks (dequantized bf16 weights) rounded to fp32 as
+    a warp's accumulators hold it, summed in split order in fp32, then
+    rounded to bf16 or kept in fp32 -- at the wrapper's plan and at one
+    block a split -- agrees with B2e's plain version and with the JAX
+    reference's product of each expert's rows (``qmatmul_reference``)
+    within one bf16 ulp of each row's largest output, over experts of 0,
+    9 (past the bound: two chunks), 1 and 6 rows."""
+    bs = resolve(qtype).block_size
+    k, n, counts = 4 * bs * 2, 200, (0, 9, 1, 6)
+    rng = np.random.default_rng(23)
+    refs = [ref_core.quantize(jnp.asarray(
+        (rng.standard_normal((k, n)) * 0.05).astype(np.float32)), qtype)
+        for _ in counts]
+    ports = [_port_qtensor(r) for r in refs]
+
+    def stack(key):
+        planes = [getattr(q, key) for q in ports]
+        return None if planes[0] is None else torch.stack(planes)
+    qt = qcore.QTensor(stack("data"), stack("scales"), stack("zeros"),
+                       qtype, (k, n), bs)
+    seg_np = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    seg = torch.from_numpy(seg_np)
+    p, nqb = int(seg_np[-1]), k // bs
+    xj, xt = _bf16(rng.standard_normal((p, k)))
+    xd = xt.double().numpy()
+    gp = b2e.gemv_plan(p, len(counts), n, k, bs)
+    for keep_f32 in (False, True):
+        plain = _f32(b2e.qmatmul_experts(xt, seg, qt, keep_f32=keep_f32))
+        for splits, per in ((gp.splits, gp.qb_per_warp), (nqb + 3, 1)):
+            got = np.zeros((p, n), np.float32)
+            for ex, (lo, hi) in enumerate(zip(seg_np[:-1], seg_np[1:])):
+                if hi == lo:
+                    continue
+                wq = qcore.dequantize_padded(ports[ex]).to(
+                    torch.bfloat16).double().numpy()
+                acc = np.zeros((hi - lo, n), np.float32)
+                for s in range(splits):
+                    rows = slice(s * per * bs, min(k, (s + 1) * per * bs))
+                    acc = acc + (xd[lo:hi, rows] @ wq[rows]).astype(
+                        np.float32)
+                got[lo:hi] = acc if keep_f32 else _f32(
+                    torch.from_numpy(acc).to(torch.bfloat16))
+                want = _f32(qmatmul_reference(xj[lo:hi], refs[ex]))
+                tol = 2.0 ** -7 * np.abs(want).max(axis=1, keepdims=True)
+                assert (np.abs(got[lo:hi] - want) <= tol).all(), (
+                    qtype, ex, splits)
+            tol = 2.0 ** -7 * np.abs(plain).max(axis=1, keepdims=True)
+            assert (np.abs(got - plain) <= tol).all(), (qtype, splits)
+
+
+@pytest.mark.parametrize("qtype", b2.FORMATS)
+def test_b2e_wgmma_smem_plan_fits_the_sm(qtype):
+    """The wgmma block's shared memory in every format (two bf16 weight
+    tiles of 64 x 256, the two consumers' four-stage x rings, the
+    producer's four stages of packed planes, 1 KiB of alignment) fits in
+    the 227 KB a block can use on the H100, one block an SM."""
+    q = resolve(qtype)
+    nbytes = b2e.wgmma_smem_bytes(qtype)
+    stage = (64 * 256 // (2 if q.bits in (4, 5) else 1)
+             + (8 * 256 if q.bits == 5 else 0)
+             + max(1, 64 // q.block_size) * 512
+             * (2 if q.kind == "int_asym" else 1))
+    assert nbytes == 2 * 32768 + 2 * 4 * 8192 + 4 * stage + 1024
+    assert nbytes <= 232448        # a block's shared memory on the H100
+
+
+def _wgmma_items(counts, n, blocks):
+    """The wgmma blocks' walk, as the kernel takes it: for each block, its
+    items in order, each (expert, first row, segment end, first column):
+    item t of block b is b + i * blocks, its row tile t % tiles (128-row
+    tiles in expert order), its column tile t // tiles."""
+    seg = np.concatenate([[0], np.cumsum(counts)])
+    tiles = [(ex, lo, int(seg[ex + 1])) for ex in range(len(counts))
+             for lo in range(seg[ex], seg[ex + 1], 128)]
+    items = len(tiles) * -(-n // 256)
+    return [[(*tiles[t % len(tiles)], (t // len(tiles)) * 256)
+             for t in range(b, items, blocks)] for b in range(blocks)]
+
+
+@pytest.mark.parametrize("counts", [
+    (0, 1, 130, 9, 300, 200), (0, 0, 640, 0, 0, 0),
+    _routed(1024, 8, 2, 4), _routed(1024, 128, 8, 5)])
+@pytest.mark.parametrize("n,blocks", [(4096, 132), (1536, 132), (384, 7)])
+def test_b2e_wgmma_tile_walk_covers_each_row_once(counts, n, blocks):
+    """The wgmma instance's persistent walk covers every (row, column) of
+    the output exactly once, each tile's rows inside one expert's segment
+    (a tile starts a multiple of 128 rows into it), with the blocks'
+    item counts at most one apart."""
+    seg = np.concatenate([[0], np.cumsum(counts)])
+    walk = _wgmma_items(counts, n, blocks)
+    cover = np.zeros((int(seg[-1]), -(-n // 256)), int)
+    for items in walk:
+        for ex, lo, hi, n0 in items:
+            assert seg[ex] <= lo < hi == seg[ex + 1]
+            assert (lo - seg[ex]) % 128 == 0 and n0 % 256 == 0 and n0 < n
+            cover[lo:min(lo + 128, hi), n0 // 256] += 1
+    assert (cover == 1).all()
+    sizes = [len(items) for items in walk]
+    assert max(sizes) - min(sizes) <= 1
 
 
 # -- B5 ------------------------------------------------------------------------

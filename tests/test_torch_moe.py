@@ -524,13 +524,12 @@ def _slot_tiles(counts, tile, n_slots):
                                     (300, 0, 140, 1, 0, 9), (1,) * 64,
                                     (0, 0, 0)])
 def test_b2e_grid_covers_every_row_once(counts):
-    """The row tile follows the mean rows an expert; the grid's
-    ``ceil(P / tile) + E`` slots cover every row tile of any split of P
-    rows, and the tiles cover each row once, within its expert."""
+    """The tiled instance's row tile follows the mean rows an expert; the
+    grid's ``ceil(P / tile) + E`` slots cover every row tile of any split
+    of P rows, and the tiles cover each row once, within its expert."""
     p, e = sum(counts), len(counts)
     tile = b2e.tile_rows(p, e)
-    assert tile == (16 if -(-p // e) <= 16 else 64 if -(-p // e) <= 64
-                    else 128)
+    assert tile == (16 if -(-p // e) <= 16 else 64)
     n_slots = b2e.slots(p, e, tile)
     got = _slot_tiles(counts, tile, n_slots)
     assert sum(-(-c // tile) for c in counts) <= n_slots
