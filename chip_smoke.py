@@ -176,6 +176,21 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     share), Mixtral ``generate()`` (B2, B3, B4, B2e's gemv and wgmma); a
     2-layer Mixtral-width checkpoint through ``from_pretrained`` and
     ``build_server``.
+13. ``train`` (``scripts/torch_train_smoke.py``): the training path's
+    kernels, B4's LSE instance and backward (causal, T = 1, 63, 1024 and
+    2048, G = 1 and 4, ``kv_start`` > 0 on a row; dQ, dK, dV per row
+    within 2^-6 of the row's largest plain value, bitwise on a second
+    call) and B2^T (``dy @ dequant(W)^T`` in all ten formats at
+    Llama-2-7B's shapes, M = 2048, within one bf16 ulp), each timed at
+    the step's shapes beside its bound and SDPA's autograd backward or
+    ``torch.matmul``; a 2-layer Llama-2-7B-width QLoRA loss and adapter
+    gradients card against CPU; six Llama-2-7B sym_int4 QLoRA steps at
+    full width and depth (B = 2, T = 1024, r = 8, Adam) with a falling
+    loss, the base planes unchanged, B2, B2^T, B4 and B4's backward
+    launched every step and no plain call, step time, tokens/s, peak
+    memory and one step's profile; ``merge_and_unload`` and a
+    ``generate()`` of the merged model; a full-parameter and a LISA step
+    at full width, 2 layers.
 
 Kernel times come from CUDA events over many launches after a warm-up
 (B2's up to M = 512, B3's, B4's and B5's, and their yardsticks, as
@@ -280,8 +295,10 @@ def main() -> int:
     from ipex_llm_tpu_torch.ops.cuda import _build
     from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
     from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
+    from ipex_llm_tpu_torch.ops.cuda import flash_attention_bwd as b4b
     from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
     from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+    from ipex_llm_tpu_torch.ops.cuda import qmatmul_dx as b2t
     from ipex_llm_tpu_torch.ops.cuda import qmatmul_experts as b2e
     from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
 
@@ -353,7 +370,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     kernels = {"qmatmul": b2, "ragged_paged_attention": b1,
                "decode_attention": b3, "flash_attention": b4,
-               "paged_attention": b5, "qmatmul_experts": b2e}
+               "paged_attention": b5, "qmatmul_experts": b2e,
+               "qmatmul_dx": b2t, "flash_attention_bwd": b4b}
     sources = _build.sources(kernels.values())
     t_build = _build.build(sources)
     print(f"kernel build: {t_build:.1f} s for {len(sources)} sources",
@@ -372,7 +390,8 @@ def main() -> int:
     # spill)
     spills = {name: [ln for ln in report["ptxas"][name] if "spill" in ln
                      and " 0 bytes spill stores" not in ln]
-              for name in (b2.NAME, *b2e.SOURCES.values(), b5.NAME)}
+              for name in (b2.NAME, *b2e.SOURCES.values(), b5.NAME,
+                           b2t.NAME, b4b.NAME)}
     if any(spills.values()):
         fail(f"ptxas reports spills: {spills}")
     hmma = {}
@@ -385,7 +404,10 @@ def main() -> int:
             (b1.NAME, "ragged_attn_kernel", "HMMA"),
             (b3.NAME, "decode_split_kernel", "HMMA"),
             (b4.NAME, "flash_attn_kernel", "HGMMA"),
-            (b5.NAME, "paged_split_kernel", "HMMA")):
+            (b5.NAME, "paged_split_kernel", "HMMA"),
+            (b2t.NAME, "qmm_dx_kernel", "HMMA"),
+            (b4b.NAME, "flash_bwd_dq_kernel", "HMMA"),
+            (b4b.NAME, "flash_bwd_dkdv_kernel", "HMMA")):
         counts = {fn: n for fn, n in
                   _build.sass_counts(src, opcode).items()
                   if kernel in fn}
@@ -2246,6 +2268,13 @@ def main() -> int:
     print(f"moe phase: {report['moe']['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    # -- 13. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
+    from torch_train_smoke import train_phase
+
+    report["train"] = train_phase(kernels, card, fail, dev, graph_ms)
+    print(f"train phase: {report['train']['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # -- summary -------------------------------------------------------------
     serve_launches = report["serve"][0]["launches"]
     gen_launches = report["generate"][0]["launches"]
@@ -2281,6 +2310,13 @@ def main() -> int:
     mix_wide = moe_serve[("Mixtral-8x7B", "bf16", 1024)]
     q3_serve = moe_serve[("Qwen3-30B-A3B", "bf16", 128)]
     rep_b2e = {(r["model"], r["weight"], r["tick"]): r for r in moe["b2e"]}
+    train = report["train"]
+    # the training path's run: one Llama-2-7B sym_int4 QLoRA step (the
+    # counts are set to 0 before each step and read after it)
+    train_launches = train["qlora"]["launches_per_step"]
+    rep_bwd = train["b4_bwd"][0]
+    rep_dx = next(r for r in train["b2t"] if r["qtype"] == "sym_int4"
+                  and r["weight"] == "gate_up")
 
     def b2e_launches(run: dict, instance: str) -> int:
         """B2e's launches of one instance (``gemv``, ``wgmma``, ``tiled``:
@@ -2383,6 +2419,8 @@ def main() -> int:
                   "padded",
          "launches": gen_launches["flash_attention"],
          "launches_load_generate": load_gen["flash_attention"],
+         # the LSE instance's launches in one QLoRA step
+         "launches_train_step": train_launches["flash_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b4"]),
          **{k: rep_b4[k] for k in keys}},
         {"name": "paged_attention", "route": "cuda",
@@ -2503,6 +2541,38 @@ def main() -> int:
          "launches_by_instance": q3_serve["b2e_by_instance"],
          **{k: rep_b2e[("Qwen3-30B-A3B", "gate_up", "chunk")][k]
             for k in ("max_abs_err", *keys)}},
+        # the training path's backward kernels (no TPU kernel: the
+        # reference's gradient is XLA's autodiff of the forward's oracle)
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": src + "flash_attention_bwd.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/flash_attention.py:166",
+         "replaces_note": "the gradient of this kernel, which the "
+                          "reference takes by autodiff of "
+                          "ops/attention.py::sdpa_reference",
+         "shape": "B=2 T=1024 Hq=Hkv=32 D=128, causal (a Llama-2-7B "
+                  "QLoRA step)",
+         "launches": train_launches["flash_attention_bwd"],
+         "launches_run": "one Llama-2-7B sym_int4 QLoRA step, B=2 T=1024",
+         "launches_per_call": train["qlora"]["bwd_launches_per_call"],
+         "launches_profiled_step": train["qlora"]["kernel_events_per_step"][
+             "flash_attention_bwd"],
+         "library_call": rep_bwd["library_call"],
+         "max_abs_err": max(r["max_abs_err"] for r in train["b4_bwd"]),
+         **{k: rep_bwd[k] for k in keys}},
+        {"name": "qmatmul_dx[sym_int4]", "route": "cuda",
+         "source": src + "qmatmul_dx.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
+         "replaces_note": "the input gradient of this kernel, which the "
+                          "reference takes by autodiff of "
+                          "ops/linear.py::qmatmul_reference",
+         "shape": "M=2048 K=4096 N=22016 (gate_up, a QLoRA step)",
+         "launches": train_launches["qmatmul_dx"],
+         "launches_run": "one Llama-2-7B sym_int4 QLoRA step, B=2 T=1024",
+         "launches_profiled_step": train["qlora"]["kernel_events_per_step"][
+             "qmatmul_dx"],
+         "formats_checked": sorted({r["qtype"] for r in train["b2t"]}),
+         "max_abs_err": max(r["max_abs_err"] for r in train["b2t"]),
+         **{k: rep_dx[k] for k in keys}},
     ]}
     out_dir = ROOT / "chiprun_out"
     try:

@@ -16,10 +16,14 @@ checkpoint (``transformers.AutoModelForCausalLM.from_pretrained``,
 server's ``build_server``/``main``, with five CUDA kernels: ragged paged
 attention, the dequant-matmul in all ten formats (``ops/cuda/qmatmul.py``),
 dense decode attention, flash attention, and split paged attention (the
-ragged kernel's oracle at the verify shapes).  Configurations outside the
-port raise ``NotImplementedError``.
+ragged kernel's oracle at the verify shapes).  Training
+(``training/``: the causal-LM step, QLoRA, ReLoRA, LISA, checkpoints and
+the HF Trainer bridge, ``llm_patch(train=True)``) runs the same decoder
+with two backward kernels, B2's input gradient and flash attention's
+backward.  Configurations outside the port raise ``NotImplementedError``.
 """
 
 from ipex_llm_tpu_torch.device import resolve_device
+from ipex_llm_tpu_torch.llm_patching import llm_patch, llm_unpatch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "llm_patch", "llm_unpatch"]

@@ -53,6 +53,14 @@
 // through a descriptor (wgmma with A from shared memory), runs O += P.V as
 // two m64n128k16 per 16 keys (one on each 128-dim half of O), and holds
 // two stages of 64 KiB K/V tile pairs (161 KiB in all, one block an SM).
+//
+// The training forward (ops/attention.py's autograd Function) takes the
+// LSE instance (head dim 128, no softcap): the same kernel that also
+// writes each query's log-sum-exp of its scaled scores, lse = m + log l in
+// natural units, to an fp32 [B, Hq, T] buffer (+inf for a query that sees
+// no key), which the backward kernels (csrc/flash_attention_bwd.cu) read
+// to rebuild P without a second pass over the keys.  The serving
+// instances are compiled from the same source with the flag off.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,7 +131,7 @@ __device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
   }
 }
 
-template <int D, bool SOFTCAP>
+template <int D, bool SOFTCAP, bool LSE>
 __global__ void __launch_bounds__(kThreads, Plan<D>::kResident)
 flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -132,7 +140,9 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ kv_len_arr,
                   const int* __restrict__ kv_start_arr,
                   const int* __restrict__ won_arr,
-                  __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv,
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ lse_out,        // [B, Hq, T] (LSE)
+                  int T, int Hq, int Hkv,
                   int S, long long ksb, long long kss, long long ksh,
                   float scale, int causal_i, int window, float softcap) {
   using P = Plan<D>;
@@ -379,6 +389,14 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int row = 0; row < 2; ++row) {
     const int t = t_row[row];
     if (t >= T) continue;
+    if constexpr (LSE) {
+      // m is in base-2 units of the scaled scores (m > kFloor wherever
+      // l > 0); a query with no visible key gets +inf, so P = 0 there
+      if ((lane & 3) == 0)
+        lse_out[((size_t)b * Hq + hq) * T + t] =
+            l[row] > 0.f ? (m[row] + log2f(l[row])) * 0.6931471805599453f
+                         : __int_as_float(0x7f800000);
+    }
     const float inv = 1.f / (l[row] == 0.f ? 1.f : l[row]);
     __nv_bfloat16* o = out + (((size_t)b * T + t) * Hq + hq) * D;
 #pragma unroll
@@ -390,23 +408,25 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, bool SOFTCAP>
+template <int D, bool SOFTCAP, bool LSE = false>
 int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
            const void* v, const void* qpos, const void* kv_len,
-           const void* kv_start, const void* won, void* out, int T, int Hq,
-           int Hkv, int S, long long ksb, long long kss, long long ksh,
-           float scale, int causal, int window, float softcap) {
+           const void* kv_start, const void* won, void* out, void* lse,
+           int T, int Hq, int Hkv, int S, long long ksb, long long kss,
+           long long ksh, float scale, int causal, int window,
+           float softcap) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attn_kernel<D, SOFTCAP>,
+      flash_attn_kernel<D, SOFTCAP, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<D>::kSmem);
   if (e != cudaSuccess) return (int)e;
-  flash_attn_kernel<D, SOFTCAP><<<grid, kThreads, Plan<D>::kSmem, st>>>(
+  flash_attn_kernel<D, SOFTCAP, LSE><<<grid, kThreads, Plan<D>::kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(kv_len), static_cast<const int*>(kv_start),
-      static_cast<const int*>(won), static_cast<__nv_bfloat16*>(out), T, Hq,
-      Hkv, S, ksb, kss, ksh, scale, causal, window, softcap);
+      static_cast<const int*>(won), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,
+      window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -415,24 +435,34 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // q bf16 [B,T,Hq,D] contiguous; k/v bf16 with element strides (ksb, kss,
 // ksh) over (B, S, Hkv), multiples of 8, and a contiguous D (the same
 // strides for both), 16-byte aligned; qpos int32 [B,T]; kv_len, kv_start,
-// won int32 [B]; out bf16 [B,T,Hq,D].  D = 128 or 256; window <= 0 means
-// none, softcap <= 0 none.  Returns cudaGetLastError()
-// (cudaErrorInvalidValue for another D).
+// won int32 [B]; out bf16 [B,T,Hq,D]; lse fp32 [B,Hq,T] or null (the LSE
+// instance: D = 128, no softcap).  D = 128 or 256; window <= 0 means none,
+// softcap <= 0 none.  Returns cudaGetLastError() (cudaErrorInvalidValue
+// for another D, or an lse buffer outside the LSE instance).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* qpos, const void* kv_len,
                                const void* kv_start, const void* won,
                                void* out, int B, int T, int Hq, int Hkv,
                                int S, int D, long long ksb, long long kss,
                                long long ksh, float scale, int causal,
-                               int window, float softcap, void* stream) {
+                               int window, float softcap, void* lse,
+                               void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if ((D != 128 && D != 256) || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(Hq, B, (T + kBQ - 1) / kBQ);
-#define FLASH_LAUNCH(HD, CAP)                                              \
-  launch<HD, CAP>(grid, st, q, k, v, qpos, kv_len, kv_start, won, out, T,  \
-                  Hq, Hkv, S, ksb, kss, ksh, scale, causal, window, softcap)
   const bool cap = softcap > 0.f;
+  if (lse != nullptr) {
+    if (D != 128 || cap) return (int)cudaErrorInvalidValue;
+    return launch<128, false, true>(grid, st, q, k, v, qpos, kv_len,
+                                    kv_start, won, out, lse, T, Hq, Hkv, S,
+                                    ksb, kss, ksh, scale, causal, window,
+                                    softcap);
+  }
+#define FLASH_LAUNCH(HD, CAP)                                              \
+  launch<HD, CAP>(grid, st, q, k, v, qpos, kv_len, kv_start, won, out,     \
+                  nullptr, T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,    \
+                  window, softcap)
   const int err = D == 128
                       ? (cap ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false))
                       : (cap ? FLASH_LAUNCH(256, true) : FLASH_LAUNCH(256, false));

@@ -69,6 +69,111 @@ __device__ __forceinline__ void stage_plane(uint8_t* dst, const uint8_t* base,
   }
 }
 
+// one 16-byte chunk (8 columns) of weight row k into the swizzled bf16
+// tile wt [kTK x kTN] (chunk cg of row k at chunk cg ^ (k % 8))
+__device__ __forceinline__ void put_chunk(__nv_bfloat16* wt, int k, int cg,
+                                          const float* v) {
+  uint4 o;
+  o.x = hopper::pack_bf16(v[0], v[1]);
+  o.y = hopper::pack_bf16(v[2], v[3]);
+  o.z = hopper::pack_bf16(v[4], v[5]);
+  o.w = hopper::pack_bf16(v[6], v[7]);
+  *reinterpret_cast<uint4*>(wt + k * kTN + ((cg ^ (k & 7)) << 3)) = o;
+}
+
+// eight fp16 values of row `row`, columns 8cg..8cg+7, of a staged
+// [*, kTN] plane, in fp32
+__device__ __forceinline__ void scales8(const uint8_t* plane, int row, int cg,
+                                        float* out) {
+  const uint4 raw =
+      *reinterpret_cast<const uint4*>(plane + (row * kTN + cg * 8) * 2);
+  const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    out[2 * e] = __low2float(h[e]);
+    out[2 * e + 1] = __high2float(h[e]);
+  }
+}
+
+// Decode one step's staged packed planes `pl` (StagePlanes<T>'s layout:
+// data, fifth bits, scales, zeros; kTK contraction rows x kTN columns)
+// into the bf16 tile wt [kTK x kTN], swizzled as put_chunk() writes it,
+// bitwise the weights the plain version uses; THR threads take part, tid
+// being this one.  A thread keeps one group of 8 columns (cg) and walks
+// rows r0, r0 + kRowStep, ...: its scales and zeros are converted once a
+// step, the block row of each of its rows is known at compile time, and
+// the rows are unrolled so that their shared-memory reads are in flight
+// together.  B2's tiled instance (qmm_tc_tile below) and B2's input
+// gradient (csrc/qmatmul_dx.cu) both decode through it.
+template <class T, int THR>
+__device__ __forceinline__ void decode_step(const uint8_t* pl,
+                                            const float* tab,
+                                            __nv_bfloat16* wt, int tid) {
+  using P = StagePlanes<T>;
+  constexpr int kRowStep = THR / 16;
+  static_assert(kRowStep <= T::kBS / 2, "a step of rows stays in a block");
+  const uint8_t* ps = pl + P::kData + P::kHbits;
+  const uint8_t* pz = ps + P::kScales;
+  const int cg = tid & 15, r0 = tid >> 4;
+  float sc[P::kScaleRows][8], zc[P::kScaleRows][8];
+#pragma unroll
+  for (int r = 0; r < P::kScaleRows; ++r) {
+    scales8(ps, r, cg, sc[r]);
+    if constexpr (T::kZeros) {
+      scales8(pz, r, cg, zc[r]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) zc[r][e] = 0.f;
+    }
+  }
+  if constexpr (T::kLayout == Layout::kByte) {
+#pragma unroll
+    for (int i = 0; i < kTK / kRowStep; ++i) {
+      const int k = r0 + i * kRowStep;
+      const int sr = P::kScaleRows == 1 ? 0 : (i * kRowStep) / T::kBS;
+      const uint2 raw = *reinterpret_cast<const uint2*>(pl + k * kTN + cg * 8);
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const uint32_t word = e < 4 ? raw.x : raw.y;
+        v[e] = weight_unrounded<T>((word >> (8 * (e & 3))) & 0xFF,
+                                   sc[sr][e], zc[sr][e], tab);
+      }
+      put_chunk(wt, k, cg, v);
+    }
+  } else {
+    constexpr int kHalf = T::kBS / 2;
+#pragma unroll
+    for (int i = 0; i < (kTK / 2) / kRowStep; ++i) {
+      const int dr = r0 + i * kRowStep;
+      const int b = (i * kRowStep) / kHalf;     // dr / kHalf
+      const int klo = dr + b * kHalf, khi = klo + kHalf;
+      const uint2 raw = *reinterpret_cast<const uint2*>(pl + dr * kTN + cg * 8);
+      uint2 hl = make_uint2(0u, 0u), hh = make_uint2(0u, 0u);
+      if constexpr (T::kLayout == Layout::kBit5) {
+        const uint8_t* ph = pl + P::kData;
+        hl = *reinterpret_cast<const uint2*>(ph + (klo >> 3) * kTN + cg * 8);
+        hh = *reinterpret_cast<const uint2*>(ph + (khi >> 3) * kTN + cg * 8);
+      }
+      float vl[8], vh[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int sh = 8 * (e & 3);
+        const int byte = ((e < 4 ? raw.x : raw.y) >> sh) & 0xFF;
+        int lo = byte & 0xF, hi = byte >> 4;
+        if constexpr (T::kLayout == Layout::kBit5) {
+          lo |= (((e < 4 ? hl.x : hl.y) >> (sh + (klo & 7))) & 1) << 4;
+          hi |= (((e < 4 ? hh.x : hh.y) >> (sh + (khi & 7))) & 1) << 4;
+        }
+        vl[e] = weight_unrounded<T>(lo, sc[b][e], zc[b][e], tab);
+        vh[e] = weight_unrounded<T>(hi, sc[b][e], zc[b][e], tab);
+      }
+      put_chunk(wt, klo, cg, vl);
+      put_chunk(wt, khi, cg, vh);
+    }
+  }
+}
+
 // One block's BM x 128 output tile: rows [m0, min(m0 + BM, M)) of x (row
 // stride K) against columns [n0, n0 + 128) of the planes, over the
 // contraction rows of K split `split` (qb_per_split quantization blocks
@@ -144,95 +249,9 @@ __device__ __forceinline__ void qmm_tc_tile(
     }
   };
 
-  // one 16-byte chunk (8 columns) of weight row k into the swizzled tile
-  auto put = [&](__nv_bfloat16* wt, int k, int cg, const float* v) {
-    uint4 o;
-    o.x = hopper::pack_bf16(v[0], v[1]);
-    o.y = hopper::pack_bf16(v[2], v[3]);
-    o.z = hopper::pack_bf16(v[4], v[5]);
-    o.w = hopper::pack_bf16(v[6], v[7]);
-    *reinterpret_cast<uint4*>(wt + k * kTN + ((cg ^ (k & 7)) << 3)) = o;
-  };
-  auto scales8 = [&](const uint8_t* plane, int row, int cg, float* out) {
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(plane + (row * kTN + cg * 8) * 2);
-    const __half2* h = reinterpret_cast<const __half2*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      out[2 * e] = __low2float(h[e]);
-      out[2 * e + 1] = __high2float(h[e]);
-    }
-  };
-
-  // decode the packed planes of `slot` into the bf16 tile wt [64 x 128].
-  // A thread keeps one group of 8 columns (cg) and walks rows r0, r0 +
-  // kRowStep, ...: its scales and zeros are converted once a step, the
-  // block row of each of its rows is known at compile time, and the rows
-  // are unrolled so that their shared-memory reads are in flight together
+  // decode the packed planes of `slot` into the bf16 tile wt [64 x 128]
   auto decode = [&](int slot, __nv_bfloat16* wt) {
-    constexpr int kRowStep = kThr / 16;
-    static_assert(kRowStep <= T::kBS / 2, "a step of rows stays in a block");
-    const uint8_t* pl = smem + slot * kStage + kABytes;
-    const uint8_t* ps = pl + P::kData + P::kHbits;
-    const uint8_t* pz = ps + P::kScales;
-    const int cg = tid & 15, r0 = tid >> 4;
-    float sc[P::kScaleRows][8], zc[P::kScaleRows][8];
-#pragma unroll
-    for (int r = 0; r < P::kScaleRows; ++r) {
-      scales8(ps, r, cg, sc[r]);
-      if constexpr (T::kZeros) {
-        scales8(pz, r, cg, zc[r]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) zc[r][e] = 0.f;
-      }
-    }
-    if constexpr (T::kLayout == Layout::kByte) {
-#pragma unroll
-      for (int i = 0; i < kTK / kRowStep; ++i) {
-        const int k = r0 + i * kRowStep;
-        const int sr = P::kScaleRows == 1 ? 0 : (i * kRowStep) / T::kBS;
-        const uint2 raw = *reinterpret_cast<const uint2*>(pl + k * kTN + cg * 8);
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const uint32_t word = e < 4 ? raw.x : raw.y;
-          v[e] = weight_unrounded<T>((word >> (8 * (e & 3))) & 0xFF,
-                                     sc[sr][e], zc[sr][e], tab);
-        }
-        put(wt, k, cg, v);
-      }
-    } else {
-      constexpr int kHalf = T::kBS / 2;
-#pragma unroll
-      for (int i = 0; i < (kTK / 2) / kRowStep; ++i) {
-        const int dr = r0 + i * kRowStep;
-        const int b = (i * kRowStep) / kHalf;     // dr / kHalf
-        const int klo = dr + b * kHalf, khi = klo + kHalf;
-        const uint2 raw = *reinterpret_cast<const uint2*>(pl + dr * kTN + cg * 8);
-        uint2 hl = make_uint2(0u, 0u), hh = make_uint2(0u, 0u);
-        if constexpr (T::kLayout == Layout::kBit5) {
-          const uint8_t* ph = pl + P::kData;
-          hl = *reinterpret_cast<const uint2*>(ph + (klo >> 3) * kTN + cg * 8);
-          hh = *reinterpret_cast<const uint2*>(ph + (khi >> 3) * kTN + cg * 8);
-        }
-        float vl[8], vh[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int sh = 8 * (e & 3);
-          const int byte = ((e < 4 ? raw.x : raw.y) >> sh) & 0xFF;
-          int lo = byte & 0xF, hi = byte >> 4;
-          if constexpr (T::kLayout == Layout::kBit5) {
-            lo |= (((e < 4 ? hl.x : hl.y) >> (sh + (klo & 7))) & 1) << 4;
-            hi |= (((e < 4 ? hh.x : hh.y) >> (sh + (khi & 7))) & 1) << 4;
-          }
-          vl[e] = weight_unrounded<T>(lo, sc[b][e], zc[b][e], tab);
-          vh[e] = weight_unrounded<T>(hi, sc[b][e], zc[b][e], tab);
-        }
-        put(wt, klo, cg, vl);
-        put(wt, khi, cg, vh);
-      }
-    }
+    decode_step<T, kThr>(smem + slot * kStage + kABytes, tab, wt, tid);
   };
 
   float acc[S::kMT][S::kNT][4];

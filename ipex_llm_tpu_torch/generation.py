@@ -216,6 +216,7 @@ def _stream_decode(cfg: ModelConfig, params: dict, cache,
     return out, step, syncs
 
 
+@torch.no_grad()
 def generate(cfg: ModelConfig, params: dict, input_ids: Any,
              generation_config: GenerationConfig, kv_kind: str = "auto",
              streamer: Callable[[np.ndarray], None] | None = None,

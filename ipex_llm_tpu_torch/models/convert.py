@@ -7,6 +7,9 @@ import the reference's class).  Every byte is kept: bf16 arrays, which
 numpy holds in an extension dtype, cross through a 16-bit integer view,
 and packed planes are copied as they are.  Stacked ``[L, ...]`` layer
 leaves stay stacked (the decoder indexes them per layer).
+:func:`adapters_from_reference` carries a QLoRA adapter tree likewise, so
+that both packages train from the same adapters (the reference draws them
+from JAX keys, which the port does not reproduce).
 """
 
 from __future__ import annotations
@@ -67,3 +70,11 @@ def params_from_reference(tree: dict, device=None) -> dict:
     out = {k: _leaf(v, dev) for k, v in tree.items() if k != "layers"}
     out["layers"] = {k: _leaf(v, dev) for k, v in tree["layers"].items()}
     return out
+
+
+def adapters_from_reference(adapters: dict, device=None) -> dict:
+    """The port's adapter tree ``{slot: {"a": [L, in, r], "b": [L, r,
+    out]}}`` for the reference's (numpy arrays), byte for byte."""
+    dev = resolve_device(device)
+    return {slot: {k: array_to_torch(ab[k], dev) for k in ("a", "b")}
+            for slot, ab in adapters.items()}

@@ -12,7 +12,14 @@ over the layer index.  Two forms, as in the reference:
 - dense (``generate()``): ``slot_offsets=None`` writes at the cache's
   ``length`` (one offset for every row), ``kv_start`` masks each row's left
   padding, and attention goes to the flash kernel (prefill) or the decode
-  kernel (T=1), with the sliding window on where ``cfg.layer_is_sliding``.
+  kernel (T=1), with the sliding window on where ``cfg.layer_is_sliding``;
+- training (``cache=None``): the dense form over slots ``[0, T)`` without
+  a cache: attention reads the layer's own k and v (``ops.attention.sdpa``,
+  B4 and, under a gradient, its backward), which is what the reference's
+  ``causal_lm_loss`` computes over a fresh dense cache of length T.  No
+  tensor is written in place, so autograd can run through it.
+  ``FROZEN_BUFFER_KEYS`` (the rope tables) are never trainable leaves
+  (``training/step.py``), so they carry no gradient.
 
 Rounding points follow the reference: activations are bf16, norms and rope
 compute in fp32, linear layers accumulate in fp32 and round to bf16 (a
@@ -29,6 +36,7 @@ place of the MLP.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -38,12 +46,14 @@ from ipex_llm_tpu_torch.ops import linear as linear_ops
 from ipex_llm_tpu_torch.ops import mlp as mlp_ops
 from ipex_llm_tpu_torch.ops import moe as moe_ops
 from ipex_llm_tpu_torch.ops import rope as rope_ops
-from ipex_llm_tpu_torch.ops.attention import cached_sdpa
+from ipex_llm_tpu_torch.ops.attention import cached_sdpa, sdpa
 from ipex_llm_tpu_torch.ops.embedding import embed_lookup
 from ipex_llm_tpu_torch.ops.norms import rms_norm
 from ipex_llm_tpu_torch.quantize.core import QTensor
 
 COMPUTE_DTYPE = torch.bfloat16
+# the tree's non-trainable buffers (the reference's decoder.py:40)
+FROZEN_BUFFER_KEYS = ("inv_freq", "inv_freq_local", "rope_mscale")
 
 
 def layer_params(layers: dict[str, Any], i: int) -> dict[str, Any]:
@@ -52,8 +62,14 @@ def layer_params(layers: dict[str, Any], i: int) -> dict[str, Any]:
     for name, leaf in layers.items():
         if isinstance(leaf, QTensor):
             out[name] = leaf.planes(lambda t: t[i])
-        else:
+        elif isinstance(leaf, torch.Tensor):
             out[name] = leaf[i]
+        else:   # training.qlora.LoraWeight over a QTensor or a matrix
+            base = leaf.base
+            base = (base.planes(lambda t: t[i]) if isinstance(base, QTensor)
+                    else base[i])
+            out[name] = dataclasses.replace(leaf, base=base, a=leaf.a[i],
+                                            b=leaf.b[i])
     return out
 
 
@@ -78,12 +94,15 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
         k = _norm(cfg, k, lp["k_norm"])
     q = rope_ops.apply_rope(q, cos, sin, cfg.rope_layout)
     k = rope_ops.apply_rope(k, cos, sin, cfg.rope_layout)
-    kl, vl = cache.update_layer(kl, vl, k, v, slot0)
-    attn = cached_sdpa(q, kl, vl, cache, causal=True, q_positions=q_slots,
-                       kv_len=kv_len, kv_start=kv_start,
-                       window=cfg.sliding_window, window_on=sliding,
-                       softcap=cfg.attn_softcap, scale=cfg.attn_scale,
-                       chunk_lens=chunk_lens)
+    kw = dict(causal=True, q_positions=q_slots, kv_len=kv_len,
+              kv_start=kv_start, window=cfg.sliding_window,
+              window_on=sliding, softcap=cfg.attn_softcap,
+              scale=cfg.attn_scale)
+    if cache is None:        # the training form: the layer's own K/V
+        attn = sdpa(q, k, v.contiguous(), **kw)
+    else:
+        kl, vl = cache.update_layer(kl, vl, k, v, slot0)
+        attn = cached_sdpa(q, kl, vl, cache, chunk_lens=chunk_lens, **kw)
     attn = attn.reshape(b, t, cfg.q_dim)
     out = linear_ops.linear(attn, lp["o"])
     if cfg.post_attn_norm:
@@ -216,6 +235,8 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
     Dense form (``slot_offsets=None``): every row writes at slots
     ``[cache.length, cache.length + T)``, ``kv_start`` [B] is each row's
     first valid slot (left padding), and ``cache.length`` advances by T.
+    Training form (``cache=None``): the dense form from slot 0 over the
+    tokens' own K/V; the returned cache is None.
     Logits are [B, V] for ``last_token_only`` or ``gather_positions`` (one
     index per row, gathered before the lm head) and [B, T, V] otherwise.
     """
@@ -227,21 +248,22 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
         q_slots = slot0[:, None] + torch.arange(t, device=dev)[None, :]
         kv_len = slot0 + (chunk_lens if chunk_lens is not None else t)
     else:
-        slot0 = int(cache.length)
+        slot0 = 0 if cache is None else int(cache.length)
         q_slots = (slot0 + torch.arange(t, device=dev))[None].expand(b, t)
         kv_len = torch.full((b,), slot0 + t, dtype=torch.int32, device=dev)
     layers = params["layers"]
     experts = moe_ops.dispatch() if cfg.num_experts else None
     for i in range(cfg.num_layers):
         lp = layer_params(layers, i)
-        x = x + _attention_block(cfg, lp, x, cache.k[i], cache.v[i], cos,
-                                 sin, slot0, q_slots, kv_len, kv_start,
+        kl, vl = (None, None) if cache is None else (cache.k[i], cache.v[i])
+        x = x + _attention_block(cfg, lp, x, kl, vl, cos, sin, slot0,
+                                 q_slots, kv_len, kv_start,
                                  cfg.layer_is_sliding(i), cache, chunk_lens)
         if "moe_gate_up" in lp:
             x = x + _moe_block(cfg, lp, x, experts)
         else:
             x = x + _mlp_block(cfg, lp, x)
-    if slot_offsets is None:
+    if slot_offsets is None and cache is not None:
         cache.length = slot0 + t
     if last_token_only:
         x = x[:, -1:, :]

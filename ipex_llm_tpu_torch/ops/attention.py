@@ -13,14 +13,24 @@ the serving engine's paged pool goes to the ragged paged kernel (B1),
 unless the layer has a window, a softcap or left padding: then, as in the
 reference, each row's pages are gathered into a head-major layer that B3
 (T=1) or B4 reads.  Biases raise.
+
+Under a gradient (``torch.is_grad_enabled()`` and a q, k or v that
+requires grad) ``sdpa`` runs B4's LSE instance inside
+:class:`_FlashAttention`, whose backward is B4's backward kernels
+(``ops/cuda/flash_attention_bwd.py``); windows, softcaps, biases and, on
+the card, a head_dim other than 128 raise there (ROADMAP item 16's
+remainder).  Otherwise B4 is called as it is, with no autograd node.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ipex_llm_tpu_torch.ops.cuda.decode_attention import decode_sdpa
-from ipex_llm_tpu_torch.ops.cuda.flash_attention import flash_sdpa
+from ipex_llm_tpu_torch.ops.cuda.decode_attention import (call_args,
+                                                          decode_sdpa)
+from ipex_llm_tpu_torch.ops.cuda.flash_attention import (flash_sdpa,
+                                                         flash_sdpa_lse)
+from ipex_llm_tpu_torch.ops.cuda.flash_attention_bwd import flash_sdpa_bwd
 from ipex_llm_tpu_torch.ops.cuda.ragged_paged_attention import \
     ragged_paged_sdpa
 
@@ -78,10 +88,58 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """B4's LSE instance forward, B4's backward kernels backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_len, kv_start, scale, causal):
+        out, lse = flash_sdpa_lse(q, k, v, scale=scale, causal=causal,
+                                  q_positions=q_positions, kv_len=kv_len,
+                                  kv_start=kv_start)
+        ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_len,
+                              kv_start)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_positions, kv_len, kv_start = ctx.saved_tensors
+        dq, dk, dv = flash_sdpa_bwd(q, k, v, out, dout, lse, scale=ctx.scale,
+                                    causal=ctx.causal,
+                                    q_positions=q_positions, kv_len=kv_len,
+                                    kv_start=kv_start)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _sdpa_grad(q, k, v, *, scale=None, causal=True, q_positions=None,
+               kv_len=None, kv_start=None, window=None, window_on=True,
+               softcap=None, bias=None) -> torch.Tensor:
+    if window is not None or softcap is not None or bias is not None:
+        raise NotImplementedError(
+            "attention with a window, a softcap or a bias under a gradient "
+            "is not ported (ROADMAP item 16's remainder)")
+    if q.is_cuda and q.shape[-1] != 128:
+        raise NotImplementedError(
+            f"attention at head_dim {q.shape[-1]} under a gradient on the "
+            "card is not ported (ROADMAP item 16's remainder)")
+    scale, kv_len, kv_start, _, _, _ = call_args(
+        q, k.shape[1], k.shape[2], scale=scale, kv_len=kv_len,
+        kv_start=kv_start, window=None, window_on=window_on, softcap=None)
+    if q_positions is None:
+        b, t = q.shape[:2]
+        q_positions = torch.arange(t, device=q.device)[None].expand(b, t)
+    return _FlashAttention.apply(q, k, v, q_positions, kv_len, kv_start,
+                                 scale, bool(causal))
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          **kwargs) -> torch.Tensor:
     """Attention with ``sdpa_reference``'s arguments through the flash
-    kernel (B4; a bias raises); a query with no valid key gets 0."""
+    kernel (B4; a bias raises); a query with no valid key gets 0.  Under a
+    gradient, through :class:`_FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _sdpa_grad(q, k, v, **kwargs)
     return flash_sdpa(q, k, v, **kwargs)
 
 

@@ -9,11 +9,16 @@ tensors and runs :func:`flash_sdpa_plain` for CPU tensors.  K/V are bf16
 (the caller widens an e5m2 cache layer once, as the reference's
 ``cached_sdpa`` does) and are read through their strides, so the dense
 cache's head-major layer seen as ``[B, S, Hkv, D]`` is not copied.
+:func:`flash_sdpa_lse` is the training forward: the kernel's LSE instance
+(head dim 128, no window, no softcap), which also returns each query's
+log-sum-exp for the backward (``ops/cuda/flash_attention_bwd.py``), and
+:func:`lse_plain` its plain version's.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -107,8 +112,27 @@ def flash_sdpa_plain(q, k, v, *, scale: float, causal: bool, q_positions,
     return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
 
 
+def lse_plain(q, k, *, scale: float, causal: bool, q_positions, kv_len,
+              kv_start) -> torch.Tensor:
+    """[B, Hq, T] fp32: each query's log-sum-exp of its visible scaled
+    scores, in float64 (+inf for a query that sees no key), the LSE
+    instance's output (no window, no softcap)."""
+    b, t, hq, _ = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    kk = k.double().repeat_interleave(hq // hkv, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q.double(), kk) * scale
+    kv_pos = torch.arange(s, device=q.device)[None, None, None, :]
+    mask = (kv_pos >= kv_start[:, None, None, None]) & (
+        kv_pos < kv_len[:, None, None, None])
+    if causal:
+        mask = mask & (kv_pos <= q_positions[:, None, :, None])
+    lse = torch.logsumexp(scores.masked_fill(~mask, -math.inf), dim=-1)
+    return torch.where(torch.isfinite(lse), lse,
+                       torch.full_like(lse, math.inf)).float()
+
+
 def _launch(q, k, v, q_positions, kv_len, kv_start, won, scale, causal,
-            window, softcap):
+            window, softcap, lse=None):
     b, t, hq, d = q.shape
     _, s, hkv, dk = k.shape
     dev = q.device
@@ -149,6 +173,7 @@ def _launch(q, k, v, q_positions, kv_len, kv_start, won, scale, causal,
         k.stride(0), k.stride(1), k.stride(2), ctypes.c_float(scale),
         int(causal), -1 if window is None else window,
         ctypes.c_float(0.0 if softcap is None else softcap),
+        ctypes.c_void_p(0 if lse is None else lse.data_ptr()),
         _build.stream_handle(q))
     COUNTS.launches += 1
     COUNTS.by_head_dim[d] += 1
@@ -183,9 +208,39 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             softcap=softcap)
 
 
+def flash_sdpa_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   scale: float, causal: bool, q_positions: torch.Tensor,
+                   kv_len: torch.Tensor, kv_start: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): :func:`flash_sdpa` (head dim 128, no window, no
+    softcap; ``kv_len``/``kv_start`` int32 [B], ``q_positions`` [B, T])
+    and each query's log-sum-exp [B, Hq, T] fp32 (+inf where it sees no
+    key), through the LSE instance on a CUDA tensor and the plain versions
+    on a CPU one."""
+    kv_len, kv_start = (x.to(device=q.device, dtype=torch.int32).contiguous()
+                        for x in (kv_len, kv_start))
+    won = torch.zeros_like(kv_len)
+    if q.is_cuda:
+        if q.shape[-1] != 128:
+            raise NotImplementedError(
+                f"the LSE instance has head_dim 128, got {q.shape[-1]}")
+        b, t, hq, _ = q.shape
+        lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+        out = _launch(q, k, v, q_positions, kv_len, kv_start, won, scale,
+                      bool(causal), None, None, lse=lse)
+        return out, lse
+    out = flash_sdpa_plain(q, k, v, scale=scale, causal=bool(causal),
+                           q_positions=q_positions.long(), kv_len=kv_len,
+                           kv_start=kv_start, won=won, window=None,
+                           softcap=None)
+    return out, lse_plain(q, k, scale=scale, causal=bool(causal),
+                          q_positions=q_positions.long(), kv_len=kv_len,
+                          kv_start=kv_start)
+
+
 def _declare(lib: ctypes.CDLL):
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
     lib.flash_attention.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                    ll, ll, ll, f, i, i, f, p]
+                                    ll, ll, ll, f, i, i, f, p, p]
     lib.flash_attention.restype = ctypes.c_int

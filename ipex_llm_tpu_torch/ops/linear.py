@@ -5,11 +5,23 @@ Weights in the ten block formats go to the fused dequant-matmul kernel
 against an ``[E, ...]`` expert stack to its expert-grouped form (B2e,
 :func:`qmatmul_experts`); ``bf16`` weights are a plain product (the
 reference leaves those to XLA).  A bias (fp32, as the reference keeps it)
-is cast to the output's dtype and added, as the reference adds it.  Other
-formats and LoRA weights raise.  The reference's oracle,
+is cast to the output's dtype and added, as the reference adds it.  A
+``training.qlora.LoraWeight`` adds ``(x A) B alpha/r`` to its frozen
+base's output, in the adapters' fp32, a plain product outside any kernel
+as in the reference.  Other formats raise.  The reference's oracle,
 ``qmatmul_reference``, is B2's plain version here:
 ``ops/cuda/qmatmul.py::qmatmul_plain``, which the wrapper runs for CPU
 tensors.
+
+Under a gradient (``torch.is_grad_enabled()`` and an x that requires
+grad) B2 runs inside :class:`_QMatmul`, whose backward is B2's input
+gradient (B2^T, ``ops/cuda/qmatmul_dx.py``); the planes get none, as the
+reference's ``MatMulLowBit.backward`` gives none.  Otherwise the kernel is
+called as it is, with no autograd node.  ``generate()``, the model's
+``__call__`` and the engine's ticks run under ``torch.no_grad()``, so they
+never enter the Function, even over params that a training step left
+requiring grad.  B2e under a gradient raises (MoE
+training is ROADMAP item 16's remainder).
 """
 
 from __future__ import annotations
@@ -18,13 +30,37 @@ import torch
 import torch.nn.functional as F
 
 from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+from ipex_llm_tpu_torch.ops.cuda import qmatmul_dx as b2t
 from ipex_llm_tpu_torch.ops.cuda import qmatmul_experts as b2e
 from ipex_llm_tpu_torch.quantize.core import QTensor
 
 
+class _QMatmul(torch.autograd.Function):
+    """B2 forward, B2^T backward: the gradient reaches x only."""
+
+    @staticmethod
+    def forward(ctx, x, qt):
+        ctx.qt, ctx.k, ctx.dtype = qt, x.shape[-1], x.dtype
+        return _qmatmul(x, qt)
+
+    @staticmethod
+    def backward(ctx, dy):
+        lead = dy.shape[:-1]
+        dy2 = dy.reshape(-1, dy.shape[-1]).to(torch.bfloat16).contiguous()
+        dx = b2t.qmatmul_dx(dy2, ctx.qt)[:, :ctx.k]
+        return dx.reshape(*lead, ctx.k).to(ctx.dtype), None
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x [..., in] @ dequant(qt) -> [..., out] through the B2 wrapper (the
-    kernel on a CUDA tensor, its plain version on a CPU one)."""
+    kernel on a CUDA tensor, its plain version on a CPU one); under a
+    gradient through :class:`_QMatmul`."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _QMatmul.apply(x, qt)
+    return _qmatmul(x, qt)
+
+
+def _qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     if qt.qtype not in b2.FORMATS:
         raise NotImplementedError(f"qmatmul for {qt.qtype!r} is not ported")
     lead = x.shape[:-1]
@@ -49,6 +85,10 @@ def qmatmul_experts(x_sorted: torch.Tensor, seg: torch.Tensor, qt: QTensor,
     if qt.qtype not in b2.FORMATS:
         raise NotImplementedError(
             f"qmatmul_experts for {qt.qtype!r} is not ported")
+    if torch.is_grad_enabled() and x_sorted.requires_grad:
+        raise NotImplementedError(
+            "B2e under a gradient (MoE training) is not ported (ROADMAP "
+            "item 16's remainder)")
     k = x_sorted.shape[-1]
     num, den = b2.data_row_factor(qt.qtype)
     k_pad = qt.data.shape[-2] * num // den
@@ -62,11 +102,11 @@ def qmatmul_experts(x_sorted: torch.Tensor, seg: torch.Tensor, qt: QTensor,
 
 def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None
            ) -> torch.Tensor:
-    """Linear over a QTensor (a block format or bf16) or a plain bf16
-    matrix, plus ``bias`` in the output's dtype."""
+    """Linear over a QTensor (a block format or bf16), a plain bf16
+    matrix or a LoraWeight, plus ``bias`` in the output's dtype."""
     if isinstance(w, QTensor) and w.qtype != "bf16":
         y = qmatmul(x, w)
-    else:
+    elif isinstance(w, (QTensor, torch.Tensor)):
         if isinstance(w, QTensor):
             w = w.data
         if x.is_cuda:
@@ -75,6 +115,13 @@ def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None
         else:
             y = torch.matmul(x.to(w.dtype).to(torch.float64),
                              w.to(torch.float64)).to(x.dtype)
+    else:
+        from ipex_llm_tpu_torch.training.qlora import LoraWeight
+        if not isinstance(w, LoraWeight):
+            raise TypeError(f"linear over a {type(w).__name__}")
+        y = linear(x, w.base)
+        lora = torch.matmul(torch.matmul(x.to(w.a.dtype), w.a), w.b) * w.scale
+        y = y + lora.to(y.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

@@ -195,6 +195,67 @@ def _quant_int_sym(w: torch.Tensor, bs: int, bits: int):
     return _pack_codes(codes, bs, bits), d[:, 0, :].to(SCALE_DTYPE), None
 
 
+def _search_mults(n_cand: int = 21, span: float = 0.25) -> torch.Tensor:
+    """The reference's ``jnp.linspace(1 - span, 1 + span, n_cand)`` in
+    float32, bit for bit: ``start (1 - s) + stop s`` with ``s = i *
+    float32(1 / (n - 1))`` (XLA multiplies by the divisor's reciprocal),
+    the last value ``stop`` itself."""
+    lo, hi = np.float32(1.0 - span), np.float32(1.0 + span)
+    st = np.arange(n_cand - 1, dtype=np.float32) * np.float32(
+        1.0 / (n_cand - 1))
+    out = lo * (np.float32(1.0) - st) + hi * st
+    return torch.from_numpy(np.append(out, hi).astype(np.float32))
+
+
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """[nb, bs, out] -> [nb, out], summed over the block's rows one after
+    another from the first (the order of XLA's reduce on the CPU), so the
+    search picks the same scale on every device."""
+    acc = x[:, 0]
+    for j in range(1, x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def _scale_search(blocks: torch.Tensor, d0: torch.Tensor, err_for):
+    """The reference's scan over ``d0 x mult`` (``_search_mults``): keep a
+    candidate only where its error is strictly below the best so far.
+    Returns the best ``d`` [nb, out]."""
+    best_err, best_d = err_for(d0), d0[:, 0, :]
+    for mult in _search_mults().tolist():
+        d = d0 * mult
+        err = err_for(d)
+        better = err < best_err
+        best_err = torch.where(better, err, best_err)
+        best_d = torch.where(better, d[:, 0, :], best_d)
+    return best_d
+
+
+def _quant_int_sym_opt(w: torch.Tensor, bs: int, bits: int):
+    """Scale-search symmetric quantization (the reference's
+    ``_quant_int_sym_opt``, llama.cpp ``make_qx_quants``): per block, 21
+    multipliers of the absmax scale in [0.75, 1.25]; the one with the
+    least x^2-weighted squared reconstruction error wins."""
+    blocks = _to_blocks(w, bs)
+    qmax = 1 << (bits - 1)
+    amax_idx = blocks.abs().argmax(dim=1, keepdim=True)
+    d0 = blocks.gather(1, amax_idx) / -qmax               # [nb, 1, out]
+    wgt = blocks * blocks
+
+    def codes(d):
+        inv_d = torch.where(d == 0, torch.zeros_like(d), 1.0 / d)
+        return torch.clamp(torch.round(blocks * inv_d) + qmax, 0,
+                           2 * qmax - 1)
+
+    def err_for(d):
+        recon = (codes(d) - qmax) * d
+        return _block_sum(((blocks - recon) ** 2) * wgt)
+
+    d = _scale_search(blocks, d0, err_for)[:, None, :]
+    q = _from_blocks(codes(d).to(torch.uint8))
+    return _pack_codes(q, bs, bits), d[:, 0, :].to(SCALE_DTYPE), None
+
+
 def _dequant_int_sym(qt: QTensor, bits: int) -> torch.Tensor:
     codes = _unpack_codes(qt.data, qt.block_size, bits)
     return _scaled(codes.to(torch.float32) - (1 << (bits - 1)), qt)
@@ -232,6 +293,29 @@ def _quant_codebook(w: torch.Tensor, bs: int, qtype: str):
     d = torch.where(amax == 0, torch.ones_like(amax), amax)
     codes = numerics.codebook_encode(blocks / d, _CODEBOOKS[qtype])
     return (_pack_nibbles(_from_blocks(codes), bs),
+            d[:, 0, :].to(SCALE_DTYPE), None)
+
+
+def _quant_codebook_opt(w: torch.Tensor, bs: int, qtype: str):
+    """Scale-search codebook quantization (the reference's
+    ``_quant_codebook_opt``): per block, the multiplier of the absmax
+    scale with the least x^2-weighted squared reconstruction error."""
+    table = _CODEBOOKS[qtype]
+    blocks = _to_blocks(w, bs)
+    amax = blocks.abs().amax(dim=1, keepdim=True)
+    d0 = torch.where(amax == 0, torch.ones_like(amax), amax)
+    wgt = blocks * blocks
+
+    def codes(d):
+        return numerics.codebook_encode(torch.clamp(blocks / d, -1.0, 1.0),
+                                        table)
+
+    def err_for(d):
+        recon = numerics.codebook_decode(codes(d), table) * d
+        return _block_sum(((blocks - recon) ** 2) * wgt)
+
+    d = _scale_search(blocks, d0, err_for)[:, None, :]
+    return (_pack_nibbles(_from_blocks(codes(d)), bs),
             d[:, 0, :].to(SCALE_DTYPE), None)
 
 
@@ -284,10 +368,16 @@ def _dequant_fp8(qt: QTensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def quantize(w: torch.Tensor, qtype: str,
-             block_size: int | None = None) -> QTensor:
+def quantize(w: torch.Tensor, qtype: str, block_size: int | None = None, *,
+             optimize: bool = False, imatrix=None) -> QTensor:
     """Quantize a 2-D ``[in_features, out_features]`` weight (on any
-    device) into ``qtype``."""
+    device) into ``qtype``.  ``optimize=True`` runs the reference's
+    per-block scale search for the symmetric integer and codebook formats
+    (the requant of a LoRA merge; the other formats ignore it, as there).
+    ``imatrix`` (importance-weighted quantization) is not ported."""
+    if imatrix is not None:
+        raise NotImplementedError(
+            "imatrix-weighted quantization is not ported (ROADMAP item 13)")
     info = qtypes.resolve(qtype)
     w = w.to(torch.float32)
     if w.ndim != 2:
@@ -298,11 +388,13 @@ def quantize(w: torch.Tensor, qtype: str,
     bs = block_size or info.block_size
     bits = int(info.bits)
     if info.kind == "int_sym":
-        planes = _quant_int_sym(w, bs, bits)
+        planes = (_quant_int_sym_opt if optimize else _quant_int_sym)(
+            w, bs, bits)
     elif info.kind == "int_asym":
         planes = _quant_int_asym(w, bs, bits)
     elif info.kind == "codebook":
-        planes = _quant_codebook(w, bs, info.name)
+        planes = (_quant_codebook_opt if optimize else _quant_codebook)(
+            w, bs, info.name)
     elif info.name == "fp6":
         planes = _quant_fp6(w, bs)
     else:

@@ -1216,6 +1216,7 @@ class ServingEngine:
                 self.tracer.add(tid, s)
         self.metrics["queue_depth"] = self.queue_depth
 
+    @torch.no_grad()
     def _tick(self) -> bool:
         """One transactional tick, the one the engine thread runs: plan,
         checkpoint, run the scheduler (:meth:`_step`), commit; on an

@@ -195,6 +195,7 @@ class TPUModelForCausalLM:
         return out
 
 
+    @torch.no_grad()
     def __call__(self, input_ids: Any, **kwargs) -> torch.Tensor:
         """Full-sequence forward over a dense cache: fp32 logits
         ``[B, T, V]`` on the model's device."""

@@ -3,8 +3,10 @@ B5 (split paged attention) in both its tile heights, B2's GEMV (M <= 8)
 and tiled (M > 8) instances in every block format, B2e (B2's tile over
 rows sorted by expert) in every block format and row tile, B1 (ragged
 paged attention) in both its instances
-(query tiles, key split), B3 (dense decode attention) and B4 (flash
-attention).  Every case carries the ``cuda`` marker and
+(query tiles, key split), B3 (dense decode attention), B4 (flash
+attention) and, for training, B4's LSE instance and backward and B2^T
+(the dequant-matmul's input gradient).  Every case carries the ``cuda``
+marker and
 skips without a card.  The file imports neither JAX nor the JAX package,
 so it runs where they are not installed; on a machine with a card:
 
@@ -20,8 +22,10 @@ import torch
 
 from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
 from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
+from ipex_llm_tpu_torch.ops.cuda import flash_attention_bwd as b4b
 from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
 from ipex_llm_tpu_torch.ops.cuda import qmatmul as b2
+from ipex_llm_tpu_torch.ops.cuda import qmatmul_dx as b2t
 from ipex_llm_tpu_torch.ops.cuda import qmatmul_experts as b2e
 from ipex_llm_tpu_torch.ops.cuda import ragged_paged_attention as b1
 from ipex_llm_tpu_torch.quantize.core import QTensor, quantize
@@ -391,3 +395,75 @@ def _flash_case(t, g, variant, d, lead=0):
     assert b4.COUNTS.launches == 1 and b4.COUNTS.plain_calls == 0
     _rows_close(got, want, f"T={t} G={g} {variant}")
     assert not got[want.abs().amax(dim=(2, 3)) == 0].any()
+
+
+# -- training: B4's LSE instance and backward, B2^T ---------------------------
+
+BWD_ULP = 2.0 ** -6     # B4's backward: two more bf16 operands than B4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 200])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_matches_plain(t, g, causal):
+    """B4's LSE instance (out and lse) and its backward (two launches) on
+    T not a multiple of the 64-row tiles, left padding on row 1 (and
+    kv_len < T there without causal masking): dQ per query row, dK and dV
+    per key row within BWD_ULP of the row's largest plain value, or of
+    2^-10 of the largest gradient where a row's exact gradient cancels
+    to 0 (a query over one key); a second call bitwise the first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(t * 8 + g)
+    b, hkv, d = 2, 2, 128
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen).to(torch.bfloat16)
+                   for h in (hkv * g, hkv, hkv, hkv * g))
+    kw = dict(scale=d ** -0.5, causal=causal,
+              q_positions=torch.arange(t)[None].expand(b, t),
+              kv_start=torch.tensor([0, min(37, t - 1)], dtype=torch.int32),
+              kv_len=torch.tensor([t, t if causal else max(t - 9, 1)],
+                                  dtype=torch.int32))
+    cuda = {k_: (x.cuda() if isinstance(x, torch.Tensor) else x)
+            for k_, x in kw.items()}
+    out, lse = b4.flash_sdpa_lse(q.cuda(), k.cuda(), v.cuda(), **cuda)
+    want_lse = b4.lse_plain(q, k, **kw)
+    lse = lse.cpu()
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    assert float((lse[fin] - want_lse[fin]).abs().max()) < 1e-3
+    grads = b4b.flash_sdpa_bwd(q.cuda(), k.cuda(), v.cuda(), out,
+                               do.cuda(), lse.cuda(), **cuda)
+    again = b4b.flash_sdpa_bwd(q.cuda(), k.cuda(), v.cuda(), out,
+                               do.cuda(), lse.cuda(), **cuda)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    want = b4b.flash_sdpa_bwd_plain(q, k, v, do, **kw)
+    floor = 2.0 ** -10 * max(float(w.abs().max()) for w in want)
+    for got, ref in zip(grads, want):
+        err = (got.cpu().float() - ref.float()).abs().amax(dim=(2, 3))
+        top = ref.float().abs().amax(dim=(2, 3)).clamp_min(floor)
+        assert bool((err <= BWD_ULP * top).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", b2.FORMATS)
+@pytest.mark.parametrize("m,k,n", [(1, 256, 384), (130, 200, 200),
+                                   (300, 4096, 1000)])
+def test_qmatmul_dx_kernel_matches_plain(qtype, m, k, n):
+    """B2^T at ragged M, K padded to the format's block, N a multiple of 8
+    but not of 16 (4-byte plane copies) or of 16: each dx row within one
+    bf16 ulp of its largest plain value, a second call bitwise the
+    first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(m + k + n)
+    qt = quantize(torch.randn(k, n, generator=gen) * k ** -0.5, qtype)
+    dy = torch.randn(m, n, generator=gen).to(torch.bfloat16)
+    qt_dev = qt.planes(lambda t: t.cuda())
+    got = b2t.qmatmul_dx(dy.cuda(), qt_dev)
+    torch.cuda.synchronize()
+    assert torch.equal(b2t.qmatmul_dx(dy.cuda(), qt_dev), got)
+    want = b2t.qmatmul_dx_plain(dy, qt).float()
+    err = (got.cpu().float() - want).abs().amax(dim=1)
+    assert bool((err <= ULP * want.abs().amax(dim=1)).all())

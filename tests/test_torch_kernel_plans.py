@@ -955,3 +955,153 @@ def test_paged_split_then_merge_matches_plain_and_pallas(pool, c):
         assert (np.abs(got - ref) <= 2.0 ** -7 * top).all(), (pool, c)
     empty = (kv_len[:, None] - c + np.arange(c)) < 0
     assert not got[empty].any()
+
+
+# -- B4's backward (training) --------------------------------------------------
+
+from ipex_llm_tpu_torch.ops.cuda import flash_attention_bwd as b4b  # noqa: E402
+from ipex_llm_tpu_torch.ops.cuda import qmatmul_dx as b2t  # noqa: E402
+
+
+@pytest.mark.parametrize("b,t,hq,hkv", [(2, 1024, 32, 32), (2, 2048, 32, 8),
+                                        (1, 63, 4, 1)])
+def test_flash_bwd_plan(b, t, hq, hkv):
+    """Two launches: dq over (q head, row, 64-query tile), dkdv over (kv
+    head, row, 64-key tile); four padded 64 x 128 bf16 tiles of shared
+    memory (68 KiB, three blocks an SM)."""
+    p = b4b.plan(b, t, hq, hkv, t)
+    assert p.dq_grid == (hq, b, -(-t // 64))
+    assert p.dkdv_grid == (hkv, b, -(-t // 64))
+    assert p.smem == 69632 and 3 * p.smem <= SMEM_SM
+    assert b4b.LAUNCHES == 2
+
+
+def _emulate_flash_bwd(q, k, v, dout, *, scale, causal, qpos, kv_len,
+                       kv_start):
+    """The two kernels' arithmetic in float64 over their tile walks: the
+    forward's P rebuilt from its lse, Delta = rowsum(dO o), dQ by query
+    tiles over the key tiles they walk, dK and dV by key tiles over the
+    query tiles they visit and the G heads of their kv head, in order."""
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    q, k, v, dout = (x.double() for x in (q, k, v, dout))
+    lse = b4.lse_plain(q, k, scale=scale, causal=causal, q_positions=qpos,
+                       kv_len=kv_len, kv_start=kv_start).double()
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    kp = torch.arange(s)
+    for r in range(b):
+        kvs, kvl = int(kv_start[r]), min(int(kv_len[r]), s)
+        vis = (kp[None] >= kvs) & (kp[None] < kvl)
+        if causal:
+            vis = vis & (kp[None] <= qpos[r][:, None])
+        for h in range(hq):
+            kh = h // g
+            sc = (q[r, :, h] @ k[r, :, kh].T) * scale
+            p = torch.where(vis, torch.exp(sc - lse[r, h][:, None]),
+                            torch.zeros_like(sc))
+            o = p @ v[r, :, kh]
+            delta = (dout[r, :, h] * o).sum(-1)
+            dp = dout[r, :, h] @ v[r, :, kh].T
+            ds = p * (dp - delta[:, None])
+            for q0 in range(0, t, b4b.Q_TILE):
+                rows = slice(q0, q0 + b4b.Q_TILE)
+                walked = torch.zeros(s, dtype=torch.bool)
+                live = qpos[r, rows]
+                for kt in b4.key_tiles(int(live.min()), int(live.max()), kvs,
+                                       kvl, causal=causal, window=None):
+                    walked[kt:kt + b4b.K_TILE] = True
+                assert not (vis[rows] & ~walked[None]).any()
+                dq[r, rows, h] = scale * (ds[rows][:, walked]
+                                          @ k[r, walked, kh])
+        for kh in range(hkv):
+            for k0 in range(0, s, b4b.K_TILE):
+                keys = slice(k0, k0 + b4b.K_TILE)
+                tiles = b4b.query_tiles(k0, qpos[r].tolist(), kvs, kvl,
+                                        causal=causal)
+                for h in range(kh * g, (kh + 1) * g):
+                    sc = (q[r, :, h] @ k[r, :, kh].T) * scale
+                    p = torch.where(vis, torch.exp(sc - lse[r, h][:, None]),
+                                    torch.zeros_like(sc))
+                    delta = (dout[r, :, h] * (p @ v[r, :, kh])).sum(-1)
+                    ds = p * (dout[r, :, h] @ v[r, :, kh].T - delta[:, None])
+                    seen = torch.zeros(t, dtype=torch.bool)
+                    for q0 in tiles:
+                        seen[q0:q0 + b4b.Q_TILE] = True
+                    assert not (vis[:, keys] & ~seen[:, None]).any()
+                    dv[r, keys, kh] += p[seen][:, keys].T @ dout[r, seen, h]
+                    dk[r, keys, kh] += scale * (ds[seen][:, keys].T
+                                                @ q[r, seen, h])
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("t,g,causal", [(63, 1, True), (130, 4, True),
+                                        (100, 2, False)])
+def test_flash_bwd_tile_walks_match_plain(t, g, causal):
+    """The backward kernels' walks (B4's ``key_tiles``, ``query_tiles``) leave
+    no visible pair out, and their Delta formulation over the forward's
+    lse gives autograd's gradients (the plain version): in float64 but for
+    the lse, which is fp32 as the kernels read it, so within 1e-6 of each
+    gradient's largest value; left padding on one row."""
+    gen = torch.Generator().manual_seed(t)
+    b, hkv, d = 2, 2, 16
+    hq = hkv * g
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen).to(
+        torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    kw = dict(scale=d ** -0.5, causal=causal,
+              kv_len=torch.tensor([t, t - 7 if not causal else t],
+                                  dtype=torch.int32),
+              kv_start=torch.tensor([0, 29], dtype=torch.int32))
+    qpos = torch.arange(t)[None].expand(b, t)
+    want = b4b.flash_sdpa_bwd_plain(q.double(), k.double(), v.double(),
+                                    dout.double(), q_positions=qpos, **kw)
+    got = _emulate_flash_bwd(q, k, v, dout, qpos=qpos, **kw)
+    for gv, wv in zip(got, want):
+        assert float((gv - wv).abs().max()) <= 1e-6 * float(wv.abs().max())
+    # the walk skips work: a causal key tile is not visited by the query
+    # tiles wholly before it
+    if causal and t > 64:
+        assert b4b.query_tiles(64, list(range(t)), 0, t, causal=True) == \
+            list(range(64, t, 64))
+
+
+# -- B2^T (the dequant-matmul's input gradient) --------------------------------
+
+@pytest.mark.parametrize("qtype", b2.FORMATS)
+def test_qmatmul_dx_plan_fits_the_sm(qtype):
+    """Two stages of a 128 x 128 bf16 dy tile and a step's packed planes,
+    and one decoded 64 x 128 weight tile: under 100 KiB in every format,
+    two blocks an SM; the grid covers dx [2048, K] at Llama-2-7B's
+    shapes in 128 x 64 tiles, each walking N in steps of 128."""
+    for k, n in LLAMA2_7B:
+        p = b2t.plan(2048, n, k, qtype)
+        assert p.grid == (16, k // 64) and p.steps == -(-n // 128)
+        assert 2 * p.smem <= SMEM_SM and p.threads == 256
+    # the stage planes agree with B2's tiled stage (csrc StagePlanes)
+    assert b2t.stage_plane_bytes("sym_int4") == 32 * 128 + 2 * 128 * 2
+    assert b2t.stage_plane_bytes("asym_int5") == (32 + 8) * 128 + 2 * 512
+    assert b2t.stage_plane_bytes("fp8_e4m3") == 64 * 128 + 256
+
+
+@pytest.mark.parametrize("qtype", ["sym_int4", "asym_int4", "nf4",
+                                   "sym_int5", "fp8_e5m2"])
+def test_qmatmul_dx_plain_matches_jax_vjp(qtype):
+    """B2^T's plain version, ``dy @ dequant(W)^T`` over the padded rows
+    and sliced to ``in_features``, against ``jax.vjp`` of the reference's
+    oracle ``qmatmul_reference`` on the same packed weight: each dx row
+    within one bf16 ulp of its largest value (both round the bf16 weight
+    once; the vjp's fp32 sum and the plain version's float64 sum differ
+    in the last place before the bf16 rounding)."""
+    import jax
+
+    rng = np.random.default_rng(4)
+    k, n, m = 200, 96, 7               # K not a multiple of the block
+    w = (rng.standard_normal((k, n)) / 10).astype(np.float32)
+    ref_qt = ref_core.quantize(w, qtype)
+    x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+    dy_j, dy_t = _bf16(rng.standard_normal((m, n)))
+    _, vjp = jax.vjp(lambda a: qmatmul_reference(a, ref_qt), x)
+    want = _f32(vjp(dy_j)[0])
+    got = b2t.qmatmul_dx_plain(dy_t, _port_qtensor(ref_qt))[:, :k]
+    err = np.abs(_f32(got) - want).max(axis=1)
+    assert (err <= 2.0 ** -7 * np.abs(want).max(axis=1)).all()
