@@ -10,7 +10,8 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 
 1. device: the card's name and power limit, the torch and CUDA versions,
    the build of every CUDA kernel (one ``nvcc`` per source, all started
-   together), no register spills in B2's, B2e's and B5's sources, and
+   together), no register spills in B2's, B2e's, B3's, B4's and B5's
+   sources, and
    the tensor-core instructions in the SASS of B2's GEMV and tiled
    instances, of B2e's gemv and tiled instances, of B1's, of B3's and of
    B5's split pass (``HMMA``, from ``mma.sync``) and of B4's and B2e's
@@ -34,7 +35,8 @@ Phases, each of which exits non-zero on failure (there is no fallback):
    every plane byte-equal;
 3. ``b1``: ragged paged attention against its plain version on decode,
    chunk (width 128 and 16) and idle rows, and on the verify chunks of
-   ``spec_k`` 3 (C=4), at 32 heads, head_dim 128, page 128, and at GQA
+   ``spec_k`` 3 (C=4), at 32 heads, head_dim 128 (its head_dim-256
+   instances in ``rope_families``), page 128, and at GQA
    (32 query heads over 8 kv heads: decode and C=128) and at Qwen2-7B's
    group of 7 (28 query heads over 4 kv heads: decode, C=4 and C=128),
    over bf16 and e5m2 pools, with the instance that ran (``route``: query
@@ -154,13 +156,28 @@ Phases, each of which exits non-zero on failure (there is no fallback):
 11. ``families`` (``scripts/torch_families_smoke.py``): small qwen2 (B1
     at G = 7) and gemma2 (B3 and B4 at head_dim 256) decoders card
     against CPU, paged and dense; Mistral-7B-v0.1, Qwen2-7B and
-    Gemma-2-9B at full width and depth through ``ServingEngine`` (eight
+    Gemma-2-9B at full width, 8 layers each, through ``ServingEngine`` (eight
     requests of 64-5000 ids over a bf16 pool, two over e5m2; the windowed
     ones on the gathered route, B1 never launched), the gather's share of
     one decode tick's device time, and ``generate()`` for Qwen2-7B and
     Gemma-2-9B (a 4500-id prompt among four), with tok/s, TTFT and peak
     device memory;
-12. ``moe`` (``scripts/torch_moe_smoke.py``): B2e, the expert-grouped
+12. ``rope_families`` (``scripts/torch_rope_families_smoke.py``): every
+    rope kind's table, mscale and cos/sin card against CPU; B1's
+    head_dim-256 instances (Gemma-7B's and Gemma-3-4B's heads, C = 1, 4
+    and 128, bf16 and e5m2 pools) and B3's and B4's head_dim-96 instances
+    (Phi-3-mini's heads, the 2047 window cutting; B4 at the gathered
+    route's 8 x 128 chunks and at T = 4) against their plain versions,
+    timed from CUDA-graph replays beside their bounds and SDPA; small
+    phi3, gemma and gemma3 decoders and 2-layer Llama-3.1-8B (llama3)
+    and Phi-3.5-mini (longrope over a partial rotary of 0.75) decoders
+    card against CPU; Phi-3-mini-4k, Gemma-7B and Gemma-3-4B at full width
+    and depth through ``ServingEngine`` (eight requests of 64 ids to near
+    the model's limit, two over e5m2) with the attention kernels following
+    the layers (Gemma-7B B1 only, Gemma-3-4B B1 on its full layers and
+    B3/B4 on its sliding ones, Phi-3-mini B3/B4 at 96 only), and a
+    Gemma-3-4B ``generate()``;
+13. ``moe`` (``scripts/torch_moe_smoke.py``): B2e, the expert-grouped
     dequant-matmul, each of its instances (gemv, wgmma, tiled) against its
     plain version in every format (segments of 0 to 640 rows, both output
     types, a second call bitwise the first) and at Mixtral-8x7B's and
@@ -169,14 +186,14 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     beside its bound and ``torch._grouped_mm``; small Mixtral-,
     Qwen1.5-MoE-, Qwen3-MoE- and Qwen3-shaped decoders card against CPU
     (both dispatch routes, equal expert selections where the router is
-    sure); Mixtral-8x7B and Qwen3-30B-A3B at full width and depth through
+    sure); Mixtral-8x7B and Qwen3-30B-A3B at full width, 8 layers each, through
     ``ServingEngine`` at the engine's default prefill budget (B1, B2,
     B2e's gemv and tiled instances) and at a budget of 1024 tokens (gemv
     and wgmma; B1 at G = 8 for Qwen3), one decode tick of each profiled (B2e's share, the idle
     share), Mixtral ``generate()`` (B2, B3, B4, B2e's gemv and wgmma); a
     2-layer Mixtral-width checkpoint through ``from_pretrained`` and
     ``build_server``.
-13. ``train`` (``scripts/torch_train_smoke.py``): the training path's
+14. ``train`` (``scripts/torch_train_smoke.py``): the training path's
     kernels, B4's LSE instance and backward (causal, T = 1, 63, 1024 and
     2048, G = 1 and 4, ``kv_start`` > 0 on a row; dQ, dK, dV per row
     within 2^-6 of the row's largest plain value, bitwise on a second
@@ -386,12 +403,12 @@ def main() -> int:
         report.setdefault("ptxas", {})[name] = regs
     # the redesigned instances must run on the tensor cores: mma.sync is
     # HMMA in the SASS, B4's and B2e's wgmma HGMMA; and none may spill
-    # (B2's, B2e's and B5's sources; B1's merge kernel keeps a 4-byte
-    # spill)
+    # (B2's, B2e's, B3's, B4's and B5's sources; B1's merge kernel keeps a
+    # 4-byte spill)
     spills = {name: [ln for ln in report["ptxas"][name] if "spill" in ln
                      and " 0 bytes spill stores" not in ln]
-              for name in (b2.NAME, *b2e.SOURCES.values(), b5.NAME,
-                           b2t.NAME, b4b.NAME)}
+              for name in (b2.NAME, *b2e.SOURCES.values(), b3.NAME, b4.NAME,
+                           b5.NAME, b2t.NAME, b4b.NAME)}
     if any(spills.values()):
         fail(f"ptxas reports spills: {spills}")
     hmma = {}
@@ -2261,14 +2278,23 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
 
-    # -- 12. mixture of experts: B2e, Mixtral-8x7B, Qwen3-30B-A3B -----------
+    # -- 12. rope scaling and the phi3, gemma and gemma3 families ----------
+    from torch_rope_families_smoke import rope_families_phase
+
+    report["rope_families"] = rope_families_phase(kernels, card, fail, dev,
+                                                  graph_ms)
+    print(f"rope_families phase: {report['rope_families']['phase_s']:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 13. mixture of experts: B2e, Mixtral-8x7B, Qwen3-30B-A3B -----------
     from torch_moe_smoke import moe_phase
 
     report["moe"] = moe_phase(kernels, card, fail, dev, graph_ms)
     print(f"moe phase: {report['moe']['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    # -- 13. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
+    # -- 14. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
     from torch_train_smoke import train_phase
 
     report["train"] = train_phase(kernels, card, fail, dev, graph_ms)
@@ -2325,6 +2351,31 @@ def main() -> int:
                    if k.split("/")[0].rstrip("0123456789") == instance)
     rep_b1_g8 = next(r for r in report["b1"] if r["pool"] == "bf16"
                      and r["case"].startswith("G=8 decode"))
+    # the head_dims of the rope_families phase: B1 at 256 (Gemma-7B's
+    # heads), B3 and B4 at 96 (Phi-3-mini's); launches from those models'
+    # bf16 serving runs (Gemma-3-4B's B1 launches beside Gemma-7B's)
+    rf = report["rope_families"]
+    rf_serve = {r["model"]: r for r in rf["serve"] if r["storage"] == "bf16"}
+    rf_rows = rf["kernels"]
+
+    def rf_row(kernel, case):
+        return next(r for r in rf_rows if r["kernel"] == kernel
+                    and r["case"] == case and r.get("pool", "bf16") == "bf16")
+
+    def rf_err(kernel, head_dim):
+        return max(r["max_abs_err"] for r in rf_rows
+                   if r["kernel"] == kernel and r["head_dim"] == head_dim)
+    rep_b1_256 = rf_row("ragged_paged_attention",
+                        "D=256 Gemma-7B Hq=16 Hkv=16 C=128")
+    rep_b1_256_split = rf_row("ragged_paged_attention",
+                              "D=256 Gemma-7B Hq=16 Hkv=16 C=1")
+    rep_b3_96 = rf_row("decode_attention",
+                       "D=96 Phi-3-mini B=8 S=4096 window 2047")
+    rep_b4_96 = rf_row("flash_attention",
+                       "D=96 Phi-3-mini T=128 x 8 chunks S=4096 window 2047")
+    gemma7 = rf_serve["Gemma-7B"]["attention"]
+    gemma3 = rf_serve["Gemma-3-4B"]["attention"]
+    phi3 = rf_serve["Phi-3-mini-4k"]["attention"]
     serve_routes = report["serve"][0]["launches_by_route"]
     for name, routes in serve_routes.items():
         if min(routes.values()) == 0:
@@ -2486,6 +2537,49 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in report["b1"]
                             if r["case"].startswith("G=8")),
          **{k: rep_b1_g8[k] for k in keys}},
+        # B1's head_dim-256 instances (Gemma, Gemma-3's full layers): their
+        # launches in the Gemma-7B bf16 serving run, every layer's
+        {"name": "ragged_paged_attention[D=256]", "route": "cuda",
+         "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=128 Hq=Hkv=16 D=256 page 16, 2400 slots, bf16 "
+                  "pool, chunk+decode+idle rows (query tiles)",
+         "launches": gemma7["b1_by_route"]["tiles"],
+         "launches_run": "Gemma-7B serving, bf16 pool",
+         "launches_gemma3_full_layers": gemma3["b1_by_route"]["tiles"],
+         "max_abs_err": rf_err("ragged_paged_attention", 256),
+         **{k: rep_b1_256[k] for k in keys}},
+        {"name": "ragged_paged_attention[D=256, split]", "route": "cuda",
+         "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=1 Hq=Hkv=16 D=256 page 16, rows of 130-2397 "
+                  "slots, bf16 pool (key split and merge)",
+         "launches": gemma7["b1_by_route"]["split"],
+         "launches_run": "Gemma-7B serving, bf16 pool",
+         "launches_gemma3_full_layers": gemma3["b1_by_route"]["split"],
+         "max_abs_err": rf_err("ragged_paged_attention", 256),
+         **{k: rep_b1_256_split[k] for k in keys}},
+        # B3 and B4 at head_dim 96 (Phi-3-mini): their launches in its bf16
+        # serving run (the gathered route on every layer)
+        {"name": "decode_attention[D=96]", "route": "cuda",
+         "source": src + "decode_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/decode_attention.py:166",
+         "shape": "B=8 Hq=Hkv=32 D=96 S=4096, bf16 cache, window 2047",
+         "launches": phi3["b3_by_head_dim"][96],
+         "launches_run": "Phi-3-mini-4k serving, bf16 pool",
+         "max_abs_err": rf_err("decode_attention", 96),
+         **{k: rep_b3_96[k] for k in keys}},
+        {"name": "flash_attention[D=96]", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/flash_attention.py:166",
+         "shape": "B=8 T=128 S=4096 Hq=Hkv=32 D=96, per-row query slots, "
+                  "window 2047",
+         "launches": phi3["b4_by_head_dim"][96],
+         "launches_run": "Phi-3-mini-4k serving, bf16 pool",
+         "max_abs_err": rf_err("flash_attention", 96),
+         **{k: rep_b4_96[k] for k in keys}},
         # B2e: B2 as the MoE dispatch reaches it under jax.vmap in the
         # reference; each entry's launches are its instance's in the
         # model's serving run at the engine's default prefill budget (the

@@ -43,13 +43,21 @@
 // head's splits in split order (deterministic, no atomics), skipping
 // splits with l = 0, and writes bf16.
 //
-// Two instances of the head dim D, 128 and 256 (Gemma-2).  At 256 a tile
+// Instances of the head dim D at 128 and 256 (Gemma-2).  At 256 a tile
 // pair is 64 KiB and the accumulator alone takes 128 registers a thread,
 // so that instance keeps the 16 query rows in shared memory (8 KiB) and
 // reads each step's A fragment with ldmatrix instead of holding all 16
 // steps' fragments in registers, and its three bf16 stages (192 KiB; four
 // raw e5m2 stages of 32 KiB and the widened pair) leave room for one
 // block an SM instead of two; split_plan reads the resident count.
+//
+// A third instance, D = 96 (Phi-3-mini), keeps D = 128's shared-memory
+// layout: a key's row is 128 columns (256 bytes) wide, so the 16-byte-chunk
+// XOR swizzle stays within the row and conflict-free; the kernel stages
+// the 96 columns the layer holds (12 chunks a key, the e5m2 rows as the
+// 96 bytes stored) and never reads the other 32 (six 16-dim score steps,
+// twelve 8-column output tiles), so they need no zeros and the layer in
+// HBM is read as stored, unpadded.  Q's 6 steps stay in registers.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -68,17 +76,21 @@ constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
 constexpr float kFloor = -1e29f;         // the reference's m clamp
 constexpr float kLog2e = 1.4426950408889634f;
 
-// blocks an SM holds: 2 of 96 KiB at D = 128, 1 of 200 KiB at D = 256
-// (decode_attention.py::ring_plan)
+// blocks an SM holds: 2 of 96 KiB at D = 96 and 128, 1 of 200 KiB at
+// D = 256 (decode_attention.py::ring_plan)
 template <int D>
-constexpr int kResident = D == 128 ? 2 : 1;
+constexpr int kResident = D <= 128 ? 2 : 1;
+
+// the columns of a key's row in shared memory: D, or 128 at D = 96
+template <int D>
+constexpr int kRowD = D < 128 ? 128 : D;
 
 template <typename KV, int D>
 struct Ring {
   // bf16: 3 stages of (K, V) tiles; e5m2: 4 raw stages (half a bf16 tile
   // each of K and V), then the widened bf16 K/V pair; at D = 256 the 16
   // query rows (bf16, swizzled) after them
-  static constexpr int kTileBytes = kKT * D * 2;  // one bf16 K or V tile
+  static constexpr int kTileBytes = kKT * kRowD<D> * 2;  // one K or V tile
   static constexpr bool kFp8 = sizeof(KV) == 1;
   static constexpr bool kQSmem = D > 128;
   static constexpr int kStages = kFp8 ? 4 : 3;
@@ -91,7 +103,8 @@ struct Ring {
 
 template <int D>
 __device__ __forceinline__ int kv_chunk(int key, int c) {
-  return key * (D / 8) + (c ^ (key & 7));    // swizzled 16-byte chunk index
+  // swizzled 16-byte chunk index
+  return key * (kRowD<D> / 8) + (c ^ (key & 7));
 }
 
 // stage the keys [k0, k0 + 64) of one kv head (as stored: bf16 swizzled,
@@ -375,8 +388,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const float m_ref = fmaxf(m_all, kFloor);
 #pragma unroll
-    for (int dd = 0; dd < D / kThreads; ++dd) {
+    for (int dd = 0; dd < (D + kThreads - 1) / kThreads; ++dd) {
       const int d = threadIdx.x + dd * kThreads;
+      if (D % kThreads != 0 && d >= D) break;
       float lsum = 0.f, o = 0.f;
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
@@ -463,7 +477,7 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // q bf16 [B,1,Hq,D]; k/v [B,Hkv,S,D] bf16 (kv_fp8=0) or e5m2 (kv_fp8=1),
 // contiguous, 16-byte aligned; kv_len, kv_start, won int32 [B]; out bf16
 // [B,1,Hq,D]; ws_acc fp32 [B,Hkv,splits,G,D] and ws_ml fp32
-// [B,Hkv,splits,G,2] scratch.  D = 128 or 256, G = Hq/Hkv <= 16,
+// [B,Hkv,splits,G,2] scratch.  D = 96, 128 or 256, G = Hq/Hkv <= 16,
 // splits <= 64; window <= 0 means none, softcap <= 0 none.  Launches the split kernel and the merge
 // kernel; returns the first non-zero cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported D or G).
@@ -474,7 +488,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int D, int splits, int kv_fp8, float scale,
                                 int window, float softcap, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if ((D != 128 && D != 256) || Hq % Hkv || Hq / Hkv > kRows ||
+  if ((D != 96 && D != 128 && D != 256) || Hq % Hkv || Hq / Hkv > kRows ||
       splits < 1 || splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
@@ -489,12 +503,18 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                  : DECODE_LAUNCH(uint8_t, HD, false))                       \
           : (cap ? DECODE_LAUNCH(uint16_t, HD, true)                        \
                  : DECODE_LAUNCH(uint16_t, HD, false)))
-  err = D == 128 ? DECODE_LAUNCH_D(128) : DECODE_LAUNCH_D(256);
+  err = D == 128   ? DECODE_LAUNCH_D(128)
+        : D == 256 ? DECODE_LAUNCH_D(256)
+                   : DECODE_LAUNCH_D(96);
 #undef DECODE_LAUNCH_D
 #undef DECODE_LAUNCH
   if (err) return err;
   const dim3 mgrid(Hq, B);
-  if (D == 128)
+  if (D == 96)
+    decode_merge_kernel<96><<<mgrid, 96, 0, st>>>(
+        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
+        static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
+  else if (D == 128)
     decode_merge_kernel<128><<<mgrid, 128, 0, st>>>(
         static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
         static_cast<__nv_bfloat16*>(out), Hkv, G, splits);

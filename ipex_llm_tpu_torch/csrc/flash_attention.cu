@@ -54,6 +54,17 @@
 // two m64n128k16 per 16 keys (one on each 128-dim half of O), and holds
 // two stages of 64 KiB K/V tile pairs (161 KiB in all, one block an SM).
 //
+// A third instance, D = 96 (Phi-3-mini), is the 128 one over a tile laid
+// out at 128 columns: a 96-column row is one and a half 64-column swizzle
+// atoms, so the kernel stages the 96 columns the layer holds into the
+// 128-column swizzled tile (never padding a copy in HBM) and writes zeros
+// once, before the first tile, into the 32 columns no copy fills, as the
+// Pallas kernel pads to 128 in VMEM.  S = Q.K^T takes the six 16-dim
+// steps of the 96 (Q's six fragments in registers, K's pad never read);
+// O += P.V stays one m64n128k16 per 16 keys over the padded V, whose zero
+// columns give the accumulator 32 columns the kernel does not write out
+// (a quarter of the P.V products wasted, 64 accumulator registers).
+//
 // The training forward (ops/attention.py's autograd Function) takes the
 // LSE instance (head dim 128, no softcap): the same kernel that also
 // writes each query's log-sum-exp of its scaled scores, lse = m + log l in
@@ -82,13 +93,15 @@ constexpr int kBig = 0x3fffffff;
 // the instance of head dim D (flash_attention.py::smem_plan)
 template <int D>
 struct Plan {
-  static constexpr int kTileBytes = kBK * D * 2;      // one bf16 K or V tile
+  static constexpr int kPadD = D < 128 ? 128 : D;     // a tile row's columns
+  static constexpr int kTileBytes = kBK * kPadD * 2;  // one bf16 K or V tile
   static constexpr bool kQSmem = D > 128;             // Q from a descriptor
-  static constexpr int kStages = D == 128 ? 3 : 2;    // K/V ring depth
-  static constexpr int kResident = D == 128 ? 2 : 1;  // blocks an SM holds
+  static constexpr int kStages = D <= 128 ? 3 : 2;    // K/V ring depth
+  static constexpr int kResident = D <= 128 ? 2 : 1;  // blocks an SM holds
   static constexpr int kQOff = kStages * 2 * kTileBytes;
   // the stages, Q's rows at D = 256, and the slack to align them to 1024
-  // bytes (the swizzle): 96 KiB + 1 KiB at D = 128, 160 KiB + 1 KiB at 256
+  // bytes (the swizzle): 96 KiB + 1 KiB at D = 96 and 128, 160 KiB + 1 KiB
+  // at 256
   static constexpr int kSmem =
       kQOff + (kQSmem ? kBQ * D * 2 : 0) + 1024;
   static_assert(kSmem <= 232448, "exceeds a block's shared memory");
@@ -111,8 +124,8 @@ __device__ __forceinline__ int tile_kind(int kt, int qmin, int qmax,
 }
 
 // stage the keys [k0, k0 + 64) of one kv head into `kd`/`vd` (each D / 64
-// 128-byte swizzled blocks: dims 0-63, then 64-127, ...); keys outside
-// [kvs, kvl) are zeros
+// 128-byte swizzled blocks: dims 0-63, then 64-127, ...; at D = 96 the
+// first half of the second block); keys outside [kvs, kvl) are zeros
 template <int D>
 __device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
                                            const __nv_bfloat16* kh,
@@ -167,6 +180,21 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
   const __nv_bfloat16* kh = k + (size_t)b * ksb + (size_t)hkv * ksh;
   const __nv_bfloat16* vh = v + (size_t)b * ksb + (size_t)hkv * ksh;
+  if constexpr (D != P::kPadD) {
+    // the tile columns [D, kPadD) no copy fills: zeros, once (the fence
+    // before each tile's first wgmma makes them visible to it)
+    constexpr int kPadChunks = (P::kPadD - D) / 8;
+    for (int i = threadIdx.x; i < kStages * 2 * kBK * kPadChunks;
+         i += kThreads) {
+      const int tile = i / (kBK * kPadChunks);
+      const int rem = i % (kBK * kPadChunks);
+      const int key = rem / kPadChunks, c = D / 8 + rem % kPadChunks;
+      *reinterpret_cast<uint4*>(smem + tile * kTileBytes +
+                                (c >> 3) * kBlockBytes +
+                                hopper::sw128_offset(key, c & 7)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   // the warp's rows' slot range (live rows only), then the block's
   const int jw = q0 + warp * 16;            // the warp's first query
@@ -240,9 +268,10 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float sl2 = scale * kLog2e;         // scores in base-2 units
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  constexpr int kPadD = P::kPadD;
+  float acc[kPadD / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < kPadD / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
@@ -350,7 +379,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
         l[row] = l[row] * alpha[row] + sum[row];
       }
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
+      for (int dn = 0; dn < kPadD / 8; ++dn) {
         acc[dn][0] *= alpha[0];
         acc[dn][1] *= alpha[0];
         acc[dn][2] *= alpha[1];
@@ -367,12 +396,12 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
       pa[kk][2] = hopper::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[kk][3] = hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
-    hopper::fence_regs<D / 2>(&acc[0][0]);
+    hopper::fence_regs<kPadD / 2>(&acc[0][0]);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kSN / 2; ++kk)
 #pragma unroll
-      for (int dh = 0; dh < D / 128; ++dh)   // 128-dim halves of O
+      for (int dh = 0; dh < kPadD / 128; ++dh)   // 128-dim halves of O
         hopper::wgmma_m64n128k16_rs<1>(
             &acc[dh * 16][0], pa[kk],
             hopper::sw128_desc(vs + dh * 2 * kBlockBytes + kk * 16 * 128,
@@ -380,7 +409,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
             1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
-    hopper::fence_regs<D / 2>(&acc[0][0]);
+    hopper::fence_regs<kPadD / 2>(&acc[0][0]);
     __syncthreads();       // the tile's slot is refilled next iteration
   }
   hopper::cp_async_wait<0>();
@@ -436,7 +465,7 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // ksh) over (B, S, Hkv), multiples of 8, and a contiguous D (the same
 // strides for both), 16-byte aligned; qpos int32 [B,T]; kv_len, kv_start,
 // won int32 [B]; out bf16 [B,T,Hq,D]; lse fp32 [B,Hq,T] or null (the LSE
-// instance: D = 128, no softcap).  D = 128 or 256; window <= 0 means none,
+// instance: D = 128, no softcap).  D = 96, 128 or 256; window <= 0 means none,
 // softcap <= 0 none.  Returns cudaGetLastError() (cudaErrorInvalidValue
 // for another D, or an lse buffer outside the LSE instance).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -448,7 +477,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int window, float softcap, void* lse,
                                void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if ((D != 128 && D != 256) || Hq % Hkv)
+  if ((D != 96 && D != 128 && D != 256) || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(Hq, B, (T + kBQ - 1) / kBQ);
   const bool cap = softcap > 0.f;
@@ -463,9 +492,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   launch<HD, CAP>(grid, st, q, k, v, qpos, kv_len, kv_start, won, out,     \
                   nullptr, T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,    \
                   window, softcap)
-  const int err = D == 128
-                      ? (cap ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false))
-                      : (cap ? FLASH_LAUNCH(256, true) : FLASH_LAUNCH(256, false));
+  const int err =
+      D == 128   ? (cap ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false))
+      : D == 256 ? (cap ? FLASH_LAUNCH(256, true) : FLASH_LAUNCH(256, false))
+                 : (cap ? FLASH_LAUNCH(96, true) : FLASH_LAUNCH(96, false));
 #undef FLASH_LAUNCH
   return err;
 }

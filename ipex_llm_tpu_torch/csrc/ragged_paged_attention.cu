@@ -51,6 +51,22 @@
 //     kernel merges a query row's splits in split order (deterministic, no
 //     atomics).  A split past the row's live pages writes l = 0, which the
 //     merge skips.
+//
+// Two instances of the head dim D, 128 and 256 (Gemma, and Gemma-3's full
+// layers), each with both of the above.  At 256 a K/V tile pair is 64 KiB,
+// so the four staged tiles take 128 KiB, and the fp32 accumulator of a
+// warp's 16 rows alone takes 128 registers a thread.  That instance takes
+// B3's answer at 256 (decode_attention.cu): the block's query rows (64, or
+// 16 in the split) sit in shared memory, swizzled like a K tile and staged
+// with the first tile, and each 16-dim step's A fragment is read with
+// ldmatrix where it is used instead of holding all 16 steps' fragments in
+// registers; its 136 or 160 KiB of shared memory leave room for one block
+// an SM.  Its query-tile instance also takes each warp's 64 keys of a tile
+// in two parts of 32 through the online softmax, which halves the score
+// registers (in one part it used 255 registers and spilled over e5m2).
+// (B4's answer, O in two 128-column halves, would walk the keys twice and
+// read each K/V tile from HBM twice.)  The 128 instance is the same code
+// with D = 128: Q in registers, one part, 64 KiB.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -60,21 +76,34 @@
 
 namespace {
 
-constexpr int kD = 128;                 // head dim (the only instance)
 constexpr int kKT = 64;                 // keys per staged tile
 constexpr int kThreads = 128;           // 4 warps
 constexpr float kNegInf = -1e30f;       // the reference's NEG_INF
 constexpr float kFloor = -1e29f;        // the reference's m clamp
-constexpr int kTileBytes = kKT * kD * 2;            // one bf16 K or V tile
-constexpr int kSmemBytes = 4 * kTileBytes + 16;     // 64 KiB + q_hi
 
+// the instance of head dim D (ragged_paged_attention.py::smem_plan): four
+// K/V tiles, the block's last visible slot, and at D = 256 the block's
+// query rows (kQRows: 64 for the query tiles, 16 for the key split)
+template <int D>
+struct Plan {
+  static constexpr int kTileBytes = kKT * D * 2;     // one bf16 K or V tile
+  static constexpr bool kQSmem = D > 128;
+  static constexpr int kQOff = 4 * kTileBytes + 128;
+  template <bool SPLIT>
+  static constexpr int smem() {
+    return kQSmem ? kQOff + (SPLIT ? 16 : 64) * D * 2
+                  : 4 * kTileBytes + 16;             // 64 KiB + q_hi at 128
+  }
+};
+
+template <int D>
 __device__ __forceinline__ int kv_chunk(int key, int c) {
-  return key * (kD / 8) + (c ^ (key & 7));   // swizzled 16-byte chunk index
+  return key * (D / 8) + (c ^ (key & 7));    // swizzled 16-byte chunk index
 }
 
 // stage the keys [k0, k0 + 64) of (row r, kv head h) into `kd`/`vd`: bf16
 // pools swizzled, e5m2 pools as stored; keys at or past k_hi are zeros
-template <typename KV>
+template <typename KV, int kD>
 __device__ __forceinline__ void stage_tile(
     uint8_t* kd, uint8_t* vd, const KV* __restrict__ kpool,
     const KV* __restrict__ vpool, const int* __restrict__ table_row, int k0,
@@ -90,7 +119,7 @@ __device__ __forceinline__ void stage_tile(
       off = (((size_t)pid * Hkv + h) * ps + kpos % ps) * kD +
             c * (16 / sizeof(KV));
     }
-    const int dst = sizeof(KV) == 2 ? kv_chunk(key, c) * 16
+    const int dst = sizeof(KV) == 2 ? kv_chunk<kD>(key, c) * 16
                                     : key * (kD * (int)sizeof(KV)) + c * 16;
     hopper::cp_async<16>(kd + dst, kpool + off, ok);
     hopper::cp_async<16>(vd + dst, vpool + off, ok);
@@ -99,6 +128,7 @@ __device__ __forceinline__ void stage_tile(
 
 // widen an e5m2 tile pair (as stored) into bf16 swizzled tiles: an e5m2
 // code is the top byte of an fp16, and every e5m2 value is a bf16 value
+template <int kD>
 __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
                                            const uint8_t* vraw, uint8_t* kw,
                                            uint8_t* vw) {
@@ -121,9 +151,9 @@ __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
       o[2 * e + 1] = hopper::pack_bf16(fhi.x, fhi.y);
     }
     uint8_t* dst = which ? vw : kw;
-    *reinterpret_cast<uint4*>(dst + kv_chunk(key, 2 * c) * 16) =
+    *reinterpret_cast<uint4*>(dst + kv_chunk<kD>(key, 2 * c) * 16) =
         make_uint4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<uint4*>(dst + kv_chunk(key, 2 * c + 1) * 16) =
+    *reinterpret_cast<uint4*>(dst + kv_chunk<kD>(key, 2 * c + 1) * 16) =
         make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
@@ -131,7 +161,7 @@ __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
 // SPLIT == false: the query-tile instance (64 rows a block, 4 warps along
 // the rows, writes bf16 out).  SPLIT == true: the key-split instance (16
 // rows a block, 4 warps along the keys, writes fp32 partials for the merge)
-template <typename KV, bool SPLIT>
+template <typename KV, int kD, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const KV* __restrict__ kpool,
@@ -146,9 +176,14 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kQRows = SPLIT ? 16 : 64;        // query rows per block
   constexpr int kKW = SPLIT ? kKT / 4 : kKT;     // keys per warp per tile
   constexpr int kSN = kKW / 8;                   // n8 score tiles per warp
+  constexpr int kParts = (kD > 128 && !SPLIT) ? 2 : 1;
+  constexpr int kPN = kSN / kParts;              // ... in one part
   constexpr bool kFp8 = sizeof(KV) == 1;
+  using P = Plan<kD>;
+  constexpr int kTileBytes = P::kTileBytes;
   extern __shared__ __align__(128) uint8_t smem[];
   int* q_hi_s = reinterpret_cast<int*>(smem + 4 * kTileBytes);
+  uint8_t* q_s = smem + P::kQOff;               // at D = 256: the Q rows
 
   const int qt = blockIdx.x % n_qtiles;
   const int split = blockIdx.x / n_qtiles;
@@ -191,11 +226,21 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kKT - 1) / kKT : 0;
 
-  // the warp's 16 query rows as A fragments: rows lane/4 and lane/4 + 8
+  // the warp's 16 query rows as A fragments: rows lane/4 and lane/4 + 8.
+  // D = 128: all steps' fragments in registers; D = 256: the block's rows
+  // in shared memory (staged below with the first tile), a step's
+  // fragment read with ldmatrix where it is used
   const int r0 = lane >> 2;
   const int qp[2] = {qpos_of(jw + r0), qpos_of(jw + r0 + 8)};
-  uint32_t qa[kD / 16][4];
-  {
+  uint32_t qa[P::kQSmem ? 1 : kD / 16][4];
+  if constexpr (P::kQSmem) {
+    for (int i = threadIdx.x; i < kQRows * (kD / 8); i += kThreads) {
+      const int row = i / (kD / 8), c = i % (kD / 8);
+      const bool ok = j0 + row < GC;
+      hopper::cp_async<16>(q_s + kv_chunk<kD>(row, c) * 16,
+                           q + (ok ? q_off(j0 + row) + c * 8 : 0), ok);
+    }
+  } else {
     const bool ok0 = jw + r0 < GC, ok1 = jw + r0 + 8 < GC;
     const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
         q + (ok0 ? q_off(jw + r0) : 0));
@@ -227,22 +272,23 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
     return stage_k(slot) + (kFp8 ? kTileBytes / 2 : kTileBytes);
   };
   if (n_tiles > 0)
-    stage_tile<KV>(stage_k(0), stage_v(0), kpool, vpool, table_row, k_lo,
-                   k_hi, h, Hkv, ps, n_pages);
+    stage_tile<KV, kD>(stage_k(0), stage_v(0), kpool, vpool, table_row,
+                       k_lo, k_hi, h, Hkv, ps, n_pages);
   hopper::cp_async_commit();
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = k_lo + t * kKT;
     if (t + 1 < n_tiles)
-      stage_tile<KV>(stage_k((t + 1) & 1), stage_v((t + 1) & 1), kpool,
-                     vpool, table_row, k0 + kKT, k_hi, h, Hkv, ps, n_pages);
+      stage_tile<KV, kD>(stage_k((t + 1) & 1), stage_v((t + 1) & 1), kpool,
+                         vpool, table_row, k0 + kKT, k_hi, h, Hkv, ps,
+                         n_pages);
     hopper::cp_async_commit();
     hopper::cp_async_wait<1>();
     __syncthreads();
     const uint8_t* kt;
     const uint8_t* vt;
     if constexpr (kFp8) {
-      widen_tile(stage_k(t & 1), stage_v(t & 1), smem + 2 * kTileBytes,
-                 smem + 3 * kTileBytes);
+      widen_tile<kD>(stage_k(t & 1), stage_v(t & 1), smem + 2 * kTileBytes,
+                     smem + 3 * kTileBytes);
       __syncthreads();
       kt = smem + 2 * kTileBytes;
       vt = smem + 3 * kTileBytes;
@@ -250,32 +296,46 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       kt = stage_k(t & 1);
       vt = stage_v(t & 1);
     }
-    // warp-uniform: a slice wholly past the warp's last visible slot
-    // changes none of its rows' m, l or acc
-    if (k0 + wk <= warp_q_hi) {
-      float s[kSN][4];
+    // the warp's keys of the tile in kParts parts, each through the
+    // online softmax in turn (two at D = 256 in the query tiles, which
+    // halves the score registers); warp-uniform: a part wholly past the
+    // warp's last visible slot changes none of its rows' m, l or acc
 #pragma unroll
-      for (int i = 0; i < kSN; ++i)
+    for (int part = 0; part < kParts; ++part) {
+      const int wp = wk + part * (kKW / kParts);
+      if (k0 + wp > warp_q_hi) continue;
+      float s[kPN][4];
+#pragma unroll
+      for (int i = 0; i < kPN; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
       for (int kc = 0; kc < kD / 16; ++kc) {
+        if constexpr (P::kQSmem) {
+          // rows lane % 16 of the warp's, dims 16kc + 8(lane / 16): the
+          // m16n8k16 A tile
+          hopper::ldsm_x4(
+              qa[0][0], qa[0][1], qa[0][2], qa[0][3],
+              q_s + kv_chunk<kD>((SPLIT ? 0 : warp * 16) + (lane & 15),
+                                 kc * 2 + (lane >> 4)) * 16);
+        }
+        const uint32_t* af = qa[P::kQSmem ? 0 : kc];
 #pragma unroll
-        for (int np = 0; np < kSN; np += 2) {
-          const int key = wk + np * 8 + (lane >> 4) * 8 + (lane & 7);
+        for (int np = 0; np < kPN; np += 2) {
+          const int key = wp + np * 8 + (lane >> 4) * 8 + (lane & 7);
           const int c = kc * 2 + ((lane >> 3) & 1);
           uint32_t b0, b1, b2, b3;
-          hopper::ldsm_x4(b0, b1, b2, b3, kt + kv_chunk(key, c) * 16);
-          hopper::mma_bf16(s[np], qa[kc], b0, b1);
-          hopper::mma_bf16(s[np + 1], qa[kc], b2, b3);
+          hopper::ldsm_x4(b0, b1, b2, b3, kt + kv_chunk<kD>(key, c) * 16);
+          hopper::mma_bf16(s[np], af, b0, b1);
+          hopper::mma_bf16(s[np + 1], af, b2, b3);
         }
       }
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int nt = 0; nt < kSN; ++nt)
+      for (int nt = 0; nt < kPN; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + wk + nt * 8 + (lane & 3) * 2 + (e & 1);
+          const int kpos = k0 + wp + nt * 8 + (lane & 3) * 2 + (e & 1);
           const int row = e >> 1;
           const float v = (kpos < k_hi && kpos <= qp[row] && kpos < kv_len)
                               ? s[nt][e] * scale
@@ -296,7 +356,7 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       }
       float sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int nt = 0; nt < kSN; ++nt)
+      for (int nt = 0; nt < kPN; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = expf(s[nt][e] - mx[e >> 1]);
@@ -319,18 +379,18 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       // P.V: the score tiles (2kk, 2kk + 1) are the A fragment of keys
       // [16kk, 16kk + 16), p rounded to bf16
 #pragma unroll
-      for (int kk = 0; kk < kSN / 2; ++kk) {
+      for (int kk = 0; kk < kPN / 2; ++kk) {
         const uint32_t pa[4] = {
             hopper::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
             hopper::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
             hopper::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
             hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const int key = wk + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int key = wp + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
 #pragma unroll
         for (int dn = 0; dn < kD / 8; dn += 2) {
           uint32_t b0, b1, b2, b3;
-          hopper::ldsm_x4_trans(b0, b1, b2, b3,
-                                vt + kv_chunk(key, dn + (lane >> 4)) * 16);
+          hopper::ldsm_x4_trans(
+              b0, b1, b2, b3, vt + kv_chunk<kD>(key, dn + (lane >> 4)) * 16);
           hopper::mma_bf16(acc[dn], pa, b0, b1);
           hopper::mma_bf16(acc[dn + 1], pa, b2, b3);
         }
@@ -372,7 +432,6 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       if ((lane & 3) == 0) ml_s[warp * 16 + i] = make_float2(m[row], l[row]);
     }
     __syncthreads();
-    const int d = threadIdx.x;                 // kThreads == kD
     const size_t ws_row =
         (((size_t)r * Hkv + h) * n_splits + split) * (size_t)GC;
     for (int i = 0; i < kQRows && i < GC; ++i) {
@@ -383,25 +442,30 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
         if (ml.y > 0.f) m_all = fmaxf(m_all, ml.x);
       }
       const float m_ref = fmaxf(m_all, kFloor);
-      float lsum = 0.f, o = 0.f;
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const float2 ml = ml_s[w * 16 + i];
-        if (!(ml.y > 0.f)) continue;
-        const float wt = expf(fmaxf(ml.x, kFloor) - m_ref);
-        lsum = fmaf(ml.y, wt, lsum);
-        o = fmaf(acc_s[(w * 16 + i) * kD + d], wt, o);
+      for (int dd = 0; dd < kD / kThreads; ++dd) {
+        const int d = threadIdx.x + dd * kThreads;
+        float lsum = 0.f, o = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 ml = ml_s[w * 16 + i];
+          if (!(ml.y > 0.f)) continue;
+          const float wt = expf(fmaxf(ml.x, kFloor) - m_ref);
+          lsum = fmaf(ml.y, wt, lsum);
+          o = fmaf(acc_s[(w * 16 + i) * kD + d], wt, o);
+        }
+        ws_acc[(ws_row + i) * kD + d] = o;
+        if (d == 0) ws_ml[ws_row + i] = make_float2(m_all, lsum);
       }
-      ws_acc[(ws_row + i) * kD + d] = o;
-      if (d == 0) ws_ml[ws_row + i] = make_float2(m_all, lsum);
     }
   }
 }
 
-// one block per (query row, kv head, row): thread d merges output dim d of
-// the row's splits in split order; a split that saw no visible key (l == 0)
-// contributes nothing
-__global__ void __launch_bounds__(kThreads)
+// one block of kD threads per (query row, kv head, row): thread d merges
+// output dim d of the row's splits in split order; a split that saw no
+// visible key (l == 0) contributes nothing
+template <int kD>
+__global__ void __launch_bounds__(kD)
 ragged_merge_kernel(const float* __restrict__ ws_acc,
                     const float2* __restrict__ ws_ml,
                     __nv_bfloat16* __restrict__ out, int C, int Hq, int Hkv,
@@ -431,17 +495,19 @@ ragged_merge_kernel(const float* __restrict__ ws_acc,
   out[off + threadIdx.x] = __float2bfloat16(o / (l == 0.f ? 1.f : l));
 }
 
-template <typename KV, bool SPLIT>
+template <typename KV, int kD, bool SPLIT>
 int launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
            const void* vpool, const void* tables, const void* kv_len,
            const void* chunk_len, void* out, void* ws_acc, void* ws_ml,
            int C, int Hq, int Hkv, int ps, int n_pages, int maxp,
            int n_qtiles, int n_splits, int pps, float scale) {
+  constexpr int kSmem = Plan<kD>::template smem<SPLIT>();
+  static_assert(kSmem <= 232448, "exceeds a block's shared memory");
   cudaError_t e = cudaFuncSetAttribute(
-      ragged_attn_kernel<KV, SPLIT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      ragged_attn_kernel<KV, kD, SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  ragged_attn_kernel<KV, SPLIT><<<grid, kThreads, kSmemBytes, st>>>(
+  ragged_attn_kernel<KV, kD, SPLIT><<<grid, kThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kpool),
       static_cast<const KV*>(vpool), static_cast<const int*>(tables),
       static_cast<const int*>(kv_len), static_cast<const int*>(chunk_len),
@@ -455,12 +521,13 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
 
 // q bf16 [R,C,Hq,D] (4-byte aligned); pools [P,Hkv,ps,D] bf16 (kv_fp8=0)
 // or e5m2 (kv_fp8=1), 16-byte aligned; tables int32 [R,maxp]; kv_len,
-// chunk_len int32 [R]; out bf16 [R,C,Hq,D].  D is 128.  Given scratch
+// chunk_len int32 [R]; out bf16 [R,C,Hq,D].  Given scratch
 // ws_acc fp32 [R,Hkv,n_splits,G*C,D] and ws_ml fp32 [R,Hkv,n_splits,G*C,2]
 // (G = Hq/Hkv, G*C <= 16), the key-split instance runs over n_splits
 // splits of pps pages and then the merge; without (null), the query-tile
-// instance (n_splits 1).  Returns the first non-zero cudaGetLastError(),
-// or cudaErrorInvalidValue for another D or a split of more than 16 rows.
+// instance (n_splits 1).  D is 128 or 256.  Returns the first non-zero
+// cudaGetLastError(), or cudaErrorInvalidValue for another D or a split
+// of more than 16 rows.
 extern "C" int ragged_paged_attention(const void* q, const void* kpool,
                                       const void* vpool, const void* tables,
                                       const void* kv_len,
@@ -470,7 +537,7 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
                                       int n_pages, int maxp, int n_splits,
                                       int pps, int kv_fp8, float scale,
                                       void* stream) {
-  if (D != kD) return (int)cudaErrorInvalidValue;
+  if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int gc = (Hq / Hkv) * C;
   const bool split = ws_acc != nullptr;
@@ -478,18 +545,27 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
   const int n_qtiles = split ? 1 : (gc + 63) / 64;
   const dim3 grid(n_qtiles * n_splits, Hkv, R);
   int err;
-#define RPA_LAUNCH(KV, SPLIT)                                                \
-  launch<KV, SPLIT>(grid, st, q, kpool, vpool, tables, kv_len, chunk_len,   \
-                    out, ws_acc, ws_ml, C, Hq, Hkv, ps, n_pages, maxp,       \
-                    n_qtiles, n_splits, pps, scale)
-  if (kv_fp8)
-    err = split ? RPA_LAUNCH(uint8_t, true) : RPA_LAUNCH(uint8_t, false);
-  else
-    err = split ? RPA_LAUNCH(uint16_t, true) : RPA_LAUNCH(uint16_t, false);
+#define RPA_LAUNCH(KV, HD, SPLIT)                                            \
+  launch<KV, HD, SPLIT>(grid, st, q, kpool, vpool, tables, kv_len,          \
+                        chunk_len, out, ws_acc, ws_ml, C, Hq, Hkv, ps,      \
+                        n_pages, maxp, n_qtiles, n_splits, pps, scale)
+#define RPA_LAUNCH_D(HD)                                                    \
+  (kv_fp8 ? (split ? RPA_LAUNCH(uint8_t, HD, true)                          \
+                   : RPA_LAUNCH(uint8_t, HD, false))                        \
+          : (split ? RPA_LAUNCH(uint16_t, HD, true)                         \
+                   : RPA_LAUNCH(uint16_t, HD, false)))
+  err = D == 128 ? RPA_LAUNCH_D(128) : RPA_LAUNCH_D(256);
+#undef RPA_LAUNCH_D
 #undef RPA_LAUNCH
   if (err || !split) return err;
-  ragged_merge_kernel<<<dim3(gc, Hkv, R), kThreads, 0, st>>>(
-      static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
-      static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits);
+  const dim3 mgrid(gc, Hkv, R);
+  if (D == 128)
+    ragged_merge_kernel<128><<<mgrid, 128, 0, st>>>(
+        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
+        static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits);
+  else
+    ragged_merge_kernel<256><<<mgrid, 256, 0, st>>>(
+        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
+        static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits);
   return (int)cudaGetLastError();
 }

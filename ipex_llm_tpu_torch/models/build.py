@@ -6,7 +6,9 @@ helpers of the serving engine's weight axis (port of
 from a name -> tensor source (a checkpoint reader, a torch
 ``state_dict``): q, k and v merge into ``qkv`` and gate and up into
 ``gate_up`` (rows concatenated, then transposed to ``[in, out]``; qwen2's
-q, k and v biases concatenate likewise into an fp32 ``qkv_bias``), each
+q, k and v biases concatenate likewise into an fp32 ``qkv_bias``), or
+load as stored where the checkpoint holds them merged (phi3's
+``qkv_proj`` and ``gate_up_proj``), each
 weight is quantized on the target device as soon as it is read, and
 layers stack into ``[L, ...]`` leaves preallocated once and filled layer
 by layer.  gemma2's post norms become ``post_attn_norm`` and
@@ -115,8 +117,8 @@ def stack_layer_trees(trees: list[dict[str, Any]]) -> dict[str, Any]:
 
 
 # scheme fields whose weights the port's tree has no slot for
-_SCHEME_UNSERVED = ("qkv", "gate_up", "pos_embed", "embed_norm", "q_a",
-                    "q_a_norm", "q_b", "kv_a", "kv_a_norm", "kv_b")
+_SCHEME_UNSERVED = ("pos_embed", "embed_norm", "q_a", "q_a_norm", "q_b",
+                    "kv_a", "kv_a_norm", "kv_b")
 
 
 def build_params(
@@ -154,8 +156,9 @@ def build_params(
             raise NotImplementedError(
                 f"build_params: {what} is not ported (ROADMAP item {item})")
     unserved = [f for f in _SCHEME_UNSERVED if getattr(scheme, f) is not None]
-    if unserved or None in (scheme.q, scheme.k, scheme.v, scheme.gate,
-                            scheme.up):
+    if unserved or (scheme.qkv is None and None in (scheme.q, scheme.k,
+                                                     scheme.v)) \
+            or (scheme.gate_up is None and None in (scheme.gate, scheme.up)):
         raise NotImplementedError(
             f"weight scheme fields {unserved or ['q/k/v/gate/up = None']} "
             "are not ported (ROADMAP item 14)")
@@ -214,7 +217,8 @@ def build_params(
         if cfg.qk_norm:
             st.put(i, "q_norm", norm(name(scheme.q_norm), cfg.head_dim))
             st.put(i, "k_norm", norm(name(scheme.k_norm), cfg.head_dim))
-        qkv = [name(t) for t in (scheme.q, scheme.k, scheme.v)]
+        qkv = ([name(scheme.qkv)] if scheme.qkv is not None
+               else [name(t) for t in (scheme.q, scheme.k, scheme.v)])
         biases = [n[: -len(".weight")] + ".bias" for n in qkv]
         if cfg.attention_bias and has(biases[0]):
             st.put(i, "qkv_bias", torch.cat([load(b).to(torch.float32)
@@ -228,8 +232,9 @@ def build_params(
             _put_moe_layer(st, i, moe_scheme, cfg.num_experts, load, merged,
                            qtype)
             continue
-        st.put(i, "gate_up", merged([name(scheme.gate), name(scheme.up)],
-                                    qtype))
+        st.put(i, "gate_up", merged(
+            [name(scheme.gate_up)] if scheme.gate_up is not None
+            else [name(scheme.gate), name(scheme.up)], qtype))
         st.put(i, "down", merged([name(scheme.down)], qtype))
 
     params: dict[str, Any] = {"layers": st.tree}
@@ -242,9 +247,22 @@ def build_params(
     if not cfg.tie_word_embeddings:
         head_q = lm_head_qtype or ("sym_int8" if mixed_precision else qtype)
         params["lm_head"] = merged([scheme.lm_head], head_q)
-    params["inv_freq"] = torch.from_numpy(cfg.rope.inv_freq()).to(dev)
-    params["rope_mscale"] = 1.0     # the default rope, the only one ported
+    params.update(rope_buffers(cfg, dev))
     return params
+
+
+def rope_buffers(cfg: ModelConfig, device) -> dict[str, Any]:
+    """The tree's rope leaves, as the reference builds them once at
+    ``cfg.max_position_embeddings``: ``inv_freq`` fp32, ``rope_mscale`` a
+    Python float, and gemma3's ``inv_freq_local`` where ``cfg.rope_local``
+    is set."""
+    n = cfg.max_position_embeddings
+    out = {"inv_freq": torch.from_numpy(cfg.rope.inv_freq(n)).to(device),
+           "rope_mscale": float(cfg.rope.mscale(n))}
+    if cfg.rope_local is not None:
+        out["inv_freq_local"] = torch.from_numpy(
+            cfg.rope_local.inv_freq(n)).to(device)
+    return out
 
 
 def _put_moe_layer(st: LayerStack, i: int, ms: MoEScheme, n_experts: int,

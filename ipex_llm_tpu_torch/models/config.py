@@ -1,15 +1,19 @@
 """Decoder configuration (port of ``ipex_llm_tpu/models/config.py``).
 
 The port keeps the reference's field names for the families it serves
-(llama, mistral, qwen2, gemma2, qwen3, mixtral, qwen2_moe, qwen3_moe), so
-a reference config maps across field by field
-(:meth:`ModelConfig.from_fields`): sliding windows (on every layer, or per
+(llama, mistral, qwen2, gemma2, qwen3, mixtral, qwen2_moe, qwen3_moe,
+phi3, gemma, gemma3_text), so a reference config maps across field by
+field (:meth:`ModelConfig.from_fields`): every rope scaling kind of
+``ops.rope.RopeScaling`` and partial rotary (``rope.rotary_dim`` below
+``head_dim``), gemma3's second rope table for its sliding layers
+(``rope_local``), sliding windows (on every layer, or per
 layer through ``layer_types``), attention and final-logit softcaps, an
 attention scale, the qkv bias, (1 + w) norms, the post-block norms, an
-embedding multiplier, tied embeddings, the tanh GELU, qwen3's per-head q/k
-norms, and the sparse mixture of experts of mixtral and the qwen MoE
-families (top-k routing, softmax before or after the top-k, the optional
-renormalisation and router scale, a shared expert with a sigmoid gate).
+embedding multiplier, tied embeddings, the tanh and the exact (erf) GELU,
+per-head q/k norms, and the sparse mixture of experts of mixtral and the
+qwen MoE families (top-k routing, softmax before or after the top-k, the
+optional renormalisation and router scale, a shared expert with a sigmoid
+gate).
 Every other architectural switch is checked in ``__post_init__`` or
 ``from_fields`` and raises ``NotImplementedError`` (ROADMAP item 14):
 other families, other biases, MLA, DeepSeek's group-limited routing,
@@ -27,7 +31,7 @@ from ipex_llm_tpu_torch.ops.rope import RopeScaling
 LAYER_TYPES = ("sliding_attention", "full_attention")
 # the model_types this decoder serves (``families.FAMILIES`` maps each)
 MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2", "qwen3", "mixtral",
-               "qwen2_moe", "qwen3_moe")
+               "qwen2_moe", "qwen3_moe", "phi3", "gemma", "gemma3_text")
 
 
 @dataclass(frozen=True)
@@ -36,7 +40,12 @@ class ModelConfig:
     projections, a gated MLP, rotary positions in the "half" layout.
     mistral adds a sliding window on every layer, qwen2 a qkv bias, gemma2
     (1 + w) norms, post-attention and post-MLP norms, a window on its even
-    layers, softcaps, ``sqrt(hidden)`` embeddings and a tied head."""
+    layers, softcaps, ``sqrt(hidden)`` embeddings and a tied head.  phi3
+    loads pre-merged qkv and gate_up weights and may rotate only part of
+    each head (``rope.partial_rotary_factor``); gemma is gemma2's block
+    without the post norms, windows or softcaps; gemma3_text adds per-head
+    q/k norms to gemma2's block, a window on five layers of six and
+    ``rope_local``, the table its sliding layers rotate with."""
 
     model_type: str
     vocab_size: int
@@ -50,6 +59,10 @@ class ModelConfig:
     act: str = "silu"
     norm_eps: float = 1e-5
     rope: RopeScaling | None = None
+    rope_local: RopeScaling | None = None  # gemma3: the sliding layers' table
+    # the reference's field, which its decoder does not read either (the
+    # rotary width is rope.partial_rotary_factor's)
+    partial_rotary: float = 1.0
     rope_layout: str = "half"
     tie_word_embeddings: bool = False
     sliding_window: int | None = None
@@ -94,9 +107,13 @@ class ModelConfig:
             raise NotImplementedError(
                 f"act={self.act!r} rope_layout={self.rope_layout!r} is not "
                 f"ported ({', '.join(ACT_FNS)}; half)")
-        if self.rope is None or self.rope.rotary_dim != self.head_dim:
+        if self.rope is None or not 0 < self.rope.rotary_dim <= self.head_dim:
             raise NotImplementedError(
-                "rope over the whole head_dim is the only form ported")
+                "a rope table over at most head_dim columns is the only "
+                "position form ported")
+        if self.rope_local is not None and \
+                self.rope_local.rotary_dim != self.rope.rotary_dim:
+            raise ValueError("rope_local must rotate as many columns as rope")
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
         if self.num_experts:
@@ -134,8 +151,7 @@ class ModelConfig:
     # Reference fields whose default value is the only one the port
     # serves; any other value raises in from_fields.
     _DEFAULTS = {
-        "norm_kind": "rms", "rope_local": None,
-        "partial_rotary": 1.0, "mrope_section": None,
+        "norm_kind": "rms", "mrope_section": None,
         "attention_out_bias": False,
         "mlp_bias": False, "mlp_gated": True, "parallel_blocks": False,
         "alibi": False, "learned_pos": 0, "embed_norm": False,
@@ -172,9 +188,10 @@ class ModelConfig:
                 raise NotImplementedError(f"config field {name!r} unknown")
         if kw.get("layer_types") is not None:
             kw["layer_types"] = tuple(kw["layer_types"])
-        rope = kw.get("rope")
-        if isinstance(rope, dict):
-            kw["rope"] = RopeScaling(**{k: rope[k] for k in (
-                "head_dim", "base", "kind", "factor",
-                "partial_rotary_factor") if k in rope})
+        for key in ("rope", "rope_local"):
+            rope = kw.get(key)
+            if isinstance(rope, dict):
+                kw[key] = RopeScaling(**{
+                    k: tuple(v) if isinstance(v, list) else v
+                    for k, v in rope.items()})
         return cls(**kw)

@@ -25,14 +25,14 @@ _QTENSOR_KEYS = {"data", "scales", "zeros", "qtype", "shape", "block_size"}
 # the tree of the ported families (qwen2's qkv bias, gemma2's post norms
 # and its tied head, which has no lm_head leaf, qwen3's q/k norms, the MoE
 # families' router, [L, E, ...] expert stacks and qwen2_moe's shared
-# expert); anything else (other biases, expert biases, a score bias, a
-# quantized embedding, extra rope tables) raises
+# expert, gemma3's local rope table); anything else (other biases, expert
+# biases, a score bias, a quantized embedding) raises
 _LAYER_KEYS = {"attn_norm", "mlp_norm", "qkv", "o", "gate_up", "down",
                "qkv_bias", "post_attn_norm", "post_mlp_norm", "q_norm",
                "k_norm", "router", "moe_gate_up", "moe_down",
                "shared_gate_up", "shared_down", "shared_router"}
 _TOP_KEYS = {"layers", "embed", "final_norm", "lm_head", "inv_freq",
-             "rope_mscale"}
+             "inv_freq_local", "rope_mscale"}
 
 
 def array_to_torch(a: np.ndarray, device) -> torch.Tensor:

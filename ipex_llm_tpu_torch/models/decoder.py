@@ -8,7 +8,10 @@ over the layer index.  Two forms, as in the reference:
   K/V are written into the pool in place through its block tables, and
   attention reads the pool through the ragged paged kernel, or, for a
   layer with a window or a softcap, gathers each row's pages first
-  (``ops.attention.cached_sdpa``);
+  (``ops.attention.cached_sdpa``).  A layer the window does not cover
+  passes no window down (the reference passes it with its flag off, which
+  masks the same keys), so the full layers of a windowed model without a
+  softcap (gemma3's) read the pool through the ragged kernel;
 - dense (``generate()``): ``slot_offsets=None`` writes at the cache's
   ``length`` (one offset for every row), ``kv_start`` masks each row's left
   padding, and attention goes to the flash kernel (prefill) or the decode
@@ -27,9 +30,10 @@ bias is added in bf16), the embedding multiplier is rounded to bf16 before
 the multiply, the logits are the lm head's bf16 output widened to fp32, or
 a tied head's bf16 x bf16 product summed and kept in fp32, then softcapped
 in fp32.  The per-family switches (qkv bias, (1 + w) norms, post-block
-norms, softcaps, attention scale, per-layer windows, qwen3's per-head q/k
-norms) follow the reference's order (``decoder.py:70-210``, ``:334-352``,
-``:422-450``).  A layer that holds ``moe_gate_up`` runs the sparse MoE
+norms, softcaps, attention scale, per-layer windows, per-head q/k norms,
+partial rotary, gemma3's local rope table on its sliding layers) follow
+the reference's order (``decoder.py:70-210``, ``:334-407``,
+``:422-470``).  A layer that holds ``moe_gate_up`` runs the sparse MoE
 block (:func:`_moe_block`, the reference's ``decoder.py:212-306``) in
 place of the MLP.
 """
@@ -80,6 +84,8 @@ def _norm(cfg: ModelConfig, x, w):
 def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
                      q_slots, kv_len, kv_start, sliding: bool, cache,
                      chunk_lens):
+    """One layer's attention; ``cos``/``sin`` are the table this layer
+    rotates with (gemma3's local one on a sliding layer)."""
     b, t, _ = x.shape
     h = _norm(cfg, x, lp["attn_norm"])
     qkv = linear_ops.linear(h, lp["qkv"], lp.get("qkv_bias"))
@@ -92,10 +98,12 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
     if cfg.qk_norm:     # per head, over head_dim, before rope
         q = _norm(cfg, q, lp["q_norm"])
         k = _norm(cfg, k, lp["k_norm"])
-    q = rope_ops.apply_rope(q, cos, sin, cfg.rope_layout)
-    k = rope_ops.apply_rope(k, cos, sin, cfg.rope_layout)
+    rd = cfg.rope.rotary_dim
+    q = rope_ops.apply_rope_partial(q, cos, sin, rd, cfg.rope_layout)
+    k = rope_ops.apply_rope_partial(k, cos, sin, rd, cfg.rope_layout)
     kw = dict(causal=True, q_positions=q_slots, kv_len=kv_len,
-              kv_start=kv_start, window=cfg.sliding_window,
+              kv_start=kv_start,
+              window=cfg.sliding_window if sliding else None,
               window_on=sliding, softcap=cfg.attn_softcap,
               scale=cfg.attn_scale)
     if cache is None:        # the training form: the layer's own K/V
@@ -191,6 +199,15 @@ def embed_prelude(cfg: ModelConfig, params, tokens, rope_positions):
     return x, cos, sin
 
 
+def local_rope_tables(params, rope_positions):
+    """gemma3's sliding layers' (cos, sin), from ``inv_freq_local`` with no
+    mscale (the reference's ``local_rope_tables``); (None, None) for a
+    tree without that table."""
+    if "inv_freq_local" not in params:
+        return None, None
+    return rope_ops.cos_sin(rope_positions, params["inv_freq_local"], 1.0)
+
+
 def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """fp32 logits of a head tied to the bf16 embedding table: x [..., H]
     bf16 against ``embed.T`` with fp32 sums, kept in fp32 (the reference's
@@ -243,6 +260,7 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
     b, t = tokens.shape
     dev = tokens.device
     x, cos, sin = embed_prelude(cfg, params, tokens, rope_positions)
+    cos_l, sin_l = local_rope_tables(params, rope_positions)
     if slot_offsets is not None:
         slot0 = slot_offsets
         q_slots = slot0[:, None] + torch.arange(t, device=dev)[None, :]
@@ -256,9 +274,11 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
     for i in range(cfg.num_layers):
         lp = layer_params(layers, i)
         kl, vl = (None, None) if cache is None else (cache.k[i], cache.v[i])
-        x = x + _attention_block(cfg, lp, x, kl, vl, cos, sin, slot0,
-                                 q_slots, kv_len, kv_start,
-                                 cfg.layer_is_sliding(i), cache, chunk_lens)
+        sliding = cfg.layer_is_sliding(i)
+        c, s = (cos_l, sin_l) if sliding and cos_l is not None else (cos, sin)
+        x = x + _attention_block(cfg, lp, x, kl, vl, c, s, slot0,
+                                 q_slots, kv_len, kv_start, sliding, cache,
+                                 chunk_lens)
         if "moe_gate_up" in lp:
             x = x + _moe_block(cfg, lp, x, experts)
         else:

@@ -1,18 +1,21 @@
 """Model families: an HF ``config.json`` dict to a ``ModelConfig`` and a
 weight-naming scheme (port of the llama, mistral, qwen2, gemma2, qwen3,
-mixtral, qwen2_moe and qwen3_moe rows of
+mixtral, qwen2_moe, qwen3_moe, phi3, gemma and gemma3_text rows of
 ``ipex_llm_tpu/models/families.py``).
 
-All eight run the port's one decoder.  llama, mistral and qwen2 share the
+All eleven run the port's one decoder.  llama, mistral and qwen2 share the
 reference's llama weight names (mistral adds its sliding window, qwen2 its
 qkv bias and ignores ``sliding_window`` as the reference does); gemma2 has
 its own norm names and reads its head from the embedding table; qwen3 adds
-per-head q/k norms.  The MoE families add an :class:`MoEScheme` (the
-router, each expert's gate/up/down, qwen2_moe's shared expert and its
-gate).  Every other ``model_type`` raises ``NotImplementedError`` (ROADMAP
-item 14), ``aquila`` included, which the reference maps to the llama row;
-so do rope scalings other than the default (``ops.rope.RopeScaling``
-refuses them).
+per-head q/k norms.  phi3 stores q, k and v pre-merged as ``qkv_proj`` and
+gate and up as ``gate_up_proj``, with a window on every layer and, in
+Phi-3.5 and Phi-4, scaled and partial rotary positions; gemma reads its
+head from the embedding table; gemma3_text is gemma2's block with per-head
+q/k norms, a window on five layers of six and a second rope table for
+them.  The MoE families add an :class:`MoEScheme` (the router, each
+expert's gate/up/down, qwen2_moe's shared expert and its gate).  Every
+other ``model_type`` raises ``NotImplementedError`` (ROADMAP item 14),
+``aquila`` included, which the reference maps to the llama row.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ from ipex_llm_tpu_torch.ops.rope import RopeScaling
 class WeightScheme:
     """Weight-name templates ({i} = layer index, {p} = weight or bias);
     None = not present.  The fields are the reference's; the port's
-    ``build_params`` serves separate q/k/v and gate/up projections and the
-    post norms, and refuses a scheme that sets any of the others."""
+    ``build_params`` serves separate or pre-merged q/k/v and gate/up
+    projections and the post norms, and refuses a scheme that sets any of
+    the others."""
 
     embed: str = "model.embed_tokens.weight"
     final_norm: str = "model.norm.weight"
@@ -90,13 +94,26 @@ class Family:
 
 
 def _rope_from_hf(hf: dict, head_dim: int) -> RopeScaling:
+    """The rope table of an HF config: every field the reference reads
+    (``rope_scaling``'s kind under ``rope_type`` or the older ``type``)."""
     rs = hf.get("rope_scaling") or {}
     return RopeScaling(
         head_dim=head_dim,
         base=hf.get("rope_theta", 10000.0),
         kind=rs.get("rope_type", rs.get("type", "default")),
         factor=rs.get("factor", 1.0),
+        low_freq_factor=rs.get("low_freq_factor", 1.0),
+        high_freq_factor=rs.get("high_freq_factor", 4.0),
+        original_max_position=rs.get(
+            "original_max_position_embeddings",
+            hf.get("original_max_position_embeddings",
+                   hf.get("max_position_embeddings", 8192))),
         partial_rotary_factor=hf.get("partial_rotary_factor", 1.0),
+        attention_factor=rs.get("attention_factor"),
+        short_factor=(tuple(rs["short_factor"]) if rs.get("short_factor")
+                      else None),
+        long_factor=(tuple(rs["long_factor"]) if rs.get("long_factor")
+                     else None),
     )
 
 
@@ -169,6 +186,55 @@ def _qwen3(hf: dict) -> ModelConfig:
     return ModelConfig.from_fields(_base_cfg(hf, qk_norm=True))
 
 
+def _phi3(hf: dict) -> ModelConfig:
+    return ModelConfig.from_fields(
+        _base_cfg(hf, sliding_window=hf.get("sliding_window")))
+
+
+def _gemma(hf: dict) -> ModelConfig:
+    # a published Gemma config has no ``hidden_activation``: its
+    # ``hidden_act`` "gelu" is the exact (erf) GELU, as in the reference
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        norm_offset=1.0,
+        act=hf.get("hidden_activation",
+                   hf.get("hidden_act", "gelu_pytorch_tanh")),
+        embedding_multiplier=float(math.sqrt(hf["hidden_size"])),
+        tie_word_embeddings=True,
+    ))
+
+
+def _gemma3(hf: dict) -> ModelConfig:
+    """gemma2's block with per-head q/k norms, sliding layers on a 5:1
+    pattern (``sliding_window_pattern``, or ``layer_types`` where given)
+    and two rope tables: the sliding layers rotate with the local one
+    (``rope_local_base_freq``, unscaled), the full layers with the global
+    (scaled) one."""
+    n_layers = hf["num_hidden_layers"]
+    head_dim = hf.get("head_dim", 256)
+    pattern = hf.get("sliding_window_pattern", 6)
+    layer_types = tuple(
+        hf["layer_types"] if hf.get("layer_types") else (
+            "sliding_attention" if (i + 1) % pattern else "full_attention"
+            for i in range(n_layers)))
+    return ModelConfig.from_fields(_base_cfg(
+        {**hf, "head_dim": head_dim},
+        norm_offset=1.0,
+        act=hf.get("hidden_activation",
+                   hf.get("hidden_act", "gelu_pytorch_tanh")),
+        embedding_multiplier=float(math.sqrt(hf["hidden_size"])),
+        tie_word_embeddings=hf.get("tie_word_embeddings", True),
+        post_attn_norm=True,
+        post_mlp_norm=True,
+        qk_norm=True,
+        sliding_window=hf.get("sliding_window", 512),
+        layer_types=layer_types,
+        attn_scale=float(hf.get("query_pre_attn_scalar", 256)) ** -0.5,
+        rope_local=RopeScaling(head_dim=head_dim,
+                               base=hf.get("rope_local_base_freq", 10000.0)),
+    ))
+
+
 def _mixtral(hf: dict) -> ModelConfig:
     return ModelConfig.from_fields(_base_cfg(
         hf,
@@ -218,6 +284,22 @@ _GEMMA2_SCHEME = WeightScheme(
     post_mlp_norm="model.layers.{i}.post_feedforward_layernorm.weight",
 )
 
+# the reference's _GEMMA_SCHEME and gemma3_text and phi3 rows
+_GEMMA_SCHEME = WeightScheme(lm_head="model.embed_tokens.weight")
+_GEMMA3_SCHEME = WeightScheme(
+    lm_head="model.embed_tokens.weight",
+    mlp_norm="model.layers.{i}.pre_feedforward_layernorm.weight",
+    post_attn_norm="model.layers.{i}.post_attention_layernorm.weight",
+    post_mlp_norm="model.layers.{i}.post_feedforward_layernorm.weight",
+    q_norm="model.layers.{i}.self_attn.q_norm.weight",
+    k_norm="model.layers.{i}.self_attn.k_norm.weight",
+)
+_PHI3_SCHEME = WeightScheme(
+    qkv="model.layers.{i}.self_attn.qkv_proj.{p}",
+    q=None, k=None, v=None, gate=None, up=None,
+    gate_up="model.layers.{i}.mlp.gate_up_proj.{p}",
+)
+
 _QK_NORM_SCHEME = WeightScheme(
     q_norm="model.layers.{i}.self_attn.q_norm.weight",
     k_norm="model.layers.{i}.self_attn.k_norm.weight",
@@ -245,6 +327,9 @@ FAMILIES: dict[str, Family] = {
     "qwen2_moe": Family("qwen2_moe", _qwen2_moe, WeightScheme(), _QWEN2_MOE),
     "qwen3_moe": Family("qwen3_moe", _qwen3_moe, _QK_NORM_SCHEME,
                         MoEScheme()),
+    "phi3": Family("phi3", _phi3, _PHI3_SCHEME),
+    "gemma": Family("gemma", _gemma, _GEMMA_SCHEME),
+    "gemma3_text": Family("gemma3_text", _gemma3, _GEMMA3_SCHEME),
 }
 assert tuple(FAMILIES) == MODEL_TYPES, "config.MODEL_TYPES names the families"
 

@@ -12,10 +12,11 @@ by about 1).  The tree has the layout
 :func:`ipex_llm_tpu_torch.models.convert.params_from_reference` produces:
 stacked ``[L, ...]`` layer leaves, merged qkv and gate_up, weights
 ``[in, out]``, the qkv bias fp32, post norms where the config has them,
-qwen3's per-head q/k norms, an MoE layer's fp32 router ``[H, E]``, its
+per-head q/k norms, an MoE layer's fp32 router ``[H, E]``, its
 ``[L, E, ...]`` expert stacks (each expert quantized on its own) and
-qwen2_moe's shared expert and its gate, and no ``lm_head`` when the head
-is tied to the embedding table.
+qwen2_moe's shared expert and its gate, no ``lm_head`` when the head is
+tied to the embedding table, and the rope leaves of
+``models.build.rope_buffers`` (gemma3's ``inv_freq_local`` too).
 """
 
 from __future__ import annotations
@@ -23,10 +24,11 @@ from __future__ import annotations
 import math
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 from ipex_llm_tpu_torch.device import resolve_device
-from ipex_llm_tpu_torch.models.build import LayerStack
+from ipex_llm_tpu_torch.models.build import LayerStack, rope_buffers
 from ipex_llm_tpu_torch.models.config import ModelConfig
 from ipex_llm_tpu_torch.models.families import config_from_hf
 from ipex_llm_tpu_torch.ops.rope import RopeScaling
@@ -222,6 +224,125 @@ def qwen3_8b_config(**over) -> ModelConfig:
     return replace(cfg, **over) if over else cfg
 
 
+# huggingface.co/microsoft/Phi-3-mini-4k-instruct, config.json (the fields
+# the decoder reads: pre-merged qkv_proj and gate_up_proj, 32 heads of 96,
+# a 2047-slot window on every layer)
+PHI3_MINI_4K_HF = {
+    "model_type": "phi3", "vocab_size": 32064, "hidden_size": 3072,
+    "intermediate_size": 8192, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "max_position_embeddings": 4096,
+    "original_max_position_embeddings": 4096, "rope_theta": 10000.0,
+    "rope_scaling": None, "rms_norm_eps": 1e-5, "sliding_window": 2047,
+    "hidden_act": "silu", "tie_word_embeddings": False, "bos_token_id": 1,
+    "eos_token_id": 32000, "pad_token_id": 32000,
+}
+
+# huggingface.co/google/gemma-7b, config.json (the fields the decoder
+# reads; no ``hidden_activation``, so "gelu" is the exact GELU)
+GEMMA_7B_HF = {
+    "model_type": "gemma", "vocab_size": 256000, "hidden_size": 3072,
+    "intermediate_size": 24576, "num_hidden_layers": 28,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "head_dim": 256,
+    "max_position_embeddings": 8192, "rope_theta": 10000.0,
+    "rope_scaling": None, "rms_norm_eps": 1e-6, "hidden_act": "gelu",
+    "attention_bias": False, "tie_word_embeddings": True,
+    "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+}
+
+# huggingface.co/google/gemma-3-4b-it, config.json's ``text_config`` (the
+# fields the decoder reads: a 1024 window on five layers of six, the full
+# layers' rope at theta 1e6 scaled linearly by 8, the sliding layers' at
+# theta 1e4)
+GEMMA3_4B_HF = {
+    "model_type": "gemma3_text", "vocab_size": 262208, "hidden_size": 2560,
+    "intermediate_size": 10240, "num_hidden_layers": 34,
+    "num_attention_heads": 8, "num_key_value_heads": 4, "head_dim": 256,
+    "max_position_embeddings": 131072, "rope_theta": 1000000.0,
+    "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+    "rope_local_base_freq": 10000.0, "rms_norm_eps": 1e-6,
+    "sliding_window": 1024, "sliding_window_pattern": 6,
+    "query_pre_attn_scalar": 256, "hidden_activation": "gelu_pytorch_tanh",
+    "attention_bias": False, "final_logit_softcapping": None,
+    "attn_logit_softcapping": None, "tie_word_embeddings": True,
+    "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+}
+
+# huggingface.co/meta-llama/Llama-3.1-8B, config.json (the fields the
+# decoder reads: the llama3 rope)
+LLAMA31_8B_HF = {
+    "model_type": "llama", "vocab_size": 128256, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "max_position_embeddings": 131072, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "rms_norm_eps": 1e-5, "hidden_act": "silu", "attention_bias": False,
+    "mlp_bias": False, "tie_word_embeddings": False,
+    "bos_token_id": 128000, "eos_token_id": 128001,
+}
+
+# huggingface.co/microsoft/Phi-3.5-mini-instruct, config.json (the fields
+# the decoder reads: Phi-3-mini's widths, a longrope table from 4096 to
+# 131072 positions).  The published short_factor and long_factor lists
+# (48 entries, one for each frequency of a 96-wide head) are not in the
+# repository: phi35_mini_hf() draws lists of that length from a seed.
+PHI35_MINI_HF = {
+    **PHI3_MINI_4K_HF,
+    "max_position_embeddings": 131072,
+    "original_max_position_embeddings": 4096, "sliding_window": 262144,
+    "rope_scaling": {"type": "longrope"},
+}
+
+
+def phi35_mini_hf(seed: int = 0, partial_rotary_factor: float = 1.0) -> dict:
+    """``PHI35_MINI_HF`` with longrope factor lists made from ``seed`` (not
+    the published values): as many entries as the rotary width has
+    frequencies (48 at the published full rotary; fewer at a
+    ``partial_rotary_factor`` below 1, as Phi-4-mini's 0.75), the short
+    list rising from 1 to 3, the long one from 1 to 64, as the published
+    lists rise."""
+    head_dim = PHI35_MINI_HF["hidden_size"] // PHI35_MINI_HF[
+        "num_attention_heads"]
+    n = int(head_dim * partial_rotary_factor) // 2
+    rng = np.random.default_rng(seed)
+    short = 1.0 + np.sort(rng.uniform(0.0, 2.0, n))
+    long = np.exp(np.sort(rng.uniform(0.0, math.log(64.0), n)))
+    return {**PHI35_MINI_HF, "partial_rotary_factor": partial_rotary_factor,
+            "rope_scaling": {"type": "longrope",
+                             "short_factor": [float(v) for v in short],
+                             "long_factor": [float(v) for v in long]}}
+
+
+def phi3_mini_4k_config(**over) -> ModelConfig:
+    """Phi-3-mini-4k-instruct's published widths (hidden 3072, ffn 8192, 32
+    layers, 32 heads of 96, vocab 32064, a 2047 window on every layer),
+    through the families lookup; ``over`` replaces fields of the result."""
+    cfg = config_from_hf(PHI3_MINI_4K_HF)
+    return replace(cfg, **over) if over else cfg
+
+
+def gemma_7b_config(**over) -> ModelConfig:
+    """Gemma-7B's published widths (hidden 3072, ffn 24576, 28 layers, 16
+    heads of 256, vocab 256000 tied, the exact GELU, no window), through
+    the families lookup; ``over`` replaces fields of the result."""
+    cfg = config_from_hf(GEMMA_7B_HF)
+    return replace(cfg, **over) if over else cfg
+
+
+def gemma3_4b_config(**over) -> ModelConfig:
+    """Gemma-3-4B's published text widths (hidden 2560, ffn 10240, 34
+    layers, 8 query heads over 4 kv heads of 256, vocab 262208 tied, a 1024
+    window on five layers of six, rope theta 1e6 scaled linearly by 8 and
+    a local table at theta 1e4), through the families lookup; ``over``
+    replaces fields of the result (``num_layers`` with a ``layer_types``
+    of that length)."""
+    cfg = config_from_hf(GEMMA3_4B_HF)
+    return replace(cfg, **over) if over else cfg
+
+
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
                   device=None, shared_intermediate: int | None = None,
                   router_scale: float = 1.0) -> dict:
@@ -284,8 +405,7 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         "layers": layers,
         "embed": (normal((v, h)) * (1.2 / math.sqrt(h))).to(torch.bfloat16),
         "final_norm": norm_w((h,)),
-        "inv_freq": torch.from_numpy(cfg.rope.inv_freq()).to(dev),
-        "rope_mscale": 1.0,
+        **rope_buffers(cfg, dev),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = quantize(weight(h, v), qtype)

@@ -19,7 +19,7 @@ import torch
 from ipex_llm_tpu_torch.ops.cuda import _build
 
 NAME = "decode_attention"
-_HEAD_DIMS = (128, 256)      # the kernel's instances
+_HEAD_DIMS = (96, 128, 256)  # the kernel's instances
 _MAX_GROUP = 16              # Hq / Hkv: the query rows of one mma tile
 _KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 _TILE_KEYS = 64              # keys per staged tile (csrc kKT)
@@ -34,14 +34,15 @@ def ring_plan(d: int, fp8: bool) -> tuple[int, int, int]:
     """(stages, shared-memory bytes, blocks an SM holds) of the split
     pass at head dim ``d`` over a bf16 or e5m2 layer (csrc ``Ring`` and
     ``kResident``): three bf16 stages of a K/V tile pair, or four raw e5m2
-    stages and the widened bf16 pair; at d = 256 the 16 query rows in
-    shared memory too, and one block an SM."""
-    tile = _TILE_KEYS * d * 2                # one bf16 K or V tile
+    stages and the widened bf16 pair; a tile's rows 128 columns wide at
+    d = 96; at d = 256 the 16 query rows in shared memory too, and one
+    block an SM."""
+    tile = _TILE_KEYS * max(d, 128) * 2      # one bf16 K or V tile
     stages = 4 if fp8 else 3
     smem = stages * (tile if fp8 else 2 * tile) + (2 * tile if fp8 else 0)
     if d > 128:
         smem += 16 * d * 2
-    return stages, smem, 2 if d == 128 else 1
+    return stages, smem, 2 if d <= 128 else 1
 
 
 def row_vectors(b: int, s: int, device, kv_len, kv_start, window_on):
@@ -109,10 +110,10 @@ def split_plan(b: int, hkv: int, s: int, d: int = 128) -> int:
     """The number of splits of each row's visible range, from shapes alone
     (reading ``kv_len`` on the host would sync the device every step): as
     many as one wave of the split blocks the card holds at once (2 an SM
-    at head dim 128, 1 at 256: :func:`ring_plan`) takes, at most one split
-    per 64-key tile of the capacity, and at most 64.  With the range cut
-    evenly (:func:`split_bounds`), 64 splits or fewer leave no split empty
-    while another holds more than one tile."""
+    at head dim 96 and 128, 1 at 256: :func:`ring_plan`) takes, at most
+    one split per 64-key tile of the capacity, and at most 64.  With the
+    range cut evenly (:func:`split_bounds`), 64 splits or fewer leave no
+    split empty while another holds more than one tile."""
     wave = ring_plan(d, False)[2] * _SMS // (b * hkv)
     return max(1, min(wave, -(-s // _TILE_KEYS), _MAX_SPLITS))
 

@@ -27,7 +27,7 @@ from ipex_llm_tpu_torch.ops.cuda.decode_attention import call_args
 
 NAME = "flash_attention"
 COUNTS = _build.Counts()
-_HEAD_DIMS = (128, 256)      # the kernel's instances
+_HEAD_DIMS = (96, 128, 256)  # the kernel's instances
 Q_TILE = 64                  # queries per block (csrc kBQ)
 WARP_ROWS = 16               # queries per warp
 K_TILE = 64                  # keys per tile (csrc kBK)
@@ -37,12 +37,13 @@ SKIP, FREE, MASKED = 0, 1, 2  # tile kinds (csrc kSkip, kFree, kMasked)
 def smem_plan(d: int) -> tuple[int, int, int]:
     """(stages, shared-memory bytes, blocks an SM holds) at head dim
     ``d`` (csrc ``Plan``): a ring of K/V tile pairs of 64 keys (three at
-    128, two at 256), at 256 the block's 64 query rows beside them (Q is
-    read through a descriptor), and 1 KiB of slack to align the swizzle."""
-    tile = K_TILE * d * 2
-    stages = 3 if d == 128 else 2
+    96 and 128, two at 256; a tile's rows 128 columns wide at 96), at 256
+    the block's 64 query rows beside them (Q is read through a
+    descriptor), and 1 KiB of slack to align the swizzle."""
+    tile = K_TILE * max(d, 128) * 2
+    stages = 3 if d <= 128 else 2
     smem = stages * 2 * tile + (Q_TILE * d * 2 if d > 128 else 0) + 1024
-    return stages, smem, 2 if d == 128 else 1
+    return stages, smem, 2 if d <= 128 else 1
 
 
 def key_tiles(qmin: int, qmax: int, kvs: int, kvl: int, *, causal: bool,

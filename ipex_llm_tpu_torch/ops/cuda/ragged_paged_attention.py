@@ -4,8 +4,9 @@
 ``csrc/ragged_paged_attention.cu`` holds the kernel, in two instances, and
 the note on their design and bound: query tiles for many-query rows, and
 a key split (a split pass, then a merge) for few-query rows (G*C <= 16:
-decode, the verify chunks of speculation).  :func:`split_plan` plans the
-split from shapes alone.  :func:`ragged_paged_sdpa` keeps the reference's
+decode, the verify chunks of speculation); each at head_dim 128 and 256
+(:func:`smem_plan`).  :func:`split_plan` plans the split from shapes
+alone.  :func:`ragged_paged_sdpa` keeps the reference's
 public signature, launches the kernel for CUDA tensors and runs
 :func:`ragged_paged_sdpa_plain` for CPU tensors.
 """
@@ -22,7 +23,7 @@ from ipex_llm_tpu_torch.ops.cuda import _build
 
 NAME = "ragged_paged_attention"
 ROUTES = ("tiles", "split")     # the kernel's two instances
-_HEAD_DIMS = (128,)         # template instances in the source
+_HEAD_DIMS = (128, 256)     # template instances in the source
 _FEW_ROWS = 16              # G*C at or below: the key split (its blocks hold 16 rows)
 _TILE_KEYS = 64             # keys per shared-memory tile (csrc kKT)
 _TARGET_BLOCKS = 1024       # split-pass blocks to aim for (about 8 per SM)
@@ -31,8 +32,8 @@ _POOL_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 
 class _Counts(_build.Counts):
     """The kernel's launch accounting, with the launches of each instance
-    (``by_route``: ``tiles``, ``split``; a split counts its merge launch)
-    beside the totals."""
+    (``by_route``: ``tiles``, ``split``; a split counts its merge launch;
+    ``by_head_dim``) beside the totals."""
 
     def reset(self):
         super().reset()
@@ -67,6 +68,18 @@ def ragged_paged_sdpa_plain(q, k_pool, v_pool, tables, kv_len, chunk_len, *,
     # key slot 0 is the first a query can see: visible keys exist iff it is
     keep = (qpos >= 0) & (kv_len[:, None] > 0) & (chunk[:, None] > 0)
     return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
+
+
+def smem_plan(d: int, split: bool) -> tuple[int, bool]:
+    """(shared-memory bytes, whether the query rows sit in shared memory)
+    of a block at head dim ``d`` (csrc ``Plan``): four 64-key K/V tiles
+    and the block's last visible slot; at 256 the block's query rows (64
+    for the query tiles, 16 for the key split) beside them, which leaves
+    room for one block an SM."""
+    tile = _TILE_KEYS * d * 2
+    if d <= 128:
+        return 4 * tile + 16, False
+    return 4 * tile + 128 + (_FEW_ROWS if split else 64) * d * 2, True
 
 
 def split_plan(r: int, hkv: int, gc: int, maxp: int,
@@ -137,6 +150,7 @@ def _launch(q, k_pool, v_pool, tables, kv_len, chunk_len, scale):
     route, launches = ("split", 2) if ws_acc is not None else ("tiles", 1)
     COUNTS.launches += launches
     COUNTS.by_route[route] += launches
+    COUNTS.by_head_dim[d] += launches
     _build.check(err, NAME)
     return out
 

@@ -1,6 +1,8 @@
-"""Gated MLP activations (port of ``ipex_llm_tpu/ops/mlp.py``): SwiGLU and
-the tanh GELU of gemma (``gelu_pytorch_tanh``, the reference's
-``jax.nn.gelu(approximate=True)``)."""
+"""Gated MLP activations (port of ``ipex_llm_tpu/ops/mlp.py``): SwiGLU,
+the tanh GELU of gemma2 and gemma3 (``gelu_pytorch_tanh``, the
+reference's ``jax.nn.gelu(approximate=True)``) and HF's ``gelu``, the
+exact erf form (``jax.nn.gelu(approximate=False)``), which a published
+Gemma config without ``hidden_activation`` resolves to."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch.nn.functional as F
 
 ACT_FNS = {
     "silu": F.silu,
+    "gelu": F.gelu,
     "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
 }
 

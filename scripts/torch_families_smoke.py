@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The port's model families beyond llama on one card: small qwen2 and
 gemma2 decoders against the CPU, then Mistral-7B-v0.1, Qwen2-7B and
-Gemma-2-9B at full width and depth through ``ServingEngine`` (and
-``generate()`` for the last two), from random sym_int4 weights drawn on
-the card from a seed.
+Gemma-2-9B at full width, cut to ``SERVE_LAYERS`` layers, through
+``ServingEngine`` (and ``generate()`` for the last two), from random
+sym_int4 weights drawn on the card from a seed.
 
 ``chip_smoke.py`` runs this as its ``families`` phase; alone, from the
 root of a checkout on a machine with one CUDA card:
@@ -22,7 +22,11 @@ Steps (each fails the run on a miss; nothing retries on the CPU):
    decode steps): logits within 2.5% of their range, and gemma2's
    attention softcap moving the CPU's logits by more than twice that;
 2. each of Mistral-7B-v0.1, Qwen2-7B and Gemma-2-9B (their published
-   ``config.json`` widths, all layers) through ``ServingEngine`` with
+   ``config.json`` widths, the first ``SERVE_LAYERS`` layers: the depth
+   is cut so that ``chip_smoke.py`` keeps within its time with the phases
+   after this one; every layer of a model runs the same kernels, so the
+   cut changes launches and time a tick, not which kernels run) through
+   ``ServingEngine`` with
    ``SERVE_EC`` over a bf16 pool: eight requests, six of 64-1000 ids and
    two of 4300-5000 (past the 4096 window), 32-64 new tokens, half greedy
    and half seeded; then two of them over an e5m2 pool.  Every request
@@ -54,7 +58,114 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 SERVE_EC = dict(max_rows=8, max_seq_len=6144, page_size=128,
                 prefill_bucket=128, decode_horizon=4)
+# the layers each full-width model keeps (of 32, 28 and 42; Gemma-2-9B's
+# first eight alternate sliding and full as its 42 do)
+SERVE_LAYERS = 8
 GENERATE_LENGTHS = (4500, 1990, 611, 203)
+
+
+def small_check(cfg, seed, dev, fail, label: str | None = None,
+                forms=("paged", "dense")) -> dict:
+    """A decoder on the card (``dev``) against the same decoder on the
+    CPU's plain versions, paged (prefill chunks of 40, 17 and 29 ids,
+    three decode steps) and dense (a left-padded prefill of the same rows,
+    four decode steps), or the ``forms`` named: the worst card-vs-CPU
+    logit gap of each form over
+    the logits' range (bound 2.5%); with an attention softcap, also the
+    gap it makes on the CPU (``softcap_gap``, the dense form without the
+    cap), which must pass twice the bound so a kernel that left it out
+    would fail."""
+    import numpy as np
+    import torch
+
+    from ipex_llm_tpu_torch.kv import PagedKVCache, make_cache
+    from ipex_llm_tpu_torch.models.decoder import decoder_forward
+    from ipex_llm_tpu_torch.models.random_init import random_params
+
+    label = label or cfg.model_type
+    p_cpu = random_params(cfg, "sym_int4", seed=seed, device="cpu")
+
+    def to_dev(tree):
+        if isinstance(tree, dict):
+            return {k: to_dev(v) for k, v in tree.items()}
+        return tree.to(dev) if hasattr(tree, "to") else tree
+    p_dev = to_dev(p_cpu)
+    rng = np.random.default_rng(seed)
+    r, t, ps, maxp = 3, 40, 128, 2
+    lengths = np.array([40, 17, 29], np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (r, t)).astype(np.int32)
+    decode = [rng.integers(0, cfg.vocab_size, (r, 1)).astype(np.int32)
+              for _ in range(4)]
+    worst = {}
+    for form in forms:
+        outs = {}
+        runs = [("cpu", "cpu", p_cpu, cfg), ("cuda", dev, p_dev, cfg)]
+        if form == "dense" and cfg.attn_softcap is not None:
+            runs.append(("uncapped", "cpu", p_cpu,
+                         replace(cfg, attn_softcap=None)))
+        for name, where, params, cfg_ in runs:
+            def to(x):
+                return torch.from_numpy(np.ascontiguousarray(x)).to(
+                    where)
+            logits = []
+            if form == "paged":
+                c = PagedKVCache.init(cfg_.num_layers, 1 + r * maxp, r,
+                                      maxp, cfg_.num_kv_heads, ps,
+                                      cfg_.head_dim, device=where)
+                c.tables.copy_(1 + torch.arange(
+                    r * maxp, dtype=torch.int32).reshape(r, maxp))
+                zero = np.zeros(r, np.int32)
+                lg, _ = decoder_forward(
+                    cfg_, params, to(toks), c,
+                    to(np.arange(t)[None].repeat(r, 0)),
+                    slot_offsets=to(zero), chunk_lens=to(lengths),
+                    gather_positions=to(lengths - 1))
+                logits.append(lg)
+                lens = lengths.copy()
+                for tk in decode[:3]:
+                    lg, _ = decoder_forward(
+                        cfg, params, to(tk), c, to(lens[:, None]),
+                        slot_offsets=to(lens), last_token_only=True)
+                    logits.append(lg)
+                    lens = lens + 1
+            else:
+                padded = np.zeros_like(toks)
+                for i, n in enumerate(lengths):
+                    padded[i, t - n:] = toks[i, :n]
+                kv_start = (t - lengths).astype(np.int32)
+                pos = np.maximum(np.arange(t)[None] - kv_start[:, None],
+                                 0)
+                c = make_cache("normal", cfg_.num_layers, r, t + 16,
+                               cfg_.num_kv_heads, cfg_.head_dim,
+                               device=where)
+                steps = [(padded, pos)] + [
+                    (tk, (lengths + i)[:, None])
+                    for i, tk in enumerate(decode)]
+                for tk, p in steps:
+                    lg, _ = decoder_forward(cfg_, params, to(tk), c,
+                                            to(p), to(kv_start),
+                                            last_token_only=True)
+                    logits.append(lg)
+            outs[name] = [lg.float().cpu().numpy() for lg in logits]
+        w = 0.0
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            span = b.max() - b.min()
+            diff = float(np.abs(a - b).max() / span)
+            if not np.isfinite(a).all() or diff > 0.025:
+                fail(f"small {label} {form}: card vs "
+                     f"CPU logits differ by {diff:.4f} of the range "
+                     "(bound 0.025)")
+            w = max(w, diff)
+        worst[form] = w
+        if "uncapped" in outs:
+            gap = max(float(np.abs(a - b).max() / (b.max() - b.min()))
+                      for a, b in zip(outs["uncapped"], outs["cpu"]))
+            if gap < 0.05:
+                fail(f"small {label}: the attention "
+                     f"softcap moves the logits by {gap:.4f} of their "
+                     "range, under twice the bound")
+            worst["softcap_gap"] = gap
+    return worst
 
 
 def families_phase(kernels: dict, card: str, fail, device) -> dict:
@@ -65,8 +176,6 @@ def families_phase(kernels: dict, card: str, fail, device) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ipex_llm_tpu_torch.kv import PagedKVCache, make_cache
-    from ipex_llm_tpu_torch.models.decoder import decoder_forward
     from ipex_llm_tpu_torch.models.random_init import (
         GEMMA2_9B_HF, MISTRAL_7B_V01_HF, QWEN2_7B_HF, gemma2_9b_config,
         mistral_7b_config, qwen2_7b_config, random_params)
@@ -103,90 +212,6 @@ def families_phase(kernels: dict, card: str, fail, device) -> dict:
         return tree.to(dev) if hasattr(tree, "to") else tree
 
     # -- 1. small decoders, card against CPU ---------------------------------
-    def small_check(cfg, seed) -> dict:
-        """The worst card-vs-CPU logit gap of each form over the logits'
-        range; with an attention softcap, also the gap it makes on the CPU
-        (``softcap_gap``, the dense form without the cap), which must pass
-        twice the bound so a kernel that left it out would fail."""
-        p_cpu = random_params(cfg, "sym_int4", seed=seed, device="cpu")
-        p_dev = to_dev(p_cpu)
-        rng = np.random.default_rng(seed)
-        r, t, ps, maxp = 3, 40, 128, 2
-        lengths = np.array([40, 17, 29], np.int32)
-        toks = rng.integers(0, cfg.vocab_size, (r, t)).astype(np.int32)
-        decode = [rng.integers(0, cfg.vocab_size, (r, 1)).astype(np.int32)
-                  for _ in range(4)]
-        worst = {}
-        for form in ("paged", "dense"):
-            outs = {}
-            runs = [("cpu", "cpu", p_cpu, cfg), ("cuda", dev, p_dev, cfg)]
-            if form == "dense" and cfg.attn_softcap is not None:
-                runs.append(("uncapped", "cpu", p_cpu,
-                             replace(cfg, attn_softcap=None)))
-            for name, where, params, cfg_ in runs:
-                def to(x):
-                    return torch.from_numpy(np.ascontiguousarray(x)).to(
-                        where)
-                logits = []
-                if form == "paged":
-                    c = PagedKVCache.init(cfg_.num_layers, 1 + r * maxp, r,
-                                          maxp, cfg_.num_kv_heads, ps,
-                                          cfg_.head_dim, device=where)
-                    c.tables.copy_(1 + torch.arange(
-                        r * maxp, dtype=torch.int32).reshape(r, maxp))
-                    zero = np.zeros(r, np.int32)
-                    lg, _ = decoder_forward(
-                        cfg_, params, to(toks), c,
-                        to(np.arange(t)[None].repeat(r, 0)),
-                        slot_offsets=to(zero), chunk_lens=to(lengths),
-                        gather_positions=to(lengths - 1))
-                    logits.append(lg)
-                    lens = lengths.copy()
-                    for tk in decode[:3]:
-                        lg, _ = decoder_forward(
-                            cfg, params, to(tk), c, to(lens[:, None]),
-                            slot_offsets=to(lens), last_token_only=True)
-                        logits.append(lg)
-                        lens = lens + 1
-                else:
-                    padded = np.zeros_like(toks)
-                    for i, n in enumerate(lengths):
-                        padded[i, t - n:] = toks[i, :n]
-                    kv_start = (t - lengths).astype(np.int32)
-                    pos = np.maximum(np.arange(t)[None] - kv_start[:, None],
-                                     0)
-                    c = make_cache("normal", cfg_.num_layers, r, t + 16,
-                                   cfg_.num_kv_heads, cfg_.head_dim,
-                                   device=where)
-                    steps = [(padded, pos)] + [
-                        (tk, (lengths + i)[:, None])
-                        for i, tk in enumerate(decode)]
-                    for tk, p in steps:
-                        lg, _ = decoder_forward(cfg_, params, to(tk), c,
-                                                to(p), to(kv_start),
-                                                last_token_only=True)
-                        logits.append(lg)
-                outs[name] = [lg.float().cpu().numpy() for lg in logits]
-            w = 0.0
-            for a, b in zip(outs["cuda"], outs["cpu"]):
-                span = b.max() - b.min()
-                diff = float(np.abs(a - b).max() / span)
-                if not np.isfinite(a).all() or diff > 0.025:
-                    fail(f"families small {cfg.model_type} {form}: card vs "
-                         f"CPU logits differ by {diff:.4f} of the range "
-                         "(bound 0.025)")
-                w = max(w, diff)
-            worst[form] = w
-            if "uncapped" in outs:
-                gap = max(float(np.abs(a - b).max() / (b.max() - b.min()))
-                          for a, b in zip(outs["uncapped"], outs["cpu"]))
-                if gap < 0.05:
-                    fail(f"families small {cfg.model_type}: the attention "
-                         f"softcap moves the logits by {gap:.4f} of their "
-                         "range, under twice the bound")
-                worst["softcap_gap"] = gap
-        return worst
-
     reset()
     small_qwen2 = qwen2_7b_config(hidden_size=512, intermediate_size=1024,
                                   num_layers=2, num_heads=7, num_kv_heads=1,
@@ -197,8 +222,8 @@ def families_phase(kernels: dict, card: str, fail, device) -> dict:
         hidden_size=512, intermediate_size=1024, num_layers=2, num_heads=4,
         num_kv_heads=2, vocab_size=512, sliding_window=24,
         layer_types=("sliding_attention", "full_attention"), attn_scale=6.0)
-    res["small"] = {"qwen2": small_check(small_qwen2, 3),
-                    "gemma2": small_check(small_gemma2, 4)}
+    res["small"] = {"qwen2": small_check(small_qwen2, 3, dev, fail),
+                    "gemma2": small_check(small_gemma2, 4, dev, fail)}
     res["small_launches"] = {n: m.COUNTS.launches for n, m in kernels.items()}
     res["small_launches_by_head_dim"] = {
         "decode_attention": dict(b3.COUNTS.by_head_dim),
@@ -252,7 +277,7 @@ def families_phase(kernels: dict, card: str, fail, device) -> dict:
         out_tok = sum(len(st) for st in streams)
         ttft = [q.first_token_s for q in reqs]
         row = dict(model=label, card=card, storage=storage,
-                   requests=len(reqs),
+                   layers=cfg.num_layers, requests=len(reqs),
                    prompt_tokens=sum(len(q.prompt_ids) for q in reqs),
                    longest_prompt=max(len(q.prompt_ids) for q in reqs),
                    output_tokens=out_tok, wall_s=wall,
@@ -359,13 +384,16 @@ def families_phase(kernels: dict, card: str, fail, device) -> dict:
         del model
         return row
 
+    cut = dict(num_layers=SERVE_LAYERS)
+    gemma2 = gemma2_9b_config()
     paths = (
-        ("Mistral-7B-v0.1", mistral_7b_config(), MISTRAL_7B_V01_HF,
+        ("Mistral-7B-v0.1", mistral_7b_config(**cut), MISTRAL_7B_V01_HF,
          (b2, b3, b4), (b1,), False),
-        ("Qwen2-7B", qwen2_7b_config(), QWEN2_7B_HF, (b2, b1), (b3, b4),
+        ("Qwen2-7B", qwen2_7b_config(**cut), QWEN2_7B_HF, (b2, b1), (b3, b4),
          True),
-        ("Gemma-2-9B", gemma2_9b_config(), GEMMA2_9B_HF, (b2, b3, b4),
-         (b1,), True),
+        ("Gemma-2-9B", gemma2_9b_config(
+            **cut, layer_types=gemma2.layer_types[:SERVE_LAYERS]),
+         GEMMA2_9B_HF, (b2, b3, b4), (b1,), True),
     )
     res["serve"], res["gather"], res["generate"] = [], [], []
     for i, (label, cfg, hf, need, absent, gen) in enumerate(paths):

@@ -2,7 +2,8 @@
 """Mixture-of-experts serving on one card: the expert-grouped
 dequant-matmul B2e against its plain version, small MoE and qwen3
 decoders against the CPU, Mixtral-8x7B and Qwen3-30B-A3B at full width
-and depth through ``ServingEngine`` (and ``generate()`` for Mixtral), and
+(``SERVE_LAYERS`` layers) through ``ServingEngine`` (and ``generate()``
+for Mixtral), and
 ``from_pretrained`` of a Mixtral-width checkpoint.
 
 ``chip_smoke.py`` runs this as its ``moe`` phase; alone, from the root of
@@ -49,8 +50,9 @@ retries on the CPU):
    logit leads the (k+1)-th by more than ``MARGIN`` of the token's logit
    span: at least 40% of the real tokens (the router weights are drawn
    wide); flips at near-ties are counted;
-3. ``mixtral``: Mixtral-8x7B at its published widths and depth (random
-   sym_int4 weights drawn on the card from a seed) through
+3. ``mixtral``: Mixtral-8x7B at its published widths, cut to
+   ``SERVE_LAYERS`` of its 32 layers (random sym_int4 weights drawn on the
+   card from a seed), through
    ``ServingEngine`` with ``SERVE_EC`` (the engine's default prefill
    budget: mixed ticks of up to 128 prompt tokens) over a bf16 pool:
    eight requests of 64-1000 ids, 32-64 new tokens, half greedy; the same
@@ -102,6 +104,10 @@ SERVE_EC = dict(max_rows=8, max_seq_len=2048, page_size=128,
 # prompt tokens (a chunk of 128 for each of eight rows), the prefill
 # forward B2e's wgmma instance is for
 WIDE_BUDGET = 1024
+# the layers each full-width model keeps (of Mixtral-8x7B's 32 and
+# Qwen3-30B-A3B's 48): the depth is cut so that chip_smoke.py keeps within
+# its time; every layer runs the same kernels
+SERVE_LAYERS = 8
 # the forwards B2e is timed at, by their token counts: a decode tick of 8
 # rows, a verify forward of 8 rows x 4, a mixed tick's prefill at the
 # default budget and at WIDE_BUDGET
@@ -624,6 +630,7 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         out_tok = sum(len(st) for st in streams)
         ttft = [q.first_token_s for q in reqs]
         row = dict(model=label, card=card, storage=storage,
+                   layers=cfg.num_layers,
                    step_token_budget=eng._step_budget, requests=len(reqs),
                    prompt_tokens=sum(len(q.prompt_ids) for q in reqs),
                    output_tokens=out_tok, wall_s=wall,
@@ -783,8 +790,10 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
 
     res["serve"], res["tick"], res["generate"] = [], [], []
     for step, label, cfg, seed in (
-            ("mixtral", "Mixtral-8x7B", mixtral_8x7b_config(), 20),
-            ("qwen3", "Qwen3-30B-A3B", qwen3_30b_a3b_config(), 21)):
+            ("mixtral", "Mixtral-8x7B",
+             mixtral_8x7b_config(num_layers=SERVE_LAYERS), 20),
+            ("qwen3", "Qwen3-30B-A3B",
+             qwen3_30b_a3b_config(num_layers=SERVE_LAYERS), 21)):
         if step not in steps:
             continue
         t0 = time.perf_counter()

@@ -3,8 +3,9 @@ B5 (split paged attention) in both its tile heights, B2's GEMV (M <= 8)
 and tiled (M > 8) instances in every block format, B2e (B2's tile over
 rows sorted by expert) in every block format and row tile, B1 (ragged
 paged attention) in both its instances
-(query tiles, key split), B3 (dense decode attention), B4 (flash
-attention) and, for training, B4's LSE instance and backward and B2^T
+(query tiles, key split) at head_dim 128 and 256, B3 (dense decode
+attention) and B4 (flash attention) at head_dim 96, 128 and 256 and, for
+training, B4's LSE instance and backward and B2^T
 (the dequant-matmul's input gradient).  Every case carries the ``cuda``
 marker and
 skips without a card.  The file imports neither JAX nor the JAX package,
@@ -210,12 +211,12 @@ def test_qmatmul_experts_kernel_matches_plain(qtype, instance, counts,
             assert ((got - want).abs() <= ULP * top).all(), (n, keep_f32)
 
 
-def _b1_case(storage: str, c: int, g: int, gen):
+def _b1_case(storage: str, c: int, g: int, gen, d: int = 128):
     """Rows at staggered lengths over 32-slot pages in random order, -1
     past each row's last page; a decode row, chunk rows (one shorter than
     its history allows, one full), and an idle row with the sentinel
     kv_len past the table."""
-    r, hkv, d, ps, maxp = 5, 2, 128, 32, 6
+    r, hkv, ps, maxp = 5, 2, 32, 6
     dtype = torch.bfloat16 if storage == "bf16" else torch.float8_e5m2
     n_pages = 1 + r * maxp
     k = torch.randn(n_pages, hkv, ps, d, generator=gen).to(dtype)
@@ -239,16 +240,34 @@ def test_ragged_attention_kernel_matches_plain(storage, g, c):
     """Both instances (G*C <= 16: key split and merge, two launches; else
     query tiles, one): every valid query row within one bf16 ulp of its
     largest plain output, the idle row exact zeros, pad queries finite."""
+    _ragged_case(storage, g, c, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("c", [1, 4, 16, 128])
+def test_ragged_attention_head_dim_256_matches_plain(storage, g, c):
+    """B1's head_dim-256 instances (query rows in shared memory, one block
+    an SM) on the cases of the 128 ones, at Gemma-7B's group of 1 and
+    Gemma-3-4B's of 2: the key split at C = 1 and 4 (and 16 at G = 1),
+    the query tiles above."""
+    _ragged_case(storage, g, c, 256)
+
+
+def _ragged_case(storage, g, c, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    args = _b1_case(storage, c, g, torch.Generator().manual_seed(10 * c + g))
+    args = _b1_case(storage, c, g, torch.Generator().manual_seed(
+        10 * c + g + d), d)
     want = b1.ragged_paged_sdpa(*args).float()
     b1.COUNTS.reset()
     got = b1.ragged_paged_sdpa(*[t.cuda() for t in args]).float().cpu()
     split = g * c <= 16
     assert b1.COUNTS.launches == (2 if split else 1)
     assert b1.COUNTS.by_route["split" if split else "tiles"] == \
-        b1.COUNTS.launches and b1.COUNTS.plain_calls == 0
+        b1.COUNTS.launches == b1.COUNTS.by_head_dim[d]
+    assert b1.COUNTS.plain_calls == 0
     assert torch.isfinite(got).all()
     for i, n in enumerate(args[5].tolist()):
         if n == 0:
@@ -305,6 +324,17 @@ def test_decode_attention_head_dim_256_matches_plain(storage, g, variant):
     _decode_case(storage, g, variant, 256)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
+def test_decode_attention_head_dim_96_matches_plain(storage, g, variant):
+    """B3's head_dim-96 instance (the 128 instance's tile layout, 96 of
+    its 128 columns staged and read) on the cases of the 128 instance, at
+    Phi-3-mini's group of 1 and at 4."""
+    _decode_case(storage, g, variant, 96)
+
+
 def _decode_case(storage, g, variant, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -359,6 +389,17 @@ def test_flash_attention_head_dim_256_matches_plain(t, g, variant):
     at T = 4, the verify width of speculation; the causal queries sit
     after 64 cached slots, as a verify chunk does."""
     _flash_case(t, g, variant, 256, lead=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 200, 1000])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("variant", B4_VARIANTS)
+def test_flash_attention_head_dim_96_matches_plain(t, g, variant):
+    """B4's head_dim-96 instance (tiles laid out 128 columns wide, the
+    other 32 zeros in shared memory) on the cases of the 128 instance and
+    at the verify width T = 4 after 64 cached slots."""
+    _flash_case(t, g, variant, 96, lead=64)
 
 
 def _flash_case(t, g, variant, d, lead=0):

@@ -39,20 +39,23 @@ def tiny_pair(qtype: str, **widths):
 def test_config_outside_the_slice_raises():
     """Fields of families still to port raise (windows, softcaps and the
     qkv bias are in the slice since the qwen2 and gemma2 families, q/k
-    norms and experts since qwen3 and the MoE families; DeepSeek's
-    routing and routed scaling factor still raise)."""
+    norms and experts since qwen3 and the MoE families, the gemma family
+    and partial rotary, here a rope table narrower than head_dim, since
+    phi3 and gemma; DeepSeek's routing and routed scaling factor and the
+    interleaved rope layout still raise)."""
     cfg = tiny_cfg()
     fields = dataclasses.asdict(cfg)
     for over in ({"mlp_bias": True}, {"attention_out_bias": True},
                  {"moe_n_group": 4}, {"moe_score_func": "sigmoid"},
                  {"moe_router_scale": 2.5},
-                 {"model_type": "gemma"}, {"head_dim": 16}):
+                 {"model_type": "deepseek_v2"}, {"rope_layout": "two"}):
         with pytest.raises(NotImplementedError):
             ModelConfig.from_fields({**fields, **over})
     for over in ({"sliding_window": 64}, {"attn_softcap": 30.0},
                  {"attention_bias": True}, {"qk_norm": True},
                  {"num_experts": 4, "num_experts_per_tok": 2,
-                  "moe_intermediate_size": 32}):
+                  "moe_intermediate_size": 32},
+                 {"model_type": "gemma"}, {"head_dim": 16}):
         assert ModelConfig.from_fields({**fields, **over})
 
 

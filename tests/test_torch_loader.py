@@ -388,7 +388,7 @@ def test_build_params_refuses_what_is_not_ported(ckpt):
     for q in ("mixed_fp4", "mixed_fp8"):
         with pytest.raises(NotImplementedError):
             port_build.quantize_weight(torch.zeros(64, 64), q)
-    for other in ("aquila", "phi3", "deepseek_v2", "gemma3_text"):
+    for other in ("aquila", "phixtral", "deepseek_v2", "olmo2"):
         with pytest.raises(NotImplementedError, match="item 14"):
             get_family(other)
 
