@@ -208,6 +208,24 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     memory and one step's profile; ``merge_and_unload`` and a
     ``generate()`` of the merged model; a full-parameter and a LISA step
     at full width, 2 layers.
+15. ``serve_tp`` (``scripts/torch_tp_smoke.py``, run as a child process
+    that spawns its ranks; the kernels already built): tensor-parallel
+    serving, two gloo ranks on this one card (each prints its backend).
+    The five sharded wrappers at their shard shapes against the unsharded
+    kernels on the same global inputs (B1s 16/16 heads a rank over bf16
+    and e5m2 pools at decode, C = 4 and 128; B2s col and row at
+    Llama-2-7B's shard shapes, M = 1, 8, 128; B3s, B4s, B5s prefill and
+    decode at Mistral-7B's 16/4), bitwise where reported and else within
+    one bf16 ulp of each row's largest value, and timed; the GQA repeat
+    (8 query heads over 2 kv heads, four ranks) for B1s and B5s;
+    Llama-2-7B widths at 8 layers serving the ``serve`` phase's eight
+    requests over a bf16 pool and two over e5m2, Mistral-7B-v0.1 widths
+    at 8 layers over the gathered route (B3s, B4s), and the e5m2 and int8
+    all-reduce families, each held against a tp = 1 engine (tokens, or
+    near-tie greedy forks within 8 bf16 ulps of the top logit; logprobs
+    before a fork within 0.05 nats on average; the families' perplexity
+    within 1.25 of the exact family's), with no plain call and every
+    kernel of the path launched on each rank.
 
 Kernel times come from CUDA events over many launches after a warm-up
 (B2's up to M = 512, B3's, B4's and B5's, and their yardsticks, as
@@ -2301,6 +2319,35 @@ def main() -> int:
     print(f"train phase: {report['train']['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    # -- 15. tensor-parallel serving: two gloo ranks on this card ------------
+    def serve_tp_phase() -> dict:
+        """``scripts/torch_tp_smoke.py`` in a process of its own (its ranks
+        are processes of theirs); its last line must say ok and carry a
+        row for each sharded wrapper."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_tp_smoke.py")],
+            capture_output=True, text=True, timeout=900, cwd=ROOT)
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("rank ") and "backend" in ln:
+                print(ln, flush=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        rep = json.loads(lines[-1]) if lines else {}
+        if proc.returncode != 0 or not rep.get("ok") or len(
+                rep.get("kernels", ())) != 7:
+            fail(f"serve_tp: exit {proc.returncode}, last line "
+                 f"{lines[-1][:500] if lines else None}: "
+                 f"{proc.stderr[-3000:]}")
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("serve_tp gate"):
+                print(ln, flush=True)
+        rep["phase_s"] = time.perf_counter() - t0
+        return rep
+
+    report["serve_tp"] = serve_tp_phase()
+    print(f"serve_tp phase: {report['serve_tp']['phase_s']:.1f} s",
+          flush=True)
+
     # -- summary -------------------------------------------------------------
     serve_launches = report["serve"][0]["launches"]
     gen_launches = report["generate"][0]["launches"]
@@ -2667,7 +2714,9 @@ def main() -> int:
          "formats_checked": sorted({r["qtype"] for r in train["b2t"]}),
          "max_abs_err": max(r["max_abs_err"] for r in train["b2t"]),
          **{k: rep_dx[k] for k in keys}},
-    ]}
+    ] + [dict(row, launches_run="rank 0 of tp = 2 (gloo, this card): "
+              "Llama-2-7B and Mistral-7B-v0.1 widths, 8 layers, serving")
+         for row in report["serve_tp"]["kernels"]]}
     out_dir = ROOT / "chiprun_out"
     try:
         out_dir.mkdir(exist_ok=True)

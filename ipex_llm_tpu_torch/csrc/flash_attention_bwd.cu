@@ -1,6 +1,6 @@
 // Flash attention's backward for Hopper: dQ, dK and dV of causal SDPA from
-// q, k, v, the output o, its gradient dO and the forward's row
-// log-sum-exp (csrc/flash_attention.cu's LSE instance).
+// q, k, v, the output's gradient dO and the forward's row log-sum-exp
+// (csrc/flash_attention.cu's LSE instance).
 //
 // Replaces no TPU kernel: the JAX package has no backward Pallas kernel,
 // its gradient is XLA's autodiff of ops/attention.py::sdpa_reference.
@@ -15,7 +15,11 @@
 //     softcap: the wrapper refuses them under a gradient);
 //   - P = exp(s - lse) with s = scale (q . k) in fp32 from bf16 inputs;
 //     dV = P^T dO, dP = dO V^T, dS = P (dP - Delta) with Delta =
-//     rowsum(dO o) in fp32, dQ = scale dS K, dK = scale dS^T Q; P and dS
+//     rowsum(dO O) = sum over keys of P dP, recomputed in fp32 from the
+//     fp32 P and dP (not from the bf16 output o, whose rounding Delta
+//     would carry into dP - Delta: at a query that sees two or three
+//     keys the two nearly cancel and dQ lost 2% of its largest value),
+//     dQ = scale dS K, dK = scale dS^T Q; P and dS
 //     are rounded to bf16 as operands of the products (as the forward
 //     rounds P before P.V), sums in fp32, one rounding of each gradient.
 //     A query that sees no key has lse = +inf, so P = 0 and its gradients
@@ -28,10 +32,13 @@
 // Design (simple, deterministic; a faster form with wgmma is later work).
 // Two kernels, no atomics, so that two runs of a step are bitwise equal:
 //   1. dq: a block owns 64 queries of one (row, q head), four warps of 16
-//      rows; it first computes Delta for its queries (two threads a query,
-//      fp32, in a fixed order) and writes it for kernel 2, then walks the
-//      64-key tiles its queries can see (the forward's walk), recomputing
-//      S = Q K^T and dP = dO V^T, and sums dQ += dS K in registers;
+//      rows; it walks the 64-key tiles its queries can see (the forward's
+//      walk) twice, recomputing S = Q K^T and dP = dO V^T each time: the
+//      first pass sums Delta = sum P dP for its queries (each thread over
+//      its fragment in a fixed order, then over the four threads of a
+//      row) and writes it for kernel 2, the second sums dQ += dS K in
+//      registers (two of the second pass's three products again: the dq
+//      kernel's cost rises by two thirds);
 //   2. dkdv: a block owns 64 keys of one (row, kv head), four warps of 16
 //      keys; it walks the G query heads of its kv head and, for each, the
 //      64-query tiles that can see a key of the tile (a tile whose queries
@@ -174,7 +181,6 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ o,
                     const __nv_bfloat16* __restrict__ dout,
                     const int* __restrict__ qpos_arr,
                     const int* __restrict__ kv_len_arr,
@@ -199,38 +205,16 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int hkv = hq / (Hq / Hkv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int kvs = max(kv_start_arr[b], 0), kvl = min(kv_len_arr[b], S);
-  const long long qrow = (long long)Hq * kD;   // row stride of q, o, dO
+  const long long qrow = (long long)Hq * kD;   // row stride of q, dO
   const size_t qoff = ((size_t)b * T * Hq + hq) * kD;
   const size_t roff = ((size_t)b * Hq + hq) * T;   // lse / Delta rows
 
   load_tile(q_s, q + qoff, qrow, q0, 0, T);
   load_tile(do_s, dout + qoff, qrow, q0, 0, T);
-  {
-    // Delta = rowsum(dO o) in fp32: two threads a query, 64 dims each in
-    // order, then their sum
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const int t = q0 + r;
-    float acc = 0.f;
-    if (t < T) {
-      const __nv_bfloat16* orow = o + qoff + (size_t)t * qrow + half * 64;
-      const __nv_bfloat16* drow = dout + qoff + (size_t)t * qrow + half * 64;
-#pragma unroll 8
-      for (int c = 0; c < 64; c += 2) {
-        const float2 ov = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(orow + c));
-        const float2 dv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(drow + c));
-        acc = __fmaf_rn(ov.x, dv.x, acc);
-        acc = __fmaf_rn(ov.y, dv.y, acc);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      delta_s[r] = acc;
-      lse_s[r] = t < T ? lse[roff + t] * kLog2e : inf_f();
-      qpos_s[r] = t < T ? qpos_arr[(size_t)b * T + t] : -kBig;
-      if (t < T) delta[roff + t] = acc;
-    }
+  if (threadIdx.x < kBQ) {
+    const int t = q0 + threadIdx.x;
+    lse_s[threadIdx.x] = t < T ? lse[roff + t] * kLog2e : inf_f();
+    qpos_s[threadIdx.x] = t < T ? qpos_arr[(size_t)b * T + t] : -kBig;
   }
   __syncthreads();
 
@@ -262,6 +246,42 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 
   const __nv_bfloat16* kh = k + (size_t)b * ksb + (size_t)hkv * ksh;
   const __nv_bfloat16* vh = v + (size_t)b * ksb + (size_t)hkv * ksh;
+  {
+    // pass 1: Delta = sum over visible keys of P dP, fp32
+    float dsum[2] = {0.f, 0.f};
+    for (int it = 0; it < n_tiles; ++it) {
+      const int kt = kt0 + it * kBK;
+      __syncthreads();
+      load_tile(k_s, kh, kss, kt, kvs, kvl);
+      load_tile(v_s, vh, kss, kt, kvs, kvl);
+      __syncthreads();
+      float s[8][4], dp[8][4];
+      scores(s, q_s, warp * 16, k_s, lane);
+      scores(dp, do_s, warp * 16, v_s, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = rl[e >> 1];
+          const int kpos = kt + nt * 8 + (lane & 3) * 2 + (e & 1);
+          if (visible(kpos, qpos_s[row], kvs, kvl, causal))
+            dsum[e >> 1] = __fmaf_rn(
+                exp2f(s[nt][e] * sl2 - lse_s[row]), dp[nt][e], dsum[e >> 1]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      dsum[j] += __shfl_xor_sync(0xffffffffu, dsum[j], 1);
+      dsum[j] += __shfl_xor_sync(0xffffffffu, dsum[j], 2);
+      const int t = q0 + rl[j];
+      if ((lane & 3) == 0) {
+        delta_s[rl[j]] = dsum[j];
+        if (t < T) delta[roff + t] = dsum[j];
+      }
+    }
+    __syncthreads();
+  }
+  // pass 2: dQ
   for (int it = 0; it < n_tiles; ++it) {
     const int kt = kt0 + it * kBK;
     __syncthreads();          // the previous tile's readers are done
@@ -412,7 +432,7 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
-// q, o, dout bf16 [B,T,Hq,D] contiguous; k/v bf16 with element strides
+// q, dout bf16 [B,T,Hq,D] contiguous; k/v bf16 with element strides
 // (ksb, kss, ksh) over (B, S, Hkv), multiples of 8, and a contiguous D;
 // all 16-byte aligned; qpos int32 [B,T]; kv_len, kv_start int32 [B]; lse
 // fp32 [B,Hq,T] (the forward's); delta fp32 [B,Hq,T] scratch (written by
@@ -421,8 +441,8 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 // the first launch error or cudaGetLastError() (cudaErrorInvalidValue for
 // another D).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
-                                   const void* v, const void* o,
-                                   const void* dout, const void* qpos,
+                                   const void* v, const void* dout,
+                                   const void* qpos,
                                    const void* kv_len, const void* kv_start,
                                    const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int T, int Hq,
@@ -449,9 +469,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const auto* ls = static_cast<const float*>(lse);
   flash_bwd_dq_kernel<<<dim3(Hq, B, (T + kBQ - 1) / kBQ), kThreads, kSmem,
                         st>>>(
-      qb, kb, vb, static_cast<const __nv_bfloat16*>(o), dob, qp, kl, ks, ls,
-      static_cast<float*>(delta), static_cast<__nv_bfloat16*>(dq), T, Hq,
-      Hkv, S, ksb, kss, ksh, scale, causal);
+      qb, kb, vb, dob, qp, kl, ks, ls, static_cast<float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), T, Hq, Hkv, S, ksb, kss, ksh, scale,
+      causal);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_dkdv_kernel<<<dim3(Hkv, B, (S + kBK - 1) / kBK), kThreads, kSmem,

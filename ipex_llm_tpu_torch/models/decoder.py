@@ -36,6 +36,15 @@ the reference's order (``decoder.py:70-210``, ``:334-407``,
 ``:422-470``).  A layer that holds ``moe_gate_up`` runs the sparse MoE
 block (:func:`_moe_block`, the reference's ``decoder.py:212-306``) in
 place of the MLP.
+
+Tensor-parallel serving runs the paged form on every rank with ``tp``, the
+rank's group (``parallel/manual.py``): ``cfg`` is then the rank-local
+config (``local_cfg``: heads divided by tp) and ``params`` the rank's
+slices (``shard_params_manual``).  qkv and gate_up are column-parallel,
+o and down row-parallel (their partials summed over the group), attention
+reads the rank's kv heads through the kernels' sharded wrappers, and a
+column-parallel lm head's fp32 logits are gathered to full width (the
+reference's ``decoder.py:438-445``); a tied head stays replicated.
 """
 
 from __future__ import annotations
@@ -83,12 +92,13 @@ def _norm(cfg: ModelConfig, x, w):
 
 def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
                      q_slots, kv_len, kv_start, sliding: bool, cache,
-                     chunk_lens):
+                     chunk_lens, tp=None):
     """One layer's attention; ``cos``/``sin`` are the table this layer
     rotates with (gemma3's local one on a sliding layer)."""
     b, t, _ = x.shape
     h = _norm(cfg, x, lp["attn_norm"])
-    qkv = linear_ops.linear(h, lp["qkv"], lp.get("qkv_bias"))
+    qkv = linear_ops.linear(h, lp["qkv"], lp.get("qkv_bias"), tp=tp,
+                            mode="col")
     q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
     q = qkv[..., :q_dim].reshape(b, t, cfg.num_heads, cfg.head_dim)
     k = qkv[..., q_dim:q_dim + kv_dim].reshape(b, t, cfg.num_kv_heads,
@@ -110,19 +120,21 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
         attn = sdpa(q, k, v.contiguous(), **kw)
     else:
         kl, vl = cache.update_layer(kl, vl, k, v, slot0)
-        attn = cached_sdpa(q, kl, vl, cache, chunk_lens=chunk_lens, **kw)
+        attn = cached_sdpa(q, kl, vl, cache, chunk_lens=chunk_lens, tp=tp,
+                           **kw)
     attn = attn.reshape(b, t, cfg.q_dim)
-    out = linear_ops.linear(attn, lp["o"])
+    out = linear_ops.linear(attn, lp["o"], tp=tp, mode="row")
     if cfg.post_attn_norm:
         out = _norm(cfg, out, lp["post_attn_norm"])
     return out
 
 
-def _mlp_block(cfg: ModelConfig, lp: dict, x):
+def _mlp_block(cfg: ModelConfig, lp: dict, x, tp=None):
     h = _norm(cfg, x, lp["mlp_norm"])
-    gate, up = mlp_ops.split_gate_up(linear_ops.linear(h, lp["gate_up"]))
+    gate, up = mlp_ops.split_gate_up(linear_ops.linear(h, lp["gate_up"],
+                                                       tp=tp, mode="col"))
     out = linear_ops.linear(mlp_ops.gated_act_mul(gate, up, cfg.act),
-                            lp["down"])
+                            lp["down"], tp=tp, mode="row")
     if cfg.post_mlp_norm:
         out = _norm(cfg, out, lp["post_mlp_norm"])
     return out
@@ -222,12 +234,21 @@ def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, embed.shape[0])
 
 
-def logits_tail(cfg: ModelConfig, params, x):
+def logits_tail(cfg: ModelConfig, params, x, tp=None):
     """Final norm and lm head (fp32 logits of an untied head's bf16 output,
-    or of the tied product), then the final-logit softcap in fp32."""
+    or of the tied product), then the final-logit softcap in fp32.  With a
+    ``tp`` group and a rank's column slice of the head, the slices' logits
+    are gathered to full width (exact)."""
     x = _norm(cfg, x, params["final_norm"])
-    if "lm_head" in params:
-        logits = linear_ops.linear(x, params["lm_head"]).to(torch.float32)
+    head = params.get("lm_head")
+    if tp is not None and head is not None \
+            and head.out_features != cfg.vocab_size:
+        from ipex_llm_tpu_torch.ops.collectives import all_gather_last
+
+        logits = all_gather_last(linear_ops.linear(
+            x, head, tp=tp, mode="col").to(torch.float32), tp)
+    elif head is not None:
+        logits = linear_ops.linear(x, head).to(torch.float32)
     else:
         logits = tied_logits(x, params["embed"])
     if cfg.logit_softcap is not None:
@@ -242,7 +263,7 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
                     slot_offsets: torch.Tensor | None = None,
                     last_token_only: bool = False,
                     gather_positions: torch.Tensor | None = None,
-                    chunk_lens: torch.Tensor | None = None):
+                    chunk_lens: torch.Tensor | None = None, tp=None):
     """Run the decoder; returns (logits, cache) with the cache updated in
     place.
 
@@ -256,6 +277,7 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
     tokens' own K/V; the returned cache is None.
     Logits are [B, V] for ``last_token_only`` or ``gather_positions`` (one
     index per row, gathered before the lm head) and [B, T, V] otherwise.
+    ``tp``: the rank's group of tensor-parallel serving (module docstring).
     """
     b, t = tokens.shape
     dev = tokens.device
@@ -278,11 +300,14 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
         c, s = (cos_l, sin_l) if sliding and cos_l is not None else (cos, sin)
         x = x + _attention_block(cfg, lp, x, kl, vl, c, s, slot0,
                                  q_slots, kv_len, kv_start, sliding, cache,
-                                 chunk_lens)
+                                 chunk_lens, tp)
         if "moe_gate_up" in lp:
+            if tp is not None:
+                raise NotImplementedError(
+                    "MoE stacks not manual-sharded yet (ROADMAP item 15)")
             x = x + _moe_block(cfg, lp, x, experts)
         else:
-            x = x + _mlp_block(cfg, lp, x)
+            x = x + _mlp_block(cfg, lp, x, tp)
     if slot_offsets is None and cache is not None:
         cache.length = slot0 + t
     if last_token_only:
@@ -290,7 +315,7 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
     elif gather_positions is not None:
         idx = gather_positions.long().clamp(0, t - 1)
         x = x[torch.arange(b, device=x.device), idx][:, None, :]
-    logits = logits_tail(cfg, params, x)
+    logits = logits_tail(cfg, params, x, tp)
     if last_token_only or gather_positions is not None:
         logits = logits[:, 0]
     return logits, cache

@@ -20,19 +20,25 @@ requires grad) ``sdpa`` runs B4's LSE instance inside
 (``ops/cuda/flash_attention_bwd.py``); windows, softcaps, biases and, on
 the card, a head_dim other than 128 raise there (ROADMAP item 16's
 remainder).  Otherwise B4 is called as it is, with no autograd node.
+
+Tensor-parallel serving passes the rank's group (``tp``) to
+:func:`cached_sdpa` and :func:`sdpa`: q holds the rank's query heads and
+the cache its kv heads, and the call goes to the kernels' sharded
+wrappers (B1s, B3s, B4s), head-local with no collective.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ipex_llm_tpu_torch.ops.cuda.decode_attention import (call_args,
-                                                          decode_sdpa)
+from ipex_llm_tpu_torch.ops.cuda.decode_attention import (
+    call_args, decode_sdpa, decode_sdpa_sharded)
 from ipex_llm_tpu_torch.ops.cuda.flash_attention import (flash_sdpa,
-                                                         flash_sdpa_lse)
+                                                         flash_sdpa_lse,
+                                                         flash_sdpa_sharded)
 from ipex_llm_tpu_torch.ops.cuda.flash_attention_bwd import flash_sdpa_bwd
-from ipex_llm_tpu_torch.ops.cuda.ragged_paged_attention import \
-    ragged_paged_sdpa
+from ipex_llm_tpu_torch.ops.cuda.ragged_paged_attention import (
+    ragged_paged_sdpa, ragged_paged_sdpa_sharded)
 
 NEG_INF = -1e30
 
@@ -96,15 +102,14 @@ class _FlashAttention(torch.autograd.Function):
         out, lse = flash_sdpa_lse(q, k, v, scale=scale, causal=causal,
                                   q_positions=q_positions, kv_len=kv_len,
                                   kv_start=kv_start)
-        ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_len,
-                              kv_start)
+        ctx.save_for_backward(q, k, v, lse, q_positions, kv_len, kv_start)
         ctx.scale, ctx.causal = scale, causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, q_positions, kv_len, kv_start = ctx.saved_tensors
-        dq, dk, dv = flash_sdpa_bwd(q, k, v, out, dout, lse, scale=ctx.scale,
+        q, k, v, lse, q_positions, kv_len, kv_start = ctx.saved_tensors
+        dq, dk, dv = flash_sdpa_bwd(q, k, v, dout, lse, scale=ctx.scale,
                                     causal=ctx.causal,
                                     q_positions=q_positions, kv_len=kv_len,
                                     kv_start=kv_start)
@@ -132,20 +137,28 @@ def _sdpa_grad(q, k, v, *, scale=None, causal=True, q_positions=None,
                                  scale, bool(causal))
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, tp=None,
          **kwargs) -> torch.Tensor:
     """Attention with ``sdpa_reference``'s arguments through the flash
     kernel (B4; a bias raises); a query with no valid key gets 0.  Under a
-    gradient, through :class:`_FlashAttention`."""
+    gradient, through :class:`_FlashAttention`; with a ``tp`` group, one
+    rank's heads through B4s."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if tp is not None:
+            raise NotImplementedError(
+                "tensor-parallel attention under a gradient is not ported "
+                "(ROADMAP item 15)")
         return _sdpa_grad(q, k, v, **kwargs)
+    if tp is not None:
+        return flash_sdpa_sharded(q, k, v, tp=tp.size,
+                                  n_kv_heads=k.shape[2] * tp.size, **kwargs)
     return flash_sdpa(q, k, v, **kwargs)
 
 
 def cached_sdpa(q: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, cache,
                 *, compute_dtype=torch.bfloat16,
-                chunk_lens: torch.Tensor | None = None,
+                chunk_lens: torch.Tensor | None = None, tp=None,
                 **kwargs) -> torch.Tensor:
     """SDPA over one cache layer in its storage layout and dtype.
 
@@ -161,12 +174,19 @@ def cached_sdpa(q: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, cache,
     (layer [B, Hkv, S, D]): a T=1 step reads the layer as stored through
     the decode kernel (e5m2 widened inside it); every other shape widens
     the layer once and runs ``sdpa`` on its ``[B, S, Hkv, D]`` view (no
-    copy: the flash kernel reads through the strides)."""
+    copy: the flash kernel reads through the strides).  With a ``tp``
+    group, each kernel through its sharded wrapper (module docstring)."""
     if kwargs.get("bias") is not None:
         raise NotImplementedError("attention biases are not ported")
+    shard = {} if tp is None else dict(tp=tp.size, rank=tp.rank,
+                                       n_kv_heads=kl.shape[1] * tp.size)
     if hasattr(cache, "tables"):
         if kwargs.get("kv_start") is None and kwargs.get("softcap") is None \
                 and kwargs.get("window") is None:
+            if tp is not None:
+                return ragged_paged_sdpa_sharded(
+                    q, kl, vl, cache.tables, kwargs["kv_len"], chunk_lens,
+                    scale=kwargs.get("scale"), **shard)
             return ragged_paged_sdpa(q, kl, vl, cache.tables,
                                      kwargs["kv_len"], chunk_lens,
                                      scale=kwargs.get("scale"))
@@ -174,11 +194,14 @@ def cached_sdpa(q: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor, cache,
         vl = cache.gather_layer(vl)
         kwargs["kv_len"] = kwargs["kv_len"].clamp(max=kl.shape[2])
     if q.shape[1] == 1:
-        return decode_sdpa(
-            q, kl, vl, scale=kwargs.get("scale"), kv_len=kwargs.get("kv_len"),
-            kv_start=kwargs.get("kv_start"), window=kwargs.get("window"),
-            window_on=kwargs.get("window_on", True),
-            softcap=kwargs.get("softcap"))
+        dkw = dict(scale=kwargs.get("scale"), kv_len=kwargs.get("kv_len"),
+                   kv_start=kwargs.get("kv_start"),
+                   window=kwargs.get("window"),
+                   window_on=kwargs.get("window_on", True),
+                   softcap=kwargs.get("softcap"))
+        if tp is not None:
+            return decode_sdpa_sharded(q, kl, vl, **shard, **dkw)
+        return decode_sdpa(q, kl, vl, **dkw)
     kd = kl.to(compute_dtype).transpose(1, 2)
     vd = vl.to(compute_dtype).transpose(1, 2)
-    return sdpa(q, kd, vd, **kwargs)
+    return sdpa(q, kd, vd, tp=tp, **kwargs)

@@ -48,6 +48,17 @@ class Counts:
         self.by_head_dim = collections.Counter()
 
 
+def through(counts: Counts, inner: Counts, call):
+    """A sharded wrapper's accounting: run ``call`` (one call of the
+    unsharded wrapper whose counts are ``inner``) and add the launches and
+    plain calls it made to ``counts``; returns its result."""
+    launches, plain = inner.launches, inner.plain_calls
+    out = call()
+    counts.launches += inner.launches - launches
+    counts.plain_calls += inner.plain_calls - plain
+    return out
+
+
 def nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
                  "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):

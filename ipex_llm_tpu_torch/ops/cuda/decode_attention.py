@@ -208,6 +208,27 @@ def decode_sdpa(q: torch.Tensor, k_raw: torch.Tensor, v_raw: torch.Tensor,
                              softcap=softcap)
 
 
+def decode_sdpa_sharded(q: torch.Tensor, k_raw: torch.Tensor,
+                        v_raw: torch.Tensor, *, tp: int, rank: int,
+                        n_kv_heads: int, **kwargs) -> torch.Tensor:
+    """One rank of the reference's ``decode_sdpa_sharded`` (B3s): ``q``
+    [B, 1, Hq/tp, D] the rank's query heads; ``k_raw``/``v_raw`` [B, Hkv',
+    S, D] its layer, holding its ``n_kv_heads / tp`` heads where they
+    divide, or all ``n_kv_heads`` where ``tp % n_kv_heads == 0`` (then the
+    rank reads kv head ``rank // (tp / n_kv_heads)``, the GQA repeat).
+    ``kwargs`` as :func:`decode_sdpa`.  Head-local: no collective.  B3 on
+    the card (counted in :data:`SHARDED` too), its plain version on the
+    CPU."""
+    from ipex_llm_tpu_torch.parallel.shard import rank_kv
+
+    k_raw, v_raw = rank_kv(k_raw, v_raw, q.shape[2], tp, rank, n_kv_heads)
+    return _build.through(SHARDED, COUNTS,
+                          lambda: decode_sdpa(q, k_raw, v_raw, **kwargs))
+
+
+SHARDED = _build.Counts()   # launches and plain calls made through B3s
+
+
 def _declare(lib: ctypes.CDLL):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,

@@ -209,6 +209,25 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             softcap=softcap)
 
 
+def flash_sdpa_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       tp: int, n_kv_heads: int, **kwargs) -> torch.Tensor:
+    """One rank of the reference's ``flash_sdpa_sharded`` (B4s): ``q`` [B,
+    T, Hq/tp, D] and ``k``/``v`` [B, S, Hkv/tp, D] the rank's heads (both
+    counts must divide tp, as the reference requires); ``kwargs`` as
+    :func:`flash_sdpa`.  Head-local: no collective.  B4 on the card
+    (counted in :data:`SHARDED` too), its plain version on the CPU."""
+    if n_kv_heads % tp or q.shape[2] % (n_kv_heads // tp):
+        raise NotImplementedError("head counts must divide tp")
+    if k.shape[2] * tp != n_kv_heads:
+        raise ValueError(f"a rank's k/v hold {n_kv_heads // tp} kv heads, "
+                         f"got {k.shape[2]}")
+    return _build.through(SHARDED, COUNTS,
+                          lambda: flash_sdpa(q, k, v, **kwargs))
+
+
+SHARDED = _build.Counts()   # launches and plain calls made through B4s
+
+
 def flash_sdpa_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    scale: float, causal: bool, q_positions: torch.Tensor,
                    kv_len: torch.Tensor, kv_start: torch.Tensor

@@ -3,7 +3,8 @@ SDPA that :func:`ops.cuda.flash_attention.flash_sdpa_lse` computes.
 
 The JAX package has no backward kernel: its gradient is XLA's autodiff of
 ``sdpa_reference``.  ``csrc/flash_attention_bwd.cu`` holds the port's
-kernels (two launches a call: Delta and dQ over query tiles, then dK and
+kernels (two launches a call: Delta and dQ over query tiles, Delta
+recomputed in fp32 as the sum of P dP over the visible keys, then dK and
 dV over key tiles, with no atomics) and the note on their design and
 bound; :func:`plan` is their launch; the dq kernel walks B4's forward
 key tiles (``flash_attention.key_tiles``, without a window) and
@@ -81,12 +82,12 @@ def flash_sdpa_bwd_plain(q, k, v, dout, *, scale: float, causal: bool,
     return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
-def _launch(q, k, v, out, dout, lse, q_positions, kv_len, kv_start, scale,
+def _launch(q, k, v, dout, lse, q_positions, kv_len, kv_start, scale,
             causal):
     b, t, hq, d = q.shape
     _, s, hkv, _ = k.shape
     dev = q.device
-    for x in (q, k, v, out, dout):
+    for x in (q, k, v, dout):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"{NAME} takes bf16 tensors, got {x.dtype}")
         if x.device != dev:
@@ -99,10 +100,10 @@ def _launch(q, k, v, out, dout, lse, q_positions, kv_len, kv_start, scale,
             st % 8 for st in k.stride()[:3]):
         raise ValueError("k and v need the same strides, multiples of 8, "
                          "and a contiguous head dim")
-    for x in (q, out, dout):
+    for x in (q, dout):
         if not x.is_contiguous():
-            raise ValueError(f"{NAME} needs contiguous q, out and dout")
-    for x in (q, k, v, out, dout):
+            raise ValueError(f"{NAME} needs contiguous q and dout")
+    for x in (q, k, v, dout):
         if x.data_ptr() % 16:
             raise ValueError(f"{NAME} needs 16-byte aligned tensors")
     if lse.shape != (b, hq, t) or lse.dtype != torch.float32 \
@@ -120,7 +121,7 @@ def _launch(q, k, v, out, dout, lse, q_positions, kv_len, kv_start, scale,
     dv = torch.empty_like(dk)
     delta = torch.empty((b, hq, t), dtype=torch.float32, device=dev)
     ptr = [ctypes.c_void_p(x.data_ptr()) for x in (
-        q, k, v, out, dout, qpos, kv_len, kv_start, lse, delta, dq, dk, dv)]
+        q, k, v, dout, qpos, kv_len, kv_start, lse, delta, dq, dk, dv)]
     err = lib.flash_attention_bwd(
         *ptr, b, t, hq, hkv, s, d, k.stride(0), k.stride(1), k.stride(2),
         ctypes.c_float(scale), int(causal), _build.stream_handle(q))
@@ -130,15 +131,15 @@ def _launch(q, k, v, out, dout, lse, q_positions, kv_len, kv_start, scale,
 
 
 def flash_sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                   dout: torch.Tensor, lse: torch.Tensor,
                    *, scale: float, causal: bool,
                    q_positions: torch.Tensor, kv_len: torch.Tensor,
                    kv_start: torch.Tensor):
     """(dq [B, T, Hq, D], dk, dv [B, S, Hkv, D]) of ``flash_sdpa_lse``'s
-    output ``out`` (with its ``lse``) for the output gradient ``dout``;
+    output for its gradient ``dout``, from the forward's ``lse``;
     ``kv_len``/``kv_start`` int32 [B], ``q_positions`` [B, T]."""
     if q.is_cuda:
-        return _launch(q, k, v, out, dout.contiguous(), lse, q_positions,
+        return _launch(q, k, v, dout.contiguous(), lse, q_positions,
                        kv_len, kv_start, scale, causal)
     return flash_sdpa_bwd_plain(q, k, v, dout, scale=scale, causal=causal,
                                 q_positions=q_positions, kv_len=kv_len,
@@ -148,6 +149,6 @@ def flash_sdpa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _declare(lib: ctypes.CDLL):
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
-    lib.flash_attention_bwd.argtypes = [p] * 13 + [i] * 6 + [ll] * 3 + [
+    lib.flash_attention_bwd.argtypes = [p] * 12 + [i] * 6 + [ll] * 3 + [
         f, i, p]
     lib.flash_attention_bwd.restype = ctypes.c_int

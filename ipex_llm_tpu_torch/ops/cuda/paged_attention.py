@@ -194,6 +194,41 @@ def paged_prefill_sdpa(q: torch.Tensor, k_pool: torch.Tensor,
     return _paged(q, k_pool, v_pool, tables, kv_len, scale)
 
 
+def paged_decode_sdpa_sharded(q, k_pool, v_pool, tables, kv_len, *,
+                              tp: int, rank: int, n_kv_heads: int,
+                              scale: float | None = None) -> torch.Tensor:
+    """One rank of the reference's ``paged_decode_sdpa_sharded`` (B5s):
+    ``q`` [R, 1, Hq/tp, D] the rank's query heads; the pool holds its
+    ``n_kv_heads / tp`` heads (``Hkv % tp == 0``) or all ``n_kv_heads``
+    (``tp % Hkv == 0``: the rank reads kv head ``rank // (tp / Hkv)``).
+    B1s's oracle, not dispatched.  B5 on the card (counted in
+    :data:`SHARDED_DECODE` too), its plain version on the CPU."""
+    from ipex_llm_tpu_torch.parallel.shard import rank_kv
+
+    k_pool, v_pool = rank_kv(k_pool, v_pool, q.shape[2], tp, rank,
+                             n_kv_heads)
+    return _build.through(SHARDED_DECODE, COUNTS, lambda: paged_decode_sdpa(
+        q, k_pool, v_pool, tables, kv_len, scale=scale))
+
+
+def paged_prefill_sdpa_sharded(q, k_pool, v_pool, tables, kv_len, *,
+                               tp: int, rank: int, n_kv_heads: int,
+                               scale: float | None = None) -> torch.Tensor:
+    """:func:`paged_prefill_sdpa` for one rank, the head split of
+    :func:`paged_decode_sdpa_sharded` (counted in :data:`SHARDED_PREFILL`
+    too)."""
+    from ipex_llm_tpu_torch.parallel.shard import rank_kv
+
+    k_pool, v_pool = rank_kv(k_pool, v_pool, q.shape[2], tp, rank,
+                             n_kv_heads)
+    return _build.through(SHARDED_PREFILL, COUNTS, lambda: paged_prefill_sdpa(
+        q, k_pool, v_pool, tables, kv_len, scale=scale))
+
+
+SHARDED_DECODE = _build.Counts()    # launches and plain calls through B5s
+SHARDED_PREFILL = _build.Counts()   # decode and B5s prefill
+
+
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,

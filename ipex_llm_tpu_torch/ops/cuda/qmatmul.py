@@ -335,6 +335,39 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *,
     return qmatmul_plain(x, qt, keep_f32=keep_f32)
 
 
+def qmatmul_sharded(x: torch.Tensor, qt: QTensor, mode: str, group=None, *,
+                    qtype: str = "bf16") -> torch.Tensor:
+    """One rank of the reference's ``qmatmul_pallas_sharded`` (B2s): ``x``
+    [M, K'] against the rank's planes ``qt`` (``parallel/shard.py``).
+
+    - ``mode="col"`` (qkv, gate_up, the lm head): ``qt`` holds ``out / tp``
+      columns, ``x`` is the whole input; the rank's output columns, no
+      collective;
+    - ``mode="row"`` (o, down): ``qt`` holds ``in / tp`` contraction rows
+      in whole blocks, ``x`` the matching input columns; B2's fp32
+      partial (``keep_f32``), summed over ``group`` by
+      ``ops/collectives.py::all_reduce`` under the ``qtype`` wire family,
+      then rounded to ``x``'s dtype.  The only cross-rank arithmetic.
+
+    B2 on the card (counted in :data:`SHARDED_COL` or
+    :data:`SHARDED_ROW` too), its plain version on the CPU."""
+    if mode == "col":
+        return _build.through(SHARDED_COL, COUNTS, lambda: qmatmul(x, qt))
+    if mode != "row":
+        raise NotImplementedError(f"tp mode {mode!r}")
+    if qt.qtype in _BIT5:
+        raise NotImplementedError(f"{qt.qtype} has no row split")
+    from ipex_llm_tpu_torch.ops.collectives import all_reduce
+
+    part = _build.through(SHARDED_ROW, COUNTS,
+                          lambda: qmatmul(x, qt, keep_f32=True))
+    return all_reduce(part, group, qtype, out_dtype=x.dtype)
+
+
+SHARDED_COL = _build.Counts()   # launches made through B2s, column split
+SHARDED_ROW = _build.Counts()   # and row split
+
+
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.qmatmul.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i,

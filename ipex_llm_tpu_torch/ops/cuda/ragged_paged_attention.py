@@ -182,6 +182,31 @@ def ragged_paged_sdpa(q: torch.Tensor, k_pool: torch.Tensor,
                                    chunk_len, scale=float(scale))
 
 
+def ragged_paged_sdpa_sharded(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, tables: torch.Tensor,
+                              kv_len: torch.Tensor,
+                              chunk_len: torch.Tensor | None = None, *,
+                              tp: int, rank: int, n_kv_heads: int,
+                              scale: float | None = None) -> torch.Tensor:
+    """One rank of the reference's ``ragged_paged_sdpa_sharded`` (B1s):
+    ``q`` [R, C, Hq/tp, D] the rank's query heads; ``k_pool``/``v_pool`` its
+    pool, holding its ``n_kv_heads / tp`` kv heads where they divide, or
+    all ``n_kv_heads`` where ``tp % n_kv_heads == 0`` (then the rank reads
+    kv head ``rank // (tp / n_kv_heads)``, the reference's GQA repeat);
+    tables and lengths shared.  Attention is head-local: no collective.
+    Launches B1 on the card (counted in :data:`SHARDED` too) and runs its
+    plain version on the CPU."""
+    from ipex_llm_tpu_torch.parallel.shard import rank_kv
+
+    k_pool, v_pool = rank_kv(k_pool, v_pool, q.shape[2], tp, rank,
+                             n_kv_heads)
+    return _build.through(SHARDED, COUNTS, lambda: ragged_paged_sdpa(
+        q, k_pool, v_pool, tables, kv_len, chunk_len, scale=scale))
+
+
+SHARDED = _Counts()     # launches and plain calls made through B1s
+
+
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ragged_paged_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i,

@@ -22,6 +22,15 @@ called as it is, with no autograd node.  ``generate()``, the model's
 never enter the Function, even over params that a training step left
 requiring grad.  B2e under a gradient raises (MoE
 training is ROADMAP item 16's remainder).
+
+Tensor-parallel serving passes the rank's group (``parallel/mesh.py``'s
+``TPGroup``) and the weight's split: ``mode="col"`` (qkv, gate_up, the lm
+head: the rank's output columns, no collective) or ``"row"`` (o, down:
+the rank's fp32 partial, summed over the group by
+``ops/collectives.py::all_reduce`` under the group's wire family, then
+rounded to bf16; the reference's ``ops/linear.py:49-70``).  A block
+format goes through B2's sharded wrapper (``qmatmul_sharded``), a bf16
+weight through a plain product summed the same way.
 """
 
 from __future__ import annotations
@@ -60,7 +69,8 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return _qmatmul(x, qt)
 
 
-def _qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def _qmatmul(x: torch.Tensor, qt: QTensor, tp=None,
+             mode: str | None = None) -> torch.Tensor:
     if qt.qtype not in b2.FORMATS:
         raise NotImplementedError(f"qmatmul for {qt.qtype!r} is not ported")
     lead = x.shape[:-1]
@@ -70,7 +80,11 @@ def _qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     x2 = x.reshape(-1, k).to(torch.bfloat16)
     if k_pad != k:   # quantization block padding (core._to_blocks)
         x2 = F.pad(x2, (0, k_pad - k))
-    out = b2.qmatmul(x2.contiguous(), qt)
+    if mode is None:
+        out = b2.qmatmul(x2.contiguous(), qt)
+    else:
+        out = b2.qmatmul_sharded(x2.contiguous(), qt, mode, tp,
+                                 qtype=tp.collective_qtype)
     return out.reshape(*lead, qt.out_features).to(x.dtype)
 
 
@@ -100,11 +114,15 @@ def qmatmul_experts(x_sorted: torch.Tensor, seg: torch.Tensor, qt: QTensor,
                                max_rows=max_rows)
 
 
-def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None
-           ) -> torch.Tensor:
+def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *,
+           tp=None, mode: str | None = None) -> torch.Tensor:
     """Linear over a QTensor (a block format or bf16), a plain bf16
-    matrix or a LoraWeight, plus ``bias`` in the output's dtype."""
-    if isinstance(w, QTensor) and w.qtype != "bf16":
+    matrix or a LoraWeight, plus ``bias`` in the output's dtype; with a
+    ``tp`` group, ``mode`` ("col" or "row") is the rank's split of ``w``
+    (module docstring)."""
+    if tp is not None and mode is not None:
+        y = _linear_sharded(x, w, tp, mode)
+    elif isinstance(w, QTensor) and w.qtype != "bf16":
         y = qmatmul(x, w)
     elif isinstance(w, (QTensor, torch.Tensor)):
         if isinstance(w, QTensor):
@@ -125,3 +143,27 @@ def linear(x: torch.Tensor, w, bias: torch.Tensor | None = None
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def _linear_sharded(x: torch.Tensor, w, tp, mode: str) -> torch.Tensor:
+    """One rank's share of a tensor-parallel linear (module docstring)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "tensor-parallel linear under a gradient is not ported "
+            "(ROADMAP item 15)")
+    if mode not in ("col", "row"):
+        raise ValueError(f"tp mode {mode!r}")
+    if isinstance(w, QTensor) and w.qtype != "bf16":
+        return _qmatmul(x, w, tp, mode)
+    from ipex_llm_tpu_torch.ops.collectives import all_reduce
+
+    w = w.data if isinstance(w, QTensor) else w
+    if mode == "col":
+        return linear(x, w)
+    if x.is_cuda:    # the fp32 partial of a plain bf16 product
+        y = torch.mm(x.reshape(-1, x.shape[-1]).to(w.dtype), w,
+                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = torch.matmul(x.to(w.dtype).to(torch.float64),
+                         w.to(torch.float64)).to(torch.float32)
+    return all_reduce(y, tp, tp.collective_qtype, out_dtype=x.dtype)

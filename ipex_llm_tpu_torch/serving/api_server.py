@@ -32,11 +32,22 @@ or from Python, ``build_server(DIR)`` (it loads the checkpoint through
 ``web.run_app(srv.app, ...)``; an engine built by hand serves the same
 way through ``OpenAIServer(engine.start(), tokenizer, name)``.
 
+Tensor-parallel serving (``--tensor-parallel-size N``, or
+``build_server(DIR, tensor_parallel_size=N)``): this process is rank 0
+and starts the N - 1 follower ranks itself (spawned processes that meet
+it through a ``FileStore`` in a temporary directory), each loading the
+checkpoint and running its rank's engine in lockstep
+(``serving/engine.py``); rank 0 serves HTTP, and ``stop`` of its engine
+ends them.  The backend is NCCL, one card a rank (rank r on ``cuda:r``),
+unless ``--tp-backend gloo`` (``tp_backend="gloo"``) names gloo, which
+runs every rank on ``--device`` (one card, or the CPU) with its
+collectives through the host.  ``--collective-qtype`` is the all-reduce's
+wire family.  ``/health`` then reports a ``parallel`` block.
+
 Left out, with the ROADMAP items that bring them: ``/kv/prefill`` and
 ``/kv/import`` (item 11, KV transport and the spill tier); the ``perf``,
 ``planner`` and ``dispatch`` blocks of ``/health`` and ``/debug/profile``
-(item 10, the planner and perfwatch); the ``parallel`` block and tensor
-parallel serving (item 15); ``response_format`` (item 12, structured
+(item 10, the planner and perfwatch); ``response_format`` (item 12, structured
 decoding: refused with 400 here); ``/v1/audio/transcriptions`` (item 14,
 whisper).  ``main`` refuses the flags of those machines by name.
 """
@@ -555,6 +566,11 @@ class OpenAIServer:
         # the KV pool and the weights: the two byte lines of one HBM budget
         body["kv"] = eng.kv_stats()
         body["weights"] = eng.weight_stats()
+        # tensor parallelism: tp, backend, wire family, the rank's pool
+        # bytes (every rank holds the same share), collective counts
+        par = eng.parallel_stats()
+        if par is not None:
+            body["parallel"] = par
         # admission backlog against its bound (what a 429 means), and the
         # refused, expired and isolated counts
         body["fault_domain"] = {
@@ -710,7 +726,9 @@ class OpenAIServer:
 def build_server(model_path: str, low_bit: str = "sym_int4",
                  engine_config: EngineConfig | None = None,
                  model=None, tokenizer=None, drain_timeout_s: float = 30.0,
-                 device=None) -> OpenAIServer:
+                 device=None, tensor_parallel_size: int = 1,
+                 tp_backend: str = "nccl",
+                 tp_timeout_s: float | None = None) -> OpenAIServer:
     """An ``OpenAIServer`` over a started ``ServingEngine`` serving the
     checkpoint at ``model_path`` on ``device`` (``None`` = cuda).
 
@@ -722,40 +740,124 @@ def build_server(model_path: str, low_bit: str = "sym_int4",
     one, so ``/health``'s ``weights`` block reports what the tree holds.
     A ``model`` handed in keeps its width (a caller's full-width tree is
     repacked only through ``EngineConfig(weight_qtype=...)``).  Without a
-    ``tokenizer`` the checkpoint's is loaded through ``transformers``."""
+    ``tokenizer`` the checkpoint's is loaded through ``transformers``.
+
+    ``tensor_parallel_size`` > 1: this process is rank 0 and starts the
+    follower ranks (module docstring); every rank loads ``model_path``
+    itself (a ``model`` handed in is rank 0's only), on ``tp_backend``
+    with a group timeout of ``tp_timeout_s``."""
+    ec = engine_config or EngineConfig()
+    tp, procs = None, []
+    if tensor_parallel_size > 1:
+        tp, procs = _start_tp_group(
+            tensor_parallel_size, tp_backend, tp_timeout_s,
+            (model_path, low_bit, ec, device), ec.collective_qtype)
+        device = tp.device
+    try:
+        if model is None:
+            model, ec = _load_for_serving(model_path, low_bit, ec, device)
+        if tokenizer is None:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(model_path,
+                                                      trust_remote_code=True)
+        engine = ServingEngine(
+            model.config, model.params, ec,
+            default_eos=model.generation_config.eos_token_id,
+            device=model.device, tp=tp)
+    except BaseException:
+        for p in procs:     # the followers would wait out the timeout
+            p.terminate()
+        raise
+    engine._tp_procs = procs
+    return OpenAIServer(engine.start(), tokenizer, model_name=model_path,
+                        drain_timeout_s=drain_timeout_s)
+
+
+def _load_for_serving(model_path: str, low_bit: str, ec: EngineConfig,
+                      device):
+    """The checkpoint at the serving width rule (``build_server``'s
+    docstring): (model, the engine config with its width)."""
     from ipex_llm_tpu_torch.transformers import AutoModelForCausalLM
 
-    ec = engine_config or EngineConfig()
-    if model is None:
-        if os.path.exists(os.path.join(model_path, "bigdl_config.json")):
-            model = AutoModelForCausalLM.load_low_bit(model_path,
-                                                      device=device)
-            ec = default_weight_qtype(ec, model.qtype)
-        else:
-            load_q = resolve_load_low_bit(ec, low_bit)
-            model = AutoModelForCausalLM.from_pretrained(
-                model_path, load_in_low_bit=load_q, device=device)
-            ec = default_weight_qtype(ec, load_q)
-    if tokenizer is None:
-        from transformers import AutoTokenizer
+    if os.path.exists(os.path.join(model_path, "bigdl_config.json")):
+        model = AutoModelForCausalLM.load_low_bit(model_path, device=device)
+        return model, default_weight_qtype(ec, model.qtype)
+    load_q = resolve_load_low_bit(ec, low_bit)
+    model = AutoModelForCausalLM.from_pretrained(
+        model_path, load_in_low_bit=load_q, device=device)
+    return model, default_weight_qtype(ec, load_q)
 
-        tokenizer = AutoTokenizer.from_pretrained(model_path,
-                                                  trust_remote_code=True)
+
+def _start_tp_group(size: int, backend: str, timeout_s: float | None,
+                    load_args: tuple, collective_qtype: str | None):
+    """Start follower ranks 1..size-1 (spawned processes running
+    :func:`_tp_follower`) and join the group as rank 0 through a
+    ``FileStore`` in a fresh temporary directory; returns (rank 0's
+    ``TPGroup``, the follower processes)."""
+    import multiprocessing
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ipex_llm_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S,
+                                                  init_tp_group,
+                                                  rank_device)
+
+    timeout_s = DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s
+    device = load_args[3]
+    rank_device(backend, 0, size, device)    # refuse before spawning
+    path = os.path.join(tempfile.mkdtemp(prefix="ipex_llm_tp_"), "store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_tp_follower, daemon=True,
+                         args=(r, size, path, backend, timeout_s, load_args,
+                               collective_qtype))
+             for r in range(1, size)]
+    for p in procs:
+        p.start()
+    try:
+        tp = init_tp_group(size, 0, backend=backend, device=device,
+                           store=dist.FileStore(path, size),
+                           timeout_s=timeout_s,
+                           collective_qtype=collective_qtype)
+    except BaseException:
+        for p in procs:
+            p.terminate()
+        raise
+    return tp, procs
+
+
+def _tp_follower(rank: int, size: int, path: str, backend: str,
+                 timeout_s: float, load_args: tuple,
+                 collective_qtype: str | None):
+    """A follower rank's process: join the group, load the checkpoint as
+    rank 0 does, and run the rank's engine until rank 0 stops it."""
+    import torch
+    import torch.distributed as dist
+
+    from ipex_llm_tpu_torch.parallel.mesh import (destroy_tp_group,
+                                                  init_tp_group)
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if backend == "gloo":
+        torch.set_num_threads(1)
+    model_path, low_bit, ec, device = load_args
+    tp = init_tp_group(size, rank, backend=backend, device=device,
+                       store=dist.FileStore(path, size), timeout_s=timeout_s,
+                       collective_qtype=collective_qtype)
+    model, ec = _load_for_serving(model_path, low_bit, ec, tp.device)
     engine = ServingEngine(
         model.config, model.params, ec,
         default_eos=model.generation_config.eos_token_id,
-        device=model.device).start()
-    return OpenAIServer(engine, tokenizer, model_name=model_path,
-                        drain_timeout_s=drain_timeout_s)
+        device=model.device, tp=tp).start()
+    engine.join()
+    destroy_tp_group()
 
 
 # flags of the reference's server whose machinery the port does not have:
 # (flag, attribute, the value that asks for nothing, ROADMAP item)
 _REFUSED_FLAGS = (
-    ("--tensor-parallel-size", "tensor_parallel_size", 1,
-     "15, multi-GPU serving"),
     ("--asr-model", "asr_model", None, "14, whisper"),
-    ("--collective-qtype", "collective_qtype", None, "15, multi-GPU serving"),
     ("--kv-spill-bytes", "kv_spill_bytes", 0, "11, the host spill tier"),
     ("--kv-import-token", "kv_import_token", None, "11, KV transport"),
     ("--profile-dir", "profile_dir", None, "10, perfwatch's /debug/profile"),
@@ -768,9 +870,10 @@ def main(argv=None):
     onto the port's engine).  The port has no tick planner yet, so
     ``--planner static`` is its only value and its default until ROADMAP
     item 10; that flag and the others of machinery not ported
-    (``--tensor-parallel-size`` above 1, ``--asr-model``,
-    ``--collective-qtype``, ``--kv-spill-bytes``, ``--kv-import-token``,
-    ``--profile-dir``) exit with an error naming their ROADMAP item."""
+    (``--asr-model``, ``--kv-spill-bytes``, ``--kv-import-token``,
+    ``--profile-dir``) exit with an error naming their ROADMAP item.
+    ``--tensor-parallel-size N`` starts the N - 1 follower ranks itself
+    (module docstring)."""
     ap = argparse.ArgumentParser("ipex-llm-tpu-torch OpenAI-compatible server")
     ap.add_argument("--model", required=True,
                     help="a local HF checkpoint or save_low_bit directory")
@@ -819,9 +922,25 @@ def main(argv=None):
     ap.add_argument("--trace", action="store_true",
                     help="request-lifecycle tracing (/trace/{id}, "
                          "/debug/traces)")
-    ap.add_argument("--tensor-parallel-size", type=int, default=1)
+    ap.add_argument("--tensor-parallel-size", type=int, default=1,
+                    metavar="N",
+                    help="serve over N ranks; this process is rank 0 and "
+                         "starts the others")
+    ap.add_argument("--collective-qtype", default=None,
+                    choices=("bf16", "e5m2", "int8"), metavar="FAMILY",
+                    help="the tp all-reduce's wire family: bf16 = exact "
+                         "(fp32 sums), e5m2/int8 = coded partials, bounded "
+                         "error (default: IPEX_LLM_TPU_COLLECTIVE_QTYPE, "
+                         "else bf16)")
+    ap.add_argument("--tp-backend", default="nccl", choices=("nccl", "gloo"),
+                    help="nccl: one card a rank (rank r on cuda:r); gloo: "
+                         "every rank on --device, collectives through the "
+                         "host")
+    ap.add_argument("--tp-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="the group's timeout: a rank that does not answer "
+                         "within it ends every rank")
     ap.add_argument("--asr-model", default=None)
-    ap.add_argument("--collective-qtype", default=None)
     ap.add_argument("--kv-spill-bytes", type=int, default=0)
     ap.add_argument("--kv-import-token", default=None)
     ap.add_argument("--profile-dir", default=None)
@@ -843,8 +962,12 @@ def main(argv=None):
                      max_queue=args.max_queue,
                      request_deadline_s=args.request_deadline,
                      max_step_retries=args.max_step_retries,
-                     trace_requests=args.trace),
-        drain_timeout_s=args.drain_timeout, device=args.device)
+                     trace_requests=args.trace,
+                     collective_qtype=args.collective_qtype),
+        drain_timeout_s=args.drain_timeout, device=args.device,
+        **({} if args.tensor_parallel_size == 1 else dict(
+            tensor_parallel_size=args.tensor_parallel_size,
+            tp_backend=args.tp_backend, tp_timeout_s=args.tp_timeout)))
     from aiohttp import web
 
     web.run_app(srv.app, host=args.host, port=args.port)

@@ -49,11 +49,31 @@ tick, which recomputes it bitwise; a deterministic one is bisected to one
 request, which alone finishes "error" (the reference's fault domain,
 ``serving/faults.py``).
 
+Tensor parallelism (``ServingEngine(..., tp=TPGroup)``, the reference's
+manual tick, ``parallel/manual.py``): one engine a rank, each holding its
+slices of the params (``shard_params_manual``) and its kv heads of the
+pool, all running the same ticks in lockstep over ``local_cfg``.  Rank 0
+owns the queue: at each tick's start it broadcasts that tick's
+admissions, cancellations, deadline expiries, shed and stop over the
+group's gloo control group, and the followers apply exactly those; only
+rank 0 takes requests and streams to clients.  The logits are gathered
+before sampling and every rank's generator starts from the same seed, so
+every rank draws the same tokens and holds the same host state.  The
+fault injector is replicated, so a scripted fault fires on every rank at
+the same site; at each tick's end the ranks agree on whether it faulted
+(one all-reduce over the control group), so retries and bisection run in
+lockstep, and a fault on some ranks only ends every rank.  A collective
+that fails or times out (``ops/collectives.py::CollectiveError``) is
+sticky: every request fails and the engine ends, within the group's
+timeout on every rank.  What ``manual.ineligible_reason`` refuses raises
+``NotImplementedError``: the reference routes it to GSPMD, which the port
+has no counterpart for (ROADMAP item 15).
+
 What the reference has and this slice leaves out: the model-predictive
 planner (so no plan masks speculation off for a tick, and the device
 history never goes stale between epochs), perfwatch, the host-RAM spill
-tier, KV export and import (and their fault sites), and tensor and
-pipeline parallelism (and the pipelined verify step).
+tier, KV export and import (and their fault sites), and pipeline, data,
+expert and context parallelism (and the pipelined verify step).
 
 The reference runs its whole tick as one compiled program with an
 on-device early exit from the horizon loop; PyTorch runs eagerly, so the
@@ -81,6 +101,7 @@ from ipex_llm_tpu_torch.models.build import (packed_qtypes, param_bytes,
                                              requantize_params)
 from ipex_llm_tpu_torch.models.config import ModelConfig
 from ipex_llm_tpu_torch.models.decoder import decoder_forward
+from ipex_llm_tpu_torch.ops.collectives import CollectiveError, resolve_qtype
 from ipex_llm_tpu_torch.ops.sampling import sample_rows_with_logprobs
 from ipex_llm_tpu_torch.ops.speculate import propose_ngram_rows
 from ipex_llm_tpu_torch.quantize.qtypes import resolve as qtype_info
@@ -138,6 +159,10 @@ class EngineConfig:
     trace_requests: bool = False
     trace_buffer: int = 256     # traces retained (LRU)
     flight_ring: int = 256      # tick records the flight recorder keeps
+    # tensor parallelism: the all-reduce's wire family (bf16 = exact, e5m2
+    # or int8 = bounded error); None = IPEX_LLM_TPU_COLLECTIVE_QTYPE, else
+    # bf16 (ops/collectives.py::resolve_qtype)
+    collective_qtype: str | None = None
 
     @property
     def n_pages(self) -> int:
@@ -311,7 +336,7 @@ def _chain_hashes(prompt: np.ndarray, page_size: int) -> list[bytes]:
 
 
 def decode_horizon_loop(cfg: ModelConfig, params, cache: PagedKVCache,
-                        st: dict, horizon: int):
+                        st: dict, horizon: int, tp=None):
     """Up to ``horizon`` decode+sample steps over the whole row pool,
     updating the device state ``st`` in place (port of
     ``_decode_horizon_loop`` without speculation).
@@ -336,7 +361,7 @@ def decode_horizon_loop(cfg: ModelConfig, params, cache: PagedKVCache,
         logits, cache = decoder_forward(
             cfg, params, st["toks"][:, None], cache, row_lens[:, None],
             slot_offsets=write_at, last_token_only=True,
-            chunk_lens=alive.to(torch.int32))
+            chunk_lens=alive.to(torch.int32), tp=tp)
         nxt, lp = sample_rows_with_logprobs(
             logits, st["temps"], st["top_ps"], st["seeds"], st["steps"],
             top_ks=st["top_ks"], active=alive)
@@ -397,7 +422,7 @@ def sample_verify_positions(logits: torch.Tensor, active: torch.Tensor,
 
 def spec_horizon_loop(cfg: ModelConfig, params, cache: PagedKVCache,
                       st: dict, horizon: int, spec_ks: torch.Tensor,
-                      spec_k: int, spec_ngram: int):
+                      spec_k: int, spec_ngram: int, tp=None):
     """The speculative form of :func:`decode_horizon_loop` (port of
     ``_spec_horizon_loop``), updating ``st`` (with its token history
     ``st["hist"]``) in place.  Up to ``horizon`` iterations, each on the
@@ -444,7 +469,8 @@ def spec_horizon_loop(cfg: ModelConfig, params, cache: PagedKVCache,
         tokens = torch.cat([st["toks"][:, None], drafts], dim=1)
         logits, cache = decoder_forward(
             cfg, params, tokens, cache, write_at[:, None] + ar_k1,
-            slot_offsets=write_at, chunk_lens=alive.to(torch.int32) * k1)
+            slot_offsets=write_at, chunk_lens=alive.to(torch.int32) * k1,
+            tp=tp)
         t_all, lp_all = sample_verify_positions(
             logits, alive, st["temps"], st["top_ps"], st["seeds"],
             st["steps"], st["top_ks"])
@@ -487,8 +513,9 @@ def spec_horizon_loop(cfg: ModelConfig, params, cache: PagedKVCache,
 def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
               prefill=None, horizon: int = 1, with_decode: bool = True,
               spec_ks: torch.Tensor | None = None, spec_k: int = 0,
-              spec_ngram: int = 3):
-    """One engine tick on the device (port of ``_tick_body``).
+              spec_ngram: int = 3, tp=None):
+    """One engine tick on the device (port of ``_tick_body``); ``tp`` the
+    rank's group under tensor parallelism.
 
     ``prefill`` = (tokens [P, W], tables [P, maxP], base [P], n_valid [P],
     emit [P], canjoin [P], rowmap [P]): a ragged right-padded chunk per
@@ -518,7 +545,7 @@ def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
             cfg, params, p_tokens, cache.with_tables(p_tables), pos,
             slot_offsets=p_base,
             gather_positions=torch.clamp(p_nvalid - 1, min=0),
-            chunk_lens=p_nvalid)
+            chunk_lens=p_nvalid, tp=tp)
         rows = p_rowmap.long()
         first_t, first_lp = sample_rows_with_logprobs(
             logits, st["temps"][rows], st["top_ps"][rows], st["seeds"][rows],
@@ -544,10 +571,10 @@ def tick_body(cfg: ModelConfig, params, cache: PagedKVCache, st: dict,
             hist[rows, hpos] = torch.where(p_emit, first_t, hist[rows, hpos])
     if with_decode and spec_k > 0:
         return (first_t, first_lp) + spec_horizon_loop(
-            cfg, params, cache, st, horizon, spec_ks, spec_k, spec_ngram)
+            cfg, params, cache, st, horizon, spec_ks, spec_k, spec_ngram, tp)
     if with_decode:
         tok_block, lp_block, n_exec = decode_horizon_loop(
-            cfg, params, cache, st, horizon)
+            cfg, params, cache, st, horizon, tp)
     else:
         tok_block = torch.zeros((r, horizon), dtype=torch.int32, device=dev)
         lp_block = torch.zeros((r, horizon), dtype=torch.float32, device=dev)
@@ -566,10 +593,13 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: dict,
                  engine_config: EngineConfig | None = None,
                  default_eos: tuple[int, ...] = (), device=None,
-                 fault_injector=None):
+                 fault_injector=None, tp=None):
         """``params`` must already lie on ``device`` (``None`` = cuda);
         ``fault_injector`` (``faults.FaultInjector``) scripts faults at the
-        tick's guarded sites."""
+        tick's guarded sites.  ``tp`` (``parallel.mesh.TPGroup``, size >
+        1): this engine is that rank of a tensor-parallel engine; ``params``
+        is the whole tree (every rank builds it alike) and the engine keeps
+        the rank's slices (module docstring)."""
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -600,16 +630,25 @@ class ServingEngine:
             self.ec = ec = replace(ec, pool_pages=pages)
         if ec.weight_qtype is not None:
             params = requantize_params(params, ec.weight_qtype)
+        self._weight_qtypes = packed_qtypes(params)
+        self.tp = None
+        self._fwd_cfg = cfg          # the config the decoder runs over
+        self._tp_msg: dict = {}      # this tick's cancellations, expiries
+        self._tp_dead = False        # the group broke: send nothing more
+        self._tp_procs: list = []    # follower processes this rank started
+        if tp is not None and tp.size > 1:
+            params = self._tp_setup(cfg, params, tp)
         self.params = params
         self._weight_bytes, self._weight_dense_bytes = param_bytes(params)
-        self._weight_qtypes = packed_qtypes(params)
         self._served_qtype = self._served_width()
         self.default_eos = default_eos
         r = ec.max_rows
+        # a rank's pool holds its kv heads of every page (the page count,
+        # and so every allocator decision, is the tp = 1 engine's)
         self.cache = PagedKVCache.init(
-            cfg.num_layers, ec.n_pages, r, ec.max_pages, cfg.num_kv_heads,
-            ec.page_size, cfg.head_dim, storage=ec.kv_storage,
-            device=self.device)
+            cfg.num_layers, ec.n_pages, r, ec.max_pages,
+            self._fwd_cfg.num_kv_heads, ec.page_size, cfg.head_dim,
+            storage=ec.kv_storage, device=self.device)
         self._step_budget = (ec.prefill_bucket if ec.step_token_budget is None
                              else int(ec.step_token_budget))
         self._mixed_mode = self._step_budget > 0
@@ -728,6 +767,48 @@ class ServingEngine:
         # rolling (drafts proposed, drafts accepted) of the last 128 spec
         # ticks: the accept rate an operator tunes spec_k and spec_ngram on
         self._spec_window: "deque[tuple[int, int]]" = deque(maxlen=128)
+
+    def _tp_setup(self, cfg: ModelConfig, params: dict, tp) -> dict:
+        """Check that the per-rank layout serves this model, resolve the
+        wire family, and return the rank's params."""
+        from dataclasses import replace as _replace
+
+        from ipex_llm_tpu_torch.parallel.manual import (ineligible_reason,
+                                                        local_cfg,
+                                                        shard_params_manual)
+
+        budget = (self.ec.prefill_bucket if self.ec.step_token_budget is None
+                  else int(self.ec.step_token_budget))
+        why = ineligible_reason(cfg, params, {"tp": tp.size}, budget)
+        if why is not None:
+            raise NotImplementedError(
+                f"tensor-parallel serving at tp={tp.size} cannot serve this "
+                f"model: {why} (the reference falls back to GSPMD; ROADMAP "
+                "item 15)")
+        if tp.device != self.device:
+            raise ValueError(f"rank {tp.rank} runs on {tp.device}, the "
+                             f"engine on {self.device}")
+        self.tp = _replace(tp, collective_qtype=resolve_qtype(
+            self.ec.collective_qtype or tp.collective_qtype))
+        self._fwd_cfg = local_cfg(cfg, tp.size)
+        return shard_params_manual(params, cfg, tp.size, tp.rank)
+
+    def parallel_stats(self) -> dict | None:
+        """``/health``'s ``parallel`` block: tp, backend, the wire family,
+        and this rank's bytes of the KV pool (None without tp)."""
+        if self.tp is None:
+            return None
+        from ipex_llm_tpu_torch.ops.collectives import COUNTS
+
+        return {"tp": self.tp.size, "rank": self.tp.rank,
+                "backend": self.tp.backend,
+                "collective_qtype": self.tp.collective_qtype,
+                "kv_pool_bytes_per_rank": int(
+                    self.cache.k.numel() * self.cache.k.element_size()
+                    + self.cache.v.numel() * self.cache.v.element_size()),
+                "collective_calls": dict(COUNTS.calls),
+                "collective_s": {k: round(v, 6)
+                                 for k, v in COUNTS.seconds.items()}}
 
     def _served_width(self) -> str | None:
         """The width the planes really serve (reference
@@ -938,9 +1019,29 @@ class ServingEngine:
         return self
 
     def stop(self):
+        """End the engine thread; on rank 0 of a tensor-parallel engine
+        that also ends the followers (the stop rides the next tick message,
+        or is sent here when no thread ticks), and the follower processes
+        this rank started are joined."""
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=30)
+        elif self.tp is not None and self.tp.leader and not self._tp_dead:
+            self._tp_exchange()
+        for proc in self._tp_procs:
+            proc.join(timeout=self.tp.timeout_s if self.tp else 30)
+            if proc.is_alive():
+                proc.terminate()
+        self._tp_procs = []
+
+    def join(self, timeout: float | None = None) -> bool:
+        """Wait for the engine thread to end (a follower rank's engine ends
+        when rank 0 stops it, or on a collective error); True when it
+        has."""
+        if self._thread is None:
+            return True
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
 
     def submit(self, req: Request) -> Request:
         """Queue a request.  Raises ``EngineOverloaded`` when the engine is
@@ -948,6 +1049,9 @@ class ServingEngine:
         already wait (429): load shedding instead of an unbounded backlog.
         Safe to call from many threads: the bound is checked and the
         request queued under one lock."""
+        if self.tp is not None and not self.tp.leader:
+            raise RuntimeError("only rank 0 of a tensor-parallel engine "
+                               "takes requests")
         if not req.request_id:
             req.request_id = uuid.uuid4().hex
         if not req.eos_token_id:
@@ -1038,20 +1142,19 @@ class ServingEngine:
 
     def _expire_deadlines(self):
         """Finish the requests past their budget: rows in flight, and
-        queued requests before they ever take a row."""
+        queued requests before they ever take a row (under tp the ones rank
+        0 found expired at the tick's start)."""
         now = time.perf_counter()
         for i, r in enumerate(self.rows):
             if r is None:
                 continue
-            d = self._deadline_of(r)
-            if d is not None and now - r.submitted_s > d:
+            if self._expired(r, now):
                 self.metrics["timeouts"] += 1
                 self._finish(i, "timeout")
         if self._pending:
             keep: "deque[Request]" = deque()
             for r in self._pending:
-                d = self._deadline_of(r)
-                if d is not None and now - r.submitted_s > d:
+                if self._expired(r, now):
                     self.metrics["timeouts"] += 1
                     if r.finish_reason is None:
                         r.finish_reason = "timeout"
@@ -1059,6 +1162,95 @@ class ServingEngine:
                 else:
                     keep.append(r)
             self._pending = keep
+
+    def _expired(self, req: Request, now: float) -> bool:
+        if self.tp is not None:
+            return req.request_id in self._tp_msg.get("expire", ())
+        d = self._deadline_of(req)
+        return d is not None and now - req.submitted_s > d
+
+    def _cancelled(self, req: Request) -> bool:
+        """The request's cancel flag; under tp the flag as rank 0 read it
+        at the tick's start (another thread may set it mid-tick, on rank 0
+        alone)."""
+        if self.tp is not None:
+            return req.request_id in self._tp_msg.get("cancel", ())
+        return req.cancelled
+
+    # -- tensor-parallel lockstep --------------------------------------------
+
+    def _tp_exchange(self) -> dict | None:
+        """The tick message (module docstring), sent by rank 0 and applied
+        on every rank; on a retry (``_retries > 0``) it carries no new
+        work and the failed tick's cancellations and expiries stand.
+        Returns the message, or None when the engine is to stop."""
+        import torch.distributed as dist
+
+        leader = self.tp.leader
+        fresh = self._retries == 0
+        msg = None
+        if leader:
+            msg = {"stop": self._stop.is_set(),
+                   "shed": self._drain_abort.is_set(), "new": []}
+            if fresh and not msg["stop"]:
+                new = []
+                while not self._inbox.empty():
+                    new.append(self._inbox.get_nowait())
+                self._pending.extend(new)
+                now = time.perf_counter()
+                live = [r for r in self.rows if r is not None] + \
+                    list(self._pending)
+                msg["new"] = [_request_fields(r) for r in new]
+                msg["cancel"] = [r.request_id for r in live if r.cancelled]
+                d_of = self._deadline_of
+                msg["expire"] = [r.request_id for r in live
+                                 if d_of(r) is not None
+                                 and now - r.submitted_s > d_of(r)]
+        box = [msg]
+        try:
+            dist.broadcast_object_list(box, src=0, group=self.tp.ctrl)
+        except Exception as exc:  # noqa: BLE001 -- the group is gone
+            raise CollectiveError(
+                f"tick message over gloo (rank {self.tp.rank} of "
+                f"{self.tp.size}) failed: {type(exc).__name__}: "
+                f"{exc}") from exc
+        msg = box[0]
+        if msg["stop"]:
+            self._stop.set()
+            return None
+        if not leader:
+            self._pending.extend(Request(**f) for f in msg["new"])
+        if fresh:
+            self._tp_msg = {"cancel": set(msg.get("cancel", ())),
+                            "expire": set(msg.get("expire", ()))}
+        return msg
+
+    def _tp_agree(self, err: BaseException | None) -> BaseException | None:
+        """After a tick's scheduler ran: every rank reports whether it
+        raised (and whether transiently) in one all-reduce over the
+        control group.  The same fault on every rank recovers in lockstep;
+        a fault on some ranks only, or a failed agreement, becomes a
+        ``CollectiveError`` (sticky: every rank ends)."""
+        import torch.distributed as dist
+
+        if isinstance(err, CollectiveError):
+            return err      # the group is broken: the peers time out
+        flags = torch.tensor([int(err is not None),
+                              int(err is not None and is_transient(err))],
+                             dtype=torch.int64)
+        try:
+            dist.all_reduce(flags, group=self.tp.ctrl)
+        except Exception as exc:  # noqa: BLE001 -- the group is gone
+            return CollectiveError(
+                f"tick agreement over gloo (rank {self.tp.rank}) failed: "
+                f"{type(exc).__name__}: {exc}")
+        n = self.tp.size
+        if any(int(f) not in (0, n) for f in flags):
+            return CollectiveError(
+                f"the ranks diverged: {int(flags[0])} of {n} raised in this "
+                f"tick ({int(flags[1])} transiently); this rank's error: "
+                f"{type(err).__name__ if err else None}: {err}")
+        return err
 
     # -- fault domain -------------------------------------------------------
 
@@ -1232,7 +1424,17 @@ class ServingEngine:
         surfaces at the next tick's read.  The faults that surface late
         are CUDA context errors, sticky (``faults.is_transient``), which
         fail every request whichever tick they are charged to."""
-        if self._drain_abort.is_set():
+        shed = self._drain_abort.is_set()
+        if self.tp is not None:     # rank 0's word, on every rank
+            try:
+                msg = self._tp_exchange()
+            except CollectiveError as exc:
+                self._tp_end(exc)
+                return False
+            if msg is None:
+                return False
+            shed = msg["shed"]
+        if shed:
             self._shed_remaining()
             self._drain_abort.clear()
         # planned before the checkpoint, so that a retry and every probe
@@ -1246,11 +1448,16 @@ class ServingEngine:
         self._tick_arrivals = []
         self._tick_dispatches = 0
         t_wall = time.time()
+        err = None
         try:
             self._step()
         except Exception as exc:  # noqa: BLE001 -- the tick's fault domain
+            err = exc
+        if self.tp is not None:
+            err = self._tp_agree(err)
+        if err is not None:
             self._rollback(snap)
-            self._recover(exc)
+            self._recover(err)
             return False
         self._commit()
         self._retries = 0
@@ -1290,6 +1497,9 @@ class ServingEngine:
                 self.ec.retry_backoff_s * (2 ** (self._retries - 1)))
             return
         self._retries = 0
+        if isinstance(exc, CollectiveError):
+            self._tp_end(exc)
+            return
         if is_sticky(exc):
             self._fail_all(exc)
             self._stop.set()
@@ -1318,6 +1528,8 @@ class ServingEngine:
         try:
             self._step()
             return None
+        except CollectiveError:
+            raise           # a broken group is no probe's answer
         except Exception as e:  # noqa: BLE001 -- what the probe observes
             return e
         finally:
@@ -1490,6 +1702,20 @@ class ServingEngine:
                     self.metrics["last_error"] = ""
             except Exception as exc:  # noqa: BLE001 -- recovery failed
                 self._fail_all(exc)
+                if is_sticky(exc):
+                    self._stop.set()
+        if self.tp is not None and self.tp.leader and not self._tp_dead:
+            try:    # the followers' last tick message: stop
+                self._tp_exchange()
+            except CollectiveError:
+                pass
+
+    def _tp_end(self, exc: BaseException):
+        """A broken group (a collective failed or timed out): fail every
+        request and end this rank's engine; no further message is sent."""
+        self._tp_dead = True
+        self._fail_all(exc)
+        self._stop.set()
 
     def _fail_all(self, exc: BaseException):
         """The engine-level backstop, reached only when bisection cannot
@@ -1549,20 +1775,23 @@ class ServingEngine:
         """The static planner's horizon, from pre-tick state: 1 while
         streams are joining (rows mid-prefill, or queued work a free row
         could take), so a joining row never waits out a horizon."""
+        queued = bool(self._pending) or (self.tp is None
+                                         and not self._inbox.empty())
         joining = bool(self._prefilling) or (
-            (bool(self._pending) or not self._inbox.empty())
-            and self._free_row() is not None)
+            queued and self._free_row() is not None)
         return 1 if joining else self.ec.decode_horizon
 
     def _step(self):
         """The scheduler: expire deadlines at the tick boundary, admit,
-        then run one tick shape at the planned horizon."""
-        self._drain_inbox()
+        then run one tick shape at the planned horizon.  Under tp the
+        arrivals came with the tick message."""
+        if self.tp is None:
+            self._drain_inbox()
         self._expire_deadlines()
         self.metrics["queue_depth"] = self.queue_depth
         self._admit()
         for i, req in enumerate(self.rows):  # drop disconnected clients
-            if req is not None and req.cancelled:
+            if req is not None and self._cancelled(req):
                 self._finish(i, "abort")
         if self._prefilling and self._mixed_mode:
             self._mixed_step()
@@ -1594,7 +1823,7 @@ class ServingEngine:
             req = self._pop_pending()
             if req is None:
                 return
-            if req.cancelled:
+            if self._cancelled(req):
                 req.finish_reason = "abort"
                 self._queue_put(req, None)
                 continue
@@ -1676,11 +1905,11 @@ class ServingEngine:
         t0_w = time.time()
         self._tick_dispatches += 1
         logits, _ = decoder_forward(
-            self.cfg, self.params, self._h2d(toks),
+            self._fwd_cfg, self.params, self._h2d(toks),
             cache.with_tables(cache.tables[row:row + 1]), self._h2d(pos),
             slot_offsets=self._h2d([base], torch.int32),
             gather_positions=self._h2d([n_valid - 1], torch.int32),
-            chunk_lens=self._h2d([n_valid], torch.int32))
+            chunk_lens=self._h2d([n_valid], torch.int32), tp=self.tp)
         self.row_lens[row] = base + n_valid
         self._trace(req, "prefill_chunk", t0=t0_w, t1=time.time(),
                     tokens=n_valid, base=base)
@@ -1726,7 +1955,7 @@ class ServingEngine:
 
     def _emit(self, row: int, token: int, logprob: float = 0.0):
         req = self.rows[row]
-        if req.cancelled:
+        if self._cancelled(req):
             self._finish(row, "abort")
             return
         req.output_ids.append(token)
@@ -1859,11 +2088,11 @@ class ServingEngine:
         self._tick_dispatches += 1
         (first_t, first_lp, tok_block, lp_block, executed, take_block, prop,
          acc) = tick_body(
-            self.cfg, self.params, self.cache, dev, prefill=prefill,
+            self._fwd_cfg, self.params, self.cache, dev, prefill=prefill,
             horizon=1, with_decode=with_decode,
             spec_ks=self._h2d(spec_ks) if spec else None,
             spec_k=self.ec.spec_k if spec else 0,
-            spec_ngram=self.ec.spec_ngram)
+            spec_ngram=self.ec.spec_ngram, tp=self.tp)
         completing: list[tuple[int, int]] = []   # (slot, row)
         t1_w = time.time()
         for s, (row, n_i, b) in enumerate(chunks):
@@ -1949,11 +2178,12 @@ class ServingEngine:
         t0_w = time.time()
         self._tick_dispatches += 1
         _, _, tok_block, lp_block, executed, take_block, prop, acc = \
-            tick_body(self.cfg, self.params, self.cache, dev, horizon=h,
+            tick_body(self._fwd_cfg, self.params, self.cache, dev,
+                      horizon=h,
                       spec_ks=(self._h2d(spec_ks) if spec_ks is not None
                                else None),
                       spec_k=self.ec.spec_k if spec_ks is not None else 0,
-                      spec_ngram=self.ec.spec_ngram)
+                      spec_ngram=self.ec.spec_ngram, tp=self.tp)
         t0 = time.perf_counter()
         tok_np, lp_np = tok_block.cpu().numpy(), lp_block.cpu().numpy()
         self._count_syncs(executed, h, time.perf_counter() - t0)
@@ -2107,9 +2337,9 @@ class ServingEngine:
         t0_w = time.time()
         self._tick_dispatches += 1
         logits, _ = decoder_forward(
-            self.cfg, self.params, self._h2d(tokens), cache, self._h2d(pos),
-            slot_offsets=self._h2d(write_at),
-            chunk_lens=self._h2d(active.astype(np.int32) * k1))
+            self._fwd_cfg, self.params, self._h2d(tokens), cache,
+            self._h2d(pos), slot_offsets=self._h2d(write_at),
+            chunk_lens=self._h2d(active.astype(np.int32) * k1), tp=self.tp)
         t_all, lp_all = sample_verify_positions(
             logits, self._h2d(active), self._h2d(self.temps),
             self._h2d(self.top_ps), self._h2d(self.seeds), self._h2d(steps),
@@ -2147,6 +2377,17 @@ class ServingEngine:
                            int(np.maximum(take - 1, 0).sum()), 1)
         m = self.metrics
         m["tokens_per_sync"] = round(m["tokens"] / m["host_syncs"], 2)
+
+
+def _request_fields(req: Request) -> dict:
+    """What a follower rank needs to rebuild ``req`` (the tick message)."""
+    return dict(prompt_ids=[int(t) for t in req.prompt_ids],
+                max_new_tokens=req.max_new_tokens,
+                temperature=req.temperature, top_p=req.top_p,
+                top_k=req.top_k, seed=req.seed,
+                eos_token_id=tuple(req.eos_token_id),
+                request_id=req.request_id, speculative=req.speculative,
+                spec_k=req.spec_k, deadline_s=req.deadline_s)
 
 
 def next_stream_item(engine: ServingEngine, req: Request,

@@ -53,6 +53,8 @@ from typing import Any
 
 import torch
 
+from ipex_llm_tpu_torch.ops.collectives import CollectiveError
+
 __all__ = [
     "TransientFault",
     "DeterministicFault",
@@ -114,7 +116,10 @@ _ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", None)
 
 
 def is_sticky(exc: BaseException) -> bool:
-    """A CUDA context error: every later call in the process fails too."""
+    """A CUDA context error, or a tensor-parallel group's collective that
+    failed or timed out: every later call fails too."""
+    if isinstance(exc, CollectiveError):
+        return True
     if isinstance(exc, (TransientFault, DeterministicFault,
                         torch.OutOfMemoryError)):
         return False

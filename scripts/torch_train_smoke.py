@@ -192,8 +192,8 @@ def train_phase(kernels: dict, card: str, fail, dev, graph_ms,
                 or lse_err > 1e-3:
             fail(f"B4 lse T={t}: max err {lse_err}")
         rows_close(out, out_ref, (2, 3), 2.0 ** -7, f"B4 LSE out T={t}")
-        grads = b4b.flash_sdpa_bwd(q, k, v, out, do, lse, **kw)
-        again = b4b.flash_sdpa_bwd(q, k, v, out, do, lse, **kw)
+        grads = b4b.flash_sdpa_bwd(q, k, v, do, lse, **kw)
+        again = b4b.flash_sdpa_bwd(q, k, v, do, lse, **kw)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(grads, again)):
             fail(f"B4 backward T={t}: a second call differs")
@@ -211,7 +211,7 @@ def train_phase(kernels: dict, card: str, fail, dev, graph_ms,
         del ref
         if timed:
             row["ms"] = graph_ms(torch, [lambda: b4b.flash_sdpa_bwd(
-                q, k, v, out, do, lse, **kw)] * 5)
+                q, k, v, do, lse, **kw)] * 5)
             row["fwd_lse_ms"] = graph_ms(torch, [lambda: b4.flash_sdpa_lse(
                 q, k, v, **kw)] * 5)
             row["plain_ms"] = time_ms(lambda: b4b.flash_sdpa_bwd_plain(

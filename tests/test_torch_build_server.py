@@ -173,9 +173,7 @@ def test_main_maps_its_flags(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tensor-parallel-size", "2"], "15"),
     (["--asr-model", "/whisper"], "14"),
-    (["--collective-qtype", "int8"], "15"),
     (["--kv-spill-bytes", "1024"], "11"),
     (["--kv-import-token", "t"], "11"),
     (["--profile-dir", "/p"], "10"),

@@ -21,6 +21,7 @@ import math
 import pytest
 import torch
 
+from ipex_llm_tpu_torch.ops.cuda import _build
 from ipex_llm_tpu_torch.ops.cuda import decode_attention as b3
 from ipex_llm_tpu_torch.ops.cuda import flash_attention as b4
 from ipex_llm_tpu_torch.ops.cuda import flash_attention_bwd as b4b
@@ -473,9 +474,9 @@ def test_flash_attention_backward_matches_plain(t, g, causal):
     assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
     fin = torch.isfinite(want_lse)
     assert float((lse[fin] - want_lse[fin]).abs().max()) < 1e-3
-    grads = b4b.flash_sdpa_bwd(q.cuda(), k.cuda(), v.cuda(), out,
+    grads = b4b.flash_sdpa_bwd(q.cuda(), k.cuda(), v.cuda(),
                                do.cuda(), lse.cuda(), **cuda)
-    again = b4b.flash_sdpa_bwd(q.cuda(), k.cuda(), v.cuda(), out,
+    again = b4b.flash_sdpa_bwd(q.cuda(), k.cuda(), v.cuda(),
                                do.cuda(), lse.cuda(), **cuda)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
@@ -508,3 +509,44 @@ def test_qmatmul_dx_kernel_matches_plain(qtype, m, k, n):
     want = b2t.qmatmul_dx_plain(dy, qt).float()
     err = (got.cpu().float() - want).abs().amax(dim=1)
     assert bool((err <= ULP * want.abs().amax(dim=1)).all())
+
+
+# -- tensor parallelism: the sharded wrappers over two ranks on one card ------
+
+@pytest.mark.cuda
+def test_sharded_wrappers_match_the_unsharded_kernels(tmp_path):
+    """B1s (key split at C = 1, query tiles at C = 64), B2s col and row
+    (sym_int4, M = 1 and 40) and B4s over two gloo ranks on cuda:0: the
+    ranks' head or column blocks, concatenated, and B2 row's sum on each
+    rank, within one bf16 ulp of each row's largest value of the
+    unsharded kernel on the same inputs; every wrapper launched its kernel
+    and none ran a plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import pathlib
+    import sys
+
+    import numpy as np
+
+    # by path: a machine may have another package named ``tests``
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import torch_tp_ranks
+    # built here, once, before the ranks start: their join timeout is not
+    # meant to hold two nvcc runs of each source
+    _build.build(_build.sources([b1, b2, b4]))
+    got = torch_tp_ranks.spawn(torch_tp_ranks.cuda_sharded_rank, 2, tmp_path,
+                               device="cuda:0", timeout_s=120.0)
+    want = torch_tp_ranks.cuda_cases(torch.device("cuda", 0))
+    for key, w in want.items():
+        axis = {"b2 col": 1, "b1": 2, "b4": 2}.get(key.split(" M=")[0]
+                                                   .split(" C=")[0])
+        parts = [got[r][key] for r in range(2)]
+        g = parts[0] if axis is None else np.concatenate(parts, axis=axis)
+        if axis is None:
+            np.testing.assert_array_equal(parts[0], parts[1])
+        flat_g = g.reshape(g.shape[0] * (g.shape[1] if g.ndim > 2 else 1), -1)
+        flat_w = w.reshape(flat_g.shape)
+        err = np.abs(flat_g - flat_w).max(axis=1)
+        assert (err <= ULP * np.abs(flat_w).max(axis=1)).all(), key
+    for r in range(2):
+        assert all(n > 0 for n in got[r]["launches"]) and not got[r]["plain"]
