@@ -193,7 +193,21 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     share), Mixtral ``generate()`` (B2, B3, B4, B2e's gemv and wgmma); a
     2-layer Mixtral-width checkpoint through ``from_pretrained`` and
     ``build_server``.
-14. ``train`` (``scripts/torch_train_smoke.py``): the training path's
+14. ``deepseek`` (``scripts/torch_deepseek_smoke.py``): B1, B3 and B4 at
+    DeepSeek's MLA widths (K 192, V 128) against their plain versions (B1
+    at V2-Lite's 16 heads and V3's 128, C = 1, 4 and 128, bf16 and e5m2
+    pools; B3 at B = 4 and 8; B4 at T = 128 x 8 and 2048 x 2), timed
+    beside their bounds and SDPA; tiny DeepSeek-V2 and V3 decoders card
+    against CPU (equal expert selections where the selection is clear);
+    DeepSeek-V2-Lite at full width, 8 layers (1 dense, 7 MoE), through
+    ``ServingEngine`` (eight requests over a bf16 pool, two over e5m2; B1,
+    B2 and B2e), one decode tick profiled, and its ``generate()`` (B2,
+    B2e, B3, B4); DeepSeek-V3 at full width, its 3 dense prefix layers and
+    1 MoE layer, through the engine (B1 at 128 heads; the first tick's
+    expert selections against the CPU's ``route`` where clear); a 2-layer
+    V2-Lite-width checkpoint through ``from_pretrained`` and
+    ``build_server``.
+15. ``train`` (``scripts/torch_train_smoke.py``): the training path's
     kernels, B4's LSE instance and backward (causal, T = 1, 63, 1024 and
     2048, G = 1 and 4, ``kv_start`` > 0 on a row; dQ, dK, dV per row
     within 2^-6 of the row's largest plain value, bitwise on a second
@@ -208,7 +222,7 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     memory and one step's profile; ``merge_and_unload`` and a
     ``generate()`` of the merged model; a full-parameter and a LISA step
     at full width, 2 layers.
-15. ``serve_tp`` (``scripts/torch_tp_smoke.py``, run as a child process
+16. ``serve_tp`` (``scripts/torch_tp_smoke.py``, run as a child process
     that spawns its ranks; the kernels already built): tensor-parallel
     serving, two gloo ranks on this one card (each prints its backend).
     The five sharded wrappers at their shard shapes against the unsharded
@@ -2312,14 +2326,22 @@ def main() -> int:
     print(f"moe phase: {report['moe']['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    # -- 14. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
+    # -- 14. DeepSeek: MLA at K 192 / V 128, V2-Lite and V3 -----------------
+    from torch_deepseek_smoke import deepseek_phase
+
+    report["deepseek"] = deepseek_phase(kernels, card, fail, dev, graph_ms)
+    print(f"deepseek phase: {report['deepseek']['phase_s']:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 15. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
     from torch_train_smoke import train_phase
 
     report["train"] = train_phase(kernels, card, fail, dev, graph_ms)
     print(f"train phase: {report['train']['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    # -- 15. tensor-parallel serving: two gloo ranks on this card ------------
+    # -- 16. tensor-parallel serving: two gloo ranks on this card ------------
     def serve_tp_phase() -> dict:
         """``scripts/torch_tp_smoke.py`` in a process of its own (its ranks
         are processes of theirs); its last line must say ok and carry a
@@ -2427,6 +2449,21 @@ def main() -> int:
     for name, routes in serve_routes.items():
         if min(routes.values()) == 0:
             fail(f"serve: an instance of {name} never launched ({routes})")
+    # the (192, 128) instances of the deepseek phase: launches from
+    # V2-Lite's bf16 serving run (B1) and its generate() (B3, B4)
+    ds = report["deepseek"]
+    ds_serve = {(r["model"], r["storage"]): r for r in ds["serve"]}
+    ds_v2 = ds_serve[("DeepSeek-V2-Lite", "bf16")]
+    ds_v3 = ds_serve[("DeepSeek-V3", "bf16")]
+    ds_gen = ds["generate"][0]
+
+    def ds_row(kernel, case):
+        return next(r for r in ds["kernels"] if r["kernel"] == kernel
+                    and r["case"] == case and r.get("pool", "bf16") == "bf16")
+
+    def ds_err(kernel):
+        return max(r["max_abs_err"] for r in ds["kernels"]
+                   if r["kernel"] == kernel)
     src = "ipex_llm_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # B2's launches in each format on that format's main-path run: the
@@ -2627,6 +2664,53 @@ def main() -> int:
          "launches_run": "Phi-3-mini-4k serving, bf16 pool",
          "max_abs_err": rf_err("flash_attention", 96),
          **{k: rep_b4_96[k] for k in keys}},
+        # B1, B3 and B4 at DeepSeek's MLA widths (K 192, V 128)
+        {"name": "ragged_paged_attention[D=192, Dv=128]", "route": "cuda",
+         "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=128 Hq=Hkv=16 D=192 Dv=128 page 16, 2400 slots, "
+                  "bf16 pool, chunk+decode+idle rows (query tiles)",
+         "launches": ds_v2["b1_by_route"]["tiles"],
+         "launches_run": "DeepSeek-V2-Lite serving, 8 layers, bf16 pool",
+         "launches_v3": ds_v3["b1_by_route"]["tiles"],
+         "max_abs_err": ds_err("ragged_paged_attention"),
+         **{k: ds_row("ragged_paged_attention",
+                      "(192, 128) V2-Lite Hq=Hkv=16 C=128")[k]
+            for k in keys}},
+        {"name": "ragged_paged_attention[D=192, Dv=128, split]",
+         "route": "cuda", "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=1 Hq=Hkv=16 D=192 Dv=128 page 16, rows of "
+                  "120-2397 slots, bf16 pool (key split and merge)",
+         "launches": ds_v2["b1_by_route"]["split"],
+         "launches_run": "DeepSeek-V2-Lite serving, 8 layers, bf16 pool",
+         "launches_v3": ds_v3["b1_by_route"]["split"],
+         "max_abs_err": ds_err("ragged_paged_attention"),
+         **{k: ds_row("ragged_paged_attention",
+                      "(192, 128) V2-Lite Hq=Hkv=16 C=1")[k]
+            for k in keys}},
+        {"name": "decode_attention[D=192, Dv=128]", "route": "cuda",
+         "source": src + "decode_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/decode_attention.py:166",
+         "shape": "B=8 Hq=Hkv=16 D=192 Dv=128 S=4096, bf16 cache",
+         "launches": ds_gen["launches"]["decode_attention"],
+         "launches_run": "DeepSeek-V2-Lite generate(), 8 layers",
+         "max_abs_err": ds_err("decode_attention"),
+         **{k: ds_row("decode_attention",
+                      "(192, 128) V2-Lite B=8 Hq=Hkv=16 S=4096")[k]
+            for k in keys}},
+        {"name": "flash_attention[D=192, Dv=128]", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/flash_attention.py:166",
+         "shape": "B=2 T=2048 Hq=Hkv=16 D=192 Dv=128, causal",
+         "launches": ds_gen["launches"]["flash_attention"],
+         "launches_run": "DeepSeek-V2-Lite generate(), 8 layers",
+         "max_abs_err": ds_err("flash_attention"),
+         **{k: ds_row("flash_attention",
+                      "(192, 128) V2-Lite T=2048 x 2 prefill S=2048")[k]
+            for k in keys}},
         # B2e: B2 as the MoE dispatch reaches it under jax.vmap in the
         # reference; each entry's launches are its instance's in the
         # model's serving run at the engine's default prefill budget (the

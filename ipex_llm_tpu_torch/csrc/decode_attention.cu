@@ -58,6 +58,15 @@
 // 96 bytes stored) and never reads the other 32 (six 16-dim score steps,
 // twelve 8-column output tiles), so they need no zeros and the layer in
 // HBM is read as stored, unpadded.  Q's 6 steps stay in registers.
+//
+// A fourth instance reads K and V at different widths: DeepSeek's MLA, K
+// at D = 192 (12 score steps, Q's fragments in registers) and V at Dv =
+// 128 (16 output tiles).  A K row is 24 chunks (three 128-byte lines: the
+// swizzle stays in the row and conflict-free), a V row 16; a stage holds
+// a 24 KiB K tile beside a 16 KiB V tile.  So that two blocks still fit an
+// SM, that instance keeps one stage fewer than the others (two bf16
+// stages, 80 KiB; three raw e5m2 stages of 20 KiB and the widened pair,
+// 100 KiB).  The other instances read both at one width, as before.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -76,28 +85,31 @@ constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
 constexpr float kFloor = -1e29f;         // the reference's m clamp
 constexpr float kLog2e = 1.4426950408889634f;
 
-// blocks an SM holds: 2 of 96 KiB at D = 96 and 128, 1 of 200 KiB at
-// D = 256 (decode_attention.py::ring_plan)
+// blocks an SM holds: 2 of 96 KiB at D = 96 and 128 and of 80 or 100
+// KiB at (192, 128), 1 of 200 KiB at D = 256
+// (decode_attention.py::ring_plan)
 template <int D>
-constexpr int kResident = D <= 128 ? 2 : 1;
+constexpr int kResident = D <= 192 ? 2 : 1;
 
 // the columns of a key's row in shared memory: D, or 128 at D = 96
 template <int D>
 constexpr int kRowD = D < 128 ? 128 : D;
 
-template <typename KV, int D>
+template <typename KV, int D, int Dv>
 struct Ring {
   // bf16: 3 stages of (K, V) tiles; e5m2: 4 raw stages (half a bf16 tile
   // each of K and V), then the widened bf16 K/V pair; at D = 256 the 16
-  // query rows (bf16, swizzled) after them
-  static constexpr int kTileBytes = kKT * kRowD<D> * 2;  // one K or V tile
+  // query rows (bf16, swizzled) after them; one stage fewer at Dv < D
+  static constexpr int kTileK = kKT * kRowD<D> * 2;   // one bf16 K tile
+  static constexpr int kTileV = kKT * kRowD<Dv> * 2;  // one bf16 V tile
   static constexpr bool kFp8 = sizeof(KV) == 1;
-  static constexpr bool kQSmem = D > 128;
-  static constexpr int kStages = kFp8 ? 4 : 3;
-  static constexpr int kStageBytes = kFp8 ? kTileBytes : 2 * kTileBytes;
-  static constexpr int kHalf = kStageBytes / 2;   // K part, then V part
+  static constexpr bool kQSmem = D > 192;
+  static constexpr int kStages = (kFp8 ? 4 : 3) - (Dv < D ? 1 : 0);
+  static constexpr int kStageBytes =
+      kFp8 ? (kTileK + kTileV) / 2 : kTileK + kTileV;
+  static constexpr int kVOff = kFp8 ? kTileK / 2 : kTileK;  // V after K
   static constexpr int kWiden = kStages * kStageBytes;
-  static constexpr int kQOff = kWiden + (kFp8 ? 2 * kTileBytes : 0);
+  static constexpr int kQOff = kWiden + (kFp8 ? kTileK + kTileV : 0);
   static constexpr int kSmem = kQOff + (kQSmem ? kRows * D * 2 : 0);
 };
 
@@ -108,37 +120,50 @@ __device__ __forceinline__ int kv_chunk(int key, int c) {
 }
 
 // stage the keys [k0, k0 + 64) of one kv head (as stored: bf16 swizzled,
-// e5m2 plain); keys at or past k_end are zeros
-template <typename KV, int D>
+// e5m2 plain); keys at or past k_end are zeros.  A V row narrower than
+// K's (Dv < D) takes the first of each key's chunks
+template <typename KV, int D, int Dv>
 __device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
                                            const KV* __restrict__ kh,
                                            const KV* __restrict__ vh, int k0,
                                            int k_end) {
+  static_assert(Dv <= D, "V is at most K's width");
   constexpr int kChunks = D * (int)sizeof(KV) / 16;   // 16-byte chunks a key
+  constexpr int kChunksV = Dv * (int)sizeof(KV) / 16;
   for (int i = threadIdx.x; i < kKT * kChunks; i += kThreads) {
     const int key = i / kChunks, c = i - key * kChunks;
     const int kpos = k0 + key;
     const bool ok = kpos < k_end;
-    const size_t off = ok ? (size_t)kpos * D + c * (16 / sizeof(KV)) : 0;
+    const size_t row = ok ? (size_t)kpos : 0;
     const int dst = sizeof(KV) == 2 ? kv_chunk<D>(key, c) * 16
                                     : key * (D * (int)sizeof(KV)) + c * 16;
-    hopper::cp_async<16>(kd + dst, kh + off, ok);
-    hopper::cp_async<16>(vd + dst, vh + off, ok);
+    hopper::cp_async<16>(kd + dst, kh + (ok ? row * D + c * (16 / sizeof(KV))
+                                            : 0), ok);
+    if (Dv == D || c < kChunksV) {
+      const int dst_v = sizeof(KV) == 2
+                            ? kv_chunk<Dv>(key, c) * 16
+                            : key * (Dv * (int)sizeof(KV)) + c * 16;
+      hopper::cp_async<16>(vd + dst_v,
+                           vh + (ok ? row * Dv + c * (16 / sizeof(KV)) : 0),
+                           ok);
+    }
   }
 }
 
 // widen an e5m2 tile pair (as stored) into bf16 swizzled tiles: an e5m2
 // code is the top byte of an fp16, and every e5m2 value is a bf16 value
-template <int D>
+template <int D, int Dv>
 __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
                                            const uint8_t* vraw, uint8_t* kw,
                                            uint8_t* vw) {
-  for (int i = threadIdx.x; i < 2 * kKT * (D / 16); i += kThreads) {
-    const int which = i / (kKT * (D / 16));
-    const int rem = i - which * (kKT * (D / 16));
-    const int key = rem / (D / 16), c = rem % (D / 16);
+  constexpr int kNK = kKT * (D / 16);        // 16-byte raw chunks of K
+  for (int i = threadIdx.x; i < kNK + kKT * (Dv / 16); i += kThreads) {
+    const int which = i >= kNK;
+    const int rem = i - which * kNK;
+    const int w16 = which ? Dv / 16 : D / 16;
+    const int key = rem / w16, c = rem % w16;
     const uint4 raw = *reinterpret_cast<const uint4*>(
-        (which ? vraw : kraw) + key * D + c * 16);
+        (which ? vraw + key * Dv : kraw + key * D) + c * 16);
     const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
     uint32_t o[8];
 #pragma unroll
@@ -152,26 +177,28 @@ __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
       o[2 * e + 1] = hopper::pack_bf16(fhi.x, fhi.y);
     }
     uint8_t* dst = which ? vw : kw;
-    *reinterpret_cast<uint4*>(dst + kv_chunk<D>(key, 2 * c) * 16) =
+    const int c0 = which ? kv_chunk<Dv>(key, 2 * c) : kv_chunk<D>(key, 2 * c);
+    const int c1 = which ? kv_chunk<Dv>(key, 2 * c + 1)
+                         : kv_chunk<D>(key, 2 * c + 1);
+    *reinterpret_cast<uint4*>(dst + c0 * 16) =
         make_uint4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<uint4*>(dst + kv_chunk<D>(key, 2 * c + 1) * 16) =
+    *reinterpret_cast<uint4*>(dst + c1 * 16) =
         make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
 
-template <typename KV, int D, bool SOFTCAP>
+template <typename KV, int D, int Dv, bool SOFTCAP>
 __global__ void __launch_bounds__(kThreads, kResident<D>)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const KV* __restrict__ k, const KV* __restrict__ v,
                     const int* __restrict__ kv_len_arr,
                     const int* __restrict__ kv_start_arr,
                     const int* __restrict__ won_arr,
-                    float* __restrict__ ws_acc,    // [B,Hkv,splits,G,D]
+                    float* __restrict__ ws_acc,    // [B,Hkv,splits,G,Dv]
                     float2* __restrict__ ws_ml,    // [B,Hkv,splits,G]
                     int Hkv, int G, int S, float scale, int window,
                     float softcap) {
-  using R = Ring<KV, D>;
-  constexpr int kTileBytes = R::kTileBytes;
+  using R = Ring<KV, D, Dv>;
   extern __shared__ __align__(128) uint8_t smem[];
 
   const int split = blockIdx.x;
@@ -194,11 +221,11 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int e = min(hi, a + per);
   const int n_tiles = e > a ? (e - a + kKT - 1) / kKT : 0;
 
-  const size_t head_off = ((size_t)b * Hkv + h) * (size_t)S * D;
-  const KV* kh = k + head_off;
-  const KV* vh = v + head_off;
+  const size_t head = ((size_t)b * Hkv + h) * (size_t)S;
+  const KV* kh = k + head * D;
+  const KV* vh = v + head * Dv;
   auto stage_k = [&](int slot) { return smem + slot * R::kStageBytes; };
-  auto stage_v = [&](int slot) { return stage_k(slot) + R::kHalf; };
+  auto stage_v = [&](int slot) { return stage_k(slot) + R::kVOff; };
   const int r0 = lane >> 2;
   const size_t qrow = (size_t)b * Hkv * G + (size_t)h * G;
   uint8_t* q_s = smem + R::kQOff;
@@ -214,7 +241,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int s = 0; s < R::kStages - 1; ++s) {
     if (s < n_tiles)
-      stage_tile<KV, D>(stage_k(s), stage_v(s), kh, vh, a + s * kKT, e);
+      stage_tile<KV, D, Dv>(stage_k(s), stage_v(s), kh, vh, a + s * kKT, e);
     hopper::cp_async_commit();
   }
 
@@ -240,9 +267,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float sl2 = scale * kLog2e;         // scores in base-2 units
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[Dv / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < Dv / 8; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
 
@@ -251,8 +278,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int tn = t + R::kStages - 1;
       if (tn < n_tiles)
-        stage_tile<KV, D>(stage_k(tn % R::kStages), stage_v(tn % R::kStages),
-                          kh, vh, a + tn * kKT, e);
+        stage_tile<KV, D, Dv>(stage_k(tn % R::kStages),
+                              stage_v(tn % R::kStages), kh, vh, a + tn * kKT,
+                              e);
       hopper::cp_async_commit();
     }
     hopper::cp_async_wait<R::kStages - 1>();
@@ -261,11 +289,11 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     const uint8_t* vt;
     if constexpr (R::kFp8) {
       uint8_t* kw = smem + R::kWiden;
-      widen_tile<D>(stage_k(t % R::kStages), stage_v(t % R::kStages), kw,
-                    kw + kTileBytes);
+      widen_tile<D, Dv>(stage_k(t % R::kStages), stage_v(t % R::kStages), kw,
+                        kw + R::kTileK);
       __syncthreads();
       kt = kw;
-      vt = kw + kTileBytes;
+      vt = kw + R::kTileK;
     } else {
       kt = stage_k(t % R::kStages);
       vt = stage_v(t % R::kStages);
@@ -336,7 +364,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
         l[row] = l[row] * alpha[row] + sum[row];
       }
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
+      for (int dn = 0; dn < Dv / 8; ++dn) {
         acc[dn][0] *= alpha[0];
         acc[dn][1] *= alpha[0];
         acc[dn][2] *= alpha[1];
@@ -349,10 +377,10 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                               hopper::pack_bf16(s[1][2], s[1][3])};
       const int key = wk + ((lane >> 3) & 1) * 8 + (lane & 7);
 #pragma unroll
-      for (int dn = 0; dn < D / 8; dn += 2) {
+      for (int dn = 0; dn < Dv / 8; dn += 2) {
         uint32_t b0, b1, b2, b3;
         hopper::ldsm_x4_trans(b0, b1, b2, b3,
-                              vt + kv_chunk<D>(key, dn + (lane >> 4)) * 16);
+                              vt + kv_chunk<Dv>(key, dn + (lane >> 4)) * 16);
         hopper::mma_bf16(acc[dn], pa, b0, b1);
         hopper::mma_bf16(acc[dn + 1], pa, b2, b3);
       }
@@ -362,15 +390,15 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   hopper::cp_async_wait<0>();
 
   // merge the four warps' key slices in warp order, in shared memory
-  float* acc_s = reinterpret_cast<float*>(smem);          // [4][16][D]
-  float2* ml_s = reinterpret_cast<float2*>(smem + 4 * kRows * D * 4);
+  float* acc_s = reinterpret_cast<float*>(smem);          // [4][16][Dv]
+  float2* ml_s = reinterpret_cast<float2*>(smem + 4 * kRows * Dv * 4);
 #pragma unroll
   for (int row = 0; row < 2; ++row) {
     const int i = r0 + 8 * row;
     if (i >= G) continue;
-    float* dst = acc_s + (warp * kRows + i) * D;
+    float* dst = acc_s + (warp * kRows + i) * Dv;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
+    for (int dn = 0; dn < Dv / 8; ++dn) {
       const int d = dn * 8 + (lane & 3) * 2;
       *reinterpret_cast<float2*>(dst + d) =
           make_float2(acc[dn][2 * row], acc[dn][2 * row + 1]);
@@ -388,9 +416,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const float m_ref = fmaxf(m_all, kFloor);
 #pragma unroll
-    for (int dd = 0; dd < (D + kThreads - 1) / kThreads; ++dd) {
+    for (int dd = 0; dd < (Dv + kThreads - 1) / kThreads; ++dd) {
       const int d = threadIdx.x + dd * kThreads;
-      if (D % kThreads != 0 && d >= D) break;
+      if (Dv % kThreads != 0 && d >= Dv) break;
       float lsum = 0.f, o = 0.f;
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
@@ -398,9 +426,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
         if (!(ml.y > 0.f)) continue;
         const float wt = exp2f(fmaxf(ml.x, kFloor) - m_ref);
         lsum = fmaf(ml.y, wt, lsum);
-        o = fmaf(acc_s[(w * kRows + i) * D + d], wt, o);
+        o = fmaf(acc_s[(w * kRows + i) * Dv + d], wt, o);
       }
-      ws_acc[(ws_row + i) * D + d] = o;
+      ws_acc[(ws_row + i) * Dv + d] = o;
       if (d == 0) ws_ml[ws_row + i] = make_float2(m_all, lsum);
     }
   }
@@ -452,18 +480,22 @@ decode_merge_kernel(const float* __restrict__ ws_acc,
       __float2bfloat16_rn(o / (lt == 0.f ? 1.f : lt));
 }
 
-template <typename KV, int D, bool SOFTCAP>
+template <typename KV, int D, int Dv, bool SOFTCAP>
 int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
            const void* v, const void* kv_len, const void* kv_start,
            const void* won, void* ws_acc, void* ws_ml, int Hkv, int G, int S,
            float scale, int window, float softcap) {
-  constexpr int kSmem = Ring<KV, D>::kSmem;
+  constexpr int kSmem = Ring<KV, D, Dv>::kSmem;
   static_assert(kSmem <= 232448, "the ring exceeds a block's shared memory");
+  static_assert(kResident<D> * (kSmem + 1024) <= 233472,
+                "the resident blocks fit an SM");
+  static_assert(4 * kRows * Dv * 4 + 4 * kRows * 8 <= kSmem,
+                "the warp merge fits the ring's bytes");
   cudaError_t e = cudaFuncSetAttribute(
-      decode_split_kernel<KV, D, SOFTCAP>,
+      decode_split_kernel<KV, D, Dv, SOFTCAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  decode_split_kernel<KV, D, SOFTCAP><<<grid, kThreads, kSmem, st>>>(
+  decode_split_kernel<KV, D, Dv, SOFTCAP><<<grid, kThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<const int*>(kv_len),
       static_cast<const int*>(kv_start), static_cast<const int*>(won),
@@ -474,47 +506,51 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 
 }  // namespace
 
-// q bf16 [B,1,Hq,D]; k/v [B,Hkv,S,D] bf16 (kv_fp8=0) or e5m2 (kv_fp8=1),
-// contiguous, 16-byte aligned; kv_len, kv_start, won int32 [B]; out bf16
-// [B,1,Hq,D]; ws_acc fp32 [B,Hkv,splits,G,D] and ws_ml fp32
-// [B,Hkv,splits,G,2] scratch.  D = 96, 128 or 256, G = Hq/Hkv <= 16,
-// splits <= 64; window <= 0 means none, softcap <= 0 none.  Launches the split kernel and the merge
+// q bf16 [B,1,Hq,D]; k [B,Hkv,S,D] and v [B,Hkv,S,Dv] bf16 (kv_fp8=0) or
+// e5m2 (kv_fp8=1), contiguous, 16-byte aligned; kv_len, kv_start, won
+// int32 [B]; out bf16 [B,1,Hq,Dv]; ws_acc fp32 [B,Hkv,splits,G,Dv] and
+// ws_ml fp32 [B,Hkv,splits,G,2] scratch.  (D, Dv) = (96, 96), (128, 128),
+// (192, 128) or (256, 256), G = Hq/Hkv <= 16, splits <= 64; window <= 0
+// means none, softcap <= 0 none.  Launches the split kernel and the merge
 // kernel; returns the first non-zero cudaGetLastError()
-// (cudaErrorInvalidValue for an unsupported D or G).
+// (cudaErrorInvalidValue for an unsupported pair or G).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* kv_len, const void* kv_start,
                                 const void* won, void* out, void* ws_acc,
                                 void* ws_ml, int B, int Hq, int Hkv, int S,
-                                int D, int splits, int kv_fp8, float scale,
+                                int D, int Dv, int splits, int kv_fp8, float scale,
                                 int window, float softcap, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if ((D != 96 && D != 128 && D != 256) || Hq % Hkv || Hq / Hkv > kRows ||
-      splits < 1 || splits > kMaxSplits)
+  const bool pair = D == Dv ? (D == 96 || D == 128 || D == 256)
+                            : (D == 192 && Dv == 128);
+  if (!pair || Hq % Hkv || Hq / Hkv > kRows || splits < 1 ||
+      splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const dim3 grid(splits, Hkv, B);
   const bool cap = softcap > 0.f;
   int err;
-#define DECODE_LAUNCH(KV, HD, CAP)                                          \
-  launch<KV, HD, CAP>(grid, st, q, k, v, kv_len, kv_start, won, ws_acc,     \
+#define DECODE_LAUNCH(KV, HD, HDV, CAP)                                     \
+  launch<KV, HD, HDV, CAP>(grid, st, q, k, v, kv_len, kv_start, won, ws_acc,     \
                       ws_ml, Hkv, G, S, scale, window, softcap)
-#define DECODE_LAUNCH_D(HD)                                                 \
-  (kv_fp8 ? (cap ? DECODE_LAUNCH(uint8_t, HD, true)                         \
-                 : DECODE_LAUNCH(uint8_t, HD, false))                       \
-          : (cap ? DECODE_LAUNCH(uint16_t, HD, true)                        \
-                 : DECODE_LAUNCH(uint16_t, HD, false)))
-  err = D == 128   ? DECODE_LAUNCH_D(128)
-        : D == 256 ? DECODE_LAUNCH_D(256)
-                   : DECODE_LAUNCH_D(96);
+#define DECODE_LAUNCH_D(HD, HDV)                                            \
+  (kv_fp8 ? (cap ? DECODE_LAUNCH(uint8_t, HD, HDV, true)                    \
+                 : DECODE_LAUNCH(uint8_t, HD, HDV, false))                  \
+          : (cap ? DECODE_LAUNCH(uint16_t, HD, HDV, true)                   \
+                 : DECODE_LAUNCH(uint16_t, HD, HDV, false)))
+  err = D == 128   ? DECODE_LAUNCH_D(128, 128)
+        : D == 256 ? DECODE_LAUNCH_D(256, 256)
+        : D == 192 ? DECODE_LAUNCH_D(192, 128)
+                   : DECODE_LAUNCH_D(96, 96);
 #undef DECODE_LAUNCH_D
 #undef DECODE_LAUNCH
   if (err) return err;
   const dim3 mgrid(Hq, B);
-  if (D == 96)
+  if (Dv == 96)
     decode_merge_kernel<96><<<mgrid, 96, 0, st>>>(
         static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
         static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
-  else if (D == 128)
+  else if (Dv == 128)
     decode_merge_kernel<128><<<mgrid, 128, 0, st>>>(
         static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
         static_cast<__nv_bfloat16*>(out), Hkv, G, splits);

@@ -65,6 +65,16 @@
 // columns give the accumulator 32 columns the kernel does not write out
 // (a quarter of the P.V products wasted, 64 accumulator registers).
 //
+// A fourth instance reads K and V at different widths: DeepSeek's MLA, K
+// at D = 192 (three 64-dim swizzled blocks a tile, 24 KiB: S = Q.K^T is
+// twelve m64n64k16 steps, Q's twelve fragments in registers) and V at
+// Dv = 128 (two blocks, 16 KiB: O += P.V stays one m64n128k16 per 16 keys,
+// 64 accumulator registers).  K and V carry their own strides (a (D, D)
+// instance reads V through K's).  So that
+// two blocks still fit an SM, that instance rings two stages of its 40 KiB
+// tile pairs (81 KiB in all).  The other instances read both at one
+// width, with one set of strides passed twice, as before.
+//
 // The training forward (ops/attention.py's autograd Function) takes the
 // LSE instance (head dim 128, no softcap): the same kernel that also
 // writes each query's log-sum-exp of its scaled scores, lse = m + log l in
@@ -90,21 +100,26 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBlockBytes = kBK * 128;   // 64 dims of 64 rows (swizzled)
 constexpr int kBig = 0x3fffffff;
 
-// the instance of head dim D (flash_attention.py::smem_plan)
-template <int D>
+// the instance of K width D and V width Dv (flash_attention.py::smem_plan)
+template <int D, int Dv>
 struct Plan {
-  static constexpr int kPadD = D < 128 ? 128 : D;     // a tile row's columns
-  static constexpr int kTileBytes = kBK * kPadD * 2;  // one bf16 K or V tile
-  static constexpr bool kQSmem = D > 128;             // Q from a descriptor
+  static constexpr int kPadD = D < 128 ? 128 : D;     // a K tile row's columns
+  static constexpr int kPadDv = Dv < 128 ? 128 : Dv;  // a V tile row's
+  static constexpr int kTileK = kBK * kPadD * 2;      // one bf16 K tile
+  static constexpr int kTileV = kBK * kPadDv * 2;     // one bf16 V tile
+  static constexpr bool kQSmem = D > 192;             // Q from a descriptor
   static constexpr int kStages = D <= 128 ? 3 : 2;    // K/V ring depth
-  static constexpr int kResident = D <= 128 ? 2 : 1;  // blocks an SM holds
-  static constexpr int kQOff = kStages * 2 * kTileBytes;
+  static constexpr int kResident = D <= 192 ? 2 : 1;  // blocks an SM holds
+  static constexpr int kQOff = kStages * (kTileK + kTileV);
   // the stages, Q's rows at D = 256, and the slack to align them to 1024
-  // bytes (the swizzle): 96 KiB + 1 KiB at D = 96 and 128, 160 KiB + 1 KiB
-  // at 256
+  // bytes (the swizzle): 96 KiB + 1 KiB at D = 96 and 128, 80 KiB + 1 KiB
+  // at (192, 128), 160 KiB + 1 KiB at 256
   static constexpr int kSmem =
       kQOff + (kQSmem ? kBQ * D * 2 : 0) + 1024;
   static_assert(kSmem <= 232448, "exceeds a block's shared memory");
+  static_assert(kResident * (kSmem + 1024) <= 233472,
+                "the resident blocks fit an SM");
+  static_assert(D == kPadD || D == Dv, "only a (D, D) instance pads");
 };
 
 // the tile kinds of one warp's 16 rows (flash_attention.py::tile_kind)
@@ -125,27 +140,32 @@ __device__ __forceinline__ int tile_kind(int kt, int qmin, int qmax,
 
 // stage the keys [k0, k0 + 64) of one kv head into `kd`/`vd` (each D / 64
 // 128-byte swizzled blocks: dims 0-63, then 64-127, ...; at D = 96 the
-// first half of the second block); keys outside [kvs, kvl) are zeros
-template <int D>
+// first half of the second block); keys outside [kvs, kvl) are zeros.  A
+// V row narrower than K's (Dv < D) takes the first Dv / 8 of each key's
+// chunks, at V's own stride vss
+template <int D, int Dv>
 __device__ __forceinline__ void stage_tile(uint8_t* kd, uint8_t* vd,
                                            const __nv_bfloat16* kh,
                                            const __nv_bfloat16* vh,
-                                           long long kss, int k0, int kvs,
-                                           int kvl) {
+                                           long long kss, long long vss,
+                                           int k0, int kvs, int kvl) {
+  static_assert(Dv <= D, "V is at most K's width");
   // unsigned: the chunk index splits with a shift and a mask
   for (unsigned i = threadIdx.x; i < kBK * (D / 8); i += kThreads) {
     const int key = i / (D / 8), c = i % (D / 8);
     const int kpos = k0 + key;
     const bool ok = kpos >= kvs && kpos < kvl;
-    const size_t off = ok ? (size_t)kpos * kss + c * 8 : 0;
     const int dst = (c >> 3) * kBlockBytes + hopper::sw128_offset(key, c & 7);
-    hopper::cp_async<16>(kd + dst, kh + off, ok);
-    hopper::cp_async<16>(vd + dst, vh + off, ok);
+    hopper::cp_async<16>(kd + dst, kh + (ok ? (size_t)kpos * kss + c * 8 : 0),
+                         ok);
+    if (Dv == D || c < Dv / 8)
+      hopper::cp_async<16>(vd + dst,
+                           vh + (ok ? (size_t)kpos * vss + c * 8 : 0), ok);
   }
 }
 
-template <int D, bool SOFTCAP, bool LSE>
-__global__ void __launch_bounds__(kThreads, Plan<D>::kResident)
+template <int D, int Dv, bool SOFTCAP, bool LSE>
+__global__ void __launch_bounds__(kThreads, Plan<D, Dv>::kResident)
 flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
@@ -157,10 +177,18 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   float* __restrict__ lse_out,        // [B, Hq, T] (LSE)
                   int T, int Hq, int Hkv,
                   int S, long long ksb, long long kss, long long ksh,
+                  long long vsb, long long vss, long long vsh,
                   float scale, int causal_i, int window, float softcap) {
-  using P = Plan<D>;
+  using P = Plan<D, Dv>;
+  if constexpr (D == Dv) {
+    // a (D, D) instance reads V through K's strides (the wrapper checks
+    // that they are the same), so its addressing is one set's, as before
+    vsb = ksb;
+    vss = kss;
+    vsh = ksh;
+  }
   constexpr int kStages = P::kStages;
-  constexpr int kTileBytes = P::kTileBytes;
+  constexpr int kTileBytes = P::kTileK;   // K = V tile at the padded widths
   extern __shared__ __align__(128) uint8_t smem_raw[];
   __shared__ int qmin_s[4], qmax_s[4];
   uint8_t* smem =
@@ -179,7 +207,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const bool win = causal && window > 0 && won_arr[b] != 0;
 
   const __nv_bfloat16* kh = k + (size_t)b * ksb + (size_t)hkv * ksh;
-  const __nv_bfloat16* vh = v + (size_t)b * ksb + (size_t)hkv * ksh;
+  const __nv_bfloat16* vh = v + (size_t)b * vsb + (size_t)hkv * vsh;
   if constexpr (D != P::kPadD) {
     // the tile columns [D, kPadD) no copy fills: zeros, once (the fence
     // before each tile's first wgmma makes them visible to it)
@@ -217,8 +245,10 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int kt0 = (lo / kBK) * kBK;
   const int n_tiles = hi > lo ? (hi - kt0 + kBK - 1) / kBK : 0;
 
-  auto stage_k = [&](int slot) { return smem + slot * 2 * kTileBytes; };
-  auto stage_v = [&](int slot) { return stage_k(slot) + kTileBytes; };
+  auto stage_k = [&](int slot) {
+    return smem + slot * (P::kTileK + P::kTileV);
+  };
+  auto stage_v = [&](int slot) { return stage_k(slot) + P::kTileK; };
   uint8_t* q_s = smem + P::kQOff;
   if constexpr (P::kQSmem) {
     // the block's 64 query rows (a row past T is zeros), in D / 64 swizzled
@@ -235,8 +265,8 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles)
-      stage_tile<D>(stage_k(s), stage_v(s), kh, vh, kss, kt0 + s * kBK, kvs,
-                    kvl);
+      stage_tile<D, Dv>(stage_k(s), stage_v(s), kh, vh, kss, vss,
+                        kt0 + s * kBK, kvs, kvl);
     hopper::cp_async_commit();
   }
 
@@ -268,10 +298,10 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float sl2 = scale * kLog2e;         // scores in base-2 units
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  constexpr int kPadD = P::kPadD;
-  float acc[kPadD / 8][4];
+  constexpr int kPadDv = P::kPadDv;
+  float acc[kPadDv / 8][4];
 #pragma unroll
-  for (int i = 0; i < kPadD / 8; ++i)
+  for (int i = 0; i < kPadDv / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
@@ -280,8 +310,8 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int tn = t + kStages - 1;
       if (tn < n_tiles)
-        stage_tile<D>(stage_k(tn % kStages), stage_v(tn % kStages), kh, vh,
-                      kss, kt0 + tn * kBK, kvs, kvl);
+        stage_tile<D, Dv>(stage_k(tn % kStages), stage_v(tn % kStages), kh,
+                          vh, kss, vss, kt0 + tn * kBK, kvs, kvl);
       hopper::cp_async_commit();
     }
     hopper::cp_async_wait<kStages - 1>();
@@ -379,7 +409,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
         l[row] = l[row] * alpha[row] + sum[row];
       }
 #pragma unroll
-      for (int dn = 0; dn < kPadD / 8; ++dn) {
+      for (int dn = 0; dn < kPadDv / 8; ++dn) {
         acc[dn][0] *= alpha[0];
         acc[dn][1] *= alpha[0];
         acc[dn][2] *= alpha[1];
@@ -396,12 +426,12 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
       pa[kk][2] = hopper::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[kk][3] = hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
-    hopper::fence_regs<kPadD / 2>(&acc[0][0]);
+    hopper::fence_regs<kPadDv / 2>(&acc[0][0]);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kSN / 2; ++kk)
 #pragma unroll
-      for (int dh = 0; dh < kPadD / 128; ++dh)   // 128-dim halves of O
+      for (int dh = 0; dh < kPadDv / 128; ++dh)   // 128-dim halves of O
         hopper::wgmma_m64n128k16_rs<1>(
             &acc[dh * 16][0], pa[kk],
             hopper::sw128_desc(vs + dh * 2 * kBlockBytes + kk * 16 * 128,
@@ -409,7 +439,7 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
             1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
-    hopper::fence_regs<kPadD / 2>(&acc[0][0]);
+    hopper::fence_regs<kPadDv / 2>(&acc[0][0]);
     __syncthreads();       // the tile's slot is refilled next iteration
   }
   hopper::cp_async_wait<0>();
@@ -427,9 +457,9 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                          : __int_as_float(0x7f800000);
     }
     const float inv = 1.f / (l[row] == 0.f ? 1.f : l[row]);
-    __nv_bfloat16* o = out + (((size_t)b * T + t) * Hq + hq) * D;
+    __nv_bfloat16* o = out + (((size_t)b * T + t) * Hq + hq) * Dv;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
+    for (int dn = 0; dn < Dv / 8; ++dn) {
       const int d = dn * 8 + (lane & 3) * 2;
       *reinterpret_cast<uint32_t*>(o + d) = hopper::pack_bf16(
           acc[dn][2 * row] * inv, acc[dn][2 * row + 1] * inv);
@@ -437,65 +467,73 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, bool SOFTCAP, bool LSE = false>
+template <int D, int Dv, bool SOFTCAP, bool LSE = false>
 int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
            const void* v, const void* qpos, const void* kv_len,
            const void* kv_start, const void* won, void* out, void* lse,
            int T, int Hq, int Hkv, int S, long long ksb, long long kss,
-           long long ksh, float scale, int causal, int window,
-           float softcap) {
+           long long ksh, long long vsb, long long vss, long long vsh,
+           float scale, int causal, int window, float softcap) {
+  constexpr int kSmem = Plan<D, Dv>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attn_kernel<D, SOFTCAP, LSE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<D>::kSmem);
+      flash_attn_kernel<D, Dv, SOFTCAP, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  flash_attn_kernel<D, SOFTCAP, LSE><<<grid, kThreads, Plan<D>::kSmem, st>>>(
+  flash_attn_kernel<D, Dv, SOFTCAP, LSE><<<grid, kThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(kv_len), static_cast<const int*>(kv_start),
       static_cast<const int*>(won), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,
-      window, softcap);
+      static_cast<float*>(lse), T, Hq, Hkv, S, ksb, kss, ksh, vsb, vss, vsh,
+      scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q bf16 [B,T,Hq,D] contiguous; k/v bf16 with element strides (ksb, kss,
-// ksh) over (B, S, Hkv), multiples of 8, and a contiguous D (the same
-// strides for both), 16-byte aligned; qpos int32 [B,T]; kv_len, kv_start,
-// won int32 [B]; out bf16 [B,T,Hq,D]; lse fp32 [B,Hq,T] or null (the LSE
-// instance: D = 128, no softcap).  D = 96, 128 or 256; window <= 0 means none,
-// softcap <= 0 none.  Returns cudaGetLastError() (cudaErrorInvalidValue
-// for another D, or an lse buffer outside the LSE instance).
+// q bf16 [B,T,Hq,D] contiguous; k bf16 [B,S,Hkv,D] with element strides
+// (ksb, kss, ksh) and v bf16 [B,S,Hkv,Dv] with (vsb, vss, vsh) over (B, S,
+// Hkv), multiples of 8, and a contiguous last dim, 16-byte aligned; qpos
+// int32 [B,T]; kv_len, kv_start, won int32 [B]; out bf16 [B,T,Hq,Dv]; lse
+// fp32 [B,Hq,T] or null (the LSE instance: D = Dv = 128, no softcap).
+// (D, Dv) = (96, 96), (128, 128), (192, 128) or (256, 256); window <= 0
+// means none, softcap <= 0 none.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for another pair, or an lse buffer outside the
+// LSE instance).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* qpos, const void* kv_len,
                                const void* kv_start, const void* won,
                                void* out, int B, int T, int Hq, int Hkv,
-                               int S, int D, long long ksb, long long kss,
-                               long long ksh, float scale, int causal,
-                               int window, float softcap, void* lse,
-                               void* stream) {
+                               int S, int D, int Dv, long long ksb,
+                               long long kss, long long ksh, long long vsb,
+                               long long vss, long long vsh, float scale,
+                               int causal, int window, float softcap,
+                               void* lse, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if ((D != 96 && D != 128 && D != 256) || Hq % Hkv)
-    return (int)cudaErrorInvalidValue;
+  const bool pair = D == Dv ? (D == 96 || D == 128 || D == 256)
+                            : (D == 192 && Dv == 128);
+  if (!pair || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const dim3 grid(Hq, B, (T + kBQ - 1) / kBQ);
   const bool cap = softcap > 0.f;
   if (lse != nullptr) {
-    if (D != 128 || cap) return (int)cudaErrorInvalidValue;
-    return launch<128, false, true>(grid, st, q, k, v, qpos, kv_len,
-                                    kv_start, won, out, lse, T, Hq, Hkv, S,
-                                    ksb, kss, ksh, scale, causal, window,
-                                    softcap);
+    if (D != 128 || Dv != 128 || cap) return (int)cudaErrorInvalidValue;
+    return launch<128, 128, false, true>(grid, st, q, k, v, qpos, kv_len,
+                                         kv_start, won, out, lse, T, Hq, Hkv,
+                                         S, ksb, kss, ksh, vsb, vss, vsh,
+                                         scale, causal, window, softcap);
   }
-#define FLASH_LAUNCH(HD, CAP)                                              \
-  launch<HD, CAP>(grid, st, q, k, v, qpos, kv_len, kv_start, won, out,     \
-                  nullptr, T, Hq, Hkv, S, ksb, kss, ksh, scale, causal,    \
-                  window, softcap)
-  const int err =
-      D == 128   ? (cap ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false))
-      : D == 256 ? (cap ? FLASH_LAUNCH(256, true) : FLASH_LAUNCH(256, false))
-                 : (cap ? FLASH_LAUNCH(96, true) : FLASH_LAUNCH(96, false));
+#define FLASH_LAUNCH(HD, HDV, CAP)                                         \
+  launch<HD, HDV, CAP>(grid, st, q, k, v, qpos, kv_len, kv_start, won,     \
+                       out, nullptr, T, Hq, Hkv, S, ksb, kss, ksh, vsb,    \
+                       vss, vsh, scale, causal, window, softcap)
+#define FLASH_LAUNCH_D(HD, HDV)                                            \
+  (cap ? FLASH_LAUNCH(HD, HDV, true) : FLASH_LAUNCH(HD, HDV, false))
+  const int err = D == 128   ? FLASH_LAUNCH_D(128, 128)
+                  : D == 256 ? FLASH_LAUNCH_D(256, 256)
+                  : D == 192 ? FLASH_LAUNCH_D(192, 128)
+                             : FLASH_LAUNCH_D(96, 96);
+#undef FLASH_LAUNCH_D
 #undef FLASH_LAUNCH
   return err;
 }

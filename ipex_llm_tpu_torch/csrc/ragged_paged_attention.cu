@@ -67,6 +67,19 @@
 // (B4's answer, O in two 128-column halves, would walk the keys twice and
 // read each K/V tile from HBM twice.)  The 128 instance is the same code
 // with D = 128: Q in registers, one part, 64 KiB.
+//
+// K and V may differ in width: DeepSeek's MLA reads K at D = 192 (128 nope
+// + 64 rope columns) and V at Dv = 128 (the (192, 128) instance, at G = 1:
+// one kv head a query head).  Q.K^T reduces over twelve k16 steps and P.V
+// writes 128 columns, so a tile pair is a 192-column K tile (24 KiB, 24
+// chunks a key: the XOR swizzle flips the low three bits of the chunk
+// index, which stays inside the row, and a key's row is three 128-byte
+// lines, so eight consecutive keys still hit eight distinct bank groups)
+// beside a 128-column V tile (16 KiB).  Q's twelve steps and the 64
+// accumulator registers of the 128 V columns fit in registers, so that
+// instance keeps D = 128's plan: Q in registers, one part, the two staged
+// pairs in 80 KiB.  The other instances are (D, D): their K and V offsets,
+// loops and shared-memory layout are those of one width, as before.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -81,18 +94,21 @@ constexpr int kThreads = 128;           // 4 warps
 constexpr float kNegInf = -1e30f;       // the reference's NEG_INF
 constexpr float kFloor = -1e29f;        // the reference's m clamp
 
-// the instance of head dim D (ragged_paged_attention.py::smem_plan): four
-// K/V tiles, the block's last visible slot, and at D = 256 the block's
-// query rows (kQRows: 64 for the query tiles, 16 for the key split)
-template <int D>
+// the instance of K width D and V width Dv
+// (ragged_paged_attention.py::smem_plan): two staged K/V tile pairs, the
+// block's last visible slot, and at D = 256 the block's query rows
+// (kQRows: 64 for the query tiles, 16 for the key split)
+template <int D, int Dv>
 struct Plan {
-  static constexpr int kTileBytes = kKT * D * 2;     // one bf16 K or V tile
-  static constexpr bool kQSmem = D > 128;
-  static constexpr int kQOff = 4 * kTileBytes + 128;
+  static constexpr int kTileK = kKT * D * 2;         // one bf16 K tile
+  static constexpr int kTileV = kKT * Dv * 2;        // one bf16 V tile
+  static constexpr int kPair = kTileK + kTileV;      // a staged pair
+  static constexpr bool kQSmem = D > 192;
+  static constexpr int kQOff = 2 * kPair + 128;
   template <bool SPLIT>
   static constexpr int smem() {
     return kQSmem ? kQOff + (SPLIT ? 16 : 64) * D * 2
-                  : 4 * kTileBytes + 16;             // 64 KiB + q_hi at 128
+                  : 2 * kPair + 16;                  // pairs + q_hi
   }
 };
 
@@ -102,42 +118,53 @@ __device__ __forceinline__ int kv_chunk(int key, int c) {
 }
 
 // stage the keys [k0, k0 + 64) of (row r, kv head h) into `kd`/`vd`: bf16
-// pools swizzled, e5m2 pools as stored; keys at or past k_hi are zeros
-template <typename KV, int kD>
+// pools swizzled, e5m2 pools as stored; keys at or past k_hi are zeros.  A
+// V row narrower than K's (Dv < D) takes the first of each key's chunks
+template <typename KV, int kD, int kDv>
 __device__ __forceinline__ void stage_tile(
     uint8_t* kd, uint8_t* vd, const KV* __restrict__ kpool,
     const KV* __restrict__ vpool, const int* __restrict__ table_row, int k0,
     int k_hi, int h, int Hkv, int ps, int n_pages) {
+  static_assert(kDv <= kD, "V is at most K's width");
   constexpr int kChunks = kD * (int)sizeof(KV) / 16;   // 16 or 8 per key
+  constexpr int kChunksV = kDv * (int)sizeof(KV) / 16;
   for (int i = threadIdx.x; i < kKT * kChunks; i += kThreads) {
     const int key = i / kChunks, c = i - key * kChunks;
     const int kpos = k0 + key;
     const bool ok = kpos < k_hi;
-    size_t off = 0;
+    size_t row = 0;
     if (ok) {
       const int pid = min(max(__ldg(table_row + kpos / ps), 0), n_pages - 1);
-      off = (((size_t)pid * Hkv + h) * ps + kpos % ps) * kD +
-            c * (16 / sizeof(KV));
+      row = ((size_t)pid * Hkv + h) * ps + kpos % ps;
     }
     const int dst = sizeof(KV) == 2 ? kv_chunk<kD>(key, c) * 16
                                     : key * (kD * (int)sizeof(KV)) + c * 16;
-    hopper::cp_async<16>(kd + dst, kpool + off, ok);
-    hopper::cp_async<16>(vd + dst, vpool + off, ok);
+    hopper::cp_async<16>(kd + dst, kpool + (row * kD + c * (16 / sizeof(KV))),
+                         ok);
+    if (kDv == kD || c < kChunksV) {
+      const int dst_v = sizeof(KV) == 2
+                            ? kv_chunk<kDv>(key, c) * 16
+                            : key * (kDv * (int)sizeof(KV)) + c * 16;
+      hopper::cp_async<16>(vd + dst_v,
+                           vpool + (row * kDv + c * (16 / sizeof(KV))), ok);
+    }
   }
 }
 
 // widen an e5m2 tile pair (as stored) into bf16 swizzled tiles: an e5m2
 // code is the top byte of an fp16, and every e5m2 value is a bf16 value
-template <int kD>
+template <int kD, int kDv>
 __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
                                            const uint8_t* vraw, uint8_t* kw,
                                            uint8_t* vw) {
-  for (int i = threadIdx.x; i < 2 * kKT * (kD / 16); i += kThreads) {
-    const int which = i / (kKT * (kD / 16));
-    const int rem = i - which * (kKT * (kD / 16));
-    const int key = rem / (kD / 16), c = rem % (kD / 16);
+  constexpr int kNK = kKT * (kD / 16);       // 16-byte raw chunks of K
+  for (int i = threadIdx.x; i < kNK + kKT * (kDv / 16); i += kThreads) {
+    const int which = i >= kNK;
+    const int rem = i - which * kNK;
+    const int w16 = which ? kDv / 16 : kD / 16;
+    const int key = rem / w16, c = rem % w16;
     const uint4 raw = *reinterpret_cast<const uint4*>(
-        (which ? vraw : kraw) + key * kD + c * 16);
+        (which ? vraw + key * kDv : kraw + key * kD) + c * 16);
     const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
     uint32_t o[8];
 #pragma unroll
@@ -151,9 +178,12 @@ __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
       o[2 * e + 1] = hopper::pack_bf16(fhi.x, fhi.y);
     }
     uint8_t* dst = which ? vw : kw;
-    *reinterpret_cast<uint4*>(dst + kv_chunk<kD>(key, 2 * c) * 16) =
+    const int c0 = which ? kv_chunk<kDv>(key, 2 * c) : kv_chunk<kD>(key, 2 * c);
+    const int c1 = which ? kv_chunk<kDv>(key, 2 * c + 1)
+                         : kv_chunk<kD>(key, 2 * c + 1);
+    *reinterpret_cast<uint4*>(dst + c0 * 16) =
         make_uint4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<uint4*>(dst + kv_chunk<kD>(key, 2 * c + 1) * 16) =
+    *reinterpret_cast<uint4*>(dst + c1 * 16) =
         make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
@@ -161,7 +191,7 @@ __device__ __forceinline__ void widen_tile(const uint8_t* kraw,
 // SPLIT == false: the query-tile instance (64 rows a block, 4 warps along
 // the rows, writes bf16 out).  SPLIT == true: the key-split instance (16
 // rows a block, 4 warps along the keys, writes fp32 partials for the merge)
-template <typename KV, int kD, bool SPLIT>
+template <typename KV, int kD, int kDv, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const KV* __restrict__ kpool,
@@ -176,13 +206,12 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kQRows = SPLIT ? 16 : 64;        // query rows per block
   constexpr int kKW = SPLIT ? kKT / 4 : kKT;     // keys per warp per tile
   constexpr int kSN = kKW / 8;                   // n8 score tiles per warp
-  constexpr int kParts = (kD > 128 && !SPLIT) ? 2 : 1;
+  constexpr int kParts = (kDv > 128 && !SPLIT) ? 2 : 1;
   constexpr int kPN = kSN / kParts;              // ... in one part
   constexpr bool kFp8 = sizeof(KV) == 1;
-  using P = Plan<kD>;
-  constexpr int kTileBytes = P::kTileBytes;
+  using P = Plan<kD, kDv>;
   extern __shared__ __align__(128) uint8_t smem[];
-  int* q_hi_s = reinterpret_cast<int*>(smem + 4 * kTileBytes);
+  int* q_hi_s = reinterpret_cast<int*>(smem + 2 * P::kPair);
   uint8_t* q_s = smem + P::kQOff;               // at D = 256: the Q rows
 
   const int qt = blockIdx.x % n_qtiles;
@@ -199,12 +228,13 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int jw = j0 + (SPLIT ? 0 : warp * 16);   // the warp's first row
   const int wk = SPLIT ? warp * kKW : 0;         // the warp's key slice
 
-  // flat row j: its q/out offset and its slot (-1: a pad or missing row,
-  // which sees no key)
-  auto q_off = [&](int j) -> size_t {
+  // flat row j: its q (and, times Dv / D, out) offset and its slot (-1: a
+  // pad or missing row, which sees no key)
+  auto q_head = [&](int j) -> size_t {
     const int g = j / C, c = j - (j / C) * C;
-    return (((size_t)r * C + c) * Hq + (size_t)h * G + g) * kD;
+    return ((size_t)r * C + c) * Hq + (size_t)h * G + g;
   };
+  auto q_off = [&](int j) -> size_t { return q_head(j) * kD; };
   auto qpos_of = [&](int j) -> int {
     const int c = j % C;
     return (j < GC && c < chunk && chunk > 0) ? kv_len - chunk + c : -1;
@@ -256,42 +286,42 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[kD / 8][4];
+  float acc[kDv / 8][4];
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i)
+  for (int i = 0; i < kDv / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   const int* table_row = tables + (size_t)r * maxp;
-  // bf16: stages at [0, 2) and [2, 4) tiles (K, V each); e5m2: raw stages
-  // in the first two tiles' bytes, the widened K/V in tiles 2 and 3
+  // bf16: the two stages are the two pairs (K, then V); e5m2: raw stages
+  // in the first pair's bytes, the widened K/V in the second pair's
   auto stage_k = [&](int slot) -> uint8_t* {
-    return smem + (kFp8 ? slot * kTileBytes : slot * 2 * kTileBytes);
+    return smem + (kFp8 ? slot * (P::kPair / 2) : slot * P::kPair);
   };
   auto stage_v = [&](int slot) -> uint8_t* {
-    return stage_k(slot) + (kFp8 ? kTileBytes / 2 : kTileBytes);
+    return stage_k(slot) + (kFp8 ? P::kTileK / 2 : P::kTileK);
   };
   if (n_tiles > 0)
-    stage_tile<KV, kD>(stage_k(0), stage_v(0), kpool, vpool, table_row,
-                       k_lo, k_hi, h, Hkv, ps, n_pages);
+    stage_tile<KV, kD, kDv>(stage_k(0), stage_v(0), kpool, vpool, table_row,
+                            k_lo, k_hi, h, Hkv, ps, n_pages);
   hopper::cp_async_commit();
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = k_lo + t * kKT;
     if (t + 1 < n_tiles)
-      stage_tile<KV, kD>(stage_k((t + 1) & 1), stage_v((t + 1) & 1), kpool,
-                         vpool, table_row, k0 + kKT, k_hi, h, Hkv, ps,
-                         n_pages);
+      stage_tile<KV, kD, kDv>(stage_k((t + 1) & 1), stage_v((t + 1) & 1),
+                              kpool, vpool, table_row, k0 + kKT, k_hi, h,
+                              Hkv, ps, n_pages);
     hopper::cp_async_commit();
     hopper::cp_async_wait<1>();
     __syncthreads();
     const uint8_t* kt;
     const uint8_t* vt;
     if constexpr (kFp8) {
-      widen_tile<kD>(stage_k(t & 1), stage_v(t & 1), smem + 2 * kTileBytes,
-                     smem + 3 * kTileBytes);
+      widen_tile<kD, kDv>(stage_k(t & 1), stage_v(t & 1), smem + P::kPair,
+                          smem + P::kPair + P::kTileK);
       __syncthreads();
-      kt = smem + 2 * kTileBytes;
-      vt = smem + 3 * kTileBytes;
+      kt = smem + P::kPair;
+      vt = smem + P::kPair + P::kTileK;
     } else {
       kt = stage_k(t & 1);
       vt = stage_v(t & 1);
@@ -370,7 +400,7 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
         l[row] = l[row] * alpha[row] + sum[row];
       }
 #pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
+      for (int dn = 0; dn < kDv / 8; ++dn) {
         acc[dn][0] *= alpha[0];
         acc[dn][1] *= alpha[0];
         acc[dn][2] *= alpha[1];
@@ -387,10 +417,10 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
             hopper::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
         const int key = wp + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
 #pragma unroll
-        for (int dn = 0; dn < kD / 8; dn += 2) {
+        for (int dn = 0; dn < kDv / 8; dn += 2) {
           uint32_t b0, b1, b2, b3;
           hopper::ldsm_x4_trans(
-              b0, b1, b2, b3, vt + kv_chunk<kD>(key, dn + (lane >> 4)) * 16);
+              b0, b1, b2, b3, vt + kv_chunk<kDv>(key, dn + (lane >> 4)) * 16);
           hopper::mma_bf16(acc[dn], pa, b0, b1);
           hopper::mma_bf16(acc[dn + 1], pa, b2, b3);
         }
@@ -406,9 +436,9 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       const int j = jw + r0 + 8 * row;
       if (j >= GC) continue;
       const float denom = l[row] == 0.f ? 1.f : l[row];
-      __nv_bfloat16* o = out + q_off(j);
+      __nv_bfloat16* o = out + q_head(j) * kDv;
 #pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
+      for (int dn = 0; dn < kDv / 8; ++dn) {
         const int d = dn * 8 + (lane & 3) * 2;
         *reinterpret_cast<uint32_t*>(o + d) = hopper::pack_bf16(
             acc[dn][2 * row] / denom, acc[dn][2 * row + 1] / denom);
@@ -417,14 +447,14 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   } else {
     // merge the four warps' key slices in warp order, in shared memory
     __syncthreads();
-    float* acc_s = reinterpret_cast<float*>(smem);          // [4][16][D]
-    float2* ml_s = reinterpret_cast<float2*>(smem + 4 * 16 * kD * 4);
+    float* acc_s = reinterpret_cast<float*>(smem);          // [4][16][Dv]
+    float2* ml_s = reinterpret_cast<float2*>(smem + 4 * 16 * kDv * 4);
 #pragma unroll
     for (int row = 0; row < 2; ++row) {
       const int i = r0 + 8 * row;
-      float* a = acc_s + (warp * 16 + i) * kD;
+      float* a = acc_s + (warp * 16 + i) * kDv;
 #pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
+      for (int dn = 0; dn < kDv / 8; ++dn) {
         const int d = dn * 8 + (lane & 3) * 2;
         *reinterpret_cast<float2*>(a + d) =
             make_float2(acc[dn][2 * row], acc[dn][2 * row + 1]);
@@ -443,7 +473,7 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       }
       const float m_ref = fmaxf(m_all, kFloor);
 #pragma unroll
-      for (int dd = 0; dd < kD / kThreads; ++dd) {
+      for (int dd = 0; dd < kDv / kThreads; ++dd) {
         const int d = threadIdx.x + dd * kThreads;
         float lsum = 0.f, o = 0.f;
 #pragma unroll
@@ -452,20 +482,20 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
           if (!(ml.y > 0.f)) continue;
           const float wt = expf(fmaxf(ml.x, kFloor) - m_ref);
           lsum = fmaf(ml.y, wt, lsum);
-          o = fmaf(acc_s[(w * 16 + i) * kD + d], wt, o);
+          o = fmaf(acc_s[(w * 16 + i) * kDv + d], wt, o);
         }
-        ws_acc[(ws_row + i) * kD + d] = o;
+        ws_acc[(ws_row + i) * kDv + d] = o;
         if (d == 0) ws_ml[ws_row + i] = make_float2(m_all, lsum);
       }
     }
   }
 }
 
-// one block of kD threads per (query row, kv head, row): thread d merges
+// one block of kDv threads per (query row, kv head, row): thread d merges
 // output dim d of the row's splits in split order; a split that saw no
 // visible key (l == 0) contributes nothing
-template <int kD>
-__global__ void __launch_bounds__(kD)
+template <int kDv>
+__global__ void __launch_bounds__(kDv)
 ragged_merge_kernel(const float* __restrict__ ws_acc,
                     const float2* __restrict__ ws_ml,
                     __nv_bfloat16* __restrict__ out, int C, int Hq, int Hkv,
@@ -488,26 +518,28 @@ ragged_merge_kernel(const float* __restrict__ ws_acc,
     if (!(ml.y > 0.f)) continue;
     const float w = expf(fmaxf(ml.x, kFloor) - m_ref);
     l = fmaf(ml.y, w, l);
-    o = fmaf(ws_acc[(base + (size_t)s * GC) * kD + threadIdx.x], w, o);
+    o = fmaf(ws_acc[(base + (size_t)s * GC) * kDv + threadIdx.x], w, o);
   }
   const int g = j / C, c = j % C;
-  const size_t off = (((size_t)r * C + c) * Hq + (size_t)h * G + g) * kD;
+  const size_t off = (((size_t)r * C + c) * Hq + (size_t)h * G + g) * kDv;
   out[off + threadIdx.x] = __float2bfloat16(o / (l == 0.f ? 1.f : l));
 }
 
-template <typename KV, int kD, bool SPLIT>
+template <typename KV, int kD, int kDv, bool SPLIT>
 int launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
            const void* vpool, const void* tables, const void* kv_len,
            const void* chunk_len, void* out, void* ws_acc, void* ws_ml,
            int C, int Hq, int Hkv, int ps, int n_pages, int maxp,
            int n_qtiles, int n_splits, int pps, float scale) {
-  constexpr int kSmem = Plan<kD>::template smem<SPLIT>();
+  constexpr int kSmem = Plan<kD, kDv>::template smem<SPLIT>();
   static_assert(kSmem <= 232448, "exceeds a block's shared memory");
+  static_assert(!SPLIT || 4 * 16 * kDv * 4 + 4 * 16 * 8 <= kSmem,
+                "the split's warp merge fits the staged tiles' bytes");
   cudaError_t e = cudaFuncSetAttribute(
-      ragged_attn_kernel<KV, kD, SPLIT>,
+      ragged_attn_kernel<KV, kD, kDv, SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
-  ragged_attn_kernel<KV, kD, SPLIT><<<grid, kThreads, kSmem, st>>>(
+  ragged_attn_kernel<KV, kD, kDv, SPLIT><<<grid, kThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kpool),
       static_cast<const KV*>(vpool), static_cast<const int*>(tables),
       static_cast<const int*>(kv_len), static_cast<const int*>(chunk_len),
@@ -519,25 +551,29 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
 
 }  // namespace
 
-// q bf16 [R,C,Hq,D] (4-byte aligned); pools [P,Hkv,ps,D] bf16 (kv_fp8=0)
-// or e5m2 (kv_fp8=1), 16-byte aligned; tables int32 [R,maxp]; kv_len,
-// chunk_len int32 [R]; out bf16 [R,C,Hq,D].  Given scratch
-// ws_acc fp32 [R,Hkv,n_splits,G*C,D] and ws_ml fp32 [R,Hkv,n_splits,G*C,2]
-// (G = Hq/Hkv, G*C <= 16), the key-split instance runs over n_splits
-// splits of pps pages and then the merge; without (null), the query-tile
-// instance (n_splits 1).  D is 128 or 256.  Returns the first non-zero
-// cudaGetLastError(), or cudaErrorInvalidValue for another D or a split
+// q bf16 [R,C,Hq,D] (4-byte aligned); pools [P,Hkv,ps,D] (K) and
+// [P,Hkv,ps,Dv] (V) bf16 (kv_fp8=0) or e5m2 (kv_fp8=1), 16-byte aligned;
+// tables int32 [R,maxp]; kv_len, chunk_len int32 [R]; out bf16
+// [R,C,Hq,Dv].  Given scratch ws_acc fp32 [R,Hkv,n_splits,G*C,Dv] and ws_ml
+// fp32 [R,Hkv,n_splits,G*C,2] (G = Hq/Hkv, G*C <= 16), the key-split
+// instance runs over n_splits splits of pps pages and then the merge;
+// without (null), the query-tile instance (n_splits 1).  (D, Dv) is (128,
+// 128), (192, 128) or (256, 256).  Returns the first non-zero
+// cudaGetLastError(), or cudaErrorInvalidValue for another pair or a split
 // of more than 16 rows.
 extern "C" int ragged_paged_attention(const void* q, const void* kpool,
                                       const void* vpool, const void* tables,
                                       const void* kv_len,
                                       const void* chunk_len, void* out,
                                       void* ws_acc, void* ws_ml, int R,
-                                      int C, int Hq, int Hkv, int D, int ps,
+                                      int C, int Hq, int Hkv, int D, int Dv,
+                                      int ps,
                                       int n_pages, int maxp, int n_splits,
                                       int pps, int kv_fp8, float scale,
                                       void* stream) {
-  if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
+  if (!((D == 128 && Dv == 128) || (D == 192 && Dv == 128) ||
+        (D == 256 && Dv == 256)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int gc = (Hq / Hkv) * C;
   const bool split = ws_acc != nullptr;
@@ -545,21 +581,23 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
   const int n_qtiles = split ? 1 : (gc + 63) / 64;
   const dim3 grid(n_qtiles * n_splits, Hkv, R);
   int err;
-#define RPA_LAUNCH(KV, HD, SPLIT)                                            \
-  launch<KV, HD, SPLIT>(grid, st, q, kpool, vpool, tables, kv_len,          \
+#define RPA_LAUNCH(KV, HD, HDV, SPLIT)                                      \
+  launch<KV, HD, HDV, SPLIT>(grid, st, q, kpool, vpool, tables, kv_len,     \
                         chunk_len, out, ws_acc, ws_ml, C, Hq, Hkv, ps,      \
                         n_pages, maxp, n_qtiles, n_splits, pps, scale)
-#define RPA_LAUNCH_D(HD)                                                    \
-  (kv_fp8 ? (split ? RPA_LAUNCH(uint8_t, HD, true)                          \
-                   : RPA_LAUNCH(uint8_t, HD, false))                        \
-          : (split ? RPA_LAUNCH(uint16_t, HD, true)                         \
-                   : RPA_LAUNCH(uint16_t, HD, false)))
-  err = D == 128 ? RPA_LAUNCH_D(128) : RPA_LAUNCH_D(256);
+#define RPA_LAUNCH_D(HD, HDV)                                               \
+  (kv_fp8 ? (split ? RPA_LAUNCH(uint8_t, HD, HDV, true)                     \
+                   : RPA_LAUNCH(uint8_t, HD, HDV, false))                   \
+          : (split ? RPA_LAUNCH(uint16_t, HD, HDV, true)                    \
+                   : RPA_LAUNCH(uint16_t, HD, HDV, false)))
+  err = D == 128   ? RPA_LAUNCH_D(128, 128)
+        : D == 192 ? RPA_LAUNCH_D(192, 128)
+                   : RPA_LAUNCH_D(256, 256);
 #undef RPA_LAUNCH_D
 #undef RPA_LAUNCH
   if (err || !split) return err;
   const dim3 mgrid(gc, Hkv, R);
-  if (D == 128)
+  if (Dv == 128)
     ragged_merge_kernel<128><<<mgrid, 128, 0, st>>>(
         static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
         static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits);

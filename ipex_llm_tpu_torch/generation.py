@@ -247,6 +247,7 @@ def generate(cfg: ModelConfig, params: dict, input_ids: Any,
     capacity = tpad + _round_up(gen.max_new_tokens + 1, DECODE_BLOCK)
     cache = kv_mod.make_cache(kv_kind, cfg.num_layers, b, capacity,
                               cfg.num_kv_heads, cfg.head_dim,
+                              v_head_dim=cfg.v_dim,
                               device=params["embed"].device)
     res = _generate_inner(cfg, params, gen, tokens, lengths, tpad, b, cache,
                           streamer)

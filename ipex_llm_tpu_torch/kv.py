@@ -4,12 +4,16 @@ Two forms, both in bf16 or ``torch.float8_e5m2`` storage:
 
 - the dense head-major cache of ``generate()`` (:class:`KVCache`,
   :class:`Fp8KVCache`): one buffer per k/v of shape ``[L, B, Hkv, S, D]``
-  and a filled-prefix ``length``, written at one uniform slot offset;
+  (V ``Dv`` wide) and a filled-prefix ``length``, written at one uniform
+  slot offset;
 - the paged pool of the serving engine (:class:`PagedKVCache`): one pool
-  per k/v of shape ``[L, P, Hkv, page, D]`` shared by every row, a per-row
-  block table ``[R, maxP]`` of page ids (-1 = unallocated).  Page 0 is the
-  engine's scratch page: writes past the table width or into unallocated
-  slots land there.
+  per k/v of shape ``[L, P, Hkv, page, D]`` (V ``Dv`` wide) shared by
+  every row, a per-row block table ``[R, maxP]`` of page ids (-1 =
+  unallocated).  Page 0 is the engine's scratch page: writes past the
+  table width or into unallocated slots land there.
+
+V's width ``Dv`` is K's except under DeepSeek's MLA (K 192, V 128: the
+reference's unbalanced cache).
 
 Unlike the reference's immutable arrays, both are updated in place (the
 cache is the largest buffer on the card; a copy per layer per step would
@@ -41,11 +45,14 @@ def kv_storage_dtype(storage: str) -> torch.dtype:
 
 
 def paged_page_bytes(n_layers: int, n_kv_heads: int, page_size: int,
-                     head_dim: int, storage: str = "bf16") -> int:
-    """Bytes ONE page occupies across all layers and both k/v pools (the
-    unit of the engine's ``kv_pool_bytes`` budget)."""
+                     head_dim: int, v_head_dim: int | None = None,
+                     storage: str = "bf16") -> int:
+    """Bytes ONE page occupies across all layers and both k/v pools, K at
+    ``head_dim`` and V at ``v_head_dim`` (None: K's) (the unit of the
+    engine's ``kv_pool_bytes`` budget)."""
+    vd = head_dim if v_head_dim is None else v_head_dim
     itemsize = torch.empty((), dtype=kv_storage_dtype(storage)).element_size()
-    return n_layers * n_kv_heads * page_size * 2 * head_dim * itemsize
+    return n_layers * n_kv_heads * page_size * (head_dim + vd) * itemsize
 
 
 def _write(layer: torch.Tensor, enc: torch.Tensor, index):
@@ -63,7 +70,7 @@ class KVCache:
     """Dense head-major KV of ``generate()`` (the reference's ``KVCache``)."""
 
     k: torch.Tensor        # [L, B, Hkv, S_max, D] storage dtype
-    v: torch.Tensor
+    v: torch.Tensor        # [L, B, Hkv, S_max, Dv]
     length: int = 0        # filled prefix, the same for every row
     storage: str = "bf16"
 
@@ -71,13 +78,12 @@ class KVCache:
     def init(cls, n_layers: int, batch: int, max_len: int, n_kv_heads: int,
              head_dim: int, v_head_dim: int | None = None,
              device=None) -> "KVCache":
-        if v_head_dim not in (None, head_dim):
-            raise NotImplementedError("a V head width other than K's is not "
-                                      "ported")
         dtype = kv_storage_dtype(cls.storage)    # the class's default
-        shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+        shape = (n_layers, batch, n_kv_heads, max_len)
+        vd = head_dim if v_head_dim is None else v_head_dim
+        return cls(k=torch.zeros(shape + (head_dim,), dtype=dtype,
+                                 device=device),
+                   v=torch.zeros(shape + (vd,), dtype=dtype, device=device))
 
     @property
     def max_len(self) -> int:
@@ -116,19 +122,21 @@ class PagedKVCache:
     """Block-table KV over a shared page pool (see the module docstring)."""
 
     k: torch.Tensor        # [L, P, Hkv, page, D]
-    v: torch.Tensor        # [L, P, Hkv, page, D]
+    v: torch.Tensor        # [L, P, Hkv, page, Dv]
     tables: torch.Tensor   # [R, maxP] int32 page ids, -1 = unallocated
     storage: str = "bf16"
 
     @classmethod
     def init(cls, n_layers: int, n_pages: int, n_rows: int, max_pages: int,
              n_kv_heads: int, page_size: int, head_dim: int,
-             storage: str = "bf16", device=None) -> "PagedKVCache":
+             storage: str = "bf16", device=None,
+             v_head_dim: int | None = None) -> "PagedKVCache":
         dtype = kv_storage_dtype(storage)
-        shape = (n_layers, n_pages, n_kv_heads, page_size, head_dim)
+        shape = (n_layers, n_pages, n_kv_heads, page_size)
+        vd = head_dim if v_head_dim is None else v_head_dim
         return cls(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
+            k=torch.zeros(shape + (head_dim,), dtype=dtype, device=device),
+            v=torch.zeros(shape + (vd,), dtype=dtype, device=device),
             tables=torch.full((n_rows, max_pages), -1, dtype=torch.int32,
                               device=device),
             storage=storage)

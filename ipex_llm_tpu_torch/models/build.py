@@ -17,7 +17,12 @@ and a tied head leaves no ``lm_head`` leaf (the decoder reads the
 embedding table).  An MoE layer holds, in place of ``gate_up``/``down``,
 the fp32 router ``[H, E]`` and the experts' ``moe_gate_up``/``moe_down``
 stacks ``[L, E, ...]``, filled expert by expert, and qwen2_moe's
-``shared_gate_up``/``shared_down`` and fp32 ``shared_router`` ``[H, 1]``.
+``shared_gate_up``/``shared_down`` and fp32 ``shared_router`` ``[H, 1]``
+(DeepSeek-V3's fp32 ``router_bias`` ``[E]``).  A DeepSeek layer holds
+MLA's ``q`` (or ``q_a``, fp32 ``q_a_norm`` and ``q_b``), ``kv_a``, fp32
+``kv_a_norm`` and ``kv_b`` in place of ``qkv``, and a model with a dense
+prefix builds its first ``moe_layer_start`` layers into a second stack,
+``layers_dense`` (the reference's ``build.py:302-362`` and ``:470-475``).
 So the device never holds more than one full-precision weight (and a
 slice of its fp32 working copy) beside the packed tree.
 """
@@ -117,8 +122,7 @@ def stack_layer_trees(trees: list[dict[str, Any]]) -> dict[str, Any]:
 
 
 # scheme fields whose weights the port's tree has no slot for
-_SCHEME_UNSERVED = ("pos_embed", "embed_norm", "q_a", "q_a_norm", "q_b",
-                    "kv_a", "kv_a_norm", "kv_b")
+_SCHEME_UNSERVED = ("pos_embed", "embed_norm")
 
 
 def build_params(
@@ -148,16 +152,15 @@ def build_params(
             ("imatrix_data", imatrix_data, "13"),
             ("embedding_qtype (a quantized embedding table)",
              embedding_qtype, "12"),
-            ("moe_scheme.score_bias (DeepSeek-V3 routing)",
-             moe_scheme is not None and moe_scheme.score_bias, "14"),
             ("qkv_transform", qkv_transform, "14"),
             ("transpose_weights", transpose_weights, "14")):
         if val:
             raise NotImplementedError(
                 f"build_params: {what} is not ported (ROADMAP item {item})")
     unserved = [f for f in _SCHEME_UNSERVED if getattr(scheme, f) is not None]
-    if unserved or (scheme.qkv is None and None in (scheme.q, scheme.k,
-                                                     scheme.v)) \
+    mla = scheme.kv_a is not None and cfg.is_mla
+    if unserved or (not mla and scheme.qkv is None
+                    and None in (scheme.q, scheme.k, scheme.v)) \
             or (scheme.gate_up is None and None in (scheme.gate, scheme.up)):
         raise NotImplementedError(
             f"weight scheme fields {unserved or ['q/k/v/gate/up = None']} "
@@ -199,13 +202,17 @@ def build_params(
                 f"({width} wide) are ported (ROADMAP item 14)")
         return t
 
-    st = LayerStack(cfg.num_layers, cfg.num_experts)
-    for i in range(cfg.num_layers):
+    n_dense = dense_prefix(cfg)
+    dense_st = LayerStack(n_dense) if n_dense else None
+    moe_st = LayerStack(cfg.num_layers - n_dense, cfg.num_experts)
+    for layer in range(cfg.num_layers):
         if progress:
-            progress(f"layer {i + 1}/{cfg.num_layers}")
+            progress(f"layer {layer + 1}/{cfg.num_layers}")
+        st, i = ((dense_st, layer) if layer < n_dense
+                 else (moe_st, layer - n_dense))
 
         def name(t: str) -> str:
-            return t.format(i=i, p="weight")
+            return t.format(i=layer, p="weight")
         for key, tmpl in (("attn_norm", scheme.attn_norm),
                           ("mlp_norm", scheme.mlp_norm),
                           ("post_attn_norm", scheme.post_attn_norm),
@@ -217,27 +224,32 @@ def build_params(
         if cfg.qk_norm:
             st.put(i, "q_norm", norm(name(scheme.q_norm), cfg.head_dim))
             st.put(i, "k_norm", norm(name(scheme.k_norm), cfg.head_dim))
-        qkv = ([name(scheme.qkv)] if scheme.qkv is not None
-               else [name(t) for t in (scheme.q, scheme.k, scheme.v)])
-        biases = [n[: -len(".weight")] + ".bias" for n in qkv]
-        if cfg.attention_bias and has(biases[0]):
-            st.put(i, "qkv_bias", torch.cat([load(b).to(torch.float32)
-                                             for b in biases]))
-            st.put(i, "qkv", _cat_columns([quantize_weight(load(n), qtype)
-                                           for n in qkv]))
+        if mla:
+            _put_mla_layer(st, i, scheme, cfg, name, load, merged, qtype)
         else:
-            st.put(i, "qkv", merged(qkv, qtype))
+            qkv = ([name(scheme.qkv)] if scheme.qkv is not None
+                   else [name(t) for t in (scheme.q, scheme.k, scheme.v)])
+            biases = [n[: -len(".weight")] + ".bias" for n in qkv]
+            if cfg.attention_bias and has(biases[0]):
+                st.put(i, "qkv_bias", torch.cat([load(b).to(torch.float32)
+                                                 for b in biases]))
+                st.put(i, "qkv", _cat_columns([
+                    quantize_weight(load(n), qtype) for n in qkv]))
+            else:
+                st.put(i, "qkv", merged(qkv, qtype))
         st.put(i, "o", merged([name(scheme.o)], qtype))
-        if cfg.layer_is_moe(i):
-            _put_moe_layer(st, i, moe_scheme, cfg.num_experts, load, merged,
-                           qtype)
+        if cfg.layer_is_moe(layer):
+            _put_moe_layer(st, i, layer, moe_scheme, cfg.num_experts, load,
+                           merged, qtype)
             continue
         st.put(i, "gate_up", merged(
             [name(scheme.gate_up)] if scheme.gate_up is not None
             else [name(scheme.gate), name(scheme.up)], qtype))
         st.put(i, "down", merged([name(scheme.down)], qtype))
 
-    params: dict[str, Any] = {"layers": st.tree}
+    params: dict[str, Any] = {"layers": moe_st.tree}
+    if dense_st is not None:
+        params["layers_dense"] = dense_st.tree
     emb = load(scheme.embed)
     params["embed"] = (emb if emb.dtype == torch.bfloat16
                        else emb.to(torch.float32).to(torch.bfloat16))
@@ -249,6 +261,31 @@ def build_params(
         params["lm_head"] = merged([scheme.lm_head], head_q)
     params.update(rope_buffers(cfg, dev))
     return params
+
+
+def dense_prefix(cfg: ModelConfig) -> int:
+    """The layers of the ``layers_dense`` stack: DeepSeek's first
+    ``moe_layer_start`` layers where experts follow them, else none (one
+    stack holds every layer, the reference's rule)."""
+    if cfg.num_experts and 0 < cfg.moe_layer_start < cfg.num_layers:
+        return cfg.moe_layer_start
+    return 0
+
+
+def _put_mla_layer(st: LayerStack, i: int, scheme: WeightScheme,
+                   cfg: ModelConfig, name, load, merged, qtype: str) -> None:
+    """MLA's leaves of stack layer ``i``: ``q`` (a full-rank q_proj) or
+    ``q_a``, fp32 ``q_a_norm`` and ``q_b``, then ``kv_a``, fp32
+    ``kv_a_norm`` and ``kv_b``, each linear one quantized weight."""
+    if cfg.q_lora_rank is None:
+        st.put(i, "q", merged([name(scheme.q)], qtype))
+    else:
+        st.put(i, "q_a", merged([name(scheme.q_a)], qtype))
+        st.put(i, "q_a_norm", load(name(scheme.q_a_norm)).to(NORM_DTYPE))
+        st.put(i, "q_b", merged([name(scheme.q_b)], qtype))
+    st.put(i, "kv_a", merged([name(scheme.kv_a)], qtype))
+    st.put(i, "kv_a_norm", load(name(scheme.kv_a_norm)).to(NORM_DTYPE))
+    st.put(i, "kv_b", merged([name(scheme.kv_b)], qtype))
 
 
 def rope_buffers(cfg: ModelConfig, device) -> dict[str, Any]:
@@ -265,26 +302,32 @@ def rope_buffers(cfg: ModelConfig, device) -> dict[str, Any]:
     return out
 
 
-def _put_moe_layer(st: LayerStack, i: int, ms: MoEScheme, n_experts: int,
-                   load, merged, qtype: str) -> None:
-    """Layer ``i``'s router (fp32 ``[H, E]``), its experts' gate||up and
-    down, each quantized on the device as it is read and written into the
-    ``[L, E, ...]`` stacks, and the shared expert and its gate where the
-    scheme names them."""
-    st.put(i, "router", load(ms.router.format(i=i)).to(torch.float32).t()
+def _put_moe_layer(st: LayerStack, i: int, layer: int, ms: MoEScheme,
+                   n_experts: int, load, merged, qtype: str) -> None:
+    """Checkpoint layer ``layer``'s router (fp32 ``[H, E]``), its experts'
+    gate||up and down, each quantized on the device as it is read and
+    written into the ``[L, E, ...]`` stacks at stack layer ``i``, the
+    shared expert and its gate, and V3's fp32 score bias ``[E]``, where
+    the scheme names them."""
+    st.put(i, "router", load(ms.router.format(i=layer)).to(torch.float32).t()
            .contiguous())
+    if ms.score_bias is not None:
+        st.put(i, "router_bias", load(ms.score_bias.format(i=layer)).to(
+            torch.float32))
     for e in range(n_experts):
-        st.put(i, "moe_gate_up", merged([ms.e_gate.format(i=i, e=e),
-                                         ms.e_up.format(i=i, e=e)], qtype),
-               expert=e)
-        st.put(i, "moe_down", merged([ms.e_down.format(i=i, e=e)], qtype),
+        st.put(i, "moe_gate_up", merged([ms.e_gate.format(i=layer, e=e),
+                                         ms.e_up.format(i=layer, e=e)],
+                                        qtype), expert=e)
+        st.put(i, "moe_down", merged([ms.e_down.format(i=layer, e=e)], qtype),
                expert=e)
     if ms.shared_gate is not None:
-        st.put(i, "shared_gate_up", merged([ms.shared_gate.format(i=i),
-                                            ms.shared_up.format(i=i)], qtype))
-        st.put(i, "shared_down", merged([ms.shared_down.format(i=i)], qtype))
+        st.put(i, "shared_gate_up", merged([ms.shared_gate.format(i=layer),
+                                            ms.shared_up.format(i=layer)],
+                                           qtype))
+        st.put(i, "shared_down", merged([ms.shared_down.format(i=layer)],
+                                        qtype))
     if ms.shared_router is not None:
-        st.put(i, "shared_router", load(ms.shared_router.format(i=i)).to(
+        st.put(i, "shared_router", load(ms.shared_router.format(i=layer)).to(
             torch.float32).t().contiguous())
 
 

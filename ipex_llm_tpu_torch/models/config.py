@@ -2,23 +2,26 @@
 
 The port keeps the reference's field names for the families it serves
 (llama, mistral, qwen2, gemma2, qwen3, mixtral, qwen2_moe, qwen3_moe,
-phi3, gemma, gemma3_text), so a reference config maps across field by
-field (:meth:`ModelConfig.from_fields`): every rope scaling kind of
-``ops.rope.RopeScaling`` and partial rotary (``rope.rotary_dim`` below
-``head_dim``), gemma3's second rope table for its sliding layers
-(``rope_local``), sliding windows (on every layer, or per
-layer through ``layer_types``), attention and final-logit softcaps, an
-attention scale, the qkv bias, (1 + w) norms, the post-block norms, an
-embedding multiplier, tied embeddings, the tanh and the exact (erf) GELU,
-per-head q/k norms, and the sparse mixture of experts of mixtral and the
-qwen MoE families (top-k routing, softmax before or after the top-k, the
-optional renormalisation and router scale, a shared expert with a sigmoid
-gate).
+phi3, gemma, gemma3_text, deepseek_v2, deepseek_v3), so a reference
+config maps across field by field (:meth:`ModelConfig.from_fields`):
+every rope scaling kind of ``ops.rope.RopeScaling`` and partial rotary
+(``rope.rotary_dim`` below ``head_dim``), the "half" and interleaved
+"two" rope layouts, gemma3's second rope table for its sliding layers
+(``rope_local``), sliding windows (on every layer, or per layer through
+``layer_types``), attention and final-logit softcaps, an attention scale,
+the qkv bias, (1 + w) norms, the post-block norms, an embedding
+multiplier, tied embeddings, the tanh and the exact (erf) GELU, per-head
+q/k norms, the sparse mixture of experts of mixtral, the qwen MoE
+families and DeepSeek (top-k routing, softmax before or after the top-k,
+sigmoid scores, a selection-only score bias, group-limited selection, the
+optional renormalisation and routed scaling factor, shared experts with
+or without a sigmoid gate, dense prefix layers), and DeepSeek's
+multi-head latent attention (MLA: a low-rank or full-rank q, the
+compressed kv latent, K ``qk_nope + qk_rope`` wide and V ``v_head_dim``
+wide).
 Every other architectural switch is checked in ``__post_init__`` or
 ``from_fields`` and raises ``NotImplementedError`` (ROADMAP item 14):
-other families, other biases, MLA, DeepSeek's group-limited routing,
-sigmoid scores, score bias and dense prefix layers are not routed to a
-plain path.
+other families and other biases are not routed to a plain path.
 """
 
 from __future__ import annotations
@@ -26,12 +29,15 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 
 from ipex_llm_tpu_torch.ops.mlp import ACT_FNS
-from ipex_llm_tpu_torch.ops.rope import RopeScaling
+from ipex_llm_tpu_torch.ops.rope import ROPE_LAYOUTS, RopeScaling
 
 LAYER_TYPES = ("sliding_attention", "full_attention")
 # the model_types this decoder serves (``families.FAMILIES`` maps each)
 MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2", "qwen3", "mixtral",
-               "qwen2_moe", "qwen3_moe", "phi3", "gemma", "gemma3_text")
+               "qwen2_moe", "qwen3_moe", "phi3", "gemma", "gemma3_text",
+               "deepseek_v2", "deepseek_v3")
+MOE_SCORE_FUNCS = ("softmax", "sigmoid")
+MOE_GROUP_SCORES = ("max", "top2sum")
 
 
 @dataclass(frozen=True)
@@ -45,7 +51,12 @@ class ModelConfig:
     each head (``rope.partial_rotary_factor``); gemma is gemma2's block
     without the post norms, windows or softcaps; gemma3_text adds per-head
     q/k norms to gemma2's block, a window on five layers of six and
-    ``rope_local``, the table its sliding layers rotate with."""
+    ``rope_local``, the table its sliding layers rotate with.  deepseek_v2
+    and deepseek_v3 replace q/k/v by MLA (``is_mla``: q, or q_a and q_b,
+    kv_a and kv_b; one K head ``head_dim = qk_nope + qk_rope`` wide, whose
+    rope slice is shared by every head, and V ``v_dim`` wide; the rope
+    table spans the rope slice, in the "two" layout) and run a plain MLP
+    on their first ``moe_layer_start`` layers."""
 
     model_type: str
     vocab_size: int
@@ -63,7 +74,7 @@ class ModelConfig:
     # the reference's field, which its decoder does not read either (the
     # rotary width is rope.partial_rotary_factor's)
     partial_rotary: float = 1.0
-    rope_layout: str = "half"
+    rope_layout: str = "half"       # half | two (interleaved pairs)
     tie_word_embeddings: bool = False
     sliding_window: int | None = None
     layer_types: tuple[str, ...] | None = None   # per layer, LAYER_TYPES
@@ -86,6 +97,25 @@ class ModelConfig:
     # of the logits, then a softmax over the k (mixtral)
     moe_softmax_before_topk: bool = True
     moe_shared_expert_gate: bool = False  # qwen2_moe's sigmoid gate
+    # DeepSeek: the first moe_layer_start layers are dense; the routed
+    # weights are multiplied by moe_router_scale; group-limited selection
+    # keeps the experts of the moe_topk_group best of moe_n_group groups
+    # (group score: its max, V2, or the sum of its top two, V3); sigmoid
+    # scores (V3) and a score bias added for the selection only
+    moe_layer_start: int = 0
+    moe_router_scale: float = 1.0
+    moe_n_group: int = 0
+    moe_topk_group: int = 0
+    moe_score_func: str = "softmax"   # softmax | sigmoid
+    moe_group_score: str = "max"      # max | top2sum
+    moe_score_bias: bool = False
+    # MLA (DeepSeek multi-head latent attention): head_dim is the full qk
+    # width (nope + rope); the cache holds K at head_dim and V at v_dim
+    q_lora_rank: int | None = None
+    kv_lora_rank: int | None = None
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int | None = None     # None: head_dim
 
     def __post_init__(self):
         if self.model_type not in MODEL_TYPES:
@@ -103,10 +133,10 @@ class ModelConfig:
             if self.sliding_window is None and \
                     "sliding_attention" in self.layer_types:
                 raise ValueError("sliding layers need a sliding_window")
-        if self.act not in ACT_FNS or self.rope_layout != "half":
+        if self.act not in ACT_FNS or self.rope_layout not in ROPE_LAYOUTS:
             raise NotImplementedError(
                 f"act={self.act!r} rope_layout={self.rope_layout!r} is not "
-                f"ported ({', '.join(ACT_FNS)}; half)")
+                f"ported ({', '.join(ACT_FNS)}; {', '.join(ROPE_LAYOUTS)})")
         if self.rope is None or not 0 < self.rope.rotary_dim <= self.head_dim:
             raise NotImplementedError(
                 "a rope table over at most head_dim columns is the only "
@@ -122,10 +152,24 @@ class ModelConfig:
                 raise ValueError(
                     "an MoE config needs 1 <= num_experts_per_tok <= "
                     "num_experts and a positive moe_intermediate_size")
-            if self.num_shared_experts > 1:
+            if self.moe_score_func not in MOE_SCORE_FUNCS or \
+                    self.moe_group_score not in MOE_GROUP_SCORES:
                 raise NotImplementedError(
-                    "more than one shared expert is not ported (ROADMAP "
-                    "item 14)")
+                    f"moe_score_func={self.moe_score_func!r} moe_group_score="
+                    f"{self.moe_group_score!r} is not ported")
+            if self.moe_n_group > 1 and (
+                    self.num_experts % self.moe_n_group
+                    or not 1 <= self.moe_topk_group <= self.moe_n_group):
+                raise ValueError(
+                    "group-limited routing needs moe_n_group to divide "
+                    "num_experts and 1 <= moe_topk_group <= moe_n_group")
+        if self.is_mla:
+            if self.head_dim != self.qk_nope_head_dim + self.qk_rope_head_dim \
+                    or self.num_kv_heads != self.num_heads \
+                    or self.rope.rotary_dim != self.qk_rope_head_dim:
+                raise ValueError(
+                    "MLA needs head_dim = qk_nope + qk_rope, one kv head a "
+                    "query head and a rope table over the rope slice")
 
     def layer_is_sliding(self, layer_idx: int) -> bool:
         """Whether layer ``layer_idx`` attends through the window: the
@@ -137,8 +181,8 @@ class ModelConfig:
 
     def layer_is_moe(self, layer_idx: int) -> bool:
         """Whether layer ``layer_idx`` holds experts: every layer of an MoE
-        config (DeepSeek's dense prefix layers are not ported)."""
-        return self.num_experts > 0
+        config from ``moe_layer_start`` on (DeepSeek's dense prefix)."""
+        return self.num_experts > 0 and layer_idx >= self.moe_layer_start
 
     @property
     def q_dim(self) -> int:
@@ -147,6 +191,16 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank is not None
+
+    @property
+    def v_dim(self) -> int:
+        """The V head's width: head_dim except under MLA."""
+        return self.v_head_dim if self.v_head_dim is not None \
+            else self.head_dim
 
     # Reference fields whose default value is the only one the port
     # serves; any other value raises in from_fields.
@@ -157,14 +211,7 @@ class ModelConfig:
         "alibi": False, "learned_pos": 0, "embed_norm": False,
         "norm_after": False, "logit_scale": 1.0, "glm_alpha": 0.0,
         "rope_2d": False, "residual_multiplier": 1.0,
-        "kv_heads_per_layer": None, "q_lora_rank": None,
-        "kv_lora_rank": None, "qk_nope_head_dim": 0, "qk_rope_head_dim": 0,
-        "v_head_dim": None,
-        # DeepSeek's routing, its routed scaling factor and its dense
-        # prefix layers (ROADMAP item 14)
-        "moe_layer_start": 0, "moe_n_group": 0, "moe_topk_group": 0,
-        "moe_score_func": "softmax", "moe_group_score": "max",
-        "moe_score_bias": False, "moe_router_scale": 1.0,
+        "kv_heads_per_layer": None,
     }
 
     @classmethod

@@ -6,7 +6,8 @@ dicts of numpy arrays, its ``QTensor`` leaves flattened to dicts
 import the reference's class).  Every byte is kept: bf16 arrays, which
 numpy holds in an extension dtype, cross through a 16-bit integer view,
 and packed planes are copied as they are.  Stacked ``[L, ...]`` layer
-leaves stay stacked (the decoder indexes them per layer).
+leaves stay stacked (the decoder indexes them per layer), in each of the
+tree's stacks (``layers``, and DeepSeek's dense prefix ``layers_dense``).
 :func:`adapters_from_reference` carries a QLoRA adapter tree likewise, so
 that both packages train from the same adapters (the reference draws them
 from JAX keys, which the port does not reproduce).
@@ -25,13 +26,17 @@ _QTENSOR_KEYS = {"data", "scales", "zeros", "qtype", "shape", "block_size"}
 # the tree of the ported families (qwen2's qkv bias, gemma2's post norms
 # and its tied head, which has no lm_head leaf, qwen3's q/k norms, the MoE
 # families' router, [L, E, ...] expert stacks and qwen2_moe's shared
-# expert, gemma3's local rope table); anything else (other biases, expert
-# biases, a score bias, a quantized embedding) raises
+# expert, gemma3's local rope table, DeepSeek's MLA leaves, score bias and
+# dense-prefix stack); anything else (other biases, expert biases, a
+# quantized embedding) raises
 _LAYER_KEYS = {"attn_norm", "mlp_norm", "qkv", "o", "gate_up", "down",
                "qkv_bias", "post_attn_norm", "post_mlp_norm", "q_norm",
                "k_norm", "router", "moe_gate_up", "moe_down",
-               "shared_gate_up", "shared_down", "shared_router"}
-_TOP_KEYS = {"layers", "embed", "final_norm", "lm_head", "inv_freq",
+               "shared_gate_up", "shared_down", "shared_router",
+               "router_bias", "q", "q_a", "q_a_norm", "q_b", "kv_a",
+               "kv_a_norm", "kv_b"}
+_STACKS = ("layers", "layers_dense")
+_TOP_KEYS = {*_STACKS, "embed", "final_norm", "lm_head", "inv_freq",
              "inv_freq_local", "rope_mscale"}
 
 
@@ -63,12 +68,16 @@ def params_from_reference(tree: dict, device=None) -> dict:
     """The port's params for a reference tree of a ported family (see the
     module doc)."""
     dev = resolve_device(device)
-    extra = (set(tree) - _TOP_KEYS) | (set(tree["layers"]) - _LAYER_KEYS)
+    stacks = [k for k in _STACKS if k in tree]
+    extra = set(tree) - _TOP_KEYS
+    for k in stacks:
+        extra |= set(tree[k]) - _LAYER_KEYS
     if extra:
         raise NotImplementedError(
             f"parameter leaves outside the slice: {sorted(extra)}")
-    out = {k: _leaf(v, dev) for k, v in tree.items() if k != "layers"}
-    out["layers"] = {k: _leaf(v, dev) for k, v in tree["layers"].items()}
+    out = {k: _leaf(v, dev) for k, v in tree.items() if k not in stacks}
+    for k in stacks:
+        out[k] = {n: _leaf(v, dev) for n, v in tree[k].items()}
     return out
 
 

@@ -35,7 +35,11 @@ partial rotary, gemma3's local rope table on its sliding layers) follow
 the reference's order (``decoder.py:70-210``, ``:334-407``,
 ``:422-470``).  A layer that holds ``moe_gate_up`` runs the sparse MoE
 block (:func:`_moe_block`, the reference's ``decoder.py:212-306``) in
-place of the MLP.
+place of the MLP.  DeepSeek's layers run MLA in place of q/k/v
+(:func:`_mla_qkv`, the reference's ``decoder.py:81-127``), and a
+model with a dense prefix holds two stacks, ``layers_dense`` for its first
+``moe_layer_start`` layers and ``layers`` for the rest (the reference's
+``decoder.py:585-590``).
 
 Tensor-parallel serving runs the paged form on every rank with ``tp``, the
 rank's group (``parallel/manual.py``): ``cfg`` is then the rank-local
@@ -97,6 +101,17 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
     rotates with (gemma3's local one on a sliding layer)."""
     b, t, _ = x.shape
     h = _norm(cfg, x, lp["attn_norm"])
+    kw = dict(causal=True, q_positions=q_slots, kv_len=kv_len,
+              kv_start=kv_start,
+              window=cfg.sliding_window if sliding else None,
+              window_on=sliding, softcap=cfg.attn_softcap,
+              scale=cfg.attn_scale)
+    if cfg.is_mla:
+        q, k, v = _mla_qkv(cfg, lp, h, cos, sin)
+        # the reference passes MLA no window (its window_on stays)
+        kw["window"] = None
+        return _attend(cfg, lp, q, k, v, kl, vl, slot0, cache, chunk_lens,
+                       kw, tp)
     qkv = linear_ops.linear(h, lp["qkv"], lp.get("qkv_bias"), tp=tp,
                             mode="col")
     q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
@@ -111,22 +126,58 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
     rd = cfg.rope.rotary_dim
     q = rope_ops.apply_rope_partial(q, cos, sin, rd, cfg.rope_layout)
     k = rope_ops.apply_rope_partial(k, cos, sin, rd, cfg.rope_layout)
-    kw = dict(causal=True, q_positions=q_slots, kv_len=kv_len,
-              kv_start=kv_start,
-              window=cfg.sliding_window if sliding else None,
-              window_on=sliding, softcap=cfg.attn_softcap,
-              scale=cfg.attn_scale)
+    return _attend(cfg, lp, q, k, v, kl, vl, slot0, cache, chunk_lens, kw,
+                   tp)
+
+
+def _attend(cfg: ModelConfig, lp: dict, q, k, v, kl, vl, slot0, cache,
+            chunk_lens, kw: dict, tp):
+    """Attention of q [B, T, Hq, D] over the cache layer after writing k
+    [B, T, Hkv, D] and v [B, T, Hkv, Dv] there (or over k and v alone in
+    the training form), then o and the post norm."""
+    b, t = q.shape[:2]
     if cache is None:        # the training form: the layer's own K/V
         attn = sdpa(q, k, v.contiguous(), **kw)
     else:
         kl, vl = cache.update_layer(kl, vl, k, v, slot0)
         attn = cached_sdpa(q, kl, vl, cache, chunk_lens=chunk_lens, tp=tp,
                            **kw)
-    attn = attn.reshape(b, t, cfg.q_dim)
+    attn = attn.reshape(b, t, cfg.num_heads * cfg.v_dim)
     out = linear_ops.linear(attn, lp["o"], tp=tp, mode="row")
     if cfg.post_attn_norm:
         out = _norm(cfg, out, lp["post_attn_norm"])
     return out
+
+
+def _mla_qkv(cfg: ModelConfig, lp: dict, h, cos, sin):
+    """DeepSeek's multi-head latent attention up to the cache write (the
+    reference's ``decoder.py:81-116``): q from ``q`` or through the
+    low-rank ``q_a`` -> RMSNorm -> ``q_b``; ``kv_a`` gives the
+    ``kv_lora_rank`` latent (RMSNorm, then ``kv_b`` to each head's k_nope
+    and v) and one rope slice ``k_pe`` that every head shares; rope in the
+    "two" layout on q_pe and k_pe only.  Returns q, k [B, T, H,
+    qk_nope + qk_rope] and v [B, T, H, v_dim]."""
+    b, t, _ = h.shape
+    nope, rank = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    if "q_a" in lp:
+        q = linear_ops.linear(rms_norm(linear_ops.linear(h, lp["q_a"]),
+                                       lp["q_a_norm"], cfg.norm_eps),
+                              lp["q_b"])
+    else:               # V2-Lite: the full-rank q_proj
+        q = linear_ops.linear(h, lp["q"])
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    ckv = linear_ops.linear(h, lp["kv_a"])
+    c = rms_norm(ckv[..., :rank], lp["kv_a_norm"], cfg.norm_eps)
+    kv = linear_ops.linear(c, lp["kv_b"]).reshape(b, t, cfg.num_heads,
+                                                  nope + cfg.v_dim)
+    q_pe = rope_ops.apply_rope(q[..., nope:], cos, sin, "two")
+    k_pe = rope_ops.apply_rope(ckv[..., rank:][:, :, None, :], cos, sin,
+                               "two")
+    q = torch.cat([q[..., :nope], q_pe], dim=-1)
+    k = torch.cat([kv[..., :nope], k_pe.expand(b, t, cfg.num_heads,
+                                               cfg.qk_rope_head_dim)],
+                  dim=-1)
+    return q, k, kv[..., nope:]
 
 
 def _mlp_block(cfg: ModelConfig, lp: dict, x, tp=None):
@@ -151,27 +202,49 @@ def _f32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         torch.float32)
 
 
-def route(cfg: ModelConfig, logits: torch.Tensor):
-    """(weights fp32, expert ids) [..., k] from fp32 router logits [..., E]:
-    mixtral's top-k of the logits then a softmax over the k, or the qwen
-    MoE families' softmax over all experts then top-k (renormalised with
-    ``moe_norm_topk_prob``).  Ties go to the lowest expert index, the
-    reference's ``lax.top_k`` rule: a stable descending sort, then the
-    first k (``torch.topk`` does not promise that order on the card)."""
+def route(cfg: ModelConfig, logits: torch.Tensor,
+          bias: torch.Tensor | None = None):
+    """(weights fp32, expert ids) [..., k] from fp32 router logits [..., E]
+    (the reference's ``decoder.py:212-258``): mixtral's top-k of the
+    logits then a softmax over the k, or a softmax (sigmoid, DeepSeek-V3)
+    over all experts then top-k of the scores plus ``bias`` (V3's score
+    correction, for the selection only), limited to the ``moe_topk_group``
+    best of ``moe_n_group`` groups where set (a group scores its max, or
+    the sum of its top two; the other groups' experts select at 0, as the
+    reference masks them), the weights the selected scores, renormalised
+    with ``moe_norm_topk_prob``; then times ``moe_router_scale``.  Ties go
+    to the lowest index, the reference's ``lax.top_k`` rule: a stable
+    descending sort, then the first k (``torch.topk`` does not promise
+    that order on the card)."""
     k = cfg.num_experts_per_tok
 
-    def top_k(v):
+    def top_k(v, n):
         return torch.sort(v, dim=-1, descending=True, stable=True
-                          ).indices[..., :k]
+                          ).indices[..., :n]
     if cfg.moe_softmax_before_topk:
-        scores = torch.softmax(logits, dim=-1)
-        idx = top_k(scores)
+        scores = (torch.sigmoid(logits) if cfg.moe_score_func == "sigmoid"
+                  else torch.softmax(logits, dim=-1))
+        sel = scores if bias is None else scores + bias
+        if cfg.moe_n_group > 1:
+            g = sel.reshape(*sel.shape[:-1], cfg.moe_n_group, -1)
+            if cfg.moe_group_score == "top2sum":
+                top2 = torch.sort(g, dim=-1, descending=True).values
+                gs = top2[..., 0] + top2[..., 1]
+            else:
+                gs = g.amax(-1)
+            keep = torch.zeros_like(gs, dtype=torch.bool).scatter_(
+                -1, top_k(gs, cfg.moe_topk_group), True)
+            sel = torch.where(keep[..., None], g, torch.zeros_like(g)
+                              ).reshape(sel.shape)
+        idx = top_k(sel, k)
         w = torch.gather(scores, -1, idx)
         if cfg.moe_norm_topk_prob:
             w = w / (w.sum(-1, keepdim=True) + 1e-20)
     else:
-        idx = top_k(logits)
+        idx = top_k(logits, k)
         w = torch.softmax(torch.gather(logits, -1, idx), dim=-1)
+    if cfg.moe_router_scale != 1.0:
+        w = w * cfg.moe_router_scale
     return w, idx
 
 
@@ -179,10 +252,10 @@ def _moe_block(cfg: ModelConfig, lp: dict, x, experts):
     """The sparse MoE FFN: the norm, fp32 router logits, the top-k route,
     the experts through ``experts`` (``ops.moe.dispatch()``: ``moe_ffn``,
     or the dense all-experts scan under ``IPEX_LLM_TPU_DENSE_MOE=1``),
-    then qwen2_moe's shared expert, gated by ``sigmoid(h .
-    shared_router)``."""
+    then the shared expert (DeepSeek's, or qwen2_moe's gated by
+    ``sigmoid(h . shared_router)``)."""
     h = _norm(cfg, x, lp["mlp_norm"])
-    w, idx = route(cfg, _f32_product(h, lp["router"]))
+    w, idx = route(cfg, _f32_product(h, lp["router"]), lp.get("router_bias"))
     out = experts(h, w, idx, lp["moe_gate_up"], lp["moe_down"], cfg.act,
                   cfg.num_experts).to(x.dtype)
     if "shared_gate_up" in lp:
@@ -291,10 +364,11 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
         slot0 = 0 if cache is None else int(cache.length)
         q_slots = (slot0 + torch.arange(t, device=dev))[None].expand(b, t)
         kv_len = torch.full((b,), slot0 + t, dtype=torch.int32, device=dev)
-    layers = params["layers"]
     experts = moe_ops.dispatch() if cfg.num_experts else None
+    n_dense = cfg.moe_layer_start if "layers_dense" in params else 0
     for i in range(cfg.num_layers):
-        lp = layer_params(layers, i)
+        lp = (layer_params(params["layers_dense"], i) if i < n_dense
+              else layer_params(params["layers"], i - n_dense))
         kl, vl = (None, None) if cache is None else (cache.k[i], cache.v[i])
         sliding = cfg.layer_is_sliding(i)
         c, s = (cos_l, sin_l) if sliding and cos_l is not None else (cos, sin)

@@ -1,9 +1,9 @@
 """Model families: an HF ``config.json`` dict to a ``ModelConfig`` and a
 weight-naming scheme (port of the llama, mistral, qwen2, gemma2, qwen3,
-mixtral, qwen2_moe, qwen3_moe, phi3, gemma and gemma3_text rows of
-``ipex_llm_tpu/models/families.py``).
+mixtral, qwen2_moe, qwen3_moe, phi3, gemma, gemma3_text, deepseek_v2 and
+deepseek_v3 rows of ``ipex_llm_tpu/models/families.py``).
 
-All eleven run the port's one decoder.  llama, mistral and qwen2 share the
+All thirteen run the port's one decoder.  llama, mistral and qwen2 share the
 reference's llama weight names (mistral adds its sliding window, qwen2 its
 qkv bias and ignores ``sliding_window`` as the reference does); gemma2 has
 its own norm names and reads its head from the embedding table; qwen3 adds
@@ -13,7 +13,10 @@ Phi-3.5 and Phi-4, scaled and partial rotary positions; gemma reads its
 head from the embedding table; gemma3_text is gemma2's block with per-head
 q/k norms, a window on five layers of six and a second rope table for
 them.  The MoE families add an :class:`MoEScheme` (the router, each
-expert's gate/up/down, qwen2_moe's shared expert and its gate).  Every
+expert's gate/up/down, qwen2_moe's shared expert and its gate).  The
+DeepSeek rows name MLA's projections (``q_proj`` or the low-rank
+``q_a_proj``/``q_b_proj``, ``kv_a_proj_with_mqa``, ``kv_b_proj``), the
+shared experts as one MLP, and V3's ``e_score_correction_bias``.  Every
 other ``model_type`` raises ``NotImplementedError`` (ROADMAP item 14),
 ``aquila`` included, which the reference maps to the llama row.
 """
@@ -21,7 +24,7 @@ other ``model_type`` raises ``NotImplementedError`` (ROADMAP item 14),
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable
 
 from ipex_llm_tpu_torch.models.config import MODEL_TYPES, ModelConfig
@@ -33,8 +36,8 @@ class WeightScheme:
     """Weight-name templates ({i} = layer index, {p} = weight or bias);
     None = not present.  The fields are the reference's; the port's
     ``build_params`` serves separate or pre-merged q/k/v and gate/up
-    projections and the post norms, and refuses a scheme that sets any of
-    the others."""
+    projections, MLA's projections and the post norms, and refuses a
+    scheme that sets any of the others."""
 
     embed: str = "model.embed_tokens.weight"
     final_norm: str = "model.norm.weight"
@@ -68,7 +71,7 @@ class WeightScheme:
 @dataclass(frozen=True)
 class MoEScheme:
     """MoE weight-name templates ({i} = layer, {e} = expert), the
-    reference's; ``build_params`` refuses ``score_bias`` (DeepSeek-V3)."""
+    reference's."""
 
     router: str = "model.layers.{i}.mlp.gate.weight"
     e_gate: str = "model.layers.{i}.mlp.experts.{e}.gate_proj.weight"
@@ -275,6 +278,65 @@ def _qwen3_moe(hf: dict) -> ModelConfig:
     ))
 
 
+def _deepseek_common(hf: dict) -> dict:
+    """The reference's ``_deepseek_common``: under MLA (``kv_lora_rank``)
+    the K head is ``qk_nope + qk_rope`` wide, every query head has its own
+    kv head (the naive per-head cache), the rope table spans the rope
+    slice and softmax scales by the full K width (``mscale_all_dim`` is
+    not read: ROADMAP queue 3)."""
+    mla = bool(hf.get("kv_lora_rank"))
+    qk_dim = (hf.get("qk_nope_head_dim", 128) + hf.get("qk_rope_head_dim", 64)
+              if mla else hf.get("head_dim")
+              or hf["hidden_size"] // hf["num_attention_heads"])
+    hf2 = dict(hf)
+    if mla:
+        hf2["head_dim"] = qk_dim
+        hf2["num_key_value_heads"] = hf["num_attention_heads"]
+    d = _base_cfg(
+        hf2,
+        rope_layout="two",
+        q_lora_rank=hf.get("q_lora_rank"),
+        kv_lora_rank=hf.get("kv_lora_rank"),
+        qk_nope_head_dim=hf.get("qk_nope_head_dim", 0),
+        qk_rope_head_dim=hf.get("qk_rope_head_dim", 0),
+        v_head_dim=hf.get("v_head_dim"),
+        num_experts=hf.get("n_routed_experts") or 0,
+        num_experts_per_tok=hf.get("num_experts_per_tok") or 0,
+        moe_intermediate_size=hf.get("moe_intermediate_size", 0),
+        num_shared_experts=hf.get("n_shared_experts") or 0,
+        moe_layer_start=hf.get("first_k_dense_replace", 0),
+        moe_router_scale=hf.get("routed_scaling_factor", 1.0),
+        moe_norm_topk_prob=hf.get("norm_topk_prob", False),
+        moe_softmax_before_topk=True,
+    )
+    if mla:
+        d["rope"] = _rope_from_hf(hf, hf.get("qk_rope_head_dim", 64))
+        d["attn_scale"] = qk_dim ** -0.5
+    return d
+
+
+def _deepseek_v2(hf: dict) -> ModelConfig:
+    """V2 limits its experts to groups only under ``topk_method``
+    ``group_limited_greedy`` (the reference's rule; ``greedy``, V2-Lite's,
+    ignores ``n_group``)."""
+    d = _deepseek_common(hf)
+    if hf.get("topk_method", "greedy") == "group_limited_greedy":
+        d.update(moe_n_group=hf.get("n_group") or 0,
+                 moe_topk_group=hf.get("topk_group") or 0)
+    return ModelConfig.from_fields(d)
+
+
+def _deepseek_v3(hf: dict) -> ModelConfig:
+    """V3's ``noaux_tc``: sigmoid scores, the score bias for the selection
+    only, group score the sum of a group's top two."""
+    d = _deepseek_common(hf)
+    d.update(moe_n_group=hf.get("n_group") or 0,
+             moe_topk_group=hf.get("topk_group") or 0,
+             moe_score_func="sigmoid", moe_group_score="top2sum",
+             moe_score_bias=True)
+    return ModelConfig.from_fields(d)
+
+
 # the reference's _GEMMA2_SCHEME: pre- and post-feedforward norms, the
 # attention block's output norm, and the head tied to the embedding table
 _GEMMA2_SCHEME = WeightScheme(
@@ -317,6 +379,26 @@ _QWEN2_MOE = MoEScheme(
     shared_router="model.layers.{i}.mlp.shared_expert_gate.weight",
 )
 
+# the reference's _DEEPSEEK_SCHEME (the q template serves V2-Lite's
+# full-rank q_proj), _DEEPSEEK_MOE and _DEEPSEEK_V3_MOE
+_DEEPSEEK_SCHEME = WeightScheme(
+    k=None, v=None,
+    q_a="model.layers.{i}.self_attn.q_a_proj.{p}",
+    q_a_norm="model.layers.{i}.self_attn.q_a_layernorm.weight",
+    q_b="model.layers.{i}.self_attn.q_b_proj.{p}",
+    kv_a="model.layers.{i}.self_attn.kv_a_proj_with_mqa.{p}",
+    kv_a_norm="model.layers.{i}.self_attn.kv_a_layernorm.weight",
+    kv_b="model.layers.{i}.self_attn.kv_b_proj.{p}",
+)
+_DEEPSEEK_MOE = MoEScheme(
+    shared_gate="model.layers.{i}.mlp.shared_experts.gate_proj.weight",
+    shared_up="model.layers.{i}.mlp.shared_experts.up_proj.weight",
+    shared_down="model.layers.{i}.mlp.shared_experts.down_proj.weight",
+)
+_DEEPSEEK_V3_MOE = replace(
+    _DEEPSEEK_MOE,
+    score_bias="model.layers.{i}.mlp.gate.e_score_correction_bias")
+
 FAMILIES: dict[str, Family] = {
     "llama": Family("llama", _llama),
     "mistral": Family("mistral", _mistral),
@@ -330,6 +412,10 @@ FAMILIES: dict[str, Family] = {
     "phi3": Family("phi3", _phi3, _PHI3_SCHEME),
     "gemma": Family("gemma", _gemma, _GEMMA_SCHEME),
     "gemma3_text": Family("gemma3_text", _gemma3, _GEMMA3_SCHEME),
+    "deepseek_v2": Family("deepseek_v2", _deepseek_v2, _DEEPSEEK_SCHEME,
+                          _DEEPSEEK_MOE),
+    "deepseek_v3": Family("deepseek_v3", _deepseek_v3, _DEEPSEEK_SCHEME,
+                          _DEEPSEEK_V3_MOE),
 }
 assert tuple(FAMILIES) == MODEL_TYPES, "config.MODEL_TYPES names the families"
 

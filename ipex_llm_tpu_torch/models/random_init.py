@@ -14,9 +14,10 @@ stacked ``[L, ...]`` layer leaves, merged qkv and gate_up, weights
 ``[in, out]``, the qkv bias fp32, post norms where the config has them,
 per-head q/k norms, an MoE layer's fp32 router ``[H, E]``, its
 ``[L, E, ...]`` expert stacks (each expert quantized on its own) and
-qwen2_moe's shared expert and its gate, no ``lm_head`` when the head is
-tied to the embedding table, and the rope leaves of
-``models.build.rope_buffers`` (gemma3's ``inv_freq_local`` too).
+qwen2_moe's shared expert and its gate, DeepSeek's MLA leaves, score
+bias and ``layers_dense`` stack, no ``lm_head`` when the head is tied to
+the embedding table, and the rope leaves of ``models.build.rope_buffers``
+(gemma3's ``inv_freq_local`` too).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 
 from ipex_llm_tpu_torch.device import resolve_device
-from ipex_llm_tpu_torch.models.build import LayerStack, rope_buffers
+from ipex_llm_tpu_torch.models.build import (LayerStack, dense_prefix,
+                                             rope_buffers)
 from ipex_llm_tpu_torch.models.config import ModelConfig
 from ipex_llm_tpu_torch.models.families import config_from_hf
 from ipex_llm_tpu_torch.ops.rope import RopeScaling
@@ -343,19 +345,176 @@ def gemma3_4b_config(**over) -> ModelConfig:
     return replace(cfg, **over) if over else cfg
 
 
+# huggingface.co/deepseek-ai/DeepSeek-V2-Lite, config.json (the fields the
+# decoder reads: MLA with a full-rank q_proj, K 128 + 64 wide and V 128, 64
+# routed experts of 1408, top 6, two shared experts as one MLP 2816 wide,
+# one dense layer of 10944 first, yarn rope over the 64-wide rope slice)
+DEEPSEEK_V2_LITE_HF = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408,
+    "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "q_lora_rank": None, "kv_lora_rank": 512,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "n_routed_experts": 64, "n_shared_experts": 2, "num_experts_per_tok": 6,
+    "first_k_dense_replace": 1, "moe_layer_freq": 1, "n_group": 1,
+    "topk_group": 1, "topk_method": "greedy", "norm_topk_prob": False,
+    "routed_scaling_factor": 1.0, "scoring_func": "softmax",
+    "max_position_embeddings": 163840, "rope_theta": 10000,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                     "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "rms_norm_eps": 1e-6, "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "bos_token_id": 100000,
+    "eos_token_id": 100001,
+}
+
+# huggingface.co/deepseek-ai/DeepSeek-V3, config.json (the fields the
+# decoder reads: MLA with a low-rank q of 1536, 128 heads, 256 routed
+# experts of 2048, top 8 of the 4 best of 8 groups by the sum of a group's
+# top two sigmoid scores plus the score bias, renormalised and scaled by
+# 2.5, one shared expert, three dense layers of 18432 first).  The whole
+# model does not fit one card: deepseek_v3_config() cuts the depth.
+DEEPSEEK_V3_HF = {
+    "model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size": 7168,
+    "intermediate_size": 18432, "moe_intermediate_size": 2048,
+    "num_hidden_layers": 61, "num_attention_heads": 128,
+    "num_key_value_heads": 128, "q_lora_rank": 1536, "kv_lora_rank": 512,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "n_routed_experts": 256, "n_shared_experts": 1, "num_experts_per_tok": 8,
+    "first_k_dense_replace": 3, "moe_layer_freq": 1, "n_group": 8,
+    "topk_group": 4, "topk_method": "noaux_tc", "norm_topk_prob": True,
+    "routed_scaling_factor": 2.5, "scoring_func": "sigmoid",
+    "max_position_embeddings": 163840, "rope_theta": 10000,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                     "mscale": 1.0, "mscale_all_dim": 1.0,
+                     "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "rms_norm_eps": 1e-6, "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 1,
+}
+
+# tiny DeepSeek-V2- and V3-shaped configs (3 layers: 1 dense, 2 MoE;
+# hidden 64, 4 heads, K 16 + 8 wide, V 16, latent 32; V2 with a full-rank
+# q and group-limited greedy routing over 4 groups, V3 with a low-rank q
+# of 48): the tests' and the card's CPU oracle's models
+_TINY_DEEPSEEK = {
+    "vocab_size": 256, "hidden_size": 64, "intermediate_size": 160,
+    "moe_intermediate_size": 32, "num_hidden_layers": 3,
+    "num_attention_heads": 4, "num_key_value_heads": 4, "kv_lora_rank": 32,
+    "qk_nope_head_dim": 16, "qk_rope_head_dim": 8, "v_head_dim": 16,
+    "n_routed_experts": 8, "num_experts_per_tok": 3,
+    "first_k_dense_replace": 1, "moe_layer_freq": 1,
+    "max_position_embeddings": 512, "rope_theta": 10000,
+    "rms_norm_eps": 1e-6, "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+}
+TINY_DEEPSEEK_V2_HF = {
+    **_TINY_DEEPSEEK, "model_type": "deepseek_v2", "q_lora_rank": None,
+    "n_shared_experts": 2, "n_group": 4, "topk_group": 2,
+    "topk_method": "group_limited_greedy", "norm_topk_prob": False,
+    "routed_scaling_factor": 1.0, "scoring_func": "softmax",
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                     "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 64,
+                     "type": "yarn"},
+}
+TINY_DEEPSEEK_V3_HF = {
+    **_TINY_DEEPSEEK, "model_type": "deepseek_v3", "q_lora_rank": 48,
+    "n_shared_experts": 1, "n_group": 4, "topk_group": 2,
+    "topk_method": "noaux_tc", "norm_topk_prob": True,
+    "routed_scaling_factor": 2.5, "scoring_func": "sigmoid",
+}
+
+
+def deepseek_hf_shapes(hf: dict) -> dict[str, tuple[int, ...]]:
+    """The published weight names of an HF DeepSeek config (V2 or V3) and
+    their ``[out, in]`` shapes, as its ``transformers`` class holds them:
+    what a checkpoint written without that class needs."""
+    h, nh, ffn = hf["hidden_size"], hf["num_attention_heads"], \
+        hf["intermediate_size"]
+    qk = hf["qk_nope_head_dim"] + hf["qk_rope_head_dim"]
+    kvr, qr, mi = hf["kv_lora_rank"], hf["q_lora_rank"], \
+        hf["moe_intermediate_size"]
+    out = {"model.embed_tokens.weight": (hf["vocab_size"], h),
+           "model.norm.weight": (h,),
+           "lm_head.weight": (hf["vocab_size"], h)}
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        out.update({p + "input_layernorm.weight": (h,),
+                    p + "post_attention_layernorm.weight": (h,),
+                    a + "kv_a_proj_with_mqa.weight": (
+                        kvr + hf["qk_rope_head_dim"], h),
+                    a + "kv_a_layernorm.weight": (kvr,),
+                    a + "kv_b_proj.weight": (
+                        nh * (hf["qk_nope_head_dim"] + hf["v_head_dim"]),
+                        kvr),
+                    a + "o_proj.weight": (h, nh * hf["v_head_dim"])})
+        if qr is None:
+            out[a + "q_proj.weight"] = (nh * qk, h)
+        else:
+            out.update({a + "q_a_proj.weight": (qr, h),
+                        a + "q_a_layernorm.weight": (qr,),
+                        a + "q_b_proj.weight": (nh * qk, qr)})
+        if i < hf["first_k_dense_replace"]:
+            for n, s in (("gate_proj", (ffn, h)), ("up_proj", (ffn, h)),
+                         ("down_proj", (h, ffn))):
+                out[p + f"mlp.{n}.weight"] = s
+            continue
+        e = hf["n_routed_experts"]
+        out[p + "mlp.gate.weight"] = (e, h)
+        if hf["model_type"] == "deepseek_v3":
+            out[p + "mlp.gate.e_score_correction_bias"] = (e,)
+        si = mi * hf["n_shared_experts"]
+        for j in range(e):
+            q = p + f"mlp.experts.{j}."
+            out.update({q + "gate_proj.weight": (mi, h),
+                        q + "up_proj.weight": (mi, h),
+                        q + "down_proj.weight": (h, mi)})
+        out.update({p + "mlp.shared_experts.gate_proj.weight": (si, h),
+                    p + "mlp.shared_experts.up_proj.weight": (si, h),
+                    p + "mlp.shared_experts.down_proj.weight": (h, si)})
+    return out
+
+
+def deepseek_v2_lite_config(**over) -> ModelConfig:
+    """DeepSeek-V2-Lite's published widths (hidden 2048, 27 layers, 16
+    heads, K 192 and V 128, latent 512, 64 experts of 1408, top 6, two
+    shared experts, one dense layer of 10944, vocab 102400), through the
+    families lookup; ``over`` replaces fields of the result
+    (``num_layers`` to cut depth)."""
+    cfg = config_from_hf(DEEPSEEK_V2_LITE_HF)
+    return replace(cfg, **over) if over else cfg
+
+
+def deepseek_v3_config(**over) -> ModelConfig:
+    """DeepSeek-V3's published widths (hidden 7168, 128 heads, K 192 and V
+    128, q latent 1536, kv latent 512, 256 experts of 2048, top 8 of 4 of
+    8 groups, one shared expert, dense layers of 18432, vocab 129280),
+    through the families lookup, cut to its 3 dense prefix layers and 1
+    MoE layer (the 61 layers do not fit one card; these 4 are about 10 GB
+    at sym_int4); ``over`` replaces fields of the result."""
+    cfg = replace(config_from_hf(DEEPSEEK_V3_HF), num_layers=4)
+    return replace(cfg, **over) if over else cfg
+
+
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
                   device=None, shared_intermediate: int | None = None,
                   router_scale: float = 1.0) -> dict:
     """Full-width random params on ``device`` (``None`` = cuda), the
     linear weights in ``qtype`` (one of the ten block formats, or
     ``bf16``).  A config with ``num_shared_experts`` gets a shared expert
-    ``shared_intermediate`` wide (default ``cfg.intermediate_size``) and
-    its gate; ``router_scale`` multiplies the router weights (wider router
-    margins for the card-against-CPU checks)."""
+    ``shared_intermediate`` wide (default ``cfg.intermediate_size``, or
+    DeepSeek's ``moe_intermediate_size * num_shared_experts``) and, where
+    the config gates it, its gate; ``router_scale`` multiplies the router
+    weights (wider router margins for the card-against-CPU checks).  An
+    MLA config gets MLA's leaves in place of ``qkv``, a score-bias config
+    an fp32 ``router_bias`` ``0.05 N(0, 1)``, and a dense prefix its
+    ``layers_dense`` stack."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     h, ffn, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    n_l = cfg.num_layers
 
     def normal(shape):
         return torch.randn(shape, generator=gen, device=dev,
@@ -367,46 +526,76 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
     def norm_w(shape):
         return 1.0 - cfg.norm_offset + 0.05 * normal(shape)
 
-    qkv_out = cfg.q_dim + 2 * cfg.kv_dim
-    shapes = {"qkv": (h, qkv_out), "o": (cfg.q_dim, h)}
-    if cfg.num_experts:
-        mi, n_e = cfg.moe_intermediate_size, cfg.num_experts
-        experts = {"moe_gate_up": (h, 2 * mi), "moe_down": (mi, h)}
-        if cfg.num_shared_experts:
-            si = shared_intermediate or ffn
-            shapes.update(shared_gate_up=(h, 2 * si), shared_down=(si, h))
+    if cfg.is_mla:
+        nh, hd = cfg.num_heads, cfg.head_dim
+        attn = ({"q": (h, nh * hd)} if cfg.q_lora_rank is None else
+                {"q_a": (h, cfg.q_lora_rank), "q_b": (cfg.q_lora_rank,
+                                                      nh * hd)})
+        attn.update(kv_a=(h, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                    kv_b=(cfg.kv_lora_rank,
+                          nh * (cfg.qk_nope_head_dim + cfg.v_dim)))
+        qkv_out = 0
     else:
-        n_e, experts = 0, {}
-        shapes.update(gate_up=(h, 2 * ffn), down=(ffn, h))
-    stacks = LayerStack(n_l, n_e)
-    for i in range(n_l):
-        for name, (n_in, n_out) in shapes.items():
-            stacks.put(i, name, quantize(weight(n_in, n_out), qtype))
-        for name, (n_in, n_out) in experts.items():
-            for e in range(n_e):
-                stacks.put(i, name, quantize(weight(n_in, n_out), qtype),
-                           expert=e)
-    norms = ["attn_norm", "mlp_norm"] + [
-        n for n in ("post_attn_norm", "post_mlp_norm") if getattr(cfg, n)]
-    layers = {n: norm_w((n_l, h)) for n in norms}
-    if cfg.qk_norm:
-        layers["q_norm"] = norm_w((n_l, cfg.head_dim))
-        layers["k_norm"] = norm_w((n_l, cfg.head_dim))
-    if cfg.attention_bias:
-        layers["qkv_bias"] = 0.1 * normal((n_l, qkv_out))
-    if cfg.num_experts:
-        layers["router"] = weight(h, n_l * n_e).reshape(h, n_l, n_e).permute(
-            1, 0, 2).contiguous() * router_scale
-        if cfg.moe_shared_expert_gate:
-            layers["shared_router"] = weight(h, n_l).t().reshape(
-                n_l, h, 1).contiguous()
-    layers.update(stacks.tree)
-    params = {
-        "layers": layers,
+        qkv_out = cfg.q_dim + 2 * cfg.kv_dim
+        attn = {"qkv": (h, qkv_out)}
+    attn["o"] = (cfg.num_heads * cfg.v_dim, h)
+
+    def stack(n_l: int, moe: bool) -> dict:
+        shapes = dict(attn)
+        if moe:
+            mi, n_e = cfg.moe_intermediate_size, cfg.num_experts
+            experts = {"moe_gate_up": (h, 2 * mi), "moe_down": (mi, h)}
+            if cfg.num_shared_experts:
+                si = shared_intermediate or (
+                    mi * cfg.num_shared_experts
+                    if cfg.model_type.startswith("deepseek") else ffn)
+                shapes.update(shared_gate_up=(h, 2 * si),
+                              shared_down=(si, h))
+        else:
+            n_e, experts = 0, {}
+            shapes.update(gate_up=(h, 2 * ffn), down=(ffn, h))
+        stacks = LayerStack(n_l, n_e)
+        for i in range(n_l):
+            for name, (n_in, n_out) in shapes.items():
+                stacks.put(i, name, quantize(weight(n_in, n_out), qtype))
+            for name, (n_in, n_out) in experts.items():
+                for e in range(n_e):
+                    stacks.put(i, name, quantize(weight(n_in, n_out), qtype),
+                               expert=e)
+        norms = ["attn_norm", "mlp_norm"] + [
+            n for n in ("post_attn_norm", "post_mlp_norm") if getattr(cfg, n)]
+        layers = {n: norm_w((n_l, h)) for n in norms}
+        if cfg.qk_norm:
+            layers["q_norm"] = norm_w((n_l, cfg.head_dim))
+            layers["k_norm"] = norm_w((n_l, cfg.head_dim))
+        if cfg.is_mla:
+            if cfg.q_lora_rank is not None:
+                layers["q_a_norm"] = norm_w((n_l, cfg.q_lora_rank))
+            layers["kv_a_norm"] = norm_w((n_l, cfg.kv_lora_rank))
+        if cfg.attention_bias:
+            layers["qkv_bias"] = 0.1 * normal((n_l, qkv_out))
+        if moe:
+            layers["router"] = weight(h, n_l * n_e).reshape(
+                h, n_l, n_e).permute(1, 0, 2).contiguous() * router_scale
+            if cfg.moe_shared_expert_gate:
+                layers["shared_router"] = weight(h, n_l).t().reshape(
+                    n_l, h, 1).contiguous()
+            if cfg.moe_score_bias:
+                layers["router_bias"] = 0.05 * normal((n_l, n_e))
+        layers.update(stacks.tree)
+        return layers
+
+    n_dense = dense_prefix(cfg)
+    params = {}
+    if n_dense:
+        params["layers_dense"] = stack(n_dense, False)
+    params["layers"] = stack(cfg.num_layers - n_dense,
+                             cfg.layer_is_moe(n_dense))
+    params.update({
         "embed": (normal((v, h)) * (1.2 / math.sqrt(h))).to(torch.bfloat16),
         "final_norm": norm_w((h,)),
         **rope_buffers(cfg, dev),
-    }
+    })
     if not cfg.tie_word_embeddings:
         params["lm_head"] = quantize(weight(h, v), qtype)
     return params

@@ -12,7 +12,9 @@ card it would leave short prefills on the plain version.)  Attention over
 the serving engine's paged pool goes to the ragged paged kernel (B1),
 unless the layer has a window, a softcap or left padding: then, as in the
 reference, each row's pages are gathered into a head-major layer that B3
-(T=1) or B4 reads.  Biases raise.
+(T=1) or B4 reads.  Biases raise.  V may be narrower than K (DeepSeek's
+MLA: K 192, V 128): every function takes V's width from ``v`` and
+returns it, on either route.
 
 Under a gradient (``torch.is_grad_enabled()`` and a q, k or v that
 requires grad) ``sdpa`` runs B4's LSE instance inside

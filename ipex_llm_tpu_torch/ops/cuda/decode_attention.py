@@ -19,7 +19,8 @@ import torch
 from ipex_llm_tpu_torch.ops.cuda import _build
 
 NAME = "decode_attention"
-_HEAD_DIMS = (96, 128, 256)  # the kernel's instances
+# (K, V) head widths of the kernel's instances
+INSTANCES = ((96, 96), (128, 128), (192, 128), (256, 256))
 _MAX_GROUP = 16              # Hq / Hkv: the query rows of one mma tile
 _KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 _TILE_KEYS = 64              # keys per staged tile (csrc kKT)
@@ -30,19 +31,22 @@ _MAX_SPLITS = 64             # keeps every split non-empty (split_plan)
 COUNTS = _build.Counts()
 
 
-def ring_plan(d: int, fp8: bool) -> tuple[int, int, int]:
+def ring_plan(d: int, fp8: bool, dv: int | None = None
+              ) -> tuple[int, int, int]:
     """(stages, shared-memory bytes, blocks an SM holds) of the split
-    pass at head dim ``d`` over a bf16 or e5m2 layer (csrc ``Ring`` and
-    ``kResident``): three bf16 stages of a K/V tile pair, or four raw e5m2
-    stages and the widened bf16 pair; a tile's rows 128 columns wide at
-    d = 96; at d = 256 the 16 query rows in shared memory too, and one
-    block an SM."""
-    tile = _TILE_KEYS * max(d, 128) * 2      # one bf16 K or V tile
-    stages = 4 if fp8 else 3
-    smem = stages * (tile if fp8 else 2 * tile) + (2 * tile if fp8 else 0)
-    if d > 128:
+    pass at K width ``d`` and V width ``dv`` (None: ``d``) over a bf16 or
+    e5m2 layer (csrc ``Ring`` and ``kResident``): three bf16 stages of a
+    K/V tile pair, or four raw e5m2 stages and the widened bf16 pair, one
+    stage fewer where V is narrower than K (two blocks an SM at (192,
+    128)); a tile's rows 128 columns wide at d = 96; at d = 256 the 16
+    query rows in shared memory too, and one block an SM."""
+    dv = d if dv is None else dv
+    pair = _TILE_KEYS * (max(d, 128) + max(dv, 128)) * 2   # bf16 K + V
+    stages = (4 if fp8 else 3) - (dv < d)
+    smem = stages * (pair // 2 if fp8 else pair) + (pair if fp8 else 0)
+    if d > 192:
         smem += 16 * d * 2
-    return stages, smem, 2 if d <= 128 else 1
+    return stages, smem, 2 if d <= 192 else 1
 
 
 def row_vectors(b: int, s: int, device, kv_len, kv_start, window_on):
@@ -106,7 +110,8 @@ def decode_sdpa_plain(q, k_raw, v_raw, *, scale: float, kv_len, kv_start,
     return torch.where(keep[:, None, None, None], out, torch.zeros_like(out))
 
 
-def split_plan(b: int, hkv: int, s: int, d: int = 128) -> int:
+def split_plan(b: int, hkv: int, s: int, d: int = 128,
+               dv: int | None = None) -> int:
     """The number of splits of each row's visible range, from shapes alone
     (reading ``kv_len`` on the host would sync the device every step): as
     many as one wave of the split blocks the card holds at once (2 an SM
@@ -114,7 +119,7 @@ def split_plan(b: int, hkv: int, s: int, d: int = 128) -> int:
     one split per 64-key tile of the capacity, and at most 64.  With the
     range cut evenly (:func:`split_bounds`), 64 splits or fewer leave no
     split empty while another holds more than one tile."""
-    wave = ring_plan(d, False)[2] * _SMS // (b * hkv)
+    wave = ring_plan(d, False, dv)[2] * _SMS // (b * hkv)
     return max(1, min(wave, -(-s // _TILE_KEYS), _MAX_SPLITS))
 
 
@@ -134,17 +139,20 @@ def split_bounds(lo, hi, splits: int):
 def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
     b, _, hq, d = q.shape
     _, hkv, s, dk = k_raw.shape
+    dv = v_raw.shape[3]
     dev = q.device
     if q.dtype != torch.bfloat16:
         raise TypeError(f"decode attention kernel takes bf16 q, got {q.dtype}")
     if k_raw.dtype not in _KV_DTYPES or v_raw.dtype != k_raw.dtype:
         raise TypeError("decode attention kernel takes a bf16 or "
                         f"float8_e5m2 cache, got {k_raw.dtype}/{v_raw.dtype}")
-    if tuple(v_raw.shape) != tuple(k_raw.shape) or dk != d \
+    if tuple(v_raw.shape[:3]) != tuple(k_raw.shape[:3]) or dk != d \
             or k_raw.shape[0] != b:
-        raise ValueError("k/v must be [B, Hkv, S, D] with q's B and D")
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
+        raise ValueError("k/v must be [B, Hkv, S, D] and [B, Hkv, S, Dv] "
+                         "with q's B and D")
+    if (d, dv) not in INSTANCES:
+        raise NotImplementedError(f"(K, V) head widths {(d, dv)} (kernel "
+                                  f"has {INSTANCES})")
     if hq // hkv > _MAX_GROUP:
         raise NotImplementedError(f"GQA group {hq // hkv} (kernel takes at "
                                   f"most {_MAX_GROUP})")
@@ -160,10 +168,10 @@ def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
             raise ValueError("decode attention kernel needs 16-byte aligned "
                              "tensors")
     lib = _build.load(NAME, _declare)
-    splits = split_plan(b, hkv, s, d)
+    splits = split_plan(b, hkv, s, d, dv)
     g = hq // hkv
-    out = torch.empty_like(q)
-    ws_acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32,
+    out = q.new_empty((b, 1, hq, dv))
+    ws_acc = torch.empty((b, hkv, splits, g, dv), dtype=torch.float32,
                          device=dev)
     ws_ml = torch.empty((b, hkv, splits, g, 2), dtype=torch.float32,
                         device=dev)
@@ -172,7 +180,7 @@ def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
         ctypes.c_void_p(v_raw.data_ptr()), ctypes.c_void_p(kv_len.data_ptr()),
         ctypes.c_void_p(kv_start.data_ptr()), ctypes.c_void_p(won.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(ws_acc.data_ptr()),
-        ctypes.c_void_p(ws_ml.data_ptr()), b, hq, hkv, s, d, splits,
+        ctypes.c_void_p(ws_ml.data_ptr()), b, hq, hkv, s, d, dv, splits,
         int(k_raw.dtype == torch.float8_e5m2), ctypes.c_float(scale),
         -1 if window is None else window,
         ctypes.c_float(0.0 if softcap is None else softcap),
@@ -190,10 +198,11 @@ def decode_sdpa(q: torch.Tensor, k_raw: torch.Tensor, v_raw: torch.Tensor,
                 softcap: float | None = None) -> torch.Tensor:
     """T=1 attention over the raw (bf16 or e5m2) head-major cache layer.
 
-    q [B, 1, Hq, D]; k_raw/v_raw [B, Hkv, S, D]; kv_len/kv_start [B] (None:
-    S and 0); ``window_on`` a bool or a [B] tensor.  The query sits at slot
-    ``kv_len - 1`` (the decode loop's invariant), which subsumes the causal
-    mask.  Returns [B, 1, Hq, D] in q's dtype."""
+    q [B, 1, Hq, D]; k_raw [B, Hkv, S, D] and v_raw [B, Hkv, S, Dv];
+    kv_len/kv_start [B] (None: S and 0); ``window_on`` a bool or a [B]
+    tensor.  The query sits at slot ``kv_len - 1`` (the decode loop's
+    invariant), which subsumes the causal mask.  Returns [B, 1, Hq, Dv] in
+    q's dtype."""
     if q.shape[1] != 1:
         raise ValueError("decode attention takes single-token steps")
     scale, kv_len, kv_start, won, window, softcap = call_args(
@@ -232,5 +241,5 @@ SHARDED = _build.Counts()   # launches and plain calls made through B3s
 def _declare(lib: ctypes.CDLL):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                     i, i, f, i, f, p]
+                                     i, i, i, f, i, f, p]
     lib.decode_attention.restype = ctypes.c_int

@@ -27,23 +27,26 @@ from ipex_llm_tpu_torch.ops.cuda.decode_attention import call_args
 
 NAME = "flash_attention"
 COUNTS = _build.Counts()
-_HEAD_DIMS = (96, 128, 256)  # the kernel's instances
+# (K, V) head widths of the kernel's instances
+INSTANCES = ((96, 96), (128, 128), (192, 128), (256, 256))
 Q_TILE = 64                  # queries per block (csrc kBQ)
 WARP_ROWS = 16               # queries per warp
 K_TILE = 64                  # keys per tile (csrc kBK)
 SKIP, FREE, MASKED = 0, 1, 2  # tile kinds (csrc kSkip, kFree, kMasked)
 
 
-def smem_plan(d: int) -> tuple[int, int, int]:
-    """(stages, shared-memory bytes, blocks an SM holds) at head dim
-    ``d`` (csrc ``Plan``): a ring of K/V tile pairs of 64 keys (three at
-    96 and 128, two at 256; a tile's rows 128 columns wide at 96), at 256
-    the block's 64 query rows beside them (Q is read through a
-    descriptor), and 1 KiB of slack to align the swizzle."""
-    tile = K_TILE * max(d, 128) * 2
+def smem_plan(d: int, dv: int | None = None) -> tuple[int, int, int]:
+    """(stages, shared-memory bytes, blocks an SM holds) at K width ``d``
+    and V width ``dv`` (None: ``d``) (csrc ``Plan``): a ring of K/V tile
+    pairs of 64 keys (three at 96 and 128, two at (192, 128) and 256; a
+    tile's rows 128 columns wide at 96), at 256 the block's 64 query rows
+    beside them (Q is read through a descriptor), and 1 KiB of slack to
+    align the swizzle."""
+    dv = d if dv is None else dv
+    pair = K_TILE * (max(d, 128) + max(dv, 128)) * 2
     stages = 3 if d <= 128 else 2
-    smem = stages * 2 * tile + (Q_TILE * d * 2 if d > 128 else 0) + 1024
-    return stages, smem, 2 if d <= 128 else 1
+    smem = stages * pair + (Q_TILE * d * 2 if d > 192 else 0) + 1024
+    return stages, smem, 2 if d <= 192 else 1
 
 
 def key_tiles(qmin: int, qmax: int, kvs: int, kvl: int, *, causal: bool,
@@ -136,19 +139,24 @@ def _launch(q, k, v, q_positions, kv_len, kv_start, won, scale, causal,
             window, softcap, lse=None):
     b, t, hq, d = q.shape
     _, s, hkv, dk = k.shape
+    dv = v.shape[3]
     dev = q.device
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 \
             or v.dtype != torch.bfloat16:
         raise TypeError("flash attention kernel takes bf16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if tuple(v.shape) != tuple(k.shape) or dk != d or k.shape[0] != b:
-        raise ValueError("k/v must be [B, S, Hkv, D] with q's B and D")
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
-    if k.stride() != v.stride() or k.stride(3) != 1:
-        raise ValueError("k and v need the same strides and a contiguous "
-                         "head dim")
-    if any(st % 8 for st in k.stride()[:3]):
+    if tuple(v.shape[:3]) != tuple(k.shape[:3]) or dk != d \
+            or k.shape[0] != b:
+        raise ValueError("k/v must be [B, S, Hkv, D] and [B, S, Hkv, Dv] "
+                         "with q's B and D")
+    if (d, dv) not in INSTANCES:
+        raise NotImplementedError(f"(K, V) head widths {(d, dv)} (kernel "
+                                  f"has {INSTANCES})")
+    if k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("k and v need a contiguous head dim")
+    if d == dv and k.stride() != v.stride():
+        raise ValueError("k and v of one width need the same strides")
+    if any(st % 8 for st in k.stride()[:3] + v.stride()[:3]):
         raise ValueError("k/v strides must be multiples of 8 elements")
     if not q.is_contiguous():
         raise ValueError("flash attention kernel needs a contiguous q")
@@ -164,14 +172,15 @@ def _launch(q, k, v, q_positions, kv_len, kv_start, won, scale, causal,
         raise ValueError("grid too large for one launch")
     qpos = q_positions.to(torch.int32).contiguous()
     lib = _build.load(NAME, _declare)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, t, hq, dv))
     err = lib.flash_attention(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(qpos.data_ptr()),
         ctypes.c_void_p(kv_len.data_ptr()),
         ctypes.c_void_p(kv_start.data_ptr()), ctypes.c_void_p(won.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), b, t, hq, hkv, s, d,
-        k.stride(0), k.stride(1), k.stride(2), ctypes.c_float(scale),
+        ctypes.c_void_p(out.data_ptr()), b, t, hq, hkv, s, d, dv,
+        k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
+        v.stride(2), ctypes.c_float(scale),
         int(causal), -1 if window is None else window,
         ctypes.c_float(0.0 if softcap is None else softcap),
         ctypes.c_void_p(0 if lse is None else lse.data_ptr()),
@@ -189,8 +198,8 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                softcap: float | None = None,
                bias: torch.Tensor | None = None) -> torch.Tensor:
     """The contract of ``ops.attention.sdpa_reference`` (q [B, T, Hq, D],
-    k/v [B, S, Hkv, D]), except that a query with no visible key gives 0.
-    Returns [B, T, Hq, D] in q's dtype."""
+    k [B, S, Hkv, D], v [B, S, Hkv, Dv]), except that a query with no
+    visible key gives 0.  Returns [B, T, Hq, Dv] in q's dtype."""
     if bias is not None:
         raise NotImplementedError("bias is not supported by the flash kernel")
     scale, kv_len, kv_start, won, window, softcap = call_args(
@@ -262,5 +271,6 @@ def _declare(lib: ctypes.CDLL):
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
     lib.flash_attention.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                    ll, ll, ll, f, i, i, f, p, p]
+                                    i, ll, ll, ll, ll, ll, ll, f, i, i, f, p,
+                                    p]
     lib.flash_attention.restype = ctypes.c_int

@@ -4,8 +4,8 @@
 ``csrc/ragged_paged_attention.cu`` holds the kernel, in two instances, and
 the note on their design and bound: query tiles for many-query rows, and
 a key split (a split pass, then a merge) for few-query rows (G*C <= 16:
-decode, the verify chunks of speculation); each at head_dim 128 and 256
-(:func:`smem_plan`).  :func:`split_plan` plans the split from shapes
+decode, the verify chunks of speculation); each at (K, V) head widths
+(128, 128), (256, 256) and DeepSeek's MLA (192, 128) (:func:`smem_plan`).  :func:`split_plan` plans the split from shapes
 alone.  :func:`ragged_paged_sdpa` keeps the reference's
 public signature, launches the kernel for CUDA tensors and runs
 :func:`ragged_paged_sdpa_plain` for CPU tensors.
@@ -23,7 +23,8 @@ from ipex_llm_tpu_torch.ops.cuda import _build
 
 NAME = "ragged_paged_attention"
 ROUTES = ("tiles", "split")     # the kernel's two instances
-_HEAD_DIMS = (128, 256)     # template instances in the source
+# (K, V) head widths of the template instances in the source
+INSTANCES = ((128, 128), (192, 128), (256, 256))
 _FEW_ROWS = 16              # G*C at or below: the key split (its blocks hold 16 rows)
 _TILE_KEYS = 64             # keys per shared-memory tile (csrc kKT)
 _TARGET_BLOCKS = 1024       # split-pass blocks to aim for (about 8 per SM)
@@ -33,7 +34,7 @@ _POOL_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 class _Counts(_build.Counts):
     """The kernel's launch accounting, with the launches of each instance
     (``by_route``: ``tiles``, ``split``; a split counts its merge launch;
-    ``by_head_dim``) beside the totals."""
+    ``by_head_dim``, by K width) beside the totals."""
 
     def reset(self):
         super().reset()
@@ -70,16 +71,19 @@ def ragged_paged_sdpa_plain(q, k_pool, v_pool, tables, kv_len, chunk_len, *,
     return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
 
 
-def smem_plan(d: int, split: bool) -> tuple[int, bool]:
+def smem_plan(d: int, split: bool, dv: int | None = None
+              ) -> tuple[int, bool]:
     """(shared-memory bytes, whether the query rows sit in shared memory)
-    of a block at head dim ``d`` (csrc ``Plan``): four 64-key K/V tiles
-    and the block's last visible slot; at 256 the block's query rows (64
-    for the query tiles, 16 for the key split) beside them, which leaves
-    room for one block an SM."""
-    tile = _TILE_KEYS * d * 2
-    if d <= 128:
-        return 4 * tile + 16, False
-    return 4 * tile + 128 + (_FEW_ROWS if split else 64) * d * 2, True
+    of a block at K width ``d`` and V width ``dv`` (None: ``d``) (csrc
+    ``Plan``): two staged pairs of a 64-key K tile and V tile, and the
+    block's last visible slot; at 256 the block's query rows (64 for the
+    query tiles, 16 for the key split) beside them, which leaves room for
+    one block an SM.  At (192, 128) Q stays in registers as at 128: 80
+    KiB."""
+    pair = _TILE_KEYS * (d + (d if dv is None else dv)) * 2
+    if d <= 192:
+        return 2 * pair + 16, False
+    return 2 * pair + 128 + (_FEW_ROWS if split else 64) * d * 2, True
 
 
 def split_plan(r: int, hkv: int, gc: int, maxp: int,
@@ -100,16 +104,19 @@ def split_plan(r: int, hkv: int, gc: int, maxp: int,
 def _launch(q, k_pool, v_pool, tables, kv_len, chunk_len, scale):
     r, c, hq, d = q.shape
     n_pages, hkv, ps, dk = k_pool.shape
+    dv = v_pool.shape[3]
     dev = q.device
     if q.dtype != torch.bfloat16:
         raise TypeError(f"ragged attention kernel takes bf16 q, got {q.dtype}")
     if k_pool.dtype not in _POOL_DTYPES or v_pool.dtype != k_pool.dtype:
         raise TypeError("ragged attention kernel takes bf16 or float8_e5m2 "
                         f"pools, got {k_pool.dtype}/{v_pool.dtype}")
-    if tuple(v_pool.shape) != tuple(k_pool.shape) or dk != d:
-        raise ValueError("k/v pools must be [P, Hkv, ps, D] with q's D")
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d} (kernel has {_HEAD_DIMS})")
+    if tuple(v_pool.shape[:3]) != tuple(k_pool.shape[:3]) or dk != d:
+        raise ValueError("k/v pools must be [P, Hkv, ps, D] and [P, Hkv, "
+                         "ps, Dv] with q's D")
+    if (d, dv) not in INSTANCES:
+        raise NotImplementedError(f"(K, V) head widths {(d, dv)} (kernel "
+                                  f"has {INSTANCES})")
     if tables.dtype != torch.int32 or tables.dim() != 2 \
             or tables.shape[0] != r:
         raise ValueError("tables must be int32 [R, maxP]")
@@ -131,10 +138,10 @@ def _launch(q, k_pool, v_pool, tables, kv_len, chunk_len, scale):
     maxp = tables.shape[1]
     splits, pps = split_plan(r, hkv, gc, maxp, ps)
     lib = _build.load(NAME, _declare)
-    out = torch.empty_like(q)
+    out = q.new_empty((r, c, hq, dv))
     ws_acc = ws_ml = None
     if gc <= _FEW_ROWS:
-        ws_acc = torch.empty((r, hkv, splits, gc, d), dtype=torch.float32,
+        ws_acc = torch.empty((r, hkv, splits, gc, dv), dtype=torch.float32,
                              device=dev)
         ws_ml = torch.empty((r, hkv, splits, gc, 2), dtype=torch.float32,
                             device=dev)
@@ -143,7 +150,7 @@ def _launch(q, k_pool, v_pool, tables, kv_len, chunk_len, scale):
         kv_len.data_ptr(), chunk_len.data_ptr(), out.data_ptr(),
         0 if ws_acc is None else ws_acc.data_ptr(),
         0 if ws_ml is None else ws_ml.data_ptr(),
-        r, c, hq, hkv, d, ps, n_pages, maxp, splits, pps,
+        r, c, hq, hkv, d, dv, ps, n_pages, maxp, splits, pps,
         int(k_pool.dtype == torch.float8_e5m2), scale,
         _build.stream_handle(q))
     # the key split launches the split pass and then the merge
@@ -162,12 +169,13 @@ def ragged_paged_sdpa(q: torch.Tensor, k_pool: torch.Tensor,
                       scale: float | None = None) -> torch.Tensor:
     """Ragged-batch attention straight off the paged pool.
 
-    q [R, C, Hq, D] right-padded per-row chunks; k/v_pool [P, Hkv, ps, D]
-    in storage dtype (bf16 or float8_e5m2); tables [R, maxP] int32 (-1 =
+    q [R, C, Hq, D] right-padded per-row chunks; k_pool [P, Hkv, ps, D]
+    and v_pool [P, Hkv, ps, Dv] in storage dtype (bf16 or float8_e5m2);
+    tables [R, maxP] int32 (-1 =
     unallocated); kv_len [R] valid slots including this chunk; chunk_len [R]
     valid queries (0 = idle row, None = all C).  Row i's queries sit at
     slots ``[kv_len - chunk_len, kv_len)``; the chunk's own K/V must already
-    be in the pool.  Returns [R, C, Hq, D] in q's dtype."""
+    be in the pool.  Returns [R, C, Hq, Dv] in q's dtype."""
     r, c, hq, d = q.shape
     if hq % k_pool.shape[1]:
         raise NotImplementedError("Hq must be a multiple of Hkv")
@@ -210,6 +218,6 @@ SHARDED = _Counts()     # launches and plain calls made through B1s
 def _declare(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ragged_paged_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
-                                           i, i, i, i, i, i, i, i, i,
+                                           i, i, i, i, i, i, i, i, i, i,
                                            ctypes.c_float, p]
     lib.ragged_paged_attention.restype = ctypes.c_int

@@ -3,9 +3,9 @@
 The frequency table of every scaling kind the reference builds (default,
 linear, dynamic NTK, llama3, yarn and longrope) and its ``mscale``, in
 numpy float64 as the reference computes them, so the tables are the
-reference's bit for bit; the "half" (rotate_half) layout, over the whole
-head or its first ``rotary_dim`` columns (partial rotary).  The
-interleaved ("two") layout raises (ROADMAP item 14).
+reference's bit for bit; the "half" (rotate_half) layout and the
+interleaved "two" layout (DeepSeek's, pairs ``(x[2i], x[2i+1])``), over
+the whole head or its first ``rotary_dim`` columns (partial rotary).
 
 The reference's departures from HF, mirrored here (ROADMAP queue 3): the
 table is built once, at the model's ``max_position_embeddings``, so
@@ -107,19 +107,29 @@ def cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor,
     return torch.cos(angles) * mscale, torch.sin(angles) * mscale
 
 
+ROPE_LAYOUTS = ("half", "two")
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                layout: str = "half") -> torch.Tensor:
     """Rotate q or k: x [B, T, H, D]; cos/sin [B, T, D/2]; computed in fp32
-    and returned in ``x.dtype``."""
-    if layout != "half":
+    and returned in ``x.dtype``.  "half" rotates the pairs ``(x[i],
+    x[i + D/2])``, "two" the interleaved pairs ``(x[2i], x[2i+1])`` (the
+    reference's ``ops/rope.py:141-145``)."""
+    if layout not in ROPE_LAYOUTS:
         raise NotImplementedError(f"rope layout {layout!r} is not ported")
     dt = x.dtype
     xf = x.to(torch.float32)
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
-    d2 = x.shape[-1] // 2
-    x1, x2 = xf[..., :d2], xf[..., d2:]
-    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    if layout == "half":
+        d2 = x.shape[-1] // 2
+        x1, x2 = xf[..., :d2], xf[..., d2:]
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    else:
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+        out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s],
+                          dim=-1).reshape(xf.shape)
     return out.to(dt)
 
 

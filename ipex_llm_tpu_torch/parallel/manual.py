@@ -45,8 +45,8 @@ def ineligible_reason(cfg: ModelConfig, params: dict, axes: dict,
     """Why the per-rank layout cannot serve ``(cfg, params)`` over a mesh
     of ``axes`` (axis name to size, as a mesh's ``shape``) with the
     engine's ``step_budget``; None when it can.  The reference's rule, its
-    reasons word for word (the port's configs have no MLA, alibi or 2D
-    rope, and every gated MLP)."""
+    reasons word for word (MLA, DeepSeek's attention, is refused; the
+    port's configs have no alibi or 2D rope, and every gated MLP)."""
     tp = axes.get("tp", 1)
     if tp <= 1:
         return "no tp axis"
@@ -58,6 +58,8 @@ def ineligible_reason(cfg: ModelConfig, params: dict, axes: dict,
     if cfg.num_heads % tp or cfg.num_kv_heads % tp:
         return (f"heads do not divide tp ({cfg.num_heads}q/"
                 f"{cfg.num_kv_heads}kv over tp={tp})")
+    if cfg.is_mla:
+        return "MLA attention (low-rank q/kv) not manual-sharded yet"
     layers = params.get("layers", {})
     if "layers_dense" in params or "moe_gate_up" in layers:
         return "MoE stacks not manual-sharded yet"

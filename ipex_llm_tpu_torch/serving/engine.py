@@ -618,7 +618,7 @@ class ServingEngine:
             raise ValueError("spec_ngram must be >= 1 when spec_k > 0")
         self.page_bytes = paged_page_bytes(
             cfg.num_layers, cfg.num_kv_heads, ec.page_size, cfg.head_dim,
-            storage=ec.kv_storage)
+            cfg.v_dim, storage=ec.kv_storage)
         if ec.kv_pool_bytes:
             pages = ec.kv_pool_bytes // self.page_bytes
             floor = ec.max_rows + 2   # one page per row + scratch
@@ -648,7 +648,7 @@ class ServingEngine:
         self.cache = PagedKVCache.init(
             cfg.num_layers, ec.n_pages, r, ec.max_pages,
             self._fwd_cfg.num_kv_heads, ec.page_size, cfg.head_dim,
-            storage=ec.kv_storage, device=self.device)
+            storage=ec.kv_storage, device=self.device, v_head_dim=cfg.v_dim)
         self._step_budget = (ec.prefill_bucket if ec.step_token_budget is None
                              else int(ec.step_token_budget))
         self._mixed_mode = self._step_budget > 0

@@ -206,7 +206,8 @@ class TPUModelForCausalLM:
         dev = self.params["embed"].device
         cfg = self.config
         cache = make_cache("normal", cfg.num_layers, b, max(t, 1),
-                           cfg.num_kv_heads, cfg.head_dim, device=dev)
+                           cfg.num_kv_heads, cfg.head_dim,
+                           v_head_dim=cfg.v_dim, device=dev)
         pos = torch.arange(t, device=dev)[None].expand(b, t)
         logits, _ = decoder_forward(cfg, self.params,
                                     torch.from_numpy(tokens).to(dev), cache,

@@ -38,6 +38,14 @@ bf16 and e5m2 caches.  Their calls are captured in a CUDA graph and
 replayed, so the time is the kernels' device time per call, not the pace
 at which Python can launch them; B3 rotates over copies of the cache
 layer, so each call finds it out of L2, as each layer's is in decode.
+
+The other head widths, as device time from CUDA-graph replays
+(:func:`width_cases`): B1 at 128 (32 heads over 32, C = 1, 4 and 128)
+and 256 (Gemma-7B's 16 heads over 16, C = 1 and 128), 128-slot pages, 8
+rows of up to 2048 slots, bf16 pool, B3 at 256
+(Gemma-2-9B's 16 over 8) and 96 (Phi-3-mini's 32 over 32) over 8 rows of
+a 4096-slot bf16 layer, B4 at the same widths on 8 rows of T = 128 at
+their own slots of that layer.
 """
 
 from __future__ import annotations
@@ -135,6 +143,49 @@ def dense_cases(torch, dev, gen, b3, b4) -> dict:
     return out
 
 
+def width_cases(torch, dev, gen, b1, b3, b4) -> dict:
+    """B1 at head_dim 256, B3 and B4 at 256 and 96 (module docstring):
+    label -> list of calls."""
+    out = {}
+    r, ps, maxp = 8, 128, 16
+    tables = (1 + torch.randperm(r * maxp, generator=gen, device=dev)).to(
+        torch.int32).reshape(r, maxp)
+    kv_len = torch.tensor(LENS, dtype=torch.int32, device=dev)
+    for d, h, cs in ((128, 32, (1, 4, 128)), (256, 16, (1, 128))):
+        kp = torch.randn(1 + r * maxp, h, ps, d, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        vp = torch.randn(1 + r * maxp, h, ps, d, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        for c in cs:
+            q = torch.randn(r, c, h, d, generator=gen, device=dev).to(
+                torch.bfloat16)
+            chunk = torch.full((r,), c, dtype=torch.int32, device=dev)
+            kvl = kv_len.clamp(min=c)
+            out[f"b1 D={d} C={c} (graph)"] = [
+                lambda q=q, kp=kp, vp=vp, kvl=kvl, chunk=chunk:
+                    b1.ragged_paged_sdpa(q, kp, vp, tables, kvl, chunk)] * 10
+    s, lens = 4096, [64, 700, 1500, 2047, 2048, 2600, 3500, 4096]
+    kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for d, hq, hkv in ((256, 16, 8), (96, 32, 32)):
+        k = torch.randn(r, hkv, s, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn(r, hkv, s, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        q1 = torch.randn(r, 1, hq, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        out[f"b3 D={d}"] = [lambda q=q1, k=k, v=v: b3.decode_sdpa(
+            q, k, v, kv_len=kvl)] * 10
+        qt = torch.randn(r, 128, hq, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        kvl128 = kvl.clamp(min=128)
+        qpos = (kvl128.long() - 128)[:, None] + torch.arange(128, device=dev)
+        out[f"b4 D={d} T=128 x 8"] = [
+            lambda q=qt, k=k, v=v, qpos=qpos, kvl=kvl128: b4.flash_sdpa(
+                q, k.transpose(1, 2), v.transpose(1, 2), q_positions=qpos,
+                kv_len=kvl)] * 10
+    return out
+
+
 B5_LENS = [1, 100, 130, 511, 900, 1300, 2047, 2048]
 
 
@@ -192,7 +243,9 @@ def time_tree(root: pathlib.Path) -> dict:
     from ipex_llm_tpu_torch.ops.cuda import paged_attention as b5
 
     for label, calls in {**dense_cases(torch, dev, gen, b3, b4),
-                         **b5_cases(torch, dev, gen, b5)}.items():
+                         **b5_cases(torch, dev, gen, b5),
+                         **width_cases(torch, dev, gen, b1, b3,
+                                       b4)}.items():
         out[label] = graph_ms(torch, calls)
         torch.cuda.empty_cache()
     return out

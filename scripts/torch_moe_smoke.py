@@ -430,8 +430,8 @@ def moe_phase(kernels: dict, card: str, fail, device, graph_ms,
         rec = []
         orig = decoder_mod.route
 
-        def route(cfg, logits):
-            w, idx = orig(cfg, logits)
+        def route(cfg, logits, bias=None):
+            w, idx = orig(cfg, logits, bias)
             rec.append((logits.float().cpu(), idx.cpu(), w.cpu()))
             if replay is not None:
                 _, idx_r, w_r = replay[len(rec) - 1]

@@ -4,7 +4,8 @@ and tiled (M > 8) instances in every block format, B2e (B2's tile over
 rows sorted by expert) in every block format and row tile, B1 (ragged
 paged attention) in both its instances
 (query tiles, key split) at head_dim 128 and 256, B3 (dense decode
-attention) and B4 (flash attention) at head_dim 96, 128 and 256 and, for
+attention) and B4 (flash attention) at head_dim 96, 128 and 256, all
+three at DeepSeek's K width 192 and V width 128 and, for
 training, B4's LSE instance and backward and B2^T
 (the dequant-matmul's input gradient).  Every case carries the ``cuda``
 marker and
@@ -212,7 +213,8 @@ def test_qmatmul_experts_kernel_matches_plain(qtype, instance, counts,
             assert ((got - want).abs() <= ULP * top).all(), (n, keep_f32)
 
 
-def _b1_case(storage: str, c: int, g: int, gen, d: int = 128):
+def _b1_case(storage: str, c: int, g: int, gen, d: int = 128,
+             dv: int | None = None):
     """Rows at staggered lengths over 32-slot pages in random order, -1
     past each row's last page; a decode row, chunk rows (one shorter than
     its history allows, one full), and an idle row with the sentinel
@@ -221,7 +223,7 @@ def _b1_case(storage: str, c: int, g: int, gen, d: int = 128):
     dtype = torch.bfloat16 if storage == "bf16" else torch.float8_e5m2
     n_pages = 1 + r * maxp
     k = torch.randn(n_pages, hkv, ps, d, generator=gen).to(dtype)
-    v = torch.randn(n_pages, hkv, ps, d, generator=gen).to(dtype)
+    v = torch.randn(n_pages, hkv, ps, dv or d, generator=gen).to(dtype)
     chunk = torch.tensor([1, c, max(1, c // 2), c, 0], dtype=torch.int32)
     kv_len = torch.tensor([150, 190, 41, c, maxp * ps], dtype=torch.int32)
     tables = (1 + torch.randperm(r * maxp, generator=gen)).to(
@@ -256,11 +258,21 @@ def test_ragged_attention_head_dim_256_matches_plain(storage, g, c):
     _ragged_case(storage, g, c, 256)
 
 
-def _ragged_case(storage, g, c, d):
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("c", [1, 4, 16, 128])
+def test_ragged_attention_head_dim_192_matches_plain(storage, c):
+    """B1's (192, 128) instances (DeepSeek's MLA: K 192 wide, V 128, one
+    kv head a query head) on the cases of the 128 ones: the key split at
+    C = 1, 4 and 16, the query tiles at 128; the output 128 wide."""
+    _ragged_case(storage, 1, c, 192, 128)
+
+
+def _ragged_case(storage, g, c, d, dv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     args = _b1_case(storage, c, g, torch.Generator().manual_seed(
-        10 * c + g + d), d)
+        10 * c + g + d), d, dv)
     want = b1.ragged_paged_sdpa(*args).float()
     b1.COUNTS.reset()
     got = b1.ragged_paged_sdpa(*[t.cuda() for t in args]).float().cpu()
@@ -269,7 +281,8 @@ def _ragged_case(storage, g, c, d):
     assert b1.COUNTS.by_route["split" if split else "tiles"] == \
         b1.COUNTS.launches == b1.COUNTS.by_head_dim[d]
     assert b1.COUNTS.plain_calls == 0
-    assert torch.isfinite(got).all()
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    assert got.shape[-1] == (dv or d)
     for i, n in enumerate(args[5].tolist()):
         if n == 0:
             assert not got[i].any()
@@ -336,7 +349,16 @@ def test_decode_attention_head_dim_96_matches_plain(storage, g, variant):
     _decode_case(storage, g, variant, 96)
 
 
-def _decode_case(storage, g, variant, d):
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
+def test_decode_attention_head_dim_192_matches_plain(storage, variant):
+    """B3's (192, 128) instance (K 192, V 128, one stage fewer) on the
+    cases of the 128 instance at DeepSeek's group of 1."""
+    _decode_case(storage, 1, variant, 192, 128)
+
+
+def _decode_case(storage, g, variant, d, dv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator().manual_seed(100 * g + len(variant) + d)
@@ -345,7 +367,7 @@ def _decode_case(storage, g, variant, d):
     q = (torch.randn(b, 1, hkv * g, d, generator=gen)
          * (CAP_Q if variant == "softcap" else 1.0)).to(torch.bfloat16)
     k = torch.randn(b, hkv, s, d, generator=gen).to(dtype)
-    v = torch.randn(b, hkv, s, d, generator=gen).to(dtype)
+    v = torch.randn(b, hkv, s, dv or d, generator=gen).to(dtype)
     kw = dict(kv_len=torch.tensor([700, 333, 65, 1, 150], dtype=torch.int32),
               kv_start=torch.tensor([0, 37, 64, 1, 100], dtype=torch.int32),
               window_on=torch.tensor([1, 1, 0, 1, 1], dtype=torch.int32),
@@ -403,7 +425,18 @@ def test_flash_attention_head_dim_96_matches_plain(t, g, variant):
     _flash_case(t, g, variant, 96, lead=64)
 
 
-def _flash_case(t, g, variant, d, lead=0):
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 200, 1000])
+@pytest.mark.parametrize("variant", B4_VARIANTS)
+def test_flash_attention_head_dim_192_matches_plain(t, variant):
+    """B4's (192, 128) instance (a 192-column K tile, a 128-column V tile,
+    two stages; K and V through their own strides) on the cases of the 128
+    instance at DeepSeek's group of 1, and at T = 4 after 64 cached
+    slots."""
+    _flash_case(t, 1, variant, 192, lead=64, dv=128)
+
+
+def _flash_case(t, g, variant, d, lead=0, dv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator().manual_seed(t + g + d)
@@ -411,7 +444,7 @@ def _flash_case(t, g, variant, d, lead=0):
     q = (torch.randn(b, t, hkv * g, d, generator=gen)
          * (CAP_Q if variant == "softcap" else 1.0)).to(torch.bfloat16)
     k = torch.randn(b, hkv, s, d, generator=gen).to(torch.bfloat16)
-    v = torch.randn(b, hkv, s, d, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, hkv, s, dv or d, generator=gen).to(torch.bfloat16)
     kw = dict(kv_start=torch.tensor([0, min(77, t - 1)], dtype=torch.int32),
               kv_len=torch.tensor([lead + t] * b, dtype=torch.int32),
               q_positions=lead + torch.arange(t)[None].expand(b, t))

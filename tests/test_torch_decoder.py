@@ -41,21 +41,23 @@ def test_config_outside_the_slice_raises():
     qkv bias are in the slice since the qwen2 and gemma2 families, q/k
     norms and experts since qwen3 and the MoE families, the gemma family
     and partial rotary, here a rope table narrower than head_dim, since
-    phi3 and gemma; DeepSeek's routing and routed scaling factor and the
-    interleaved rope layout still raise)."""
+    phi3 and gemma, DeepSeek's routing, routed scaling factor and
+    interleaved rope layout since the deepseek families); other families,
+    rope layouts and biases still raise)."""
     cfg = tiny_cfg()
     fields = dataclasses.asdict(cfg)
     for over in ({"mlp_bias": True}, {"attention_out_bias": True},
-                 {"moe_n_group": 4}, {"moe_score_func": "sigmoid"},
-                 {"moe_router_scale": 2.5},
-                 {"model_type": "deepseek_v2"}, {"rope_layout": "two"}):
+                 {"model_type": "minicpm3"}, {"rope_layout": "neox"}):
         with pytest.raises(NotImplementedError):
             ModelConfig.from_fields({**fields, **over})
     for over in ({"sliding_window": 64}, {"attn_softcap": 30.0},
                  {"attention_bias": True}, {"qk_norm": True},
                  {"num_experts": 4, "num_experts_per_tok": 2,
                   "moe_intermediate_size": 32},
-                 {"model_type": "gemma"}, {"head_dim": 16}):
+                 {"model_type": "gemma"}, {"head_dim": 16},
+                 {"moe_n_group": 4}, {"moe_score_func": "sigmoid"},
+                 {"moe_router_scale": 2.5},
+                 {"model_type": "deepseek_v2"}, {"rope_layout": "two"}):
         assert ModelConfig.from_fields({**fields, **over})
 
 

@@ -1123,3 +1123,45 @@ def test_qmatmul_dx_plain_matches_jax_vjp(qtype):
     got = b2t.qmatmul_dx_plain(dy_t, _port_qtensor(ref_qt))[:, :k]
     err = np.abs(_f32(got) - want).max(axis=1)
     assert (err <= 2.0 ** -7 * np.abs(want).max(axis=1)).all()
+
+
+# -- the (192, 128) instances: DeepSeek's MLA ----------------------------------
+
+@pytest.mark.parametrize("r,hkv", [(8, 16), (1, 16), (8, 128), (1, 128)])
+def test_ragged_split_plan_at_mla_widths(r, hkv):
+    """B1's key split at G = 1, C = 1 (every MLA decode row: one kv head a
+    query head), for V2-Lite's 16 heads and V3's 128 over 2048-slot rows
+    of 128-slot pages: the rows' blocks reach about 1024 (or every page
+    of the row has its own split), each split a whole number of pages;
+    the (192, 128) plan keeps Q in registers, two staged pairs of a
+    192-column K tile and a 128-column V tile, 80 KiB, two blocks an
+    SM in either instance."""
+    maxp, ps = 16, 128
+    splits, pps = b1.split_plan(r, hkv, 1, maxp, ps)
+    assert splits * pps >= maxp > (splits - 1) * pps
+    assert r * hkv * splits >= min(1024, r * hkv * maxp)
+    for split in (False, True):
+        smem, q_smem = b1.smem_plan(192, split, 128)
+        assert not q_smem and smem == 2 * 64 * (192 + 128) * 2 + 16
+        assert 2 * (smem + 1024) <= SMEM_SM
+        # the key split's warp merge ([4][16][Dv] fp32 and (m, l)) fits
+        assert 4 * 16 * 128 * 4 + 4 * 16 * 8 <= smem
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+def test_mla_ring_and_tile_plans_fit_the_sm(fp8):
+    """B3's (192, 128) ring keeps one stage fewer than the (D, D) ones
+    (two bf16 stages of 40 KiB pairs, or three raw e5m2 stages of 20 KiB
+    and the widened pair), and B4's two stages of 40 KiB pairs: two blocks
+    an SM for both; the (D, D) plans are those of before."""
+    stages, smem, resident = b3.ring_plan(192, fp8, 128)
+    assert (stages, smem, resident) == ((3, 100 * 1024, 2) if fp8
+                                        else (2, 80 * 1024, 2))
+    assert resident * (smem + 1024) <= SMEM_SM
+    assert b3.ring_plan(128, fp8) == b3.ring_plan(128, fp8, 128)
+    stages, smem, resident = b4.smem_plan(192, 128)
+    assert (stages, smem, resident) == (2, 81 * 1024, 2)
+    assert resident * (smem + 1024) <= SMEM_SM
+    assert b4.smem_plan(256) == b4.smem_plan(256, 256)
+    # the decode split at V2-Lite's 16 heads over 8 rows fills one wave
+    assert b3.split_plan(8, 16, 4096, 192, 128) == 2 * 132 // 128

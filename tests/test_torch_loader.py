@@ -33,7 +33,7 @@ from ipex_llm_tpu_torch.models import build as port_build
 from ipex_llm_tpu_torch.models import serialize
 from ipex_llm_tpu_torch.models.build import build_params
 from ipex_llm_tpu_torch.models.convert import params_from_reference
-from ipex_llm_tpu_torch.models.families import MoEScheme, get_family
+from ipex_llm_tpu_torch.models.families import get_family
 from ipex_llm_tpu_torch.models.loader import (CheckpointReader, read_config,
                                               save_safetensors)
 from ipex_llm_tpu_torch.quantize.core import QTensor
@@ -375,7 +375,6 @@ def test_build_params_refuses_what_is_not_ported(ckpt):
     r = CheckpointReader(ckpt)
     for kw in (dict(imatrix_data={"0_qkv": [1.0]}),
                dict(embedding_qtype="sym_int8"),
-               dict(moe_scheme=MoEScheme(score_bias="e_score_correction")),
                dict(qkv_transform=lambda w, c: w),
                dict(transpose_weights=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP item"):
@@ -388,7 +387,7 @@ def test_build_params_refuses_what_is_not_ported(ckpt):
     for q in ("mixed_fp4", "mixed_fp8"):
         with pytest.raises(NotImplementedError):
             port_build.quantize_weight(torch.zeros(64, 64), q)
-    for other in ("aquila", "phixtral", "deepseek_v2", "olmo2"):
+    for other in ("aquila", "phixtral", "minicpm3", "olmo2"):
         with pytest.raises(NotImplementedError, match="item 14"):
             get_family(other)
 

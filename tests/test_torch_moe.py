@@ -195,15 +195,28 @@ def test_published_config_matches_reference_family(family):
 
 
 def test_config_refuses_what_is_not_ported():
-    """DeepSeek's routing fields and dense prefix layers raise naming item
-    14; an MoE config without its top-k is invalid; ``from_fields`` no
-    longer skips unknown ``moe_*`` fields."""
+    """DeepSeek's routing fields and dense prefix layers are in the slice
+    since the deepseek families, an ungated or biased MLP still raises
+    naming item 14; a score function or group score the reference does not
+    know raises; an MoE config without its top-k, or groups that do not
+    divide the experts, is invalid; ``from_fields`` no longer skips
+    unknown ``moe_*`` fields."""
     fields = dataclasses.asdict(mixtral_8x7b_config())
-    for over in ({"moe_n_group": 8}, {"moe_topk_group": 3},
+    for over in ({"moe_n_group": 4, "moe_topk_group": 2},
                  {"moe_score_func": "sigmoid"}, {"moe_group_score": "top2sum"},
                  {"moe_score_bias": True}, {"moe_layer_start": 1},
-                 {"num_shared_experts": 2}):
+                 {"num_shared_experts": 2}, {"moe_router_scale": 2.5}):
+        assert ModelConfig.from_fields({**fields, **over})
+    for over in ({"mlp_gated": False}, {"mlp_bias": True}):
         with pytest.raises(NotImplementedError, match="item 14"):
+            ModelConfig.from_fields({**fields, **over})
+    for over in ({"moe_score_func": "sqrtsoftplus"},
+                 {"moe_group_score": "mean"}):
+        with pytest.raises(NotImplementedError):
+            ModelConfig.from_fields({**fields, **over})
+    for over in ({"moe_n_group": 3, "moe_topk_group": 1},
+                 {"moe_n_group": 4, "moe_topk_group": 5}):
+        with pytest.raises(ValueError):
             ModelConfig.from_fields({**fields, **over})
     with pytest.raises(NotImplementedError, match="unknown"):
         ModelConfig.from_fields({**fields, "moe_capacity_factor": 2.0})

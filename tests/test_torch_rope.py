@@ -131,8 +131,9 @@ def test_rope_from_hf_matches_reference_family(hf):
 @pytest.mark.parametrize("head_dim,prf", [(96, 0.75), (128, 0.5),
                                           (64, 1.0)])
 def test_partial_rotary_matches_reference(head_dim, prf):
-    """The first ``rotary_dim`` columns rotate ("half" layout over them),
-    the rest pass through bitwise."""
+    """The first ``rotary_dim`` columns rotate ("half" layout over them,
+    and the interleaved "two" layout likewise), the rest pass through
+    bitwise; a layout the reference does not know raises."""
     rng = np.random.default_rng(head_dim)
     sc = rope.RopeScaling(head_dim=head_dim, partial_rotary_factor=prf)
     rd = sc.rotary_dim
@@ -152,5 +153,11 @@ def test_partial_rotary_matches_reference(head_dim, prf):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7,
                                atol=1e-2)
     assert torch.equal(got[..., rd:], xt[..., rd:])
+    want2 = np.asarray(jnp.concatenate(
+        [ref_rope.apply_rope(xj[..., :rd], cj, sj, "two"), xj[..., rd:]],
+        axis=-1).astype(jnp.float32))
+    got2 = rope.apply_rope_partial(xt, ct, st, rd, "two")
+    np.testing.assert_allclose(got2.float().numpy(), want2, rtol=2.0 ** -7,
+                               atol=1e-2)
     with pytest.raises(NotImplementedError):
-        rope.apply_rope_partial(xt, ct, st, rd, "two")
+        rope.apply_rope_partial(xt, ct, st, rd, "neox")
