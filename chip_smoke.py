@@ -207,7 +207,20 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     expert selections against the CPU's ``route`` where clear); a 2-layer
     V2-Lite-width checkpoint through ``from_pretrained`` and
     ``build_server``.
-15. ``train`` (``scripts/torch_train_smoke.py``): the training path's
+15. ``gpt_families`` (``scripts/torch_gpt_families_smoke.py``): B1, B3
+    and B4 at head_dim 80 against their plain versions (B1 at Phi-2's 32
+    heads, C = 1, 4 and 128, bf16 and e5m2 pools; B3 at B = 8 over bf16
+    and e5m2; B4 at T = 128 x 8 and 2048 x 2), timed beside their bounds
+    and SDPA; 2-layer Phi-2, phixtral, Pythia-6.9B and GPT-J-6B decoders
+    at their published widths (the vocabulary cut) card against CPU
+    (phixtral's card forward on the CPU's expert selections); Phi-2 at
+    full width and depth and phixtral, Pythia-6.9B and GPT-J-6B at full
+    width, 8 layers, through ``ServingEngine`` (eight requests over a bf16
+    pool; B1 at 80, 128 and 256, B2, B2e for phixtral), Phi-2's
+    ``generate()`` (B3 and B4 at 80); a 4-layer Phi-2-width checkpoint
+    through ``from_pretrained``, ``save_low_bit``/``load_low_bit``
+    (bitwise) and ``generate()``.
+16. ``train`` (``scripts/torch_train_smoke.py``): the training path's
     kernels, B4's LSE instance and backward (causal, T = 1, 63, 1024 and
     2048, G = 1 and 4, ``kv_start`` > 0 on a row; dQ, dK, dV per row
     within 2^-6 of the row's largest plain value, bitwise on a second
@@ -222,7 +235,7 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     memory and one step's profile; ``merge_and_unload`` and a
     ``generate()`` of the merged model; a full-parameter and a LISA step
     at full width, 2 layers.
-16. ``serve_tp`` (``scripts/torch_tp_smoke.py``, run as a child process
+17. ``serve_tp`` (``scripts/torch_tp_smoke.py``, run as a child process
     that spawns its ranks; the kernels already built): tensor-parallel
     serving, two gloo ranks on this one card (each prints its backend).
     The five sharded wrappers at their shard shapes against the unsharded
@@ -2334,14 +2347,23 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
 
-    # -- 15. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
+    # -- 15. the GPT-style block: phi, phixtral, gpt_neox, gptj; D = 80 ----
+    from torch_gpt_families_smoke import gpt_families_phase
+
+    report["gpt_families"] = gpt_families_phase(kernels, card, fail, dev,
+                                                graph_ms)
+    print(f"gpt_families phase: {report['gpt_families']['phase_s']:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 16. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
     from torch_train_smoke import train_phase
 
     report["train"] = train_phase(kernels, card, fail, dev, graph_ms)
     print(f"train phase: {report['train']['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    # -- 16. tensor-parallel serving: two gloo ranks on this card ------------
+    # -- 17. tensor-parallel serving: two gloo ranks on this card ------------
     def serve_tp_phase() -> dict:
         """``scripts/torch_tp_smoke.py`` in a process of its own (its ranks
         are processes of theirs); its last line must say ok and carry a
@@ -2463,6 +2485,19 @@ def main() -> int:
 
     def ds_err(kernel):
         return max(r["max_abs_err"] for r in ds["kernels"]
+                   if r["kernel"] == kernel)
+    # the head_dim-80 instances of the gpt_families phase: launches from
+    # Phi-2's serving run (B1) and its generate() (B3, B4)
+    gf = report["gpt_families"]
+    gf_serve = {r["model"]: r for r in gf["serve"]}
+    gf_phi, gf_gen = gf_serve["Phi-2"], gf["generate"][0]
+
+    def gf_row(kernel, case):
+        return next(r for r in gf["kernels"] if r["kernel"] == kernel
+                    and r["case"] == case and r.get("pool", "bf16") == "bf16")
+
+    def gf_err(kernel):
+        return max(r["max_abs_err"] for r in gf["kernels"]
                    if r["kernel"] == kernel)
     src = "ipex_llm_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2711,6 +2746,51 @@ def main() -> int:
          **{k: ds_row("flash_attention",
                       "(192, 128) V2-Lite T=2048 x 2 prefill S=2048")[k]
             for k in keys}},
+        # B1, B3 and B4 at head_dim 80 (Phi-2, phixtral)
+        {"name": "ragged_paged_attention[D=80]", "route": "cuda",
+         "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=128 Hq=Hkv=32 D=80 page 128, 2048 slots, bf16 "
+                  "pool, chunk+decode+idle rows (query tiles)",
+         "launches": gf_phi["b1_by_route"]["tiles"],
+         "launches_run": "Phi-2 serving, 32 layers, bf16 pool",
+         "launches_phixtral": gf_serve["phixtral-4x2_8"]["b1_by_route"][
+             "tiles"],
+         "max_abs_err": gf_err("ragged_paged_attention"),
+         **{k: gf_row("ragged_paged_attention",
+                      "D=80 Phi-2 Hq=Hkv=32 C=128")[k] for k in keys}},
+        {"name": "ragged_paged_attention[D=80, split]", "route": "cuda",
+         "source": src + "ragged_paged_attention.cu",
+         "replaces":
+             "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+         "shape": "R=8 C=1 Hq=Hkv=32 D=80 page 128, rows of 102-2045 "
+                  "slots, bf16 pool (key split and merge)",
+         "launches": gf_phi["b1_by_route"]["split"],
+         "launches_run": "Phi-2 serving, 32 layers, bf16 pool",
+         "launches_phixtral": gf_serve["phixtral-4x2_8"]["b1_by_route"][
+             "split"],
+         "max_abs_err": gf_err("ragged_paged_attention"),
+         **{k: gf_row("ragged_paged_attention",
+                      "D=80 Phi-2 Hq=Hkv=32 C=1")[k] for k in keys}},
+        {"name": "decode_attention[D=80]", "route": "cuda",
+         "source": src + "decode_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/decode_attention.py:166",
+         "shape": "B=8 Hq=Hkv=32 D=80 S=2048, bf16 cache",
+         "launches": gf_gen["launches"]["decode_attention"],
+         "launches_run": "Phi-2 generate(), 32 layers",
+         "max_abs_err": gf_err("decode_attention"),
+         **{k: gf_row("decode_attention", "D=80 Phi-2 B=8 Hq=Hkv=32 "
+                      "S=2048")[k] for k in keys}},
+        {"name": "flash_attention[D=80]", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/flash_attention.py:166",
+         "shape": "B=8 T=128 Hq=Hkv=32 D=80 S=2048, per-row query slots",
+         "launches": gf_gen["launches"]["flash_attention"],
+         "launches_run": "Phi-2 generate(), 32 layers",
+         "max_abs_err": gf_err("flash_attention"),
+         **{k: gf_row("flash_attention", "D=80 Phi-2 T=128 x 8 chunks "
+                      "S=2048")[k] for k in keys}},
         # B2e: B2 as the MoE dispatch reaches it under jax.vmap in the
         # reference; each entry's launches are its instance's in the
         # model's serving run at the engine's default prefill budget (the

@@ -67,6 +67,14 @@
 // SM, that instance keeps one stage fewer than the others (two bf16
 // stages, 80 KiB; three raw e5m2 stages of 20 KiB and the widened pair,
 // 100 KiB).  The other instances read both at one width, as before.
+//
+// A fifth instance, D = 80 (Phi-2 and phixtral: 2560 / 32), is the 96 one
+// at a narrower width: rows 128 columns wide in shared memory (the swizzle
+// stays in the row), the 80 columns the layer holds staged (10 chunks a
+// key, the e5m2 rows as the 80 bytes stored), five 16-dim score steps and
+// ten 8-column output tiles; 48 of the 128 staged columns are never
+// written or read (37.5% of the ring's bytes idle, none of HBM's).  Its
+// merge runs 96 threads, three whole warps, the last 16 idle.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -85,13 +93,13 @@ constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
 constexpr float kFloor = -1e29f;         // the reference's m clamp
 constexpr float kLog2e = 1.4426950408889634f;
 
-// blocks an SM holds: 2 of 96 KiB at D = 96 and 128 and of 80 or 100
+// blocks an SM holds: 2 of 96 KiB at D = 80, 96 and 128 and of 80 or 100
 // KiB at (192, 128), 1 of 200 KiB at D = 256
 // (decode_attention.py::ring_plan)
 template <int D>
 constexpr int kResident = D <= 192 ? 2 : 1;
 
-// the columns of a key's row in shared memory: D, or 128 at D = 96
+// the columns of a key's row in shared memory: D, or 128 at D = 80, 96
 template <int D>
 constexpr int kRowD = D < 128 ? 128 : D;
 
@@ -434,13 +442,18 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// one block of D threads per (q head, row): merges the head's splits in
-// split order and writes bf16.  Thread s < splits reads split s's (m, l) and sets its
-// weight in shared memory (0 for a split that saw no visible key, l == 0);
-// then thread d sums output dim d over the splits, its loads independent
-// of each other.  m is in base-2 units, as the split kernel keeps it.
+// whole warps of D threads or more (96 at D = 80)
 template <int D>
-__global__ void __launch_bounds__(D)
+constexpr int kMergeThreads = (D + 31) / 32 * 32;
+
+// one block of kMergeThreads<D> threads per (q head, row): merges the
+// head's splits in split order and writes bf16.  Thread s < splits reads
+// split s's (m, l) and sets its weight in shared memory (0 for a split
+// that saw no visible key, l == 0); then thread d < D sums output dim d
+// over the splits, its loads independent of each other.  m is in base-2
+// units, as the split kernel keeps it.
+template <int D>
+__global__ void __launch_bounds__(kMergeThreads<D>)
 decode_merge_kernel(const float* __restrict__ ws_acc,
                     const float2* __restrict__ ws_ml,
                     __nv_bfloat16* __restrict__ out, int Hkv, int G,
@@ -466,6 +479,7 @@ decode_merge_kernel(const float* __restrict__ ws_acc,
     l_s[d] = live ? ml.y : 0.f;
   }
   __syncthreads();
+  if (D % 32 != 0 && d >= D) return;
   float lt = 0.f, o = 0.f;
 #pragma unroll 8
   for (int s = 0; s < splits; ++s) {
@@ -509,8 +523,8 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // q bf16 [B,1,Hq,D]; k [B,Hkv,S,D] and v [B,Hkv,S,Dv] bf16 (kv_fp8=0) or
 // e5m2 (kv_fp8=1), contiguous, 16-byte aligned; kv_len, kv_start, won
 // int32 [B]; out bf16 [B,1,Hq,Dv]; ws_acc fp32 [B,Hkv,splits,G,Dv] and
-// ws_ml fp32 [B,Hkv,splits,G,2] scratch.  (D, Dv) = (96, 96), (128, 128),
-// (192, 128) or (256, 256), G = Hq/Hkv <= 16, splits <= 64; window <= 0
+// ws_ml fp32 [B,Hkv,splits,G,2] scratch.  (D, Dv) = (80, 80), (96, 96),
+// (128, 128), (192, 128) or (256, 256), G = Hq/Hkv <= 16, splits <= 64; window <= 0
 // means none, softcap <= 0 none.  Launches the split kernel and the merge
 // kernel; returns the first non-zero cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported pair or G).
@@ -521,7 +535,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int D, int Dv, int splits, int kv_fp8, float scale,
                                 int window, float softcap, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool pair = D == Dv ? (D == 96 || D == 128 || D == 256)
+  const bool pair = D == Dv ? (D == 80 || D == 96 || D == 128 || D == 256)
                             : (D == 192 && Dv == 128);
   if (!pair || Hq % Hkv || Hq / Hkv > kRows || splits < 1 ||
       splits > kMaxSplits)
@@ -541,22 +555,24 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   err = D == 128   ? DECODE_LAUNCH_D(128, 128)
         : D == 256 ? DECODE_LAUNCH_D(256, 256)
         : D == 192 ? DECODE_LAUNCH_D(192, 128)
-                   : DECODE_LAUNCH_D(96, 96);
+        : D == 96  ? DECODE_LAUNCH_D(96, 96)
+                   : DECODE_LAUNCH_D(80, 80);
 #undef DECODE_LAUNCH_D
 #undef DECODE_LAUNCH
   if (err) return err;
   const dim3 mgrid(Hq, B);
-  if (Dv == 96)
-    decode_merge_kernel<96><<<mgrid, 96, 0, st>>>(
-        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
-        static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
+#define DECODE_MERGE(HDV)                                                   \
+  decode_merge_kernel<HDV><<<mgrid, kMergeThreads<HDV>, 0, st>>>(           \
+      static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml), \
+      static_cast<__nv_bfloat16*>(out), Hkv, G, splits)
+  if (Dv == 80)
+    DECODE_MERGE(80);
+  else if (Dv == 96)
+    DECODE_MERGE(96);
   else if (Dv == 128)
-    decode_merge_kernel<128><<<mgrid, 128, 0, st>>>(
-        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
-        static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
+    DECODE_MERGE(128);
   else
-    decode_merge_kernel<256><<<mgrid, 256, 0, st>>>(
-        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
-        static_cast<__nv_bfloat16*>(out), Hkv, G, splits);
+    DECODE_MERGE(256);
+#undef DECODE_MERGE
   return (int)cudaGetLastError();
 }

@@ -65,6 +65,14 @@
 // columns give the accumulator 32 columns the kernel does not write out
 // (a quarter of the P.V products wasted, 64 accumulator registers).
 //
+// A fifth instance, D = 80 (Phi-2 and phixtral), is the 96 one at a
+// narrower width: the 80 columns staged into the 128-column tile (the
+// first 16 of the second 64-dim block), zeros written once into the 48 no
+// copy fills; five 16-dim steps of S = Q.K^T (Q's five fragments in
+// registers) and one m64n128k16 per 16 keys of O += P.V over the padded
+// V, 48 of whose accumulator columns are never written out (37.5% of the
+// P.V products wasted).
+//
 // A fourth instance reads K and V at different widths: DeepSeek's MLA, K
 // at D = 192 (three 64-dim swizzled blocks a tile, 24 KiB: S = Q.K^T is
 // twelve m64n64k16 steps, Q's twelve fragments in registers) and V at
@@ -497,7 +505,8 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // Hkv), multiples of 8, and a contiguous last dim, 16-byte aligned; qpos
 // int32 [B,T]; kv_len, kv_start, won int32 [B]; out bf16 [B,T,Hq,Dv]; lse
 // fp32 [B,Hq,T] or null (the LSE instance: D = Dv = 128, no softcap).
-// (D, Dv) = (96, 96), (128, 128), (192, 128) or (256, 256); window <= 0
+// (D, Dv) = (80, 80), (96, 96), (128, 128), (192, 128) or (256, 256);
+// window <= 0
 // means none, softcap <= 0 none.  Returns cudaGetLastError()
 // (cudaErrorInvalidValue for another pair, or an lse buffer outside the
 // LSE instance).
@@ -511,7 +520,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int causal, int window, float softcap,
                                void* lse, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool pair = D == Dv ? (D == 96 || D == 128 || D == 256)
+  const bool pair = D == Dv ? (D == 80 || D == 96 || D == 128 || D == 256)
                             : (D == 192 && Dv == 128);
   if (!pair || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const dim3 grid(Hq, B, (T + kBQ - 1) / kBQ);
@@ -532,7 +541,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const int err = D == 128   ? FLASH_LAUNCH_D(128, 128)
                   : D == 256 ? FLASH_LAUNCH_D(256, 256)
                   : D == 192 ? FLASH_LAUNCH_D(192, 128)
-                             : FLASH_LAUNCH_D(96, 96);
+                  : D == 96  ? FLASH_LAUNCH_D(96, 96)
+                             : FLASH_LAUNCH_D(80, 80);
 #undef FLASH_LAUNCH_D
 #undef FLASH_LAUNCH
   return err;

@@ -80,6 +80,17 @@
 // instance keeps D = 128's plan: Q in registers, one part, the two staged
 // pairs in 80 KiB.  The other instances are (D, D): their K and V offsets,
 // loops and shared-memory layout are those of one width, as before.
+//
+// A fifth pair, (80, 80) (Phi-2 and phixtral: 2560 / 32), takes B3's
+// answer at 96 and 80 (decode_attention.cu): a key's row in shared memory
+// is 128 columns wide (a row of 80 columns is ten 16-byte chunks, and the
+// XOR swizzle, which flips a chunk index's low three bits, would carry
+// chunks 8 and 9 out of a ten-chunk row), the kernel stages the 80 columns
+// the pool holds (ten chunks a key, an e5m2 row as its 80 bytes) and never
+// reads or writes the other 48 (37.5% of the staged bytes idle; the pool
+// in HBM is read as stored).  Q.K^T is five k16 steps, P.V ten n8 tiles;
+// Q's five fragments and the 40 accumulator registers stay in registers,
+// so both instances keep D = 128's plan (64 KiB a block).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -98,10 +109,14 @@ constexpr float kFloor = -1e29f;        // the reference's m clamp
 // (ragged_paged_attention.py::smem_plan): two staged K/V tile pairs, the
 // block's last visible slot, and at D = 256 the block's query rows
 // (kQRows: 64 for the query tiles, 16 for the key split)
+// the columns of a key's row in shared memory: D, or 128 at D = 80
+template <int D>
+constexpr int kRowD = D < 128 ? 128 : D;
+
 template <int D, int Dv>
 struct Plan {
-  static constexpr int kTileK = kKT * D * 2;         // one bf16 K tile
-  static constexpr int kTileV = kKT * Dv * 2;        // one bf16 V tile
+  static constexpr int kTileK = kKT * kRowD<D> * 2;  // one bf16 K tile
+  static constexpr int kTileV = kKT * kRowD<Dv> * 2; // one bf16 V tile
   static constexpr int kPair = kTileK + kTileV;      // a staged pair
   static constexpr bool kQSmem = D > 192;
   static constexpr int kQOff = 2 * kPair + 128;
@@ -114,7 +129,8 @@ struct Plan {
 
 template <int D>
 __device__ __forceinline__ int kv_chunk(int key, int c) {
-  return key * (D / 8) + (c ^ (key & 7));    // swizzled 16-byte chunk index
+  // swizzled 16-byte chunk index
+  return key * (kRowD<D> / 8) + (c ^ (key & 7));
 }
 
 // stage the keys [k0, k0 + 64) of (row r, kv head h) into `kd`/`vd`: bf16
@@ -473,8 +489,9 @@ ragged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       }
       const float m_ref = fmaxf(m_all, kFloor);
 #pragma unroll
-      for (int dd = 0; dd < kDv / kThreads; ++dd) {
+      for (int dd = 0; dd < (kDv + kThreads - 1) / kThreads; ++dd) {
         const int d = threadIdx.x + dd * kThreads;
+        if (kDv % kThreads != 0 && d >= kDv) break;
         float lsum = 0.f, o = 0.f;
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
@@ -557,8 +574,8 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
 // [R,C,Hq,Dv].  Given scratch ws_acc fp32 [R,Hkv,n_splits,G*C,Dv] and ws_ml
 // fp32 [R,Hkv,n_splits,G*C,2] (G = Hq/Hkv, G*C <= 16), the key-split
 // instance runs over n_splits splits of pps pages and then the merge;
-// without (null), the query-tile instance (n_splits 1).  (D, Dv) is (128,
-// 128), (192, 128) or (256, 256).  Returns the first non-zero
+// without (null), the query-tile instance (n_splits 1).  (D, Dv) is (80,
+// 80), (128, 128), (192, 128) or (256, 256).  Returns the first non-zero
 // cudaGetLastError(), or cudaErrorInvalidValue for another pair or a split
 // of more than 16 rows.
 extern "C" int ragged_paged_attention(const void* q, const void* kpool,
@@ -571,8 +588,8 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
                                       int n_pages, int maxp, int n_splits,
                                       int pps, int kv_fp8, float scale,
                                       void* stream) {
-  if (!((D == 128 && Dv == 128) || (D == 192 && Dv == 128) ||
-        (D == 256 && Dv == 256)))
+  if (!((D == 80 && Dv == 80) || (D == 128 && Dv == 128) ||
+        (D == 192 && Dv == 128) || (D == 256 && Dv == 256)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int gc = (Hq / Hkv) * C;
@@ -592,18 +609,22 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
                    : RPA_LAUNCH(uint16_t, HD, HDV, false)))
   err = D == 128   ? RPA_LAUNCH_D(128, 128)
         : D == 192 ? RPA_LAUNCH_D(192, 128)
-                   : RPA_LAUNCH_D(256, 256);
+        : D == 256 ? RPA_LAUNCH_D(256, 256)
+                   : RPA_LAUNCH_D(80, 80);
 #undef RPA_LAUNCH_D
 #undef RPA_LAUNCH
   if (err || !split) return err;
   const dim3 mgrid(gc, Hkv, R);
-  if (Dv == 128)
-    ragged_merge_kernel<128><<<mgrid, 128, 0, st>>>(
-        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
-        static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits);
+#define RPA_MERGE(HDV)                                                      \
+  ragged_merge_kernel<HDV><<<mgrid, HDV, 0, st>>>(                          \
+      static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml), \
+      static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits)
+  if (Dv == 80)
+    RPA_MERGE(80);
+  else if (Dv == 128)
+    RPA_MERGE(128);
   else
-    ragged_merge_kernel<256><<<mgrid, 256, 0, st>>>(
-        static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml),
-        static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits);
+    RPA_MERGE(256);
+#undef RPA_MERGE
   return (int)cudaGetLastError();
 }

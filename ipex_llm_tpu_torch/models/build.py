@@ -23,6 +23,15 @@ MLA's ``q`` (or ``q_a``, fp32 ``q_a_norm`` and ``q_b``), ``kv_a``, fp32
 ``kv_a_norm`` and ``kv_b`` in place of ``qkv``, and a model with a dense
 prefix builds its first ``moe_layer_start`` layers into a second stack,
 ``layers_dense`` (the reference's ``build.py:302-362`` and ``:470-475``).
+The GPT-style families load every bias the reference loads, where the
+checkpoint holds it, each in fp32: the LayerNorms' (``attn_norm_bias``,
+``mlp_norm_bias``, ``final_norm_bias``), ``qkv_bias`` (reordered with
+the weight by the family's ``qkv_transform``: Pythia's per-head
+interleave), ``o_bias``, the ungated MLP's ``up``/``up_bias`` and
+``down_bias``, the head's ``lm_head_bias`` and the ungated experts'
+``moe_up_bias`` ``[L, E, I]`` and ``moe_down_bias`` ``[L, E, H]``
+(the reference's ``build.py:281-283``, ``:366-373``, ``:403-414``,
+``:437-467``, ``:499-501`` and ``:511-513``).  Any other bias raises.
 So the device never holds more than one full-precision weight (and a
 slice of its fp32 working copy) beside the packed tree.
 """
@@ -152,7 +161,6 @@ def build_params(
             ("imatrix_data", imatrix_data, "13"),
             ("embedding_qtype (a quantized embedding table)",
              embedding_qtype, "12"),
-            ("qkv_transform", qkv_transform, "14"),
             ("transpose_weights", transpose_weights, "14")):
         if val:
             raise NotImplementedError(
@@ -161,7 +169,9 @@ def build_params(
     mla = scheme.kv_a is not None and cfg.is_mla
     if unserved or (not mla and scheme.qkv is None
                     and None in (scheme.q, scheme.k, scheme.v)) \
-            or (scheme.gate_up is None and None in (scheme.gate, scheme.up)):
+            or (qkv_transform is not None and scheme.qkv is None) \
+            or (scheme.gate_up is None and scheme.up is None and any(
+                not cfg.layer_is_moe(i) for i in range(cfg.num_layers))):
         raise NotImplementedError(
             f"weight scheme fields {unserved or ['q/k/v/gate/up = None']} "
             "are not ported (ROADMAP item 14)")
@@ -175,13 +185,24 @@ def build_params(
     def load(n: str) -> torch.Tensor:
         return get(n).to(dev)
 
+    def bias_of(n: str) -> str | None:
+        return n[: -len(".weight")] + ".bias" if n.endswith(".weight") \
+            else None
+
     def refuse_bias(n: str) -> None:
-        """Biases the port does not serve: all but those of q, k and v
-        when the config has ``attention_bias``."""
-        b = n[: -len(".weight")] + ".bias" if n.endswith(".weight") else None
+        """Biases the port does not serve (module doc)."""
+        b = bias_of(n)
         if b is not None and has(b):
             raise NotImplementedError(
                 f"bias {b!r} is not ported (ROADMAP item 14)")
+
+    def put_bias(st: LayerStack, i: int, key: str, n: str,
+                 expert: int | None = None) -> None:
+        """The bias beside weight ``n``, where the checkpoint holds one,
+        as the fp32 leaf ``key``."""
+        b = bias_of(n)
+        if b is not None and has(b):
+            st.put(i, key, load(b).to(torch.float32), expert=expert)
 
     def merged(names: list[str], q: str) -> QTensor:
         """Rows of ``names`` concatenated, quantized as one [in, out]
@@ -214,8 +235,10 @@ def build_params(
         def name(t: str) -> str:
             return t.format(i=layer, p="weight")
         for key, tmpl in (("attn_norm", scheme.attn_norm),
-                          ("mlp_norm", scheme.mlp_norm),
-                          ("post_attn_norm", scheme.post_attn_norm),
+                          ("mlp_norm", scheme.mlp_norm)):
+            st.put(i, key, load(name(tmpl)).to(NORM_DTYPE))
+            put_bias(st, i, key + "_bias", name(tmpl))
+        for key, tmpl in (("post_attn_norm", scheme.post_attn_norm),
                           ("post_mlp_norm", scheme.post_mlp_norm)):
             if tmpl is None:
                 continue
@@ -229,23 +252,38 @@ def build_params(
         else:
             qkv = ([name(scheme.qkv)] if scheme.qkv is not None
                    else [name(t) for t in (scheme.q, scheme.k, scheme.v)])
-            biases = [n[: -len(".weight")] + ".bias" for n in qkv]
+            biases = [bias_of(n) for n in qkv]
             if cfg.attention_bias and has(biases[0]):
-                st.put(i, "qkv_bias", torch.cat([load(b).to(torch.float32)
-                                                 for b in biases]))
+                bias = torch.cat([load(b).to(torch.float32)
+                                  for b in biases])
+                if qkv_transform is not None:
+                    bias = qkv_transform(bias[:, None], cfg)[:, 0]
+                st.put(i, "qkv_bias", bias.contiguous())
+            else:
+                for n in qkv:
+                    refuse_bias(n)
+            if qkv_transform is not None:
+                st.put(i, "qkv", quantize_weight(
+                    qkv_transform(load(qkv[0]), cfg), qtype))
+            else:
                 st.put(i, "qkv", _cat_columns([
                     quantize_weight(load(n), qtype) for n in qkv]))
-            else:
-                st.put(i, "qkv", merged(qkv, qtype))
-        st.put(i, "o", merged([name(scheme.o)], qtype))
+        st.put(i, "o", quantize_weight(load(name(scheme.o)), qtype))
+        put_bias(st, i, "o_bias", name(scheme.o))
         if cfg.layer_is_moe(layer):
             _put_moe_layer(st, i, layer, moe_scheme, cfg.num_experts, load,
-                           merged, qtype)
+                           merged, qtype, put_bias)
             continue
-        st.put(i, "gate_up", merged(
-            [name(scheme.gate_up)] if scheme.gate_up is not None
-            else [name(scheme.gate), name(scheme.up)], qtype))
-        st.put(i, "down", merged([name(scheme.down)], qtype))
+        if scheme.gate_up is None and scheme.gate is None:
+            # the ungated MLP (fc1 -> act -> fc2), biases beside it
+            st.put(i, "up", quantize_weight(load(name(scheme.up)), qtype))
+            put_bias(st, i, "up_bias", name(scheme.up))
+        else:
+            st.put(i, "gate_up", merged(
+                [name(scheme.gate_up)] if scheme.gate_up is not None
+                else [name(scheme.gate), name(scheme.up)], qtype))
+        st.put(i, "down", quantize_weight(load(name(scheme.down)), qtype))
+        put_bias(st, i, "down_bias", name(scheme.down))
 
     params: dict[str, Any] = {"layers": moe_st.tree}
     if dense_st is not None:
@@ -254,11 +292,16 @@ def build_params(
     params["embed"] = (emb if emb.dtype == torch.bfloat16
                        else emb.to(torch.float32).to(torch.bfloat16))
     del emb
-    refuse_bias(scheme.final_norm)
     params["final_norm"] = load(scheme.final_norm).to(NORM_DTYPE)
+    fn_bias = bias_of(scheme.final_norm)
+    if fn_bias is not None and has(fn_bias):
+        params["final_norm_bias"] = load(fn_bias).to(NORM_DTYPE)
     if not cfg.tie_word_embeddings:
         head_q = lm_head_qtype or ("sym_int8" if mixed_precision else qtype)
-        params["lm_head"] = merged([scheme.lm_head], head_q)
+        params["lm_head"] = quantize_weight(load(scheme.lm_head), head_q)
+        head_bias = bias_of(scheme.lm_head)
+        if head_bias is not None and has(head_bias):
+            params["lm_head_bias"] = load(head_bias).to(torch.float32)
     params.update(rope_buffers(cfg, dev))
     return params
 
@@ -303,23 +346,32 @@ def rope_buffers(cfg: ModelConfig, device) -> dict[str, Any]:
 
 
 def _put_moe_layer(st: LayerStack, i: int, layer: int, ms: MoEScheme,
-                   n_experts: int, load, merged, qtype: str) -> None:
+                   n_experts: int, load, merged, qtype: str,
+                   put_bias) -> None:
     """Checkpoint layer ``layer``'s router (fp32 ``[H, E]``), its experts'
-    gate||up and down, each quantized on the device as it is read and
-    written into the ``[L, E, ...]`` stacks at stack layer ``i``, the
-    shared expert and its gate, and V3's fp32 score bias ``[E]``, where
-    the scheme names them."""
+    gate||up (fc1 alone for ungated experts, whose fc1 and fc2 biases go
+    to ``moe_up_bias``/``moe_down_bias``) and down, each quantized on the
+    device as it is read and written into the ``[L, E, ...]`` stacks at
+    stack layer ``i``, the shared expert and its gate, and V3's fp32
+    score bias ``[E]``, where the scheme names them."""
     st.put(i, "router", load(ms.router.format(i=layer)).to(torch.float32).t()
            .contiguous())
     if ms.score_bias is not None:
         st.put(i, "router_bias", load(ms.score_bias.format(i=layer)).to(
             torch.float32))
     for e in range(n_experts):
-        st.put(i, "moe_gate_up", merged([ms.e_gate.format(i=layer, e=e),
-                                         ms.e_up.format(i=layer, e=e)],
+        up, down = ms.e_up.format(i=layer, e=e), ms.e_down.format(i=layer, e=e)
+        if ms.e_gate is None:
+            st.put(i, "moe_gate_up", quantize_weight(load(up), qtype),
+                   expert=e)
+            st.put(i, "moe_down", quantize_weight(load(down), qtype),
+                   expert=e)
+            put_bias(st, i, "moe_up_bias", up, expert=e)
+            put_bias(st, i, "moe_down_bias", down, expert=e)
+            continue
+        st.put(i, "moe_gate_up", merged([ms.e_gate.format(i=layer, e=e), up],
                                         qtype), expert=e)
-        st.put(i, "moe_down", merged([ms.e_down.format(i=layer, e=e)], qtype),
-               expert=e)
+        st.put(i, "moe_down", merged([down], qtype), expert=e)
     if ms.shared_gate is not None:
         st.put(i, "shared_gate_up", merged([ms.shared_gate.format(i=layer),
                                             ms.shared_up.format(i=layer)],

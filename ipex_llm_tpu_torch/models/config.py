@@ -2,8 +2,9 @@
 
 The port keeps the reference's field names for the families it serves
 (llama, mistral, qwen2, gemma2, qwen3, mixtral, qwen2_moe, qwen3_moe,
-phi3, gemma, gemma3_text, deepseek_v2, deepseek_v3), so a reference
-config maps across field by field (:meth:`ModelConfig.from_fields`):
+phi3, gemma, gemma3_text, deepseek_v2, deepseek_v3, phi, phixtral under
+both its names, gpt_neox, gptj), so a reference config maps across field
+by field (:meth:`ModelConfig.from_fields`):
 every rope scaling kind of ``ops.rope.RopeScaling`` and partial rotary
 (``rope.rotary_dim`` below ``head_dim``), the "half" and interleaved
 "two" rope layouts, gemma3's second rope table for its sliding layers
@@ -18,7 +19,12 @@ optional renormalisation and routed scaling factor, shared experts with
 or without a sigmoid gate, dense prefix layers), and DeepSeek's
 multi-head latent attention (MLA: a low-rank or full-rank q, the
 compressed kv latent, K ``qk_nope + qk_rope`` wide and V ``v_head_dim``
-wide).
+wide), and the GPT-style block of phi, phixtral, gpt_neox and gptj:
+LayerNorm with a bias (``norm_kind="layer"``), a bias on o
+(``attention_out_bias``) and on the MLP (``mlp_bias``; the loader reads
+every bias a checkpoint holds, as the reference's does), the ungated
+``fc1 -> act -> fc2`` MLP (``mlp_gated=False``) and the parallel
+residual (``parallel_blocks``).
 Every other architectural switch is checked in ``__post_init__`` or
 ``from_fields`` and raises ``NotImplementedError`` (ROADMAP item 14):
 other families and other biases are not routed to a plain path.
@@ -35,7 +41,9 @@ LAYER_TYPES = ("sliding_attention", "full_attention")
 # the model_types this decoder serves (``families.FAMILIES`` maps each)
 MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2", "qwen3", "mixtral",
                "qwen2_moe", "qwen3_moe", "phi3", "gemma", "gemma3_text",
-               "deepseek_v2", "deepseek_v3")
+               "deepseek_v2", "deepseek_v3", "phi", "phi-msft", "phixtral",
+               "gpt_neox", "gptj")
+NORM_KINDS = ("rms", "layer")
 MOE_SCORE_FUNCS = ("softmax", "sigmoid")
 MOE_GROUP_SCORES = ("max", "top2sum")
 
@@ -56,7 +64,11 @@ class ModelConfig:
     kv_a and kv_b; one K head ``head_dim = qk_nope + qk_rope`` wide, whose
     rope slice is shared by every head, and V ``v_dim`` wide; the rope
     table spans the rope slice, in the "two" layout) and run a plain MLP
-    on their first ``moe_layer_start`` layers."""
+    on their first ``moe_layer_start`` layers.  phi, phixtral, gpt_neox
+    and gptj run the GPT-style block: LayerNorms with a bias, biases on
+    the projections, the ungated MLP and ``x + (attn + ffn)`` from the
+    block's input (phi, phixtral and gptj name one LayerNorm for both
+    branches, gpt_neox two)."""
 
     model_type: str
     vocab_size: int
@@ -69,6 +81,7 @@ class ModelConfig:
     max_position_embeddings: int = 4096
     act: str = "silu"
     norm_eps: float = 1e-5
+    norm_kind: str = "rms"          # rms | layer (LayerNorm with a bias)
     rope: RopeScaling | None = None
     rope_local: RopeScaling | None = None  # gemma3: the sliding layers' table
     # the reference's field, which its decoder does not read either (the
@@ -79,6 +92,12 @@ class ModelConfig:
     sliding_window: int | None = None
     layer_types: tuple[str, ...] | None = None   # per layer, LAYER_TYPES
     attention_bias: bool = False    # on q, k and v (not on o)
+    # the reference's flags of the biases on o and on the MLP; the loader
+    # reads every bias the checkpoint holds whatever they say
+    attention_out_bias: bool = False
+    mlp_bias: bool = False
+    mlp_gated: bool = True          # False: fc1 -> act -> fc2
+    parallel_blocks: bool = False   # x + (attn(ln(x)) + ffn(ln'(x)))
     norm_offset: float = 0.0        # 1.0: gemma's (1 + w) RMSNorm
     post_attn_norm: bool = False    # gemma2's norms of the block outputs
     post_mlp_norm: bool = False
@@ -133,6 +152,9 @@ class ModelConfig:
             if self.sliding_window is None and \
                     "sliding_attention" in self.layer_types:
                 raise ValueError("sliding layers need a sliding_window")
+        if self.norm_kind not in NORM_KINDS:
+            raise NotImplementedError(
+                f"norm_kind={self.norm_kind!r} is not ported")
         if self.act not in ACT_FNS or self.rope_layout not in ROPE_LAYOUTS:
             raise NotImplementedError(
                 f"act={self.act!r} rope_layout={self.rope_layout!r} is not "
@@ -205,12 +227,9 @@ class ModelConfig:
     # Reference fields whose default value is the only one the port
     # serves; any other value raises in from_fields.
     _DEFAULTS = {
-        "norm_kind": "rms", "mrope_section": None,
-        "attention_out_bias": False,
-        "mlp_bias": False, "mlp_gated": True, "parallel_blocks": False,
-        "alibi": False, "learned_pos": 0, "embed_norm": False,
-        "norm_after": False, "logit_scale": 1.0, "glm_alpha": 0.0,
-        "rope_2d": False, "residual_multiplier": 1.0,
+        "mrope_section": None, "alibi": False, "learned_pos": 0,
+        "embed_norm": False, "norm_after": False, "logit_scale": 1.0,
+        "glm_alpha": 0.0, "rope_2d": False, "residual_multiplier": 1.0,
         "kv_heads_per_layer": None,
     }
 

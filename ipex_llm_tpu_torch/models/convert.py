@@ -27,17 +27,20 @@ _QTENSOR_KEYS = {"data", "scales", "zeros", "qtype", "shape", "block_size"}
 # and its tied head, which has no lm_head leaf, qwen3's q/k norms, the MoE
 # families' router, [L, E, ...] expert stacks and qwen2_moe's shared
 # expert, gemma3's local rope table, DeepSeek's MLA leaves, score bias and
-# dense-prefix stack); anything else (other biases, expert biases, a
-# quantized embedding) raises
+# dense-prefix stack, the GPT-style block's norm, o, MLP, head and expert
+# biases and its ungated MLP's up); anything else (a gated MLP's gate/up
+# bias, a quantized embedding) raises
 _LAYER_KEYS = {"attn_norm", "mlp_norm", "qkv", "o", "gate_up", "down",
                "qkv_bias", "post_attn_norm", "post_mlp_norm", "q_norm",
                "k_norm", "router", "moe_gate_up", "moe_down",
                "shared_gate_up", "shared_down", "shared_router",
                "router_bias", "q", "q_a", "q_a_norm", "q_b", "kv_a",
-               "kv_a_norm", "kv_b"}
+               "kv_a_norm", "kv_b", "attn_norm_bias", "mlp_norm_bias",
+               "o_bias", "up", "up_bias", "down_bias", "moe_up_bias",
+               "moe_down_bias"}
 _STACKS = ("layers", "layers_dense")
-_TOP_KEYS = {*_STACKS, "embed", "final_norm", "lm_head", "inv_freq",
-             "inv_freq_local", "rope_mscale"}
+_TOP_KEYS = {*_STACKS, "embed", "final_norm", "final_norm_bias", "lm_head",
+             "lm_head_bias", "inv_freq", "inv_freq_local", "rope_mscale"}
 
 
 def array_to_torch(a: np.ndarray, device) -> torch.Tensor:

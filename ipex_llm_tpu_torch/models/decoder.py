@@ -39,7 +39,18 @@ place of the MLP.  DeepSeek's layers run MLA in place of q/k/v
 (:func:`_mla_qkv`, the reference's ``decoder.py:81-127``), and a
 model with a dense prefix holds two stacks, ``layers_dense`` for its first
 ``moe_layer_start`` layers and ``layers`` for the rest (the reference's
-``decoder.py:585-590``).
+``decoder.py:585-590``).  The GPT-style block (phi, phixtral, gpt_neox,
+gptj) norms with LayerNorm and its bias (``cfg.norm_kind``), adds the
+biases of qkv, o, the ungated MLP's up and down and the head where the
+tree holds them (each in bf16 after the product's rounding, the head's
+to the bf16 logits before they widen), and with ``cfg.parallel_blocks``
+adds the two branches first and then the sum to the block's input,
+``x + (attn + ffn)``, as the reference rounds it (``decoder.py:501-505``);
+both branches norm the block's input, the attention with
+``attn_norm``, the MLP with ``mlp_norm`` (one LayerNorm's weights for phi,
+phixtral and gptj, two for gpt_neox).  An MoE layer's norm takes no bias,
+as the reference's ``_moe_block`` takes none (phixtral's ``ln.bias`` is
+loaded and left unread there: ROADMAP queue 3).
 
 Tensor-parallel serving runs the paged form on every rank with ``tp``, the
 rank's group (``parallel/manual.py``): ``cfg`` is then the rank-local
@@ -65,7 +76,7 @@ from ipex_llm_tpu_torch.ops import moe as moe_ops
 from ipex_llm_tpu_torch.ops import rope as rope_ops
 from ipex_llm_tpu_torch.ops.attention import cached_sdpa, sdpa
 from ipex_llm_tpu_torch.ops.embedding import embed_lookup
-from ipex_llm_tpu_torch.ops.norms import rms_norm
+from ipex_llm_tpu_torch.ops.norms import layer_norm, rms_norm
 from ipex_llm_tpu_torch.quantize.core import QTensor
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -90,8 +101,17 @@ def layer_params(layers: dict[str, Any], i: int) -> dict[str, Any]:
     return out
 
 
-def _norm(cfg: ModelConfig, x, w):
+def _norm(cfg: ModelConfig, x, w, bias=None):
+    """The config's norm: LayerNorm (with ``bias``) or RMSNorm."""
+    if cfg.norm_kind == "layer":
+        return layer_norm(x, w, bias, cfg.norm_eps)
     return rms_norm(x, w, cfg.norm_eps, cfg.norm_offset)
+
+
+def _in_norm(cfg: ModelConfig, x, lp: dict, key: str):
+    """A block's input norm ``key`` and its bias where the tree holds
+    one."""
+    return _norm(cfg, x, lp[key], lp.get(key + "_bias"))
 
 
 def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
@@ -100,7 +120,7 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
     """One layer's attention; ``cos``/``sin`` are the table this layer
     rotates with (gemma3's local one on a sliding layer)."""
     b, t, _ = x.shape
-    h = _norm(cfg, x, lp["attn_norm"])
+    h = _in_norm(cfg, x, lp, "attn_norm")
     kw = dict(causal=True, q_positions=q_slots, kv_len=kv_len,
               kv_start=kv_start,
               window=cfg.sliding_window if sliding else None,
@@ -143,7 +163,8 @@ def _attend(cfg: ModelConfig, lp: dict, q, k, v, kl, vl, slot0, cache,
         attn = cached_sdpa(q, kl, vl, cache, chunk_lens=chunk_lens, tp=tp,
                            **kw)
     attn = attn.reshape(b, t, cfg.num_heads * cfg.v_dim)
-    out = linear_ops.linear(attn, lp["o"], tp=tp, mode="row")
+    out = linear_ops.linear(attn, lp["o"], lp.get("o_bias"), tp=tp,
+                            mode="row")
     if cfg.post_attn_norm:
         out = _norm(cfg, out, lp["post_attn_norm"])
     return out
@@ -181,11 +202,19 @@ def _mla_qkv(cfg: ModelConfig, lp: dict, h, cos, sin):
 
 
 def _mlp_block(cfg: ModelConfig, lp: dict, x, tp=None):
-    h = _norm(cfg, x, lp["mlp_norm"])
-    gate, up = mlp_ops.split_gate_up(linear_ops.linear(h, lp["gate_up"],
-                                                       tp=tp, mode="col"))
-    out = linear_ops.linear(mlp_ops.gated_act_mul(gate, up, cfg.act),
-                            lp["down"], tp=tp, mode="row")
+    """The MLP: gated (act(gate) * up), or ungated (``up`` is fc1, then
+    the activation), then down, each with its bias where the tree holds
+    one."""
+    h = _in_norm(cfg, x, lp, "mlp_norm")
+    if "gate_up" in lp:
+        gate, up = mlp_ops.split_gate_up(linear_ops.linear(
+            h, lp["gate_up"], tp=tp, mode="col"))
+        inner = mlp_ops.gated_act_mul(gate, up, cfg.act)
+    else:
+        inner = mlp_ops.act(linear_ops.linear(h, lp["up"], lp.get("up_bias"),
+                                              tp=tp, mode="col"), cfg.act)
+    out = linear_ops.linear(inner, lp["down"], lp.get("down_bias"), tp=tp,
+                            mode="row")
     if cfg.post_mlp_norm:
         out = _norm(cfg, out, lp["post_mlp_norm"])
     return out
@@ -257,7 +286,9 @@ def _moe_block(cfg: ModelConfig, lp: dict, x, experts):
     h = _norm(cfg, x, lp["mlp_norm"])
     w, idx = route(cfg, _f32_product(h, lp["router"]), lp.get("router_bias"))
     out = experts(h, w, idx, lp["moe_gate_up"], lp["moe_down"], cfg.act,
-                  cfg.num_experts).to(x.dtype)
+                  cfg.num_experts, gated=cfg.mlp_gated,
+                  up_bias=lp.get("moe_up_bias"),
+                  down_bias=lp.get("moe_down_bias")).to(x.dtype)
     if "shared_gate_up" in lp:
         gate, up = mlp_ops.split_gate_up(
             linear_ops.linear(h, lp["shared_gate_up"]))
@@ -308,11 +339,11 @@ def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 
 def logits_tail(cfg: ModelConfig, params, x, tp=None):
-    """Final norm and lm head (fp32 logits of an untied head's bf16 output,
-    or of the tied product), then the final-logit softcap in fp32.  With a
-    ``tp`` group and a rank's column slice of the head, the slices' logits
-    are gathered to full width (exact)."""
-    x = _norm(cfg, x, params["final_norm"])
+    """Final norm and lm head (fp32 logits of an untied head's bf16 output
+    plus its bias, or of the tied product), then the final-logit softcap
+    in fp32.  With a ``tp`` group and a rank's column slice of the head,
+    the slices' logits are gathered to full width (exact)."""
+    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
     head = params.get("lm_head")
     if tp is not None and head is not None \
             and head.out_features != cfg.vocab_size:
@@ -321,7 +352,8 @@ def logits_tail(cfg: ModelConfig, params, x, tp=None):
         logits = all_gather_last(linear_ops.linear(
             x, head, tp=tp, mode="col").to(torch.float32), tp)
     elif head is not None:
-        logits = linear_ops.linear(x, head).to(torch.float32)
+        logits = linear_ops.linear(x, head, params.get("lm_head_bias")).to(
+            torch.float32)
     else:
         logits = tied_logits(x, params["embed"])
     if cfg.logit_softcap is not None:
@@ -372,16 +404,21 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
         kl, vl = (None, None) if cache is None else (cache.k[i], cache.v[i])
         sliding = cfg.layer_is_sliding(i)
         c, s = (cos_l, sin_l) if sliding and cos_l is not None else (cos, sin)
-        x = x + _attention_block(cfg, lp, x, kl, vl, c, s, slot0,
-                                 q_slots, kv_len, kv_start, sliding, cache,
-                                 chunk_lens, tp)
-        if "moe_gate_up" in lp:
-            if tp is not None:
-                raise NotImplementedError(
-                    "MoE stacks not manual-sharded yet (ROADMAP item 15)")
-            x = x + _moe_block(cfg, lp, x, experts)
+        attn = _attention_block(cfg, lp, x, kl, vl, c, s, slot0, q_slots,
+                                kv_len, kv_start, sliding, cache,
+                                chunk_lens, tp)
+        if "moe_gate_up" in lp and tp is not None:
+            raise NotImplementedError(
+                "MoE stacks not manual-sharded yet (ROADMAP item 15)")
+
+        def ffn(x):
+            return (_moe_block(cfg, lp, x, experts) if "moe_gate_up" in lp
+                    else _mlp_block(cfg, lp, x, tp))
+        if cfg.parallel_blocks:     # both branches from the block's input
+            x = x + (attn + ffn(x))
         else:
-            x = x + _mlp_block(cfg, lp, x, tp)
+            x = x + attn
+            x = x + ffn(x)
     if slot_offsets is None and cache is not None:
         cache.length = slot0 + t
     if last_token_only:

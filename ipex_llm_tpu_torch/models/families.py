@@ -1,9 +1,10 @@
 """Model families: an HF ``config.json`` dict to a ``ModelConfig`` and a
 weight-naming scheme (port of the llama, mistral, qwen2, gemma2, qwen3,
-mixtral, qwen2_moe, qwen3_moe, phi3, gemma, gemma3_text, deepseek_v2 and
-deepseek_v3 rows of ``ipex_llm_tpu/models/families.py``).
+mixtral, qwen2_moe, qwen3_moe, phi3, gemma, gemma3_text, deepseek_v2,
+deepseek_v3, phi, phi-msft, phixtral, gpt_neox and gptj rows of
+``ipex_llm_tpu/models/families.py``).
 
-All thirteen run the port's one decoder.  llama, mistral and qwen2 share the
+All of them run the port's one decoder.  llama, mistral and qwen2 share the
 reference's llama weight names (mistral adds its sliding window, qwen2 its
 qkv bias and ignores ``sliding_window`` as the reference does); gemma2 has
 its own norm names and reads its head from the embedding table; qwen3 adds
@@ -16,7 +17,16 @@ them.  The MoE families add an :class:`MoEScheme` (the router, each
 expert's gate/up/down, qwen2_moe's shared expert and its gate).  The
 DeepSeek rows name MLA's projections (``q_proj`` or the low-rank
 ``q_a_proj``/``q_b_proj``, ``kv_a_proj_with_mqa``, ``kv_b_proj``), the
-shared experts as one MLP, and V3's ``e_score_correction_bias``.  Every
+shared experts as one MLP, and V3's ``e_score_correction_bias``.  The
+GPT-style rows (phi-2, phixtral, Pythia, GPT-J) name LayerNorms whose
+biases sit beside their weights, one norm for both branches of the
+parallel block (phi, phixtral, gptj) or two (gpt_neox), the ungated MLP's
+``fc1``/``fc2`` (``dense_h_to_4h``/``dense_4h_to_h``, ``fc_in``/``fc_out``)
+and a biased head; phixtral keeps the msft module tree (``transformer.h``,
+``mixer.Wqkv``, ``lm_head.ln``/``lm_head.linear``) and its experts are
+ungated (``moe.mlp.{e}.fc1``/``fc2``, no gate); Pythia's
+``query_key_value`` interleaves q, k and v per head, which
+:func:`_neox_qkv` reorders, weight and bias.  Every
 other ``model_type`` raises ``NotImplementedError`` (ROADMAP item 14),
 ``aquila`` included, which the reference maps to the llama row.
 """
@@ -36,8 +46,9 @@ class WeightScheme:
     """Weight-name templates ({i} = layer index, {p} = weight or bias);
     None = not present.  The fields are the reference's; the port's
     ``build_params`` serves separate or pre-merged q/k/v and gate/up
-    projections, MLA's projections and the post norms, and refuses a
-    scheme that sets any of the others."""
+    projections, the ungated MLP's up and down (gate and gate_up None),
+    MLA's projections and the post norms, and refuses a scheme that sets
+    any of the others."""
 
     embed: str = "model.embed_tokens.weight"
     final_norm: str = "model.norm.weight"
@@ -71,10 +82,11 @@ class WeightScheme:
 @dataclass(frozen=True)
 class MoEScheme:
     """MoE weight-name templates ({i} = layer, {e} = expert), the
-    reference's."""
+    reference's; ``e_gate`` None: ungated experts (phixtral's fc1/fc2,
+    biases beside the weights)."""
 
     router: str = "model.layers.{i}.mlp.gate.weight"
-    e_gate: str = "model.layers.{i}.mlp.experts.{e}.gate_proj.weight"
+    e_gate: str | None = "model.layers.{i}.mlp.experts.{e}.gate_proj.weight"
     e_up: str = "model.layers.{i}.mlp.experts.{e}.up_proj.weight"
     e_down: str = "model.layers.{i}.mlp.experts.{e}.down_proj.weight"
     shared_gate: str | None = None
@@ -90,8 +102,9 @@ class Family:
     to_config: Callable[[dict], ModelConfig]
     scheme: WeightScheme = field(default_factory=WeightScheme)
     moe: MoEScheme | None = None
-    # the reference's packed-qkv fixup and Conv1D transpose: None / False
-    # for every ported family (build_params refuses them)
+    # the reference's packed-qkv fixup (rows of a pre-merged qkv weight,
+    # and of its bias, reordered to [q; k; v]: gpt_neox) and Conv1D
+    # transpose (False for every ported family: build_params refuses it)
     qkv_transform: Callable | None = None
     transpose_weights: bool = False
 
@@ -337,6 +350,105 @@ def _deepseek_v3(hf: dict) -> ModelConfig:
     return ModelConfig.from_fields(d)
 
 
+def _phi(hf: dict) -> ModelConfig:
+    """phi-1/phi-2: the parallel block off ONE LayerNorm, partial rotary,
+    the ungated gelu_new MLP, biases everywhere (the reference's
+    ``_phi``)."""
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        norm_kind="layer",
+        norm_eps=hf.get("layer_norm_eps", 1e-5),
+        act=hf.get("hidden_act", "gelu_new"),
+        mlp_gated=False,
+        parallel_blocks=True,
+        attention_bias=True,
+        attention_out_bias=True,
+    ))
+
+
+def _phixtral(hf: dict) -> ModelConfig:
+    """phixtral (``phi-msft``): phi-2 blocks with an MoE of ungated
+    fc1 -> gelu -> fc2 experts, softmax before the top-k, renormalised
+    over the k (the reference's ``_phixtral``).  The msft config spells
+    its widths ``n_embd``/``n_head``/``n_layer`` and its rotary width
+    ``rotary_dim``."""
+    n_embd = hf.get("n_embd", hf.get("hidden_size", 2560))
+    n_head = hf.get("n_head", hf.get("num_attention_heads", 32))
+    head_dim = n_embd // n_head
+    hf2 = dict(hf)
+    hf2.setdefault("hidden_size", n_embd)
+    hf2.setdefault("num_attention_heads", n_head)
+    hf2.setdefault("num_hidden_layers", hf.get("n_layer", 32))
+    hf2.setdefault("num_key_value_heads", hf.get("n_head_kv") or n_head)
+    hf2.setdefault("intermediate_size", hf.get("n_inner") or 4 * n_embd)
+    hf2.setdefault("max_position_embeddings", hf.get("n_positions", 2048))
+    hf2.setdefault("partial_rotary_factor",
+                   hf.get("rotary_dim", head_dim) / head_dim)
+    return ModelConfig.from_fields(_base_cfg(
+        hf2,
+        norm_kind="layer",
+        norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        act=hf.get("activation_function", "gelu_new"),
+        mlp_gated=False,
+        parallel_blocks=True,
+        attention_bias=True,
+        attention_out_bias=True,
+        num_experts=hf.get("num_local_experts", 4),
+        num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+        moe_intermediate_size=hf.get("n_inner") or 4 * n_embd,
+        moe_softmax_before_topk=True,
+        moe_norm_topk_prob=True,
+    ))
+
+
+def _gptneox(hf: dict) -> ModelConfig:
+    """GPT-NeoX (Pythia): two LayerNorms, the parallel residual where
+    ``use_parallel_residual`` (the default), partial rotary of
+    ``rotary_pct``, the exact gelu (the reference's ``_gptneox``)."""
+    hf2 = dict(hf)
+    hf2.setdefault("partial_rotary_factor", hf.get("rotary_pct", 1.0))
+    hf2.setdefault("rope_theta", hf.get("rotary_emb_base", 10000.0))
+    return ModelConfig.from_fields(_base_cfg(
+        hf2,
+        norm_kind="layer",
+        norm_eps=hf.get("layer_norm_eps", 1e-5),
+        act=hf.get("hidden_act", "gelu"),
+        mlp_gated=False,
+        parallel_blocks=hf.get("use_parallel_residual", True),
+        attention_bias=hf.get("attention_bias", True),
+        attention_out_bias=True,
+    ))
+
+
+def _gptj(hf: dict) -> ModelConfig:
+    """GPT-J: the parallel block off ONE LayerNorm, no bias on q/k/v/o,
+    ``rotary_dim`` columns in the interleaved "two" layout, the ungated
+    gelu_new MLP with biases, a biased head (the reference's ``_gptj``,
+    which rebuilds the config from the ``n_*`` names)."""
+    h = hf["n_embd"]
+    head_dim = h // hf["n_head"]
+    hf2 = dict(
+        model_type="gptj", vocab_size=hf["vocab_size"], hidden_size=h,
+        intermediate_size=hf.get("n_inner") or 4 * h,
+        num_hidden_layers=hf["n_layer"], num_attention_heads=hf["n_head"],
+        layer_norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        max_position_embeddings=hf.get("n_positions", 2048),
+        partial_rotary_factor=hf.get("rotary_dim", head_dim) / head_dim,
+    )
+    return ModelConfig.from_fields(_base_cfg(
+        hf2, rope_layout="two", norm_kind="layer",
+        act=hf.get("activation_function", "gelu_new"), mlp_gated=False,
+        parallel_blocks=True, mlp_bias=True,
+    ))
+
+
+def _neox_qkv(w, cfg: ModelConfig):
+    """GPT-NeoX ``query_key_value``: per-head ``[q_i; k_i; v_i]`` rows ->
+    ``[q_all; k_all; v_all]`` (a bias passes as an ``[out, 1]`` column)."""
+    h, hd = cfg.num_heads, cfg.head_dim
+    return w.reshape(h, 3, hd, -1).transpose(0, 1).reshape(3 * h * hd, -1)
+
+
 # the reference's _GEMMA2_SCHEME: pre- and post-feedforward norms, the
 # attention block's output norm, and the head tied to the embedding table
 _GEMMA2_SCHEME = WeightScheme(
@@ -399,6 +511,64 @@ _DEEPSEEK_V3_MOE = replace(
     _DEEPSEEK_MOE,
     score_bias="model.layers.{i}.mlp.gate.e_score_correction_bias")
 
+# the reference's _PHI_SCHEME: ONE LayerNorm feeds both parallel branches
+_PHI_SCHEME = WeightScheme(
+    final_norm="model.final_layernorm.weight",
+    o="model.layers.{i}.self_attn.dense.{p}",
+    gate=None,
+    up="model.layers.{i}.mlp.fc1.{p}",
+    gate_up=None,
+    down="model.layers.{i}.mlp.fc2.{p}",
+    mlp_norm="model.layers.{i}.input_layernorm.weight",
+)
+# phixtral keeps the msft phi-2 module tree; its experts are fc1/fc2
+# under moe.mlp.{e} (the reference's _PHIXTRAL_SCHEME and _PHIXTRAL_MOE)
+_PHIXTRAL_SCHEME = WeightScheme(
+    embed="transformer.embd.wte.weight",
+    final_norm="lm_head.ln.weight",
+    lm_head="lm_head.linear.weight",
+    attn_norm="transformer.h.{i}.ln.weight",
+    mlp_norm="transformer.h.{i}.ln.weight",
+    q=None, k=None, v=None,
+    qkv="transformer.h.{i}.mixer.Wqkv.{p}",
+    o="transformer.h.{i}.mixer.out_proj.{p}",
+    gate=None, up=None, gate_up=None,
+    down="transformer.h.{i}.moe.mlp.0.fc2.weight",  # unused (MoE layers)
+)
+_PHIXTRAL_MOE = MoEScheme(
+    router="transformer.h.{i}.moe.gate.weight",
+    e_gate=None,
+    e_up="transformer.h.{i}.moe.mlp.{e}.fc1.weight",
+    e_down="transformer.h.{i}.moe.mlp.{e}.fc2.weight",
+)
+_GPTNEOX_SCHEME = WeightScheme(
+    embed="gpt_neox.embed_in.weight",
+    final_norm="gpt_neox.final_layer_norm.weight",
+    lm_head="embed_out.weight",
+    attn_norm="gpt_neox.layers.{i}.input_layernorm.weight",
+    mlp_norm="gpt_neox.layers.{i}.post_attention_layernorm.weight",
+    qkv="gpt_neox.layers.{i}.attention.query_key_value.{p}",
+    q=None, k=None, v=None,
+    o="gpt_neox.layers.{i}.attention.dense.{p}",
+    gate=None, gate_up=None,
+    up="gpt_neox.layers.{i}.mlp.dense_h_to_4h.{p}",
+    down="gpt_neox.layers.{i}.mlp.dense_4h_to_h.{p}",
+)
+_GPTJ_SCHEME = WeightScheme(
+    embed="transformer.wte.weight",
+    final_norm="transformer.ln_f.weight",
+    lm_head="lm_head.weight",
+    attn_norm="transformer.h.{i}.ln_1.weight",
+    mlp_norm="transformer.h.{i}.ln_1.weight",  # ONE norm, parallel blocks
+    q="transformer.h.{i}.attn.q_proj.{p}",
+    k="transformer.h.{i}.attn.k_proj.{p}",
+    v="transformer.h.{i}.attn.v_proj.{p}",
+    o="transformer.h.{i}.attn.out_proj.{p}",
+    gate=None, gate_up=None,
+    up="transformer.h.{i}.mlp.fc_in.{p}",
+    down="transformer.h.{i}.mlp.fc_out.{p}",
+)
+
 FAMILIES: dict[str, Family] = {
     "llama": Family("llama", _llama),
     "mistral": Family("mistral", _mistral),
@@ -416,6 +586,14 @@ FAMILIES: dict[str, Family] = {
                           _DEEPSEEK_MOE),
     "deepseek_v3": Family("deepseek_v3", _deepseek_v3, _DEEPSEEK_SCHEME,
                           _DEEPSEEK_V3_MOE),
+    "phi": Family("phi", _phi, _PHI_SCHEME),
+    "phi-msft": Family("phi-msft", _phixtral, _PHIXTRAL_SCHEME,
+                       _PHIXTRAL_MOE),
+    "phixtral": Family("phixtral", _phixtral, _PHIXTRAL_SCHEME,
+                       _PHIXTRAL_MOE),
+    "gpt_neox": Family("gpt_neox", _gptneox, _GPTNEOX_SCHEME,
+                       qkv_transform=_neox_qkv),
+    "gptj": Family("gptj", _gptj, _GPTJ_SCHEME),
 }
 assert tuple(FAMILIES) == MODEL_TYPES, "config.MODEL_TYPES names the families"
 

@@ -17,7 +17,12 @@ per-head q/k norms, an MoE layer's fp32 router ``[H, E]``, its
 qwen2_moe's shared expert and its gate, DeepSeek's MLA leaves, score
 bias and ``layers_dense`` stack, no ``lm_head`` when the head is tied to
 the embedding table, and the rope leaves of ``models.build.rope_buffers``
-(gemma3's ``inv_freq_local`` too).
+(gemma3's ``inv_freq_local`` too).  The GPT-style block's tree adds the
+biases its checkpoints hold, fp32 ``0.1 * N(0, 1)`` (a LayerNorm's
+``0.05 * N(0, 1)``): the LayerNorms', o's where ``attention_out_bias``,
+the ungated MLP's ``up``/``up_bias``/``down_bias`` (and an ungated
+expert stack's ``moe_up_bias``/``moe_down_bias``) and the head's where
+the family's checkpoints carry one (:data:`HEAD_BIAS_FAMILIES`).
 """
 
 from __future__ import annotations
@@ -318,6 +323,87 @@ def phi35_mini_hf(seed: int = 0, partial_rotary_factor: float = 1.0) -> dict:
                              "long_factor": [float(v) for v in long]}}
 
 
+# huggingface.co/microsoft/phi-2, config.json (the fields the decoder
+# reads: 32 heads of 80, 32 of whose columns rotate, the gelu_new MLP,
+# LayerNorm eps 1e-5, an untied head with a bias)
+PHI2_HF = {
+    "model_type": "phi", "vocab_size": 51200, "hidden_size": 2560,
+    "intermediate_size": 10240, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "max_position_embeddings": 2048, "rope_theta": 10000.0,
+    "rope_scaling": None, "partial_rotary_factor": 0.4,
+    "hidden_act": "gelu_new", "layer_norm_eps": 1e-5, "qk_layernorm": False,
+    "tie_word_embeddings": False, "bos_token_id": 50256,
+    "eos_token_id": 50256,
+}
+
+# huggingface.co/mlabonne/phixtral-4x2_8, config.json (model_type phi-msft:
+# phi-2's widths in the msft names, four ungated experts, two a token)
+PHIXTRAL_4X2_8_HF = {
+    "model_type": "phi-msft", "vocab_size": 51200, "n_embd": 2560,
+    "n_head": 32, "n_head_kv": None, "n_inner": None, "n_layer": 32,
+    "n_positions": 2048, "rotary_dim": 32, "activation_function": "gelu_new",
+    "layer_norm_epsilon": 1e-5, "num_local_experts": 4,
+    "num_experts_per_tok": 2, "tie_word_embeddings": False,
+}
+
+# huggingface.co/EleutherAI/pythia-6.9b, config.json (32 heads of 128, a
+# quarter of whose columns rotate, the exact gelu, two LayerNorms and the
+# parallel residual)
+PYTHIA_6_9B_HF = {
+    "model_type": "gpt_neox", "vocab_size": 50432, "hidden_size": 4096,
+    "intermediate_size": 16384, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "max_position_embeddings": 2048,
+    "rotary_emb_base": 10000, "rotary_pct": 0.25, "hidden_act": "gelu",
+    "layer_norm_eps": 1e-5, "use_parallel_residual": True,
+    "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0,
+}
+
+# huggingface.co/EleutherAI/gpt-j-6b, config.json (16 heads of 256, 64 of
+# whose columns rotate in the interleaved "two" layout, gelu_new)
+GPTJ_6B_HF = {
+    "model_type": "gptj", "vocab_size": 50400, "n_embd": 4096, "n_head": 16,
+    "n_layer": 28, "n_positions": 2048, "n_inner": None, "rotary_dim": 64,
+    "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+    "tie_word_embeddings": False, "bos_token_id": 50256,
+    "eos_token_id": 50256,
+}
+
+# the families whose published checkpoints hold a bias on the lm head
+# (Pythia's embed_out has none)
+HEAD_BIAS_FAMILIES = ("phi", "phi-msft", "phixtral", "gptj")
+
+
+def _published(hf: dict, over: dict) -> ModelConfig:
+    cfg = config_from_hf(hf)
+    return replace(cfg, **over) if over else cfg
+
+
+def phi2_config(**over) -> ModelConfig:
+    """Phi-2's published widths (hidden 2560, ffn 10240, 32 layers, 32
+    heads of 80, vocab 51200), through the families lookup; ``over``
+    replaces fields of the result."""
+    return _published(PHI2_HF, over)
+
+
+def phixtral_4x2_config(**over) -> ModelConfig:
+    """Phixtral-4x2_8's published widths (Phi-2's, with four ungated
+    experts of 10240, two a token)."""
+    return _published(PHIXTRAL_4X2_8_HF, over)
+
+
+def pythia_6_9b_config(**over) -> ModelConfig:
+    """Pythia-6.9B's published widths (hidden 4096, ffn 16384, 32 layers,
+    32 heads of 128, vocab 50432)."""
+    return _published(PYTHIA_6_9B_HF, over)
+
+
+def gptj_6b_config(**over) -> ModelConfig:
+    """GPT-J-6B's published widths (hidden 4096, ffn 16384, 28 layers, 16
+    heads of 256, vocab 50400)."""
+    return _published(GPTJ_6B_HF, over)
+
+
 def phi3_mini_4k_config(**over) -> ModelConfig:
     """Phi-3-mini-4k-instruct's published widths (hidden 3072, ffn 8192, 32
     layers, 32 heads of 96, vocab 32064, a 2047 window on every layer),
@@ -510,8 +596,9 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
     the config gates it, its gate; ``router_scale`` multiplies the router
     weights (wider router margins for the card-against-CPU checks).  An
     MLA config gets MLA's leaves in place of ``qkv``, a score-bias config
-    an fp32 ``router_bias`` ``0.05 N(0, 1)``, and a dense prefix its
-    ``layers_dense`` stack."""
+    an fp32 ``router_bias`` ``0.05 N(0, 1)``, a dense prefix its
+    ``layers_dense`` stack, and the GPT-style block its biases (module
+    doc)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     h, ffn, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -539,21 +626,27 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         qkv_out = cfg.q_dim + 2 * cfg.kv_dim
         attn = {"qkv": (h, qkv_out)}
     attn["o"] = (cfg.num_heads * cfg.v_dim, h)
+    gated = 2 if cfg.mlp_gated else 1     # gate_up's width, in ffn's
 
     def stack(n_l: int, moe: bool) -> dict:
         shapes = dict(attn)
+        biases = {"o_bias": h} if cfg.attention_out_bias else {}
         if moe:
             mi, n_e = cfg.moe_intermediate_size, cfg.num_experts
-            experts = {"moe_gate_up": (h, 2 * mi), "moe_down": (mi, h)}
+            experts = {"moe_gate_up": (h, gated * mi), "moe_down": (mi, h)}
             if cfg.num_shared_experts:
                 si = shared_intermediate or (
                     mi * cfg.num_shared_experts
                     if cfg.model_type.startswith("deepseek") else ffn)
                 shapes.update(shared_gate_up=(h, 2 * si),
                               shared_down=(si, h))
-        else:
+        elif cfg.mlp_gated:
             n_e, experts = 0, {}
             shapes.update(gate_up=(h, 2 * ffn), down=(ffn, h))
+        else:
+            n_e, experts = 0, {}
+            shapes.update(up=(h, ffn), down=(ffn, h))
+            biases.update(up_bias=ffn, down_bias=h)
         stacks = LayerStack(n_l, n_e)
         for i in range(n_l):
             for name, (n_in, n_out) in shapes.items():
@@ -565,6 +658,11 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         norms = ["attn_norm", "mlp_norm"] + [
             n for n in ("post_attn_norm", "post_mlp_norm") if getattr(cfg, n)]
         layers = {n: norm_w((n_l, h)) for n in norms}
+        if cfg.norm_kind == "layer":
+            for n in ("attn_norm", "mlp_norm"):
+                layers[n + "_bias"] = 0.05 * normal((n_l, h))
+        for n, width in biases.items():
+            layers[n] = 0.1 * normal((n_l, width))
         if cfg.qk_norm:
             layers["q_norm"] = norm_w((n_l, cfg.head_dim))
             layers["k_norm"] = norm_w((n_l, cfg.head_dim))
@@ -582,6 +680,9 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
                     n_l, h, 1).contiguous()
             if cfg.moe_score_bias:
                 layers["router_bias"] = 0.05 * normal((n_l, n_e))
+            if not cfg.mlp_gated:
+                layers["moe_up_bias"] = 0.1 * normal((n_l, n_e, mi))
+                layers["moe_down_bias"] = 0.1 * normal((n_l, n_e, h))
         layers.update(stacks.tree)
         return layers
 
@@ -596,6 +697,10 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         "final_norm": norm_w((h,)),
         **rope_buffers(cfg, dev),
     })
+    if cfg.norm_kind == "layer":
+        params["final_norm_bias"] = 0.05 * normal((h,))
     if not cfg.tie_word_embeddings:
         params["lm_head"] = quantize(weight(h, v), qtype)
+        if cfg.model_type in HEAD_BIAS_FAMILIES:
+            params["lm_head_bias"] = 0.1 * normal((v,))
     return params

@@ -20,7 +20,7 @@ from ipex_llm_tpu_torch.ops.cuda import _build
 
 NAME = "decode_attention"
 # (K, V) head widths of the kernel's instances
-INSTANCES = ((96, 96), (128, 128), (192, 128), (256, 256))
+INSTANCES = ((80, 80), (96, 96), (128, 128), (192, 128), (256, 256))
 _MAX_GROUP = 16              # Hq / Hkv: the query rows of one mma tile
 _KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 _TILE_KEYS = 64              # keys per staged tile (csrc kKT)
@@ -38,7 +38,7 @@ def ring_plan(d: int, fp8: bool, dv: int | None = None
     e5m2 layer (csrc ``Ring`` and ``kResident``): three bf16 stages of a
     K/V tile pair, or four raw e5m2 stages and the widened bf16 pair, one
     stage fewer where V is narrower than K (two blocks an SM at (192,
-    128)); a tile's rows 128 columns wide at d = 96; at d = 256 the 16
+    128)); a tile's rows 128 columns wide at d = 80 and 96; at d = 256 the 16
     query rows in shared memory too, and one block an SM."""
     dv = d if dv is None else dv
     pair = _TILE_KEYS * (max(d, 128) + max(dv, 128)) * 2   # bf16 K + V

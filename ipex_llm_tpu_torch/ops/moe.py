@@ -22,6 +22,14 @@ reference's:
   the fp32 weight, summed in fp32 in expert-sorted order, then rounded to
   bf16.
 
+Ungated experts (``gated=False``, phixtral's fc1 -> act -> fc2) hold fc1
+alone in ``gate_up`` (``I`` columns, not ``2I``) and run the plain
+activation (``ops.mlp.act``) where gated ones run ``act(gate) * up``.
+Their biases, ``up_bias`` ``[E, I]`` and ``down_bias`` ``[E, H]``, are
+gathered by each pair's expert and added where the reference adds them:
+in bf16 to the bf16 projection outputs on the gather route (and in the
+dense scan), in fp32 to the fp32 outputs on the ragged route.
+
 Every sum runs in a fixed order with no atomics, so a retried tick is
 bitwise the first.  bf16 expert stacks take the reference's plain forms
 (gathered weights and a batched product at the gather route, one product
@@ -104,7 +112,24 @@ def _sort_pairs(idx: torch.Tensor, n_experts: int):
     return order, segments(ids, n_experts)
 
 
-def moe_gather(h, w, idx, gate_up, down, act: str, n_experts: int):
+def _activate(inner: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+    """act(gate) * up of a gated expert's gate||up output, or act(fc1) of
+    an ungated one's (in ``inner``'s dtype)."""
+    if gated:
+        gate, up = mlp_ops.split_gate_up(inner)
+        return mlp_ops.gated_act_mul(gate, up, act)
+    return mlp_ops.act(inner, act)
+
+
+def _plus(y: torch.Tensor, bias: torch.Tensor | None,
+          experts: torch.Tensor) -> torch.Tensor:
+    """y [P, N] plus each row's expert's bias (``bias`` [E, N]) in y's
+    dtype; y unchanged without a bias."""
+    return y if bias is None else y + bias[experts].to(y.dtype)
+
+
+def moe_gather(h, w, idx, gate_up, down, act: str, n_experts: int,
+               gated: bool = True, up_bias=None, down_bias=None):
     """The gather route: h [B, T, H], w / idx [B, T, k] -> bf16 [B, T, H]."""
     b, t, hidden = h.shape
     k = idx.shape[-1]
@@ -115,17 +140,19 @@ def moe_gather(h, w, idx, gate_up, down, act: str, n_experts: int):
                       rounding_mode="floor")
     if _packed(gate_up):
         order, seg = _sort_pairs(idx, n_experts)
-        inner = linear_ops.qmatmul_experts(hf[tok_f[order]], seg, gate_up,
-                                           max_rows=n)
-        gate, up = mlp_ops.split_gate_up(inner)
-        y_s = linear_ops.qmatmul_experts(
-            mlp_ops.gated_act_mul(gate, up, act), seg, down, max_rows=n)
+        e_s = e_f[order]
+        inner = _plus(linear_ops.qmatmul_experts(hf[tok_f[order]], seg,
+                                                 gate_up, max_rows=n),
+                      up_bias, e_s)
+        y_s = _plus(linear_ops.qmatmul_experts(
+            _activate(inner, act, gated), seg, down, max_rows=n),
+            down_bias, e_s)
         y = torch.empty_like(y_s)
         y[order] = y_s                      # back to pair order
     else:
-        inner = _bmm_bf16(hf[tok_f], gate_up.data[e_f])
-        gate, up = mlp_ops.split_gate_up(inner)
-        y = _bmm_bf16(mlp_ops.gated_act_mul(gate, up, act), down.data[e_f])
+        inner = _plus(_bmm_bf16(hf[tok_f], gate_up.data[e_f]), up_bias, e_f)
+        y = _plus(_bmm_bf16(_activate(inner, act, gated), down.data[e_f]),
+                  down_bias, e_f)
     y = (y * w.reshape(n * k, 1).to(torch.bfloat16)).reshape(n, k, hidden)
     out = y[:, 0]
     for j in range(1, k):                   # bf16, in top-k order
@@ -133,7 +160,8 @@ def moe_gather(h, w, idx, gate_up, down, act: str, n_experts: int):
     return out.reshape(b, t, hidden)
 
 
-def moe_ragged(h, w, idx, gate_up, down, act: str, n_experts: int):
+def moe_ragged(h, w, idx, gate_up, down, act: str, n_experts: int,
+               gated: bool = True, up_bias=None, down_bias=None):
     """The ragged route: h [B, T, H], w / idx [B, T, k] -> [B, T, H] in
     h's dtype."""
     b, t, hidden = h.shape
@@ -141,12 +169,13 @@ def moe_ragged(h, w, idx, gate_up, down, act: str, n_experts: int):
     n = b * t
     hf = h.reshape(n, hidden).to(torch.bfloat16)
     order, seg = _sort_pairs(idx, n_experts)
+    e_s = idx.reshape(n * k)[order]
     tok_s = torch.div(order, k, rounding_mode="floor")
     w_s = w.reshape(n * k)[order]
-    inner = _grouped(hf[tok_s], seg, gate_up, torch.float32, n)
-    gate, up = mlp_ops.split_gate_up(inner)
-    act_x = mlp_ops.gated_act_mul(gate, up, act).to(torch.bfloat16)
-    y = _grouped(act_x, seg, down, torch.float32, n)
+    inner = _plus(_grouped(hf[tok_s], seg, gate_up, torch.float32, n),
+                  up_bias, e_s)
+    act_x = _activate(inner, act, gated).to(torch.bfloat16)
+    y = _plus(_grouped(act_x, seg, down, torch.float32, n), down_bias, e_s)
     y = y * w_s[:, None].to(torch.float32)
     # each token's k sorted positions, ascending: its fp32 sum runs in
     # expert-sorted order, as the reference's scatter-add does
@@ -160,16 +189,19 @@ def moe_ragged(h, w, idx, gate_up, down, act: str, n_experts: int):
     return out.reshape(b, t, hidden).to(h.dtype)
 
 
-def moe_ffn(h, w, idx, gate_up, down, act: str, n_experts: int):
+def moe_ffn(h, w, idx, gate_up, down, act: str, n_experts: int,
+            gated: bool = True, up_bias=None, down_bias=None):
     """Route by the static pair count: gather for decode-shaped batches,
     ragged above :data:`GATHER_PAIR_LIMIT`."""
+    kw = dict(gated=gated, up_bias=up_bias, down_bias=down_bias)
     n_pairs = h.shape[0] * h.shape[1] * idx.shape[-1]
     if n_pairs <= GATHER_PAIR_LIMIT:
-        return moe_gather(h, w, idx, gate_up, down, act, n_experts)
-    return moe_ragged(h, w, idx, gate_up, down, act, n_experts)
+        return moe_gather(h, w, idx, gate_up, down, act, n_experts, **kw)
+    return moe_ragged(h, w, idx, gate_up, down, act, n_experts, **kw)
 
 
-def moe_dense(h, w, idx, gate_up, down, act: str, n_experts: int):
+def moe_dense(h, w, idx, gate_up, down, act: str, n_experts: int,
+              gated: bool = True, up_bias=None, down_bias=None):
     """Every expert on every token, gated by the dense map of the top-k
     weights (zeros elsewhere) and summed over the experts in order in h's
     dtype: the reference decoder's scan (``decoder.py:268-293``)."""
@@ -180,9 +212,10 @@ def moe_dense(h, w, idx, gate_up, down, act: str, n_experts: int):
             idx[..., j].long(), n_experts).to(w.dtype)
     acc = torch.zeros_like(h)
     for e in range(n_experts):
-        gate, up = mlp_ops.split_gate_up(
-            linear_ops.linear(h, gate_up.planes(lambda t: t[e])))
-        y = linear_ops.linear(mlp_ops.gated_act_mul(gate, up, act),
-                              down.planes(lambda t: t[e]))
+        inner = linear_ops.linear(h, gate_up.planes(lambda t: t[e]),
+                                  None if up_bias is None else up_bias[e])
+        y = linear_ops.linear(_activate(inner, act, gated),
+                              down.planes(lambda t: t[e]),
+                              None if down_bias is None else down_bias[e])
         acc = acc + y * gates[..., e, None].to(y.dtype)
     return acc

@@ -46,7 +46,11 @@ def ineligible_reason(cfg: ModelConfig, params: dict, axes: dict,
     of ``axes`` (axis name to size, as a mesh's ``shape``) with the
     engine's ``step_budget``; None when it can.  The reference's rule, its
     reasons word for word (MLA, DeepSeek's attention, is refused; the
-    port's configs have no alibi or 2D rope, and every gated MLP)."""
+    port's configs have no alibi or 2D rope), and one of the port's own:
+    a bias on a row-parallel o or down would be summed tp times by the
+    all-reduce (it is added once after it in the reference's GSPMD
+    path), so the GPT-style block, whose MLP is ungated besides, is
+    refused at tp > 1."""
     tp = axes.get("tp", 1)
     if tp <= 1:
         return "no tp axis"
@@ -65,8 +69,10 @@ def ineligible_reason(cfg: ModelConfig, params: dict, axes: dict,
         return "MoE stacks not manual-sharded yet"
     if "qkv" not in layers:
         return "split q/k/v projections (GGUF import) not relaid-out yet"
-    if "gate_up" not in layers:
+    if not cfg.mlp_gated or "gate_up" not in layers:
         return "ungated / split MLP needs a sliced row input"
+    if "o_bias" in layers or "down_bias" in layers:
+        return "a row-parallel o/down bias is added once after the all-reduce"
     if cfg.qk_norm and "q_norm" in layers:
         qn = layers["q_norm"]
         width = (qn.shape[-1] if not isinstance(qn, QTensor)

@@ -65,12 +65,14 @@ GENERATE_LENGTHS = (4500, 1990, 611, 203)
 
 
 def small_check(cfg, seed, dev, fail, label: str | None = None,
-                forms=("paged", "dense")) -> dict:
+                forms=("paged", "dense"), params=None,
+                paged_decode_steps: int = 3) -> dict:
     """A decoder on the card (``dev``) against the same decoder on the
     CPU's plain versions, paged (prefill chunks of 40, 17 and 29 ids,
-    three decode steps) and dense (a left-padded prefill of the same rows,
-    four decode steps), or the ``forms`` named: the worst card-vs-CPU
-    logit gap of each form over
+    ``paged_decode_steps`` decode steps) and dense (a left-padded prefill
+    of the same rows, four decode steps), or the ``forms`` named, over
+    ``params`` (a CPU tree; by default ``random_params`` of ``seed`` on
+    the CPU): the worst card-vs-CPU logit gap of each form over
     the logits' range (bound 2.5%); with an attention softcap, also the
     gap it makes on the CPU (``softcap_gap``, the dense form without the
     cap), which must pass twice the bound so a kernel that left it out
@@ -83,7 +85,8 @@ def small_check(cfg, seed, dev, fail, label: str | None = None,
     from ipex_llm_tpu_torch.models.random_init import random_params
 
     label = label or cfg.model_type
-    p_cpu = random_params(cfg, "sym_int4", seed=seed, device="cpu")
+    p_cpu = params if params is not None else random_params(
+        cfg, "sym_int4", seed=seed, device="cpu")
 
     def to_dev(tree):
         if isinstance(tree, dict):
@@ -122,7 +125,7 @@ def small_check(cfg, seed, dev, fail, label: str | None = None,
                     gather_positions=to(lengths - 1))
                 logits.append(lg)
                 lens = lengths.copy()
-                for tk in decode[:3]:
+                for tk in decode[:paged_decode_steps]:
                     lg, _ = decoder_forward(
                         cfg, params, to(tk), c, to(lens[:, None]),
                         slot_offsets=to(lens), last_token_only=True)

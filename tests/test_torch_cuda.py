@@ -3,8 +3,8 @@ B5 (split paged attention) in both its tile heights, B2's GEMV (M <= 8)
 and tiled (M > 8) instances in every block format, B2e (B2's tile over
 rows sorted by expert) in every block format and row tile, B1 (ragged
 paged attention) in both its instances
-(query tiles, key split) at head_dim 128 and 256, B3 (dense decode
-attention) and B4 (flash attention) at head_dim 96, 128 and 256, all
+(query tiles, key split) at head_dim 80, 128 and 256, B3 (dense decode
+attention) and B4 (flash attention) at head_dim 80, 96, 128 and 256, all
 three at DeepSeek's K width 192 and V width 128 and, for
 training, B4's LSE instance and backward and B2^T
 (the dequant-matmul's input gradient).  Every case carries the ``cuda``
@@ -260,6 +260,17 @@ def test_ragged_attention_head_dim_256_matches_plain(storage, g, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("c", [1, 4, 16, 128])
+def test_ragged_attention_head_dim_80_matches_plain(storage, g, c):
+    """B1's head_dim-80 instances (Phi-2's width: rows 128 columns wide in
+    shared memory, 80 of them staged and read) on the cases of the 128
+    ones, at Phi-2's group of 1 and at 4."""
+    _ragged_case(storage, g, c, 80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
 @pytest.mark.parametrize("c", [1, 4, 16, 128])
 def test_ragged_attention_head_dim_192_matches_plain(storage, c):
     """B1's (192, 128) instances (DeepSeek's MLA: K 192 wide, V 128, one
@@ -351,6 +362,17 @@ def test_decode_attention_head_dim_96_matches_plain(storage, g, variant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
+def test_decode_attention_head_dim_80_matches_plain(storage, g, variant):
+    """B3's head_dim-80 instance (the 96 one at 80 columns: five score
+    steps, ten output tiles, a 96-thread merge) on the cases of the 128
+    instance, at Phi-2's group of 1 and at 4."""
+    _decode_case(storage, g, variant, 80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
 @pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
 def test_decode_attention_head_dim_192_matches_plain(storage, variant):
     """B3's (192, 128) instance (K 192, V 128, one stage fewer) on the
@@ -423,6 +445,17 @@ def test_flash_attention_head_dim_96_matches_plain(t, g, variant):
     other 32 zeros in shared memory) on the cases of the 128 instance and
     at the verify width T = 4 after 64 cached slots."""
     _flash_case(t, g, variant, 96, lead=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 200, 1000])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("variant", B4_VARIANTS)
+def test_flash_attention_head_dim_80_matches_plain(t, g, variant):
+    """B4's head_dim-80 instance (the 96 one at 80 columns: the other 48
+    of the 128-column tile zeros in shared memory) on the cases of the 128
+    instance and at the verify width T = 4 after 64 cached slots."""
+    _flash_case(t, g, variant, 80, lead=64)
 
 
 @pytest.mark.cuda

@@ -42,12 +42,15 @@ def test_config_outside_the_slice_raises():
     norms and experts since qwen3 and the MoE families, the gemma family
     and partial rotary, here a rope table narrower than head_dim, since
     phi3 and gemma, DeepSeek's routing, routed scaling factor and
-    interleaved rope layout since the deepseek families); other families,
-    rope layouts and biases still raise)."""
+    interleaved rope layout since the deepseek families, LayerNorm, the
+    MLP's and o's biases, the ungated MLP and the parallel residual since
+    the GPT-style families); other families, rope layouts, norms and the
+    fields of other blocks still raise)."""
     cfg = tiny_cfg()
     fields = dataclasses.asdict(cfg)
-    for over in ({"mlp_bias": True}, {"attention_out_bias": True},
-                 {"model_type": "minicpm3"}, {"rope_layout": "neox"}):
+    for over in ({"norm_after": True}, {"alibi": True},
+                 {"model_type": "minicpm3"}, {"rope_layout": "neox"},
+                 {"norm_kind": "group"}):
         with pytest.raises(NotImplementedError):
             ModelConfig.from_fields({**fields, **over})
     for over in ({"sliding_window": 64}, {"attn_softcap": 30.0},
@@ -57,7 +60,10 @@ def test_config_outside_the_slice_raises():
                  {"model_type": "gemma"}, {"head_dim": 16},
                  {"moe_n_group": 4}, {"moe_score_func": "sigmoid"},
                  {"moe_router_scale": 2.5},
-                 {"model_type": "deepseek_v2"}, {"rope_layout": "two"}):
+                 {"model_type": "deepseek_v2"}, {"rope_layout": "two"},
+                 {"mlp_bias": True}, {"attention_out_bias": True},
+                 {"norm_kind": "layer"}, {"mlp_gated": False},
+                 {"parallel_blocks": True}, {"model_type": "gptj"}):
         assert ModelConfig.from_fields({**fields, **over})
 
 

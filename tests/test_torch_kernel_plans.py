@@ -321,14 +321,14 @@ def _emulate_decode_split(q, k, v, kv_len, kv_start, won, *, scale, window,
 SMEM_BLOCK, SMEM_SM = 232448, 233472
 
 
-@pytest.mark.parametrize("d", [96, 128, 256])
+@pytest.mark.parametrize("d", [80, 96, 128, 256])
 @pytest.mark.parametrize("fp8", [False, True])
 def test_decode_ring_plan_fits_the_sm(d, fp8):
     """B3's ring: three bf16 stages of a 64-key K/V tile pair (or four raw
     e5m2 stages and the widened pair), 96 KiB at head_dim 128 (two blocks
-    an SM), and at 96, whose tile rows keep 128's width; at 256 the pair
-    doubles and the 16 query rows join it in shared memory: 200 KiB, one
-    block an SM."""
+    an SM), and at 80 and 96, whose tile rows keep 128's width; at 256 the
+    pair doubles and the 16 query rows join it in shared memory: 200 KiB,
+    one block an SM."""
     stages, smem, resident = b3.ring_plan(d, fp8)
     assert stages == (4 if fp8 else 3)
     assert smem <= SMEM_BLOCK and resident * smem <= SMEM_SM
@@ -425,29 +425,29 @@ def test_decode_split_then_merge_matches_plain_and_pallas(storage, case,
 
 # -- B4 ------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d", [96, 128, 256])
+@pytest.mark.parametrize("d", [80, 96, 128, 256])
 def test_flash_smem_plan_fits_the_sm(d):
     """B4's ring of 64-key K/V tile pairs: three stages at head_dim 128
     (97 KiB with the swizzle's alignment slack, two blocks an SM), and at
-    96, whose tiles are laid out 128 columns wide; at 256 two stages of 64
-    KiB pairs and the block's 64 query rows (32 KiB, read through a
-    descriptor): 161 KiB, one block an SM."""
+    80 and 96, whose tiles are laid out 128 columns wide; at 256 two
+    stages of 64 KiB pairs and the block's 64 query rows (32 KiB, read
+    through a descriptor): 161 KiB, one block an SM."""
     stages, smem, resident = b4.smem_plan(d)
     assert smem <= SMEM_BLOCK and resident * smem <= SMEM_SM
     assert (stages, smem, resident) == ((3, 97 * 1024, 2) if d <= 128
                                         else (2, 161 * 1024, 1))
 
 
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [80, 128, 256])
 @pytest.mark.parametrize("split", [False, True])
 def test_ragged_smem_plan_fits_the_sm(d, split):
     """B1's four 64-key K/V tiles: 64 KiB at head_dim 128 with Q in
-    registers; at 256 128 KiB and the block's query rows in shared memory
-    (64 rows of the query tiles, 32 KiB; 16 of the key split, 8 KiB), one
-    block an SM."""
+    registers, and at 80, whose tile rows keep 128's width; at 256 128 KiB
+    and the block's query rows in shared memory (64 rows of the query
+    tiles, 32 KiB; 16 of the key split, 8 KiB), one block an SM."""
     smem, q_smem = b1.smem_plan(d, split)
     assert smem <= SMEM_BLOCK and q_smem == (d == 256)
-    if d == 128:
+    if d <= 128:
         assert smem == 64 * 1024 + 16 and 3 * smem <= SMEM_SM
     else:
         assert smem == 128 * 1024 + 128 + (8 if split else 32) * 1024

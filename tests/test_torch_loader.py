@@ -17,8 +17,10 @@ vocab 256; random weights from a seed):
   load and port -> port, every tensor bitwise.
 """
 
+import functools
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -337,19 +339,41 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8 if t.element_size() == 1 else torch.int16)
 
 
+@functools.lru_cache(maxsize=None)
+def _native_loaded(tries: int = 30, wait_s: float = 2.0) -> bool:
+    """Whether the reference's C++ quantizer is loaded in this process.
+    The reference builds it at first use into one file that every test
+    worker of a run shares; a worker that loads it while another is still
+    writing it fails and keeps that answer (its loader's ``_LIB`` stays
+    False), so the load is tried again, a few times, once the file may be
+    whole.  Once a process: the answer is cached."""
+    for _ in range(tries):
+        if ref_native.available():
+            return True
+        if os.environ.get("IPEX_LLM_TPU_DISABLE_NATIVE", "0") == "1":
+            return False
+        ref_native._LIB = None
+        time.sleep(wait_s)
+    return False
+
+
 @pytest.mark.parametrize("qtype,mixed", BUILD_CASES,
                          ids=lambda v: str(v))
 def test_build_params_against_the_reference_default_path(
         ckpt, qtype, mixed, monkeypatch):
     """Against the reference's own load path (numpy input: its C++
-    quantizer for the 4- and 8-bit int and codebook formats).  Bitwise in
-    every format but those of ``CPP_DIVERGES``; there the port differs
-    from the C++ path only in bytes where the reference's two paths differ
-    from each other (the port is its jitted codec), and asym_int4's fp16
-    scales and minima are at most one ulp off in at most 0.1% of them."""
+    quantizer for the 4- and 8-bit int and codebook formats, where it
+    loads; else its jitted codec).  Bitwise in every format but those of
+    ``CPP_DIVERGES``; there the port differs from the C++ path only in
+    bytes where the reference's two paths differ from each other (the port
+    is its jitted codec), and asym_int4's fp16 scales and minima are at
+    most one ulp off in at most 0.1% of them.  Where the C++ quantizer
+    cannot load, the default path is the jitted codec, and the trees are
+    bitwise in every format."""
+    native = _native_loaded()
     cpp, _ = reference_build(ckpt, qtype, mixed)
     got = port_build_tree(ckpt, qtype, mixed)
-    if qtype not in CPP_DIVERGES:
+    if qtype not in CPP_DIVERGES or not native:
         assert_trees_equal(got, cpp)
         return
     share = 1e-3 if qtype == "asym_int4" else None
@@ -387,7 +411,7 @@ def test_build_params_refuses_what_is_not_ported(ckpt):
     for q in ("mixed_fp4", "mixed_fp8"):
         with pytest.raises(NotImplementedError):
             port_build.quantize_weight(torch.zeros(64, 64), q)
-    for other in ("aquila", "phixtral", "minicpm3", "olmo2"):
+    for other in ("aquila", "starcoder2", "minicpm3", "olmo2"):
         with pytest.raises(NotImplementedError, match="item 14"):
             get_family(other)
 

@@ -196,7 +196,8 @@ def test_published_config_matches_reference_family(family):
 
 def test_config_refuses_what_is_not_ported():
     """DeepSeek's routing fields and dense prefix layers are in the slice
-    since the deepseek families, an ungated or biased MLP still raises
+    since the deepseek families, ungated and biased experts since phixtral;
+    a field of a family still to port (learned positions, alibi) raises
     naming item 14; a score function or group score the reference does not
     know raises; an MoE config without its top-k, or groups that do not
     divide the experts, is invalid; ``from_fields`` no longer skips
@@ -205,9 +206,10 @@ def test_config_refuses_what_is_not_ported():
     for over in ({"moe_n_group": 4, "moe_topk_group": 2},
                  {"moe_score_func": "sigmoid"}, {"moe_group_score": "top2sum"},
                  {"moe_score_bias": True}, {"moe_layer_start": 1},
-                 {"num_shared_experts": 2}, {"moe_router_scale": 2.5}):
+                 {"num_shared_experts": 2}, {"moe_router_scale": 2.5},
+                 {"mlp_gated": False}, {"mlp_bias": True}):
         assert ModelConfig.from_fields({**fields, **over})
-    for over in ({"mlp_gated": False}, {"mlp_bias": True}):
+    for over in ({"learned_pos": 2048}, {"alibi": True}):
         with pytest.raises(NotImplementedError, match="item 14"):
             ModelConfig.from_fields({**fields, **over})
     for over in ({"moe_score_func": "sqrtsoftplus"},
