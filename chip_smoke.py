@@ -220,7 +220,29 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     ``generate()`` (B3 and B4 at 80); a 4-layer Phi-2-width checkpoint
     through ``from_pretrained``, ``save_low_bit``/``load_low_bit``
     (bitwise) and ``generate()``.
-16. ``train`` (``scripts/torch_train_smoke.py``): the training path's
+16. ``offload`` (``scripts/torch_offload_smoke.py``): expert offload.
+    Mixtral-8x7B-v0.1 at full width, 8 of its 32 layers, sym_int4: the
+    resident ``generate()`` on a 512-id prompt, 32 greedy tokens, then
+    the same params split by ``OffloadedMoE`` (the 64 expert entries of
+    about 99 MB in pinned host memory, each miss a ``non_blocking`` copy
+    on a copy stream) at a 1,536 MB budget (about 15 entries: every step
+    misses and evicts) and at one that holds every entry, cold and warm:
+    every run's tokens and logits bitwise equal, B2, B3 and B4 launched,
+    no plain version; the tokens the resident ones, or a fork at a
+    near-tie; hits, misses, evictions, bytes copied, the copy stream's
+    rate, tok/s and peak memory in each run.
+17. ``minicpm`` (``scripts/torch_minicpm_smoke.py``): B1, B3 and B4 at
+    (64, 64) (MiniCPM-2B's 36 heads and Llama-3.2-1B's 32 over 8) and at
+    (96, 64) (MiniCPM3-4B's 40 MLA heads), and B1 at (96, 96) (Phi-3-mini's
+    32 heads, off this slice's serving path), against their plain versions
+    and timed beside their bounds and SDPA (the cases of
+    ``torch_gpt_families_smoke.attention_cases``); 2-layer MiniCPM-2B and
+    MiniCPM3-4B decoders at their published widths (the vocabulary cut)
+    card against CPU; MiniCPM-2B at full width and depth (40 layers) and
+    MiniCPM3-4B at full width, 8 of its 62 layers, through
+    ``ServingEngine`` (eight requests over a bf16 pool: B1, B2) and
+    ``generate()`` (B2, B3, B4).
+18. ``train`` (``scripts/torch_train_smoke.py``): the training path's
     kernels, B4's LSE instance and backward (causal, T = 1, 63, 1024 and
     2048, G = 1 and 4, ``kv_start`` > 0 on a row; dQ, dK, dV per row
     within 2^-6 of the row's largest plain value, bitwise on a second
@@ -235,7 +257,7 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     memory and one step's profile; ``merge_and_unload`` and a
     ``generate()`` of the merged model; a full-parameter and a LISA step
     at full width, 2 layers.
-17. ``serve_tp`` (``scripts/torch_tp_smoke.py``, run as a child process
+19. ``serve_tp`` (``scripts/torch_tp_smoke.py``, run as a child process
     that spawns its ranks; the kernels already built): tensor-parallel
     serving, two gloo ranks on this one card (each prints its backend).
     The five sharded wrappers at their shard shapes against the unsharded
@@ -2356,14 +2378,30 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
 
-    # -- 16. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
+    # -- 16. expert offload: Mixtral-8x7B with host-resident experts ------
+    from torch_offload_smoke import offload_phase
+
+    report["offload"] = offload_phase(kernels, card, fail, dev)
+    print(f"offload phase: {report['offload']['phase_s']:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 17. the MiniCPM families: B1, B3 and B4 at 64 and (96, 64) --------
+    from torch_minicpm_smoke import minicpm_phase
+
+    report["minicpm"] = minicpm_phase(kernels, card, fail, dev, graph_ms)
+    print(f"minicpm phase: {report['minicpm']['phase_s']:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 18. training: B4's backward, B2^T, Llama-2-7B QLoRA --------------
     from torch_train_smoke import train_phase
 
     report["train"] = train_phase(kernels, card, fail, dev, graph_ms)
     print(f"train phase: {report['train']['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    # -- 17. tensor-parallel serving: two gloo ranks on this card ------------
+    # -- 19. tensor-parallel serving: two gloo ranks on this card ------------
     def serve_tp_phase() -> dict:
         """``scripts/torch_tp_smoke.py`` in a process of its own (its ranks
         are processes of theirs); its last line must say ok and carry a
@@ -2501,6 +2539,54 @@ def main() -> int:
                    if r["kernel"] == kernel)
     src = "ipex_llm_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the MiniCPM instances of the minicpm phase: launches from MiniCPM-2B's
+    # and MiniCPM3-4B's serving runs (B1) and their generate() (B3, B4)
+    mc = report["minicpm"]
+    mc_serve = {r["model"]: r for r in mc["serve"]}
+    mc_gen = {r["model"]: r for r in mc["generate"]}
+    mc2, mc3 = mc_serve["MiniCPM-2B"], mc_serve["MiniCPM3-4B"]
+
+    def mc_row(kernel, case):
+        return next(r for r in mc["kernels"] if r["kernel"] == kernel
+                    and r["case"] == case and r.get("pool", "bf16") == "bf16")
+
+    def mc_err(kernel, d, dv):
+        return max(r["max_abs_err"] for r in mc["kernels"]
+                   if r["kernel"] == kernel and r["head_dim"] == d
+                   and r["v_head_dim"] == dv)
+
+    def mc_b1(width, model, heads, c, launches, run, extra=None):
+        d, dv = width
+        wd = f"D={d}" if d == dv else f"({d}, {dv})"
+        split = c == 1
+        return {
+            "name": "ragged_paged_attention[D=%d%s%s]" % (
+                d, "" if d == dv else f", Dv={dv}", ", split" if split
+                else ""),
+            "route": "cuda", "source": src + "ragged_paged_attention.cu",
+            "replaces":
+                "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+            "shape": f"R=8 C={c} {heads} D={d} Dv={dv} page 128, 2048 "
+                     "slots, bf16 pool" + (" (key split and merge)" if split
+                                           else ", chunk+decode+idle rows "
+                                           "(query tiles)"),
+            "launches": launches, "launches_run": run, **(extra or {}),
+            "max_abs_err": mc_err("ragged_paged_attention", d, dv),
+            **{k: mc_row("ragged_paged_attention",
+                         f"{wd} {model} {heads} C={c}")[k] for k in keys}}
+
+    def mc_dense(kernel, width, model, case, launches, run):
+        d, dv = width
+        wd = f"D={d}" if d == dv else f"({d}, {dv})"
+        return {
+            "name": f"{kernel}[D={d}" + ("" if d == dv else f", Dv={dv}")
+                    + "]", "route": "cuda", "source": src + f"{kernel}.cu",
+            "replaces": f"ipex_llm_tpu/ops/pallas/{kernel}.py:166",
+            "shape": f"{model} {case}, bf16", "launches": launches,
+            "launches_run": run, "max_abs_err": mc_err(kernel, d, dv),
+            **{k: mc_row(kernel, f"{wd} {model} {case}")[k] for k in keys}}
+    # the offload phase's runs (the small budget's: every step streams)
+    off_launches = report["offload"]["small"]["launches"]
     # B2's launches in each format on that format's main-path run: the
     # sym_int4 serving run, and each weight_qtype run of serve_formats
     b2_launches = {"sym_int4": serve_launches["qmatmul"]}
@@ -2530,6 +2616,7 @@ def main() -> int:
             "shape": "M=8 K=4096 N=22016 (gate_up, decode)",
             "launches": b2_launches[qtype],
             **({"launches_serve_http": http_launches["qmatmul"],
+                "launches_offload": off_launches["qmatmul"],
                 "launches_serve_faults": faults_launches["qmatmul"],
                 "launches_load_generate": load_gen["qmatmul"],
                 "launches_load_serve": load_srv["qmatmul"]}
@@ -2580,6 +2667,7 @@ def main() -> int:
                   "kv_start/kv_len, window off",
          "launches": gen_launches["decode_attention"],
          "launches_load_generate": load_gen["decode_attention"],
+         "launches_offload": off_launches["decode_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b3"]),
          **{k: rep_b3[k] for k in keys}},
         {"name": "flash_attention", "route": "cuda",
@@ -2589,6 +2677,7 @@ def main() -> int:
                   "padded",
          "launches": gen_launches["flash_attention"],
          "launches_load_generate": load_gen["flash_attention"],
+         "launches_offload": off_launches["flash_attention"],
          # the LSE instance's launches in one QLoRA step
          "launches_train_step": train_launches["flash_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in report["b4"]),
@@ -2791,6 +2880,44 @@ def main() -> int:
          "max_abs_err": gf_err("flash_attention"),
          **{k: gf_row("flash_attention", "D=80 Phi-2 T=128 x 8 chunks "
                       "S=2048")[k] for k in keys}},
+        # B1, B3 and B4 at MiniCPM's widths: (64, 64) (MiniCPM-2B, 40
+        # layers) and (96, 64) (MiniCPM3-4B's MLA, 8 layers)
+        mc_b1((64, 64), "MiniCPM-2B", "Hq=Hkv=36", 128,
+              mc2["b1_by_route"]["tiles"], "MiniCPM-2B serving, 40 layers, "
+              "bf16 pool"),
+        mc_b1((64, 64), "MiniCPM-2B", "Hq=Hkv=36", 1,
+              mc2["b1_by_route"]["split"], "MiniCPM-2B serving, 40 layers, "
+              "bf16 pool"),
+        mc_b1((96, 64), "MiniCPM3-4B", "Hq=Hkv=40", 128,
+              mc3["b1_by_route"]["tiles"], "MiniCPM3-4B serving, 8 layers, "
+              "bf16 pool"),
+        mc_b1((96, 64), "MiniCPM3-4B", "Hq=Hkv=40", 1,
+              mc3["b1_by_route"]["split"], "MiniCPM3-4B serving, 8 layers, "
+              "bf16 pool"),
+        # (96, 96): no model of this slice serves it (Phi-3-mini's layers
+        # are windowed, the gathered route); its launches are the checks'
+        mc_b1((96, 96), "Phi-3-mini", "Hq=Hkv=32", 128, 0,
+              "none: no paged model at (96, 96) without a window is served",
+              {"on_serving_path": False,
+               "check_launches": sum(1 for r in mc["kernels"]
+                                     if r["head_dim"] == 96
+                                     and r["v_head_dim"] == 96)}),
+        mc_dense("decode_attention", (64, 64), "MiniCPM-2B",
+                 "B=8 Hq=Hkv=36 S=2048",
+                 mc_gen["MiniCPM-2B"]["launches"]["decode_attention"],
+                 "MiniCPM-2B generate(), 40 layers"),
+        mc_dense("flash_attention", (64, 64), "MiniCPM-2B",
+                 "T=128 x 8 chunks S=2048",
+                 mc_gen["MiniCPM-2B"]["launches"]["flash_attention"],
+                 "MiniCPM-2B generate(), 40 layers"),
+        mc_dense("decode_attention", (96, 64), "MiniCPM3-4B",
+                 "B=8 Hq=Hkv=40 S=2048",
+                 mc_gen["MiniCPM3-4B"]["launches"]["decode_attention"],
+                 "MiniCPM3-4B generate(), 8 layers"),
+        mc_dense("flash_attention", (96, 64), "MiniCPM3-4B",
+                 "T=128 x 8 chunks S=2048",
+                 mc_gen["MiniCPM3-4B"]["launches"]["flash_attention"],
+                 "MiniCPM3-4B generate(), 8 layers"),
         # B2e: B2 as the MoE dispatch reaches it under jax.vmap in the
         # reference; each entry's launches are its instance's in the
         # model's serving run at the engine's default prefill budget (the

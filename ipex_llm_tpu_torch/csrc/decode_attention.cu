@@ -75,6 +75,16 @@
 // ten 8-column output tiles; 48 of the 128 staged columns are never
 // written or read (37.5% of the ring's bytes idle, none of HBM's).  Its
 // merge runs 96 threads, three whole warps, the last 16 idle.
+//
+// Two more serve MiniCPM (and the 64-wide heads of Llama-3.2-1B and
+// TinyLlama).  D = 64 (MiniCPM-2B): a 64-column row is eight 16-byte
+// chunks, one period of the swizzle, so the rows are native 64-column
+// rows (8 KiB a tile, three bf16 stages in 48 KiB); four score steps,
+// eight output tiles, a 64-thread merge (two whole warps).  (96, 64)
+// (MiniCPM3's MLA: K 64 nope + 32 rope columns, V 64): K rows the 96
+// instance's 128-column rows, V rows native 64-column ones, and the
+// narrow-V ring of (192, 128), one stage fewer (two bf16 stages of 24
+// KiB pairs; three raw e5m2 stages of 12 KiB and the widened pair).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -93,15 +103,17 @@ constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
 constexpr float kFloor = -1e29f;         // the reference's m clamp
 constexpr float kLog2e = 1.4426950408889634f;
 
-// blocks an SM holds: 2 of 96 KiB at D = 80, 96 and 128 and of 80 or 100
-// KiB at (192, 128), 1 of 200 KiB at D = 256
+// blocks an SM holds: 2 of 96 KiB at D = 80, 96 and 128, of 48 (64) or
+// 48 and 60 KiB (96, 64), of 80 or 100 KiB at (192, 128), 1 of 200 KiB at
+// D = 256
 // (decode_attention.py::ring_plan)
 template <int D>
 constexpr int kResident = D <= 192 ? 2 : 1;
 
 // the columns of a key's row in shared memory: D, or 128 at D = 80, 96
+// (at 64 a row is eight chunks, one period of the swizzle)
 template <int D>
-constexpr int kRowD = D < 128 ? 128 : D;
+constexpr int kRowD = D == 64 ? 64 : D < 128 ? 128 : D;
 
 template <typename KV, int D, int Dv>
 struct Ring {
@@ -523,8 +535,8 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // q bf16 [B,1,Hq,D]; k [B,Hkv,S,D] and v [B,Hkv,S,Dv] bf16 (kv_fp8=0) or
 // e5m2 (kv_fp8=1), contiguous, 16-byte aligned; kv_len, kv_start, won
 // int32 [B]; out bf16 [B,1,Hq,Dv]; ws_acc fp32 [B,Hkv,splits,G,Dv] and
-// ws_ml fp32 [B,Hkv,splits,G,2] scratch.  (D, Dv) = (80, 80), (96, 96),
-// (128, 128), (192, 128) or (256, 256), G = Hq/Hkv <= 16, splits <= 64; window <= 0
+// ws_ml fp32 [B,Hkv,splits,G,2] scratch.  (D, Dv) = (64, 64), (80, 80),
+// (96, 64), (96, 96), (128, 128), (192, 128) or (256, 256), G = Hq/Hkv <= 16, splits <= 64; window <= 0
 // means none, softcap <= 0 none.  Launches the split kernel and the merge
 // kernel; returns the first non-zero cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported pair or G).
@@ -535,8 +547,10 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int D, int Dv, int splits, int kv_fp8, float scale,
                                 int window, float softcap, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool pair = D == Dv ? (D == 80 || D == 96 || D == 128 || D == 256)
-                            : (D == 192 && Dv == 128);
+  const bool pair = D == Dv ? (D == 64 || D == 80 || D == 96 || D == 128 ||
+                               D == 256)
+                            : ((D == 192 && Dv == 128) ||
+                               (D == 96 && Dv == 64));
   if (!pair || Hq % Hkv || Hq / Hkv > kRows || splits < 1 ||
       splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
@@ -555,7 +569,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   err = D == 128   ? DECODE_LAUNCH_D(128, 128)
         : D == 256 ? DECODE_LAUNCH_D(256, 256)
         : D == 192 ? DECODE_LAUNCH_D(192, 128)
-        : D == 96  ? DECODE_LAUNCH_D(96, 96)
+        : D == 96  ? (Dv == 64 ? DECODE_LAUNCH_D(96, 64)
+                               : DECODE_LAUNCH_D(96, 96))
+        : D == 64  ? DECODE_LAUNCH_D(64, 64)
                    : DECODE_LAUNCH_D(80, 80);
 #undef DECODE_LAUNCH_D
 #undef DECODE_LAUNCH
@@ -565,7 +581,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   decode_merge_kernel<HDV><<<mgrid, kMergeThreads<HDV>, 0, st>>>(           \
       static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml), \
       static_cast<__nv_bfloat16*>(out), Hkv, G, splits)
-  if (Dv == 80)
+  if (Dv == 64)
+    DECODE_MERGE(64);
+  else if (Dv == 80)
     DECODE_MERGE(80);
   else if (Dv == 96)
     DECODE_MERGE(96);

@@ -83,6 +83,16 @@
 // tile pairs (81 KiB in all).  The other instances read both at one
 // width, with one set of strides passed twice, as before.
 //
+// Two more serve MiniCPM (and the 64-wide heads of Llama-3.2-1B and
+// TinyLlama).  (64, 64) (MiniCPM-2B): a 64-column row is one 64-dim
+// swizzled block, so the tiles are native (8 KiB each, three stages in
+// 48 KiB, no pad): S = Q.K^T four m64n64k16 steps, O += P.V one
+// m64n64k16 per 16 keys over V MN-major, no wasted column, 32
+// accumulator registers.  (96, 64) (MiniCPM3's MLA: K 64 nope + 32
+// rope, V 64): the K tile the 96 instance's (128 columns, 96 staged, six
+// score steps), the V tile and O += P.V the 64 instance's; only K's pad
+// is zeroed.
+//
 // The training forward (ops/attention.py's autograd Function) takes the
 // LSE instance (head dim 128, no softcap): the same kernel that also
 // writes each query's log-sum-exp of its scaled scores, lse = m + log l in
@@ -111,8 +121,10 @@ constexpr int kBig = 0x3fffffff;
 // the instance of K width D and V width Dv (flash_attention.py::smem_plan)
 template <int D, int Dv>
 struct Plan {
-  static constexpr int kPadD = D < 128 ? 128 : D;     // a K tile row's columns
-  static constexpr int kPadDv = Dv < 128 ? 128 : Dv;  // a V tile row's
+  // a tile row's columns: the width, but 128 at 80 and 96 (64 is one
+  // 64-dim swizzled block)
+  static constexpr int kPadD = D == 64 || D >= 128 ? D : 128;     // K's
+  static constexpr int kPadDv = Dv == 64 || Dv >= 128 ? Dv : 128; // V's
   static constexpr int kTileK = kBK * kPadD * 2;      // one bf16 K tile
   static constexpr int kTileV = kBK * kPadDv * 2;     // one bf16 V tile
   static constexpr bool kQSmem = D > 192;             // Q from a descriptor
@@ -127,7 +139,7 @@ struct Plan {
   static_assert(kSmem <= 232448, "exceeds a block's shared memory");
   static_assert(kResident * (kSmem + 1024) <= 233472,
                 "the resident blocks fit an SM");
-  static_assert(D == kPadD || D == Dv, "only a (D, D) instance pads");
+  static_assert(Dv == kPadDv || D == Dv, "only a (D, D) instance pads V");
 };
 
 // the tile kinds of one warp's 16 rows (flash_attention.py::tile_kind)
@@ -196,7 +208,6 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
     vsh = ksh;
   }
   constexpr int kStages = P::kStages;
-  constexpr int kTileBytes = P::kTileK;   // K = V tile at the padded widths
   extern __shared__ __align__(128) uint8_t smem_raw[];
   __shared__ int qmin_s[4], qmax_s[4];
   uint8_t* smem =
@@ -218,17 +229,19 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vh = v + (size_t)b * vsb + (size_t)hkv * vsh;
   if constexpr (D != P::kPadD) {
     // the tile columns [D, kPadD) no copy fills: zeros, once (the fence
-    // before each tile's first wgmma makes them visible to it)
+    // before each tile's first wgmma makes them visible to it); at (96,
+    // 64) only K's, which S's six steps never read either
     constexpr int kPadChunks = (P::kPadD - D) / 8;
-    for (int i = threadIdx.x; i < kStages * 2 * kBK * kPadChunks;
+    constexpr int kTiles = Dv == D ? 2 : 1;     // K and V, or K alone
+    for (int i = threadIdx.x; i < kStages * kTiles * kBK * kPadChunks;
          i += kThreads) {
       const int tile = i / (kBK * kPadChunks);
       const int rem = i % (kBK * kPadChunks);
       const int key = rem / kPadChunks, c = D / 8 + rem % kPadChunks;
-      *reinterpret_cast<uint4*>(smem + tile * kTileBytes +
-                                (c >> 3) * kBlockBytes +
-                                hopper::sw128_offset(key, c & 7)) =
-          make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(
+          smem + (tile / kTiles) * (P::kTileK + P::kTileV) +
+          (tile % kTiles) * P::kTileK + (c >> 3) * kBlockBytes +
+          hopper::sw128_offset(key, c & 7)) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
 
@@ -437,14 +450,21 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
     hopper::fence_regs<kPadDv / 2>(&acc[0][0]);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kSN / 2; ++kk)
+    for (int kk = 0; kk < kSN / 2; ++kk) {
+      if constexpr (kPadDv == 64) {     // O is one 64-dim block
+        hopper::wgmma_m64n64k16_rs<1>(
+            &acc[0][0], pa[kk],
+            hopper::sw128_desc(vs + kk * 16 * 128, kBlockBytes, 1024), 1);
+      } else {
 #pragma unroll
-      for (int dh = 0; dh < kPadDv / 128; ++dh)   // 128-dim halves of O
-        hopper::wgmma_m64n128k16_rs<1>(
-            &acc[dh * 16][0], pa[kk],
-            hopper::sw128_desc(vs + dh * 2 * kBlockBytes + kk * 16 * 128,
-                               kBlockBytes, 1024),
-            1);
+        for (int dh = 0; dh < kPadDv / 128; ++dh)   // 128-dim halves of O
+          hopper::wgmma_m64n128k16_rs<1>(
+              &acc[dh * 16][0], pa[kk],
+              hopper::sw128_desc(vs + dh * 2 * kBlockBytes + kk * 16 * 128,
+                                 kBlockBytes, 1024),
+              1);
+      }
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs<kPadDv / 2>(&acc[0][0]);
@@ -505,8 +525,8 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // Hkv), multiples of 8, and a contiguous last dim, 16-byte aligned; qpos
 // int32 [B,T]; kv_len, kv_start, won int32 [B]; out bf16 [B,T,Hq,Dv]; lse
 // fp32 [B,Hq,T] or null (the LSE instance: D = Dv = 128, no softcap).
-// (D, Dv) = (80, 80), (96, 96), (128, 128), (192, 128) or (256, 256);
-// window <= 0
+// (D, Dv) = (64, 64), (80, 80), (96, 64), (96, 96), (128, 128), (192,
+// 128) or (256, 256); window <= 0
 // means none, softcap <= 0 none.  Returns cudaGetLastError()
 // (cudaErrorInvalidValue for another pair, or an lse buffer outside the
 // LSE instance).
@@ -520,8 +540,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int causal, int window, float softcap,
                                void* lse, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool pair = D == Dv ? (D == 80 || D == 96 || D == 128 || D == 256)
-                            : (D == 192 && Dv == 128);
+  const bool pair = D == Dv ? (D == 64 || D == 80 || D == 96 || D == 128 ||
+                               D == 256)
+                            : ((D == 192 && Dv == 128) ||
+                               (D == 96 && Dv == 64));
   if (!pair || Hq % Hkv) return (int)cudaErrorInvalidValue;
   const dim3 grid(Hq, B, (T + kBQ - 1) / kBQ);
   const bool cap = softcap > 0.f;
@@ -541,7 +563,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const int err = D == 128   ? FLASH_LAUNCH_D(128, 128)
                   : D == 256 ? FLASH_LAUNCH_D(256, 256)
                   : D == 192 ? FLASH_LAUNCH_D(192, 128)
-                  : D == 96  ? FLASH_LAUNCH_D(96, 96)
+                  : D == 96  ? (Dv == 64 ? FLASH_LAUNCH_D(96, 64)
+                                         : FLASH_LAUNCH_D(96, 96))
+                  : D == 64  ? FLASH_LAUNCH_D(64, 64)
                              : FLASH_LAUNCH_D(80, 80);
 #undef FLASH_LAUNCH_D
 #undef FLASH_LAUNCH

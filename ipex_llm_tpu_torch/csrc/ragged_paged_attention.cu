@@ -91,6 +91,17 @@
 // in HBM is read as stored).  Q.K^T is five k16 steps, P.V ten n8 tiles;
 // Q's five fragments and the 40 accumulator registers stay in registers,
 // so both instances keep D = 128's plan (64 KiB a block).
+//
+// Three more pairs serve MiniCPM and the Llama-3.2-1B/TinyLlama width.
+// (64, 64) (MiniCPM-2B: 2304 / 36): a 64-column row is eight 16-byte
+// chunks, exactly one period of the XOR swizzle, so its rows are native
+// 64-column rows in shared memory (8 KiB a tile, none idle); Q.K^T is four
+// k16 steps, P.V eight n8 tiles, 32 KiB a block.  (96, 64) (MiniCPM3's
+// MLA: K 64 nope + 32 rope, V 64): K rows the 96 instance's 128-column
+// rows (96 staged and read), V rows native 64-column ones; six k16 score
+// steps, eight n8 output tiles.  (96, 96): the 80 instance at 96 (rows
+// 128 columns wide, twelve chunks staged).  The split's merges at Dv = 64
+// and 96 run 64 and 96 threads, whole warps, and no shuffle.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -109,9 +120,10 @@ constexpr float kFloor = -1e29f;        // the reference's m clamp
 // (ragged_paged_attention.py::smem_plan): two staged K/V tile pairs, the
 // block's last visible slot, and at D = 256 the block's query rows
 // (kQRows: 64 for the query tiles, 16 for the key split)
-// the columns of a key's row in shared memory: D, or 128 at D = 80
+// the columns of a key's row in shared memory: D, or 128 at D = 80 and
+// 96 (at 64 a row is eight chunks, one period of the swizzle)
 template <int D>
-constexpr int kRowD = D < 128 ? 128 : D;
+constexpr int kRowD = D == 64 ? 64 : D < 128 ? 128 : D;
 
 template <int D, int Dv>
 struct Plan {
@@ -574,8 +586,9 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* kpool,
 // [R,C,Hq,Dv].  Given scratch ws_acc fp32 [R,Hkv,n_splits,G*C,Dv] and ws_ml
 // fp32 [R,Hkv,n_splits,G*C,2] (G = Hq/Hkv, G*C <= 16), the key-split
 // instance runs over n_splits splits of pps pages and then the merge;
-// without (null), the query-tile instance (n_splits 1).  (D, Dv) is (80,
-// 80), (128, 128), (192, 128) or (256, 256).  Returns the first non-zero
+// without (null), the query-tile instance (n_splits 1).  (D, Dv) is (64,
+// 64), (80, 80), (96, 64), (96, 96), (128, 128), (192, 128) or (256,
+// 256).  Returns the first non-zero
 // cudaGetLastError(), or cudaErrorInvalidValue for another pair or a split
 // of more than 16 rows.
 extern "C" int ragged_paged_attention(const void* q, const void* kpool,
@@ -588,8 +601,10 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
                                       int n_pages, int maxp, int n_splits,
                                       int pps, int kv_fp8, float scale,
                                       void* stream) {
-  if (!((D == 80 && Dv == 80) || (D == 128 && Dv == 128) ||
-        (D == 192 && Dv == 128) || (D == 256 && Dv == 256)))
+  if (!((D == 64 && Dv == 64) || (D == 80 && Dv == 80) ||
+        (D == 96 && Dv == 64) || (D == 96 && Dv == 96) ||
+        (D == 128 && Dv == 128) || (D == 192 && Dv == 128) ||
+        (D == 256 && Dv == 256)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int gc = (Hq / Hkv) * C;
@@ -610,6 +625,8 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
   err = D == 128   ? RPA_LAUNCH_D(128, 128)
         : D == 192 ? RPA_LAUNCH_D(192, 128)
         : D == 256 ? RPA_LAUNCH_D(256, 256)
+        : D == 64  ? RPA_LAUNCH_D(64, 64)
+        : D == 96  ? (Dv == 64 ? RPA_LAUNCH_D(96, 64) : RPA_LAUNCH_D(96, 96))
                    : RPA_LAUNCH_D(80, 80);
 #undef RPA_LAUNCH_D
 #undef RPA_LAUNCH
@@ -619,8 +636,12 @@ extern "C" int ragged_paged_attention(const void* q, const void* kpool,
   ragged_merge_kernel<HDV><<<mgrid, HDV, 0, st>>>(                          \
       static_cast<const float*>(ws_acc), static_cast<const float2*>(ws_ml), \
       static_cast<__nv_bfloat16*>(out), C, Hq, Hkv, n_splits)
-  if (Dv == 80)
+  if (Dv == 64)
+    RPA_MERGE(64);
+  else if (Dv == 80)
     RPA_MERGE(80);
+  else if (Dv == 96)
+    RPA_MERGE(96);
   else if (Dv == 128)
     RPA_MERGE(128);
   else

@@ -3,7 +3,8 @@
 The port keeps the reference's field names for the families it serves
 (llama, mistral, qwen2, gemma2, qwen3, mixtral, qwen2_moe, qwen3_moe,
 phi3, gemma, gemma3_text, deepseek_v2, deepseek_v3, phi, phixtral under
-both its names, gpt_neox, gptj), so a reference config maps across field
+both its names, gpt_neox, gptj, minicpm, minicpm3), so a reference config
+maps across field
 by field (:meth:`ModelConfig.from_fields`):
 every rope scaling kind of ``ops.rope.RopeScaling`` and partial rotary
 (``rope.rotary_dim`` below ``head_dim``), the "half" and interleaved
@@ -24,7 +25,10 @@ LayerNorm with a bias (``norm_kind="layer"``), a bias on o
 (``attention_out_bias``) and on the MLP (``mlp_bias``; the loader reads
 every bias a checkpoint holds, as the reference's does), the ungated
 ``fc1 -> act -> fc2`` MLP (``mlp_gated=False``) and the parallel
-residual (``parallel_blocks``).
+residual (``parallel_blocks``), and minicpm's muP scalings (an
+embedding multiplier, ``residual_multiplier`` on every residual branch,
+``logit_scale`` on the logits), over llama's block (minicpm) or MLA on a
+dense model (minicpm3).
 Every other architectural switch is checked in ``__post_init__`` or
 ``from_fields`` and raises ``NotImplementedError`` (ROADMAP item 14):
 other families and other biases are not routed to a plain path.
@@ -42,7 +46,7 @@ LAYER_TYPES = ("sliding_attention", "full_attention")
 MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2", "qwen3", "mixtral",
                "qwen2_moe", "qwen3_moe", "phi3", "gemma", "gemma3_text",
                "deepseek_v2", "deepseek_v3", "phi", "phi-msft", "phixtral",
-               "gpt_neox", "gptj")
+               "gpt_neox", "gptj", "minicpm", "minicpm3")
 NORM_KINDS = ("rms", "layer")
 MOE_SCORE_FUNCS = ("softmax", "sigmoid")
 MOE_GROUP_SCORES = ("max", "top2sum")
@@ -68,7 +72,10 @@ class ModelConfig:
     and gptj run the GPT-style block: LayerNorms with a bias, biases on
     the projections, the ungated MLP and ``x + (attn + ffn)`` from the
     block's input (phi, phixtral and gptj name one LayerNorm for both
-    branches, gpt_neox two)."""
+    branches, gpt_neox two).  minicpm is llama's block with muP scalings
+    (embeddings, each residual branch and the logits multiplied), and
+    minicpm3 the same scalings over MLA with a dense MLP on every
+    layer."""
 
     model_type: str
     vocab_size: int
@@ -105,6 +112,11 @@ class ModelConfig:
     logit_softcap: float | None = None
     attn_scale: float | None = None  # None: head_dim ** -0.5
     embedding_multiplier: float = 1.0
+    # minicpm's muP scalings: each residual branch's output times
+    # residual_multiplier (rounded to bf16) before its add, the fp32
+    # logits times logit_scale before the softcap
+    residual_multiplier: float = 1.0
+    logit_scale: float = 1.0
     qk_norm: bool = False           # qwen3: per-head q/k RMSNorm before rope
     # sparse mixture of experts (0 experts: a dense MLP on every layer)
     num_experts: int = 0
@@ -228,9 +240,8 @@ class ModelConfig:
     # serves; any other value raises in from_fields.
     _DEFAULTS = {
         "mrope_section": None, "alibi": False, "learned_pos": 0,
-        "embed_norm": False, "norm_after": False, "logit_scale": 1.0,
-        "glm_alpha": 0.0, "rope_2d": False, "residual_multiplier": 1.0,
-        "kv_heads_per_layer": None,
+        "embed_norm": False, "norm_after": False,
+        "glm_alpha": 0.0, "rope_2d": False, "kv_heads_per_layer": None,
     }
 
     @classmethod

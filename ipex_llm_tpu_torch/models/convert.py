@@ -7,7 +7,11 @@ import the reference's class).  Every byte is kept: bf16 arrays, which
 numpy holds in an extension dtype, cross through a 16-bit integer view,
 and packed planes are copied as they are.  Stacked ``[L, ...]`` layer
 leaves stay stacked (the decoder indexes them per layer), in each of the
-tree's stacks (``layers``, and DeepSeek's dense prefix ``layers_dense``).
+tree's stacks (``layers``, and DeepSeek's dense prefix ``layers_dense``);
+the ported families' trees (minicpm's is llama's, minicpm3's DeepSeek's
+MLA leaves over dense layers) need no leaf of their own.
+:func:`params_from_split_reference` carries an offloaded MoE's split
+params (the device tree and its host expert stacks) as one tree.
 :func:`adapters_from_reference` carries a QLoRA adapter tree likewise, so
 that both packages train from the same adapters (the reference draws them
 from JAX keys, which the port does not reproduce).
@@ -82,6 +86,19 @@ def params_from_reference(tree: dict, device=None) -> dict:
     for k in stacks:
         out[k] = {n: _leaf(v, dev) for n, v in tree[k].items()}
     return out
+
+
+def params_from_split_reference(device_params: dict, host_slots: dict,
+                                device=None) -> dict:
+    """The port's whole tree for an offloaded MoE that the reference split
+    (``ipex_llm_tpu/offload.py::split_expert_params``: the device tree
+    without its expert stacks, and ``host_slots``, slot -> the stacked
+    expert planes, flattened as any QTensor leaf): the stacks go back into
+    ``layers``, from which the port's ``OffloadedMoE`` splits them
+    again."""
+    tree = dict(device_params)
+    tree["layers"] = {**device_params["layers"], **host_slots}
+    return params_from_reference(tree, device)
 
 
 def adapters_from_reference(adapters: dict, device=None) -> dict:

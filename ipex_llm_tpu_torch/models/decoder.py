@@ -46,6 +46,9 @@ tree holds them (each in bf16 after the product's rounding, the head's
 to the bf16 logits before they widen), and with ``cfg.parallel_blocks``
 adds the two branches first and then the sum to the block's input,
 ``x + (attn + ffn)``, as the reference rounds it (``decoder.py:501-505``);
+minicpm's ``residual_multiplier`` scales each branch's output (the
+parallel sum as one) before its add, and ``logit_scale`` the fp32 logits
+(:func:`residual_add`, :func:`logits_tail`);
 both branches norm the block's input, the attention with
 ``attn_norm``, the MLP with ``mlp_norm`` (one LayerNorm's weights for phi,
 phixtral and gptj, two for gpt_neox).  An MoE layer's norm takes no bias,
@@ -289,6 +292,13 @@ def _moe_block(cfg: ModelConfig, lp: dict, x, experts):
                   cfg.num_experts, gated=cfg.mlp_gated,
                   up_bias=lp.get("moe_up_bias"),
                   down_bias=lp.get("moe_down_bias")).to(x.dtype)
+    return with_shared_expert(cfg, lp, h, out)
+
+
+def with_shared_expert(cfg: ModelConfig, lp: dict, h, out):
+    """``out`` plus the layer's shared expert of the normed input ``h``
+    where it has one (DeepSeek's, or qwen2_moe's gated by ``sigmoid(h .
+    shared_router)``)."""
     if "shared_gate_up" in lp:
         gate, up = mlp_ops.split_gate_up(
             linear_ops.linear(h, lp["shared_gate_up"]))
@@ -301,15 +311,30 @@ def _moe_block(cfg: ModelConfig, lp: dict, x, experts):
     return out
 
 
+def bf16_scalar(v: float) -> float:
+    """``v`` rounded to bf16, as a Python float (exact): a bf16 tensor
+    times it rounds once, as the reference's bf16 product does, with no
+    upload a forward."""
+    return float(torch.tensor(v, dtype=COMPUTE_DTYPE))
+
+
+def residual_add(cfg: ModelConfig, x, out):
+    """``x + out``, with minicpm's depth scaling: ``x + rm * out``, the
+    bf16 ``rm`` (``cfg.residual_multiplier``) times the branch's bf16
+    output rounded once before the add (the reference's
+    ``decoder.py:494-502``)."""
+    if cfg.residual_multiplier != 1.0:
+        out = out * bf16_scalar(cfg.residual_multiplier)
+    return x + out
+
+
 def embed_prelude(cfg: ModelConfig, params, tokens, rope_positions):
     """Token embeddings (times the embedding multiplier, rounded to bf16
     first as the reference rounds it) and the rope cos/sin tables:
     (x, cos, sin)."""
     x = embed_lookup(params["embed"], tokens, COMPUTE_DTYPE)
     if cfg.embedding_multiplier != 1.0:
-        # the bf16 value as a Python float (exact): no upload a forward
-        x = x * float(torch.tensor(cfg.embedding_multiplier,
-                                   dtype=COMPUTE_DTYPE))
+        x = x * bf16_scalar(cfg.embedding_multiplier)
     cos, sin = rope_ops.cos_sin(rope_positions, params["inv_freq"],
                                 params.get("rope_mscale", 1.0))
     return x, cos, sin
@@ -340,8 +365,8 @@ def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 def logits_tail(cfg: ModelConfig, params, x, tp=None):
     """Final norm and lm head (fp32 logits of an untied head's bf16 output
-    plus its bias, or of the tied product), then the final-logit softcap
-    in fp32.  With a ``tp`` group and a rank's column slice of the head,
+    plus its bias, or of the tied product), then the logit scale and the
+    final-logit softcap in fp32.  With a ``tp`` group and a rank's column slice of the head,
     the slices' logits are gathered to full width (exact)."""
     x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
     head = params.get("lm_head")
@@ -356,6 +381,8 @@ def logits_tail(cfg: ModelConfig, params, x, tp=None):
             torch.float32)
     else:
         logits = tied_logits(x, params["embed"])
+    if cfg.logit_scale != 1.0:     # minicpm (and cohere): fp32, after the
+        logits = logits * cfg.logit_scale   # gather, before the softcap
     if cfg.logit_softcap is not None:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -415,10 +442,10 @@ def decoder_forward(cfg: ModelConfig, params: dict[str, Any],
             return (_moe_block(cfg, lp, x, experts) if "moe_gate_up" in lp
                     else _mlp_block(cfg, lp, x, tp))
         if cfg.parallel_blocks:     # both branches from the block's input
-            x = x + (attn + ffn(x))
+            x = residual_add(cfg, x, attn + ffn(x))
         else:
-            x = x + attn
-            x = x + ffn(x)
+            x = residual_add(cfg, x, attn)
+            x = residual_add(cfg, x, ffn(x))
     if slot_offsets is None and cache is not None:
         cache.length = slot0 + t
     if last_token_only:

@@ -1,8 +1,8 @@
 """Model families: an HF ``config.json`` dict to a ``ModelConfig`` and a
 weight-naming scheme (port of the llama, mistral, qwen2, gemma2, qwen3,
 mixtral, qwen2_moe, qwen3_moe, phi3, gemma, gemma3_text, deepseek_v2,
-deepseek_v3, phi, phi-msft, phixtral, gpt_neox and gptj rows of
-``ipex_llm_tpu/models/families.py``).
+deepseek_v3, phi, phi-msft, phixtral, gpt_neox, gptj, minicpm and
+minicpm3 rows of ``ipex_llm_tpu/models/families.py``).
 
 All of them run the port's one decoder.  llama, mistral and qwen2 share the
 reference's llama weight names (mistral adds its sliding window, qwen2 its
@@ -26,7 +26,9 @@ and a biased head; phixtral keeps the msft module tree (``transformer.h``,
 ``mixer.Wqkv``, ``lm_head.ln``/``lm_head.linear``) and its experts are
 ungated (``moe.mlp.{e}.fc1``/``fc2``, no gate); Pythia's
 ``query_key_value`` interleaves q, k and v per head, which
-:func:`_neox_qkv` reorders, weight and bias.  Every
+:func:`_neox_qkv` reorders, weight and bias.  minicpm keeps llama's
+names and minicpm3 DeepSeek's MLA names, with the muP scalings
+(:func:`_mup_scalings`).  Every
 other ``model_type`` raises ``NotImplementedError`` (ROADMAP item 14),
 ``aquila`` included, which the reference maps to the llama row.
 """
@@ -350,6 +352,36 @@ def _deepseek_v3(hf: dict) -> ModelConfig:
     return ModelConfig.from_fields(d)
 
 
+def _mup_scalings(hf: dict) -> dict:
+    """minicpm's muP scalings (the reference's ``_minicpm``): embeddings
+    times ``scale_emb``, every residual branch times ``scale_depth /
+    sqrt(L)``, the logits times ``dim_model_base / hidden_size``."""
+    return dict(
+        embedding_multiplier=float(hf.get("scale_emb", 1.0)),
+        residual_multiplier=float(hf.get("scale_depth", 1.0))
+        / math.sqrt(hf["num_hidden_layers"]),
+        logit_scale=float(hf.get("dim_model_base", hf["hidden_size"]))
+        / hf["hidden_size"])
+
+
+def _minicpm(hf: dict) -> ModelConfig:
+    """minicpm (1 and 2): llama's layout and names plus the muP
+    scalings."""
+    return ModelConfig.from_fields(_base_cfg(hf, **_mup_scalings(hf)))
+
+
+def _minicpm3(hf: dict) -> ModelConfig:
+    """minicpm3: DeepSeek's MLA (its ``q_a``/``kv_a`` low-rank names)
+    on a dense model (no ``n_routed_experts``: a plain MLP on every
+    layer), with the muP scalings.  V is ``v_head_dim`` wide where the
+    config names it and else K's width, the reference's reading (a
+    published MiniCPM3 config names none, and its modeling code takes V
+    at ``hidden_size / num_attention_heads``: ROADMAP queue 3)."""
+    d = _deepseek_common(hf)
+    d.update(model_type="minicpm3", **_mup_scalings(hf))
+    return ModelConfig.from_fields(d)
+
+
 def _phi(hf: dict) -> ModelConfig:
     """phi-1/phi-2: the parallel block off ONE LayerNorm, partial rotary,
     the ungated gelu_new MLP, biases everywhere (the reference's
@@ -594,6 +626,8 @@ FAMILIES: dict[str, Family] = {
     "gpt_neox": Family("gpt_neox", _gptneox, _GPTNEOX_SCHEME,
                        qkv_transform=_neox_qkv),
     "gptj": Family("gptj", _gptj, _GPTJ_SCHEME),
+    "minicpm": Family("minicpm", _minicpm),
+    "minicpm3": Family("minicpm3", _minicpm3, _DEEPSEEK_SCHEME),
 }
 assert tuple(FAMILIES) == MODEL_TYPES, "config.MODEL_TYPES names the families"
 

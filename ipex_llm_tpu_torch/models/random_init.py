@@ -585,6 +585,81 @@ def deepseek_v3_config(**over) -> ModelConfig:
     return replace(cfg, **over) if over else cfg
 
 
+# huggingface.co/openbmb/MiniCPM-2B-sft-bf16, config.json (the fields the
+# decoder reads: llama's block, 36 heads of 64 over 36 kv heads, a tied
+# head, and the muP scalings: embeddings times scale_emb 12, each residual
+# branch times scale_depth 1.4 / sqrt(40), the logits times
+# dim_model_base 256 / 2304).  Quoted from memory, nothing may be
+# downloaded here: the widths, scalings and vocabulary are the model
+# card's; max_position_embeddings, rope_theta, rms_norm_eps and the token
+# ids are the llama defaults the MiniCPM code assumes, not checked
+# against the published file.
+MINICPM_2B_HF = {
+    "model_type": "minicpm", "vocab_size": 122753, "hidden_size": 2304,
+    "intermediate_size": 5760, "num_hidden_layers": 40,
+    "num_attention_heads": 36, "num_key_value_heads": 36,
+    "max_position_embeddings": 4096, "rope_theta": 10000.0,
+    "rope_scaling": None, "rms_norm_eps": 1e-5, "hidden_act": "silu",
+    "tie_word_embeddings": True, "scale_emb": 12, "scale_depth": 1.4,
+    "dim_model_base": 256, "bos_token_id": 1, "eos_token_id": 2,
+}
+
+
+def minicpm3_longrope(seed: int = 0, n: int = 16) -> dict:
+    """MiniCPM3-4B's ``rope_scaling`` of kind longrope over its 32-wide
+    rope slice (16 frequencies): the published short and long factor
+    lists are not in this repository, so they are drawn from ``seed``
+    (short in [1, 1.3), long in [1, 40), sorted rising as the published
+    ones are)."""
+    rng = torch.Generator().manual_seed(seed)
+    short = 1.0 + 0.3 * torch.rand(n, generator=rng, dtype=torch.float64)
+    long = 1.0 + 39.0 * torch.rand(n, generator=rng, dtype=torch.float64)
+    return {"type": "longrope", "original_max_position_embeddings": 32768,
+            "short_factor": sorted(float(v) for v in short),
+            "long_factor": sorted(float(v) for v in long)}
+
+
+# huggingface.co/openbmb/MiniCPM3-4B, config.json (the fields the decoder
+# reads: DeepSeek's MLA on a dense model, 40 heads, a q latent of 768 and
+# a kv latent of 256, K 64 nope + 32 rope columns, longrope over the rope
+# slice, and minicpm's muP scalings).  Quoted from memory (nothing may be
+# downloaded here); rms_norm_eps, tie_word_embeddings and the token ids
+# are not checked against the published file, and the longrope factors
+# are drawn from a seed (:func:`minicpm3_longrope`).  ``v_head_dim`` 64 is
+# stated here although, as far as known, the published file names none:
+# MiniCPM3's modeling code takes V at hidden_size / num_attention_heads =
+# 64, while the reference's ``_deepseek_common`` (and so the port) reads a
+# missing ``v_head_dim`` as K's width, 96 (ROADMAP queue 3).
+MINICPM3_4B_HF = {
+    "model_type": "minicpm3", "vocab_size": 73448, "hidden_size": 2560,
+    "intermediate_size": 6400, "num_hidden_layers": 62,
+    "num_attention_heads": 40, "num_key_value_heads": 40,
+    "q_lora_rank": 768, "kv_lora_rank": 256, "qk_nope_head_dim": 64,
+    "qk_rope_head_dim": 32, "v_head_dim": 64,
+    "max_position_embeddings": 32768, "rope_theta": 10000.0,
+    "rope_scaling": minicpm3_longrope(),
+    "rms_norm_eps": 1e-5, "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "scale_emb": 12, "scale_depth": 1.4,
+    "dim_model_base": 256, "bos_token_id": 1, "eos_token_id": 2,
+}
+
+
+def minicpm_2b_config(**over) -> ModelConfig:
+    """MiniCPM-2B's published widths (hidden 2304, 40 layers, 36 heads of
+    64, ffn 5760, vocab 122753 tied, the muP scalings), through the
+    families lookup; ``over`` replaces fields of the result."""
+    return _published(MINICPM_2B_HF, over)
+
+
+def minicpm3_4b_config(**over) -> ModelConfig:
+    """MiniCPM3-4B's published widths (hidden 2560, 62 layers, 40 heads,
+    MLA with K 96 and V 64, q latent 768, kv latent 256, ffn 6400, vocab
+    73448, longrope, the muP scalings), through the families lookup;
+    ``over`` replaces fields of the result (``num_layers`` to cut
+    depth)."""
+    return _published(MINICPM3_4B_HF, over)
+
+
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
                   device=None, shared_intermediate: int | None = None,
                   router_scale: float = 1.0) -> dict:

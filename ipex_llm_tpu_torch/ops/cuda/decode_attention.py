@@ -17,10 +17,12 @@ import ctypes
 import torch
 
 from ipex_llm_tpu_torch.ops.cuda import _build
+from ipex_llm_tpu_torch.ops.cuda.ragged_paged_attention import row_width
 
 NAME = "decode_attention"
 # (K, V) head widths of the kernel's instances
-INSTANCES = ((80, 80), (96, 96), (128, 128), (192, 128), (256, 256))
+INSTANCES = ((64, 64), (80, 80), (96, 64), (96, 96), (128, 128),
+             (192, 128), (256, 256))
 _MAX_GROUP = 16              # Hq / Hkv: the query rows of one mma tile
 _KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 _TILE_KEYS = 64              # keys per staged tile (csrc kKT)
@@ -38,10 +40,11 @@ def ring_plan(d: int, fp8: bool, dv: int | None = None
     e5m2 layer (csrc ``Ring`` and ``kResident``): three bf16 stages of a
     K/V tile pair, or four raw e5m2 stages and the widened bf16 pair, one
     stage fewer where V is narrower than K (two blocks an SM at (192,
-    128)); a tile's rows 128 columns wide at d = 80 and 96; at d = 256 the 16
+    128) and (96, 64)); a tile's rows 128 columns wide at d = 80 and 96
+    (``ragged_paged_attention.row_width``), 64 at 64; at d = 256 the 16
     query rows in shared memory too, and one block an SM."""
     dv = d if dv is None else dv
-    pair = _TILE_KEYS * (max(d, 128) + max(dv, 128)) * 2   # bf16 K + V
+    pair = _TILE_KEYS * (row_width(d) + row_width(dv)) * 2   # bf16 K + V
     stages = (4 if fp8 else 3) - (dv < d)
     smem = stages * (pair // 2 if fp8 else pair) + (pair if fp8 else 0)
     if d > 192:

@@ -24,11 +24,13 @@ import torch
 
 from ipex_llm_tpu_torch.ops.cuda import _build
 from ipex_llm_tpu_torch.ops.cuda.decode_attention import call_args
+from ipex_llm_tpu_torch.ops.cuda.ragged_paged_attention import row_width
 
 NAME = "flash_attention"
 COUNTS = _build.Counts()
 # (K, V) head widths of the kernel's instances
-INSTANCES = ((80, 80), (96, 96), (128, 128), (192, 128), (256, 256))
+INSTANCES = ((64, 64), (80, 80), (96, 64), (96, 96), (128, 128),
+             (192, 128), (256, 256))
 Q_TILE = 64                  # queries per block (csrc kBQ)
 WARP_ROWS = 16               # queries per warp
 K_TILE = 64                  # keys per tile (csrc kBK)
@@ -38,12 +40,13 @@ SKIP, FREE, MASKED = 0, 1, 2  # tile kinds (csrc kSkip, kFree, kMasked)
 def smem_plan(d: int, dv: int | None = None) -> tuple[int, int, int]:
     """(stages, shared-memory bytes, blocks an SM holds) at K width ``d``
     and V width ``dv`` (None: ``d``) (csrc ``Plan``): a ring of K/V tile
-    pairs of 64 keys (three at 80, 96 and 128, two at (192, 128) and
-    256; a tile's rows 128 columns wide at 80 and 96), at 256 the block's
+    pairs of 64 keys (three at 64, 80, 96 and 128, two at (192, 128) and
+    256; a tile's rows 128 columns wide at 80 and 96, 64 at 64:
+    ``ragged_paged_attention.row_width``), at 256 the block's
     64 query rows beside them (Q is read through a descriptor), and 1 KiB
     of slack to align the swizzle."""
     dv = d if dv is None else dv
-    pair = K_TILE * (max(d, 128) + max(dv, 128)) * 2
+    pair = K_TILE * (row_width(d) + row_width(dv)) * 2
     stages = 3 if d <= 128 else 2
     smem = stages * pair + (Q_TILE * d * 2 if d > 192 else 0) + 1024
     return stages, smem, 2 if d <= 192 else 1

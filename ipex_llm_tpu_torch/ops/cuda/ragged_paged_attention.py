@@ -5,8 +5,8 @@
 the note on their design and bound: query tiles for many-query rows, and
 a key split (a split pass, then a merge) for few-query rows (G*C <= 16:
 decode, the verify chunks of speculation); each at (K, V) head widths
-(80, 80), (128, 128), (256, 256) and DeepSeek's MLA (192, 128)
-(:func:`smem_plan`).  :func:`split_plan` plans the split from shapes
+(64, 64), (80, 80), (96, 96), (128, 128), (256, 256), DeepSeek's MLA
+(192, 128) and MiniCPM3's (96, 64) (:func:`smem_plan`).  :func:`split_plan` plans the split from shapes
 alone.  :func:`ragged_paged_sdpa` keeps the reference's
 public signature, launches the kernel for CUDA tensors and runs
 :func:`ragged_paged_sdpa_plain` for CPU tensors.
@@ -25,7 +25,8 @@ from ipex_llm_tpu_torch.ops.cuda import _build
 NAME = "ragged_paged_attention"
 ROUTES = ("tiles", "split")     # the kernel's two instances
 # (K, V) head widths of the template instances in the source
-INSTANCES = ((80, 80), (128, 128), (192, 128), (256, 256))
+INSTANCES = ((64, 64), (80, 80), (96, 64), (96, 96), (128, 128),
+             (192, 128), (256, 256))
 _FEW_ROWS = 16              # G*C at or below: the key split (its blocks hold 16 rows)
 _TILE_KEYS = 64             # keys per shared-memory tile (csrc kKT)
 _TARGET_BLOCKS = 1024       # split-pass blocks to aim for (about 8 per SM)
@@ -72,6 +73,14 @@ def ragged_paged_sdpa_plain(q, k_pool, v_pool, tables, kv_len, chunk_len, *,
     return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
 
 
+def row_width(d: int) -> int:
+    """The columns of a key's row in a shared-memory tile (csrc
+    ``kRowD``): ``d``, but 128 at 80 and 96, whose ten or twelve 16-byte
+    chunks the XOR swizzle would carry out of the row; 64 columns are
+    eight chunks, one period of it."""
+    return d if d == 64 or d >= 128 else 128
+
+
 def smem_plan(d: int, split: bool, dv: int | None = None
               ) -> tuple[int, bool]:
     """(shared-memory bytes, whether the query rows sit in shared memory)
@@ -80,9 +89,10 @@ def smem_plan(d: int, split: bool, dv: int | None = None
     block's last visible slot; at 256 the block's query rows (64 for the
     query tiles, 16 for the key split) beside them, which leaves room for
     one block an SM.  At (192, 128) Q stays in registers as at 128: 80
-    KiB; at 80 a tile's rows are 128 columns wide, so 128's 64 KiB."""
+    KiB; at 80 and 96 a tile's rows are 128 columns wide, so 128's 64
+    KiB; at 64 (one period of the swizzle) they are 64 wide."""
     dv = d if dv is None else dv
-    pair = _TILE_KEYS * (max(d, 128) + max(dv, 128)) * 2
+    pair = _TILE_KEYS * (row_width(d) + row_width(dv)) * 2
     if d <= 192:
         return 2 * pair + 16, False
     return 2 * pair + 128 + (_FEW_ROWS if split else 64) * d * 2, True

@@ -40,12 +40,12 @@ at which Python can launch them; B3 rotates over copies of the cache
 layer, so each call finds it out of L2, as each layer's is in decode.
 
 The other head widths, as device time from CUDA-graph replays
-(:func:`width_cases`): B1 at 128 (32 heads over 32, C = 1, 4 and 128)
-and 256 (Gemma-7B's 16 heads over 16, C = 1 and 128), 128-slot pages, 8
-rows of up to 2048 slots, bf16 pool, B3 at 256
-(Gemma-2-9B's 16 over 8) and 96 (Phi-3-mini's 32 over 32) over 8 rows of
-a 4096-slot bf16 layer, B4 at the same widths on 8 rows of T = 128 at
-their own slots of that layer.
+(:func:`width_cases`): B1 at 128 (32 heads over 32, C = 1, 4 and 128),
+256 (Gemma-7B's 16 heads over 16, C = 1 and 128) and 80 (Phi-2's 32 over
+32, C = 1 and 128), 128-slot pages, 8 rows of up to 2048 slots, bf16
+pool, B3 at 256 (Gemma-2-9B's 16 over 8), 96 (Phi-3-mini's 32 over 32)
+and 80 (Phi-2's 32 over 32) over 8 rows of a 4096-slot bf16 layer, B4 at
+the same widths on 8 rows of T = 128 at their own slots of that layer.
 """
 
 from __future__ import annotations
@@ -144,14 +144,15 @@ def dense_cases(torch, dev, gen, b3, b4) -> dict:
 
 
 def width_cases(torch, dev, gen, b1, b3, b4) -> dict:
-    """B1 at head_dim 256, B3 and B4 at 256 and 96 (module docstring):
-    label -> list of calls."""
+    """B1 at head_dim 128, 256 and 80, B3 and B4 at 256, 96 and 80
+    (module docstring): label -> list of calls."""
     out = {}
     r, ps, maxp = 8, 128, 16
     tables = (1 + torch.randperm(r * maxp, generator=gen, device=dev)).to(
         torch.int32).reshape(r, maxp)
     kv_len = torch.tensor(LENS, dtype=torch.int32, device=dev)
-    for d, h, cs in ((128, 32, (1, 4, 128)), (256, 16, (1, 128))):
+    for d, h, cs in ((128, 32, (1, 4, 128)), (256, 16, (1, 128)),
+                     (80, 32, (1, 128))):
         kp = torch.randn(1 + r * maxp, h, ps, d, generator=gen,
                          device=dev).to(torch.bfloat16)
         vp = torch.randn(1 + r * maxp, h, ps, d, generator=gen,
@@ -166,7 +167,7 @@ def width_cases(torch, dev, gen, b1, b3, b4) -> dict:
                     b1.ragged_paged_sdpa(q, kp, vp, tables, kvl, chunk)] * 10
     s, lens = 4096, [64, 700, 1500, 2047, 2048, 2600, 3500, 4096]
     kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    for d, hq, hkv in ((256, 16, 8), (96, 32, 32)):
+    for d, hq, hkv in ((256, 16, 8), (96, 32, 32), (80, 32, 32)):
         k = torch.randn(r, hkv, s, d, generator=gen, device=dev).to(
             torch.bfloat16)
         v = torch.randn(r, hkv, s, d, generator=gen, device=dev).to(

@@ -114,7 +114,8 @@ def small_check(cfg, seed, dev, fail, label: str | None = None,
             if form == "paged":
                 c = PagedKVCache.init(cfg_.num_layers, 1 + r * maxp, r,
                                       maxp, cfg_.num_kv_heads, ps,
-                                      cfg_.head_dim, device=where)
+                                      cfg_.head_dim, device=where,
+                                      v_head_dim=cfg_.v_dim)
                 c.tables.copy_(1 + torch.arange(
                     r * maxp, dtype=torch.int32).reshape(r, maxp))
                 zero = np.zeros(r, np.int32)
@@ -140,7 +141,7 @@ def small_check(cfg, seed, dev, fail, label: str | None = None,
                                  0)
                 c = make_cache("normal", cfg_.num_layers, r, t + 16,
                                cfg_.num_kv_heads, cfg_.head_dim,
-                               device=where)
+                               v_head_dim=cfg_.v_dim, device=where)
                 steps = [(padded, pos)] + [
                     (tk, (lengths + i)[:, None])
                     for i, tk in enumerate(decode)]

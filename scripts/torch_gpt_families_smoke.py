@@ -59,6 +59,7 @@ before the next.
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import shutil
@@ -103,56 +104,63 @@ def phi_hf_shapes(hf: dict) -> dict[str, tuple[int, ...]]:
     return out
 
 
-def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
-                       steps=STEPS) -> dict:
-    """The steps of the module docstring; ``kernels`` maps each kernel's
-    name to its wrapper module (``COUNTS``), ``fail(msg)`` ends the run,
-    ``graph_ms(torch, calls)`` is device ms a call from CUDA-graph
-    replays."""
-    import numpy as np
+def reset_counts(kernels: dict) -> None:
+    for mod in kernels.values():
+        mod.COUNTS.reset()
+
+
+def time_ms(fn, iters: int) -> float:
+    """Event-timed ms a call of ``fn`` over ``iters`` calls, after one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def width_label(d: int, dv: int) -> str:
+    return f"D={d}" if d == dv else f"({d}, {dv})"
+
+
+def heads_label(hq: int, hkv: int) -> str:
+    return f"Hq=Hkv={hq}" if hq == hkv else f"Hq={hq} Hkv={hkv}"
+
+
+def attention_cases(kernels: dict, fail, dev, graph_ms, *, tag: str,
+                    model: str, d: int, hq: int, hkv: int, seed: int,
+                    dv: int | None = None, cases=("b1", "b3", "b4"),
+                    s: int = 2048) -> list[dict]:
+    """B1, B3 and B4's instances at K width ``d`` and V width ``dv`` (None:
+    ``d``), ``hq`` query heads over ``hkv`` kv heads, against their plain
+    versions, each timed beside its bound and SDPA (step 1 of the module
+    docstring, which names the cases); ``cases`` picks the kernels.
+    Returns the rows; ``tag`` prefixes each printed row."""
     import torch
     import torch.nn.functional as F
 
-    import ipex_llm_tpu_torch.models.decoder as decoder_mod
-    from ipex_llm_tpu_torch.models import random_init as ri
-    from ipex_llm_tpu_torch.serving.engine import (EngineConfig, Request,
-                                                   ServingEngine,
-                                                   stream_tokens)
-    from ipex_llm_tpu_torch.transformers.model import TPUModelForCausalLM
-    from torch_families_smoke import small_check
     from torch_moe_smoke import bound    # the H100's least time for work
 
-    b1, b2 = kernels["ragged_paged_attention"], kernels["qmatmul"]
+    b1 = kernels["ragged_paged_attention"]
     b3, b4 = kernels["decode_attention"], kernels["flash_attention"]
-    b2e = kernels["qmatmul_experts"]
-    dev = device
-    res: dict = {"card": card}
-    t_phase = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(19)
-    scale = D ** -0.5
-
-    def reset():
-        for mod in kernels.values():
-            mod.COUNTS.reset()
-
-    def time_ms(fn, iters: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(iters):
-            fn()
-        e.record()
-        e.synchronize()
-        return s.elapsed_time(e) / iters
+    dv = d if dv is None else dv
+    gqa = dict(enable_gqa=True) if hq != hkv else {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = d ** -0.5
+    wd, hd = width_label(d, dv), heads_label(hq, hkv)
 
     def check_rows(out, ref, rows, what: str):
         """Per (row, query) of ``rows`` (a list of (row, queries)): the
         worst |out - ref| within ATTN_TOL_REL of the largest |ref| over
         heads and dims; returns the worst abs error and ratio."""
         o, r = out.float(), ref.float()
-        if tuple(o.shape) != tuple(r.shape) or o.shape[-1] != D:
+        if tuple(o.shape) != tuple(r.shape) or o.shape[-1] != dv:
             fail(f"{what}: output {tuple(o.shape)}, plain {tuple(r.shape)}")
         if not torch.isfinite(o).all():
             fail(f"{what}: output not finite")
@@ -177,11 +185,10 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
         row = dict(kernel=kind, case=label, max_abs_err=err[0],
                    max_rel_err=err[1], tol_rel=ATTN_TOL_REL, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                   bound_by=by, head_dim=D, **extra)
-        print("gpt_families kernel " + json.dumps(row), flush=True)
+                   bound_by=by, head_dim=d, v_head_dim=dv, **extra)
+        print(f"{tag} kernel " + json.dumps(row), flush=True)
         return row
 
-    # -- 1. the head_dim-80 instances ----------------------------------------
     def b1_case(pool_dtype, c, r=8, ps=128, maxp=16):
         """Rows over 128-slot pages in random order, -1 past each row's
         last page.  C = 1 and 4: every row decodes or verifies at staggered
@@ -189,9 +196,9 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
         rows, a chunk at the row's first slots and an idle row (kv_len the
         sentinel at the capacity)."""
         cap = maxp * ps
-        kp = torch.randn(1 + r * maxp, HEADS, ps, D, generator=gen,
+        kp = torch.randn(1 + r * maxp, hkv, ps, d, generator=gen,
                          device=dev).to(pool_dtype)
-        vp = torch.randn(1 + r * maxp, HEADS, ps, D, generator=gen,
+        vp = torch.randn(1 + r * maxp, hkv, ps, dv, generator=gen,
                          device=dev).to(pool_dtype)
         if c <= 4:
             chunk = [c] * r
@@ -208,7 +215,7 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
                 tables[i] = -1
             else:
                 tables[i, -(-n // ps):] = -1
-        q = torch.randn(r, c, HEADS, D, generator=gen, device=dev).to(
+        q = torch.randn(r, c, hq, d, generator=gen, device=dev).to(
             torch.bfloat16)
         return (q, kp, vp, tables,
                 torch.tensor(kv_len, dtype=torch.int32, device=dev),
@@ -216,26 +223,26 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
 
     def b1_work(q, kp, kv_len, chunk):
         """Bytes: q, out and each row's live K and V slots; operations:
-        4 D at each visible (query, key) pair and head."""
-        r, c, h, _ = q.shape
+        2 (D + Dv) at each visible (query, key) pair and query head."""
+        r, c, _, _ = q.shape
         item = kp.element_size()
-        nbytes = r * c * h * 2 * D * 2
+        nbytes = r * c * hq * (d + dv) * 2
         pairs = 0
         for n_kv, n_q in zip(kv_len.tolist(), chunk.tolist()):
             if n_q:
-                nbytes += n_kv * h * 2 * D * item
+                nbytes += n_kv * hkv * (d + dv) * item
                 pairs += sum(n_kv - n_q + j + 1 for j in range(n_q))
-        return bound(nbytes, 4.0 * D * h * pairs)
+        return bound(nbytes, 2.0 * (d + dv) * hq * pairs)
 
     def b1_library(q, kp, vp, tables, kv_len, chunk):
         """SDPA over the gathered pages (the gather outside the timing)."""
-        r, c, h, _ = q.shape
+        r, c, _, _ = q.shape
         maxp, ps = tables.shape[1], kp.shape[2]
         idx = tables.long().clamp(0, kp.shape[0] - 1)
 
         def gather(pool):
             g = pool[idx].to(torch.bfloat16)         # [R, maxP, H, ps, d]
-            return g.permute(0, 2, 1, 3, 4).reshape(r, h, maxp * ps, -1)
+            return g.permute(0, 2, 1, 3, 4).reshape(r, hkv, maxp * ps, -1)
         kg, vg = gather(kp), gather(vp)
         kpos = torch.arange(maxp * ps, device=dev)
         qpos = (kv_len - chunk)[:, None] + torch.arange(c, device=dev)
@@ -244,16 +251,16 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
         mask[..., 0] = True          # idle rows: keep the softmax defined
         qt = q.transpose(1, 2)
         return lambda: F.scaled_dot_product_attention(
-            qt, kg, vg, attn_mask=mask[:, None], scale=scale)
+            qt, kg, vg, attn_mask=mask[:, None], scale=scale, **gqa)
 
-    def dense_case(b, t, s, kv_len, kv_dtype):
+    def dense_case(b, t, kv_len, kv_dtype):
         """Query rows at each row's last ``t`` slots below ``kv_len`` of a
         head-major [B, H, S, D] K/V layer."""
-        q = torch.randn(b, t, HEADS, D, generator=gen, device=dev).to(
+        q = torch.randn(b, t, hq, d, generator=gen, device=dev).to(
             torch.bfloat16)
-        k = torch.randn(b, HEADS, s, D, generator=gen, device=dev).to(
+        k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(
             kv_dtype)
-        v = torch.randn(b, HEADS, s, D, generator=gen, device=dev).to(
+        v = torch.randn(b, hkv, s, dv, generator=gen, device=dev).to(
             kv_dtype)
         kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         qpos = (kvl.long() - t)[:, None] + torch.arange(t, device=dev)
@@ -264,29 +271,30 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
 
     def dense_work(q, k, mask):
         """Bytes: q, out and the K/V slots some query sees; operations:
-        4 D for each visible (query, key) pair and head."""
-        b, t, h, _ = q.shape
+        2 (D + Dv) for each visible (query, key) pair and query head."""
+        b, t, _, _ = q.shape
         seen = mask.any(dim=1).sum().item()          # slots any query sees
-        nbytes = b * t * h * 2 * D * 2 + seen * h * 2 * D * k.element_size()
-        return bound(nbytes, 4.0 * D * h * mask.sum().item())
+        nbytes = (b * t * hq * (d + dv) * 2
+                  + seen * hkv * (d + dv) * k.element_size())
+        return bound(nbytes, 2.0 * (d + dv) * hq * mask.sum().item())
 
-    if "kernels" in steps:
-        rows = []
+    rows = []
+    if "b1" in cases:
         for pool_name, pool_dtype in (("bf16", torch.bfloat16),
                                       ("e5m2", torch.float8_e5m2)):
             for c in (1, 4, 128):
                 args = b1_case(pool_dtype, c)
                 before = dict(b1.COUNTS.by_route)
-                n80 = b1.COUNTS.by_head_dim[D]
+                n_d = b1.COUNTS.by_head_dim[d]
                 out = b1.ragged_paged_sdpa(*args, scale=scale)
                 route = [r for r, v in b1.COUNTS.by_route.items()
                          if v > before[r]]
-                want = "split" if c <= 16 else "tiles"
-                if route != [want] or b1.COUNTS.by_head_dim[D] == n80:
-                    fail(f"B1 D=80 C={c}: ran {route}, want {want} at "
-                         "head_dim 80")
+                want = "split" if c * hq // hkv <= 16 else "tiles"
+                if route != [want] or b1.COUNTS.by_head_dim[d] == n_d:
+                    fail(f"B1 {wd} C={c}: ran {route}, want {want} at "
+                         f"head_dim {d}")
                 ref = b1.ragged_paged_sdpa_plain(*args, scale=scale)
-                label = f"D=80 Phi-2 Hq=Hkv={HEADS} C={c}"
+                label = f"{wd} {model} {hd} C={c}"
                 err = check_rows(out, ref, [
                     (i, n) for i, n in enumerate(args[5].tolist()) if n],
                     f"B1 {label} {pool_name}")
@@ -300,25 +308,25 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
                         *a, scale=scale),
                     b1_library(*args), b1_work(args[0], args[1], args[4],
                                                args[5]),
-                    err, dict(pool=pool_name, route=want, heads=HEADS,
-                              capacity=16 * 128)))
+                    err, dict(pool=pool_name, route=want, heads=hq,
+                              kv_heads=hkv, capacity=16 * 128)))
                 del args, out, ref
-        s = 2048
-        kv_len8 = [64, 300, 700, 1023, 1024, 1300, 1750, 2048]
+    kv_len8 = [64, 300, 700, 1023, 1024, 1300, 1750, 2048]
+    if "b3" in cases:
         for kv_name, kv_dtype in (("bf16", torch.bfloat16),
                                   ("e5m2", torch.float8_e5m2)):
-            q, k, v, kvl, qpos, mask = dense_case(8, 1, s, kv_len8, kv_dtype)
-            n80 = b3.COUNTS.by_head_dim[D]
+            q, k, v, kvl, qpos, mask = dense_case(8, 1, kv_len8, kv_dtype)
+            n_d = b3.COUNTS.by_head_dim[d]
             out = b3.decode_sdpa(q, k, v, kv_len=kvl, scale=scale)
-            if b3.COUNTS.by_head_dim[D] != n80 + 2:
-                fail("B3 D=80: not the head_dim-80 instance")
+            if b3.COUNTS.by_head_dim[d] != n_d + 2:
+                fail(f"B3 {wd}: not the head_dim-{d} instance")
 
             def plain(q=q, k=k, v=v, kvl=kvl):
                 return b3.decode_sdpa_plain(
                     q, k, v, scale=scale, kv_len=kvl,
                     kv_start=torch.zeros_like(kvl), won=torch.ones_like(kvl),
                     window=None, softcap=None)
-            label = f"D=80 Phi-2 B=8 Hq=Hkv={HEADS} S={s}"
+            label = f"{wd} {model} B=8 {hd} S={s}"
             err = check_rows(out, plain(), [(i, 1) for i in range(8)],
                              f"B3 {label} {kv_name}")
             kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
@@ -329,19 +337,20 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
                 lambda q=q, kb=kb, vb=vb, m=mask:
                     F.scaled_dot_product_attention(
                         q.transpose(1, 2), kb, vb, attn_mask=m[:, None],
-                        scale=scale),
+                        scale=scale, **gqa),
                 dense_work(q, k, mask), err, dict(pool=kv_name, rows=8)))
             del q, k, v, kb, vb, out
+    if "b4" in cases:
         for b, t, what in ((8, 128, "chunks"), (2, 2048, "prefill")):
             kvl_list = ([max(n, t) for n in kv_len8] if b == 8 else [s] * b)
-            q, k, v, kvl, qpos, mask = dense_case(b, t, s, kvl_list,
+            q, k, v, kvl, qpos, mask = dense_case(b, t, kvl_list,
                                                   torch.bfloat16)
             kd, vd = k.transpose(1, 2), v.transpose(1, 2)
             kw = dict(q_positions=qpos, kv_len=kvl, scale=scale)
-            n80 = b4.COUNTS.by_head_dim[D]
+            n_d = b4.COUNTS.by_head_dim[d]
             out = b4.flash_sdpa(q, kd, vd, **kw)
-            if b4.COUNTS.by_head_dim[D] != n80 + 1:
-                fail("B4 D=80: not the head_dim-80 instance")
+            if b4.COUNTS.by_head_dim[d] != n_d + 1:
+                fail(f"B4 {wd}: not the head_dim-{d} instance")
 
             def plain(q=q, kd=kd, vd=vd, kw=kw):
                 return b4.flash_sdpa_plain(
@@ -350,7 +359,7 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
                     kv_start=torch.zeros_like(kw["kv_len"]),
                     won=torch.ones_like(kw["kv_len"]), window=None,
                     softcap=None)
-            label = f"D=80 Phi-2 T={t} x {b} {what} S={s}"
+            label = f"{wd} {model} T={t} x {b} {what} S={s}"
             err = check_rows(out, plain(), [(i, t) for i in range(b)],
                              f"B4 {label}")
             rows.append(timed_row(
@@ -360,11 +369,207 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
                 plain,
                 lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k, v, attn_mask=m[:, None],
-                    scale=scale),
+                    scale=scale, **gqa),
                 dense_work(q, k, mask), err, dict(t=t, rows=b)))
             del q, k, v, kd, vd, out
-        torch.cuda.empty_cache()
-        res["kernels"] = rows
+    torch.cuda.empty_cache()
+    return rows
+
+
+def launch_gate(kernels: dict, fail, tag: str, what: str, need,
+                head_dim: int) -> dict:
+    """Every kernel of ``need`` launched, no plain version run; the
+    attention kernels at K width ``head_dim`` only; returns the
+    launches."""
+    out = {}
+    for name, mod in kernels.items():
+        n, plain = mod.COUNTS.launches, mod.COUNTS.plain_calls
+        if plain or (mod in need and n == 0):
+            fail(f"{tag} {what}: {name} launched {n} times, plain version "
+                 f"called {plain} times")
+        out[name] = n
+    for name in ("ragged_paged_attention", "decode_attention",
+                 "flash_attention"):
+        mod = kernels[name]
+        if mod.COUNTS.launches != mod.COUNTS.by_head_dim[head_dim]:
+            fail(f"{tag} {what}: {mod.NAME} launched at head widths "
+                 f"{dict(mod.COUNTS.by_head_dim)}")
+    return out
+
+
+def serving_requests(cfg, n_req: int, seed: int):
+    """``n_req`` requests of 64-1000 ids and 32-64 new tokens, half greedy
+    and half seeded."""
+    import numpy as np
+
+    from ipex_llm_tpu_torch.serving.engine import Request
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 1001, n_req)
+    news = rng.integers(32, 65, n_req)
+    return [Request(prompt_ids=[int(v) for v in rng.integers(
+                1, cfg.vocab_size, int(n))], max_new_tokens=int(m),
+                    temperature=0.8 if i % 2 else 0.0,
+                    top_p=0.9 if i % 2 else 1.0,
+                    seed=5000 + i if i % 2 else None)
+            for i, (n, m) in enumerate(zip(lens, news))]
+
+
+def serve_run(kernels: dict, card: str, fail, dev, tag: str, label: str,
+              cfg, params, n_req: int, seed: int, need) -> dict:
+    """``n_req`` requests (:func:`serving_requests`) through
+    ``ServingEngine`` with ``SERVE_EC`` over a bf16 pool; every request
+    must finish with its tokens, the kernels of ``need`` launch, no plain
+    version runs; returns the run's row (tok/s, TTFT, peak memory, weight
+    bytes, launches by instance)."""
+    import numpy as np
+    import torch
+
+    from ipex_llm_tpu_torch.serving.engine import (EngineConfig,
+                                                   ServingEngine,
+                                                   stream_tokens)
+
+    b1 = kernels["ragged_paged_attention"]
+    b2e = kernels["qmatmul_experts"]
+    eng = ServingEngine(cfg, params, EngineConfig(**SERVE_EC), device=dev)
+    reqs = serving_requests(cfg, n_req, seed)
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.start()
+    t0 = time.perf_counter()
+    for q in reqs:
+        eng.submit(q)
+    streams = [list(stream_tokens(q, timeout=900)) for q in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.stop()
+    launches = launch_gate(kernels, fail, tag, f"{label} serve", need,
+                           cfg.head_dim)
+    for q, st in zip(reqs, streams):
+        if q.finish_reason != "length" or len(st) != q.max_new_tokens \
+                or st != q.output_ids or not all(
+                    0 <= v < cfg.vocab_size for v in st):
+            fail(f"{tag} {label}: a request finished {q.finish_reason} "
+                 f"with {len(st)} of {q.max_new_tokens} tokens "
+                 f"({eng.metrics.get('last_error')})")
+    out_tok = sum(len(st) for st in streams)
+    ttft = [q.first_token_s for q in reqs]
+    row = dict(model=label, card=card, storage="bf16",
+               layers=cfg.num_layers, heads=cfg.num_heads,
+               head_dim=cfg.head_dim, v_head_dim=cfg.v_dim,
+               requests=len(reqs),
+               prompt_tokens=sum(len(q.prompt_ids) for q in reqs),
+               output_tokens=out_tok, wall_s=wall,
+               output_tok_s=out_tok / wall,
+               ttft_mean_s=float(np.mean(ttft)),
+               ttft_max_s=float(np.max(ttft)),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               weight_bytes=eng.weight_stats()["weight_bytes"],
+               kv_page_bytes=eng.page_bytes, launches=launches,
+               b1_by_route=dict(b1.COUNTS.by_route),
+               b1_by_head_dim=dict(b1.COUNTS.by_head_dim),
+               b2e_by_instance=dict(b2e.COUNTS.by_instance),
+               ticks=eng.metrics["steps"])
+    print(f"{tag} serve " + json.dumps(row), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def generate_run(kernels: dict, card: str, fail, dev, tag: str, label: str,
+                 cfg, hf: dict, params, lengths, new: int = 32) -> dict:
+    """``generate()`` of the model class over left-padded prompts of
+    ``lengths`` ids, ``new`` greedy tokens each: B2, B3 and B4 launch at
+    the config's K width, no plain version runs; returns the run's row
+    (tok/s, first cost, peak memory, launches)."""
+    import numpy as np
+    import torch
+
+    from ipex_llm_tpu_torch.transformers.model import TPUModelForCausalLM
+
+    b2, b3, b4 = (kernels[n] for n in ("qmatmul", "decode_attention",
+                                       "flash_attention"))
+    model = TPUModelForCausalLM(cfg, params, hf, "sym_int4")
+    rng = np.random.default_rng(13)
+    width = max(lengths)
+    ids = np.zeros((len(lengths), width), np.int64)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(lengths):
+        ids[i, width - n:] = rng.integers(3, cfg.vocab_size, n)
+        mask[i, width - n:] = 1
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = model.generate(torch.from_numpy(ids),
+                         attention_mask=torch.from_numpy(mask),
+                         max_new_tokens=new, eos_token_id=())
+    wall = time.perf_counter() - t0
+    launches = launch_gate(kernels, fail, tag, f"{label} generate",
+                           (b2, b3, b4), cfg.head_dim)
+    got = model.last_result
+    if tuple(out.shape) != (len(lengths), width + new) or list(
+            got.num_new_tokens) != [new] * len(lengths) or int(
+            out[:, -new:].max()) >= cfg.vocab_size:
+        fail(f"{tag} {label} generate: sequences {tuple(out.shape)}, new "
+             f"tokens {list(got.num_new_tokens)}")
+    row = dict(model=label, card=card, rows=len(lengths),
+               layers=cfg.num_layers, prompt_tokens=sum(lengths),
+               new_tokens=new, wall_s=wall,
+               output_tok_s=len(lengths) * new / wall,
+               first_cost_s=model.first_cost,
+               rest_cost_mean_s=model.rest_cost_mean,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches,
+               b3_by_head_dim=dict(b3.COUNTS.by_head_dim),
+               b4_by_head_dim=dict(b4.COUNTS.by_head_dim))
+    print(f"{tag} generate " + json.dumps(row), flush=True)
+    del model
+    return row
+
+
+def random_weights(label: str, cfg, seed: int, dev):
+    """Random sym_int4 params of ``cfg`` drawn and packed on the card."""
+    import torch
+
+    from ipex_llm_tpu_torch.models import random_init as ri
+
+    t0 = time.perf_counter()
+    params = ri.random_params(cfg, "sym_int4", seed=seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"{label}-width random sym_int4 weights ({cfg.num_layers} "
+          f"layers): {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card",
+          flush=True)
+    return params
+
+
+def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
+                       steps=STEPS) -> dict:
+    """The steps of the module docstring; ``kernels`` maps each kernel's
+    name to its wrapper module (``COUNTS``), ``fail(msg)`` ends the run,
+    ``graph_ms(torch, calls)`` is device ms a call from CUDA-graph
+    replays."""
+    import torch
+
+    import ipex_llm_tpu_torch.models.decoder as decoder_mod
+    from ipex_llm_tpu_torch.models import random_init as ri
+    from torch_families_smoke import small_check
+
+    b1, b2 = kernels["ragged_paged_attention"], kernels["qmatmul"]
+    b2e = kernels["qmatmul_experts"]
+    dev = device
+    res: dict = {"card": card}
+    t_phase = time.perf_counter()
+    # the attention kernels and the run helpers (module level, shared with
+    # the offload and minicpm phases)
+    reset = functools.partial(reset_counts, kernels)
+    gate = functools.partial(launch_gate, kernels, fail, "gpt_families")
+    if "kernels" in steps:
+        res["kernels"] = attention_cases(
+            kernels, fail, dev, graph_ms, tag="gpt_families", model="Phi-2",
+            d=D, hq=HEADS, hkv=HEADS, seed=19)
 
     # -- 2. 2-layer decoders at the published widths, card against CPU -----
     def replaying_route():
@@ -425,141 +630,21 @@ def gpt_families_phase(kernels: dict, card: str, fail, device, graph_ms,
         res["step_s"]["small"] = time.perf_counter() - t0
 
     # -- 3. full width through the engine; Phi-2's generate() ---------------
-    def requests(cfg, n_req, seed):
-        rng = np.random.default_rng(seed)
-        lens = rng.integers(64, 1001, n_req)
-        news = rng.integers(32, 65, n_req)
-        return [Request(prompt_ids=[int(v) for v in rng.integers(
-                    1, cfg.vocab_size, int(n))], max_new_tokens=int(m),
-                        temperature=0.8 if i % 2 else 0.0,
-                        top_p=0.9 if i % 2 else 1.0,
-                        seed=5000 + i if i % 2 else None)
-                for i, (n, m) in enumerate(zip(lens, news))]
-
-    def gate(what, need, head_dim):
-        """Every kernel of ``need`` launched, no plain version run; the
-        attention kernels at ``head_dim`` only; returns the launches."""
-        out = {}
-        for name, mod in kernels.items():
-            n, plain = mod.COUNTS.launches, mod.COUNTS.plain_calls
-            if plain or (mod in need and n == 0):
-                fail(f"gpt_families {what}: {name} launched {n} times, "
-                     f"plain version called {plain} times")
-            out[name] = n
-        for mod in (b1, b3, b4):
-            if mod.COUNTS.launches != mod.COUNTS.by_head_dim[head_dim]:
-                fail(f"gpt_families {what}: {mod.NAME} launched at head "
-                     f"widths {dict(mod.COUNTS.by_head_dim)}")
-        return out
-
-    def serve(label, cfg, params, n_req, seed, need):
-        eng = ServingEngine(cfg, params, EngineConfig(**SERVE_EC),
-                            device=dev)
-        reqs = requests(cfg, n_req, seed)
-        reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        eng.start()
-        t0 = time.perf_counter()
-        for q in reqs:
-            eng.submit(q)
-        streams = [list(stream_tokens(q, timeout=900)) for q in reqs]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        eng.stop()
-        launches = gate(f"{label} serve", need, cfg.head_dim)
-        for q, st in zip(reqs, streams):
-            if q.finish_reason != "length" or len(st) != q.max_new_tokens \
-                    or st != q.output_ids or not all(
-                        0 <= v < cfg.vocab_size for v in st):
-                fail(f"gpt_families {label}: a request finished "
-                     f"{q.finish_reason} with {len(st)} of "
-                     f"{q.max_new_tokens} tokens "
-                     f"({eng.metrics.get('last_error')})")
-        out_tok = sum(len(st) for st in streams)
-        ttft = [q.first_token_s for q in reqs]
-        row = dict(model=label, card=card, storage="bf16",
-                   layers=cfg.num_layers, heads=cfg.num_heads,
-                   head_dim=cfg.head_dim, requests=len(reqs),
-                   prompt_tokens=sum(len(q.prompt_ids) for q in reqs),
-                   output_tokens=out_tok, wall_s=wall,
-                   output_tok_s=out_tok / wall,
-                   ttft_mean_s=float(np.mean(ttft)),
-                   ttft_max_s=float(np.max(ttft)),
-                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                   weight_bytes=eng.weight_stats()["weight_bytes"],
-                   kv_page_bytes=eng.page_bytes, launches=launches,
-                   b1_by_route=dict(b1.COUNTS.by_route),
-                   b1_by_head_dim=dict(b1.COUNTS.by_head_dim),
-                   b2e_by_instance=dict(b2e.COUNTS.by_instance),
-                   ticks=eng.metrics["steps"])
-        print("gpt_families serve " + json.dumps(row), flush=True)
-        del eng
-        torch.cuda.empty_cache()
-        return row
-
-    def generate(label, cfg, hf, params) -> dict:
-        model = TPUModelForCausalLM(cfg, params, hf, "sym_int4")
-        rng = np.random.default_rng(13)
-        width = max(GENERATE_LENGTHS)
-        ids = np.zeros((len(GENERATE_LENGTHS), width), np.int64)
-        mask = np.zeros_like(ids)
-        for i, n in enumerate(GENERATE_LENGTHS):
-            ids[i, width - n:] = rng.integers(3, cfg.vocab_size, n)
-            mask[i, width - n:] = 1
-        new = 32
-        reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = model.generate(torch.from_numpy(ids),
-                             attention_mask=torch.from_numpy(mask),
-                             max_new_tokens=new, eos_token_id=())
-        wall = time.perf_counter() - t0
-        launches = gate(f"{label} generate", (b2, b3, b4), cfg.head_dim)
-        got = model.last_result
-        if tuple(out.shape) != (len(GENERATE_LENGTHS), width + new) or list(
-                got.num_new_tokens) != [new] * len(GENERATE_LENGTHS) or int(
-                out[:, -new:].max()) >= cfg.vocab_size:
-            fail(f"gpt_families {label} generate: sequences "
-                 f"{tuple(out.shape)}, new tokens {list(got.num_new_tokens)}")
-        row = dict(model=label, card=card, rows=len(GENERATE_LENGTHS),
-                   layers=cfg.num_layers,
-                   prompt_tokens=sum(GENERATE_LENGTHS), new_tokens=new,
-                   wall_s=wall, output_tok_s=len(GENERATE_LENGTHS) * new
-                   / wall, first_cost_s=model.first_cost,
-                   rest_cost_mean_s=model.rest_cost_mean,
-                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                   launches=launches,
-                   b3_by_head_dim=dict(b3.COUNTS.by_head_dim),
-                   b4_by_head_dim=dict(b4.COUNTS.by_head_dim))
-        print("gpt_families generate " + json.dumps(row), flush=True)
-        del model
-        return row
-
-    def weights(label, cfg, seed):
-        t0 = time.perf_counter()
-        params = ri.random_params(cfg, "sym_int4", seed=seed, device=dev)
-        torch.cuda.synchronize()
-        print(f"{label}-width random sym_int4 weights ({cfg.num_layers} "
-              f"layers): {time.perf_counter() - t0:.1f} s, "
-              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the "
-              "card", flush=True)
-        return params
-
     if "serve" in steps:
         t0 = time.perf_counter()
         res["serve"], res["generate"] = [], []
         for seed, (label, make) in enumerate(published.items()):
             cfg = make() if label == "Phi-2" else make(
                 num_layers=SERVE_LAYERS)
-            params = weights(label, cfg, 50 + seed)
+            params = random_weights(label, cfg, 50 + seed, dev)
             need = (b1, b2, b2e) if cfg.num_experts else (b1, b2)
-            res["serve"].append(serve(label, cfg, params, 8, 60 + seed,
-                                      need))
+            res["serve"].append(serve_run(
+                kernels, card, fail, dev, "gpt_families", label, cfg, params,
+                8, 60 + seed, need))
             if label == "Phi-2":
-                res["generate"].append(generate(label, cfg, ri.PHI2_HF,
-                                                params))
+                res["generate"].append(generate_run(
+                    kernels, card, fail, dev, "gpt_families", label, cfg,
+                    ri.PHI2_HF, params, GENERATE_LENGTHS))
             del params
             torch.cuda.empty_cache()
         res["step_s"]["serve"] = time.perf_counter() - t0

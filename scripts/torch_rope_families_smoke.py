@@ -38,10 +38,10 @@ retries on the CPU):
 3. ``small``: small phi3 (head_dim 96, a window of 24), gemma (head_dim
    256, the exact GELU) and gemma3 (head_dim 256, a window of 24 on its
    first layer, both rope tables) decoders, paged and dense, and 2-layer
-   decoders at Llama-3.1-8B's widths with its llama3 rope and at
-   Phi-3.5-mini's with longrope over Phi-4-mini's partial rotary of 0.75,
-   dense (the rope runs the same in both forms, and the CPU's float64
-   oracle at those widths takes about half a minute a form), each on the
+   decoders with Llama-3.1-8B's llama3 rope (head_dim 128) and with
+   Phi-3.5-mini's longrope over Phi-4-mini's partial rotary of 0.75
+   (head_dim 96), their rope tables at the published lengths over narrow
+   layers (hidden 512 and 384, 4 heads, vocabulary 512), each on the
    card against the same decoder on the CPU's plain versions
    (``torch_families_smoke.small_check``: logits within 2.5% of their
    range);
@@ -434,11 +434,18 @@ def rope_families_phase(kernels: dict, card: str, fail, device, graph_ms,
                 num_kv_heads=2, sliding_window=24,
                 layer_types=("sliding_attention", "full_attention"),
                 **small)),
-            ("Llama-3.1-8B llama3, 2 layers", replace(
-                config_from_hf(ri.LLAMA31_8B_HF), num_layers=2)),
-            ("Phi-3.5-mini longrope, partial rotary 0.75, 2 layers",
+            # the rope kinds of Llama-3.1-8B and Phi-3.5-mini at their head
+            # widths and rope tables, over narrow layers (the float64 CPU
+            # oracle at the published widths took most of the phase)
+            ("Llama-3.1-8B llama3, 2 narrow layers", replace(
+                config_from_hf(ri.LLAMA31_8B_HF), hidden_size=512,
+                intermediate_size=1024, num_heads=4, num_kv_heads=2,
+                **small)),
+            ("Phi-3.5-mini longrope, partial rotary 0.75, 2 narrow layers",
              replace(config_from_hf(ri.phi35_mini_hf(
-                 seed=5, partial_rotary_factor=0.75)), num_layers=2)))
+                 seed=5, partial_rotary_factor=0.75)), hidden_size=384,
+                 intermediate_size=1024, num_heads=4, num_kv_heads=4,
+                 **small)))
         res["small"] = {}
         for i, (label, cfg) in enumerate(cases):
             t0 = time.perf_counter()

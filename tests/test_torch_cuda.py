@@ -3,9 +3,10 @@ B5 (split paged attention) in both its tile heights, B2's GEMV (M <= 8)
 and tiled (M > 8) instances in every block format, B2e (B2's tile over
 rows sorted by expert) in every block format and row tile, B1 (ragged
 paged attention) in both its instances
-(query tiles, key split) at head_dim 80, 128 and 256, B3 (dense decode
-attention) and B4 (flash attention) at head_dim 80, 96, 128 and 256, all
-three at DeepSeek's K width 192 and V width 128 and, for
+(query tiles, key split) at head_dim 64, 80, 96, 128 and 256, B3 (dense
+decode attention) and B4 (flash attention) at head_dim 64, 80, 96, 128
+and 256, all three at DeepSeek's K width 192 and V width 128 and at
+MiniCPM3's K width 96 and V width 64 and, for
 training, B4's LSE instance and backward and B2^T
 (the dequant-matmul's input gradient).  Every case carries the ``cuda``
 marker and
@@ -279,6 +280,37 @@ def test_ragged_attention_head_dim_192_matches_plain(storage, c):
     _ragged_case(storage, 1, c, 192, 128)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("c", [1, 4, 16, 128])
+def test_ragged_attention_head_dim_64_matches_plain(storage, g, c):
+    """B1's head_dim-64 instances (MiniCPM-2B's width, and Llama-3.2-1B's
+    at G = 4: native 64-column rows, one period of the swizzle) on the
+    cases of the 128 ones."""
+    _ragged_case(storage, g, c, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("c", [1, 4, 16, 128])
+def test_ragged_attention_head_dim_96_matches_plain(storage, g, c):
+    """B1's (96, 96) instances (rows 128 columns wide, 96 staged) on the
+    cases of the 128 ones."""
+    _ragged_case(storage, g, c, 96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("c", [1, 4, 16, 128])
+def test_ragged_attention_head_dim_96_64_matches_plain(storage, c):
+    """B1's (96, 64) instances (MiniCPM3's MLA: K 96 wide in 128-column
+    rows, V 64 in native rows, one kv head a query head) on the cases of
+    the 128 ones; the output 64 wide."""
+    _ragged_case(storage, 1, c, 96, 64)
+
+
 def _ragged_case(storage, g, c, d, dv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -380,6 +412,26 @@ def test_decode_attention_head_dim_192_matches_plain(storage, variant):
     _decode_case(storage, 1, variant, 192, 128)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
+def test_decode_attention_head_dim_64_matches_plain(storage, g, variant):
+    """B3's head_dim-64 instance (native 64-column rows, four score
+    steps, a 64-thread merge) on the cases of the 128 instance, at
+    MiniCPM-2B's group of 1 and Llama-3.2-1B's of 4."""
+    _decode_case(storage, g, variant, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
+def test_decode_attention_head_dim_96_64_matches_plain(storage, variant):
+    """B3's (96, 64) instance (MiniCPM3: K rows 128 columns wide, V rows
+    64, one stage fewer) on the cases of the 128 instance at G = 1."""
+    _decode_case(storage, 1, variant, 96, 64)
+
+
 def _decode_case(storage, g, variant, d, dv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -467,6 +519,27 @@ def test_flash_attention_head_dim_192_matches_plain(t, variant):
     instance at DeepSeek's group of 1, and at T = 4 after 64 cached
     slots."""
     _flash_case(t, 1, variant, 192, lead=64, dv=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 200, 1000])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("variant", B4_VARIANTS)
+def test_flash_attention_head_dim_64_matches_plain(t, g, variant):
+    """B4's head_dim-64 instance (native 64-column tiles: four score
+    steps, O += P.V on one m64n64k16 per 16 keys) on the cases of the 128
+    instance and at the verify width T = 4 after 64 cached slots."""
+    _flash_case(t, g, variant, 64, lead=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 200, 1000])
+@pytest.mark.parametrize("variant", B4_VARIANTS)
+def test_flash_attention_head_dim_96_64_matches_plain(t, variant):
+    """B4's (96, 64) instance (MiniCPM3: the 96 instance's K tile, the
+    64 instance's V tile and P.V; K and V through their own strides) at
+    G = 1, and at T = 4 after 64 cached slots."""
+    _flash_case(t, 1, variant, 96, lead=64, dv=64)
 
 
 def _flash_case(t, g, variant, d, lead=0, dv=None):

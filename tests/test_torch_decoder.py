@@ -44,13 +44,14 @@ def test_config_outside_the_slice_raises():
     phi3 and gemma, DeepSeek's routing, routed scaling factor and
     interleaved rope layout since the deepseek families, LayerNorm, the
     MLP's and o's biases, the ungated MLP and the parallel residual since
-    the GPT-style families); other families, rope layouts, norms and the
-    fields of other blocks still raise)."""
+    the GPT-style families, the muP scalings since minicpm); other
+    families, rope layouts, norms and the fields of other blocks still
+    raise)."""
     cfg = tiny_cfg()
     fields = dataclasses.asdict(cfg)
     for over in ({"norm_after": True}, {"alibi": True},
-                 {"model_type": "minicpm3"}, {"rope_layout": "neox"},
-                 {"norm_kind": "group"}):
+                 {"model_type": "cohere"}, {"rope_layout": "neox"},
+                 {"norm_kind": "group"}, {"glm_alpha": 2.0}):
         with pytest.raises(NotImplementedError):
             ModelConfig.from_fields({**fields, **over})
     for over in ({"sliding_window": 64}, {"attn_softcap": 30.0},
@@ -63,7 +64,9 @@ def test_config_outside_the_slice_raises():
                  {"model_type": "deepseek_v2"}, {"rope_layout": "two"},
                  {"mlp_bias": True}, {"attention_out_bias": True},
                  {"norm_kind": "layer"}, {"mlp_gated": False},
-                 {"parallel_blocks": True}, {"model_type": "gptj"}):
+                 {"parallel_blocks": True}, {"model_type": "gptj"},
+                 {"model_type": "minicpm"}, {"residual_multiplier": 0.25},
+                 {"logit_scale": 0.125}):
         assert ModelConfig.from_fields({**fields, **over})
 
 

@@ -49,6 +49,10 @@ def test_port_imports_without_jax_or_the_reference():
     on_disk = {n[: -len(".__init__")] if n.endswith(".__init__") else n
                for n in on_disk} - {"ipex_llm_tpu_torch"}
     assert set(out.stdout.split()) == on_disk
+    # expert offload and its LRU, which the reference keeps beside JAX
+    # code, are among them
+    assert {"ipex_llm_tpu_torch.offload",
+            "ipex_llm_tpu_torch.hostutil"} <= on_disk
 
 
 def test_port_imports_without_safetensors_or_transformers():

@@ -1165,3 +1165,40 @@ def test_mla_ring_and_tile_plans_fit_the_sm(fp8):
     assert b4.smem_plan(256) == b4.smem_plan(256, 256)
     # the decode split at V2-Lite's 16 heads over 8 rows fills one wave
     assert b3.split_plan(8, 16, 4096, 192, 128) == 2 * 132 // 128
+
+
+# -- the (64, 64), (96, 64) and (96, 96) instances: MiniCPM -------------------
+
+PLANS_64 = {
+    # (K, V): B1's block (either instance), B3's ring (bf16, e5m2) and its
+    # stages, B4's ring, all in KiB (B1's plus its 16-byte slot)
+    (64, 64): (32, (48, 48), (3, 4), 49),
+    (96, 64): (48, (48, 60), (2, 3), 73),
+    (96, 96): (64, (96, 96), (3, 4), 97),
+}
+
+
+@pytest.mark.parametrize("d,dv", sorted(PLANS_64))
+def test_minicpm_plans_fit_the_sm(d, dv):
+    """A 64-column row is eight 16-byte chunks, one period of the XOR
+    swizzle, so the 64 instances stage native 64-column rows (8 KiB a
+    tile); a 96-column K row keeps 128's width (the swizzle would carry
+    chunks 8-11 out of a 12-chunk row).  B3's (96, 64) ring is the
+    narrow-V ring, one stage fewer; every plan leaves room for the
+    resident blocks and the key split's warp merge."""
+    assert [b1.row_width(w) for w in (64, 80, 96, 128, 192, 256)] == \
+        [64, 128, 128, 128, 192, 256]
+    b1_kib, b3_kib, b3_stages, b4_kib = PLANS_64[(d, dv)]
+    for split in (False, True):
+        smem, q_smem = b1.smem_plan(d, split, dv)
+        assert not q_smem and smem == b1_kib * 1024 + 16
+        assert 4 * 16 * dv * 4 + 4 * 16 * 8 <= smem
+    for fp8, kib, stages in zip((False, True), b3_kib, b3_stages):
+        got = b3.ring_plan(d, fp8, dv)
+        assert got == (stages, kib * 1024, 2)
+        assert 2 * (got[1] + 1024) <= SMEM_SM
+        assert 4 * 16 * dv * 4 + 4 * 16 * 8 <= got[1]
+    stages, smem, resident = b4.smem_plan(d, dv)
+    assert (stages, smem, resident) == (3, b4_kib * 1024, 2)
+    assert resident * (smem + 1024) <= SMEM_SM
+    assert all((d, dv) in mod.INSTANCES for mod in (b1, b3, b4))

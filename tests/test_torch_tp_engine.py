@@ -15,6 +15,8 @@ of a gloo group (spawned processes, ``tests/torch_tp_ranks.py``) running
   run; a poisoned request bisected on both ranks fails alone, the others
   bitwise;
 - a fault on rank 1 alone ends both ranks within two group timeouts;
+- minicpm (the muP scalings) at tp = 2 as at tp = 1, minicpm3 refused
+  as MLA;
 - ``build_server(tensor_parallel_size=2)`` (what ``main
   --tensor-parallel-size 2`` calls) starts its follower and reports the
   ``parallel`` block in ``/health``; ``main`` parses the lifted flags.
@@ -31,6 +33,9 @@ from ipex_llm_tpu.serving.engine import ServingEngine as RefServingEngine
 from ipex_llm_tpu_torch.serving import api_server
 from ipex_llm_tpu_torch.serving.engine import (EngineConfig, Request,
                                                ServingEngine)
+from ipex_llm_tpu_torch.models.families import config_from_hf
+from ipex_llm_tpu_torch.models.random_init import random_params
+from ipex_llm_tpu_torch.parallel.manual import ineligible_reason
 from tests import torch_tp_ranks
 from tests.test_torch_decoder import tiny_pair
 
@@ -64,6 +69,19 @@ def _drive(eng, reqs):
     return reqs
 
 
+def _minicpm():
+    """A tiny minicpm (4 heads of 32, a tied head, sym_int4 from a seed)
+    whose muP scalings are far from 1: embeddings x 12, each branch x 0.8
+    / sqrt(2), logits x 0.25."""
+    cfg = config_from_hf({
+        "model_type": "minicpm", "vocab_size": 256, "hidden_size": 128,
+        "intermediate_size": 256, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "num_key_value_heads": 4,
+        "max_position_embeddings": 512, "tie_word_embeddings": True,
+        "scale_emb": 12, "scale_depth": 0.8, "dim_model_base": 32})
+    return cfg, random_params(cfg, "sym_int4", seed=3, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX engine's tp = 2 streams, the port's tp = 1 streams, and the
@@ -88,6 +106,10 @@ def runs(tmp_path_factory):
                             device="cpu")
         tp1[name] = _drive(eng, [Request(**r) for r in _reqs(
             qprompts, seeded)])
+    mcfg, mparams = _minicpm()
+    tp1["minicpm"] = _drive(
+        ServingEngine(mcfg, mparams, EngineConfig(**SPEC), device="cpu"),
+        [Request(**r) for r in _reqs(qprompts)])
     runs = [
         dict(model=0, ec=dict(max_rows=3, max_seq_len=256,
                               prefill_bucket=32), reqs=_reqs(prompts)),
@@ -99,10 +121,11 @@ def runs(tmp_path_factory):
         dict(model=1, ec=SPEC, reqs=_reqs(qprompts), faults=[
             dict(site="mixed-step", exc="DeterministicFault", times=None,
                  request_id="r2", ranks=(0, 1))]),
+        dict(model=2, ec=SPEC, reqs=_reqs(qprompts)),
     ]
     got = torch_tp_ranks.spawn(
         torch_tp_ranks.engine_rank, 2, tmp_path_factory.mktemp("tp2"),
-        [(port_cfg, port_params), (qcfg, qparams)], runs)
+        [(port_cfg, port_params), (qcfg, qparams), (mcfg, mparams)], runs)
     return want_ref, tp1, got
 
 
@@ -138,6 +161,37 @@ def test_tp2_matches_tp1_with_speculation_and_a_horizon(runs, i, name):
         assert run["metrics"]["spec_steps"] > 0
         assert run["metrics"]["retries"] == run["metrics"]["errors"] == 0
     assert got[0][i]["logprobs"] == got[1][i]["logprobs"]
+
+
+def test_tp2_serves_minicpm_as_tp1(runs):
+    """minicpm's muP scalings at tp = 2 (the residual multiplier after
+    the row all-reduce, the logit scale on the tied head's replicated
+    logits): tp = 1's greedy tokens on both ranks, logprobs within 0.02
+    nats, with speculation and a horizon of 4."""
+    _, tp1, got = runs
+    for rank in (0, 1):
+        run = got[rank][5]
+        assert run["tokens"] == [r.output_ids for r in tp1["minicpm"]]
+        for a, b in zip(run["logprobs"], tp1["minicpm"]):
+            np.testing.assert_allclose(a, b.logprobs, rtol=0, atol=0.02)
+        assert run["metrics"]["errors"] == 0
+    assert got[0][5]["logprobs"] == got[1][5]["logprobs"]
+
+
+def test_minicpm3_is_refused_at_tp_as_mla():
+    """minicpm3 stays refused at tp > 1 with the reference's MLA reason;
+    minicpm is eligible."""
+    from ipex_llm_tpu_torch.models.random_init import TINY_DEEPSEEK_V2_HF
+    mcfg, mparams = _minicpm()
+    assert ineligible_reason(mcfg, mparams, {"tp": 2}, 128) is None
+    hf = {k: v for k, v in TINY_DEEPSEEK_V2_HF.items()
+          if not k.startswith(("n_", "first_k", "moe_", "topk", "num_exp"))}
+    cfg = config_from_hf({**hf, "model_type": "minicpm3", "scale_emb": 12,
+                          "scale_depth": 1.4, "dim_model_base": 32})
+    assert cfg.is_mla and cfg.num_experts == 0
+    params = random_params(cfg, "sym_int4", seed=1, device="cpu")
+    assert ineligible_reason(cfg, params, {"tp": 2}, 128) == \
+        "MLA attention (low-rank q/kv) not manual-sharded yet"
 
 
 def test_a_fault_on_both_ranks_retries_in_lockstep(runs):
