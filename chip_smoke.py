@@ -275,6 +275,20 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     before a fork within 0.05 nats on average; the families' perplexity
     within 1.25 of the exact family's), with no plain call and every
     kernel of the path launched on each rank.
+20. ``glm_families`` (``scripts/torch_glm_families_smoke.py``): B1, B3 and
+    B4 at GLM-4-9B's GQA group of 16 (32 query heads over 2 kv heads,
+    head_dim 128) against their plain versions (B1 at C = 1, the key
+    split's 16 rows one kv head's query heads, C = 2 and 4 and 128 on the
+    query tiles, bf16 and e5m2 pools; B3 at B = 8 over bf16 and e5m2; B4
+    at T = 128 x 8 and 2048 x 2), timed beside their bounds and SDPA;
+    2-layer GLM-4-9B-0414, glm-4-9b-chat and internlm2-chat-7b decoders at
+    their published widths (the vocabulary cut) card against CPU;
+    glm-4-9b-chat at full width and depth (40 layers) through
+    ``ServingEngine`` (eight requests over a bf16 pool: B1 by both
+    instances, B2) and ``generate()`` (B2, B3, B4), and GLM-4-9B-0414,
+    internlm2-chat-7b, Qwen-7B-Chat and Baichuan2-7B-Chat at full width, 8
+    layers, through the engine; a 2-layer glm-4-9b-chat-width checkpoint
+    under the THUDM names through ``from_pretrained`` and ``generate()``.
 
 Kernel times come from CUDA events over many launches after a warm-up
 (B2's up to M = 512, B3's, B4's and B5's, and their yardsticks, as
@@ -2430,6 +2444,15 @@ def main() -> int:
     print(f"serve_tp phase: {report['serve_tp']['phase_s']:.1f} s",
           flush=True)
 
+    # -- 20. the GLM and llama-layout families: B1, B3, B4 at G = 16 -------
+    from torch_glm_families_smoke import glm_families_phase
+
+    report["glm_families"] = glm_families_phase(kernels, card, fail, dev,
+                                                graph_ms)
+    print(f"glm_families phase: {report['glm_families']['phase_s']:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
     # -- summary -------------------------------------------------------------
     serve_launches = report["serve"][0]["launches"]
     gen_launches = report["generate"][0]["launches"]
@@ -2585,6 +2608,52 @@ def main() -> int:
             "shape": f"{model} {case}, bf16", "launches": launches,
             "launches_run": run, "max_abs_err": mc_err(kernel, d, dv),
             **{k: mc_row(kernel, f"{wd} {model} {case}")[k] for k in keys}}
+    # the G = 16 cases of the glm_families phase: launches from
+    # glm-4-9b-chat's serving run (40 layers) and its generate()
+    gl = report["glm_families"]
+    glm_serve = next(r for r in gl["serve"] if r["model"] == "glm-4-9b-chat")
+    glm_gen = gl["generate"][0]
+    glm_run = "glm-4-9b-chat serving, 40 layers, bf16 pool"
+
+    def glm_row(kernel, case):
+        return next(r for r in gl["kernels"] if r["kernel"] == kernel
+                    and r["case"] == case and r.get("pool", "bf16") == "bf16")
+
+    def glm_err(kernel):
+        return max(r["max_abs_err"] for r in gl["kernels"]
+                   if r["kernel"] == kernel)
+
+    def glm_b1(c, launches):
+        split = c == 1
+        return {
+            "name": "ragged_paged_attention[D=128, G=16%s]" % (
+                ", split" if split else ""),
+            "route": "cuda", "source": src + "ragged_paged_attention.cu",
+            "replaces":
+                "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+            "shape": f"R=8 C={c} Hq=32 Hkv=2 D=128 page 128, 2048 slots, "
+                     "bf16 pool" + (" (key split and merge: 16 query heads "
+                                    "a block)" if split else
+                                    ", chunk+decode+idle rows (query "
+                                    "tiles)"),
+            "launches": launches, "launches_run": glm_run,
+            "max_abs_err": glm_err("ragged_paged_attention"),
+            **{k: glm_row("ragged_paged_attention",
+                          f"D=128 GLM-4-9B Hq=32 Hkv=2 C={c}")[k]
+               for k in keys}}
+
+    def glm_dense(kernel, case):
+        return {
+            "name": f"{kernel}[D=128, G=16]", "route": "cuda",
+            "source": src + f"{kernel}.cu",
+            "replaces": f"ipex_llm_tpu/ops/pallas/{kernel}.py:166",
+            "shape": f"GLM-4-9B {case}, bf16",
+            "launches": glm_gen["launches"][kernel],
+            "launches_run": "glm-4-9b-chat generate(), 40 layers",
+            "launches_load_generate": gl["load"]["generate_launches"][kernel],
+            "max_abs_err": glm_err(kernel),
+            **{k: glm_row(kernel, f"D=128 GLM-4-9B {case}")[k]
+               for k in keys}}
     # the offload phase's runs (the small budget's: every step streams)
     off_launches = report["offload"]["small"]["launches"]
     # B2's launches in each format on that format's main-path run: the
@@ -2918,6 +2987,13 @@ def main() -> int:
                  "T=128 x 8 chunks S=2048",
                  mc_gen["MiniCPM3-4B"]["launches"]["flash_attention"],
                  "MiniCPM3-4B generate(), 8 layers"),
+        # B1, B3 and B4 at GLM-4-9B's group of 16 (32/2 heads, D = 128):
+        # launches from glm-4-9b-chat's serving run at 40 layers (B1, by
+        # instance) and its generate() (B3, B4)
+        glm_b1(1, glm_serve["b1_by_route"]["split"]),
+        glm_b1(128, glm_serve["b1_by_route"]["tiles"]),
+        glm_dense("decode_attention", "B=8 Hq=32 Hkv=2 S=2048"),
+        glm_dense("flash_attention", "T=128 x 8 chunks S=2048"),
         # B2e: B2 as the MoE dispatch reaches it under jax.vmap in the
         # reference; each entry's launches are its instance's in the
         # model's serving run at the engine's default prefill budget (the

@@ -5,10 +5,15 @@ helpers of the serving engine's weight axis (port of
 ``build_params`` constructs the tree of a ported family's scheme straight
 from a name -> tensor source (a checkpoint reader, a torch
 ``state_dict``): q, k and v merge into ``qkv`` and gate and up into
-``gate_up`` (rows concatenated, then transposed to ``[in, out]``; qwen2's
-q, k and v biases concatenate likewise into an fp32 ``qkv_bias``), or
+``gate_up`` (rows concatenated, then transposed to ``[in, out]``; the
+q, k and v biases concatenate likewise into an fp32 ``qkv_bias``,
+wherever the checkpoint holds them, whatever the config's flag says, as
+the reference loads them: Qwen v1's ``c_attn`` under ``no_bias``), or
 load as stored where the checkpoint holds them merged (phi3's
-``qkv_proj`` and ``gate_up_proj``), each
+``qkv_proj`` and ``gate_up_proj``, chatglm's ``query_key_value`` and
+``dense_h_to_4h``, baichuan's ``W_pack``, qwen's ``c_attn``; internlm2's
+``wqkv`` and its bias reordered by the family's ``qkv_transform`` before
+the weight is quantized), each
 weight is quantized on the target device as soon as it is read, and
 layers stack into ``[L, ...]`` leaves preallocated once and filled layer
 by layer.  gemma2's post norms become ``post_attn_norm`` and
@@ -252,16 +257,20 @@ def build_params(
         else:
             qkv = ([name(scheme.qkv)] if scheme.qkv is not None
                    else [name(t) for t in (scheme.q, scheme.k, scheme.v)])
+            # the qkv bias wherever the checkpoint holds it, whatever
+            # cfg.attention_bias says (Qwen v1's c_attn under no_bias)
             biases = [bias_of(n) for n in qkv]
-            if cfg.attention_bias and has(biases[0]):
+            held = [has(b) for b in biases]
+            if all(held):
                 bias = torch.cat([load(b).to(torch.float32)
                                   for b in biases])
                 if qkv_transform is not None:
                     bias = qkv_transform(bias[:, None], cfg)[:, 0]
                 st.put(i, "qkv_bias", bias.contiguous())
-            else:
-                for n in qkv:
-                    refuse_bias(n)
+            elif any(held):
+                raise NotImplementedError(
+                    f"bias {biases[held.index(True)]!r} without the other "
+                    "q/k/v biases is not ported (ROADMAP item 14)")
             if qkv_transform is not None:
                 st.put(i, "qkv", quantize_weight(
                     qkv_transform(load(qkv[0]), cfg), qtype))

@@ -3,7 +3,8 @@
 The port keeps the reference's field names for the families it serves
 (llama, mistral, qwen2, gemma2, qwen3, mixtral, qwen2_moe, qwen3_moe,
 phi3, gemma, gemma3_text, deepseek_v2, deepseek_v3, phi, phixtral under
-both its names, gpt_neox, gptj, minicpm, minicpm3), so a reference config
+both its names, gpt_neox, gptj, minicpm, minicpm3, glm, glm4, chatglm,
+aquila, internlm, internlm2, baichuan, qwen), so a reference config
 maps across field
 by field (:meth:`ModelConfig.from_fields`):
 every rope scaling kind of ``ops.rope.RopeScaling`` and partial rotary
@@ -46,7 +47,9 @@ LAYER_TYPES = ("sliding_attention", "full_attention")
 MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2", "qwen3", "mixtral",
                "qwen2_moe", "qwen3_moe", "phi3", "gemma", "gemma3_text",
                "deepseek_v2", "deepseek_v3", "phi", "phi-msft", "phixtral",
-               "gpt_neox", "gptj", "minicpm", "minicpm3")
+               "gpt_neox", "gptj", "minicpm", "minicpm3", "glm", "glm4",
+               "chatglm", "aquila", "internlm", "internlm2", "baichuan",
+               "qwen")
 NORM_KINDS = ("rms", "layer")
 MOE_SCORE_FUNCS = ("softmax", "sigmoid")
 MOE_GROUP_SCORES = ("max", "top2sum")
@@ -75,7 +78,11 @@ class ModelConfig:
     branches, gpt_neox two).  minicpm is llama's block with muP scalings
     (embeddings, each residual branch and the logits multiplied), and
     minicpm3 the same scalings over MLA with a dense MLP on every
-    layer."""
+    layer.  glm, glm4 and chatglm (chatglm2/3, glm-4-9b-chat) are llama's
+    block with a qkv bias and the "two" rope on half of each head (glm4
+    adds the post norms, plain RMSNorms); aquila, internlm (a bias on q,
+    k, v and o), internlm2, baichuan (7B) and qwen (v1) are llama's block
+    under their own names and keys."""
 
     model_type: str
     vocab_size: int

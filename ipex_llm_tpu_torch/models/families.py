@@ -1,8 +1,9 @@
 """Model families: an HF ``config.json`` dict to a ``ModelConfig`` and a
 weight-naming scheme (port of the llama, mistral, qwen2, gemma2, qwen3,
 mixtral, qwen2_moe, qwen3_moe, phi3, gemma, gemma3_text, deepseek_v2,
-deepseek_v3, phi, phi-msft, phixtral, gpt_neox, gptj, minicpm and
-minicpm3 rows of ``ipex_llm_tpu/models/families.py``).
+deepseek_v3, phi, phi-msft, phixtral, gpt_neox, gptj, minicpm, minicpm3,
+glm, glm4, chatglm, aquila, internlm, internlm2, baichuan and qwen rows
+of ``ipex_llm_tpu/models/families.py``).
 
 All of them run the port's one decoder.  llama, mistral and qwen2 share the
 reference's llama weight names (mistral adds its sliding window, qwen2 its
@@ -28,9 +29,21 @@ ungated (``moe.mlp.{e}.fc1``/``fc2``, no gate); Pythia's
 ``query_key_value`` interleaves q, k and v per head, which
 :func:`_neox_qkv` reorders, weight and bias.  minicpm keeps llama's
 names and minicpm3 DeepSeek's MLA names, with the muP scalings
-(:func:`_mup_scalings`).  Every
-other ``model_type`` raises ``NotImplementedError`` (ROADMAP item 14),
-``aquila`` included, which the reference maps to the llama row.
+(:func:`_mup_scalings`).  The GLM rows (glm, glm4, chatglm: chatglm2/3
+and glm-4-9b-chat) run llama's gated block with the "two" rope on half of
+each 128-wide head, a qkv bias and a pre-merged ``gate_up`` (glm4 adds
+its two post norms, plain RMSNorms); chatglm reads the THUDM names
+(``query_key_value``, ``dense_h_to_4h``, ``dense_4h_to_h``) and config
+keys (``kv_channels``, ``multi_query_group_num``, ``padded_vocab_size``,
+``ffn_hidden_size``, ``seq_length``, ``rope_ratio``).  The llama-layout
+rows: aquila is llama's row, internlm llama's names under one ``bias``
+flag (q, k, v and o), internlm2 its own names and the per-kv-group
+``wqkv`` that :func:`_internlm2_qkv` reorders, weight and bias, baichuan
+(7B) the pre-merged ``W_pack``, and qwen (v1) the ``transformer.h``
+names, the fused ``c_attn`` and a halved ``intermediate_size``.  chatglm
+v1 checkpoints, baichuan-13B (ALiBi) and chatglm without RMSNorm raise
+``NotImplementedError`` naming ROADMAP item 14, as does every other
+``model_type``.
 """
 
 from __future__ import annotations
@@ -38,6 +51,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field, replace
 from typing import Callable
+
+import torch
 
 from ipex_llm_tpu_torch.models.config import MODEL_TYPES, ModelConfig
 from ipex_llm_tpu_torch.ops.rope import RopeScaling
@@ -474,11 +489,130 @@ def _gptj(hf: dict) -> ModelConfig:
     ))
 
 
+def _glm(hf: dict) -> ModelConfig:
+    """GLM-4 (``transformers``' ``glm``): the interleaved "two" rope on half
+    of each head, head_dim 128 unless the config names one, a qkv bias, no
+    bias on o, the merged gate_up (the reference's ``_glm``)."""
+    hf2 = dict(hf)
+    hf2.setdefault("partial_rotary_factor", 0.5)
+    hf2.setdefault("head_dim", 128)
+    return ModelConfig.from_fields(_base_cfg(
+        hf2, rope_layout="two",
+        attention_bias=hf.get("attention_bias", True),
+        attention_out_bias=False))
+
+
+def _glm4(hf: dict) -> ModelConfig:
+    """GLM-4-0414 (``glm4``): ``_glm`` and a norm of each block's output
+    before its residual add, plain RMSNorms (no (1 + w) offset)."""
+    return replace(_glm(hf), post_attn_norm=True, post_mlp_norm=True)
+
+
+def _chatglm(hf: dict) -> ModelConfig:
+    """chatglm2/3 and glm-4-9b-chat: mainline glm's math under the THUDM
+    config keys (the reference's ``_chatglm``).  ``multi_query_group_num``
+    kv heads only where ``multi_query_attention`` is set, the rope base
+    10000 times ``rope_ratio``; a config without RMSNorm or without its
+    final norm is refused, as the reference refuses it."""
+    if not hf.get("rmsnorm", True) or hf.get("post_layer_norm") is False:
+        raise NotImplementedError(
+            "chatglm with rmsnorm false or post_layer_norm false (a "
+            "LayerNorm or post-norm variant) is not served by either "
+            "package (ROADMAP item 14)")
+    heads = hf["num_attention_heads"]
+    groups = (hf.get("multi_query_group_num", heads)
+              if hf.get("multi_query_attention", False) else heads)
+    hf2 = dict(
+        model_type="chatglm",
+        vocab_size=hf.get("padded_vocab_size", hf.get("vocab_size")),
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["ffn_hidden_size"],
+        num_hidden_layers=hf["num_layers"],
+        num_attention_heads=heads,
+        num_key_value_heads=groups,
+        head_dim=hf.get("kv_channels", hf["hidden_size"] // heads),
+        max_position_embeddings=hf.get("seq_length", 8192),
+        rms_norm_eps=hf.get("layernorm_epsilon", 1e-5),
+        rope_theta=10000.0 * hf.get("rope_ratio", 1.0),
+        partial_rotary_factor=0.5,
+        tie_word_embeddings=hf.get("tie_word_embeddings", False),
+    )
+    bias = hf.get("add_bias_linear", False)
+    return ModelConfig.from_fields(_base_cfg(
+        hf2, rope_layout="two",
+        attention_bias=hf.get("add_qkv_bias", bias),
+        attention_out_bias=bias, mlp_bias=bias))
+
+
+def _internlm(hf: dict) -> ModelConfig:
+    """internlm (v1): llama's layout under one ``bias`` flag for q, k, v
+    and o (the reference's ``_internlm``)."""
+    b = hf.get("bias", True)
+    return ModelConfig.from_fields(_base_cfg(
+        hf, attention_bias=b, attention_out_bias=b))
+
+
+def _internlm2(hf: dict) -> ModelConfig:
+    return ModelConfig.from_fields(_base_cfg(
+        hf, attention_bias=hf.get("bias", False)))
+
+
+def _baichuan(hf: dict) -> ModelConfig:
+    """baichuan at 7B (Baichuan-7B, Baichuan2-7B): llama's block over the
+    pre-merged ``W_pack``.  At hidden 5120 and up (13B) the model runs
+    ALiBi in place of rope, which the port does not serve.  Baichuan2's
+    ``NormHead`` (the head's rows normalised in its forward) is not
+    applied, as the reference does not apply it (ROADMAP queue 3)."""
+    if hf.get("hidden_size", 0) >= 5120:
+        raise NotImplementedError(
+            "baichuan-13B runs ALiBi in place of rope (ROADMAP item 14 "
+            "step 4)")
+    return ModelConfig.from_fields(_base_cfg(hf))
+
+
+def _qwen(hf: dict) -> ModelConfig:
+    """Qwen (v1): the fused ``c_attn``, RMSNorm, the "half" rope over the
+    whole head, and a gated MLP whose ``intermediate_size`` counts both
+    branches (each is half of it; the reference's ``_qwen``).  ``no_bias``
+    governs ``c_proj`` and the MLP; ``c_attn``'s bias, which a Qwen
+    checkpoint holds whatever it says, is loaded where present (the
+    loader's rule).  ``use_dynamic_ntk`` and ``use_logn_attn`` are read by
+    neither package (ROADMAP queue 3)."""
+    heads = hf["num_attention_heads"]
+    hf2 = dict(
+        model_type="qwen",
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"] // 2,
+        num_hidden_layers=hf["num_hidden_layers"],
+        num_attention_heads=heads,
+        head_dim=hf.get("kv_channels", hf["hidden_size"] // heads),
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-6),
+        max_position_embeddings=hf.get("seq_length", 8192),
+        rope_theta=hf.get("rotary_emb_base", 10000.0),
+    )
+    return ModelConfig.from_fields(_base_cfg(
+        hf2, attention_bias=not hf.get("no_bias", False),
+        attention_out_bias=False))
+
+
 def _neox_qkv(w, cfg: ModelConfig):
     """GPT-NeoX ``query_key_value``: per-head ``[q_i; k_i; v_i]`` rows ->
     ``[q_all; k_all; v_all]`` (a bias passes as an ``[out, 1]`` column)."""
     h, hd = cfg.num_heads, cfg.head_dim
     return w.reshape(h, 3, hd, -1).transpose(0, 1).reshape(3 * h * hd, -1)
+
+
+def _internlm2_qkv(w, cfg: ModelConfig):
+    """internlm2 ``wqkv``: per kv group ``[q * G; k; v]`` rows -> ``[q_all;
+    k_all; v_all]`` (a bias passes as an ``[out, 1]`` column; the
+    reference's ``_internlm2_qkv``)."""
+    g, hd = cfg.num_kv_heads, cfg.head_dim
+    per = cfg.num_heads // g
+    x = w.reshape(g, per + 2, hd, -1)
+    return torch.cat([x[:, :per].reshape(g * per * hd, -1),
+                      x[:, per].reshape(g * hd, -1),
+                      x[:, per + 1].reshape(g * hd, -1)])
 
 
 # the reference's _GEMMA2_SCHEME: pre- and post-feedforward norms, the
@@ -601,6 +735,63 @@ _GPTJ_SCHEME = WeightScheme(
     down="transformer.h.{i}.mlp.fc_out.{p}",
 )
 
+# the reference's _GLM_SCHEME, _GLM4_SCHEME (plain RMSNorms of each block's
+# output) and _CHATGLM_SCHEME (THUDM names; query_key_value is already
+# [q; k; v] and dense_h_to_4h [gate; up])
+_GLM_SCHEME = WeightScheme(
+    gate=None, up=None,
+    gate_up="model.layers.{i}.mlp.gate_up_proj.{p}",
+)
+_GLM4_SCHEME = replace(
+    _GLM_SCHEME,
+    post_attn_norm="model.layers.{i}.post_self_attn_layernorm.weight",
+    post_mlp_norm="model.layers.{i}.post_mlp_layernorm.weight",
+)
+_CHATGLM_SCHEME = WeightScheme(
+    embed="transformer.embedding.word_embeddings.weight",
+    final_norm="transformer.encoder.final_layernorm.weight",
+    lm_head="transformer.output_layer.weight",
+    attn_norm="transformer.encoder.layers.{i}.input_layernorm.weight",
+    mlp_norm="transformer.encoder.layers.{i}.post_attention_layernorm.weight",
+    qkv="transformer.encoder.layers.{i}.self_attention.query_key_value.{p}",
+    q=None, k=None, v=None,
+    o="transformer.encoder.layers.{i}.self_attention.dense.{p}",
+    gate=None, up=None,
+    gate_up="transformer.encoder.layers.{i}.mlp.dense_h_to_4h.{p}",
+    down="transformer.encoder.layers.{i}.mlp.dense_4h_to_h.{p}",
+)
+# the reference's _BAICHUAN_SCHEME, _INTERNLM2_SCHEME and _QWEN_SCHEME
+_BAICHUAN_SCHEME = WeightScheme(
+    qkv="model.layers.{i}.self_attn.W_pack.{p}",
+    q=None, k=None, v=None,
+)
+_INTERNLM2_SCHEME = WeightScheme(
+    embed="model.tok_embeddings.weight",
+    lm_head="output.weight",
+    attn_norm="model.layers.{i}.attention_norm.weight",
+    mlp_norm="model.layers.{i}.ffn_norm.weight",
+    qkv="model.layers.{i}.attention.wqkv.{p}",
+    q=None, k=None, v=None,
+    o="model.layers.{i}.attention.wo.{p}",
+    gate="model.layers.{i}.feed_forward.w1.{p}",
+    up="model.layers.{i}.feed_forward.w3.{p}",
+    down="model.layers.{i}.feed_forward.w2.{p}",
+)
+_QWEN_SCHEME = WeightScheme(
+    embed="transformer.wte.weight",
+    final_norm="transformer.ln_f.weight",
+    lm_head="lm_head.weight",
+    attn_norm="transformer.h.{i}.ln_1.weight",
+    mlp_norm="transformer.h.{i}.ln_2.weight",
+    qkv="transformer.h.{i}.attn.c_attn.{p}",
+    q=None, k=None, v=None,
+    o="transformer.h.{i}.attn.c_proj.{p}",
+    # c_proj(silu(w2(x)) * w1(x)): w2 is the gate
+    gate="transformer.h.{i}.mlp.w2.{p}",
+    up="transformer.h.{i}.mlp.w1.{p}",
+    down="transformer.h.{i}.mlp.c_proj.{p}",
+)
+
 FAMILIES: dict[str, Family] = {
     "llama": Family("llama", _llama),
     "mistral": Family("mistral", _mistral),
@@ -628,13 +819,33 @@ FAMILIES: dict[str, Family] = {
     "gptj": Family("gptj", _gptj, _GPTJ_SCHEME),
     "minicpm": Family("minicpm", _minicpm),
     "minicpm3": Family("minicpm3", _minicpm3, _DEEPSEEK_SCHEME),
+    "glm": Family("glm", _glm, _GLM_SCHEME),
+    "glm4": Family("glm4", _glm4, _GLM4_SCHEME),
+    "chatglm": Family("chatglm", _chatglm, _CHATGLM_SCHEME),
+    # aquila (Aquila, Aquila2) keeps llama's config keys and weight names
+    "aquila": Family("aquila", _llama),
+    "internlm": Family("internlm", _internlm),
+    "internlm2": Family("internlm2", _internlm2, _INTERNLM2_SCHEME,
+                        qkv_transform=_internlm2_qkv),
+    "baichuan": Family("baichuan", _baichuan, _BAICHUAN_SCHEME),
+    "qwen": Family("qwen", _qwen, _QWEN_SCHEME),
 }
 assert tuple(FAMILIES) == MODEL_TYPES, "config.MODEL_TYPES names the families"
 
 
 def get_family(model_type: str, hf_config: dict | None = None) -> Family:
-    """The family of ``model_type`` (``hf_config`` is the reference's
-    disambiguation argument; no ported family needs it)."""
+    """The family of ``model_type``; ``hf_config`` tells a chatglm v1
+    checkpoint, which the reference routes to its ``chatglm1`` row and the
+    port refuses, from chatglm2 and later: THUDM reused ``chatglm`` for
+    v1's LayerNorm, 2D-rope block, whose configs carry
+    ``position_encoding_2d`` or ``inner_hidden_size`` (the reference's
+    markers)."""
+    if model_type == "chatglm" and hf_config is not None and (
+            hf_config.get("position_encoding_2d")
+            or "inner_hidden_size" in hf_config):
+        raise NotImplementedError(
+            "chatglm v1 (LayerNorm, the 2D rope, the GLM alpha residual) is "
+            "not ported (ROADMAP item 14 step 4)")
     if model_type not in FAMILIES:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported (ROADMAP item 14, "

@@ -22,7 +22,8 @@ biases its checkpoints hold, fp32 ``0.1 * N(0, 1)`` (a LayerNorm's
 ``0.05 * N(0, 1)``): the LayerNorms', o's where ``attention_out_bias``,
 the ungated MLP's ``up``/``up_bias``/``down_bias`` (and an ungated
 expert stack's ``moe_up_bias``/``moe_down_bias``) and the head's where
-the family's checkpoints carry one (:data:`HEAD_BIAS_FAMILIES`).
+the family's checkpoints carry one (:data:`HEAD_BIAS_FAMILIES`); Qwen
+v1's tree holds its ``c_attn`` bias (:data:`QKV_BIAS_FAMILIES`).
 """
 
 from __future__ import annotations
@@ -372,6 +373,9 @@ GPTJ_6B_HF = {
 # the families whose published checkpoints hold a bias on the lm head
 # (Pythia's embed_out has none)
 HEAD_BIAS_FAMILIES = ("phi", "phi-msft", "phixtral", "gptj")
+# the families whose checkpoints hold a qkv bias whatever the config's
+# flag says (Qwen v1's c_attn under no_bias)
+QKV_BIAS_FAMILIES = ("qwen",)
 
 
 def _published(hf: dict, over: dict) -> ModelConfig:
@@ -660,6 +664,128 @@ def minicpm3_4b_config(**over) -> ModelConfig:
     return _published(MINICPM3_4B_HF, over)
 
 
+# The GLM and llama-layout families' published widths.  Each is quoted
+# from memory from the model's config.json on huggingface.co (nothing may
+# be downloaded here); the widths, head counts, vocabularies and the flags
+# named in each comment are the model cards'; the fields marked unchecked
+# are not checked against the published file.
+
+# THUDM/glm-4-9b-chat, in the chatglm layout (40 layers, hidden 4096,
+# ffn 13696, 32 heads of kv_channels 128 over multi_query_group_num 2, a
+# GQA group of 16, padded vocabulary 151552, seq_length 131072, rope_ratio
+# 500, add_qkv_bias true, add_bias_linear false).  Unchecked:
+# layernorm_epsilon, pad_token_id and the eos list.
+GLM4_9B_CHAT_HF = {
+    "model_type": "chatglm", "padded_vocab_size": 151552,
+    "hidden_size": 4096, "ffn_hidden_size": 13696, "num_layers": 40,
+    "num_attention_heads": 32, "kv_channels": 128,
+    "multi_query_attention": True, "multi_query_group_num": 2,
+    "seq_length": 131072, "rope_ratio": 500, "rmsnorm": True,
+    "post_layer_norm": True, "add_qkv_bias": True,
+    "add_bias_linear": False, "layernorm_epsilon": 1.5625e-07,
+    "tie_word_embeddings": False, "pad_token_id": 151329,
+    "eos_token_id": [151329, 151336, 151338],
+}
+# THUDM/GLM-4-9B-0414, model_type glm4 (glm-4-9b-chat's widths: 2 kv
+# heads, head_dim 128, partial_rotary_factor 0.5, attention_bias true; the
+# post norms of each block).  Unchecked: max_position_embeddings,
+# rope_theta, rms_norm_eps and the token ids.
+GLM4_9B_0414_HF = {
+    "model_type": "glm4", "vocab_size": 151552, "hidden_size": 4096,
+    "intermediate_size": 13696, "num_hidden_layers": 40,
+    "num_attention_heads": 32, "num_key_value_heads": 2, "head_dim": 128,
+    "partial_rotary_factor": 0.5, "attention_bias": True,
+    "max_position_embeddings": 32768, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-5, "hidden_act": "silu",
+    "tie_word_embeddings": False, "pad_token_id": 151329,
+    "eos_token_id": [151329, 151336, 151338],
+}
+# THUDM/chatglm3-6b (28 layers, padded vocabulary 65024, otherwise
+# glm-4-9b-chat's widths; seq_length 8192, no rope_ratio).  Unchecked:
+# layernorm_epsilon and the token ids.
+CHATGLM3_6B_HF = {
+    **{k: v for k, v in GLM4_9B_CHAT_HF.items() if k != "rope_ratio"},
+    "padded_vocab_size": 65024, "num_layers": 28, "seq_length": 8192,
+    "layernorm_epsilon": 1e-5, "pad_token_id": 0, "eos_token_id": 2,
+}
+# internlm/internlm2-chat-7b (32 layers, hidden 4096, 32 heads over 8 kv
+# heads, ffn 14336, vocabulary 92544, bias false, the wqkv layout).
+# Unchecked: max_position_embeddings, rope_theta, the dynamic rope
+# scaling's factor, rms_norm_eps and the token ids.
+INTERNLM2_7B_HF = {
+    "model_type": "internlm2", "vocab_size": 92544, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "max_position_embeddings": 32768, "rope_theta": 1000000.0,
+    "rope_scaling": {"type": "dynamic", "factor": 2.0},
+    "rms_norm_eps": 1e-5, "hidden_act": "silu", "bias": False,
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+}
+# Qwen/Qwen-7B-Chat (32 layers, hidden 4096, 32 heads of kv_channels 128,
+# intermediate_size 22016 counting both MLP branches, vocabulary 151936,
+# no_bias true; c_attn holds a bias all the same).  Unchecked:
+# layer_norm_epsilon, seq_length and rotary_emb_base.  use_dynamic_ntk and
+# use_logn_attn are read by neither package (ROADMAP queue 3).
+QWEN_7B_HF = {
+    "model_type": "qwen", "vocab_size": 151936, "hidden_size": 4096,
+    "intermediate_size": 22016, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "kv_channels": 128,
+    "layer_norm_epsilon": 1e-6, "seq_length": 8192,
+    "rotary_emb_base": 10000.0, "no_bias": True, "use_dynamic_ntk": True,
+    "use_logn_attn": True, "tie_word_embeddings": False,
+}
+# baichuan-inc/Baichuan2-7B-Chat (32 layers, hidden 4096, 32 heads, ffn
+# 11008, vocabulary 125696, W_pack; its NormHead is applied by neither
+# package: ROADMAP queue 3).  Unchecked: max_position_embeddings,
+# rms_norm_eps and the token ids.
+BAICHUAN2_7B_HF = {
+    "model_type": "baichuan", "vocab_size": 125696, "hidden_size": 4096,
+    "intermediate_size": 11008, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "max_position_embeddings": 4096,
+    "rms_norm_eps": 1e-6, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+    "pad_token_id": 0,
+}
+
+
+def glm4_9b_chat_config(**over) -> ModelConfig:
+    """glm-4-9b-chat's published widths (hidden 4096, 40 layers, 32 heads
+    of 128 over 2 kv heads, ffn 13696, vocab 151552, the "two" rope on 64
+    columns at base 5e6), through the families lookup; ``over`` replaces
+    fields of the result."""
+    return _published(GLM4_9B_CHAT_HF, over)
+
+
+def glm4_9b_0414_config(**over) -> ModelConfig:
+    """GLM-4-9B-0414's published widths (glm-4-9b-chat's, and the post
+    norms)."""
+    return _published(GLM4_9B_0414_HF, over)
+
+
+def chatglm3_6b_config(**over) -> ModelConfig:
+    """chatglm3-6b's published widths (glm-4-9b-chat's at 28 layers and
+    vocab 65024, rope base 10000)."""
+    return _published(CHATGLM3_6B_HF, over)
+
+
+def internlm2_7b_config(**over) -> ModelConfig:
+    """internlm2-chat-7b's published widths (hidden 4096, 32 layers, 32
+    heads over 8, ffn 14336, vocab 92544)."""
+    return _published(INTERNLM2_7B_HF, over)
+
+
+def qwen_7b_config(**over) -> ModelConfig:
+    """Qwen-7B-Chat's published widths (hidden 4096, 32 layers, 32 heads
+    of 128, ffn 11008 a branch, vocab 151936)."""
+    return _published(QWEN_7B_HF, over)
+
+
+def baichuan2_7b_config(**over) -> ModelConfig:
+    """Baichuan2-7B-Chat's published widths (hidden 4096, 32 layers, 32
+    heads, ffn 11008, vocab 125696)."""
+    return _published(BAICHUAN2_7B_HF, over)
+
+
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
                   device=None, shared_intermediate: int | None = None,
                   router_scale: float = 1.0) -> dict:
@@ -745,7 +871,7 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
             if cfg.q_lora_rank is not None:
                 layers["q_a_norm"] = norm_w((n_l, cfg.q_lora_rank))
             layers["kv_a_norm"] = norm_w((n_l, cfg.kv_lora_rank))
-        if cfg.attention_bias:
+        if cfg.attention_bias or cfg.model_type in QKV_BIAS_FAMILIES:
             layers["qkv_bias"] = 0.1 * normal((n_l, qkv_out))
         if moe:
             layers["router"] = weight(h, n_l * n_e).reshape(

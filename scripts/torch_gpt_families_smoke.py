@@ -136,12 +136,13 @@ def heads_label(hq: int, hkv: int) -> str:
 def attention_cases(kernels: dict, fail, dev, graph_ms, *, tag: str,
                     model: str, d: int, hq: int, hkv: int, seed: int,
                     dv: int | None = None, cases=("b1", "b3", "b4"),
-                    s: int = 2048) -> list[dict]:
+                    s: int = 2048, b1_chunks=(1, 4, 128)) -> list[dict]:
     """B1, B3 and B4's instances at K width ``d`` and V width ``dv`` (None:
     ``d``), ``hq`` query heads over ``hkv`` kv heads, against their plain
     versions, each timed beside its bound and SDPA (step 1 of the module
-    docstring, which names the cases); ``cases`` picks the kernels.
-    Returns the rows; ``tag`` prefixes each printed row."""
+    docstring, which names the cases; B1 at the query counts
+    ``b1_chunks``); ``cases`` picks the kernels.  Returns the rows;
+    ``tag`` prefixes each printed row."""
     import torch
     import torch.nn.functional as F
 
@@ -191,7 +192,7 @@ def attention_cases(kernels: dict, fail, dev, graph_ms, *, tag: str,
 
     def b1_case(pool_dtype, c, r=8, ps=128, maxp=16):
         """Rows over 128-slot pages in random order, -1 past each row's
-        last page.  C = 1 and 4: every row decodes or verifies at staggered
+        last page.  C <= 4: every row decodes or verifies at staggered
         lengths up to the capacity; C = 128: full and part chunks, decode
         rows, a chunk at the row's first slots and an idle row (kv_len the
         sentinel at the capacity)."""
@@ -282,7 +283,7 @@ def attention_cases(kernels: dict, fail, dev, graph_ms, *, tag: str,
     if "b1" in cases:
         for pool_name, pool_dtype in (("bf16", torch.bfloat16),
                                       ("e5m2", torch.float8_e5m2)):
-            for c in (1, 4, 128):
+            for c in b1_chunks:
                 args = b1_case(pool_dtype, c)
                 before = dict(b1.COUNTS.by_route)
                 n_d = b1.COUNTS.by_head_dim[d]

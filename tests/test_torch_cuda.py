@@ -249,6 +249,17 @@ def test_ragged_attention_kernel_matches_plain(storage, g, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("c", [1, 2, 4, 128])
+def test_ragged_attention_group_16_matches_plain(storage, c):
+    """The 128 instances at GLM-4-9B's GQA group of 16 (32 query heads
+    over 2 kv heads): at C = 1 the key split's 16 rows are 16 query heads
+    of one kv head; C = 2 and the verify chunk C = 4 take the query tiles
+    (32 and 64 rows), as does C = 128."""
+    _ragged_case(storage, 16, c, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
 @pytest.mark.parametrize("g", [1, 2])
 @pytest.mark.parametrize("c", [1, 4, 16, 128])
 def test_ragged_attention_head_dim_256_matches_plain(storage, g, c):
@@ -357,7 +368,7 @@ B3_VARIANTS = {"plain": {}, "window": dict(window=100),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["bf16", "e5m2"])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
 def test_decode_attention_kernel_matches_plain(storage, g, variant):
     """B3 over a 700-slot head-major cache (not a multiple of the 64-key
@@ -366,7 +377,8 @@ def test_decode_attention_kernel_matches_plain(storage, g, variant):
     100-slot window, which cuts, a per-row enable vector (off on row 2).
     Two launches (split pass, merge), each row within one bf16 ulp of its
     largest plain output, the empty row exact zeros.  The softcap case
-    scales q by CAP_Q so that the cap of 50 binds."""
+    scales q by CAP_Q so that the cap of 50 binds.  G = 16 (GLM-4-9B's)
+    fills the 16-row tile."""
     _decode_case(storage, g, variant, 128)
 
 
@@ -463,7 +475,7 @@ B4_VARIANTS = ("causal, window cuts", "softcap", "non-causal")
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [200, 1000])
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("g", [1, 4, 16])
 @pytest.mark.parametrize("variant", B4_VARIANTS)
 def test_flash_attention_kernel_matches_plain(t, g, variant):
     """B4 at T not a multiple of its 64-query tile, K/V read through the
@@ -472,7 +484,8 @@ def test_flash_attention_kernel_matches_plain(t, g, variant):
     cuts; softcap 50 (causal, no window, q scaled by CAP_Q so that it
     binds); non-causal with kv_len < S on
     row 1.  One launch, each query row within one bf16 ulp of its largest
-    plain output, rows that see no key exact zeros."""
+    plain output, rows that see no key exact zeros; at G = 1, 4 and 16
+    (GLM-4-9B's group)."""
     _flash_case(t, g, variant, 128)
 
 

@@ -67,6 +67,17 @@ def _schedule(make, prompts, **kw):
     return sched
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: the tiny models' many
+    small ops run fastest on one, and the suite's workers share the
+    machine's cores (each worker's default pool oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=["bf16", "sym_int4"])
 def pair(request):
     return tiny_pair(request.param)

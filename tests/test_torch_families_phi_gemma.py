@@ -159,6 +159,17 @@ def write_checkpoint(path: str, family: str, seed: int = 0) -> str:
     return path
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: the tiny models' many
+    small ops run fastest on one, and the suite's workers share the
+    machine's cores (each worker's default pool oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=FAMILIES)
 def ckpt(request, tmp_path_factory):
     return write_checkpoint(str(tmp_path_factory.mktemp(request.param)),

@@ -81,8 +81,13 @@ def test_port_imports_without_safetensors_or_transformers():
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + [p.relative_to(ROOT).as_posix()
+       for p in (ROOT / "scripts").glob("torch_*.py")]
     + ["chip_smoke.py"]))
 def test_no_jax_or_reference_import_in_source(path):
+    """No module of the port, no card script (``scripts/torch_*.py``,
+    which the card's machine runs without JAX) and not ``chip_smoke.py``
+    imports JAX or the JAX package."""
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

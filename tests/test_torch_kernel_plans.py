@@ -95,7 +95,11 @@ def test_qmatmul_tiled_split_plan(bs):
     # Qwen2-7B (G = 7) at the card's serving shape, 48 pages of 128:
     # decode and C = 2 split, the verify chunks (C = 4) and C = 128 do not
     (8, 4, 7, 48, 128), (8, 4, 14, 48, 128), (8, 4, 28, 48, 128),
-    (8, 4, 896, 48, 128)])
+    (8, 4, 896, 48, 128),
+    # GLM-4-9B (G = 16 over 2 kv heads) at the card's serving shape:
+    # decode splits (16 rows), C = 2 and 4 and a 128-token chunk do not
+    (8, 2, 16, 16, 128), (8, 2, 32, 16, 128), (8, 2, 64, 16, 128),
+    (8, 2, 2048, 16, 128)])
 def test_ragged_split_plan(r, hkv, gc, maxp, ps):
     """Few-query rows split into whole pages that cover the table once,
     each split at least one 64-key tile, about 1,024 split-pass blocks at

@@ -226,6 +226,13 @@ def test_from_pretrained_refuses_other_checkpoints(tmp_path, over, item):
                 n = f"model.layers.{i}.self_attn.{proj}_proj.weight"
                 weights[n.replace(f"{proj}_proj", f"{proj}_norm")] = \
                     torch.ones(weights[n].shape[0], dtype=torch.bfloat16)
+    if hf["model_type"] == "aquila":
+        # aquila is served since its family was ported (llama's row); a
+        # q bias without the k and v biases is not
+        for i in range(hf["num_hidden_layers"]):
+            n = f"model.layers.{i}.self_attn.q_proj.weight"
+            weights[n[:-len("weight")] + "bias"] = torch.zeros(
+                weights[n].shape[0], dtype=torch.bfloat16)
     path = write_checkpoint(str(tmp_path), hf, weights)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         AutoModelForCausalLM.from_pretrained(path, device="cpu")

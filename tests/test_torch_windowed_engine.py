@@ -18,6 +18,7 @@ on every layer, head_dim 32) models:
 
 import numpy as np
 import pytest
+import torch
 
 from ipex_llm_tpu.serving.engine import EngineConfig as RefEngineConfig
 from ipex_llm_tpu.serving.engine import Request as RefRequest
@@ -46,6 +47,17 @@ GREEDY_SEEDS = {"mistral": 5,        # margin 0.125 (logits of about 10)
                 "qwen2": 49,         # margin 0.078 (logits of about 4)
                 "gemma2": 97}        # margin 3.18 (logits of about 30)
 SPEC = dict(spec_k=3, decode_horizon=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: the tiny models' many
+    small ops run fastest on one, and the suite's workers share the
+    machine's cores (each worker's default pool oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _pair(family: str):
