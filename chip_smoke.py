@@ -289,6 +289,23 @@ Phases, each of which exits non-zero on failure (there is no fallback):
     internlm2-chat-7b, Qwen-7B-Chat and Baichuan2-7B-Chat at full width, 8
     layers, through the engine; a 2-layer glm-4-9b-chat-width checkpoint
     under the THUDM names through ``from_pretrained`` and ``generate()``.
+21. ``falcon_families`` (``scripts/torch_falcon_families_smoke.py``): B3
+    past a GQA group of 16 (Falcon-7B's 71 query heads over one kv head,
+    head_dim 64, five 16-row tiles a kv head; bf16 and e5m2, with and
+    without a window; and 32 and 17 at head_dim 128), B1 at G = 71 (C =
+    1, 4 and 128, all on the query tiles) and B4 at G = 71 against their
+    plain versions, timed beside their bounds and SDPA; B2 at Falcon-7B's
+    five linears (K = 4544, 142 blocks of 32) at M = 8 and 128 beside
+    ``torch.matmul``; 2-layer Falcon-7B, Falcon-40B, StarCoder2-7B (its
+    window cut to bind), StableLM-2-1.6B, Command-R-v01 and OLMo-2-7B
+    decoders card against CPU; Falcon-7B at full width and depth (32
+    layers) through ``ServingEngine`` (eight requests: B1, B2) and
+    ``generate()`` (B2, B3's G = 71 instance, B4), StarCoder2-7B (the
+    gathered route), Command-R-v01 and OLMo-2-7B at 8 layers and
+    StableLM-2-1.6B at its 24 through the engine, one StarCoder2-7B
+    request past its 4096-slot window; a 2-layer Falcon-7B checkpoint
+    under its published names through ``from_pretrained`` and
+    ``generate()``.
 
 Kernel times come from CUDA events over many launches after a warm-up
 (B2's up to M = 512, B3's, B4's and B5's, and their yardsticks, as
@@ -2453,6 +2470,15 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
 
+    # -- 21. falcon, starcoder2, stablelm, cohere, olmo2; B3 at G = 71 -----
+    from torch_falcon_families_smoke import falcon_families_phase
+
+    report["falcon_families"] = falcon_families_phase(kernels, card, fail,
+                                                      dev, graph_ms)
+    print("falcon_families phase: "
+          f"{report['falcon_families']['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # -- summary -------------------------------------------------------------
     serve_launches = report["serve"][0]["launches"]
     gen_launches = report["generate"][0]["launches"]
@@ -2654,6 +2680,52 @@ def main() -> int:
             "max_abs_err": glm_err(kernel),
             **{k: glm_row(kernel, f"D=128 GLM-4-9B {case}")[k]
                for k in keys}}
+    # the G = 71 cases of the falcon_families phase: launches from
+    # Falcon-7B's serving run (32 layers, B1 on its query tiles) and its
+    # generate() (B3, B4)
+    fc = report["falcon_families"]
+    fc_serve = next(r for r in fc["serve"] if r["model"] == "Falcon-7B")
+    fc_gen = fc["generate"][0]
+
+    def fc_row(kernel, case):
+        return next(r for r in fc["kernels"] if r["kernel"] == kernel
+                    and r["case"] == case and r.get("pool", "bf16") == "bf16")
+
+    def fc_err(kernel, head_dim=64):
+        return max(r["max_abs_err"] for r in fc["kernels"]
+                   if r["kernel"] == kernel and r["head_dim"] == head_dim)
+
+    def fc_b1(c):
+        return {
+            "name": f"ragged_paged_attention[D=64, G=71, C={c}]",
+            "route": "cuda", "source": src + "ragged_paged_attention.cu",
+            "replaces":
+                "ipex_llm_tpu/ops/pallas/ragged_paged_attention.py:193",
+            "shape": f"R=8 C={c} Hq=71 Hkv=1 D=64 page 128, 2048 slots, "
+                     "bf16 pool (query tiles: two 64-row tiles a decode "
+                     "row)" if c == 1 else f"R=8 C={c} Hq=71 Hkv=1 D=64 "
+                     "page 128, 2048 slots, bf16 pool, chunk+decode+idle "
+                     "rows (query tiles)",
+            "launches": fc_serve["b1_by_route"]["tiles"],
+            "launches_run": "Falcon-7B serving, 32 layers, bf16 pool",
+            "max_abs_err": fc_err("ragged_paged_attention"),
+            **{k: fc_row("ragged_paged_attention",
+                         f"D=64 Falcon-7B Hq=71 Hkv=1 C={c}")[k]
+               for k in keys}}
+
+    def fc_dense(kernel, case, name=None):
+        return {
+            "name": name or f"{kernel}[D=64, G=71]", "route": "cuda",
+            "source": src + f"{kernel}.cu",
+            "replaces": f"ipex_llm_tpu/ops/pallas/{kernel}.py:166",
+            "shape": f"Falcon-7B {case}, bf16",
+            "launches": fc_gen["launches"][kernel],
+            "launches_run": "Falcon-7B generate(), 32 layers",
+            "launches_load_generate": fc["load"]["generate_launches"][kernel],
+            "max_abs_err": fc_err(kernel),
+            **{k: fc_row(kernel, f"D=64 Falcon-7B {case}")[k]
+               for k in keys}}
+    fc_b2 = next(r for r in fc["b2"] if r["weight"] == "qkv" and r["m"] == 8)
     # the offload phase's runs (the small budget's: every step streams)
     off_launches = report["offload"]["small"]["launches"]
     # B2's launches in each format on that format's main-path run: the
@@ -2994,6 +3066,23 @@ def main() -> int:
         glm_b1(128, glm_serve["b1_by_route"]["tiles"]),
         glm_dense("decode_attention", "B=8 Hq=32 Hkv=2 S=2048"),
         glm_dense("flash_attention", "T=128 x 8 chunks S=2048"),
+        # B3 past one 16-row tile (its row tiles a block each), B1 and B4 at
+        # Falcon-7B's 71 query heads over one kv head, B2 at its K = 4544:
+        # launches from Falcon-7B's serving run at 32 layers (B1, B2) and
+        # its generate() (B3, B4)
+        fc_dense("decode_attention", "B=8 Hq=71 Hkv=1 S=2048",
+                 "decode_attention[D=64, G=71, five 16-row tiles]"),
+        fc_b1(1),
+        fc_b1(128),
+        fc_dense("flash_attention", "T=128 x 8 chunks S=2048"),
+        {"name": "qmatmul[sym_int4, Falcon-7B qkv, gemv]", "route": "cuda",
+         "source": src + "qmatmul.cu",
+         "replaces": "ipex_llm_tpu/ops/pallas/qmatmul.py:236",
+         "shape": "M=8 K=4544 N=4672 (142 quantization blocks of 32)",
+         "launches": fc_serve["launches"]["qmatmul"],
+         "launches_run": "Falcon-7B serving, 32 layers, bf16 pool",
+         "max_abs_err": max(r["max_abs_err"] for r in fc["b2"]),
+         **{k: fc_b2[k] for k in keys}},
         # B2e: B2 as the MoE dispatch reaches it under jax.vmap in the
         # reference; each entry's launches are its instance's in the
         # model's serving run at the engine's default prefill budget (the

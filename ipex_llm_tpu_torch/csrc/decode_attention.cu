@@ -31,8 +31,9 @@
 // in flight at once at the main path's shapes (three stages of 32 KiB for
 // bf16; four raw stages of 16 KiB for e5m2, widened into one bf16 tile
 // pair in shared memory).  Form chosen: the tensor cores, as B1's key-split
-// instance (ragged_paged_attention.cu): the G query rows of the kv head,
-// padded to one 16-row tile, are mma.sync A fragments in registers; each of
+// instance (ragged_paged_attention.cu): the kv head's query rows, up to
+// 16 of them padded to one 16-row tile (more: "Any GQA group" below), are
+// mma.sync A fragments in registers; each of
 // the 4 warps takes a 16-key slice of every tile, computes its scores with
 // m16n8k16 (K by ldmatrix), its online softmax in base 2, and P.V with P's
 // registers as A fragments (V by ldmatrix.trans).  The kernel is bound by
@@ -85,6 +86,24 @@
 // instance's 128-column rows, V rows native 64-column ones, and the
 // narrow-V ring of (192, 128), one stage fewer (two bf16 stages of 24
 // KiB pairs; three raw e5m2 stages of 12 KiB and the widened pair).
+//
+// Any GQA group.  A kv head's G query rows run as ceil(G / 16) row tiles
+// of the one 16-row mma tile above (Falcon-7B's 71 query heads over one kv
+// head: five tiles, rows [0, 16), ..., [64, 71)); each (row tile, split)
+// is a block of its own, the tiles of a split adjacent in the grid
+// (blockIdx.x = split * tiles + tile), so they are scheduled together and
+// every tile after the first finds the split's K/V in L2.  split_plan
+// counts the tiles in its wave.  The workspace keeps its [B, Hkv, splits,
+// G, Dv] layout: a block writes rows [g0, g0 + 16) of it (clipped at G),
+// and the merge, one block a query head, is unchanged.  The other form, a
+// block looping over its kv head's tiles against one staged K/V tile,
+// stages each visible slot once, but holds an accumulator and softmax
+// state per row tile: at D = 128 one accumulator is 64 registers a
+// thread, so five would spill.  This form keeps a block's registers as
+// they were, and at G <= 16 its grid and plan too (one tile, blockIdx.x =
+// split).  What it leaves idle: the last tile's rows past G (9 of 80 at
+// G = 71: zero A fragments, never stored), and the L2-to-SM bandwidth of
+// the repeated tile reads.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -221,10 +240,15 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   using R = Ring<KV, D, Dv>;
   extern __shared__ __align__(128) uint8_t smem[];
 
-  const int split = blockIdx.x;
+  // blockIdx.x = split * tiles + tile: the block's row tile takes the
+  // group's query rows [g0, g0 + rows)
+  const int tiles = (G + kRows - 1) / kRows;
+  const int split = blockIdx.x / tiles;
+  const int g0 = (blockIdx.x - split * tiles) * kRows;
+  const int rows = min(kRows, G - g0);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int splits = gridDim.x;
+  const int splits = gridDim.x / tiles;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wk = warp * kKW;                // the warp's key slice
@@ -247,13 +271,13 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   auto stage_k = [&](int slot) { return smem + slot * R::kStageBytes; };
   auto stage_v = [&](int slot) { return stage_k(slot) + R::kVOff; };
   const int r0 = lane >> 2;
-  const size_t qrow = (size_t)b * Hkv * G + (size_t)h * G;
+  const size_t qrow = (size_t)b * Hkv * G + (size_t)h * G + g0;
   uint8_t* q_s = smem + R::kQOff;
   if constexpr (R::kQSmem) {
     // the query rows (swizzled like a K tile) join the first tile's group
     for (int i = threadIdx.x; i < kRows * (D / 8); i += kThreads) {
       const int row = i / (D / 8), c = i % (D / 8);
-      const bool ok = row < G;
+      const bool ok = row < rows;
       hopper::cp_async<16>(q_s + kv_chunk<D>(row, c) * 16,
                            q + (ok ? (qrow + row) * D + c * 8 : 0), ok);
     }
@@ -265,13 +289,13 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     hopper::cp_async_commit();
   }
 
-  // the group's G query rows (of 16) as A fragments; rows >= G are zero.
+  // the tile's query rows (of 16) as A fragments; rows past G are zero.
   // D = 128: all steps' fragments in registers; D = 256: the rows in
   // shared memory (staged above with the first tile), a step's fragment
   // read with ldmatrix where it is used
   uint32_t qa[R::kQSmem ? 1 : D / 16][4];
   if constexpr (!R::kQSmem) {
-    const bool ok0 = r0 < G, ok1 = r0 + 8 < G;
+    const bool ok0 = r0 < rows, ok1 = r0 + 8 < rows;
     const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
         q + (ok0 ? (qrow + r0) * D : 0));
     const uint32_t* q1 = reinterpret_cast<const uint32_t*>(
@@ -415,7 +439,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int row = 0; row < 2; ++row) {
     const int i = r0 + 8 * row;
-    if (i >= G) continue;
+    if (i >= rows) continue;
     float* dst = acc_s + (warp * kRows + i) * Dv;
 #pragma unroll
     for (int dn = 0; dn < Dv / 8; ++dn) {
@@ -426,8 +450,8 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     if ((lane & 3) == 0) ml_s[warp * kRows + i] = make_float2(m[row], l[row]);
   }
   __syncthreads();
-  const size_t ws_row = (((size_t)b * Hkv + h) * splits + split) * G;
-  for (int i = 0; i < G; ++i) {
+  const size_t ws_row = (((size_t)b * Hkv + h) * splits + split) * G + g0;
+  for (int i = 0; i < rows; ++i) {
     float m_all = kNegInf;
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
@@ -536,10 +560,11 @@ int launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
 // e5m2 (kv_fp8=1), contiguous, 16-byte aligned; kv_len, kv_start, won
 // int32 [B]; out bf16 [B,1,Hq,Dv]; ws_acc fp32 [B,Hkv,splits,G,Dv] and
 // ws_ml fp32 [B,Hkv,splits,G,2] scratch.  (D, Dv) = (64, 64), (80, 80),
-// (96, 64), (96, 96), (128, 128), (192, 128) or (256, 256), G = Hq/Hkv <= 16, splits <= 64; window <= 0
-// means none, softcap <= 0 none.  Launches the split kernel and the merge
-// kernel; returns the first non-zero cudaGetLastError()
-// (cudaErrorInvalidValue for an unsupported pair or G).
+// (96, 64), (96, 96), (128, 128), (192, 128) or (256, 256), any G =
+// Hq/Hkv, splits <= 64; window <= 0 means none, softcap <= 0 none.
+// Launches the split kernel over (splits * ceil(G / 16), Hkv, B) blocks
+// and the merge kernel; returns the first non-zero cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported pair or split count).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* kv_len, const void* kv_start,
                                 const void* won, void* out, void* ws_acc,
@@ -551,11 +576,10 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                D == 256)
                             : ((D == 192 && Dv == 128) ||
                                (D == 96 && Dv == 64));
-  if (!pair || Hq % Hkv || Hq / Hkv > kRows || splits < 1 ||
-      splits > kMaxSplits)
+  if (!pair || Hkv < 1 || Hq % Hkv || splits < 1 || splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  const dim3 grid(splits, Hkv, B);
+  const dim3 grid(splits * ((G + kRows - 1) / kRows), Hkv, B);
   const bool cap = softcap > 0.f;
   int err;
 #define DECODE_LAUNCH(KV, HD, HDV, CAP)                                     \

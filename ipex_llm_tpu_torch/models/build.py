@@ -37,6 +37,12 @@ interleave), ``o_bias``, the ungated MLP's ``up``/``up_bias`` and
 ``moe_up_bias`` ``[L, E, I]`` and ``moe_down_bias`` ``[L, E, H]``
 (the reference's ``build.py:281-283``, ``:366-373``, ``:403-414``,
 ``:437-467``, ``:499-501`` and ``:511-513``).  Any other bias raises.
+A norm template may name alternatives, ``"a|b"`` (falcon's old and new
+architectures): the first the checkpoint holds is read, with the bias
+beside it (:func:`resolve_name`, the reference's ``build.py:266-276``).
+q/k norms are per head (``head_dim`` wide) or flat over the whole
+projection (``q_dim`` and ``kv_dim`` wide: olmo2), as the checkpoint
+holds them.
 So the device never holds more than one full-precision weight (and a
 slice of its fp32 working copy) beside the packed tree.
 """
@@ -124,6 +130,14 @@ class LayerStack:
                     d[at] = s
         else:
             dst[at] = leaf
+
+
+def resolve_name(tmpl: str, layer: int, has: Callable[[str], bool]) -> str:
+    """Layer ``layer``'s weight name of ``tmpl``: of an ``"a|b|..."``
+    template, the first alternative the checkpoint holds (the first where
+    it holds none, so that the read names it in its error)."""
+    names = [t.format(i=layer, p="weight") for t in tmpl.split("|")]
+    return next((n for n in names if has(n)), names[0])
 
 
 def stack_layer_trees(trees: list[dict[str, Any]]) -> dict[str, Any]:
@@ -219,14 +233,19 @@ def build_params(
             qts.append(quantize_weight(load(n), q))
         return _cat_columns(qts)
 
-    def norm(n: str, width: int) -> torch.Tensor:
-        refuse_bias(n)
-        t = load(n).to(NORM_DTYPE)
-        if t.shape != (width,):
+    def qk_norms(q: str, k: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """The q and k norms, both per head or both flat."""
+        refuse_bias(q)
+        refuse_bias(k)
+        tq, tk = (load(n).to(NORM_DTYPE) for n in (q, k))
+        widths = (tuple(tq.shape), tuple(tk.shape))
+        if widths not in (((cfg.head_dim,), (cfg.head_dim,)),
+                          ((cfg.q_dim,), (cfg.kv_dim,))):
             raise NotImplementedError(
-                f"{n} of shape {tuple(t.shape)}: only per-head q/k norms "
-                f"({width} wide) are ported (ROADMAP item 14)")
-        return t
+                f"{q}, {k} of shapes {widths}: q/k norms per head "
+                f"({cfg.head_dim} wide) or flat ({cfg.q_dim} and "
+                f"{cfg.kv_dim}) are ported (ROADMAP item 14)")
+        return tq, tk
 
     n_dense = dense_prefix(cfg)
     dense_st = LayerStack(n_dense) if n_dense else None
@@ -241,8 +260,9 @@ def build_params(
             return t.format(i=layer, p="weight")
         for key, tmpl in (("attn_norm", scheme.attn_norm),
                           ("mlp_norm", scheme.mlp_norm)):
-            st.put(i, key, load(name(tmpl)).to(NORM_DTYPE))
-            put_bias(st, i, key + "_bias", name(tmpl))
+            n = resolve_name(tmpl, layer, has)
+            st.put(i, key, load(n).to(NORM_DTYPE))
+            put_bias(st, i, key + "_bias", n)
         for key, tmpl in (("post_attn_norm", scheme.post_attn_norm),
                           ("post_mlp_norm", scheme.post_mlp_norm)):
             if tmpl is None:
@@ -250,8 +270,9 @@ def build_params(
             refuse_bias(name(tmpl))
             st.put(i, key, load(name(tmpl)).to(NORM_DTYPE))
         if cfg.qk_norm:
-            st.put(i, "q_norm", norm(name(scheme.q_norm), cfg.head_dim))
-            st.put(i, "k_norm", norm(name(scheme.k_norm), cfg.head_dim))
+            tq, tk = qk_norms(name(scheme.q_norm), name(scheme.k_norm))
+            st.put(i, "q_norm", tq)
+            st.put(i, "k_norm", tk)
         if mla:
             _put_mla_layer(st, i, scheme, cfg, name, load, merged, qtype)
         else:

@@ -4,9 +4,9 @@ The port keeps the reference's field names for the families it serves
 (llama, mistral, qwen2, gemma2, qwen3, mixtral, qwen2_moe, qwen3_moe,
 phi3, gemma, gemma3_text, deepseek_v2, deepseek_v3, phi, phixtral under
 both its names, gpt_neox, gptj, minicpm, minicpm3, glm, glm4, chatglm,
-aquila, internlm, internlm2, baichuan, qwen), so a reference config
-maps across field
-by field (:meth:`ModelConfig.from_fields`):
+aquila, internlm, internlm2, baichuan, qwen, starcoder2, stablelm, cohere,
+olmo2, falcon), so a reference config maps across field by field
+(:meth:`ModelConfig.from_fields`):
 every rope scaling kind of ``ops.rope.RopeScaling`` and partial rotary
 (``rope.rotary_dim`` below ``head_dim``), the "half" and interleaved
 "two" rope layouts, gemma3's second rope table for its sliding layers
@@ -29,7 +29,10 @@ every bias a checkpoint holds, as the reference's does), the ungated
 residual (``parallel_blocks``), and minicpm's muP scalings (an
 embedding multiplier, ``residual_multiplier`` on every residual branch,
 ``logit_scale`` on the logits), over llama's block (minicpm) or MLA on a
-dense model (minicpm3).
+dense model (minicpm3), and olmo2's reordered norms (``norm_after``: each
+block's norm on its output, none on its input) and flat q/k norms (over
+the whole q and k projections, the leaves ``q_dim`` and ``kv_dim``
+wide).
 Every other architectural switch is checked in ``__post_init__`` or
 ``from_fields`` and raises ``NotImplementedError`` (ROADMAP item 14):
 other families and other biases are not routed to a plain path.
@@ -49,7 +52,7 @@ MODEL_TYPES = ("llama", "mistral", "qwen2", "gemma2", "qwen3", "mixtral",
                "deepseek_v2", "deepseek_v3", "phi", "phi-msft", "phixtral",
                "gpt_neox", "gptj", "minicpm", "minicpm3", "glm", "glm4",
                "chatglm", "aquila", "internlm", "internlm2", "baichuan",
-               "qwen")
+               "qwen", "starcoder2", "stablelm", "cohere", "olmo2", "falcon")
 NORM_KINDS = ("rms", "layer")
 MOE_SCORE_FUNCS = ("softmax", "sigmoid")
 MOE_GROUP_SCORES = ("max", "top2sum")
@@ -82,7 +85,15 @@ class ModelConfig:
     block with a qkv bias and the "two" rope on half of each head (glm4
     adds the post norms, plain RMSNorms); aquila, internlm (a bias on q,
     k, v and o), internlm2, baichuan (7B) and qwen (v1) are llama's block
-    under their own names and keys."""
+    under their own names and keys.  starcoder2 is the GPT-style block in
+    sequence (two LayerNorms, biases, the ungated tanh-GELU MLP) with a
+    window on every layer and a tied head; stablelm llama's gated block
+    under LayerNorms with a partial rotary; cohere the parallel residual
+    over a gated MLP off one bias-free LayerNorm, the "two" rope, a logit
+    scale and a tied head; falcon (without ALiBi) the parallel GPT-style
+    block off one LayerNorm (two in the new architecture) with a fused
+    qkv, often over one kv head; olmo2 llama's block with its norms moved
+    after each branch and flat q/k norms."""
 
     model_type: str
     vocab_size: int
@@ -124,7 +135,12 @@ class ModelConfig:
     # logits times logit_scale before the softcap
     residual_multiplier: float = 1.0
     logit_scale: float = 1.0
-    qk_norm: bool = False           # qwen3: per-head q/k RMSNorm before rope
+    # q/k RMSNorm before rope: per head (qwen3, gemma3), or flat over the
+    # whole projection where the leaves are q_dim and kv_dim wide (olmo2)
+    qk_norm: bool = False
+    # olmo2: x + norm(branch(x)), the block's norms on its outputs and none
+    # on its input
+    norm_after: bool = False
     # sparse mixture of experts (0 experts: a dense MLP on every layer)
     num_experts: int = 0
     num_experts_per_tok: int = 0
@@ -247,7 +263,7 @@ class ModelConfig:
     # serves; any other value raises in from_fields.
     _DEFAULTS = {
         "mrope_section": None, "alibi": False, "learned_pos": 0,
-        "embed_norm": False, "norm_after": False,
+        "embed_norm": False,
         "glm_alpha": 0.0, "rope_2d": False, "kv_heads_per_layer": None,
     }
 

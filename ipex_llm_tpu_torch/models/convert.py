@@ -9,7 +9,11 @@ and packed planes are copied as they are.  Stacked ``[L, ...]`` layer
 leaves stay stacked (the decoder indexes them per layer), in each of the
 tree's stacks (``layers``, and DeepSeek's dense prefix ``layers_dense``);
 the ported families' trees (minicpm's is llama's, minicpm3's DeepSeek's
-MLA leaves over dense layers) need no leaf of their own.
+MLA leaves over dense layers; olmo2's flat ``q_norm``/``k_norm``, ``q_dim``
+and ``kv_dim`` wide, and the norms it applies after each branch, which
+both packages keep as ``attn_norm``/``mlp_norm``; falcon's, starcoder2's,
+stablelm's and cohere's LayerNorms with or without their biases) need no
+leaf of their own.
 :func:`params_from_split_reference` carries an offloaded MoE's split
 params (the device tree and its host expert stacks) as one tree.
 :func:`adapters_from_reference` carries a QLoRA adapter tree likewise, so

@@ -51,7 +51,11 @@ parallel sum as one) before its add, and ``logit_scale`` the fp32 logits
 (:func:`residual_add`, :func:`logits_tail`);
 both branches norm the block's input, the attention with
 ``attn_norm``, the MLP with ``mlp_norm`` (one LayerNorm's weights for phi,
-phixtral and gptj, two for gpt_neox).  An MoE layer's norm takes no bias,
+phixtral and gptj, two for gpt_neox).  With ``cfg.norm_after`` (olmo2) a
+block's norm moves from its input to its output, ``x + norm(branch(x))``
+(the reference's ``decoder.py:78``, ``:205``, ``:311`` and ``:327``), and
+q/k norms as wide as the projections norm each over all its heads before
+the reshape (``:139-147``).  An MoE layer's norm takes no bias,
 as the reference's ``_moe_block`` takes none (phixtral's ``ln.bias`` is
 loaded and left unread there: ROADMAP queue 3).
 
@@ -123,7 +127,7 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
     """One layer's attention; ``cos``/``sin`` are the table this layer
     rotates with (gemma3's local one on a sliding layer)."""
     b, t, _ = x.shape
-    h = _in_norm(cfg, x, lp, "attn_norm")
+    h = x if cfg.norm_after else _in_norm(cfg, x, lp, "attn_norm")
     kw = dict(causal=True, q_positions=q_slots, kv_len=kv_len,
               kv_start=kv_start,
               window=cfg.sliding_window if sliding else None,
@@ -138,12 +142,16 @@ def _attention_block(cfg: ModelConfig, lp: dict, x, kl, vl, cos, sin, slot0,
     qkv = linear_ops.linear(h, lp["qkv"], lp.get("qkv_bias"), tp=tp,
                             mode="col")
     q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
-    q = qkv[..., :q_dim].reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = qkv[..., q_dim:q_dim + kv_dim].reshape(b, t, cfg.num_kv_heads,
-                                               cfg.head_dim)
+    q, k = qkv[..., :q_dim], qkv[..., q_dim:q_dim + kv_dim]
+    flat = cfg.qk_norm and lp["q_norm"].shape[-1] == q_dim
+    if flat:            # olmo2: over the whole projection, before rope
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps, cfg.norm_offset)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps, cfg.norm_offset)
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     v = qkv[..., q_dim + kv_dim:].reshape(b, t, cfg.num_kv_heads,
                                           cfg.head_dim)
-    if cfg.qk_norm:     # per head, over head_dim, before rope
+    if cfg.qk_norm and not flat:    # per head, over head_dim, before rope
         q = _norm(cfg, q, lp["q_norm"])
         k = _norm(cfg, k, lp["k_norm"])
     rd = cfg.rope.rotary_dim
@@ -168,6 +176,8 @@ def _attend(cfg: ModelConfig, lp: dict, q, k, v, kl, vl, slot0, cache,
     attn = attn.reshape(b, t, cfg.num_heads * cfg.v_dim)
     out = linear_ops.linear(attn, lp["o"], lp.get("o_bias"), tp=tp,
                             mode="row")
+    if cfg.norm_after:
+        out = _in_norm(cfg, out, lp, "attn_norm")
     if cfg.post_attn_norm:
         out = _norm(cfg, out, lp["post_attn_norm"])
     return out
@@ -208,7 +218,7 @@ def _mlp_block(cfg: ModelConfig, lp: dict, x, tp=None):
     """The MLP: gated (act(gate) * up), or ungated (``up`` is fc1, then
     the activation), then down, each with its bias where the tree holds
     one."""
-    h = _in_norm(cfg, x, lp, "mlp_norm")
+    h = x if cfg.norm_after else _in_norm(cfg, x, lp, "mlp_norm")
     if "gate_up" in lp:
         gate, up = mlp_ops.split_gate_up(linear_ops.linear(
             h, lp["gate_up"], tp=tp, mode="col"))
@@ -218,6 +228,8 @@ def _mlp_block(cfg: ModelConfig, lp: dict, x, tp=None):
                                               tp=tp, mode="col"), cfg.act)
     out = linear_ops.linear(inner, lp["down"], lp.get("down_bias"), tp=tp,
                             mode="row")
+    if cfg.norm_after:
+        out = _in_norm(cfg, out, lp, "mlp_norm")
     if cfg.post_mlp_norm:
         out = _norm(cfg, out, lp["post_mlp_norm"])
     return out

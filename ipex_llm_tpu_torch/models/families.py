@@ -2,8 +2,9 @@
 weight-naming scheme (port of the llama, mistral, qwen2, gemma2, qwen3,
 mixtral, qwen2_moe, qwen3_moe, phi3, gemma, gemma3_text, deepseek_v2,
 deepseek_v3, phi, phi-msft, phixtral, gpt_neox, gptj, minicpm, minicpm3,
-glm, glm4, chatglm, aquila, internlm, internlm2, baichuan and qwen rows
-of ``ipex_llm_tpu/models/families.py``).
+glm, glm4, chatglm, aquila, internlm, internlm2, baichuan, qwen,
+starcoder2, stablelm, cohere, olmo2 and falcon rows of
+``ipex_llm_tpu/models/families.py``).
 
 All of them run the port's one decoder.  llama, mistral and qwen2 share the
 reference's llama weight names (mistral adds its sliding window, qwen2 its
@@ -40,10 +41,20 @@ rows: aquila is llama's row, internlm llama's names under one ``bias``
 flag (q, k, v and o), internlm2 its own names and the per-kv-group
 ``wqkv`` that :func:`_internlm2_qkv` reorders, weight and bias, baichuan
 (7B) the pre-merged ``W_pack``, and qwen (v1) the ``transformer.h``
-names, the fused ``c_attn`` and a halved ``intermediate_size``.  chatglm
-v1 checkpoints, baichuan-13B (ALiBi) and chatglm without RMSNorm raise
-``NotImplementedError`` naming ROADMAP item 14, as does every other
-``model_type``.
+names, the fused ``c_attn`` and a halved ``intermediate_size``.
+starcoder2 names the ungated MLP ``c_fc``/``c_proj`` under llama's tree;
+stablelm keeps llama's names under LayerNorms; cohere reads one
+``input_layernorm`` for both parallel branches and its head from the
+embedding table; olmo2 names the norms it applies after each branch
+``post_attention_layernorm`` and ``post_feedforward_layernorm``, and its
+flat ``q_norm``/``k_norm``; falcon the ``transformer.h`` tree, the fused
+``query_key_value`` (its three layouts reordered by :func:`_falcon_qkv`)
+and norms under either architecture's names (``"a|b"`` templates, the
+first name the checkpoint holds: ``models.build.resolve_name``).  chatglm
+v1 checkpoints, baichuan-13B and falcon with ALiBi, chatglm without
+RMSNorm, stablelm's ``qk_layernorm`` and parallel-residual variants and
+cohere's ``use_qk_norm`` raise ``NotImplementedError`` (the first three
+naming ROADMAP item 14), as does every other ``model_type``.
 """
 
 from __future__ import annotations
@@ -596,6 +607,95 @@ def _qwen(hf: dict) -> ModelConfig:
         attention_out_bias=False))
 
 
+def _starcoder2(hf: dict) -> ModelConfig:
+    """StarCoder2: LayerNorms with biases, the ungated tanh-GELU MLP, biases
+    on q, k, v, o and the MLP under ``use_bias``, a window on every layer
+    and a tied head (the reference's ``_starcoder2``)."""
+    bias = hf.get("use_bias", True)
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        norm_kind="layer",
+        norm_eps=hf.get("norm_epsilon", hf.get("layer_norm_eps", 1e-5)),
+        act=hf.get("hidden_act", "gelu_pytorch_tanh"),
+        mlp_gated=False,
+        attention_bias=bias,
+        attention_out_bias=bias,
+        sliding_window=hf.get("sliding_window"),
+        tie_word_embeddings=hf.get("tie_word_embeddings", True)))
+
+
+def _stablelm(hf: dict) -> ModelConfig:
+    """StableLM (2): llama's gated block under LayerNorms with biases, a
+    partial rotary, a qkv bias under ``use_qkv_bias`` and none on o.  The
+    ``qk_layernorm`` and parallel-residual variants (StableLM-2-12B) raise,
+    as in the reference."""
+    if hf.get("qk_layernorm") or hf.get("use_parallel_residual"):
+        raise NotImplementedError(
+            "stablelm qk_layernorm / parallel-residual variants (e.g. "
+            "stablelm-2-12b) are not supported yet")
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        norm_kind="layer",
+        norm_eps=hf.get("layer_norm_eps", 1e-5),
+        attention_bias=hf.get("use_qkv_bias", False),
+        attention_out_bias=False))
+
+
+def _cohere(hf: dict) -> ModelConfig:
+    """Command-R (cohere): the "two" rope over the whole head, LayerNorms
+    without a bias, the parallel residual ``x + attn(ln(x)) + mlp(ln(x))``
+    off one norm over llama's gated MLP, ``logit_scale`` on the logits, a
+    tied head.  ``use_qk_norm`` (Command-R+) raises, as in the
+    reference."""
+    if hf.get("use_qk_norm"):
+        raise NotImplementedError("cohere use_qk_norm variant unsupported")
+    return ModelConfig.from_fields(_base_cfg(
+        hf,
+        rope_layout="two",
+        norm_kind="layer",
+        norm_eps=hf.get("layer_norm_eps", 1e-5),
+        parallel_blocks=True,
+        logit_scale=hf.get("logit_scale", 1.0),
+        tie_word_embeddings=True))
+
+
+def _olmo2(hf: dict) -> ModelConfig:
+    """OLMo-2: llama's block with each norm on its branch's output
+    (``norm_after``) and RMSNorms over the whole q and k projections."""
+    return ModelConfig.from_fields(_base_cfg(hf, qk_norm=True,
+                                             norm_after=True))
+
+
+def _falcon(hf: dict) -> ModelConfig:
+    """Falcon (rope, no ALiBi): one kv head where ``multi_query`` (the old
+    architecture's default), ``num_kv_heads`` in the new architecture,
+    else one a query head; ``ffn_hidden_size`` or 4h; LayerNorms with
+    biases, the parallel residual where ``parallel_attn``, the ungated
+    ``gelu_new`` MLP, biases on the projections under ``bias``, a tied
+    head (the reference's ``_falcon``).  ALiBi (Falcon-RW) raises."""
+    if hf.get("alibi"):
+        raise NotImplementedError(
+            "falcon with alibi runs ALiBi in place of rope (ROADMAP item 14 "
+            "step 4)")
+    h = hf["hidden_size"]
+    if hf.get("new_decoder_architecture", False):
+        kv = hf.get("num_kv_heads") or hf["num_attention_heads"]
+    elif hf.get("multi_query", True):
+        kv = 1
+    else:
+        kv = hf["num_attention_heads"]
+    hf2 = dict(hf)
+    hf2["intermediate_size"] = hf.get("ffn_hidden_size") or 4 * h
+    hf2["num_key_value_heads"] = kv
+    bias = hf.get("bias", False)
+    return ModelConfig.from_fields(_base_cfg(
+        hf2, norm_kind="layer", norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        act="gelu_new", mlp_gated=False,
+        parallel_blocks=hf.get("parallel_attn", True),
+        attention_bias=bias, attention_out_bias=bias,
+        tie_word_embeddings=True))
+
+
 def _neox_qkv(w, cfg: ModelConfig):
     """GPT-NeoX ``query_key_value``: per-head ``[q_i; k_i; v_i]`` rows ->
     ``[q_all; k_all; v_all]`` (a bias passes as an ``[out, 1]`` column)."""
@@ -613,6 +713,18 @@ def _internlm2_qkv(w, cfg: ModelConfig):
     return torch.cat([x[:, :per].reshape(g * per * hd, -1),
                       x[:, per].reshape(g * hd, -1),
                       x[:, per + 1].reshape(g * hd, -1)])
+
+
+def _falcon_qkv(w, cfg: ModelConfig):
+    """Falcon's ``query_key_value``: the old architecture's MQA rows are
+    already ``[q_all; k; v]``, its MHA rows interleave per head (as
+    GPT-NeoX's), the new architecture's group per kv head (as internlm2's)
+    (the reference's ``_falcon_qkv``)."""
+    if cfg.num_kv_heads == 1:
+        return w
+    if cfg.num_kv_heads == cfg.num_heads:
+        return _neox_qkv(w, cfg)
+    return _internlm2_qkv(w, cfg)
 
 
 # the reference's _GEMMA2_SCHEME: pre- and post-feedforward norms, the
@@ -792,6 +904,44 @@ _QWEN_SCHEME = WeightScheme(
     down="transformer.h.{i}.mlp.c_proj.{p}",
 )
 
+# the reference's _STARCODER2_SCHEME, _COHERE_SCHEME (ONE norm feeds both
+# parallel branches), _OLMO2_SCHEME (the norms after each branch, flat q/k
+# norms) and _FALCON_SCHEME ("a|b" templates: the old architecture's one
+# input_layernorm, the new one's ln_attn/ln_mlp; a sequential falcon's
+# post_attention_layernorm first, so that the ever-present input norm
+# cannot shadow it)
+_STARCODER2_SCHEME = WeightScheme(
+    gate=None, gate_up=None,
+    up="model.layers.{i}.mlp.c_fc.{p}",
+    down="model.layers.{i}.mlp.c_proj.{p}",
+)
+_COHERE_SCHEME = WeightScheme(
+    lm_head="model.embed_tokens.weight",
+    mlp_norm="model.layers.{i}.input_layernorm.weight",
+)
+_OLMO2_SCHEME = WeightScheme(
+    attn_norm="model.layers.{i}.post_attention_layernorm.weight",
+    mlp_norm="model.layers.{i}.post_feedforward_layernorm.weight",
+    q_norm="model.layers.{i}.self_attn.q_norm.weight",
+    k_norm="model.layers.{i}.self_attn.k_norm.weight",
+)
+_FALCON_SCHEME = WeightScheme(
+    embed="transformer.word_embeddings.weight",
+    final_norm="transformer.ln_f.weight",
+    lm_head="transformer.word_embeddings.weight",
+    attn_norm="transformer.h.{i}.input_layernorm.weight"
+              "|transformer.h.{i}.ln_attn.weight",
+    mlp_norm="transformer.h.{i}.post_attention_layernorm.weight"
+             "|transformer.h.{i}.ln_mlp.weight"
+             "|transformer.h.{i}.input_layernorm.weight",
+    qkv="transformer.h.{i}.self_attention.query_key_value.{p}",
+    q=None, k=None, v=None,
+    o="transformer.h.{i}.self_attention.dense.{p}",
+    gate=None, gate_up=None,
+    up="transformer.h.{i}.mlp.dense_h_to_4h.{p}",
+    down="transformer.h.{i}.mlp.dense_4h_to_h.{p}",
+)
+
 FAMILIES: dict[str, Family] = {
     "llama": Family("llama", _llama),
     "mistral": Family("mistral", _mistral),
@@ -829,6 +979,13 @@ FAMILIES: dict[str, Family] = {
                         qkv_transform=_internlm2_qkv),
     "baichuan": Family("baichuan", _baichuan, _BAICHUAN_SCHEME),
     "qwen": Family("qwen", _qwen, _QWEN_SCHEME),
+    "starcoder2": Family("starcoder2", _starcoder2, _STARCODER2_SCHEME),
+    # stablelm keeps llama's weight names
+    "stablelm": Family("stablelm", _stablelm),
+    "cohere": Family("cohere", _cohere, _COHERE_SCHEME),
+    "olmo2": Family("olmo2", _olmo2, _OLMO2_SCHEME),
+    "falcon": Family("falcon", _falcon, _FALCON_SCHEME,
+                     qkv_transform=_falcon_qkv),
 }
 assert tuple(FAMILIES) == MODEL_TYPES, "config.MODEL_TYPES names the families"
 

@@ -19,11 +19,14 @@ bias and ``layers_dense`` stack, no ``lm_head`` when the head is tied to
 the embedding table, and the rope leaves of ``models.build.rope_buffers``
 (gemma3's ``inv_freq_local`` too).  The GPT-style block's tree adds the
 biases its checkpoints hold, fp32 ``0.1 * N(0, 1)`` (a LayerNorm's
-``0.05 * N(0, 1)``): the LayerNorms', o's where ``attention_out_bias``,
-the ungated MLP's ``up``/``up_bias``/``down_bias`` (and an ungated
-expert stack's ``moe_up_bias``/``moe_down_bias``) and the head's where
-the family's checkpoints carry one (:data:`HEAD_BIAS_FAMILIES`); Qwen
-v1's tree holds its ``c_attn`` bias (:data:`QKV_BIAS_FAMILIES`).
+``0.05 * N(0, 1)``): the LayerNorms' (not Cohere's:
+:data:`NORM_BIAS_FREE_FAMILIES`), o's where ``attention_out_bias``, the
+ungated MLP's ``up`` and, where ``mlp_bias`` or ``attention_out_bias``
+(not Falcon's), ``up_bias``/``down_bias`` (and an ungated expert stack's
+``moe_up_bias``/``moe_down_bias``) and the head's where the family's
+checkpoints carry one (:data:`HEAD_BIAS_FAMILIES`); Qwen v1's tree holds
+its ``c_attn`` bias (:data:`QKV_BIAS_FAMILIES`), OLMo-2's q/k norms span
+the projections (:data:`FLAT_QK_NORM_FAMILIES`).
 """
 
 from __future__ import annotations
@@ -376,6 +379,10 @@ HEAD_BIAS_FAMILIES = ("phi", "phi-msft", "phixtral", "gptj")
 # the families whose checkpoints hold a qkv bias whatever the config's
 # flag says (Qwen v1's c_attn under no_bias)
 QKV_BIAS_FAMILIES = ("qwen",)
+# LayerNorm families whose norms have no bias (Cohere's)
+NORM_BIAS_FREE_FAMILIES = ("cohere",)
+# the families whose q/k norms span the whole projection (OLMo-2's)
+FLAT_QK_NORM_FAMILIES = ("olmo2",)
 
 
 def _published(hf: dict, over: dict) -> ModelConfig:
@@ -786,6 +793,122 @@ def baichuan2_7b_config(**over) -> ModelConfig:
     return _published(BAICHUAN2_7B_HF, over)
 
 
+# The five families of the falcon slice, quoted from memory as the GLM
+# rows above are (nothing may be downloaded); each dict holds the fields
+# the decoder reads, and the comment names those not checked against the
+# published file.
+
+# tiiuae/falcon-7b (the old architecture: 71 query heads of 64 over one kv
+# head, multi_query, parallel_attn, no biases, no ALiBi, one LayerNorm a
+# block).  The file sets no max_position_embeddings: 2048 is
+# transformers' FalconConfig default, which a saved config writes out.
+# Unchecked: the token ids.
+FALCON_7B_HF = {
+    "model_type": "falcon", "vocab_size": 65024, "hidden_size": 4544,
+    "num_hidden_layers": 32, "num_attention_heads": 71,
+    "multi_query": True, "new_decoder_architecture": False,
+    "parallel_attn": True, "bias": False, "alibi": False,
+    "layer_norm_epsilon": 1e-5, "max_position_embeddings": 2048,
+    "rope_theta": 10000.0, "bos_token_id": 11, "eos_token_id": 11,
+}
+# tiiuae/falcon-40b (the new architecture: 128 query heads of 64 over 8 kv
+# heads, ln_attn and ln_mlp, the per-group fused qkv).  Unchecked: the
+# token ids; max_position_embeddings as Falcon-7B's.
+FALCON_40B_HF = {
+    **FALCON_7B_HF, "hidden_size": 8192, "num_hidden_layers": 60,
+    "num_attention_heads": 128, "num_kv_heads": 8, "multi_query": True,
+    "new_decoder_architecture": True,
+}
+# bigcode/starcoder2-7b (36 query heads of 128 over 4 kv heads, ffn 18432,
+# a 4096 window on every layer, rope theta 1e6, biases everywhere, the
+# tanh GELU).  Unchecked: max_position_embeddings, norm_epsilon, the token
+# ids, and tie_word_embeddings (left to the family's default: tied).
+STARCODER2_7B_HF = {
+    "model_type": "starcoder2", "vocab_size": 49152, "hidden_size": 4608,
+    "intermediate_size": 18432, "num_hidden_layers": 32,
+    "num_attention_heads": 36, "num_key_value_heads": 4,
+    "max_position_embeddings": 16384, "sliding_window": 4096,
+    "rope_theta": 1000000.0, "norm_epsilon": 1e-5, "use_bias": True,
+    "hidden_act": "gelu_pytorch_tanh", "bos_token_id": 0, "eos_token_id": 0,
+}
+# stabilityai/stablelm-2-1_6b (32 heads of 64, a quarter of whose columns
+# rotate, a qkv bias, LayerNorms).  Unchecked: max_position_embeddings,
+# rope_theta, layer_norm_eps, tie_word_embeddings and the token ids.
+STABLELM2_1_6B_HF = {
+    "model_type": "stablelm", "vocab_size": 100352, "hidden_size": 2048,
+    "intermediate_size": 5632, "num_hidden_layers": 24,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "partial_rotary_factor": 0.25, "use_qkv_bias": True,
+    "qk_layernorm": False, "use_parallel_residual": False,
+    "max_position_embeddings": 4096, "rope_theta": 10000.0,
+    "layer_norm_eps": 1e-5, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 100257,
+    "eos_token_id": 100257,
+}
+# CohereForAI/c4ai-command-r-v01 (64 heads of 128, ffn 22528, logit_scale
+# 0.0625, rope theta 8e6, a tied 256000-row head).  Unchecked:
+# max_position_embeddings, layer_norm_eps and the token ids.
+COMMAND_R_V01_HF = {
+    "model_type": "cohere", "vocab_size": 256000, "hidden_size": 8192,
+    "intermediate_size": 22528, "num_hidden_layers": 40,
+    "num_attention_heads": 64, "num_key_value_heads": 64,
+    "logit_scale": 0.0625, "rope_theta": 8000000.0,
+    "max_position_embeddings": 8192, "layer_norm_eps": 1e-5,
+    "hidden_act": "silu", "use_qk_norm": False, "bos_token_id": 5,
+    "eos_token_id": 255001, "pad_token_id": 0,
+}
+# allenai/OLMo-2-1124-7B (32 heads of 128, ffn 11008, rope theta 5e5, RMS
+# eps 1e-6, the norms after each branch, flat q/k norms).  Unchecked:
+# max_position_embeddings, tie_word_embeddings and the token ids.
+OLMO2_7B_HF = {
+    "model_type": "olmo2", "vocab_size": 100352, "hidden_size": 4096,
+    "intermediate_size": 11008, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "rope_theta": 500000.0, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 4096, "hidden_act": "silu",
+    "tie_word_embeddings": False, "pad_token_id": 100277,
+    "eos_token_id": 100257,
+}
+
+
+def falcon_7b_config(**over) -> ModelConfig:
+    """Falcon-7B's published widths (hidden 4544, 32 layers, 71 query
+    heads of 64 over one kv head, ffn 4 x 4544, vocab 65024, 2048
+    positions), through the families lookup; ``over`` replaces fields of
+    the result."""
+    return _published(FALCON_7B_HF, over)
+
+
+def falcon_40b_config(**over) -> ModelConfig:
+    """Falcon-40B's published widths (hidden 8192, 60 layers, 128 query
+    heads of 64 over 8 kv heads, ffn 32768, vocab 65024)."""
+    return _published(FALCON_40B_HF, over)
+
+
+def starcoder2_7b_config(**over) -> ModelConfig:
+    """StarCoder2-7B's published widths (hidden 4608, ffn 18432, 32
+    layers, 36 heads of 128 over 4, vocab 49152, window 4096)."""
+    return _published(STARCODER2_7B_HF, over)
+
+
+def stablelm2_1_6b_config(**over) -> ModelConfig:
+    """StableLM-2-1.6B's published widths (hidden 2048, ffn 5632, 24
+    layers, 32 heads of 64, 16 columns rotated, vocab 100352)."""
+    return _published(STABLELM2_1_6B_HF, over)
+
+
+def command_r_v01_config(**over) -> ModelConfig:
+    """Command-R-v01's published widths (hidden 8192, ffn 22528, 40 layers,
+    64 heads of 128, vocab 256000 tied, logit scale 0.0625)."""
+    return _published(COMMAND_R_V01_HF, over)
+
+
+def olmo2_7b_config(**over) -> ModelConfig:
+    """OLMo-2-1124-7B's published widths (hidden 4096, ffn 11008, 32
+    layers, 32 heads of 128, vocab 100352)."""
+    return _published(OLMO2_7B_HF, over)
+
+
 def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
                   device=None, shared_intermediate: int | None = None,
                   router_scale: float = 1.0) -> dict:
@@ -828,6 +951,8 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         attn = {"qkv": (h, qkv_out)}
     attn["o"] = (cfg.num_heads * cfg.v_dim, h)
     gated = 2 if cfg.mlp_gated else 1     # gate_up's width, in ffn's
+    norm_bias = cfg.norm_kind == "layer" and \
+        cfg.model_type not in NORM_BIAS_FREE_FAMILIES
 
     def stack(n_l: int, moe: bool) -> dict:
         shapes = dict(attn)
@@ -847,7 +972,8 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         else:
             n_e, experts = 0, {}
             shapes.update(up=(h, ffn), down=(ffn, h))
-            biases.update(up_bias=ffn, down_bias=h)
+            if cfg.mlp_bias or cfg.attention_out_bias:   # not Falcon's
+                biases.update(up_bias=ffn, down_bias=h)
         stacks = LayerStack(n_l, n_e)
         for i in range(n_l):
             for name, (n_in, n_out) in shapes.items():
@@ -859,14 +985,17 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         norms = ["attn_norm", "mlp_norm"] + [
             n for n in ("post_attn_norm", "post_mlp_norm") if getattr(cfg, n)]
         layers = {n: norm_w((n_l, h)) for n in norms}
-        if cfg.norm_kind == "layer":
+        if norm_bias:
             for n in ("attn_norm", "mlp_norm"):
                 layers[n + "_bias"] = 0.05 * normal((n_l, h))
         for n, width in biases.items():
             layers[n] = 0.1 * normal((n_l, width))
         if cfg.qk_norm:
-            layers["q_norm"] = norm_w((n_l, cfg.head_dim))
-            layers["k_norm"] = norm_w((n_l, cfg.head_dim))
+            flat = cfg.model_type in FLAT_QK_NORM_FAMILIES
+            layers["q_norm"] = norm_w((n_l, cfg.q_dim if flat
+                                       else cfg.head_dim))
+            layers["k_norm"] = norm_w((n_l, cfg.kv_dim if flat
+                                       else cfg.head_dim))
         if cfg.is_mla:
             if cfg.q_lora_rank is not None:
                 layers["q_a_norm"] = norm_w((n_l, cfg.q_lora_rank))
@@ -898,7 +1027,7 @@ def random_params(cfg: ModelConfig, qtype: str = "sym_int4", seed: int = 0,
         "final_norm": norm_w((h,)),
         **rope_buffers(cfg, dev),
     })
-    if cfg.norm_kind == "layer":
+    if norm_bias:
         params["final_norm_bias"] = 0.05 * normal((h,))
     if not cfg.tie_word_embeddings:
         params["lm_head"] = quantize(weight(h, v), qtype)

@@ -3,8 +3,10 @@
 
 ``csrc/decode_attention.cu`` holds the kernel and the note on its design
 and bound.  :func:`split_plan` sets the number of splits of each row's
-visible range from shapes alone, and :func:`split_bounds` is the sub-range
-each split's block computes for itself on the device.
+visible range from shapes alone, :func:`split_bounds` is the sub-range
+each split's block computes for itself on the device, and
+:func:`row_tiles` the query rows of a GQA group each block takes (a group
+above 16 runs as several 16-row tiles).
 :func:`decode_sdpa` keeps the reference's public signature, launches the
 kernel for CUDA tensors and runs :func:`decode_sdpa_plain` for CPU
 tensors.
@@ -23,7 +25,7 @@ NAME = "decode_attention"
 # (K, V) head widths of the kernel's instances
 INSTANCES = ((64, 64), (80, 80), (96, 64), (96, 96), (128, 128),
              (192, 128), (256, 256))
-_MAX_GROUP = 16              # Hq / Hkv: the query rows of one mma tile
+_TILE_ROWS = 16              # query rows of one mma tile (csrc kRows)
 _KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 _TILE_KEYS = 64              # keys per staged tile (csrc kKT)
 _SMS = 132                   # the H100's SMs
@@ -113,16 +115,25 @@ def decode_sdpa_plain(q, k_raw, v_raw, *, scale: float, kv_len, kv_start,
     return torch.where(keep[:, None, None, None], out, torch.zeros_like(out))
 
 
+def row_tiles(g: int) -> list[tuple[int, int]]:
+    """(first row, rows) of each query-row tile of a GQA group of ``g``
+    query heads, as each block computes its own on the device (csrc
+    ``g0``, ``rows``): 16-row tiles, the last one short."""
+    return [(g0, min(_TILE_ROWS, g - g0)) for g0 in range(0, g, _TILE_ROWS)]
+
+
 def split_plan(b: int, hkv: int, s: int, d: int = 128,
-               dv: int | None = None) -> int:
+               dv: int | None = None, g: int = 1) -> int:
     """The number of splits of each row's visible range, from shapes alone
     (reading ``kv_len`` on the host would sync the device every step): as
     many as one wave of the split blocks the card holds at once (2 an SM
-    at head dim 96 and 128, 1 at 256: :func:`ring_plan`) takes, at most
-    one split per 64-key tile of the capacity, and at most 64.  With the
-    range cut evenly (:func:`split_bounds`), 64 splits or fewer leave no
-    split empty while another holds more than one tile."""
-    wave = ring_plan(d, False, dv)[2] * _SMS // (b * hkv)
+    at head dim 96 and 128, 1 at 256: :func:`ring_plan`) takes, with the
+    ``len(row_tiles(g))`` row tiles of a GQA group of ``g`` each a block,
+    at most one split per 64-key tile of the capacity, and at most 64.
+    With the range cut evenly (:func:`split_bounds`), 64 splits or fewer
+    leave no split empty while another holds more than one tile."""
+    blocks = b * hkv * len(row_tiles(g))
+    wave = ring_plan(d, False, dv)[2] * _SMS // blocks
     return max(1, min(wave, -(-s // _TILE_KEYS), _MAX_SPLITS))
 
 
@@ -156,9 +167,6 @@ def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
     if (d, dv) not in INSTANCES:
         raise NotImplementedError(f"(K, V) head widths {(d, dv)} (kernel "
                                   f"has {INSTANCES})")
-    if hq // hkv > _MAX_GROUP:
-        raise NotImplementedError(f"GQA group {hq // hkv} (kernel takes at "
-                                  f"most {_MAX_GROUP})")
     for t in (k_raw, v_raw, kv_len, kv_start, won):
         if t.device != dev:
             raise ValueError("all decode attention inputs must be on q's "
@@ -171,8 +179,8 @@ def _launch(q, k_raw, v_raw, kv_len, kv_start, won, scale, window, softcap):
             raise ValueError("decode attention kernel needs 16-byte aligned "
                              "tensors")
     lib = _build.load(NAME, _declare)
-    splits = split_plan(b, hkv, s, d, dv)
     g = hq // hkv
+    splits = split_plan(b, hkv, s, d, dv, g)
     out = q.new_empty((b, 1, hq, dv))
     ws_acc = torch.empty((b, hkv, splits, g, dv), dtype=torch.float32,
                          device=dev)

@@ -43,9 +43,10 @@ The other head widths, as device time from CUDA-graph replays
 (:func:`width_cases`): B1 at 128 (32 heads over 32, C = 1, 4 and 128),
 256 (Gemma-7B's 16 heads over 16, C = 1 and 128) and 80 (Phi-2's 32 over
 32, C = 1 and 128), 128-slot pages, 8 rows of up to 2048 slots, bf16
-pool, B3 at 256 (Gemma-2-9B's 16 over 8), 96 (Phi-3-mini's 32 over 32)
-and 80 (Phi-2's 32 over 32) over 8 rows of a 4096-slot bf16 layer, B4 at
-the same widths on 8 rows of T = 128 at their own slots of that layer.
+pool, B3 at 256 (Gemma-2-9B's 16 over 8), 96 (Phi-3-mini's 32 over 32),
+80 (Phi-2's 32 over 32) and 128 at GLM-4-9B's GQA group of 16 (32 over
+2) over 8 rows of a 4096-slot bf16 layer, B4 at the first three widths on
+8 rows of T = 128 at their own slots of that layer.
 """
 
 from __future__ import annotations
@@ -167,13 +168,18 @@ def width_cases(torch, dev, gen, b1, b3, b4) -> dict:
                     b1.ragged_paged_sdpa(q, kp, vp, tables, kvl, chunk)] * 10
     s, lens = 4096, [64, 700, 1500, 2047, 2048, 2600, 3500, 4096]
     kvl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    for d, hq, hkv in ((256, 16, 8), (96, 32, 32), (80, 32, 32)):
+    for d, hq, hkv in ((256, 16, 8), (96, 32, 32), (80, 32, 32),
+                       (128, 32, 2)):
         k = torch.randn(r, hkv, s, d, generator=gen, device=dev).to(
             torch.bfloat16)
         v = torch.randn(r, hkv, s, d, generator=gen, device=dev).to(
             torch.bfloat16)
         q1 = torch.randn(r, 1, hq, d, generator=gen, device=dev).to(
             torch.bfloat16)
+        if hq // hkv == 16:
+            out[f"b3 D={d} G=16"] = [lambda q=q1, k=k, v=v: b3.decode_sdpa(
+                q, k, v, kv_len=kvl)] * 10
+            continue
         out[f"b3 D={d}"] = [lambda q=q1, k=k, v=v: b3.decode_sdpa(
             q, k, v, kv_len=kvl)] * 10
         qt = torch.randn(r, 128, hq, d, generator=gen, device=dev).to(

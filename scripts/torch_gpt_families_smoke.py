@@ -136,13 +136,15 @@ def heads_label(hq: int, hkv: int) -> str:
 def attention_cases(kernels: dict, fail, dev, graph_ms, *, tag: str,
                     model: str, d: int, hq: int, hkv: int, seed: int,
                     dv: int | None = None, cases=("b1", "b3", "b4"),
-                    s: int = 2048, b1_chunks=(1, 4, 128)) -> list[dict]:
+                    s: int = 2048, b1_chunks=(1, 4, 128),
+                    b3_windows=(None,)) -> list[dict]:
     """B1, B3 and B4's instances at K width ``d`` and V width ``dv`` (None:
     ``d``), ``hq`` query heads over ``hkv`` kv heads, against their plain
     versions, each timed beside its bound and SDPA (step 1 of the module
     docstring, which names the cases; B1 at the query counts
-    ``b1_chunks``); ``cases`` picks the kernels.  Returns the rows;
-    ``tag`` prefixes each printed row."""
+    ``b1_chunks``, B3 with each window of ``b3_windows``, None for none);
+    ``cases`` picks the kernels.  Returns the rows; ``tag`` prefixes each
+    printed row."""
     import torch
     import torch.nn.functional as F
 
@@ -314,32 +316,37 @@ def attention_cases(kernels: dict, fail, dev, graph_ms, *, tag: str,
                 del args, out, ref
     kv_len8 = [64, 300, 700, 1023, 1024, 1300, 1750, 2048]
     if "b3" in cases:
-        for kv_name, kv_dtype in (("bf16", torch.bfloat16),
-                                  ("e5m2", torch.float8_e5m2)):
+        for (kv_name, kv_dtype), w in ((kv, w) for kv in (
+                ("bf16", torch.bfloat16), ("e5m2", torch.float8_e5m2))
+                for w in b3_windows):
             q, k, v, kvl, qpos, mask = dense_case(8, 1, kv_len8, kv_dtype)
+            if w is not None:         # keys past the window's reach
+                mask &= torch.arange(s, device=dev) > qpos[:, :, None] - w
             n_d = b3.COUNTS.by_head_dim[d]
-            out = b3.decode_sdpa(q, k, v, kv_len=kvl, scale=scale)
+            out = b3.decode_sdpa(q, k, v, kv_len=kvl, scale=scale, window=w)
             if b3.COUNTS.by_head_dim[d] != n_d + 2:
                 fail(f"B3 {wd}: not the head_dim-{d} instance")
 
-            def plain(q=q, k=k, v=v, kvl=kvl):
+            def plain(q=q, k=k, v=v, kvl=kvl, w=w):
                 return b3.decode_sdpa_plain(
                     q, k, v, scale=scale, kv_len=kvl,
                     kv_start=torch.zeros_like(kvl), won=torch.ones_like(kvl),
-                    window=None, softcap=None)
-            label = f"{wd} {model} B=8 {hd} S={s}"
+                    window=w, softcap=None)
+            label = f"{wd} {model} B=8 {hd} S={s}" + (
+                "" if w is None else f" window {w}")
             err = check_rows(out, plain(), [(i, 1) for i in range(8)],
                              f"B3 {label} {kv_name}")
             kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
             rows.append(timed_row(
                 "decode_attention", label,
-                lambda q=q, k=k, v=v, kvl=kvl: b3.decode_sdpa(
-                    q, k, v, kv_len=kvl, scale=scale), plain,
+                lambda q=q, k=k, v=v, kvl=kvl, w=w: b3.decode_sdpa(
+                    q, k, v, kv_len=kvl, scale=scale, window=w), plain,
                 lambda q=q, kb=kb, vb=vb, m=mask:
                     F.scaled_dot_product_attention(
                         q.transpose(1, 2), kb, vb, attn_mask=m[:, None],
                         scale=scale, **gqa),
-                dense_work(q, k, mask), err, dict(pool=kv_name, rows=8)))
+                dense_work(q, k, mask), err, dict(pool=kv_name, rows=8,
+                                                  window=w)))
             del q, k, v, kb, vb, out
     if "b4" in cases:
         for b, t, what in ((8, 128, "chunks"), (2, 2048, "prefill")):

@@ -5,8 +5,9 @@ rows sorted by expert) in every block format and row tile, B1 (ragged
 paged attention) in both its instances
 (query tiles, key split) at head_dim 64, 80, 96, 128 and 256, B3 (dense
 decode attention) and B4 (flash attention) at head_dim 64, 80, 96, 128
-and 256, all three at DeepSeek's K width 192 and V width 128 and at
-MiniCPM3's K width 96 and V width 64 and, for
+and 256, all three at DeepSeek's K width 192 and V width 128, at
+MiniCPM3's K width 96 and V width 64 and at Falcon-7B's GQA group of 71
+(B3 also at 17 and 32, its groups of more than one 16-row tile) and, for
 training, B4's LSE instance and backward and B2^T
 (the dequant-matmul's input gradient).  Every case carries the ``cuda``
 marker and
@@ -322,6 +323,17 @@ def test_ragged_attention_head_dim_96_64_matches_plain(storage, c):
     _ragged_case(storage, 1, c, 96, 64)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("c", [1, 4, 128])
+def test_ragged_attention_group_71_matches_plain(storage, c):
+    """The 64 instances at Falcon-7B's GQA group of 71: G*C is above the
+    key split's 16 rows at every C, so decode (71 rows), the verify chunk
+    (284) and a chunk of 128 (9088) take the query tiles, two 64-row
+    tiles a decode row."""
+    _ragged_case(storage, 71, c, 64)
+
+
 def _ragged_case(storage, g, c, d, dv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -444,6 +456,19 @@ def test_decode_attention_head_dim_96_64_matches_plain(storage, variant):
     _decode_case(storage, 1, variant, 96, 64)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("d,g", [(64, 17), (64, 32), (64, 71), (128, 17),
+                                 (128, 32), (128, 71)])
+@pytest.mark.parametrize("variant", sorted(B3_VARIANTS))
+def test_decode_attention_group_above_16_matches_plain(storage, d, g,
+                                                       variant):
+    """B3 past one 16-row tile: G = 17 (a tile of one row beside a full
+    one), 32 (two full tiles) and Falcon-7B's 71 (five tiles, the last of
+    7 rows) at head_dim 64 and 128, on the cases of the 128 instance."""
+    _decode_case(storage, g, variant, d)
+
+
 def _decode_case(storage, g, variant, d, dv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -553,6 +578,16 @@ def test_flash_attention_head_dim_96_64_matches_plain(t, variant):
     64 instance's V tile and P.V; K and V through their own strides) at
     G = 1, and at T = 4 after 64 cached slots."""
     _flash_case(t, 1, variant, 96, lead=64, dv=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 200])
+@pytest.mark.parametrize("variant", B4_VARIANTS)
+def test_flash_attention_group_71_matches_plain(t, variant):
+    """B4's head_dim-64 instance at Falcon-7B's 71 query heads a kv head,
+    on the cases of the 128 instance and at the verify width T = 4 after
+    64 cached slots."""
+    _flash_case(t, 71, variant, 64, lead=64)
 
 
 def _flash_case(t, g, variant, d, lead=0, dv=None):

@@ -44,13 +44,14 @@ def test_config_outside_the_slice_raises():
     phi3 and gemma, DeepSeek's routing, routed scaling factor and
     interleaved rope layout since the deepseek families, LayerNorm, the
     MLP's and o's biases, the ungated MLP and the parallel residual since
-    the GPT-style families, the muP scalings since minicpm); other
-    families, rope layouts, norms and the fields of other blocks still
-    raise)."""
+    the GPT-style families, the muP scalings since minicpm, olmo2's
+    reordered norms since olmo2, cohere and falcon since their rows);
+    other families, rope layouts, norms and the fields of other blocks
+    still raise)."""
     cfg = tiny_cfg()
     fields = dataclasses.asdict(cfg)
-    for over in ({"norm_after": True}, {"alibi": True},
-                 {"model_type": "cohere"}, {"rope_layout": "neox"},
+    for over in ({"embed_norm": True}, {"alibi": True},
+                 {"model_type": "bloom"}, {"rope_layout": "neox"},
                  {"norm_kind": "group"}, {"glm_alpha": 2.0}):
         with pytest.raises(NotImplementedError):
             ModelConfig.from_fields({**fields, **over})
@@ -66,7 +67,8 @@ def test_config_outside_the_slice_raises():
                  {"norm_kind": "layer"}, {"mlp_gated": False},
                  {"parallel_blocks": True}, {"model_type": "gptj"},
                  {"model_type": "minicpm"}, {"residual_multiplier": 0.25},
-                 {"logit_scale": 0.125}):
+                 {"logit_scale": 0.125}, {"norm_after": True},
+                 {"model_type": "cohere"}, {"model_type": "falcon"}):
         assert ModelConfig.from_fields({**fields, **over})
 
 

@@ -279,7 +279,7 @@ def test_other_model_types_still_raise():
     """Families outside the port still name ROADMAP item 14, and so does a
     field of the GPT-style registry the port does not serve (learned
     positions)."""
-    for mt in ("starcoder2", "falcon", "bloom", "mpt", "cohere"):
+    for mt in ("gpt_bigcode", "deci", "bloom", "mpt", "gpt2"):
         with pytest.raises(NotImplementedError, match="item 14"):
             get_family(mt)
     fields = dataclasses.asdict(ref_get_family("phi", PHI2_HF).to_config(

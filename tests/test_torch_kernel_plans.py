@@ -427,6 +427,72 @@ def test_decode_split_then_merge_matches_plain_and_pallas(storage, case,
         assert_rows_close(got, ref, what=f"{storage} {case} {plan}")
 
 
+@pytest.mark.parametrize("g", [1, 7, 16, 17, 32, 71, 128])
+def test_decode_row_tiles_cover_the_group(g):
+    """A GQA group runs as 16-row tiles, as each block finds its rows on
+    the device: every query row of the group once, in order, the tiles
+    full but the last (Falcon-7B's 71: four of 16 and one of 7)."""
+    tiles = b3.row_tiles(g)
+    assert len(tiles) == -(-g // 16)
+    rows = [g0 + i for g0, n in tiles for i in range(n)]
+    assert rows == list(range(g))
+    assert all(n == 16 for _, n in tiles[:-1]) and 1 <= tiles[-1][1] <= 16
+
+
+@pytest.mark.parametrize("b,hkv,s,d,g,want", [
+    (8, 1, 2048, 64, 71, 6), (4, 1, 2048, 64, 71, 13),
+    (8, 2, 2048, 128, 16, 16), (8, 2, 2048, 128, 17, 8),
+    (8, 2, 2048, 128, 32, 8), (1, 1, 4096, 64, 71, 52),
+    (64, 1, 2048, 64, 71, 1)])
+def test_decode_split_plan_counts_the_row_tiles(b, hkv, s, d, g, want):
+    """Above a group of 16 each of its row tiles is a block beside each
+    split, and the plan fills one wave of them (2 blocks an SM at 64 and
+    128 on 132 SMs) within the caps, from shapes alone; at 16 and below
+    the plan is the one-tile plan as it was (GLM-4-9B's G = 16)."""
+    splits = b3.split_plan(b, hkv, s, d, None, g)
+    assert splits == want
+    blocks = b * hkv * len(b3.row_tiles(g))
+    cap = min(64, -(-s // 64))
+    assert splits == 1 or blocks * splits <= 2 * 132
+    assert splits == cap or blocks * (splits + 1) > 2 * 132
+    if g <= 16:
+        assert splits == b3.split_plan(b, hkv, s, d)
+
+
+@pytest.mark.parametrize("storage", ["bf16", "e5m2"])
+@pytest.mark.parametrize("g,d,case", [(17, 128, "window cuts"),
+                                      (32, 128, "softcap"),
+                                      (71, 64, "plain"),
+                                      (71, 64, "window cuts")])
+def test_decode_split_then_merge_at_large_groups(storage, g, d, case):
+    """The split-then-merge emulation at the wrapper's plan for groups
+    above 16 (G = 17 and 32 at head_dim 128, Falcon-7B's 71 over one kv
+    head at 64; left padding, a row that sees no key) agrees with
+    ``decode_sdpa_plain`` and the JAX kernel within 2^-7 of each row's
+    largest output."""
+    kw = B3_EMULATED[case]
+    rng = np.random.default_rng(g + d)
+    b, s, hkv = 3, 256, 1 if g == 71 else 2
+    hq = g * hkv
+    q_t, q_j = _pair(rng, (b, 1, hq, d))
+    k_t, k_j = _pair(rng, (b, hkv, s, d), storage)
+    v_t, v_j = _pair(rng, (b, hkv, s, d), storage)
+    kv_len = np.array([200, 256, 90], np.int32)
+    kv_start = np.array([0, 37, 90], np.int32)
+    kl, ks = torch.from_numpy(kv_len), torch.from_numpy(kv_start)
+    won = torch.ones(b, dtype=torch.int32)
+    got = _emulate_decode_split(
+        q_t, k_t, v_t, kl, ks, won, scale=d ** -0.5, window=kw.get("window"),
+        softcap=kw.get("softcap"),
+        splits=b3.split_plan(b, hkv, s, d, None, g))
+    plain = b3.decode_sdpa(q_t, k_t, v_t, kv_len=kl, kv_start=ks, **kw)
+    want = ref_decode(q_j, k_j, v_j, kv_len=jnp.asarray(kv_len),
+                      kv_start=jnp.asarray(kv_start), **kw)
+    assert not got[2].float().any()
+    for ref in (plain, want):
+        assert_rows_close(got, ref, what=f"{storage} {case} G={g}")
+
+
 # -- B4 ------------------------------------------------------------------------
 
 @pytest.mark.parametrize("d", [80, 96, 128, 256])

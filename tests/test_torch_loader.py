@@ -411,7 +411,7 @@ def test_build_params_refuses_what_is_not_ported(ckpt):
     for q in ("mixed_fp4", "mixed_fp8"):
         with pytest.raises(NotImplementedError):
             port_build.quantize_weight(torch.zeros(64, 64), q)
-    for other in ("stablelm", "starcoder2", "cohere", "olmo2"):
+    for other in ("bloom", "mpt", "gpt_bigcode", "deci_lm"):
         with pytest.raises(NotImplementedError, match="item 14"):
             get_family(other)
 

@@ -219,13 +219,14 @@ def test_from_pretrained_refuses_other_checkpoints(tmp_path, over, item):
     hf = {**tiny_hf(), **over}
     weights = hf_weights(tiny_hf(), seed=4)
     if hf["model_type"] == "qwen3":
-        # qwen3 is served since its family was ported; q/k norms as wide
-        # as the projections (olmo2's flat form) are not
+        # qwen3 is served since its family was ported, with q/k norms a
+        # head wide or as wide as the projections (olmo2's flat form);
+        # norms two heads wide are neither
+        hd = hf["hidden_size"] // hf["num_attention_heads"]
         for i in range(hf["num_hidden_layers"]):
             for proj in ("q", "k"):
-                n = f"model.layers.{i}.self_attn.{proj}_proj.weight"
-                weights[n.replace(f"{proj}_proj", f"{proj}_norm")] = \
-                    torch.ones(weights[n].shape[0], dtype=torch.bfloat16)
+                n = f"model.layers.{i}.self_attn.{proj}_norm.weight"
+                weights[n] = torch.ones(2 * hd, dtype=torch.bfloat16)
     if hf["model_type"] == "aquila":
         # aquila is served since its family was ported (llama's row); a
         # q bias without the k and v biases is not
